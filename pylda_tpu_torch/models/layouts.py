@@ -1,0 +1,255 @@
+"""Batch-layout policy shared by the VB-family engines.
+
+Decides dense vs ragged by vocabulary size, plans the ragged bucket
+geometry, and splits batches into bounded-memory chunks.  All host-side
+numpy, held bit-identical to ``pylda_tpu.models.layouts`` by the tests.
+The SVI geometry helpers of that module wait for the SVI slice.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Union
+
+import numpy as np
+
+from pylda_tpu_torch.corpus.corpus import Corpus, DenseBatch, RaggedBucket
+from pylda_tpu_torch.utils import round_up as _round_up
+from pylda_tpu_torch.utils.config import LDAConfig
+
+VBBatch = Union[DenseBatch, RaggedBucket]
+
+
+def _split_rows(n_rows: int, chunk: int, pad_multiple: int) -> List[int]:
+    chunk = max(pad_multiple, (chunk // pad_multiple) * pad_multiple)
+    sizes = []
+    done = 0
+    while done < n_rows:
+        sizes.append(min(chunk, _round_up(n_rows - done, pad_multiple)))
+        done += sizes[-1]
+    return sizes
+
+
+def build_vb_batches(
+    corpus: Corpus,
+    config: LDAConfig,
+    doc_indices: Optional[Sequence[int]] = None,
+    pad_docs_to: Optional[int] = None,
+    memory_budget_mb: Optional[int] = None,
+    bucket_capacities: Optional[dict] = None,
+) -> List[VBBatch]:
+    """Materialise the corpus (or a subset) as E-step ready batches.
+
+    Rows per chunk are capped so each chunk's work arrays stay under
+    ``memory_budget_mb`` (default ``config.estep_memory_budget_mb``).
+    ``bucket_capacities`` (ragged layout only) requests the fixed bucket
+    geometry of ``Corpus.to_ragged_buckets``.  May raise
+    ``corpus.GeometryOverflow``."""
+    V = corpus.num_types
+    K = config.number_of_topics
+    pad = config.doc_pad_multiple
+    if memory_budget_mb is None:
+        memory_budget_mb = config.estep_memory_budget_mb
+    out: List[VBBatch] = []
+    if V <= config.dense_vocab_threshold:
+        idx = (
+            np.arange(corpus.num_docs)
+            if doc_indices is None
+            else np.asarray(doc_indices)
+        )
+        # Rows per chunk bounded by the [rows, V] work arrays.
+        budget_rows = max(pad, int(memory_budget_mb * 1e6 / (4 * max(V, K) * 3)))
+        if pad_docs_to is not None:
+            sizes = [_round_up(pad_docs_to, pad)]
+        else:
+            sizes = _split_rows(len(idx), budget_rows, pad)
+        start = 0
+        for size in sizes:
+            sel = idx[start : start + size]
+            start += len(sel)
+            out.append(corpus.to_dense(doc_indices=sel, pad_docs_to=size))
+        return out
+
+    buckets = corpus.to_ragged_buckets(
+        bucket_sizes=effective_bucket_sizes(corpus, config),
+        doc_pad_multiple=pad,
+        doc_indices=doc_indices,
+        bucket_capacities=bucket_capacities,
+    )
+    for b in buckets:
+        T = b.ids.shape[1]
+        budget_rows = max(pad, int(memory_budget_mb * 1e6 / (4 * T * K * 3)))
+        rows = b.ids.shape[0]
+        if rows <= budget_rows:
+            out.append(b)
+            continue
+        # Chunk on pad-multiple boundaries so every chunk keeps the
+        # doc_pad_multiple invariant.
+        s = 0
+        for size in _split_rows(rows, budget_rows, pad):
+            e = min(rows, s + size)
+            out.append(
+                RaggedBucket(
+                    ids=b.ids[s:e],
+                    cnts=b.cnts[s:e],
+                    mask=b.mask[s:e],
+                    doc_ids=b.doc_ids[s:e],
+                )
+            )
+            s = e
+    return out
+
+
+def plan_bucket_sizes(
+    unique_counts: Sequence[int],
+    max_buckets: int = 8,
+    align: int = 16,
+    cap: int = 2048,
+    row_pad: int = 64,
+    bucket_overhead_slots: int = 4096,
+    minibatch_fraction: Optional[float] = None,
+    width_rows: Optional[dict] = None,
+) -> tuple:
+    """Corpus-adaptive ragged bucket geometry: a DP that minimises total
+    device slots (rows x bucket width, padding included), since padding
+    slots cost a sweep exactly as much as real ones.
+
+    Cost per bucket: ``round_up(rows, row_pad) * width +
+    bucket_overhead_slots``; the constant keeps the DP from shattering
+    the corpus into near-empty buckets.
+
+    - ``align``: candidate widths are multiples of this.
+    - ``cap``: documents with more unique types are chunked to
+      ``cap``-wide rows, so each contributes ceil(u/cap) rows of width cap.
+    - ``minibatch_fraction``: price buckets by the SVI minibatch capacity
+      formula (expected rows + 4 sigma, padded) instead of corpus rows.
+    - ``width_rows``: precomputed {aligned width: row count} replacing
+      the ``unique_counts`` walk.
+    - Returns a sorted tuple of bucket widths, usable directly as
+      ``LDAConfig.bucket_sizes``.
+    """
+    rows: dict = dict(width_rows) if width_rows is not None else {}
+    if width_rows is None:
+        for u in unique_counts:
+            u = int(u)
+            if u <= 0:
+                continue
+            if u > cap:
+                rows[cap] = rows.get(cap, 0) + -(-u // cap)
+            else:
+                w = _round_up(u, align)
+                rows[w] = rows.get(w, 0) + 1
+    rows = {w: r for w, r in rows.items() if r > 0}
+    if not rows:
+        return (align,)
+    widths = sorted(rows)  # candidate edges (aligned)
+    n = len(widths)
+    counts = np.array([rows[w] for w in widths], dtype=np.int64)
+    cum = np.concatenate([[0], np.cumsum(counts)])
+
+    def seg_rows(i: int, j: int) -> int:
+        r = int(cum[j + 1] - cum[i])
+        if minibatch_fraction is not None:
+            e = r * minibatch_fraction
+            return _round_up(
+                int(np.ceil(e + 4.0 * np.sqrt(max(e, 1.0)))), row_pad
+            )
+        return _round_up(r, row_pad)
+
+    def seg_cost(i: int, j: int) -> int:  # widths[i..j] into one bucket
+        return seg_rows(i, j) * widths[j] + bucket_overhead_slots
+
+    INF = float("inf")
+    m = min(max_buckets, n)
+    # f[b][j] = min cost covering widths[0..j-1] with b buckets.
+    f = [[INF] * (n + 1) for _ in range(m + 1)]
+    back = [[-1] * (n + 1) for _ in range(m + 1)]
+    f[0][0] = 0.0
+    for b in range(1, m + 1):
+        for j in range(1, n + 1):
+            for i in range(j):
+                if f[b - 1][i] == INF:
+                    continue
+                c = f[b - 1][i] + seg_cost(i, j - 1)
+                if c < f[b][j]:
+                    f[b][j] = c
+                    back[b][j] = i
+    best_b = min(range(1, m + 1), key=lambda b: f[b][n])
+    edges = []
+    j, b = n, best_b
+    while j > 0:
+        i = back[b][j]
+        edges.append(widths[j - 1])
+        j, b = i, b - 1
+    return tuple(sorted(edges))
+
+
+def unique_counts_of(corpus: Corpus) -> Optional[np.ndarray]:
+    """Per-document unique-type counts, from whichever representation the
+    corpus keeps (in-RAM ``_uniques`` or a streaming index's
+    ``_unique_counts``); None when unavailable."""
+    uniques = getattr(corpus, "_uniques", None)
+    if uniques is not None:
+        return np.asarray([ids.size for ids, _ in uniques], dtype=np.int64)
+    counts = getattr(corpus, "_unique_counts", None)
+    if counts is None:
+        return None
+    return np.asarray(counts, dtype=np.int64)
+
+
+def effective_bucket_sizes(
+    corpus: Corpus,
+    config: LDAConfig,
+    minibatch_fraction: Optional[float] = None,
+) -> tuple:
+    """The ragged bucket geometry an engine should use for ``corpus``.
+
+    ``bucket_policy="auto"`` plans a slot-minimising geometry from the
+    corpus's unique-type histogram (``plan_bucket_sizes``); an explicit
+    non-default ``bucket_sizes``, ``bucket_policy="fixed"``, a
+    process-local corpus, or a corpus without the histogram keep the
+    configured fixed ``bucket_sizes``.
+    """
+    fixed = tuple(config.bucket_sizes)
+    if config.bucket_policy != "auto":
+        return fixed
+    if fixed != LDAConfig.__dataclass_fields__["bucket_sizes"].default:
+        return fixed  # explicit user geometry wins over the planner
+    if getattr(corpus, "process_local", False):
+        return fixed
+    counts = unique_counts_of(corpus)
+    if counts is None:
+        return fixed
+    key = (max(fixed), config.doc_pad_multiple, minibatch_fraction)
+    cache = corpus.__dict__.setdefault("_auto_bucket_cache", {})
+    if key not in cache:  # O(D) histogram walk — plan once per corpus
+        cache[key] = plan_bucket_sizes(
+            counts,
+            cap=key[0],
+            row_pad=key[1],
+            minibatch_fraction=minibatch_fraction,
+        )
+    return cache[key]
+
+
+def assemble_gamma(
+    doc_ids_list: List[np.ndarray],
+    gammas: List[np.ndarray],
+    num_docs: int,
+    alpha: np.ndarray,
+) -> np.ndarray:
+    """Stitch per-batch gamma rows back into corpus document order.
+
+    ``doc_ids_list[i][row]`` is the document index of ``gammas[i][row]``
+    (-1 for padding rows).  Oversized documents split into several chunk
+    rows (same doc id) recombine additively:
+    gamma_doc = alpha + sum_chunks (gamma_chunk - alpha), exact because
+    the gamma update is additive over a document's token set at a fixed
+    phi.
+    """
+    alpha = np.asarray(alpha)
+    out = np.tile(alpha[None, :], (num_docs, 1))
+    for doc_ids, g in zip(doc_ids_list, gammas):
+        doc_ids = np.asarray(doc_ids)
+        valid = doc_ids >= 0
+        np.add.at(out, doc_ids[valid], np.asarray(g)[valid] - alpha)
+    return out

@@ -1,0 +1,97 @@
+"""Rules of the PyTorch port that hold on any machine.
+
+- Nothing in ``pylda_tpu_torch/`` or ``chip_smoke.py`` imports JAX,
+  jaxlib or the JAX package ``pylda_tpu`` (the module or its
+  submodules; the port's own name merely starts with it).
+- Without a CUDA device, entry points that were not asked for the CPU
+  raise instead of running there.
+- Every CUDA source the build names exists.
+"""
+
+import ast
+import pathlib
+
+import pytest
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "pylda_tpu")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _port_files():
+    return (sorted((REPO / "pylda_tpu_torch").rglob("*.py"))
+            + sorted((REPO / "scripts").glob("torch_*.py"))
+            + [REPO / "chip_smoke.py"])
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def _forbidden(module):
+    return any(module == f or module.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_forbidden_matcher():
+    assert _forbidden("jax.numpy") and _forbidden("pylda_tpu.ops")
+    assert _forbidden("pylda_tpu") and _forbidden("jaxlib")
+    assert not _forbidden("pylda_tpu_torch.ops") and not _forbidden("jaxtyping")
+
+
+@pytest.mark.parametrize(
+    "path", _port_files(), ids=lambda p: str(p.relative_to(REPO))
+)
+def test_port_imports_no_jax(path):
+    bad = [m for m in _imported_modules(path) if _forbidden(m)]
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_engine_without_device_raises_without_cuda(monkeypatch):
+    from pylda_tpu_torch.models import VariationalBayes, state_from_numpy
+    from pylda_tpu_torch.utils.config import LDAConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        VariationalBayes(LDAConfig(number_of_topics=4))
+    with pytest.raises(RuntimeError):
+        VariationalBayes(LDAConfig(number_of_topics=4), device="cuda")
+    with pytest.raises(RuntimeError):
+        state_from_numpy({"lam": [[1.0]], "alpha": [1.0], "eta": [1.0],
+                          "step": 0})
+    VariationalBayes(LDAConfig(number_of_topics=4), device="cpu")
+
+
+def test_build_sources_exist():
+    from pylda_tpu_torch.ops import _build
+
+    for name in _build.SOURCES:
+        assert (_build.CSRC / f"{name}.cu").is_file(), name
+    assert {p.stem for p in _build.CSRC.glob("*.cu")} == set(_build.SOURCES)
+
+
+def test_chip_smoke_refuses_without_cuda(monkeypatch, capsys):
+    """No card: non-zero exit and no result line."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", REPO / "chip_smoke.py"
+    )
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert mod.main() != 0
+    assert '"ok"' not in capsys.readouterr().out
