@@ -9,10 +9,15 @@ kernel written by hand for Hopper (``pylda_tpu_torch/csrc``), built with
 CUDA card unless the caller passes ``device="cpu"``, where each kernel's
 plain PyTorch version runs instead.
 
-Ported so far: batch VB (``VariationalBayes``) on the large-vocabulary
-route — ragged gamma fixed point + dense sufficient statistics — with
-``initialize``, ``learning``, ``learning_many``, ``inference`` and
-``perplexity``.
+Ported so far: batch VB (``VariationalBayes``) on both layouts — the
+dense route (V <= ``dense_vocab_threshold``: the dense gamma fixed point
+and sufficient statistics) and the large-vocabulary route (ragged gamma
+fixed point + dense sufficient statistics) — with ``initialize``,
+``learning``, ``learning_many``, ``inference``, ``perplexity``,
+``point_estimate_perplexity`` and ``export_beta``; the ``model-<N>`` files
+(``save``/``load``, npz, readable by either package); the bundled corpus
+and input-directory loading (``corpus.datasets``); and the reference's
+CLIs, ``python -m pylda_tpu_torch.cli.train`` / ``.test`` / ``.infer``.
 """
 
 from pylda_tpu_torch.utils.config import LDAConfig

@@ -68,6 +68,8 @@
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
+#include "exp_psi.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -109,17 +111,6 @@ struct Params {
   int patience;
   int use_stall;
 };
-
-// psi(v) = ln(v + 2) + t(v); returns t (the same expression order as
-// pylda_tpu/ops/dirichlet.py::exp_dirichlet_expectation_fast).
-__device__ __forceinline__ float psi_tail(float v) {
-  const float y = v + 2.0f;
-  const float inv = 1.0f / y;
-  const float inv2 = inv * inv;
-  const float t = -0.5f * inv -
-      inv2 * (1.0f / 12.0f - inv2 * (1.0f / 120.0f - inv2 * (1.0f / 252.0f)));
-  return t - 1.0f / v - 1.0f / (v + 1.0f);
-}
 
 // One warp's share of a row's sweep: chunks warp, warp + 8, ...;
 // accumulates sum_t B[t, k] * ratio[t] into acc (lanes over k).
@@ -252,7 +243,7 @@ ragged_gamma_kernel(Params p) {
       const float2 sums = block_sum2(dabs, x, scratch);
       // expEtheta of the new gamma (fast series; the per-row log is O(1)).
       if (tid < K) {
-        const float row_term = logf(sums.y + 2.0f) + psi_tail(sums.y);
+        const float row_term = psi_row_term(sums.y);
         p.gamma[base + tid] = x;
         p.et[base + tid] = (x + 2.0f) * expf(psi_tail(x) - row_term);
       }

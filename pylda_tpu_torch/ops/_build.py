@@ -8,8 +8,9 @@ Each source ``pylda_tpu_torch/csrc/<name>.cu`` is compiled on first use by
          -Xcompiler -fPIC -Xptxas -v -o build/pylda_tpu_torch/lib<name>-<hash>.so <name>.cu
 
 The library lands in ``build/pylda_tpu_torch/`` beside the package (a
-directory git ignores), named by a hash of the source and the flags, so an
-edited source is rebuilt and an unchanged one is reused.  Nothing is
+directory git ignores), named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt
+and an unchanged one is reused.  Nothing is
 fetched and nothing outside the checkout is compiled.  ``nvcc`` is looked
 up in ``$CUDA_HOME/bin``, then on ``PATH``, then in ``/usr/local/cuda/bin``.
 A build that fails raises: there is no fallback.
@@ -30,7 +31,7 @@ _PACKAGE = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE.parent / "build" / "pylda_tpu_torch"
 # Every kernel source of the package; the hygiene test checks they exist.
-SOURCES = ("dense_sstats", "ragged_gamma")
+SOURCES = ("dense_gamma", "dense_sstats", "ragged_gamma")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -63,11 +64,14 @@ def nvcc_path() -> str:
 
 
 def _library_path(name: str) -> pathlib.Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library's path, named by a hash of its source, every shared
+    header of ``csrc/`` (an edited header rebuilds every library) and the
+    flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = SOURCES) -> None:

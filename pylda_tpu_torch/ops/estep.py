@@ -1,10 +1,10 @@
 """Batched variational E-step: the plain PyTorch versions.
 
 Counterparts of ``pylda_tpu.ops.estep``.  These are the in-package
-references of the two CUDA kernels (``ops/ragged.py``, ``ops/sstats.py``):
-the kernel wrappers call them for CPU tensors, the tests hold them against
-the JAX functions, and ``chip_smoke.py`` holds each kernel against them on
-the card.
+references of the three CUDA kernels (``ops/ragged.py``,
+``ops/sstats.py``, ``ops/dense_estep.py``): the kernel wrappers call them
+for CPU tensors, the tests hold them against the JAX functions, and
+``chip_smoke.py`` holds each kernel against them on the card.
 
 Only the "dtk" layout ([D, T, K], topics last) is ported: the JAX
 package's "kdt" layout, bf16 factor storage and token-axis blocking
@@ -53,16 +53,13 @@ def _exit_update(change, best, age, done, threshold, use_stall, patience):
     return best_new, age_new, done_new, exitable
 
 
-def _ragged_sweep_loop(
-    ids, cnts, gamma_init, exp_elog_beta, alpha,
-    inner_iterations, convergence_threshold, eps, stall_patience=0,
-):
-    """Batched gamma fixed point over one (ids, cnts) block; returns
-    (sweeps_used, gamma).  The block B = expElogbeta.T[ids] ([D, T, K])
-    is gathered once; each sweep is two batched contractions against it.
-    The loop tests the exit on the host once per sweep — this is the
-    reference version; the CUDA kernel keeps the whole loop on the card."""
-    B = exp_elog_beta.T[ids]  # [D, T, K]
+def _fixed_point(sweep, gamma_init, inner_iterations, convergence_threshold,
+                 stall_patience):
+    """The batched gamma fixed point shared by both layouts; returns
+    (sweeps_used, gamma).  ``sweep(exp_etheta)`` is one sweep's proposal
+    alpha + expEtheta * (...).  The loop tests the exit on the host once
+    per sweep — this is the reference version; the CUDA kernels keep the
+    whole loop on the card."""
     use_stall = stall_patience > 0 and convergence_threshold > 0.0
     freeze = convergence_threshold > 0.0
     rows = gamma_init.shape[0]
@@ -75,10 +72,7 @@ def _ragged_sweep_loop(
     done = torch.zeros((rows,), dtype=torch.bool, device=gamma_init.device)
     i = 0
     while i < inner_iterations:
-        phinorm = torch.einsum("dk,dtk->dt", exp_etheta, B) + eps
-        gamma_prop = alpha[None, :] + exp_etheta * torch.einsum(
-            "dt,dtk->dk", cnts / phinorm, B
-        )
+        gamma_prop = sweep(exp_etheta)
         gamma_new = (
             torch.where(done[:, None], gamma, gamma_prop)
             if freeze else gamma_prop
@@ -94,6 +88,64 @@ def _ragged_sweep_loop(
         if bool(exitable.all()):
             break
     return i, gamma
+
+
+def _ragged_sweep_loop(
+    ids, cnts, gamma_init, exp_elog_beta, alpha,
+    inner_iterations, convergence_threshold, eps, stall_patience=0,
+):
+    """Ragged fixed point over one (ids, cnts) block: the block
+    B = expElogbeta.T[ids] ([D, T, K]) is gathered once; each sweep is two
+    batched contractions against it."""
+    B = exp_elog_beta.T[ids]  # [D, T, K]
+
+    def sweep(exp_etheta):
+        phinorm = torch.einsum("dk,dtk->dt", exp_etheta, B) + eps
+        return alpha[None, :] + exp_etheta * torch.einsum(
+            "dt,dtk->dk", cnts / phinorm, B
+        )
+
+    return _fixed_point(sweep, gamma_init, inner_iterations,
+                        convergence_threshold, stall_patience)
+
+
+def estep_dense(
+    counts: torch.Tensor,  # [D, Vc] float or bf16 (0 pads), Vc >= V
+    gamma_init: torch.Tensor,  # [D, K]
+    exp_elog_beta: torch.Tensor,  # [K, V]
+    alpha: torch.Tensor,  # [K]
+    inner_iterations: int = 50,
+    convergence_threshold: float = 1e-5,
+    eps: float = 1e-30,
+    stall_patience: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Dense doc-term E-step — ``pylda_tpu``'s ``estep_dense`` in the input
+    dtype.  Each sweep is two products against expElogbeta:
+
+        phinorm = expEtheta @ expElogbeta + eps            # [D, Vc]
+        gamma'  = alpha + expEtheta * ((counts / phinorm) @ expElogbeta^T)
+
+    with the exit rule of ``_exit_update``; then sufficient statistics
+    and the token score at the EXACT expectation of the converged gamma
+    (``estep_dense_sstats``).  ``counts`` may arrive vocab-prepadded and
+    in bf16, as for ``estep_dense_sstats``.  Returns (gamma, sstats,
+    token_score, sweeps_used) with sweeps_used a 0-d int32 tensor."""
+    # Padding columns are all-zero counts: leave them out of the sweeps.
+    c = counts[:, : exp_elog_beta.shape[1]].to(gamma_init.dtype)
+
+    def sweep(exp_etheta):
+        phinorm = exp_etheta @ exp_elog_beta + eps
+        return alpha[None, :] + exp_etheta * (
+            (c / phinorm) @ exp_elog_beta.T
+        )
+
+    i, gamma = _fixed_point(sweep, gamma_init, inner_iterations,
+                            convergence_threshold, stall_patience)
+    sstats, token_score = estep_dense_sstats(
+        counts, exp_dirichlet_expectation(gamma), exp_elog_beta, eps
+    )
+    return (gamma, sstats, token_score,
+            torch.tensor(i, dtype=torch.int32, device=gamma.device))
 
 
 def estep_ragged_gamma(

@@ -15,6 +15,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+# Every inference_mode of the JAX package (ported or not).
+INFERENCE_MODES = ("vb", "gibbs", "hybrid", "svi")
+
 
 @dataclasses.dataclass
 class LDAConfig:
@@ -160,7 +163,7 @@ class LDAConfig:
     def validate(self) -> "LDAConfig":
         if self.number_of_topics <= 0:
             raise ValueError("number_of_topics must be positive")
-        if self.inference_mode not in ("vb", "gibbs", "hybrid", "svi"):
+        if self.inference_mode not in INFERENCE_MODES:
             raise ValueError(f"unknown inference_mode: {self.inference_mode}")
         if self.inner_iterations <= 0:
             raise ValueError("inner_iterations must be positive")

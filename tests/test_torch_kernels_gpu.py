@@ -12,17 +12,24 @@ entry) and the score to rel 1e-5; at pinned sweeps gamma agrees to rtol
 1e-4 (atol 1e-4); with the exit rule active, to rtol 5e-4 with the sweep
 count within +-1 and an atol of 5e-4 + K * threshold: a row whose change
 sits at the threshold may freeze a sweep apart in the two versions, and
-that sweep moves it by at most K * threshold in sum_k |dgamma|.
+that sweep moves it by at most K * threshold in sum_k |dgamma|.  The dense
+E-step's token score, taken at a gamma within those tolerances, agrees to
+rel 1e-4.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from pylda_tpu_torch.ops import dense_estep as dense_mod
 from pylda_tpu_torch.ops import ragged as ragged_mod
 from pylda_tpu_torch.ops import sstats as sstats_mod
 from pylda_tpu_torch.ops.dirichlet import exp_dirichlet_expectation
-from pylda_tpu_torch.ops.estep import estep_dense_sstats, estep_ragged_gamma
+from pylda_tpu_torch.ops.estep import (
+    estep_dense,
+    estep_dense_sstats,
+    estep_ragged_gamma,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -135,6 +142,103 @@ def test_ragged_kernel_exit_rule_matches_plain(cuda, D, T, K, V, thresh):
     torch.cuda.synchronize()
     assert abs(int(s) - int(s_p)) <= 1
     torch.testing.assert_close(g, g_p, rtol=5e-4, atol=5e-4 + K * thresh)
+
+
+def _dense_inputs(D, V, K, pad_rows, bf16, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    counts = rng.poisson(0.1, (D, V)).astype(np.float32)
+    counts = np.pad(counts, ((0, pad_rows), (0, 0)))  # padded doc rows
+    lam = rng.gamma(1.0, 1.0, (K, V))
+    ct = torch.tensor(counts, device=dev)
+    if bf16:
+        ct = ct.to(torch.bfloat16)
+    eeb = exp_dirichlet_expectation(torch.tensor(lam, device=dev).float())
+    g0 = torch.ones((D + pad_rows, K), dtype=torch.float32, device=dev)
+    alpha = torch.full((K,), 0.1, dtype=torch.float32, device=dev)
+    return ct, g0, eeb, alpha
+
+
+_DENSE_SHAPES = [
+    # D, V, K, padded rows, bf16 counts: rows, V and K off every tile
+    (37, 333, 7, 0, False),
+    (96, 640, 13, 5, True),
+    (200, 1000, 100, 8, True),
+    (129, 515, 200, 0, False),  # K > 128: 16 topics a thread
+    (33, 64, 17, 3, True),
+]
+
+
+@pytest.mark.parametrize("D,V,K,pad_rows,bf16", _DENSE_SHAPES)
+def test_dense_estep_pinned_sweeps_match_plain(cuda, D, V, K, pad_rows, bf16):
+    ct, g0, eeb, alpha = _dense_inputs(D, V, K, pad_rows, bf16, cuda)
+    kw = dict(inner_iterations=12, convergence_threshold=0.0)
+    rows = torch.zeros((1,), dtype=torch.int64, device=cuda)
+    before = (dense_mod.LAUNCHES, sstats_mod.LAUNCHES)
+    g, ss, tok, s = dense_mod.dense_estep(ct, g0, eeb, alpha, rows_out=rows,
+                                          **kw)
+    assert (dense_mod.LAUNCHES, sstats_mod.LAUNCHES) == (before[0] + 1,
+                                                         before[1] + 1)
+    g_p, ss_p, tok_p, s_p = estep_dense(ct, g0, eeb, alpha, **kw)
+    torch.cuda.synchronize()
+    assert int(s) == int(s_p) == 12
+    assert int(rows) == 12 * (D + pad_rows)  # no freezing at threshold 0
+    torch.testing.assert_close(g, g_p, rtol=1e-4, atol=1e-4)
+    # The final pass is dense_sstats at the kernel's own gamma.
+    ss_at_g, _ = estep_dense_sstats(ct, exp_dirichlet_expectation(g), eeb)
+    tol = 1e-4 * ss_at_g.abs() + 1e-6 * ss_at_g.abs().max()
+    assert bool(((ss - ss_at_g).abs() <= tol).all())
+    assert float(tok) == pytest.approx(float(tok_p), rel=1e-4)
+
+
+@pytest.mark.parametrize("D,V,K,pad_rows,bf16", _DENSE_SHAPES[:3])
+@pytest.mark.parametrize("thresh", [1e-5, 1e-3])
+def test_dense_estep_exit_rule_matches_plain(cuda, D, V, K, pad_rows, bf16,
+                                             thresh):
+    ct, g0, eeb, alpha = _dense_inputs(D, V, K, pad_rows, bf16, cuda, seed=1)
+    kw = dict(inner_iterations=50, convergence_threshold=thresh,
+              stall_patience=6)
+    g, _, tok, s = dense_mod.dense_estep(ct, g0, eeb, alpha, **kw)
+    g_p, _, tok_p, s_p = estep_dense(ct, g0, eeb, alpha, **kw)
+    torch.cuda.synchronize()
+    assert abs(int(s) - int(s_p)) <= 1
+    torch.testing.assert_close(g, g_p, rtol=5e-4, atol=5e-4 + K * thresh)
+    assert float(tok) == pytest.approx(float(tok_p), rel=1e-4)
+
+
+def test_dense_estep_refuses_large_k(cuda):
+    ct, g0, eeb, alpha = _dense_inputs(8, 100, 257, 0, False, cuda)
+    with pytest.raises(NotImplementedError):
+        dense_mod.dense_estep(ct, g0, eeb, alpha)
+
+
+@pytest.mark.parametrize(
+    "extra",
+    [{}, dict(estep_memory_budget_mb=0, doc_pad_multiple=40)],
+    ids=["one_batch", "several_batches"],
+)
+def test_engine_dense_route_on_card_matches_cpu(cuda, extra):
+    """The dense route (V <= dense_vocab_threshold): ELBOs rel 1e-4."""
+    from pylda_tpu_torch.corpus.synthetic import synthetic_corpus
+    from pylda_tpu_torch.models import VariationalBayes
+    from pylda_tpu_torch.utils.config import LDAConfig
+
+    corpus, _, _ = synthetic_corpus(num_docs=150, num_topics=8, num_types=300,
+                                    mean_doc_length=40.0, seed=3)
+    cfg = LDAConfig(**{**dict(number_of_topics=8, doc_pad_multiple=8,
+                              hyper_parameter_optimize_interval=2), **extra})
+    lam0 = np.random.default_rng(11).gamma(100.0, 0.01, (8, 300))
+    elbos = {}
+    for dev in (cuda, "cpu"):
+        eng = VariationalBayes(cfg, device=dev)
+        eng.initialize(corpus, lam_init=lam0)
+        if "estep_memory_budget_mb" in extra:
+            assert len(eng._batches) == 4
+        before = dense_mod.LAUNCHES
+        elbos[str(dev)] = [eng.learning() for _ in range(2)] + \
+            eng.learning_many(2)
+        if dev is cuda:
+            assert dense_mod.LAUNCHES == before + 4 * len(eng._batches)
+    np.testing.assert_allclose(elbos[str(cuda)], elbos["cpu"], rtol=1e-4)
 
 
 @pytest.mark.parametrize(

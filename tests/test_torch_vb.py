@@ -128,8 +128,7 @@ def test_state_from_numpy_carries_jax_training(data):
 
 
 def test_unported_routes_raise(data):
-    for kw, match in ((dict(dense_vocab_threshold=4096), "dense layout"),
-                      (dict(sstats_mode="scatter"), "scatter"),
+    for kw, match in ((dict(sstats_mode="scatter"), "scatter"),
                       (dict(sstats_dense_total_budget_mb=0), "budget")):
         eng = VariationalBayes(LDAConfig(**{**CFG, **kw}), device="cpu")
         with pytest.raises(NotImplementedError, match=match):
