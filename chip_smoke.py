@@ -341,17 +341,21 @@ def main() -> int:
     tok_rel = abs(float(tok_k) - float(tok_p)) / abs(float(tok_p))
     ss_ok = bool(((ss_k - ss_p).abs() <= ss_tol).all()) and tok_rel <= SCORE_RTOL
     Dc, Vc = counts.shape
-    ss_flops = 4.0 * Dc * K * V
+    # phinorm and the ratio are needed only where a count is nonzero, and
+    # the second product sums over those columns only: 4*K FLOP a nonzero.
+    ss_nnz = int((counts != 0).sum())
     ss_bytes = (counts.numel() * counts.element_size() + Dc * K * 4
                 + 2 * K * V * 4 + 4)
-    ss_bound, ss_by = bound(ss_flops, ss_bytes)
+    ss_bound, ss_by = bound(4.0 * K * ss_nnz, ss_bytes)
+    ss_dense_bound, _ = bound(4.0 * Dc * K * V, ss_bytes)
     ss_ms = cuda_ms(lambda: sstats_mod.dense_sstats(counts, et_c, eeb,
                                                     eps=cfg.eps), 20)
     ss_plain_ms = cuda_ms(lambda: estep_dense_sstats(counts, et_c, eeb,
                                                      eps=cfg.eps), 20)
     print(f"kernel dense_sstats [{Dc}x{Vc} {str(counts.dtype)[6:]}, K={K}]: "
-          f"kernel_ms {ss_ms:.4f} plain_ms {ss_plain_ms:.4f} bound_ms "
-          f"{ss_bound:.5f} ({ss_by}), max_abs_err {ss_err:.3e} (tolerance "
+          f"nonzero counts {ss_nnz}, kernel_ms {ss_ms:.4f} plain_ms "
+          f"{ss_plain_ms:.4f} bound_ms {ss_bound:.5f} ({ss_by}; dense form "
+          f"{ss_dense_bound:.5f}), max_abs_err {ss_err:.3e} (tolerance "
           f"{SSTATS_RTOL}*|ref| + {SSTATS_ATOL_REL}*max|ref|), score rel err "
           f"{tok_rel:.3e} (tolerance {SCORE_RTOL}) "
           f"{'ok' if ss_ok else 'FAIL'}")
@@ -373,9 +377,10 @@ def main() -> int:
     (batch,) = probe._batches
     dc = batch.counts
     g0 = torch.ones((dc.shape[0], K), dtype=torch.float32, device=dev)
-    rows = torch.zeros((1,), dtype=torch.int64, device=dev)
+    row_sweeps = torch.zeros((dc.shape[0],), dtype=torch.int32, device=dev)
     g_k, ss_k, tok_k, s_k = dense_mod.dense_estep(dc, g0, eeb, st.alpha,
-                                                  rows_out=rows, **kw)
+                                                  row_sweeps_out=row_sweeps,
+                                                  **kw)
     g_p, _, tok_p, s_p = estep_dense(dc, g0, eeb, st.alpha, **kw)
     ss_at_k, _ = estep_dense_sstats(dc, exp_dirichlet_expectation(g_k), eeb,
                                     eps=cfg.eps)
@@ -389,13 +394,20 @@ def main() -> int:
     dtok_rel = abs(float(tok_k) - float(tok_p)) / abs(float(tok_p))
     sk, sp = int(s_k), int(s_p)
     Dd, Vd = dc.shape
-    # Fixed point: 4*K*V a row a sweep over the rows this input needed
-    # (frozen rows excluded); final pass: 4*D*K*V.  Bytes: counts, eeb,
-    # alpha and gamma0 read once; gamma and sstats written once.
-    dg_flops = 4.0 * K * V_DENSE * (int(rows) + Dd)
+    # The work this input needs: each sweep of a row (frozen sweeps
+    # excluded) and the final pass do 4*K FLOP for each nonzero count of
+    # the row — phinorm and the ratio are needed only there.  The dense
+    # form (every column) is printed beside it.  Bytes: counts, eeb, alpha
+    # and gamma0 read once; gamma and sstats written once.
+    row_nnz = (dc != 0).sum(dim=1)
+    dg_nnz = int(row_nnz.sum())
+    row_sweeps_total = int(row_sweeps.sum())
+    dg_work = int((row_sweeps.long() * row_nnz).sum()) + dg_nnz
     dg_bytes = (dc.numel() * dc.element_size() + 2 * K * V_DENSE * 4
                 + 2 * Dd * K * 4 + K * 4 + 4)
-    dg_bound, dg_by = bound(dg_flops, dg_bytes)
+    dg_bound, dg_by = bound(4.0 * K * dg_work, dg_bytes)
+    dg_dense_bound, _ = bound(4.0 * K * V_DENSE * (row_sweeps_total + Dd),
+                              dg_bytes)
     dg_ms = cuda_ms(lambda: dense_mod.dense_estep(dc, g0, eeb, st.alpha,
                                                   **kw), 5)
     dg_plain_ms = cuda_ms(lambda: estep_dense(dc, g0, eeb, st.alpha, **kw), 2)
@@ -404,40 +416,46 @@ def main() -> int:
                                                      eps=cfg.eps), 10)
     dg_ok = dg_ok and dss_ok and dtok_rel <= DENSE_SCORE_RTOL and abs(sk - sp) <= 1
     print(f"kernel dense_gamma [{Dd}x{Vd} {str(dc.dtype)[6:]}, K={K}]: sweeps "
-          f"kernel {sk} plain {sp}, row-sweeps computed {int(rows)}, "
+          f"kernel {sk} plain {sp}, row-sweeps computed {row_sweeps_total}, "
+          f"nonzero counts {dg_nnz} ({dg_nnz / dc.numel():.4f} of the block), "
           f"kernel_ms {dg_ms:.4f} (of which final pass dense_sstats "
           f"{fin_ms:.4f}) plain_ms {dg_plain_ms:.4f} bound_ms {dg_bound:.5f} "
-          f"({dg_by}), gamma max_abs_err {dg_err:.3e} (tolerance "
+          f"({dg_by}; dense form {dg_dense_bound:.5f}), gamma max_abs_err "
+          f"{dg_err:.3e} (tolerance "
           f"{gamma_atol:g} + {GAMMA_RTOL}*|gamma|), sstats at the kernel's "
           f"gamma {'ok' if dss_ok else 'FAIL'} (tolerance {SSTATS_RTOL}*|ref| "
           f"+ {SSTATS_ATOL_REL}*max|ref|), score rel err {dtok_rel:.3e} "
           f"(tolerance {DENSE_SCORE_RTOL}) {'ok' if dg_ok else 'FAIL'}")
     if not dg_ok:
         raise AssertionError("dense_estep disagrees with its plain version")
-    del probe, st, eeb, batch, dc, g0, g_k, g_p, ss_k, ss_at_k, et_k
+    del probe, st, eeb, batch, dc, g0, g_k, g_p, ss_k, ss_at_k, et_k, row_nnz
 
     # -- engines: the main paths ---------------------------------------------
-    launches = {name: 0 for name in mods}
+    by_path = {}
     test, _, _ = synthetic_corpus(
         num_docs=1024, num_topics=K, num_types=V, mean_doc_length=MEAN_LEN,
         seed=1, beta=beta,
     )
-    got = run_engine("engine ragged flagship", cfg, corpus, test, dev, mods,
-                     ("ragged_gamma", "dense_sstats"))
-    launches = {k: launches[k] + got[k] for k in launches}
+    by_path["ragged"] = run_engine("engine ragged flagship", cfg, corpus,
+                                   test, dev, mods,
+                                   ("ragged_gamma", "dense_sstats"))
     dtest, _, _ = synthetic_corpus(
         num_docs=1024, num_topics=K, num_types=V_DENSE,
         mean_doc_length=MEAN_LEN, seed=1, beta=dbeta,
     )
-    got = run_engine("engine dense flagship", cfg, dcorpus, dtest, dev, mods,
-                     ("dense_gamma", "dense_sstats"))
-    launches = {k: launches[k] + got[k] for k in launches}
+    by_path["dense"] = run_engine("engine dense flagship", cfg, dcorpus,
+                                  dtest, dev, mods,
+                                  ("dense_gamma", "dense_sstats"))
     del corpus, test, dcorpus, dtest
 
     # -- CLI on the bundled corpus -------------------------------------------
-    got = run_cli(mods)
-    launches = {k: launches[k] + got[k] for k in launches}
-    print(f"main paths: kernel launches {launches}")
+    by_path["cli"] = run_cli(mods)
+    # Each kernel's launches on each main path (each run zeroed just before
+    # and read just after), and their sum.
+    paths = {name: {path: got[name] for path, got in by_path.items()}
+             for name in mods}
+    launches = {name: sum(per.values()) for name, per in paths.items()}
+    print(f"main paths: kernel launches {paths}")
 
     # -- cross-check: card vs CPU at a small size, on each route -------------
     for route, v_small in (("ragged", 3000), ("dense", 1000)):
@@ -467,21 +485,26 @@ def main() -> int:
         {"name": "dense_sstats", "route": "cuda",
          "source": "pylda_tpu_torch/csrc/dense_sstats.cu",
          "replaces": "pylda_tpu/ops/pallas_sstats.py:43",
-         "launches": launches["dense_sstats"], "max_abs_err": ss_err,
+         "launches": launches["dense_sstats"],
+         "launches_by_path": paths["dense_sstats"], "max_abs_err": ss_err,
          "ms": ss_ms, "plain_ms": ss_plain_ms, "bound_ms": ss_bound,
-         "bound_by": ss_by, "library_ms": None},
+         "bound_by": ss_by, "dense_form_bound_ms": ss_dense_bound,
+         "library_ms": None},
         {"name": "ragged_gamma", "route": "cuda",
          "source": "pylda_tpu_torch/csrc/ragged_gamma.cu",
          "replaces": "pylda_tpu/ops/pallas_ragged.py:56",
-         "launches": launches["ragged_gamma"], "max_abs_err": rg["err"],
+         "launches": launches["ragged_gamma"],
+         "launches_by_path": paths["ragged_gamma"], "max_abs_err": rg["err"],
          "ms": rg["ms"], "plain_ms": rg["plain_ms"], "bound_ms": rg_bound,
          "bound_by": rg_by, "library_ms": None},
         {"name": "dense_gamma", "route": "cuda",
          "source": "pylda_tpu_torch/csrc/dense_gamma.cu",
          "replaces": "pylda_tpu/ops/pallas_estep.py:97",
-         "launches": launches["dense_gamma"], "max_abs_err": dg_err,
+         "launches": launches["dense_gamma"],
+         "launches_by_path": paths["dense_gamma"], "max_abs_err": dg_err,
          "ms": dg_ms, "plain_ms": dg_plain_ms, "bound_ms": dg_bound,
-         "bound_by": dg_by, "library_ms": None},
+         "bound_by": dg_by, "dense_form_bound_ms": dg_dense_bound,
+         "library_ms": None},
     ]}
     print(f"nvidia-smi: {nvidia_smi()}")
     print(json.dumps(record))

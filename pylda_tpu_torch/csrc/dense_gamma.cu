@@ -22,12 +22,15 @@
 // converged gamma — is dense_sstats.cu, launched by the wrapper
 // (pylda_tpu_torch/ops/dense_estep.py).
 //
-// Bound on an H100 SXM at the dense flagship (D=4096, V=4096, K=100): the
-// two products are 4*K*V FLOP a row a sweep, 6.7 GFLOP a sweep over all
-// rows, ~100 us at the 67 TFLOP/s f32 rate outside the tensor cores,
-// against ~10 us to read the 32 MiB of bf16 counts once at 3.35 TB/s: the
-// kernel is bound by operations, S x 100 us for S sweeps (less as rows
-// freeze).
+// Bound on an H100 SXM at the dense flagship (D=4096, V=4096, K=100, ~120
+// tokens a document): the function needs phinorm and the ratio only where
+// a count is nonzero (~3% of the columns), so its two products are
+// 4*K*nnz FLOP a row a sweep, ~0.18 GFLOP a sweep over all rows, ~2.7 us
+// at the 67 TFLOP/s f32 rate outside the tensor cores, against ~10 us to
+// read the 32 MiB of bf16 counts once at 3.35 TB/s: bound by operations
+// over a whole fixed point of S sweeps.  This kernel walks all Vc columns
+// (4*K*Vc FLOP a row a sweep, ~30x that work): the dense form of the
+// Pallas kernel, kept for a first port.
 //
 // Design.  The exit is global to the batch, so the whole loop runs in ONE
 // cooperative launch, with the machinery of ragged_gamma.cu: the grid is
@@ -83,7 +86,7 @@ struct Params {
   int* done;             // [D] in: 0
   int* counters;         // [3] in: 0
   int* sweeps_out;       // [1]
-  unsigned long long* rows_out;  // [1]: row-sweeps computed (frozen excluded)
+  int* row_sweeps;       // [D] or null: sweeps each row was computed in
   int D, Vc, K;
   int inner_iterations;
   float threshold;
@@ -157,7 +160,6 @@ dense_gamma_kernel(Params p) {
   const int n_tiles = (p.D + kTileD - 1) / kTileD;
   const int n_chunks = p.Vc / kTileV;
   const bool freeze = p.threshold > 0.f;
-  unsigned long long rows = 0;
 
   // Topic rows K..KP-1 of both E buffers stay zero for the whole launch.
   for (int i = tid; i < 2 * L::KP * L::E_LD; i += kThreads) eeb_s[i] = 0.f;
@@ -310,7 +312,7 @@ dense_gamma_kernel(Params p) {
           p.age[d] = age;
           p.done[d] = done ? 1 : 0;
           not_exitable += exitable ? 0 : 1;
-          ++rows;
+          if (p.row_sweeps) ++p.row_sweeps[d];
         }
       }
       __syncthreads();  // the next tile rewrites live_s and et_s
@@ -326,7 +328,6 @@ dense_gamma_kernel(Params p) {
     // to after the following one.
     if (blockIdx.x == 0 && tid == 0) p.counters[(s + 2) % 3] = 0;
   }
-  if (rows) atomicAdd(p.rows_out, rows);
 }
 
 template <typename CT, int KPT>
@@ -371,12 +372,13 @@ extern "C" {
 
 // counts: [D, Vc] bf16 (counts_bf16 != 0) or f32, Vc a multiple of 64,
 // 16-byte aligned; eeb: [K, Vc] f32, 16-byte aligned, zero columns past V;
-// the rest as in Params.  All row-major and contiguous, D >= 1, K <= 256.
+// row_sweeps: [D] int32 or null, added to; the rest as in Params.  All
+// row-major and contiguous, D >= 1, K <= 256.
 // Returns the cudaError_t of the launch.
 int pylda_dense_gamma(const void* counts, int counts_bf16, const void* eeb,
                       const void* alpha, void* gamma, void* et, void* best,
                       void* age, void* done, void* counters, void* sweeps_out,
-                      void* rows_out, int D, int Vc, int K,
+                      void* row_sweeps, int D, int Vc, int K,
                       int inner_iterations, float threshold, float eps,
                       int patience, int use_stall, void* stream) {
   Params p;
@@ -390,7 +392,7 @@ int pylda_dense_gamma(const void* counts, int counts_bf16, const void* eeb,
   p.done = static_cast<int*>(done);
   p.counters = static_cast<int*>(counters);
   p.sweeps_out = static_cast<int*>(sweeps_out);
-  p.rows_out = static_cast<unsigned long long*>(rows_out);
+  p.row_sweeps = static_cast<int*>(row_sweeps);
   p.D = D;
   p.Vc = Vc;
   p.K = K;

@@ -37,7 +37,7 @@ import torch
 from pylda_tpu_torch.corpus.corpus import Corpus, DenseBatch
 from pylda_tpu_torch.models import layouts
 from pylda_tpu_torch.models.base import Inferencer, LDAState
-from pylda_tpu_torch.ops.dense_estep import VOCAB_TILE, dense_estep
+from pylda_tpu_torch.ops.dense_estep import dense_estep
 from pylda_tpu_torch.ops.dirichlet import (
     beta_elbo,
     dirichlet_expectation,
@@ -69,7 +69,7 @@ class _Bucket:
 class _Dense:
     """One dense doc-term batch on the device."""
 
-    counts: torch.Tensor  # [D_b, Vp] bf16 (counts <= 256) or f32
+    counts: torch.Tensor  # [D_b, V] bf16 (counts <= 256) or f32
     mask: torch.Tensor  # [D_b] f32: 1 for real documents
     doc_ids: np.ndarray  # [D_b] int32, -1 for padding rows
 
@@ -180,13 +180,8 @@ class VariationalBayes(Inferencer):
         out: List[_Batch] = []
         for b in layouts.build_vb_batches(corpus, self._config):
             if isinstance(b, DenseBatch):
-                # Vocab-prepad once to the dense kernel's chunk width
-                # (zero columns are inert).
-                v_pad = _round_up(b.counts.shape[1], VOCAB_TILE)
-                counts = np.pad(b.counts,
-                                ((0, 0), (0, v_pad - b.counts.shape[1])))
                 out.append(_Dense(
-                    counts=_compact_counts(counts, dev, self._dtype),
+                    counts=_compact_counts(b.counts, dev, self._dtype),
                     mask=torch.as_tensor(b.mask, device=dev).to(self._dtype),
                     doc_ids=b.doc_ids,
                 ))

@@ -31,11 +31,19 @@ from pylda_tpu_torch.utils import round_up
 LAUNCHES = 0
 # Largest topic count the kernel takes (16 topics a thread).
 MAX_TOPICS = 256
-# The kernel's vocab chunk: counts columns are padded to a multiple of it
-# (callers that run many E-steps pad once).
-VOCAB_TILE = 64
+# The kernel's vocab chunk: the wrapper pads columns to a multiple of it.
+_VOCAB_TILE = 64
 
 _BOUND = False
+
+
+def _aligned(t: torch.Tensor, cols: int) -> torch.Tensor:
+    """``t`` contiguous with ``cols`` columns (zero pads) and 16-byte
+    aligned: ``t`` itself when it already is."""
+    t = t.contiguous()
+    if t.shape[1] != cols or t.data_ptr() % 16:
+        t = torch.nn.functional.pad(t, (0, cols - t.shape[1]))
+    return t
 
 
 def _lib() -> ctypes.CDLL:
@@ -61,13 +69,13 @@ def dense_estep(
     convergence_threshold: float = 1e-5,
     eps: float = 1e-30,
     stall_patience: int = 0,
-    rows_out: Optional[torch.Tensor] = None,
+    row_sweeps_out: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """(gamma [D, K], sstats [K, V], token score 0-d, sweeps_used 0-d
     int32) — see ``estep_dense``.
 
-    ``rows_out`` (a 1-element int64 CUDA tensor) has the number of rows
-    the kernel updated over all its sweeps added to it, frozen rows
+    ``row_sweeps_out`` (a [D] int32 CUDA tensor) has added to each row
+    the number of sweeps in which the kernel updated it, frozen sweeps
     excluded — the work this input needed, for bounds."""
     global LAUNCHES
     if not counts.is_cuda:
@@ -102,23 +110,22 @@ def dense_estep(
     for t in (gamma_init, exp_elog_beta, alpha):
         if t.device != dev:
             raise ValueError("all inputs must be on one device")
-    if rows_out is None:
-        rows_out = torch.zeros((1,), dtype=torch.int64, device=dev)
-    elif rows_out.dtype != torch.int64 or rows_out.device != dev:
-        raise ValueError("rows_out must be an int64 tensor on the device")
+    if row_sweeps_out is not None and (
+            row_sweeps_out.dtype != torch.int32
+            or row_sweeps_out.shape != (D,) or row_sweeps_out.device != dev
+            or not row_sweeps_out.is_contiguous()):
+        raise ValueError("row_sweeps_out must be a [D] int32 tensor on the "
+                         "device")
     gamma = gamma_init.contiguous().clone()
     if D == 0:
         return (gamma, exp_elog_beta.new_zeros((K, V)),
                 exp_elog_beta.new_zeros(()),
                 torch.zeros((), dtype=torch.int32, device=dev))
-    # The kernel stages 64-column chunks with 16-byte copies: pad the
-    # columns to a multiple of 64 and keep both operands aligned.
-    vp = round_up(Vc, VOCAB_TILE)
-    counts_k = counts.contiguous()
-    if vp != Vc or counts_k.data_ptr() % 16:
-        counts_k = torch.nn.functional.pad(counts_k, (0, vp - Vc))
-    eeb_k = exp_elog_beta.new_zeros((K, vp))
-    eeb_k[:, :V] = exp_elog_beta
+    # The kernel stages 64-column chunks with 16-byte copies: both
+    # operands need a multiple of 64 columns and 16-byte alignment.
+    vp = round_up(Vc, _VOCAB_TILE)
+    counts_k = _aligned(counts, vp)
+    eeb_k = _aligned(exp_elog_beta, vp)
     alpha = alpha.contiguous()
     # The first expEtheta uses the exact digamma, as the JAX loop does.
     et = exp_dirichlet_expectation(gamma).contiguous()
@@ -134,7 +141,8 @@ def dense_estep(
             counts_k.data_ptr(), int(counts_k.dtype == torch.bfloat16),
             eeb_k.data_ptr(), alpha.data_ptr(), gamma.data_ptr(),
             et.data_ptr(), best.data_ptr(), age.data_ptr(), done.data_ptr(),
-            counters.data_ptr(), sweeps.data_ptr(), rows_out.data_ptr(),
+            counters.data_ptr(), sweeps.data_ptr(),
+            None if row_sweeps_out is None else row_sweeps_out.data_ptr(),
             D, vp, K, int(inner_iterations), float(convergence_threshold),
             float(eps), int(stall_patience), int(use_stall),
             torch.cuda.current_stream(dev).cuda_stream,

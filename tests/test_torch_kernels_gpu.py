@@ -172,16 +172,16 @@ _DENSE_SHAPES = [
 def test_dense_estep_pinned_sweeps_match_plain(cuda, D, V, K, pad_rows, bf16):
     ct, g0, eeb, alpha = _dense_inputs(D, V, K, pad_rows, bf16, cuda)
     kw = dict(inner_iterations=12, convergence_threshold=0.0)
-    rows = torch.zeros((1,), dtype=torch.int64, device=cuda)
+    rows = torch.zeros((D + pad_rows,), dtype=torch.int32, device=cuda)
     before = (dense_mod.LAUNCHES, sstats_mod.LAUNCHES)
-    g, ss, tok, s = dense_mod.dense_estep(ct, g0, eeb, alpha, rows_out=rows,
-                                          **kw)
+    g, ss, tok, s = dense_mod.dense_estep(ct, g0, eeb, alpha,
+                                          row_sweeps_out=rows, **kw)
     assert (dense_mod.LAUNCHES, sstats_mod.LAUNCHES) == (before[0] + 1,
                                                          before[1] + 1)
     g_p, ss_p, tok_p, s_p = estep_dense(ct, g0, eeb, alpha, **kw)
     torch.cuda.synchronize()
     assert int(s) == int(s_p) == 12
-    assert int(rows) == 12 * (D + pad_rows)  # no freezing at threshold 0
+    assert bool((rows == 12).all())  # no freezing at threshold 0
     torch.testing.assert_close(g, g_p, rtol=1e-4, atol=1e-4)
     # The final pass is dense_sstats at the kernel's own gamma.
     ss_at_g, _ = estep_dense_sstats(ct, exp_dirichlet_expectation(g), eeb)
@@ -197,10 +197,15 @@ def test_dense_estep_exit_rule_matches_plain(cuda, D, V, K, pad_rows, bf16,
     ct, g0, eeb, alpha = _dense_inputs(D, V, K, pad_rows, bf16, cuda, seed=1)
     kw = dict(inner_iterations=50, convergence_threshold=thresh,
               stall_patience=6)
-    g, _, tok, s = dense_mod.dense_estep(ct, g0, eeb, alpha, **kw)
+    rows = torch.zeros((D + pad_rows,), dtype=torch.int32, device=cuda)
+    g, _, tok, s = dense_mod.dense_estep(ct, g0, eeb, alpha,
+                                         row_sweeps_out=rows, **kw)
     g_p, _, tok_p, s_p = estep_dense(ct, g0, eeb, alpha, **kw)
     torch.cuda.synchronize()
     assert abs(int(s) - int(s_p)) <= 1
+    # Done rows freeze; a row that is never done runs every sweep, and one
+    # such row holds the loop open to its last sweep.
+    assert int(rows.min()) >= 1 and int(rows.max()) == int(s)
     torch.testing.assert_close(g, g_p, rtol=5e-4, atol=5e-4 + K * thresh)
     assert float(tok) == pytest.approx(float(tok_p), rel=1e-4)
 
