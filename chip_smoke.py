@@ -20,6 +20,10 @@ Phases, in order (any failure exits non-zero):
      the default dense_vocab_threshold sends down the dense route): the
      dense E-step (gamma fixed point + final pass) on the [4096, 4096]
      bf16 counts batch;
+   the two gamma fixed points are held against their plain version run in
+   float64, and their lines also give S* (the sweeps the batch took), the
+   row-sweeps the kernels' row-major order computed past S*, and a
+   histogram of each row's first exitable sweep;
 4. engines: ``VariationalBayes`` through ``initialize``, ``learning_many``,
    ``inference`` and ``perplexity`` at each flagship, with the kernel
    launch counters zeroed just before and read just after;
@@ -58,9 +62,18 @@ V_DENSE = 4096  # the dense flagship: the default dense_vocab_threshold
 # which moves it by at most K * threshold in sum_k |dgamma|; the dense
 # E-step's token score, taken at such a gamma, agrees to DENSE_SCORE_RTOL.
 SSTATS_RTOL, SSTATS_ATOL_REL, SCORE_RTOL = 1e-4, 1e-6, 1e-5
+# The gamma fixed points are held against their plain version run in
+# float64: a few rows of the flagships do not converge in 50 sweeps (their
+# change grows), and there the float32 plain version itself drifts from
+# the float64 result by more than this tolerance (PERF.md, PR 3); its
+# float32 error is printed beside.
 GAMMA_RTOL = 5e-4
 DENSE_SCORE_RTOL = 1e-4
 ELBO_RTOL = 1e-4  # card vs CPU engine, small cross-check
+# The redesigned gamma kernels' times before the redesign: PERF.md, PR 2
+# (one NVIDIA H100 80GB HBM3 at 700.00 W, this script): the ragged
+# flagship's 4 bucket launches and one dense_estep call.
+EARLIER_MS = {"ragged_gamma": 4.690, "dense_gamma": 19.908}
 
 REPO = pathlib.Path(__file__).resolve().parent
 CLI_OUT = REPO / "build" / "chip_smoke_cli"
@@ -96,6 +109,30 @@ def bound(flops: float, nbytes: float):
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def exit_report(g_k, g_64, g_32, s_k, s_64, row_exit, extra, gamma_atol):
+    """A gamma kernel against its plain version in float64 (and, printed
+    only, in float32): (ok, max abs err, text).  The text also gives S*,
+    the row-sweeps the kernel computed past S*, and a histogram of each
+    row's first exitable sweep in 10-sweep bins ("never": not within the
+    sweeps it ran)."""
+    g_64 = g_64.float()
+    diff = (g_k - g_64).abs()
+    ok = bool((diff <= gamma_atol + GAMMA_RTOL * g_64.abs()).all())
+    ok = ok and abs(int(s_k) - int(s_64)) <= 1
+    err, err32 = float(diff.max()), float((g_32 - g_64).abs().max())
+    first = row_exit.long()
+    n_bins = (int(first.max()) + 9) // 10
+    hist = {f"{10 * b + 1}-{10 * b + 10}":
+            int(((first > 10 * b) & (first <= 10 * b + 10)).sum())
+            for b in range(n_bins)}
+    hist["never"] = int((first == 0).sum())
+    text = (f"S* kernel {int(s_k)} plain f64 {int(s_64)}, row-sweeps past S* "
+            f"{int(extra)}, first exitable sweep {hist}, max_abs_err vs f64 "
+            f"{err:.3e} (f32 plain vs f64 {err32:.3e}; tolerance "
+            f"{gamma_atol:g} + {GAMMA_RTOL}*|gamma|)")
+    return ok, err, text
 
 
 def zero_launches(mods) -> None:
@@ -294,15 +331,19 @@ def main() -> int:
         Db, Tb = b.ids.shape
         g0 = torch.ones((Db, K), dtype=torch.float32, device=dev)
         slots = torch.zeros((1,), dtype=torch.int64, device=dev)
+        extra = torch.zeros((1,), dtype=torch.int64, device=dev)
+        row_exit = torch.zeros((Db,), dtype=torch.int32, device=dev)
         g_k, s_k = ragged_mod.ragged_gamma(b.ids, b.cnts, g0, eeb, st.alpha,
                                            eeb_t=eeb_t, slots_out=slots,
-                                           **kw)
+                                           extra_sweeps_out=extra,
+                                           row_exit_out=row_exit, **kw)
         g_p, s_p = estep_ragged_gamma(b.ids, b.cnts, g0, eeb, st.alpha, **kw)
+        g_64, s_64 = estep_ragged_gamma(b.ids, b.cnts.double(), g0.double(),
+                                        eeb.double(), st.alpha.double(), **kw)
         torch.cuda.synchronize()
-        err = float((g_k - g_p).abs().max())
-        ok = bool(((g_k - g_p).abs()
-                   <= gamma_atol + GAMMA_RTOL * g_p.abs()).all())
-        sk, sp = int(s_k), int(s_p)
+        ok, err, fp_text = exit_report(g_k, g_64, g_p, s_k, s_64, row_exit,
+                                       extra, gamma_atol)
+        del g_64
         flops = 4.0 * K * int(slots)
         nbytes = Db * Tb * 8 + V * K * 4 + 2 * Db * K * 4 + K * 4
         b_ms, b_by = bound(flops, nbytes)
@@ -310,12 +351,11 @@ def main() -> int:
             b.ids, b.cnts, g0, eeb, st.alpha, eeb_t=eeb_t, **kw), 20)
         p_ms = cuda_ms(lambda: estep_ragged_gamma(
             b.ids, b.cnts, g0, eeb, st.alpha, **kw), 3)
-        print(f"kernel ragged_gamma bucket {i} [{Db}x{Tb}]: sweeps kernel "
-              f"{sk} plain {sp}, real slots processed {int(slots)}, "
+        print(f"kernel ragged_gamma bucket {i} [{Db}x{Tb}]: sweeps plain f32 "
+              f"{int(s_p)}, {fp_text}, real slots processed {int(slots)}, "
               f"kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} bound_ms "
-              f"{b_ms:.5f} ({b_by}), max_abs_err {err:.3e} (tolerance "
-              f"{gamma_atol:g} + {GAMMA_RTOL}*|gamma|) {'ok' if ok else 'FAIL'}")
-        if not ok or abs(sk - sp) > 1:
+              f"{b_ms:.5f} ({b_by}) {'ok' if ok else 'FAIL'}")
+        if not ok:
             raise AssertionError(f"ragged_gamma bucket {i} disagrees with "
                                  f"its plain version")
         rg["ms"] += k_ms
@@ -378,21 +418,26 @@ def main() -> int:
     dc = batch.counts
     g0 = torch.ones((dc.shape[0], K), dtype=torch.float32, device=dev)
     row_sweeps = torch.zeros((dc.shape[0],), dtype=torch.int32, device=dev)
+    row_exit = torch.zeros_like(row_sweeps)
+    extra = torch.zeros((1,), dtype=torch.int64, device=dev)
     g_k, ss_k, tok_k, s_k = dense_mod.dense_estep(dc, g0, eeb, st.alpha,
                                                   row_sweeps_out=row_sweeps,
+                                                  extra_sweeps_out=extra,
+                                                  row_exit_out=row_exit,
                                                   **kw)
     g_p, _, tok_p, s_p = estep_dense(dc, g0, eeb, st.alpha, **kw)
+    g_64, _, _, s_64 = estep_dense(dc.double(), g0.double(), eeb.double(),
+                                   st.alpha.double(), **kw)
     ss_at_k, _ = estep_dense_sstats(dc, exp_dirichlet_expectation(g_k), eeb,
                                     eps=cfg.eps)
     torch.cuda.synchronize()
-    dg_err = float((g_k - g_p).abs().max())
-    dg_ok = bool(((g_k - g_p).abs()
-                  <= gamma_atol + GAMMA_RTOL * g_p.abs()).all())
+    dg_ok, dg_err, fp_text = exit_report(g_k, g_64, g_p, s_k, s_64, row_exit,
+                                         extra, gamma_atol)
+    del g_64
     dss_ok = bool(((ss_k - ss_at_k).abs()
                    <= SSTATS_RTOL * ss_at_k.abs()
                    + SSTATS_ATOL_REL * float(ss_at_k.abs().max())).all())
     dtok_rel = abs(float(tok_k) - float(tok_p)) / abs(float(tok_p))
-    sk, sp = int(s_k), int(s_p)
     Dd, Vd = dc.shape
     # The work this input needs: each sweep of a row (frozen sweeps
     # excluded) and the final pass do 4*K FLOP for each nonzero count of
@@ -414,15 +459,14 @@ def main() -> int:
     et_k = exp_dirichlet_expectation(g_k)
     fin_ms = cuda_ms(lambda: sstats_mod.dense_sstats(dc, et_k, eeb,
                                                      eps=cfg.eps), 10)
-    dg_ok = dg_ok and dss_ok and dtok_rel <= DENSE_SCORE_RTOL and abs(sk - sp) <= 1
+    dg_ok = dg_ok and dss_ok and dtok_rel <= DENSE_SCORE_RTOL
     print(f"kernel dense_gamma [{Dd}x{Vd} {str(dc.dtype)[6:]}, K={K}]: sweeps "
-          f"kernel {sk} plain {sp}, row-sweeps computed {row_sweeps_total}, "
+          f"plain f32 {int(s_p)}, {fp_text}, row-sweeps needed "
+          f"{row_sweeps_total}, "
           f"nonzero counts {dg_nnz} ({dg_nnz / dc.numel():.4f} of the block), "
           f"kernel_ms {dg_ms:.4f} (of which final pass dense_sstats "
           f"{fin_ms:.4f}) plain_ms {dg_plain_ms:.4f} bound_ms {dg_bound:.5f} "
-          f"({dg_by}; dense form {dg_dense_bound:.5f}), gamma max_abs_err "
-          f"{dg_err:.3e} (tolerance "
-          f"{gamma_atol:g} + {GAMMA_RTOL}*|gamma|), sstats at the kernel's "
+          f"({dg_by}; dense form {dg_dense_bound:.5f}), sstats at the kernel's "
           f"gamma {'ok' if dss_ok else 'FAIL'} (tolerance {SSTATS_RTOL}*|ref| "
           f"+ {SSTATS_ATOL_REL}*max|ref|), score rel err {dtok_rel:.3e} "
           f"(tolerance {DENSE_SCORE_RTOL}) {'ok' if dg_ok else 'FAIL'}")
@@ -496,7 +540,8 @@ def main() -> int:
          "launches": launches["ragged_gamma"],
          "launches_by_path": paths["ragged_gamma"], "max_abs_err": rg["err"],
          "ms": rg["ms"], "plain_ms": rg["plain_ms"], "bound_ms": rg_bound,
-         "bound_by": rg_by, "library_ms": None},
+         "bound_by": rg_by, "library_ms": None,
+         "earlier_ms": EARLIER_MS["ragged_gamma"]},
         {"name": "dense_gamma", "route": "cuda",
          "source": "pylda_tpu_torch/csrc/dense_gamma.cu",
          "replaces": "pylda_tpu/ops/pallas_estep.py:97",
@@ -504,7 +549,7 @@ def main() -> int:
          "launches_by_path": paths["dense_gamma"], "max_abs_err": dg_err,
          "ms": dg_ms, "plain_ms": dg_plain_ms, "bound_ms": dg_bound,
          "bound_by": dg_by, "dense_form_bound_ms": dg_dense_bound,
-         "library_ms": None},
+         "library_ms": None, "earlier_ms": EARLIER_MS["dense_gamma"]},
     ]}
     print(f"nvidia-smi: {nvidia_smi()}")
     print(json.dumps(record))

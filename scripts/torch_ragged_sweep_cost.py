@@ -6,8 +6,10 @@ Times ``pylda_tpu_torch.ops.ragged.ragged_gamma`` (CUDA events, warm,
 threshold 0 so every call runs exactly ``inner`` sweeps) on random
 buckets of several row counts and widths at K=100, V=10,000, at 1 and 51
 sweeps; the difference over 50 is the cost of one sweep, the rest the
-fixed cost of a call.  Prints one line per shape and the card's name and
-power limit.
+fixed cost of a call (the kernel gathers each row's B rows once a call
+and reads them twice a sweep, from registers in buckets of width <= 128,
+else from shared memory).  Prints one line per shape, with the rate of
+those B operand reads, and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -47,7 +49,8 @@ def main():
     eeb = exp_dirichlet_expectation(lam)
     table = ragged.gather_table(eeb)
     alpha = torch.full((K,), 0.01, device=dev)
-    # 528 rows is one row a block at K=100 (4 blocks an SM x 132 SMs).
+    # 264 rows is one row a block at K=100, T <= 128 (2 blocks an SM with
+    # the register tile x 132 SMs); 396 at T=160 (3 blocks an SM).
     for D, T in ((8, 16), (8, 160), (64, 16), (64, 160), (528, 128),
                  (1056, 128), (1344, 112), (2176, 128), (4224, 128)):
         ids = torch.tensor(rng.integers(0, V, (D, T)), dtype=torch.int32,
@@ -60,10 +63,11 @@ def main():
                 ids, cnts, g0, eeb, alpha, inner_iterations=inner,
                 convergence_threshold=0.0, eeb_t=table))
         per_sweep_us = (ms[51] - ms[1]) / 50 * 1e3
-        gb = D * T * 4 * table.shape[1] / 1e9  # B rows gathered a sweep
+        # B rows read twice a sweep (phinorm, then the accumulation).
+        gb = 2 * D * T * 4 * table.shape[1] / 1e9
         print(f"D={D:5d} T={T:4d}: call at 1 sweep {ms[1] * 1e3:8.1f} us, "
-              f"per sweep {per_sweep_us:7.2f} us, B rows "
-              f"{gb / (per_sweep_us * 1e-6):6.2f} GB/s")
+              f"per sweep {per_sweep_us:7.2f} us, B operand reads "
+              f"{gb / (per_sweep_us * 1e-6):7.1f} GB/s")
 
 
 if __name__ == "__main__":

@@ -14,7 +14,9 @@ count within +-1 and an atol of 5e-4 + K * threshold: a row whose change
 sits at the threshold may freeze a sweep apart in the two versions, and
 that sweep moves it by at most K * threshold in sum_k |dgamma|.  The dense
 E-step's token score, taken at a gamma within those tolerances, agrees to
-rel 1e-4.
+rel 1e-4.  Both gamma kernels run row after row (``csrc/row_fixed_point.cuh``):
+cases here also take the re-run of rows past S* and rows longer than the
+shared-memory slot buffer (166 slots at K=100, 63 at K=256).
 """
 
 import numpy as np
@@ -95,7 +97,7 @@ def test_dense_sstats_kernel_refuses_large_k(cuda):
         sstats_mod.dense_sstats(ct, et, eeb)
 
 
-def _ragged_inputs(D, T, K, V, dev, seed=0):
+def _ragged_inputs(D, T, K, V, dev, seed=0, lam_shape=1.0):
     rng = np.random.default_rng(seed)
     ids = rng.integers(0, V, (D, T)).astype(np.int32)
     cnts = rng.integers(1, 5, (D, T)).astype(np.float32)
@@ -103,7 +105,7 @@ def _ragged_inputs(D, T, K, V, dev, seed=0):
     pad = np.arange(T)[None, :] >= fill[:, None]
     ids[pad], cnts[pad] = 0, 0.0
     ids[-3:], cnts[-3:] = 0, 0.0  # padded doc rows
-    lam = rng.gamma(1.0, 1.0, (K, V))
+    lam = rng.gamma(lam_shape, 1.0, (K, V))
     eeb = exp_dirichlet_expectation(torch.tensor(lam, device=dev).float())
     g0 = torch.ones((D, K), dtype=torch.float32, device=dev)
     alpha = torch.full((K,), 0.1, dtype=torch.float32, device=dev)
@@ -144,11 +146,11 @@ def test_ragged_kernel_exit_rule_matches_plain(cuda, D, T, K, V, thresh):
     torch.testing.assert_close(g, g_p, rtol=5e-4, atol=5e-4 + K * thresh)
 
 
-def _dense_inputs(D, V, K, pad_rows, bf16, dev, seed=0):
+def _dense_inputs(D, V, K, pad_rows, bf16, dev, seed=0, lam_shape=1.0):
     rng = np.random.default_rng(seed)
     counts = rng.poisson(0.1, (D, V)).astype(np.float32)
     counts = np.pad(counts, ((0, pad_rows), (0, 0)))  # padded doc rows
-    lam = rng.gamma(1.0, 1.0, (K, V))
+    lam = rng.gamma(lam_shape, 1.0, (K, V))
     ct = torch.tensor(counts, device=dev)
     if bf16:
         ct = ct.to(torch.bfloat16)
@@ -214,6 +216,78 @@ def test_dense_estep_refuses_large_k(cuda):
     ct, g0, eeb, alpha = _dense_inputs(8, 100, 257, 0, False, cuda)
     with pytest.raises(NotImplementedError):
         dense_mod.dense_estep(ct, g0, eeb, alpha)
+
+
+def _gamma_call(layout, inputs, kw, **outs):
+    """(gamma, sweeps) of the kernel and of its plain version."""
+    if layout == "ragged":
+        ids, cnts, g0, eeb, alpha, _ = inputs
+        got = ragged_mod.ragged_gamma(ids, cnts, g0, eeb, alpha, **kw, **outs)
+        want = estep_ragged_gamma(ids, cnts, g0, eeb, alpha, **kw)
+        return got, want
+    ct, g0, eeb, alpha = inputs
+    g, _, _, s = dense_mod.dense_estep(ct, g0, eeb, alpha, **kw, **outs)
+    g_p, _, _, s_p = estep_dense(ct, g0, eeb, alpha, **kw)
+    return (g, s), (g_p, s_p)
+
+
+@pytest.mark.parametrize("layout", ["ragged", "dense"])
+def test_gamma_kernel_s_star_before_cap(cuda, layout):
+    """Peaked topics at threshold 1e-3: the batch exits before the cap, and
+    rows stalled but not done at S* ran past it and are re-run."""
+    if layout == "ragged":
+        inputs = _ragged_inputs(300, 40, 13, 500, cuda, seed=2,
+                                lam_shape=0.05)
+    else:
+        inputs = _dense_inputs(300, 500, 13, 6, True, cuda, seed=2,
+                               lam_shape=0.05)
+    K = 13
+    kw = dict(inner_iterations=50, convergence_threshold=1e-3,
+              stall_patience=6)
+    extra = torch.zeros((1,), dtype=torch.int64, device=cuda)
+    first = torch.zeros((300 + 6 * (layout == "dense"),), dtype=torch.int32,
+                        device=cuda)
+    (g, s), (g_p, s_p) = _gamma_call(layout, inputs, kw,
+                                     extra_sweeps_out=extra,
+                                     row_exit_out=first)
+    torch.cuda.synchronize()
+    assert int(s_p) < 50 and abs(int(s) - int(s_p)) <= 1
+    assert int(extra) > 0  # the re-run of rows past S* happened
+    assert int(first.max()) <= int(s) and int(first.min()) >= 1
+    torch.testing.assert_close(g, g_p, rtol=5e-4, atol=5e-4 + K * 1e-3)
+
+
+# Rows longer than the slot buffer, rows on both sides of the register
+# tile's 128 entries, K = 256, bf16 and f32 dense counts:
+# (layout, rows, width (T or V), K, bf16).
+_LONG_ROWS = [
+    ("ragged", 40, 300, 100, False),  # up to 300 live slots > 166
+    ("ragged", 30, 100, 256, False),  # up to 100 live slots > 63
+    ("dense", 40, 3000, 100, True),  # ~300 nonzeros a row > 166
+    ("dense", 40, 1400, 100, True),  # ~140: in registers, or not, a row
+    ("dense", 40, 700, 256, False),  # ~70 nonzeros a row, some > 63
+    ("dense", 40, 700, 256, True),
+]
+
+
+@pytest.mark.parametrize("layout,rows,width,K,bf16", _LONG_ROWS)
+@pytest.mark.parametrize("thresh", [0.0, 1e-5])
+def test_gamma_kernel_long_rows_match_plain(cuda, layout, rows, width, K,
+                                            bf16, thresh):
+    if layout == "ragged":
+        inputs = _ragged_inputs(rows, width, K, 5000, cuda, seed=4)
+    else:
+        inputs = _dense_inputs(rows, width, K, 3, bf16, cuda, seed=4)
+    kw = dict(inner_iterations=12 if thresh == 0.0 else 50,
+              convergence_threshold=thresh, stall_patience=6)
+    (g, s), (g_p, s_p) = _gamma_call(layout, inputs, kw)
+    torch.cuda.synchronize()
+    if thresh == 0.0:
+        assert int(s) == int(s_p) == 12
+        torch.testing.assert_close(g, g_p, rtol=1e-4, atol=1e-4)
+    else:
+        assert abs(int(s) - int(s_p)) <= 1
+        torch.testing.assert_close(g, g_p, rtol=5e-4, atol=5e-4 + K * thresh)
 
 
 @pytest.mark.parametrize(
