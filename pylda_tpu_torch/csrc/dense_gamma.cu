@@ -35,58 +35,27 @@
 // core's register tile).  What bounds it: the latency of a sweep's block
 // reductions and fast digamma, which 2 blocks an SM only partly hide, and
 // for longer rows shared-memory bandwidth (8 FMAs for every two float4
-// loads).  Rows with more
-// nonzeros than the slot buffer (nmax, 166 at K=100, 63 at K=256) stream
-// their columns in windows from L2 every sweep.
+// loads).  A row with more nonzeros than the slot buffer (nmax: 166 at
+// K=100, 63 at K=256) writes its compacted (column, count) list once to the
+// block's scratch in global memory and streams it in windows of nmax
+// nonzeros each sweep, gathering each window's B rows from L2: the L2
+// reads of such a row are its nonzeros x 4 ldb bytes a sweep.
 
 #include "row_fixed_point.cuh"
 
 extern "C" {
 
-// counts [D, ld] bf16 (counts_bf16 != 0) or f32, the first V columns
-// used; table [V, ldb] f32 = expElogbeta^T (ldb = K rounded up to 4, zero
-// columns past K, 16-byte aligned rows); the rest as in
-// pylda_ragged_gamma.  D >= 1, 1 <= V <= ld, K <= 256.  Returns the
+// params: a Params (row_fixed_point.cuh) with ids null, cnts the counts
+// [D, ld] (bf16 if cnts_bf16, else f32; the first L = V columns used) and
+// table [V, ldb] = expElogbeta^T; stream: a cudaStream_t.  Returns the
 // cudaError_t of the launch.
-int pylda_dense_gamma(const void* counts, int counts_bf16, const void* table,
-                      const void* alpha, const void* gamma0, const void* et0,
-                      void* gamma, void* not_exitable, void* queues,
-                      void* scratch, void* sweeps_out, void* row_sweeps,
-                      void* row_exit, void* extra_out, int D, int ld, int V,
-                      int K, int ldb, int inner_iterations, float threshold,
-                      float eps, int patience, int use_stall, void* stream) {
-  Params p;
-  p.ids = nullptr;
-  p.cnts = counts;
-  p.table = static_cast<const float*>(table);
-  p.alpha = static_cast<const float*>(alpha);
-  p.gamma0 = static_cast<const float*>(gamma0);
-  p.et0 = static_cast<const float*>(et0);
-  p.gamma = static_cast<float*>(gamma);
-  p.not_exitable = static_cast<int*>(not_exitable);
-  p.queues = static_cast<int*>(queues);
-  p.row_run = static_cast<int*>(scratch);
-  p.row_nnz = p.row_run + D;
-  p.sweeps_out = static_cast<int*>(sweeps_out);
-  p.row_sweeps = static_cast<int*>(row_sweeps);
-  p.row_exit = static_cast<int*>(row_exit);
-  p.slots_out = nullptr;
-  p.extra_out = static_cast<unsigned long long*>(extra_out);
-  p.D = D;
-  p.ld = ld;
-  p.L = V;
-  p.K = K;
-  p.ldb = ldb;
-  p.inner_iterations = inner_iterations;
-  p.threshold = threshold;
-  p.eps = eps;
-  p.patience = patience;
-  p.use_stall = use_stall;
+int pylda_dense_gamma(const void* params, void* stream) {
+  Params p = *static_cast<const Params*>(params);
+  if (p.ids) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (V > ld) return (int)cudaErrorInvalidValue;
   // Rows of up to 128 nonzeros take the register tile, longer ones the
   // shared-memory sweep of the same kernel.
-  if (counts_bf16)
+  if (p.cnts_bf16)
     return (int)launch_row_fixed_point<__nv_bfloat16>(p, true, s);
   return (int)launch_row_fixed_point<float>(p, true, s);
 }

@@ -33,59 +33,25 @@
 // block reductions and fast digamma, which 2-4 blocks an SM only partly
 // hide, and in wider buckets shared-memory bandwidth (the row's B read
 // twice a sweep, 8 FMAs for every two float4 loads); for a small bucket,
-// one row's sweeps in sequence.  Rows wider than the slot buffer (nmax
-// slots, ~72 KB of shared memory: 166 at K=100, 63 at K=256) stream their
-// B in windows from L2 every sweep.
+// one row's sweeps in sequence.  A row with more live slots than the slot
+// buffer (nmax slots, ~72 KB of shared memory: 166 at K=100, 63 at K=256)
+// writes its compacted (id, count) list once to the block's scratch in
+// global memory and streams it in windows of nmax live slots each sweep,
+// gathering each window's B rows from L2.
 
 #include "row_fixed_point.cuh"
 
 extern "C" {
 
-// ids [D, T] int32, cnts [D, T] f32, table [V, ldb] f32 (ldb = K rounded
-// up to 4, zero columns past K, 16-byte aligned rows), alpha [K], gamma0,
-// et0 and gamma [D, K] f32; not_exitable [inner_iterations] and queues [2]
-// int32, zeroed; scratch [2, D] int32; sweeps_out [1] int32; row_sweeps
-// and row_exit [D] int32 or null; slots_out and extra_out [1] uint64 or
-// null.  All row-major and contiguous on the device, D >= 1, K <= 256.
-// Returns the cudaError_t of the launch.
-int pylda_ragged_gamma(const void* ids, const void* cnts, const void* table,
-                       const void* alpha, const void* gamma0, const void* et0,
-                       void* gamma, void* not_exitable, void* queues,
-                       void* scratch, void* sweeps_out, void* row_sweeps,
-                       void* row_exit, void* slots_out, void* extra_out,
-                       int D, int T, int K, int ldb, int inner_iterations,
-                       float threshold, float eps, int patience,
-                       int use_stall, void* stream) {
-  Params p;
-  p.ids = static_cast<const int*>(ids);
-  p.cnts = cnts;
-  p.table = static_cast<const float*>(table);
-  p.alpha = static_cast<const float*>(alpha);
-  p.gamma0 = static_cast<const float*>(gamma0);
-  p.et0 = static_cast<const float*>(et0);
-  p.gamma = static_cast<float*>(gamma);
-  p.not_exitable = static_cast<int*>(not_exitable);
-  p.queues = static_cast<int*>(queues);
-  p.row_run = static_cast<int*>(scratch);
-  p.row_nnz = p.row_run + D;
-  p.sweeps_out = static_cast<int*>(sweeps_out);
-  p.row_sweeps = static_cast<int*>(row_sweeps);
-  p.row_exit = static_cast<int*>(row_exit);
-  p.slots_out = static_cast<unsigned long long*>(slots_out);
-  p.extra_out = static_cast<unsigned long long*>(extra_out);
-  p.D = D;
-  p.ld = T;
-  p.L = T;
-  p.K = K;
-  p.ldb = ldb;
-  p.inner_iterations = inner_iterations;
-  p.threshold = threshold;
-  p.eps = eps;
-  p.patience = patience;
-  p.use_stall = use_stall;
+// params: a Params (row_fixed_point.cuh) with ids and cnts [D, T] int32 and
+// f32 (cnts_bf16 0, ld = L = T) and table [V, ldb] = expElogbeta^T;
+// stream: a cudaStream_t.  Returns the cudaError_t of the launch.
+int pylda_ragged_gamma(const void* params, void* stream) {
+  Params p = *static_cast<const Params*>(params);
+  if (!p.ids || p.cnts_bf16) return (int)cudaErrorInvalidValue;
   // Buckets whose rows all fit the register tile take it.
   return (int)launch_row_fixed_point<float>(
-      p, T <= kWarps * kRegSlots, static_cast<cudaStream_t>(stream));
+      p, p.L <= kWarps * kRegSlots, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -45,8 +45,11 @@
 // there: B is read from L2 once a row instead of once a sweep.  The host
 // sizes the slot buffer (nmax) to ~72 KB of shared memory a block (3-4
 // blocks an SM, 2 with the register tile below).  A row with more live
-// entries than nmax streams instead: each sweep walks the row in windows
-// of nmax entries, compacting and gathering each window from L2.
+// entries than nmax streams instead: its compaction writes the (id, count)
+// list to the block's own scratch in global memory (lists), once a row, and
+// each sweep loads that list in windows of nmax live entries and gathers
+// each window's B rows from L2.  So a streamed row costs ceil(n / nmax)
+// windows a sweep, never a pass over its zero counts.
 //
 // Per sweep (plain f32 FMAs, no TF32: the reference is plain f32):
 //   A. two threads a slot, each over alternate 4-float4 runs of topics:
@@ -96,9 +99,12 @@ constexpr int kMaxHist = 256;
 // Shared memory a block aims at: 3 blocks an SM (227 KB).
 constexpr int kBlockSmemTarget = 72 * 1024;
 
+// The kernel's arguments, and the whole C interface of both entries: each
+// takes a pointer to a Params and a stream (ops/row_fixed_point.py mirrors
+// the struct field for field).  The launcher sets nmax and nhist.
 struct Params {
   const int* ids;        // [D, ld] (ragged) or null (dense: id = column)
-  const void* cnts;      // [D, ld] f32 or bf16
+  const void* cnts;      // [D, ld] f32 or bf16 (cnts_bf16)
   const float* table;    // [V, ldb] expElogbeta^T, zero columns past K
   const float* alpha;    // [K]
   const float* gamma0;   // [D, K]
@@ -113,7 +119,11 @@ struct Params {
   int* row_exit;         // [D] or null: first exitable sweep (1-based) or 0
   unsigned long long* slots_out;  // [1] or null: += nnz x min(run, S*)
   unsigned long long* extra_out;  // [1] or null: += row-sweeps past S*
+  int* lists;            // [list_blocks, 2, L] scratch: a block's streamed
+                         // row as L ids, then L counts (f32 bits)
   int D, ld, L, K, ldb;
+  int cnts_bf16;
+  int list_blocks;
   int nmax, nhist;
   int inner_iterations;
   float threshold;
@@ -197,36 +207,60 @@ __device__ __forceinline__ float2 block_sum2(float a, float b,
   return out;
 }
 
-// Compacts the live entries of row's [w0, w1) into cnt_s / ids_s, in
-// order, keeping the first `cap`; returns how many there are (all of
-// them, also past cap).  Each thread reads one contiguous run of entries.
+// The block's scratch list in global memory: L ids, then L counts.
+__device__ __forceinline__ int* block_list(const Params& p) {
+  return p.lists + (size_t)blockIdx.x * 2 * p.L;
+}
+
+// Compacts the live entries of `row`, in order: into cnt_s / ids_s when
+// there are at most nmax of them, else into the block's list (a streamed
+// row).  Returns how many there are.  Each thread reads one contiguous run
+// of entries.
 template <typename CT>
 __device__ __forceinline__ int compact(const Params& p, const Layout& L,
-                                       float* smem, int row, int w0, int w1,
-                                       int cap) {
-  const int per = (w1 - w0 + kThreads - 1) / kThreads;
-  const int j0 = min(w0 + (int)threadIdx.x * per, w1);
-  const int j1 = min(j0 + per, w1);
+                                       float* smem, int row) {
+  const int per = (p.L + kThreads - 1) / kThreads;
+  const int j0 = min((int)threadIdx.x * per, p.L);
+  const int j1 = min(j0 + per, p.L);
   const CT* c = static_cast<const CT*>(p.cnts) + (size_t)row * p.ld;
   int mine = 0;
   for (int j = j0; j < j1; ++j) mine += to_float(c[j]) != 0.f;
   int total;
   int pos = block_excl_scan(mine, reinterpret_cast<int*>(smem + L.scan),
                             &total);
-  float* cnt_s = smem + L.cnt;
-  int* ids_s = reinterpret_cast<int*>(smem + L.ids);
+  float* cnt_out = smem + L.cnt;
+  int* ids_out = reinterpret_cast<int*>(smem + L.ids);
+  if (total > p.nmax) {
+    ids_out = block_list(p);
+    cnt_out = reinterpret_cast<float*>(ids_out + p.L);
+  }
   if (mine) {
-    for (int j = j0; j < j1 && pos < cap; ++j) {
+    for (int j = j0; j < j1; ++j) {
       const float v = to_float(c[j]);
       if (v != 0.f) {
-        cnt_s[pos] = v;
-        ids_s[pos] = p.ids ? p.ids[(size_t)row * p.ld + j] : j;
+        cnt_out[pos] = v;
+        ids_out[pos] = p.ids ? p.ids[(size_t)row * p.ld + j] : j;
         ++pos;
       }
     }
   }
-  __syncthreads();
+  __syncthreads();  // also makes the list's global writes visible
   return total;
+}
+
+// Loads live entries [w0, w0 + m) of a streamed row from the block's list
+// into cnt_s / ids_s.  (No thread still reads them: step A of the window
+// before ended at a barrier.)
+__device__ __forceinline__ void load_window(const Params& p, const Layout& L,
+                                            float* smem, int w0, int m) {
+  const int* ids_g = block_list(p);
+  const float* cnt_g = reinterpret_cast<const float*>(ids_g + p.L);
+  int* ids_s = reinterpret_cast<int*>(smem + L.ids);
+  for (int i = threadIdx.x; i < m; i += kThreads) {
+    smem[L.cnt + i] = cnt_g[w0 + i];
+    ids_s[i] = ids_g[w0 + i];
+  }
+  __syncthreads();
 }
 
 // Gathers the B rows of the n compacted entries into the slot buffer.
@@ -381,12 +415,12 @@ __device__ __forceinline__ RowRun run_row(const Params& p, const Layout& L,
   const bool mine = tid < K;
   float gam = mine ? p.gamma0[base + tid] : 0.f;
   const float alpha = mine ? p.alpha[tid] : 0.f;
-  // Compaction of the whole row; with more live entries than the buffer
-  // holds, each sweep compacts and gathers it window by window instead.
-  const int n = compact<CT>(p, L, smem, row, 0, p.L, p.nmax);
+  // Compaction of the whole row, once; with more live entries than the
+  // buffer holds, each sweep loads and gathers them window by window.
+  const int n = compact<CT>(p, L, smem, row);
   const bool resident = n <= p.nmax;
   if (resident) gather(p, L, smem, n);
-  const int windows = resident ? 1 : (p.L + p.nmax - 1) / p.nmax;
+  const int windows = resident ? 1 : (n + p.nmax - 1) / p.nmax;
   const bool freeze = p.threshold > 0.f;
   const int q = tid % L.k4, g = tid / L.k4;
   const int lane = tid % 32, warp = tid / 32;
@@ -420,9 +454,9 @@ __device__ __forceinline__ RowRun run_row(const Params& p, const Layout& L,
         int m = n;
         if (!resident) {
           const int w0 = w * p.nmax;
-          m = compact<CT>(p, L, smem, row, w0, min(w0 + p.nmax, p.L),
-                          p.nmax);
-          if (m) gather(p, L, smem, m);
+          m = min(p.nmax, n - w0);
+          load_window(p, L, smem, w0, m);
+          gather(p, L, smem, m);
         }
         if (m) acc = sweep_slots(p, L, smem, m, acc);
       }
@@ -536,12 +570,14 @@ row_fixed_point_kernel(Params p) {
 }
 
 // Sizes the slot buffer and launches the kernel cooperatively: as many
-// blocks as fit on the card at once, at most one a row.
+// blocks as fit on the card at once, at most one a row, and, where a row
+// can stream (L > nmax), at most list_blocks (never binding: the buffer
+// then takes ~72 KB a block, so 3 blocks an SM).
 template <typename CT>
 cudaError_t launch_row_fixed_point(Params& p, bool registers,
                                    cudaStream_t stream) {
   if (p.D < 1 || p.K < 1 || p.K > kThreads || p.inner_iterations < 1 ||
-      p.L < 0 || p.ldb != 4 * ((p.K + 3) / 4))
+      p.L < 0 || p.L > p.ld || p.ldb != 4 * ((p.K + 3) / 4))
     return cudaErrorInvalidValue;
   p.nhist = min(p.inner_iterations, kMaxHist);
   const Layout fixed(p.K, 0, p.nhist);
@@ -550,6 +586,9 @@ cudaError_t launch_row_fixed_point(Params& p, bool registers,
              per_slot;
   if (nmax < 16) nmax = 16;
   p.nmax = max(min(nmax, p.L), 1);
+  const bool streams = p.L > p.nmax;
+  if (streams && (!p.lists || p.list_blocks < 1))
+    return cudaErrorInvalidValue;
   const size_t smem =
       sizeof(float) * (size_t)Layout(p.K, p.nmax, p.nhist).total;
   auto kern = registers && p.K <= 4 * 32 ? row_fixed_point_kernel<CT, true>
@@ -568,6 +607,7 @@ cudaError_t launch_row_fixed_point(Params& p, bool registers,
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
   int grid = per_sm * sms;
   if (p.D < grid) grid = p.D;
+  if (streams && p.list_blocks < grid) grid = p.list_blocks;
   void* args[] = {&p};
   err = cudaLaunchCooperativeKernel((const void*)kern, dim3(grid),
                                     dim3(kThreads), args, smem, stream);

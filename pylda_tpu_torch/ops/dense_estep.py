@@ -17,15 +17,13 @@ kernel does not take raises.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional, Tuple
 
 import torch
 
-from pylda_tpu_torch.ops import _build
+from pylda_tpu_torch.ops import row_fixed_point
 from pylda_tpu_torch.ops.dirichlet import exp_dirichlet_expectation
 from pylda_tpu_torch.ops.estep import estep_dense
-from pylda_tpu_torch.ops.ragged import _ptr, fixed_point_buffers, gather_table
 from pylda_tpu_torch.ops.sstats import dense_sstats
 
 # Launches of the gamma kernel made by dense_estep (one per call on CUDA
@@ -34,21 +32,9 @@ LAUNCHES = 0
 # Largest topic count the kernel takes (a thread a topic).
 MAX_TOPICS = 256
 
-_BOUND = False
 
-
-def _lib() -> ctypes.CDLL:
-    global _BOUND
-    lib = _build.library("dense_gamma")
-    if not _BOUND:
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.pylda_dense_gamma.argtypes = [
-            p, i, p, p, p, p, p, p, p, p, p, p, p, p,
-            i, i, i, i, i, i, f, f, i, i, p,
-        ]
-        lib.pylda_dense_gamma.restype = i
-        _BOUND = True
-    return lib
+def _kernel():
+    return row_fixed_point.entry("dense_gamma")
 
 
 def dense_estep(
@@ -113,23 +99,11 @@ def dense_estep(
                 exp_elog_beta.new_zeros(()),
                 torch.zeros((), dtype=torch.int32, device=dev))
     counts = counts.contiguous()
-    table = gather_table(exp_elog_beta)
-    ptrs, gamma, sweeps, _keep = fixed_point_buffers(
-        gamma_init, inner_iterations, row_sweeps_out=row_sweeps_out,
+    gamma, sweeps = row_fixed_point.launch(
+        _kernel(), None, counts, V, row_fixed_point.gather_table(exp_elog_beta),
+        alpha, gamma_init, inner_iterations, convergence_threshold, eps,
+        stall_patience, row_sweeps_out=row_sweeps_out,
         row_exit_out=row_exit_out, extra_sweeps_out=extra_sweeps_out)
-    alpha = alpha.contiguous()
-    use_stall = stall_patience > 0 and convergence_threshold > 0.0
-    with torch.cuda.device(dev):
-        rc = _lib().pylda_dense_gamma(
-            counts.data_ptr(), int(counts.dtype == torch.bfloat16),
-            table.data_ptr(), alpha.data_ptr(), *ptrs,
-            _ptr(extra_sweeps_out), D, Vc, V, K, table.shape[1],
-            int(inner_iterations), float(convergence_threshold), float(eps),
-            int(stall_patience), int(use_stall),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"dense_gamma kernel launch failed: cudaError {rc}")
     LAUNCHES += 1
     # The final pass at the EXACT expectation of the converged gamma.
     sstats, token_score = dense_sstats(

@@ -8,95 +8,28 @@ stall exit, loop exit only when every row is exitable).  For CUDA tensors
 note in ``csrc/ragged_gamma.cu``, design in ``csrc/row_fixed_point.cuh``);
 for CPU tensors it runs the plain version,
 ``pylda_tpu_torch.ops.estep.estep_ragged_gamma``.  A CUDA tensor the
-kernel does not take raises.  ``gather_table`` and ``fixed_point_buffers``
-serve the dense kernel's wrapper (``ops/dense_estep.py``) too.
+kernel does not take raises.  The launch itself, shared with the dense
+kernel's wrapper, is ``ops/row_fixed_point.py``.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional, Tuple
 
 import torch
 
-from pylda_tpu_torch.ops import _build
-from pylda_tpu_torch.ops.dirichlet import exp_dirichlet_expectation
+from pylda_tpu_torch.ops import row_fixed_point
 from pylda_tpu_torch.ops.estep import estep_ragged_gamma
+from pylda_tpu_torch.ops.row_fixed_point import gather_table
 
 # Kernel launches made by ragged_gamma (one per call on CUDA tensors).
 LAUNCHES = 0
 # Largest topic count the kernel takes (a thread a topic).
 MAX_TOPICS = 256
 
-_BOUND = False
 
-
-def _lib() -> ctypes.CDLL:
-    global _BOUND
-    lib = _build.library("ragged_gamma")
-    if not _BOUND:
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.pylda_ragged_gamma.argtypes = [
-            p, p, p, p, p, p, p, p, p, p, p, p, p, p, p,
-            i, i, i, i, i, f, f, i, i, p,
-        ]
-        lib.pylda_ragged_gamma.restype = i
-        _BOUND = True
-    return lib
-
-
-def gather_table(exp_elog_beta: torch.Tensor) -> torch.Tensor:
-    """expElogbeta^T as the kernels gather it: [V, ldb] with ldb = K
-    rounded up to a multiple of 4 (zero columns), so each row is whole
-    16-byte loads.  Callers running several buckets against one
-    expElogbeta build it once and pass it as ``eeb_t``."""
-    K, V = exp_elog_beta.shape
-    ldb = -(-K // 4) * 4
-    if ldb == K:
-        return exp_elog_beta.T.contiguous()
-    table = exp_elog_beta.new_zeros((V, ldb))
-    table[:, :K] = exp_elog_beta.T
-    return table
-
-
-def _ptr(t: Optional[torch.Tensor]):
-    return None if t is None else t.data_ptr()
-
-
-def _check_out(t: Optional[torch.Tensor], dtype, shape, dev, name: str):
-    if t is not None and (t.dtype != dtype or tuple(t.shape) != shape
-                          or t.device != dev or not t.is_contiguous()):
-        raise ValueError(f"{name} must be a contiguous {dtype} tensor of "
-                         f"shape {shape} on the device")
-
-
-def fixed_point_buffers(gamma_init: torch.Tensor, inner_iterations: int,
-                        row_sweeps_out=None, row_exit_out=None,
-                        extra_sweeps_out=None) -> tuple:
-    """The state both row-resident kernels (``csrc/row_fixed_point.cuh``)
-    take: returns ``(pointers, gamma, sweeps, keep)`` — the device
-    pointers of their arguments gamma0 .. row_exit in order, the output
-    gamma and sweep count, and the scratch tensors, to be held until the
-    launch is enqueued.  Checks the optional outputs."""
-    D, K = gamma_init.shape
-    dev = gamma_init.device
-    _check_out(row_sweeps_out, torch.int32, (D,), dev, "row_sweeps_out")
-    _check_out(row_exit_out, torch.int32, (D,), dev, "row_exit_out")
-    _check_out(extra_sweeps_out, torch.int64, (1,), dev, "extra_sweeps_out")
-    gamma0 = gamma_init.contiguous()
-    # The first expEtheta uses the exact digamma, as the JAX loop does.
-    et0 = exp_dirichlet_expectation(gamma0).contiguous()
-    gamma = torch.empty_like(gamma0)
-    not_exitable = torch.zeros((inner_iterations,), dtype=torch.int32,
-                               device=dev)
-    queues = torch.zeros((2,), dtype=torch.int32, device=dev)
-    scratch = torch.empty((2, D), dtype=torch.int32, device=dev)
-    sweeps = torch.empty((), dtype=torch.int32, device=dev)
-    keep = (gamma0, et0, not_exitable, queues, scratch)
-    ptrs = [gamma0.data_ptr(), et0.data_ptr(), gamma.data_ptr(),
-            not_exitable.data_ptr(), queues.data_ptr(), scratch.data_ptr(),
-            sweeps.data_ptr(), _ptr(row_sweeps_out), _ptr(row_exit_out)]
-    return ptrs, gamma, sweeps, keep
+def _kernel():
+    return row_fixed_point.entry("ragged_gamma")
 
 
 def ragged_gamma(
@@ -113,6 +46,7 @@ def ragged_gamma(
     slots_out: Optional[torch.Tensor] = None,
     extra_sweeps_out: Optional[torch.Tensor] = None,
     row_exit_out: Optional[torch.Tensor] = None,
+    row_sweeps_out: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(gamma [D, K], sweeps_used 0-d int32) — see ``estep_ragged_gamma``.
 
@@ -126,7 +60,10 @@ def ragged_gamma(
       row-sweeps the kernel's row-major order computed beyond those: the
       first run of each row that ran past the loop's sweep count;
     - ``row_exit_out`` ([D] int32) gets each row's first exitable sweep
-      (1-based; 0 if it never was)."""
+      (1-based; 0 if it never was);
+    - ``row_sweeps_out`` ([D] int32) has added to each row the number of
+      sweeps the batch loop updates it in (fewer than the sweeps used
+      only for a row that was done and froze)."""
     global LAUNCHES
     if not ids.is_cuda:
         return estep_ragged_gamma(
@@ -164,23 +101,10 @@ def ragged_gamma(
     if D == 0:
         return gamma_init.clone(), torch.zeros((), dtype=torch.int32,
                                                device=dev)
-    _check_out(slots_out, torch.int64, (1,), dev, "slots_out")
-    ptrs, gamma, sweeps, _keep = fixed_point_buffers(
-        gamma_init, inner_iterations, row_exit_out=row_exit_out,
+    gamma, sweeps = row_fixed_point.launch(
+        _kernel(), ids, cnts, T, eeb_t, alpha, gamma_init, inner_iterations,
+        convergence_threshold, eps, stall_patience, row_exit_out=row_exit_out,
+        row_sweeps_out=row_sweeps_out, slots_out=slots_out,
         extra_sweeps_out=extra_sweeps_out)
-    ids = ids.contiguous()
-    cnts = cnts.contiguous()
-    alpha = alpha.contiguous()
-    use_stall = stall_patience > 0 and convergence_threshold > 0.0
-    with torch.cuda.device(dev):
-        rc = _lib().pylda_ragged_gamma(
-            ids.data_ptr(), cnts.data_ptr(), eeb_t.data_ptr(),
-            alpha.data_ptr(), *ptrs, _ptr(slots_out), _ptr(extra_sweeps_out),
-            D, T, K, ldb, int(inner_iterations), float(convergence_threshold),
-            float(eps), int(stall_patience), int(use_stall),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"ragged_gamma kernel launch failed: cudaError {rc}")
     LAUNCHES += 1
     return gamma, sweeps

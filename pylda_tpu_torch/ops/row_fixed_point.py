@@ -1,0 +1,159 @@
+"""Host side of the row-resident gamma fixed point (``csrc/row_fixed_point.cuh``),
+shared by the wrappers of its two kernels, ``ops/ragged.py::ragged_gamma``
+and ``ops/dense_estep.py::dense_estep``.
+
+Both C entries take the same two arguments, a pointer to the core's
+``Params`` struct (mirrored here field for field) and a CUDA stream::
+
+    int pylda_ragged_gamma(const void* params, void* stream);
+    int pylda_dense_gamma(const void* params, void* stream);
+
+``launch`` allocates the scratch the kernel needs, fills a ``Params``,
+makes the call and returns the output gamma and sweep count.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Callable, Optional, Tuple
+
+import torch
+
+from pylda_tpu_torch.ops import _build
+from pylda_tpu_torch.ops.dirichlet import exp_dirichlet_expectation
+
+# The blocks of one streamed row's scratch list an SM needs: a row longer
+# than the slot buffer implies a ~72 KB buffer, so 3 blocks an SM.
+LIST_BLOCKS_PER_SM = 3
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+class Params(ctypes.Structure):
+    """``struct Params`` of ``csrc/row_fixed_point.cuh``; the launcher sets
+    ``nmax`` and ``nhist``."""
+
+    _fields_ = [
+        ("ids", _P), ("cnts", _P), ("table", _P), ("alpha", _P),
+        ("gamma0", _P), ("et0", _P), ("gamma", _P), ("not_exitable", _P),
+        ("queues", _P), ("row_run", _P), ("row_nnz", _P),
+        ("sweeps_out", _P), ("row_sweeps", _P), ("row_exit", _P),
+        ("slots_out", _P), ("extra_out", _P), ("lists", _P),
+        ("D", _I), ("ld", _I), ("L", _I), ("K", _I), ("ldb", _I),
+        ("cnts_bf16", _I), ("list_blocks", _I), ("nmax", _I), ("nhist", _I),
+        ("inner_iterations", _I), ("threshold", _F), ("eps", _F),
+        ("patience", _I), ("use_stall", _I),
+    ]
+
+
+def bind(lib: ctypes.CDLL, name: str) -> Callable:
+    """The C entry ``name`` of ``lib`` with its argument types set."""
+    fn = getattr(lib, name)
+    fn.argtypes = [_P, _P]
+    fn.restype = _I
+    return fn
+
+
+_ENTRIES = {}
+
+
+def entry(source: str) -> Callable:
+    """The bound entry ``pylda_<source>`` of ``csrc/<source>.cu``."""
+    fn = _ENTRIES.get(source)
+    if fn is None:
+        fn = _ENTRIES[source] = bind(_build.library(source), f"pylda_{source}")
+    return fn
+
+
+def gather_table(exp_elog_beta: torch.Tensor) -> torch.Tensor:
+    """expElogbeta^T as the kernels gather it: [V, ldb] with ldb = K
+    rounded up to a multiple of 4 (zero columns), so each row is whole
+    16-byte loads.  Callers running several buckets against one
+    expElogbeta build it once and pass it as ``eeb_t``."""
+    K, V = exp_elog_beta.shape
+    ldb = -(-K // 4) * 4
+    if ldb == K:
+        return exp_elog_beta.T.contiguous()
+    table = exp_elog_beta.new_zeros((V, ldb))
+    table[:, :K] = exp_elog_beta.T
+    return table
+
+
+def check_out(t: Optional[torch.Tensor], dtype, shape, dev, name: str):
+    """Raises unless an optional output is None or a contiguous tensor of
+    this dtype and shape on dev."""
+    if t is not None and (t.dtype != dtype or tuple(t.shape) != shape
+                          or t.device != dev or not t.is_contiguous()):
+        raise ValueError(f"{name} must be a contiguous {dtype} tensor of "
+                         f"shape {shape} on the device")
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def launch(
+    kernel: Callable,
+    ids: Optional[torch.Tensor],  # [D, ld] int32, or None: id = column
+    cnts: torch.Tensor,  # [D, ld] f32 or bf16
+    length: int,  # entries of a row used: its first `length` columns
+    table: torch.Tensor,  # gather_table(expElogbeta) [V, ldb]
+    alpha: torch.Tensor,  # [K] f32
+    gamma_init: torch.Tensor,  # [D, K] f32
+    inner_iterations: int,
+    convergence_threshold: float,
+    eps: float,
+    stall_patience: int,
+    row_sweeps_out: Optional[torch.Tensor] = None,
+    row_exit_out: Optional[torch.Tensor] = None,
+    slots_out: Optional[torch.Tensor] = None,
+    extra_sweeps_out: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of a row-resident kernel (``kernel``, a bound entry) on
+    checked CUDA inputs: (gamma [D, K], sweeps 0-d int32).  Checks the
+    optional outputs; raises if the launch fails."""
+    D, K = gamma_init.shape
+    dev = gamma_init.device
+    check_out(row_sweeps_out, torch.int32, (D,), dev, "row_sweeps_out")
+    check_out(row_exit_out, torch.int32, (D,), dev, "row_exit_out")
+    check_out(slots_out, torch.int64, (1,), dev, "slots_out")
+    check_out(extra_sweeps_out, torch.int64, (1,), dev, "extra_sweeps_out")
+    cnts = cnts.contiguous()
+    ids = None if ids is None else ids.contiguous()
+    alpha = alpha.contiguous()
+    gamma0 = gamma_init.contiguous()
+    # The first expEtheta uses the exact digamma, as the JAX loop does.
+    et0 = exp_dirichlet_expectation(gamma0).contiguous()
+    gamma = torch.empty_like(gamma0)
+    not_exitable = torch.zeros((inner_iterations,), dtype=torch.int32,
+                               device=dev)
+    queues = torch.zeros((2,), dtype=torch.int32, device=dev)
+    rows = torch.empty((2, D), dtype=torch.int32, device=dev)
+    sweeps = torch.empty((), dtype=torch.int32, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    list_blocks = min(D, LIST_BLOCKS_PER_SM * sms)
+    lists = torch.empty((list_blocks, 2, max(length, 1)), dtype=torch.int32,
+                        device=dev)
+    p = Params(
+        ids=_ptr(ids), cnts=cnts.data_ptr(), table=table.data_ptr(),
+        alpha=alpha.data_ptr(), gamma0=gamma0.data_ptr(),
+        et0=et0.data_ptr(), gamma=gamma.data_ptr(),
+        not_exitable=not_exitable.data_ptr(), queues=queues.data_ptr(),
+        row_run=rows[0].data_ptr(), row_nnz=rows[1].data_ptr(),
+        sweeps_out=sweeps.data_ptr(), row_sweeps=_ptr(row_sweeps_out),
+        row_exit=_ptr(row_exit_out), slots_out=_ptr(slots_out),
+        extra_out=_ptr(extra_sweeps_out), lists=lists.data_ptr(),
+        D=D, ld=cnts.shape[1], L=length, K=K, ldb=table.shape[1],
+        cnts_bf16=int(cnts.dtype == torch.bfloat16), list_blocks=list_blocks,
+        inner_iterations=int(inner_iterations),
+        threshold=float(convergence_threshold), eps=float(eps),
+        patience=int(stall_patience),
+        use_stall=int(stall_patience > 0 and convergence_threshold > 0.0),
+    )
+    # The scratch tensors may be freed once the launch is enqueued: the
+    # caching allocator hands their memory out again only in stream order.
+    with torch.cuda.device(dev):
+        rc = kernel(ctypes.byref(p), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{kernel.__name__} launch failed: cudaError {rc}")
+    return gamma, sweeps

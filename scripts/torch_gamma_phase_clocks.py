@@ -12,7 +12,9 @@ V=4096 (K=100, inner 50, threshold 1e-5, stall patience 6).  For each it
 prints the time of the instrumented call and, from thread 0 of every
 block, the mean cycles a row-sweep spends in steps A+B (phinorm,
 ratio, accumulation), the partial-sum barrier, the block sums and the
-rest of step C (fast digamma, exit rule, barrier), and the cycles a row spends on compaction and gather.
+rest of step C (fast digamma, exit rule, barrier), and the cycles a row
+spends on compaction and gather.  The instrumented libraries are bound
+through ``ops/row_fixed_point.py``, as the package's own are.
 A block's cycles include those its SM spent on the other blocks it
 holds.  Prints the card's name and power limit first.
 """
@@ -31,6 +33,7 @@ from pylda_tpu_torch.models import VariationalBayes
 from pylda_tpu_torch.ops import _build
 from pylda_tpu_torch.ops import dense_estep as dense_mod
 from pylda_tpu_torch.ops import ragged as ragged_mod
+from pylda_tpu_torch.ops import row_fixed_point
 from pylda_tpu_torch.ops.dirichlet import exp_dirichlet_expectation_fast
 from pylda_tpu_torch.utils.config import LDAConfig
 
@@ -41,7 +44,7 @@ PHASES = ("A+B", "partial-sum barrier", "block sums", "rest of C")
 MARKS = [
     ("namespace {\n\nnamespace cg",
      "__device__ unsigned long long g_clk[8];\n"),
-    ("  const int n = compact<CT>(p, L, smem, row, 0, p.L, p.nmax);",
+    ("  const int n = compact<CT>(p, L, smem, row);",
      "  long long clk0 = clock64();\n"),
     ("  int s = 0;\n  while (s < max_sweeps) {",
      "  if (tid == 0) {\n"
@@ -94,15 +97,12 @@ def build() -> dict:
         if built.returncode:
             sys.exit(f"nvcc failed for {cu}:\n{built.stdout}{built.stderr}")
         libs[name] = ctypes.CDLL(str(lib))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    libs["ragged_gamma"].pylda_ragged_gamma.argtypes = (
-        [p] * 15 + [i] * 5 + [f, f, i, i, p])
-    libs["dense_gamma"].pylda_dense_gamma.argtypes = (
-        [p, i] + [p] * 12 + [i] * 6 + [f, f, i, i, p])
     for lib in libs.values():
-        lib.phase_clocks.argtypes = [p, i]
-    ragged_mod._lib = lambda: libs["ragged_gamma"]
-    dense_mod._lib = lambda: libs["dense_gamma"]
+        lib.phase_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    kernels = {name: row_fixed_point.bind(lib, f"pylda_{name}")
+               for name, lib in libs.items()}
+    ragged_mod._kernel = lambda: kernels["ragged_gamma"]
+    dense_mod._kernel = lambda: kernels["dense_gamma"]
     return libs
 
 

@@ -6,10 +6,14 @@
 - Without a CUDA device, entry points that were not asked for the CPU
   raise instead of running there.
 - Every CUDA source the build names exists.
+- The ctypes mirror of the gamma kernels' ``Params`` struct matches the
+  struct in ``csrc/row_fixed_point.cuh``, field for field.
 """
 
 import ast
+import ctypes
 import pathlib
+import re
 
 import pytest
 import torch
@@ -95,3 +99,33 @@ def test_chip_smoke_refuses_without_cuda(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert mod.main() != 0
     assert '"ok"' not in capsys.readouterr().out
+
+
+def _c_struct_fields(source: str, name: str):
+    """(field, ctypes type) of a plain C struct of pointers, ints and
+    floats, in declaration order."""
+    body = source.split(f"struct {name} {{", 1)[1].split("};", 1)[0]
+    body = re.sub(r"//[^\n]*", "", body)
+    fields = []
+    for decl in filter(None, (d.strip() for d in body.split(";"))):
+        m = re.fullmatch(r"(?:const\s+)?(unsigned long long|int|float|void)"
+                         r"\s*(.*)", decl, re.S)
+        base, rest = m.groups()
+        for part in rest.split(","):
+            part = part.strip()
+            if part.startswith("*"):
+                fields.append((part.lstrip("* "), ctypes.c_void_p))
+            else:
+                fields.append((part, {"int": ctypes.c_int,
+                                      "float": ctypes.c_float}[base]))
+    return fields
+
+
+def test_params_mirror_matches_the_kernel_struct():
+    from pylda_tpu_torch.ops import _build, row_fixed_point
+
+    src = (_build.CSRC / "row_fixed_point.cuh").read_text()
+    want = _c_struct_fields(src, "Params")
+    got = [(n, t) for n, t in row_fixed_point.Params._fields_]
+    assert got == want
+    assert len(want) > 20

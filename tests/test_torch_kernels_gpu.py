@@ -16,7 +16,8 @@ that sweep moves it by at most K * threshold in sum_k |dgamma|.  The dense
 E-step's token score, taken at a gamma within those tolerances, agrees to
 rel 1e-4.  Both gamma kernels run row after row (``csrc/row_fixed_point.cuh``):
 cases here also take the re-run of rows past S* and rows longer than the
-shared-memory slot buffer (166 slots at K=100, 63 at K=256).
+shared-memory slot buffer (166 slots at K=100, 63 at K=256), which stream
+their compacted entries in windows from a scratch list.
 """
 
 import numpy as np
@@ -122,14 +123,16 @@ def test_ragged_kernel_pinned_sweeps_match_plain(cuda, D, T, K, V):
     ids, cnts, g0, eeb, alpha, real = _ragged_inputs(D, T, K, V, cuda)
     kw = dict(inner_iterations=12, convergence_threshold=0.0)
     slots = torch.zeros((1,), dtype=torch.int64, device=cuda)
+    rows = torch.zeros((D,), dtype=torch.int32, device=cuda)
     before = ragged_mod.LAUNCHES
     g, s = ragged_mod.ragged_gamma(ids, cnts, g0, eeb, alpha,
-                                   slots_out=slots, **kw)
+                                   slots_out=slots, row_sweeps_out=rows, **kw)
     assert ragged_mod.LAUNCHES == before + 1
     g_p, s_p = estep_ragged_gamma(ids, cnts, g0, eeb, alpha, **kw)
     torch.cuda.synchronize()
     assert int(s) == int(s_p) == 12
     assert int(slots) == 12 * real  # no freezing at threshold 0
+    assert bool((rows == 12).all())
     torch.testing.assert_close(g, g_p, rtol=1e-4, atol=1e-4)
 
 
@@ -139,10 +142,13 @@ def test_ragged_kernel_exit_rule_matches_plain(cuda, D, T, K, V, thresh):
     ids, cnts, g0, eeb, alpha, _ = _ragged_inputs(D, T, K, V, cuda, seed=1)
     kw = dict(inner_iterations=50, convergence_threshold=thresh,
               stall_patience=6)
-    g, s = ragged_mod.ragged_gamma(ids, cnts, g0, eeb, alpha, **kw)
+    rows = torch.zeros((D,), dtype=torch.int32, device=cuda)
+    g, s = ragged_mod.ragged_gamma(ids, cnts, g0, eeb, alpha,
+                                   row_sweeps_out=rows, **kw)
     g_p, s_p = estep_ragged_gamma(ids, cnts, g0, eeb, alpha, **kw)
     torch.cuda.synchronize()
     assert abs(int(s) - int(s_p)) <= 1
+    assert int(rows.min()) >= 1 and int(rows.max()) <= int(s)
     torch.testing.assert_close(g, g_p, rtol=5e-4, atol=5e-4 + K * thresh)
 
 
@@ -267,6 +273,8 @@ _LONG_ROWS = [
     ("dense", 40, 1400, 100, True),  # ~140: in registers, or not, a row
     ("dense", 40, 700, 256, False),  # ~70 nonzeros a row, some > 63
     ("dense", 40, 700, 256, True),
+    ("ragged", 24, 1000, 256, False),  # up to 1000 live slots: 16 windows
+    ("dense", 24, 8000, 100, False),  # ~760 nonzeros a row: 5 windows
 ]
 
 
@@ -288,6 +296,39 @@ def test_gamma_kernel_long_rows_match_plain(cuda, layout, rows, width, K,
     else:
         assert abs(int(s) - int(s_p)) <= 1
         torch.testing.assert_close(g, g_p, rtol=5e-4, atol=5e-4 + K * thresh)
+
+
+@pytest.mark.parametrize("K,bf16", [(100, True), (256, False)])
+def test_dense_estep_mixed_row_lengths_match_plain(cuda, K, bf16):
+    """One batch whose rows take every path of the kernel in turn: empty,
+    register tile, shared-memory sweep, and streamed windows of a scratch
+    list that each block reuses from row to row."""
+    rng = np.random.default_rng(5)
+    D, V = 64, 4096
+    rates = rng.choice([0.0, 0.005, 0.03, 0.06, 0.25], size=D)
+    counts = rng.poisson(rates[:, None], (D, V)).astype(np.float32)
+    ct = torch.tensor(counts, device=cuda)
+    if bf16:
+        ct = ct.to(torch.bfloat16)
+    lam = rng.gamma(1.0, 1.0, (K, V))
+    eeb = exp_dirichlet_expectation(torch.tensor(lam, device=cuda).float())
+    g0 = torch.ones((D, K), dtype=torch.float32, device=cuda)
+    alpha = torch.full((K,), 0.1, dtype=torch.float32, device=cuda)
+    nnz = (counts != 0).sum(axis=1)
+    assert nnz.min() == 0 and nnz.max() > 4 * 166
+    for kw in (dict(inner_iterations=12, convergence_threshold=0.0),
+               dict(inner_iterations=50, convergence_threshold=1e-5,
+                    stall_patience=6)):
+        g, _, tok, s = dense_mod.dense_estep(ct, g0, eeb, alpha, **kw)
+        g_p, _, tok_p, s_p = estep_dense(ct, g0, eeb, alpha, **kw)
+        torch.cuda.synchronize()
+        if kw["convergence_threshold"] == 0.0:
+            assert int(s) == int(s_p) == 12
+            torch.testing.assert_close(g, g_p, rtol=1e-4, atol=1e-4)
+        else:
+            assert abs(int(s) - int(s_p)) <= 1
+            torch.testing.assert_close(g, g_p, rtol=5e-4, atol=5e-4 + K * 1e-5)
+        assert float(tok) == pytest.approx(float(tok_p), rel=1e-4)
 
 
 @pytest.mark.parametrize(
