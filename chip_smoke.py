@@ -19,7 +19,10 @@ Phases, in order (any failure exits non-zero):
    - at the dense flagship (K=100, V=4096, D=4096, the largest vocabulary
      the default dense_vocab_threshold sends down the dense route): the
      dense E-step (gamma fixed point + final pass) on the [4096, 4096]
-     bf16 counts batch;
+     bf16 counts batch, and its final pass, the dense sufficient
+     statistics, alone at the kernel's gamma;
+   the dense sufficient statistics are also called twice on each input and
+   must return the same bits;
    the two gamma fixed points are held against their plain version run in
    float64, and their lines also give S* (the sweeps the batch took), the
    row-sweeps the kernels' row-major order computed past S*, and a
@@ -138,6 +141,49 @@ def exit_report(g_k, g_64, g_32, s_k, s_64, row_exit, row_sweeps, extra,
             f"{err:.3e} (f32 plain vs f64 {float(diff32.max()):.3e}; "
             f"tolerance {gamma_atol:g} + {GAMMA_RTOL}*|gamma|; {split})")
     return ok, err, text
+
+
+def sstats_check(label, counts, et, eeb, eps, sstats_mod, plain) -> dict:
+    """The dense sstats kernel against its plain version on one input:
+    tolerances, two calls bitwise equal, times and bounds; raises if it
+    disagrees.  The record of the shape."""
+    import torch
+
+    ss_k, tok_k = sstats_mod.dense_sstats(counts, et, eeb, eps=eps)
+    ss_k2, tok_k2 = sstats_mod.dense_sstats(counts, et, eeb, eps=eps)
+    ss_p, tok_p = plain(counts, et, eeb, eps=eps)
+    torch.cuda.synchronize()
+    same = torch.equal(ss_k, ss_k2) and torch.equal(tok_k, tok_k2)
+    err = float((ss_k - ss_p).abs().max())
+    tol = SSTATS_RTOL * ss_p.abs() + SSTATS_ATOL_REL * float(ss_p.abs().max())
+    tok_rel = abs(float(tok_k) - float(tok_p)) / abs(float(tok_p))
+    ok = bool(((ss_k - ss_p).abs() <= tol).all()) and tok_rel <= SCORE_RTOL
+    D, Vc = counts.shape
+    K, V = eeb.shape
+    # phinorm and the ratio are needed only where a count is nonzero, and
+    # the second product sums over those columns only: 4*K FLOP a nonzero.
+    nnz = int((counts != 0).sum())
+    nbytes = counts.numel() * counts.element_size() + D * K * 4 + 2 * K * V * 4 + 4
+    b_ms, b_by = bound(4.0 * K * nnz, nbytes)
+    dense_ms, _ = bound(4.0 * D * K * V, nbytes)
+    k_ms = cuda_ms(lambda: sstats_mod.dense_sstats(counts, et, eeb, eps=eps), 20)
+    p_ms = cuda_ms(lambda: plain(counts, et, eeb, eps=eps), 20)
+    print(f"kernel dense_sstats {label} [{D}x{Vc} {str(counts.dtype)[6:]}, "
+          f"K={K}]: nonzero counts {nnz}, kernel_ms {k_ms:.4f} plain_ms "
+          f"{p_ms:.4f} bound_ms {b_ms:.5f} ({b_by}; dense form "
+          f"{dense_ms:.5f}), max_abs_err {err:.3e} (tolerance {SSTATS_RTOL}"
+          f"*|ref| + {SSTATS_ATOL_REL}*max|ref|), score rel err {tok_rel:.3e} "
+          f"(tolerance {SCORE_RTOL}), two calls bitwise equal {same} "
+          f"{'ok' if ok and same else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"dense_sstats disagrees with its plain version "
+                             f"({label})")
+    if not same:
+        raise AssertionError(f"dense_sstats is not repeatable ({label})")
+    return {"name": label, "shape": [D, Vc], "nonzeros": nnz,
+            "max_abs_err": err, "score_rel_err": tok_rel, "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "dense_form_bound_ms": dense_ms}
 
 
 def zero_launches(mods) -> None:
@@ -380,34 +426,8 @@ def main() -> int:
     et_docs = exp_dirichlet_expectation(gamma_docs)
     counts, cidx = plan.chunks[0]
     et_c = et_docs[cidx]
-    ss_k, tok_k = sstats_mod.dense_sstats(counts, et_c, eeb, eps=cfg.eps)
-    ss_p, tok_p = estep_dense_sstats(counts, et_c, eeb, eps=cfg.eps)
-    torch.cuda.synchronize()
-    ss_err = float((ss_k - ss_p).abs().max())
-    ss_tol = SSTATS_RTOL * ss_p.abs() + SSTATS_ATOL_REL * float(ss_p.abs().max())
-    tok_rel = abs(float(tok_k) - float(tok_p)) / abs(float(tok_p))
-    ss_ok = bool(((ss_k - ss_p).abs() <= ss_tol).all()) and tok_rel <= SCORE_RTOL
-    Dc, Vc = counts.shape
-    # phinorm and the ratio are needed only where a count is nonzero, and
-    # the second product sums over those columns only: 4*K FLOP a nonzero.
-    ss_nnz = int((counts != 0).sum())
-    ss_bytes = (counts.numel() * counts.element_size() + Dc * K * 4
-                + 2 * K * V * 4 + 4)
-    ss_bound, ss_by = bound(4.0 * K * ss_nnz, ss_bytes)
-    ss_dense_bound, _ = bound(4.0 * Dc * K * V, ss_bytes)
-    ss_ms = cuda_ms(lambda: sstats_mod.dense_sstats(counts, et_c, eeb,
-                                                    eps=cfg.eps), 20)
-    ss_plain_ms = cuda_ms(lambda: estep_dense_sstats(counts, et_c, eeb,
-                                                     eps=cfg.eps), 20)
-    print(f"kernel dense_sstats [{Dc}x{Vc} {str(counts.dtype)[6:]}, K={K}]: "
-          f"nonzero counts {ss_nnz}, kernel_ms {ss_ms:.4f} plain_ms "
-          f"{ss_plain_ms:.4f} bound_ms {ss_bound:.5f} ({ss_by}; dense form "
-          f"{ss_dense_bound:.5f}), max_abs_err {ss_err:.3e} (tolerance "
-          f"{SSTATS_RTOL}*|ref| + {SSTATS_ATOL_REL}*max|ref|), score rel err "
-          f"{tok_rel:.3e} (tolerance {SCORE_RTOL}) "
-          f"{'ok' if ss_ok else 'FAIL'}")
-    if not ss_ok:
-        raise AssertionError("dense_sstats disagrees with its plain version")
+    ss_shapes = [sstats_check("ragged flagship chunk", counts, et_c, eeb,
+                              cfg.eps, sstats_mod, estep_dense_sstats)]
     del probe, st, eeb, eeb_t, rows_plain, gamma_docs, et_docs, et_c
 
     # -- kernels at the dense flagship's shapes -------------------------------
@@ -464,8 +484,9 @@ def main() -> int:
                                                   **kw), 5)
     dg_plain_ms = cuda_ms(lambda: estep_dense(dc, g0, eeb, st.alpha, **kw), 2)
     et_k = exp_dirichlet_expectation(g_k)
-    fin_ms = cuda_ms(lambda: sstats_mod.dense_sstats(dc, et_k, eeb,
-                                                     eps=cfg.eps), 10)
+    ss_shapes.append(sstats_check("dense flagship final pass", dc, et_k, eeb,
+                                  cfg.eps, sstats_mod, estep_dense_sstats))
+    fin_ms = ss_shapes[-1]["ms"]
     dg_ok = dg_ok and dss_ok and dtok_rel <= DENSE_SCORE_RTOL
     print(f"kernel dense_gamma [{Dd}x{Vd} {str(dc.dtype)[6:]}, K={K}]: sweeps "
           f"plain f32 {int(s_p)}, {fp_text}, row-sweeps needed "
@@ -537,10 +558,11 @@ def main() -> int:
          "source": "pylda_tpu_torch/csrc/dense_sstats.cu",
          "replaces": "pylda_tpu/ops/pallas_sstats.py:43",
          "launches": launches["dense_sstats"],
-         "launches_by_path": paths["dense_sstats"], "max_abs_err": ss_err,
-         "ms": ss_ms, "plain_ms": ss_plain_ms, "bound_ms": ss_bound,
-         "bound_by": ss_by, "dense_form_bound_ms": ss_dense_bound,
-         "library_ms": None},
+         "launches_by_path": paths["dense_sstats"],
+         **{k: ss_shapes[0][k] for k in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "dense_form_bound_ms")},
+         "library_ms": None, "shapes": ss_shapes},
         {"name": "ragged_gamma", "route": "cuda",
          "source": "pylda_tpu_torch/csrc/ragged_gamma.cu",
          "replaces": "pylda_tpu/ops/pallas_ragged.py:56",

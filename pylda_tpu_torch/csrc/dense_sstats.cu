@@ -9,228 +9,443 @@
 //   sstats[k, v]  = expElogbeta[k, v] * raw[k, v]            (v < V)
 //   score         = sum_{d, v} C[d, v] * log(phinorm[d, v])
 //
-// phinorm and the ratio never leave shared memory.
+// Only nonzero counts need work: a zero count adds nothing to raw or to
+// the score, so phinorm and the ratio are needed where C != 0 only, and
+// the work is 4*K FLOP a nonzero.  Bound on an H100 SXM at the ragged
+// flagship chunk (D=4096, Vc=10240 bf16, K=100, ~483k nonzeros, 1.2%):
+// ~0.19 GFLOP (~3 us at the 67 TFLOP/s f32 rate) against ~25 us to read
+// the 84 MB of counts once at 3.35 TB/s: bytes.  The kernel reads each
+// count once, coalesced, and does arithmetic only at the nonzeros.
 //
-// Bound on an H100 SXM at the flagship chunk (D=4096, Vc=10240, K=100):
-// the two products are 4*D*K*V = 16.4 GFLOP, ~245 us at the 67 TFLOP/s
-// f32 rate outside the tensor cores, against ~25 us to read the 84 MB bf16
-// counts once at 3.35 TB/s: the kernel is bound by operations.
+// Design.  Grid: (vocab tiles of 64 columns) x (row splits); the host's
+// plan (ops/sstats.py::plan) sets the splits so the card holds >= 2 CTAs
+// an SM.  A CTA of 256 threads stages its expElogbeta tile, [64 columns]
+// [KP topics], once, and walks its rows in chunks of 32, in a pipeline:
+//   1. the chunk's counts [32, 64] arrive by 16-byte cp.async two chunks
+//      ahead of their use (three buffers);
+//   2. compaction, once a chunk ahead: warp w reads columns 8w..8w+7 of
+//      every row as 16-byte vectors, and a ballot a column gives that
+//      column's 32-bit row mask (plus the chunk's touched-row mask);
+//   3. expEtheta is staged, one chunk ahead, for the touched rows only
+//      (about half the rows of a chunk at the flagships), from L2;
+//   4. column c has a fixed owner, lanes 4c..4c+3, each holding KP/4 of
+//      its topics' sums in registers (interleaved float4s).  The four
+//      walk the column's mask in row order; for each nonzero: phinorm
+//      (partial dots, then a 2-step butterfly inside the four), ratio =
+//      C / phinorm, the score term, and acc += expEtheta[d] * ratio.
+// No thread tests zeros in the arithmetic loop; a warp's eight columns
+// take as many steps as the busiest of them.  What bounds it on an H100
+// (PERF.md): not the counts' bytes, but a chunk's latency chain (barriers,
+// L2 gathers of expEtheta, and the column walk, whose steps use 4 of 32
+// lanes a column at the flagships' densities) and the grid's fixed cost
+// (each split stages the expElogbeta tile and writes a partial).
 //
-// Design: a CTA (256 threads) owns a 64-column vocab tile and one half of
-// the rows (gridDim.y = 2: 320 CTAs at the flagship, 2-3 on every SM,
-// where 160 left 28 SMs with double work).  It walks its rows in chunks of
-// 32 and keeps its [KP, 64] block of raw in registers, so no reduction
-// over the row axis is needed beyond the two halves: each output gets
-// exactly two atomic adds onto zero, and a + b == b + a, so the result is
-// deterministic.  Per chunk: stage expEtheta [32, KP] in shared memory
-// (the expElogbeta tile [KP, 64] is staged once), then
-//   phinorm: each thread a 2-row x 4-column register tile, operands read
-//            as 16-byte vectors (6 loads per 32 FMAs);
-//   ratio = C / phinorm (and the score) into shared memory;
-//   raw += expEtheta^T . ratio: each thread a KPT-topic x 4-column tile
-//            (KPT/4 + 1 loads per 4*KPT FMAs).
-// The tiles keep shared-memory loads well below the FMA rate (one operand
-// a FMA from shared memory leaves the shared-memory pipe, not the FMA
-// units, setting the pace).  Plain f32 FMAs, no TF32: the CPU reference
-// is plain f32.  Each CTA writes its partial score
-// (f64 accumulation) to score_part; the wrapper sums that buffer in order.
-// Tensor cores, TMA and bf16 operands are later work.
+// Determinism.  Each sum has one owner that adds in row order.  With more
+// than one row split, each CTA writes its partial sums to scratch and the
+// last CTA of the tile to arrive (a counter behind __threadfence) adds the
+// splits' partials in split order 0, 1, .., multiplies by expElogbeta and
+// writes sstats.  Each CTA's score is an f64 sum in a fixed order, and the
+// last CTA of the grid sums those in a fixed order.  No atomic adds a
+// floating-point value, so every call returns the same bits.  Plain f32
+// FMAs and IEEE division, no TF32: the CPU reference is plain f32.
 
 #include <cuda_bf16.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 256;
-constexpr int kTileV = 64;  // vocab columns a CTA owns
-constexpr int kTileD = 32;  // rows a chunk
-constexpr int kSplit = 2;   // row halves (gridDim.y)
+constexpr int kWarps = kThreads / 32;
+constexpr int kTileV = 64;    // vocab columns a CTA owns: 4 lanes a column
+constexpr int kRows = 32;     // rows a chunk: a column's row mask is a word
+constexpr int kCntBufs = 3;   // staged counts chunks: 2 loads ahead
 
-__device__ __forceinline__ float load_count(const float* p) { return *p; }
-__device__ __forceinline__ float load_count(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
+// KP = 16 * N4 topics (4 lanes x N4 float4s); LD, the row stride of the
+// staged expEtheta rows and expElogbeta columns, puts the float4s that a
+// quarter warp's two adjacent 4-lane groups read into 8 distinct bank
+// quads.
+template <int N4>
+struct Layout {
+  static constexpr int KP = 16 * N4;
+  static constexpr int LD = KP + ((KP / 4) % 8 == 4 ? 0 : 16);
+};
+
+// Row stride (elements) of a staged counts chunk: 64 columns and 16 bytes,
+// so the 8 lanes of a quarter warp reading 8 rows hit 8 bank quads.
+template <typename CT>
+__host__ __device__ constexpr int cnt_ld() {
+  return kTileV + 16 / (int)sizeof(CT);
+}
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// Bit e set where element e of the 8 counts at p is nonzero (+-0 is zero).
+__device__ __forceinline__ unsigned nonzero8(const __nv_bfloat16* p) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+  unsigned bits = 0;
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    bits |= (((w[e / 2] >> (16 * (e % 2))) & 0x7fffu) != 0u) << e;
+  return bits;
+}
+__device__ __forceinline__ unsigned nonzero8(const float* p) {
+  const uint4 a = *reinterpret_cast<const uint4*>(p);
+  const uint4 b = *reinterpret_cast<const uint4*>(p + 4);
+  const unsigned w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  unsigned bits = 0;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) bits |= ((w[e] & 0x7fffffffu) != 0u) << e;
+  return bits;
 }
 
 __device__ __forceinline__ float4 lds4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-template <int KPT>
-struct Layout {
-  static constexpr int KP = 16 * KPT;     // padded topics (16 thread rows)
-  static constexpr int ET_LD = KP + 4;    // et_s row stride (bank shift)
-  static constexpr int floats =
-      kTileD * ET_LD + KP * kTileV + kTileD * kTileV;
-};
+// Issues the copies of counts rows [d0, d0 + kRows) x columns [v0, v0 + 64)
+// into dst ([kRows][cnt_ld]) and commits them as one group; rows past d_hi
+// and columns past Vc read as zero.  vec: 16-byte copies (rows 16-byte
+// aligned); else element loads.
+template <typename CT>
+__device__ __forceinline__ void load_chunk(CT* dst, const CT* counts, int d0,
+                                           int d_hi, int v0, int Vc,
+                                           bool vec) {
+  constexpr int E = 16 / sizeof(CT);  // elements a 16-byte copy
+  constexpr int SEGS = kRows * kTileV / E;
+  for (int i = threadIdx.x; i < SEGS; i += kThreads) {
+    const int r = i / (kTileV / E), c = (i % (kTileV / E)) * E;
+    const int d = d0 + r, v = v0 + c;
+    CT* s = dst + r * cnt_ld<CT>() + c;
+    if (vec) {
+      // Vc * sizeof(CT) is a multiple of 16: a copy is all in or all out.
+      if (d < d_hi && v < Vc)
+        __pipeline_memcpy_async(s, counts + (size_t)d * Vc + v, 16);
+      else
+        *reinterpret_cast<uint4*>(s) = make_uint4(0u, 0u, 0u, 0u);
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        s[e] = (d < d_hi && v + e < Vc) ? counts[(size_t)d * Vc + v + e]
+                                        : CT(0.f);
+    }
+  }
+  __pipeline_commit();
+}
 
-template <typename CT, int KPT>
-__global__ void __launch_bounds__(kThreads, KPT <= 8 ? 3 : 2)
+// Compaction of a staged chunk, once: warp w reads columns 8w..8w+7 of row
+// `lane` as 16-byte vectors, and one ballot a column gives that column's
+// row mask (cmask[c]); rmask[w] gets the rows with a nonzero in the warp's
+// 8 columns (the chunk's touched rows are the OR of the 8 words).  Plain
+// stores of whole words: nothing to zero first, nothing timing-dependent.
+template <typename CT>
+__device__ __forceinline__ void compact(const CT* cnt, unsigned* cmask,
+                                        unsigned* rmask) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const unsigned bits = nonzero8(cnt + lane * cnt_ld<CT>() + 8 * warp);
+  unsigned mine = 0;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const unsigned m = __ballot_sync(kFull, (bits >> e) & 1u);
+    if (lane == e) mine = m;
+  }
+  if (lane < 8) cmask[8 * warp + lane] = mine;
+  const unsigned any = __ballot_sync(kFull, bits != 0u);
+  if (lane == 0) rmask[warp] = any;
+}
+
+// Issues the copies of expEtheta rows d0 + r, r a touched row, into
+// dst ([kRows][ld]) and commits them as one group.
+__device__ __forceinline__ void load_et(float* dst, int ld, const float* et,
+                                        int d0, unsigned touched, int K,
+                                        bool et_vec) {
+  if (et_vec) {
+    const int kq = K / 4;
+    for (int i = threadIdx.x; i < kRows * kq; i += kThreads) {
+      const int r = i / kq, q = i - r * kq;
+      if ((touched >> r) & 1u)
+        __pipeline_memcpy_async(dst + r * ld + 4 * q,
+                                et + (size_t)(d0 + r) * K + 4 * q, 16);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kRows * K; i += kThreads) {
+      const int r = i / K, k = i - r * K;
+      if ((touched >> r) & 1u)
+        __pipeline_memcpy_async(dst + r * ld + k,
+                                et + (size_t)(d0 + r) * K + k, 4);
+    }
+  }
+  __pipeline_commit();
+}
+
+__device__ __forceinline__ unsigned touched_rows(const unsigned* rmask) {
+  unsigned t = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) t |= rmask[w];
+  return t;
+}
+
+template <typename CT, int N4>
+__global__ void __launch_bounds__(kThreads)
 dense_sstats_kernel(const CT* __restrict__ counts,
                     const float* __restrict__ et,
                     const float* __restrict__ eeb,
                     float* __restrict__ sstats,
                     double* __restrict__ score_part,
-                    int D, int Vc, int V, int K, float eps) {
-  using L = Layout<KPT>;
+                    float* __restrict__ score_out,
+                    float* __restrict__ partial,
+                    int* __restrict__ counters, int D, int Vc, int V, int K,
+                    float eps, int rows_per_split) {
+  using L = Layout<N4>;
   extern __shared__ __align__(16) float smem[];
-  float* et_s = smem;                          // [kTileD][ET_LD]
-  float* eeb_s = et_s + kTileD * L::ET_LD;     // [KP][kTileV]
-  float* ratio_s = eeb_s + L::KP * kTileV;     // [kTileD][kTileV]
-  __shared__ double score_s[kThreads / 32];
+  float* eeb_s = smem;                        // [64][LD] expElogbeta^T tile
+  float* et_s = eeb_s + kTileV * L::LD;       // [2][kRows][LD] touched rows
+  // [kCntBufs][kRows][cnt_ld]
+  CT* cnt_s = reinterpret_cast<CT*>(et_s + 2 * kRows * L::LD);
+  unsigned* cmask_s = reinterpret_cast<unsigned*>(
+      cnt_s + kCntBufs * kRows * cnt_ld<CT>());  // [2][64] column masks
+  unsigned* rmask_s = cmask_s + 2 * kTileV;      // [2][8] row masks
+  __shared__ double score_s[kWarps];
+  __shared__ int last_s, last_grid_s;
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // columns 4tx .. 4tx+3 of the tile
-  const int ty = tid / 16;  // phinorm rows 2ty, 2ty+1; topics ty*KPT + j
-  const int v0 = blockIdx.x * kTileV;
-  const int rows = (D + kSplit - 1) / kSplit;
-  const int d_lo = blockIdx.y * rows;
-  const int d_hi = min(D, d_lo + rows);
-  const int k4 = (K + 3) & ~3;  // phinorm loop bound (zero-padded)
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int c = tid / 4, j = tid % 4;  // owner of column c, float4s j, j+4..
+  const int tile = blockIdx.x, split = blockIdx.y, splits = gridDim.y;
+  const int v0 = tile * kTileV;
+  const int d_lo = split * rows_per_split;
+  const int d_hi = min(D, d_lo + rows_per_split);
+  const int chunks = d_hi > d_lo ? (d_hi - d_lo + kRows - 1) / kRows : 0;
+  const bool vec = (Vc * (int)sizeof(CT)) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(counts) % 16 == 0;
+  const bool et_vec =
+      K % 4 == 0 && reinterpret_cast<uintptr_t>(et) % 16 == 0;
+  auto cbuf = [cnt_s](int i) {
+    return cnt_s + (i % kCntBufs) * kRows * cnt_ld<CT>();
+  };
 
-  for (int i = tid; i < L::KP * kTileV; i += kThreads) {
-    const int k = i / kTileV, c = i % kTileV;
-    eeb_s[i] = (k < K && v0 + c < V) ? eeb[(size_t)k * V + v0 + c] : 0.f;
+  // The pipeline.  Chunk i uses counts buffer i % 3 and et / mask buffer
+  // i % 2.  In iteration i (after its first barrier every thread is done
+  // with chunk i-1): issue chunk i+2's counts, compact chunk i+1, issue
+  // chunk i+1's expEtheta rows, then compute chunk i.
+  for (int i = 0; i < 2 && i < chunks; ++i)
+    load_chunk(cbuf(i), counts, d_lo + i * kRows, d_hi, v0, Vc, vec);
+  // The expElogbeta tile, transposed: a warp copies 16 topics of 2
+  // columns (LD = 16 mod 32: its 32 stores hit 32 banks).
+  for (int i = tid; i < kTileV * L::LD; i += kThreads) {
+    const int rest = i / 16, cc = rest % kTileV;
+    const int k = (rest / kTileV) * 16 + i % 16;
+    float* dst = eeb_s + cc * L::LD + k;
+    if (k < K && v0 + cc < V)
+      __pipeline_memcpy_async(dst, eeb + (size_t)k * V + v0 + cc, 4);
+    else
+      *dst = 0.f;
   }
-  __syncthreads();  // the epilogue reads eeb_s even when no chunk runs
+  __pipeline_commit();
+  for (int i = tid; i < 2 * kRows * L::LD; i += kThreads) et_s[i] = 0.f;
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  if (chunks > 0) {
+    compact(cbuf(0), cmask_s, rmask_s);
+    __syncthreads();
+    load_et(et_s, L::LD, et, d_lo, touched_rows(rmask_s), K, et_vec);
+  }
 
-  float acc[KPT][4];
+  float4 acc[N4];
 #pragma unroll
-  for (int j = 0; j < KPT; ++j)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
+  for (int i = 0; i < N4; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   double score = 0.0;
 
-  for (int d0 = d_lo; d0 < d_hi; d0 += kTileD) {
-    __syncthreads();  // the previous chunk is done with et_s / ratio_s
-    for (int i = tid; i < kTileD * L::KP; i += kThreads) {
-      const int r = i / L::KP, k = i % L::KP;
-      et_s[r * L::ET_LD + k] =
-          (k < K && d0 + r < d_hi) ? et[(size_t)(d0 + r) * K + k] : 0.f;
-    }
+  const float* bcol = eeb_s + c * L::LD + 4 * j;
+  for (int ci = 0; ci < chunks; ++ci) {
+    const int d0 = d_lo + ci * kRows;
+    const int cur = ci & 1, nxt = cur ^ 1;
+    // Chunk ci's expEtheta and chunk ci+1's counts are in.
+    __pipeline_wait_prior(0);
     __syncthreads();
+    if (ci + 2 < chunks)
+      load_chunk(cbuf(ci + 2), counts, d0 + 2 * kRows, d_hi, v0, Vc, vec);
+    if (ci + 1 < chunks)
+      compact(cbuf(ci + 1), cmask_s + nxt * kTileV, rmask_s + nxt * kWarps);
+    __syncthreads();  // chunk ci+1's masks
+    if (ci + 1 < chunks)
+      load_et(et_s + nxt * kRows * L::LD, L::LD, et, d0 + kRows,
+              touched_rows(rmask_s + nxt * kWarps), K, et_vec);
 
-    // phinorm for rows 2ty, 2ty+1 and columns 4tx .. 4tx+3.
-    float ph[2][4];
+    // Column c's nonzeros in row order, by its four lanes.
+    const CT* cnt = cbuf(ci);
+    const float* ets = et_s + cur * kRows * L::LD;
+    unsigned m = cmask_s[cur * kTileV + c];
+    const int n = __popc(m);
+    const int steps = __reduce_max_sync(kFull, n);
+    for (int t = 0; t < steps; ++t) {
+      const bool on = t < n;
+      const int r = on ? __ffs(m) - 1 : 0;
+      m &= m - 1;
+      const float* erow = ets + r * L::LD + 4 * j;
+      float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (on) {  // lanes without a nonzero read nothing
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) ph[i][c] = 0.f;
-    const float* a_row = et_s + (2 * ty) * L::ET_LD;
-    for (int k = 0; k < k4; k += 4) {
-      const float4 a0 = lds4(a_row + k);
-      const float4 a1 = lds4(a_row + L::ET_LD + k);
-      const float4 b0 = lds4(eeb_s + (k + 0) * kTileV + 4 * tx);
-      const float4 b1 = lds4(eeb_s + (k + 1) * kTileV + 4 * tx);
-      const float4 b2 = lds4(eeb_s + (k + 2) * kTileV + 4 * tx);
-      const float4 b3 = lds4(eeb_s + (k + 3) * kTileV + 4 * tx);
-      const float av[2][4] = {{a0.x, a0.y, a0.z, a0.w},
-                              {a1.x, a1.y, a1.z, a1.w}};
-      const float bv[4][4] = {{b0.x, b0.y, b0.z, b0.w},
-                              {b1.x, b1.y, b1.z, b1.w},
-                              {b2.x, b2.y, b2.z, b2.w},
-                              {b3.x, b3.y, b3.z, b3.w}};
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          float p = ph[i][c];
-#pragma unroll
-          for (int q = 0; q < 4; ++q) p = fmaf(av[i][q], bv[q][c], p);
-          ph[i][c] = p;
+        for (int i = 0; i < N4; ++i) {
+          const float4 e = lds4(erow + 16 * i), b = lds4(bcol + 16 * i);
+          q.x = fmaf(e.x, b.x, q.x);
+          q.y = fmaf(e.y, b.y, q.y);
+          q.z = fmaf(e.z, b.z, q.z);
+          q.w = fmaf(e.w, b.w, q.w);
         }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = 2 * ty + i;
-      const int d = d0 + r;
-      float rt[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int v = v0 + 4 * tx + c;
-        float cv = 0.f;
-        if (d < d_hi && v < Vc) cv = load_count(&counts[(size_t)d * Vc + v]);
-        const float pn = ph[i][c] + eps;
-        if (cv != 0.f) score += (double)(cv * logf(pn));
-        rt[c] = cv / pn;
       }
-      *reinterpret_cast<float4*>(ratio_s + r * kTileV + 4 * tx) =
-          make_float4(rt[0], rt[1], rt[2], rt[3]);
-    }
-    __syncthreads();
-
-    // raw[ty*KPT + j, 4tx + c] += sum_r et[r, ty*KPT + j] * ratio[r, 4tx + c]
-    const float* e_col = et_s + ty * KPT;
-    for (int r = 0; r < kTileD; ++r) {
-      const float4 q4 = lds4(ratio_s + r * kTileV + 4 * tx);
-      const float rv[4] = {q4.x, q4.y, q4.z, q4.w};
+      float p = (q.x + q.y) + (q.z + q.w);
+      // a + b == b + a: all four lanes get the same bits.
+      p += __shfl_xor_sync(kFull, p, 1);
+      p += __shfl_xor_sync(kFull, p, 2);
+      if (on) {
+        const float cv = to_float(cnt[r * cnt_ld<CT>() + c]);
+        const float pn = p + eps;
+        const float ratio = cv / pn;
+        if (j == 0) score += (double)(cv * logf(pn));
 #pragma unroll
-      for (int jq = 0; jq < KPT / 4; ++jq) {
-        const float4 e4 = lds4(e_col + r * L::ET_LD + 4 * jq);
-        const float ev[4] = {e4.x, e4.y, e4.z, e4.w};
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            acc[4 * jq + jj][c] = fmaf(ev[jj], rv[c], acc[4 * jq + jj][c]);
+        for (int i = 0; i < N4; ++i) {
+          const float4 e = lds4(erow + 16 * i);
+          acc[i].x = fmaf(e.x, ratio, acc[i].x);
+          acc[i].y = fmaf(e.y, ratio, acc[i].y);
+          acc[i].z = fmaf(e.z, ratio, acc[i].z);
+          acc[i].w = fmaf(e.w, ratio, acc[i].w);
+        }
       }
     }
   }
 
-  // Two CTAs (the row halves) add into each zeroed output: deterministic.
-#pragma unroll
-  for (int j = 0; j < KPT; ++j) {
-    const int k = ty * KPT + j;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int v = v0 + 4 * tx + c;
-      if (k < K && v < V)
-        atomicAdd(&sstats[(size_t)k * V + v],
-                  eeb_s[k * kTileV + 4 * tx + c] * acc[j][c]);
-    }
-  }
-
-  // Block reduction of the partial score, in a fixed order.
+  // The CTA's score, in a fixed order.
   for (int off = 16; off > 0; off >>= 1)
-    score += __shfl_down_sync(0xffffffffu, score, off);
-  if (tid % 32 == 0) score_s[tid / 32] = score;
+    score += __shfl_down_sync(kFull, score, off);
+  if (lane == 0) score_s[warp] = score;
   __syncthreads();
+  const int blocks = gridDim.x * splits;
   if (tid == 0) {
     double s = 0.0;
-    for (int w = 0; w < kThreads / 32; ++w) s += score_s[w];
-    score_part[blockIdx.y * gridDim.x + blockIdx.x] = s;
+    for (int w = 0; w < kWarps; ++w) s += score_s[w];
+    score_part[split * gridDim.x + tile] = s;
+  }
+  // Partial sums: [tile][split][64 columns][KP].
+  float* mine = partial +
+                ((size_t)(tile * splits + split) * kTileV + c) * L::KP + 4 * j;
+  if (splits > 1) {
+#pragma unroll
+    for (int i = 0; i < N4; ++i)
+      __stcg(reinterpret_cast<float4*>(mine + 16 * i), acc[i]);
+  }
+  // The last CTA of a tile to arrive sums its splits; the last CTA of the
+  // grid sums the score parts.  Each resets its counter for the next call.
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    int last = 1;
+    if (splits > 1) {
+      last = atomicAdd(&counters[tile], 1) == splits - 1;
+      if (last) counters[tile] = 0;
+    }
+    last_s = last;
+    last_grid_s = atomicAdd(&counters[gridDim.x], 1) == blocks - 1;
+    if (last_grid_s) counters[gridDim.x] = 0;
+  }
+  __syncthreads();
+  if (last_grid_s) {
+    __threadfence();
+    double t = 0.0;  // thread i: parts i, i + 256, ..; then a fixed tree
+    for (int b = tid; b < blocks; b += kThreads) t += __ldcg(score_part + b);
+    for (int off = 16; off > 0; off >>= 1)
+      t += __shfl_down_sync(kFull, t, off);
+    if (lane == 0) score_s[warp] = t;
+    __syncthreads();
+    if (tid == 0) {
+      double s = 0.0;
+      for (int w = 0; w < kWarps; ++w) s += score_s[w];
+      *score_out = (float)s;
+    }
+  }
+  if (!last_s) return;
+  if (splits > 1) {  // split order 0, 1, ..: the same sum on every call
+    __threadfence();
+    const float* base = mine - (size_t)split * kTileV * L::KP;
+#pragma unroll
+    for (int i = 0; i < N4; ++i)
+      acc[i] = __ldcg(reinterpret_cast<const float4*>(base + 16 * i));
+#pragma unroll 4
+    for (int s = 1; s < splits; ++s) {
+      const float* ps = base + (size_t)s * kTileV * L::KP;
+#pragma unroll
+      for (int i = 0; i < N4; ++i) {
+        const float4 q = __ldcg(reinterpret_cast<const float4*>(ps + 16 * i));
+        acc[i].x += q.x;
+        acc[i].y += q.y;
+        acc[i].z += q.z;
+        acc[i].w += q.w;
+      }
+    }
+  }
+  const int v = v0 + c;
+  if (v < V) {
+#pragma unroll
+    for (int i = 0; i < N4; ++i) {
+      const float a[4] = {acc[i].x, acc[i].y, acc[i].z, acc[i].w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int k = 16 * i + 4 * j + e;
+        if (k < K) sstats[(size_t)k * V + v] = bcol[16 * i + e] * a[e];
+      }
+    }
   }
 }
 
-template <typename CT, int KPT>
+template <typename CT, int N4>
 cudaError_t launch(const void* counts, const void* et, const void* eeb,
-                   void* sstats, void* score_part, int D, int Vc, int V,
-                   int K, float eps, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)Layout<KPT>::floats;
+                   void* sstats, void* score_part, void* score_out,
+                   void* partial, void* counters, int D, int Vc, int V, int K,
+                   float eps, int splits, int rows_per_split,
+                   cudaStream_t stream) {
+  using L = Layout<N4>;
+  const size_t smem = sizeof(float) * (size_t)(kTileV + 2 * kRows) * L::LD +
+                      kCntBufs * sizeof(CT) * kRows * cnt_ld<CT>() +
+                      sizeof(unsigned) * 2 * (kTileV + kWarps);
   cudaError_t err = cudaFuncSetAttribute(
-      dense_sstats_kernel<CT, KPT>,
+      dense_sstats_kernel<CT, N4>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Vc + kTileV - 1) / kTileV, kSplit);
-  dense_sstats_kernel<CT, KPT><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid((Vc + kTileV - 1) / kTileV, splits);
+  dense_sstats_kernel<CT, N4><<<grid, kThreads, smem, stream>>>(
       static_cast<const CT*>(counts), static_cast<const float*>(et),
       static_cast<const float*>(eeb), static_cast<float*>(sstats),
-      static_cast<double*>(score_part), D, Vc, V, K, eps);
+      static_cast<double*>(score_part), static_cast<float*>(score_out),
+      static_cast<float*>(partial), static_cast<int*>(counters), D, Vc, V, K,
+      eps, rows_per_split);
   return cudaGetLastError();
 }
 
+// The kernel build whose lanes hold 4 * N4 topics each, K <= 16 * N4.
 template <typename CT>
-cudaError_t dispatch_k(const void* counts, const void* et, const void* eeb,
-                       void* sstats, void* score_part, int D, int Vc, int V,
-                       int K, float eps, cudaStream_t stream) {
-  if (K <= 64)
-    return launch<CT, 4>(counts, et, eeb, sstats, score_part, D, Vc, V, K,
-                         eps, stream);
-  if (K <= 128)
-    return launch<CT, 8>(counts, et, eeb, sstats, score_part, D, Vc, V, K,
-                         eps, stream);
-  if (K <= 256)
-    return launch<CT, 16>(counts, et, eeb, sstats, score_part, D, Vc, V, K,
-                          eps, stream);
+cudaError_t dispatch(int K, const void* counts, const void* et,
+                     const void* eeb, void* sstats, void* score_part,
+                     void* score_out, void* partial, void* counters, int D,
+                     int Vc, int V, float eps, int splits, int rows_per_split,
+                     cudaStream_t s) {
+#define PYLDA_N4(N)                                                       \
+  if (K <= 16 * N)                                                        \
+    return launch<CT, N>(counts, et, eeb, sstats, score_part, score_out,  \
+                         partial, counters, D, Vc, V, K, eps, splits,     \
+                         rows_per_split, s);
+  PYLDA_N4(1)
+  PYLDA_N4(2)
+  PYLDA_N4(4)
+  PYLDA_N4(7)
+  PYLDA_N4(8)
+  PYLDA_N4(16)
+#undef PYLDA_N4
   return cudaErrorInvalidValue;
 }
 
@@ -238,25 +453,33 @@ cudaError_t dispatch_k(const void* counts, const void* et, const void* eeb,
 
 extern "C" {
 
-// Number of CTAs (= entries of score_part) for a counts width Vc.
-int pylda_dense_sstats_blocks(int Vc) {
-  return kSplit * ((Vc + kTileV - 1) / kTileV);
-}
-
-// counts: [D, Vc] bf16 (counts_bf16 != 0) or f32; et: [D, K] f32;
-// eeb: [K, V] f32; sstats: out [K, V] f32, ZEROED by the caller (the two
-// row halves add into it); score_part: out [pylda_dense_sstats_blocks(Vc)]
-// f64.  All row-major and contiguous.  Returns the cudaError_t of the
-// launch.
+// counts: [D, Vc] bf16 (counts_bf16 != 0) or f32; et: [D, K] f32; eeb:
+// [K, V] f32, 1 <= K <= 256; sstats: out [K, V] f32 (every entry
+// written); score_out: out [1] f32; score_part: scratch [splits *
+// ceil(Vc / 64)] f64; partial: scratch [ceil(Vc / 64) * splits * 64 * KP]
+// f32, KP = K rounded up to 16, 64 or 112, 128 or 256 (unused when
+// splits == 1); counters: [ceil(Vc / 64) + 1] int32, zero before the
+// first call and left zero by each call (so one buffer serves a stream's
+// calls in turn).  The plan (ops/sstats.py::plan) gives splits and
+// rows_per_split (a multiple of 32, splits * rows_per_split >= D).  All
+// row-major and contiguous.  Returns the cudaError_t of the launch.
 int pylda_dense_sstats(const void* counts, int counts_bf16, const void* et,
-                       const void* eeb, void* sstats, void* score_part, int D,
-                       int Vc, int V, int K, float eps, void* stream) {
+                       const void* eeb, void* sstats, void* score_part,
+                       void* score_out, void* partial, void* counters,
+                       int D, int Vc, int V, int K, float eps, int splits,
+                       int rows_per_split, void* stream) {
+  if (K < 1 || K > 256 || splits < 1 || rows_per_split < kRows ||
+      rows_per_split % kRows != 0 || (long long)splits * rows_per_split < D)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (counts_bf16)
-    return (int)dispatch_k<__nv_bfloat16>(counts, et, eeb, sstats,
-                                          score_part, D, Vc, V, K, eps, s);
-  return (int)dispatch_k<float>(counts, et, eeb, sstats, score_part, D, Vc,
-                                V, K, eps, s);
+    return (int)dispatch<__nv_bfloat16>(K, counts, et, eeb, sstats,
+                                        score_part, score_out, partial,
+                                        counters, D, Vc, V, eps, splits,
+                                        rows_per_split, s);
+  return (int)dispatch<float>(K, counts, et, eeb, sstats, score_part,
+                              score_out, partial, counters, D, Vc, V, eps,
+                              splits, rows_per_split, s);
 }
 
 }  // extern "C"

@@ -10,7 +10,13 @@ fixed point (source note in ``csrc/dense_gamma.cu``, design in
 against expElogbeta^T rows gathered once a row), takes the exact
 expectation at the converged gamma, and launches the ``dense_sstats``
 kernel for the sufficient statistics and token score — the Pallas
-kernel's final pass, the same function.  For CPU tensors it runs the plain
+kernel's final pass, the same function.  That kernel (source note in
+``csrc/dense_sstats.cu``) also works at the nonzero counts only: its bound
+is 4*K FLOP a nonzero or the counts read once, whichever is longer (the
+bytes, at the dense flagship's 2.8% nonzeros); it is held back by each
+32-row chunk's latency and the grid's fixed cost, not by those bytes; and
+it returns the same bits on every call (each sum has one owner, row
+splits meet in a fixed order).  For CPU tensors it runs the plain
 version, ``pylda_tpu_torch.ops.estep.estep_dense``.  A CUDA tensor the
 kernel does not take raises.
 """

@@ -1,17 +1,32 @@
 """Fused dense sufficient statistics: the wrapper of ``csrc/dense_sstats.cu``.
 
 Replaces ``pylda_tpu/ops/pallas_sstats.py::pallas_dense_sstats``.  For
-CUDA tensors ``dense_sstats`` launches the hand-written kernel (source
-note in ``csrc/dense_sstats.cu``: its bound on an H100 and its design);
-for CPU tensors it runs the plain version,
+CUDA tensors ``dense_sstats`` launches the hand-written kernel; for CPU
+tensors it runs the plain version,
 ``pylda_tpu_torch.ops.estep.estep_dense_sstats``.  There is no other
 route: a CUDA tensor the kernel does not take raises.
+
+The kernel works only where a count is nonzero: 4*K FLOP a nonzero
+(phinorm, the ratio, the score term, expEtheta * ratio into the column's
+sums), and it reads the dense counts once.  Its bound on an H100 is that
+read (the 84 MB bf16 chunk of the ragged flagship: ~25 us at 3.35 TB/s,
+against ~3 us of arithmetic for its 1.2% nonzeros); what holds it back
+from the bound is each row chunk's latency and the grid's fixed cost
+(``PERF.md``).  Design and determinism: the source note of
+``csrc/dense_sstats.cu``.  The grid is planned here (``plan``), so the
+CPU tests reach it: 64-column vocab tiles, 32-row chunks, and row splits
+enough for ``MIN_CTAS_PER_SM`` CTAs on every SM; the splits' partial sums
+meet in split order, so two calls on the same inputs return the same
+bits.  The scratch (score and split partials, the tiles' counters, which
+each launch leaves zero) is kept per device and stream and reused.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import dataclasses
+import functools
+from typing import Dict, Tuple
 
 import torch
 
@@ -22,23 +37,111 @@ from pylda_tpu_torch.ops.estep import estep_dense_sstats
 LAUNCHES = 0
 # Largest topic count the kernel takes (its register accumulator).
 MAX_TOPICS = 256
+# Vocab columns a CTA owns (4 lanes a column, 256 threads).
+TILE_V = 64
+# Rows a chunk: the kernel's kRows (a column's row mask is a 32-bit word).
+CHUNK_ROWS = 32
+# float4s of topics a lane holds in the kernel's builds: K <= 16 * n4.
+TOPIC_FLOAT4S = (1, 2, 4, 7, 8, 16)
+# The grid has at least this many CTAs an SM, and a split at most
+# CHUNKS_PER_SPLIT chunks: the fewest splits that meet both.  (Measured on
+# an H100, PERF.md: fewer rows a split add CTAs whose fixed cost, the
+# expElogbeta tile and the partial sums, is paid again; more rows leave
+# too few CTAs to hide each chunk's latency.)
+MIN_CTAS_PER_SM = 2
+CHUNKS_PER_SPLIT = 26
 
 _BOUND = False
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """The kernel's grid for one call: ``tiles`` x ``splits`` CTAs; split s
+    owns rows [s * rows_per_split, (s + 1) * rows_per_split) in chunks of
+    ``CHUNK_ROWS``; ``kp`` topics (K padded to the kernel build's 16 *
+    n4) are the length of a column's partial sums."""
+
+    tiles: int
+    splits: int
+    rows_per_split: int
+    kp: int
+
+    @property
+    def blocks(self) -> int:
+        """CTAs, and entries of the f64 score partials."""
+        return self.tiles * self.splits
+
+    @property
+    def partial_floats(self) -> int:
+        """f32 scratch of the splits' partial sums (none for one split)."""
+        if self.splits == 1:
+            return 0
+        return self.blocks * TILE_V * self.kp
+
+
+def plan(D: int, Vc: int, K: int, sms: int) -> Plan:
+    """The grid for counts [D, Vc] at K topics on a card of ``sms`` SMs:
+    the fewest row splits that give ``MIN_CTAS_PER_SM`` CTAs an SM and at
+    most ``CHUNKS_PER_SPLIT`` 32-row chunks a split (both read at call
+    time), no more splits than chunks, and no empty split."""
+    if not 1 <= K <= MAX_TOPICS:
+        raise ValueError(f"K must be in [1, {MAX_TOPICS}], got {K}")
+    tiles = max(1, -(-Vc // TILE_V))
+    chunks = max(1, -(-D // CHUNK_ROWS))
+    want = max(-(-MIN_CTAS_PER_SM * sms // tiles),
+               -(-chunks // CHUNKS_PER_SPLIT))
+    splits = min(chunks, max(1, want))
+    rows_per_split = -(-chunks // splits) * CHUNK_ROWS
+    splits = max(1, -(-D // rows_per_split))
+    return Plan(tiles=tiles, splits=splits, rows_per_split=rows_per_split,
+                kp=16 * next(n for n in TOPIC_FLOAT4S if 16 * n >= K))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Sets the argument types of ``pylda_dense_sstats`` on a library
+    built from ``csrc/dense_sstats.cu`` (or from a variant of it)."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.pylda_dense_sstats.argtypes = [
+        p, i, p, p, p, p, p, p, p, i, i, i, i, ctypes.c_float, i, i, p,
+    ]
+    lib.pylda_dense_sstats.restype = i
+    return lib
 
 
 def _lib() -> ctypes.CDLL:
     global _BOUND
     lib = _build.library("dense_sstats")
     if not _BOUND:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.pylda_dense_sstats.argtypes = [
-            p, i, p, p, p, p, i, i, i, i, ctypes.c_float, p,
-        ]
-        lib.pylda_dense_sstats.restype = i
-        lib.pylda_dense_sstats_blocks.argtypes = [i]
-        lib.pylda_dense_sstats_blocks.restype = i
+        bind(lib)
         _BOUND = True
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# (device index, stream) -> [score partials f64, split partials f32,
+# counters int32].  The kernel leaves its counters zero, and a stream runs
+# its calls in turn, so one set serves every call on that stream; it grows
+# when a call needs more.
+_SCRATCH: Dict[Tuple[int, int], list] = {}
+
+
+def _scratch(dev: torch.device, stream: int, pl: Plan) -> list:
+    key = (dev.index, stream)
+    need = (pl.blocks, max(pl.partial_floats, 1), pl.tiles + 1)
+    have = _SCRATCH.get(key)
+    if have is None or any(t.numel() < n for t, n in zip(have, need)):
+        if have is not None:
+            need = tuple(max(t.numel(), n) for t, n in zip(have, need))
+        have = _SCRATCH[key] = [
+            torch.empty((need[0],), dtype=torch.float64, device=dev),
+            torch.empty((need[1],), dtype=torch.float32, device=dev),
+            torch.zeros((need[2],), dtype=torch.int32, device=dev),
+        ]
+    return have
 
 
 def dense_sstats(
@@ -70,23 +173,34 @@ def dense_sstats(
     dev = counts.device
     if exp_etheta.device != dev or exp_elog_beta.device != dev:
         raise ValueError("all inputs must be on one device")
-    counts = counts.contiguous()
-    exp_etheta = exp_etheta.contiguous()
-    exp_elog_beta = exp_elog_beta.contiguous()
-    lib = _lib()
-    # Zeroed: the kernel's two row halves each add into every output.
-    sstats = torch.zeros((K, V), dtype=torch.float32, device=dev)
-    parts = torch.empty(
-        (lib.pylda_dense_sstats_blocks(Vc),), dtype=torch.float64, device=dev
-    )
+    out = launch(_lib(), counts.contiguous(), exp_etheta.contiguous(),
+                 exp_elog_beta.contiguous(), eps)
+    LAUNCHES += 1
+    return out
+
+
+def launch(lib: ctypes.CDLL, counts: torch.Tensor, exp_etheta: torch.Tensor,
+           exp_elog_beta: torch.Tensor, eps: float
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of ``lib``'s kernel on checked, contiguous CUDA inputs:
+    (sstats, score); raises if the launch fails."""
+    D, Vc = counts.shape
+    K, V = exp_elog_beta.shape
+    dev = counts.device
+    pl = plan(D, Vc, K, _sms(dev.index))
+    # The last CTA of each tile writes every entry of its columns.
+    sstats = torch.empty((K, V), dtype=torch.float32, device=dev)
+    score = torch.empty((), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        parts, partial, counters = _scratch(dev, stream, pl)
         rc = lib.pylda_dense_sstats(
             counts.data_ptr(), int(counts.dtype == torch.bfloat16),
             exp_etheta.data_ptr(), exp_elog_beta.data_ptr(),
-            sstats.data_ptr(), parts.data_ptr(), D, Vc, V, K, float(eps),
-            torch.cuda.current_stream(dev).cuda_stream,
+            sstats.data_ptr(), parts.data_ptr(), score.data_ptr(),
+            partial.data_ptr(), counters.data_ptr(), D, Vc, V, K, float(eps),
+            pl.splits, pl.rows_per_split, stream,
         )
     if rc != 0:
         raise RuntimeError(f"dense_sstats kernel launch failed: cudaError {rc}")
-    LAUNCHES += 1
-    return sstats, parts.sum().to(torch.float32)
+    return sstats, score

@@ -14,7 +14,11 @@ count within +-1 and an atol of 5e-4 + K * threshold: a row whose change
 sits at the threshold may freeze a sweep apart in the two versions, and
 that sweep moves it by at most K * threshold in sum_k |dgamma|.  The dense
 E-step's token score, taken at a gamma within those tolerances, agrees to
-rel 1e-4.  Both gamma kernels run row after row (``csrc/row_fixed_point.cuh``):
+rel 1e-4.  The sufficient-statistics kernel works at nonzero counts only:
+its cases span densities 0 to 100%, a column every row uses, a row with
+every column nonzero, many row splits a tile, Vc >> V, K in {1, 32, 100,
+256} and bf16 counts up to 256, and each checks that two calls return
+the same bits.  Both gamma kernels run row after row (``csrc/row_fixed_point.cuh``):
 cases here also take the re-run of rows past S* and rows longer than the
 shared-memory slot buffer (166 slots at K=100, 63 at K=256), which stream
 their compacted entries in windows from a scratch list.
@@ -90,6 +94,71 @@ def test_dense_sstats_kernel_matches_plain(cuda, D, V, K, v_pad, pad_rows,
     tol = 1e-4 * ss_p.abs() + 1e-6 * ss_p.abs().max()
     assert bool(((ss - ss_p).abs() <= tol).all()), float((ss - ss_p).abs().max())
     assert float(tok) == pytest.approx(float(tok_p), rel=1e-5)
+
+
+def _sparse_sstats_inputs(D, V, K, v_pad, pad_rows, density, bf16, dev,
+                          hot=False, full_row=False, max_count=4, seed=0):
+    """Counts of a given density (1.0: every count nonzero) with values in
+    [1, max_count], optionally a column every row uses and a row with
+    every column nonzero; padding rows carry doc 0's expEtheta."""
+    rng = np.random.default_rng(seed)
+    counts = (rng.random((D, V)) < density) * rng.integers(
+        1, max_count + 1, (D, V))
+    if hot:
+        counts[:, rng.integers(0, V)] = rng.integers(1, max_count + 1, D)
+    if full_row:
+        counts[rng.integers(0, D)] = rng.integers(1, max_count + 1, V)
+    counts = np.pad(counts.astype(np.float32), ((0, pad_rows), (0, v_pad)))
+    gamma = rng.gamma(100.0, 0.01, size=(D, K))
+    lam = rng.gamma(1.0, 1.0, size=(K, V))
+    ct = torch.tensor(counts, device=dev)
+    if bf16:
+        ct = ct.to(torch.bfloat16)
+        assert bool((ct.float().cpu() == torch.tensor(counts)).all())
+    et = exp_dirichlet_expectation(torch.tensor(gamma, device=dev).float())
+    et = torch.cat([et, et[:1].repeat(pad_rows, 1)])
+    eeb = exp_dirichlet_expectation(torch.tensor(lam, device=dev).float())
+    return ct, et, eeb
+
+
+# (D, V, K, v_pad, pad_rows, density, bf16, options): rows off every chunk
+# and split, padding on both axes.
+_SPARSE_SSTATS = [
+    (300, 1000, 100, 24, 20, 0.0, True, {}),  # all-zero counts
+    (517, 2000, 100, 48, 11, 0.012, True, {}),  # the ragged flagship's 1.2%
+    (333, 1500, 100, 0, 0, 0.03, False, {}),  # the dense flagship's ~3%
+    (70, 200, 100, 56, 0, 1.0, True, {}),  # every count nonzero
+    (1000, 3000, 100, 72, 9, 0.012, True, dict(hot=True, full_row=True)),
+    (4000, 640, 100, 0, 0, 0.02, True, {}),  # many row splits a tile
+    (200, 100, 7, 4000, 0, 0.05, True, {}),  # Vc >> V
+    (150, 500, 1, 12, 3, 0.03, False, dict(hot=True)),  # K = 1
+    (129, 700, 256, 68, 5, 0.03, True, dict(full_row=True)),  # K = 256
+    (97, 333, 256, 0, 0, 0.05, False, {}),  # K = 256, f32, unaligned rows
+    (100, 400, 32, 0, 0, 0.05, True, dict(max_count=256)),  # bf16 to 256
+]
+
+
+@pytest.mark.parametrize("D,V,K,v_pad,pad_rows,density,bf16,opts",
+                         _SPARSE_SSTATS)
+def test_dense_sstats_kernel_sparsity_cases(cuda, D, V, K, v_pad, pad_rows,
+                                            density, bf16, opts):
+    """Against the plain version at the tolerances above, and two calls on
+    the same inputs give the same bits."""
+    ct, et, eeb = _sparse_sstats_inputs(D, V, K, v_pad, pad_rows, density,
+                                        bf16, cuda, **opts)
+    before = sstats_mod.LAUNCHES
+    ss, tok = sstats_mod.dense_sstats(ct, et, eeb)
+    ss2, tok2 = sstats_mod.dense_sstats(ct, et, eeb)
+    assert sstats_mod.LAUNCHES == before + 2
+    ss_p, tok_p = estep_dense_sstats(ct, et, eeb)
+    torch.cuda.synchronize()
+    assert ss.shape == (K, V)
+    assert torch.equal(ss, ss2) and torch.equal(tok, tok2)
+    tol = 1e-4 * ss_p.abs() + 1e-6 * ss_p.abs().max()
+    assert bool(((ss - ss_p).abs() <= tol).all()), float((ss - ss_p).abs().max())
+    assert float(tok) == pytest.approx(float(tok_p), rel=1e-5)
+    if density == 0.0:
+        assert bool((ss == 0).all()) and float(tok) == 0.0
 
 
 def test_dense_sstats_kernel_refuses_large_k(cuda):

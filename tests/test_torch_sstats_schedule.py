@@ -1,0 +1,192 @@
+"""The schedule of the dense sufficient-statistics kernel, on the CPU.
+
+``csrc/dense_sstats.cu`` computes the function of ``estep_dense_sstats``
+over the nonzero counts only, in its own order: 64-column vocab tiles;
+row splits from ``ops/sstats.py::plan``; in each split, chunks of rows
+whose nonzeros are compacted into one row mask a column; the four owners
+of a column walk its mask in row order (step t takes each column's t-th
+nonzero), adding expEtheta[d] * C / phinorm into the column's sums; the
+splits' partial sums meet in split order and are scaled by expElogbeta.
+Here that schedule runs in PyTorch from the same plan and must give the
+plain version's result: to 1e-12 in float64, and, in float32, JAX's
+``estep_dense_sstats`` to rtol 2e-5.  The plan's own tests: >= 2 CTAs an
+SM at both flagship shapes on 132 SMs, splits that cover every row, and
+scratch that covers every split.
+"""
+
+import itertools
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pylda_tpu.ops.estep import estep_dense_sstats as jax_dense_sstats
+from pylda_tpu_torch.ops import _build
+from pylda_tpu_torch.ops import sstats as sstats_mod
+from pylda_tpu_torch.ops.dirichlet import exp_dirichlet_expectation
+from pylda_tpu_torch.ops.estep import estep_dense_sstats
+
+H100_SMS = 132
+TILE = sstats_mod.TILE_V
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
+def kernel_schedule(counts, et, eeb, eps, pl):
+    """(sstats [K, V], score) in the kernel's order under plan ``pl``."""
+    D, Vc = counts.shape
+    K, V = eeb.shape
+    dt = et.dtype
+    width = pl.tiles * TILE
+    c = torch.nn.functional.pad(counts.to(dt), (0, width - Vc))
+    eeb_w = torch.nn.functional.pad(eeb, (0, width - V))
+    sstats = torch.zeros((K, V), dtype=dt)
+    score = torch.zeros((), dtype=torch.float64)
+    for tile in range(pl.tiles):
+        cols = slice(tile * TILE, (tile + 1) * TILE)
+        b = eeb_w[:, cols].T  # [64, K]: the staged column of each owner
+        partials = []
+        for split in range(pl.splits):
+            acc = torch.zeros((TILE, K), dtype=dt)
+            lo = split * pl.rows_per_split
+            hi = min(D, lo + pl.rows_per_split)
+            for d0 in range(lo, hi, sstats_mod.CHUNK_ROWS):
+                block = c[d0:min(hi, d0 + sstats_mod.CHUNK_ROWS), cols]
+                # A column's nonzero rows, ascending: its mask's bits.
+                rows = [torch.nonzero(block[:, j]).flatten()
+                        for j in range(TILE)]
+                steps = max(len(r) for r in rows)
+                for t in range(steps):
+                    on = [j for j in range(TILE) if len(rows[j]) > t]
+                    r = torch.stack([rows[j][t] for j in on])
+                    on = torch.tensor(on)
+                    e = et[d0 + r]  # [n, K]
+                    pn = (e * b[on]).sum(dim=1) + eps
+                    cv = block[r, on]
+                    acc[on] += e * (cv / pn)[:, None]
+                    score += (cv * torch.log(pn)).to(torch.float64).sum()
+            partials.append(acc)
+        total = partials[0]
+        for p in partials[1:]:
+            total = total + p
+        keep = min(TILE, max(0, V - tile * TILE))
+        sstats[:, tile * TILE:tile * TILE + keep] = (b * total).T[:, :keep]
+    return sstats, score
+
+
+def _case(D, V, K, v_pad, pad_rows, density, seed, dtype):
+    """Counts [D + pad_rows, V + v_pad] (padding rows and columns zero;
+    padding rows carry doc 0's expEtheta, as the engine gathers them)."""
+    rng = np.random.default_rng(seed)
+    counts = rng.poisson(density, size=(D, V)).astype(np.float64)
+    counts[:, rng.integers(0, V)] += rng.integers(1, 4, D)  # a hot column
+    counts[D // 2] += 1.0  # a row with every column nonzero
+    counts = np.pad(counts, ((0, pad_rows), (0, v_pad)))
+    gamma = rng.gamma(100.0, 0.01, size=(D, K))
+    lam = rng.gamma(1.0, 1.0, size=(K, V))
+    et = exp_dirichlet_expectation(torch.tensor(gamma, dtype=dtype))
+    et = torch.cat([et, et[:1].repeat(pad_rows, 1)])
+    eeb = exp_dirichlet_expectation(torch.tensor(lam, dtype=dtype))
+    return torch.tensor(counts, dtype=dtype), et, eeb
+
+
+# (D, V, K, v_pad, pad_rows, density, sms): tiles, splits and chunks off
+# every size; a few SMs so that small shapes still split their rows.
+_CASES = [
+    (70, 150, 7, 42, 5, 0.05, 4),
+    (130, 200, 20, 0, 0, 0.012, 8),
+    (97, 64, 100, 64, 31, 0.03, 2),
+    (40, 90, 3, 6, 0, 1.0, 3),  # every count nonzero
+]
+
+
+@pytest.mark.parametrize("per_split", [1, 26])
+@pytest.mark.parametrize("D,V,K,v_pad,pad_rows,density,sms", _CASES)
+def test_schedule_matches_plain_f64(D, V, K, v_pad, pad_rows, density, sms,
+                                    per_split, monkeypatch):
+    counts, et, eeb = _case(D, V, K, v_pad, pad_rows, density, seed=D + V,
+                            dtype=torch.float64)
+    monkeypatch.setattr(sstats_mod, "CHUNKS_PER_SPLIT", per_split)
+    pl = sstats_mod.plan(D + pad_rows, V + v_pad, K, sms)
+    ss, tok = kernel_schedule(counts, et, eeb, 1e-30, pl)
+    ss_p, tok_p = estep_dense_sstats(counts, et, eeb, 1e-30)
+    torch.testing.assert_close(ss, ss_p, rtol=1e-12, atol=1e-300)
+    assert float(tok) == pytest.approx(float(tok_p), rel=1e-12)
+
+
+@pytest.mark.parametrize("D,V,K,v_pad,pad_rows,density,sms", _CASES[:3])
+def test_schedule_f32_matches_jax(D, V, K, v_pad, pad_rows, density, sms):
+    counts, et, eeb = _case(D, V, K, v_pad, pad_rows, density, seed=D + K,
+                            dtype=torch.float32)
+    pl = sstats_mod.plan(D + pad_rows, V + v_pad, K, sms)
+    ss, tok = kernel_schedule(counts, et, eeb, 1e-30, pl)
+    ss_j, tok_j = jax_dense_sstats(jnp.asarray(counts.numpy()),
+                                   jnp.asarray(et.numpy()),
+                                   jnp.asarray(eeb.numpy()))
+    np.testing.assert_allclose(ss.numpy(), np.asarray(ss_j), rtol=2e-5,
+                               atol=1e-6)
+    assert float(tok) == pytest.approx(float(tok_j), rel=2e-5)
+
+
+def test_schedule_all_zero_counts():
+    """No nonzero: no work, sstats and score exactly zero."""
+    counts, et, eeb = _case(40, 100, 5, 28, 8, 0.0, seed=3,
+                            dtype=torch.float64)
+    counts.zero_()
+    ss, tok = kernel_schedule(counts, et, eeb, 1e-30,
+                              sstats_mod.plan(48, 128, 5, 4))
+    assert bool((ss == 0).all()) and float(tok) == 0.0
+
+
+@pytest.mark.parametrize(
+    "D,Vc,label", [(4096, 10240, "ragged chunk"), (4096, 4096, "dense batch")]
+)
+def test_plan_fills_an_h100_at_the_flagships(D, Vc, label):
+    pl = sstats_mod.plan(D, Vc, 100, H100_SMS)
+    assert pl.blocks >= 2 * H100_SMS, label
+    assert pl.tiles * TILE >= Vc and (pl.tiles - 1) * TILE < Vc
+    assert pl.kp == 112
+
+
+@pytest.mark.parametrize("D", [1, 31, 33, 500, 4096])
+def test_plan_covers_rows_and_scratch(D, monkeypatch):
+    for K, Vc, per_split in itertools.product([1, 7, 16, 17, 100, 113, 256],
+                                              [1, 64, 65, 4096],
+                                              [1, 4, 26, 1000]):
+        monkeypatch.setattr(sstats_mod, "CHUNKS_PER_SPLIT", per_split)
+        pl = sstats_mod.plan(D, Vc, K, H100_SMS)
+        assert pl.kp // 16 in sstats_mod.TOPIC_FLOAT4S and pl.kp >= K
+        assert pl.rows_per_split % sstats_mod.CHUNK_ROWS == 0
+        assert pl.rows_per_split <= per_split * sstats_mod.CHUNK_ROWS
+        # Every row in one split, no split empty.
+        assert pl.splits * pl.rows_per_split >= D
+        assert (pl.splits - 1) * pl.rows_per_split < max(D, 1)
+        # Scratch: one [64, kp] partial a CTA when the rows are split.
+        if pl.splits > 1:
+            assert pl.partial_floats == pl.blocks * TILE * pl.kp
+        else:
+            assert pl.partial_floats == 0
+        assert pl.blocks == pl.tiles * pl.splits
+
+
+def test_plan_topic_padding_matches_the_kernel_builds():
+    """The scratch a split partial needs follows the kernel's builds
+    (``PYLDA_N4(n)`` in ``csrc/dense_sstats.cu``): one for each n."""
+    src = (_build.CSRC / "dense_sstats.cu").read_text()
+    builds = tuple(int(n) for n in re.findall(r"PYLDA_N4\((\d+)\)\n", src))
+    assert builds == sstats_mod.TOPIC_FLOAT4S
+
+
+def test_plan_refuses_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError):
+        sstats_mod.plan(10, 10, 257, H100_SMS)
+    with pytest.raises(ValueError):
+        sstats_mod.plan(10, 10, 0, H100_SMS)
