@@ -21,6 +21,10 @@ Phases, in order (any failure exits non-zero):
      dense E-step (gamma fixed point + final pass) on the [4096, 4096]
      bf16 counts batch, and its final pass, the dense sufficient
      statistics, alone at the kernel's gamma;
+   - at SVI config 4 (K=200, V=50,000, 16,384 documents, minibatches of
+     1024): the ragged gamma fixed point on each bucket of one gathered
+     minibatch (with the share of rows longer than the slot buffer) and
+     the dense sufficient statistics on its [1024, 50176] bf16 block;
    the dense sufficient statistics are also called twice on each input and
    must return the same bits;
    the two gamma fixed points are held against their plain version run in
@@ -28,13 +32,16 @@ Phases, in order (any failure exits non-zero):
    row-sweeps the kernels' row-major order computed past S*, and a
    histogram of each row's first exitable sweep;
 4. engines: ``VariationalBayes`` through ``initialize``, ``learning_many``,
-   ``inference`` and ``perplexity`` at each flagship, with the kernel
-   launch counters zeroed just before and read just after;
+   ``inference`` and ``perplexity`` at each flagship, and
+   ``StochasticVariationalBayes`` at config 4 (epochs timed, one profiled,
+   held-out perplexities), with the kernel launch counters zeroed just
+   before and read just after;
 5. CLI: ``pylda_tpu_torch.cli.train``, ``.test`` and ``.infer`` in-process
    on the bundled corpus ``data/de-news-tiny`` (K=10) on the card, with
-   their output files checked and the launch counters zeroed and read;
-6. cross-check: at a small size, on each route, the engine on the card
-   (kernels) and on the CPU (plain versions) give the same ELBOs.
+   ``--inference_mode`` vb and svi, their output files checked and the
+   launch counters zeroed and read;
+6. cross-check: at a small size, on each route, each engine on the card
+   (kernels) and on the CPU (plain versions) give the same bounds.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -43,6 +50,7 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
 import shutil
@@ -57,6 +65,9 @@ PEAK_HBM_BYTES = 3.35e12
 
 K, V, D, MEAN_LEN = 100, 10_000, 4096, 120.0
 V_DENSE = 4096  # the dense flagship: the default dense_vocab_threshold
+# SVI config 4 (BASELINE.json configs[3]): K=200, vocabulary 50k, a
+# 16,384-document synthetic corpus, minibatches of 1024.
+SVI_K, SVI_V, SVI_D, SVI_LEN, SVI_BATCH = 200, 50_000, 16_384, 150.0, 1024
 
 # Kernel vs plain version on the card.  Sums run in different orders
 # (per-thread f32 accumulation vs cuBLAS blocking), so agreement is to
@@ -112,19 +123,22 @@ def bound(flops: float, nbytes: float):
 
 
 def exit_report(g_k, g_64, g_32, s_k, s_64, row_exit, row_sweeps, extra,
-                gamma_atol):
+                gamma_atol, check_updating=True):
     """A gamma kernel against its plain version in float64 (and, printed
     only, in float32): (ok, max abs err, text).  The text also gives the
     errors of the rows that were done (frozen before S*) and of those
     still updating at S*, S*, the row-sweeps the kernel computed past S*,
     and a histogram of each row's first exitable sweep in 10-sweep bins
-    ("never": not within the sweeps it ran)."""
+    ("never": not within the sweeps it ran).  With ``check_updating``
+    False only the done rows are held to the tolerance: the rows still
+    updating at S* are printed (see ``ragged_checks``)."""
     g_64 = g_64.float()
     diff = (g_k - g_64).abs()
-    ok = bool((diff <= gamma_atol + GAMMA_RTOL * g_64.abs()).all())
+    done = row_sweeps < int(s_k)
+    held = slice(None) if check_updating else done
+    ok = bool((diff <= gamma_atol + GAMMA_RTOL * g_64.abs())[held].all())
     ok = ok and abs(int(s_k) - int(s_64)) <= 1
     err, diff32 = float(diff.max()), (g_32 - g_64).abs()
-    done = row_sweeps < int(s_k)
     split = ", ".join(
         f"{name} {int(rows.sum())}: {float(diff[rows].max()):.3e} (f32 plain "
         f"{float(diff32[rows].max()):.3e})"
@@ -184,6 +198,103 @@ def sstats_check(label, counts, et, eeb, eps, sstats_mod, plain) -> dict:
             "max_abs_err": err, "score_rel_err": tok_rel, "ms": k_ms,
             "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
             "dense_form_bound_ms": dense_ms}
+
+
+def slot_entries(K: int, inner: int) -> int:
+    """Live entries a row keeps in the gamma kernels' shared-memory slot
+    buffer, as the launcher in ``csrc/row_fixed_point.cuh`` sizes it
+    (72 KB a block, 256 threads); a row with more streams its entries in
+    windows from a scratch list."""
+    k4 = (K + 3) // 4
+    s4 = k4 | 1
+    fixed = s4 * 4 + (256 // k4) * k4 * 4 + ((min(inner, 256) + 3) & ~3) + 28
+    return max(16, (72 * 1024 - 4 * (fixed + 12)) // (4 * (s4 * 4 + 3)))
+
+
+def ragged_checks(label, batches, eeb, eeb_t, alpha, kw, gamma_atol, dev,
+                  ragged_mod, plain, pinned=False):
+    """The ragged gamma kernel on each bucket against its plain version in
+    float64 (``exit_report``), timed; raises if one disagrees.  Returns
+    the record of the shape (summed over the buckets) and the plain
+    float32 gammas.
+
+    ``pinned``: rows that stall without being done go on updating to the
+    last sweep, and their gamma then depends on rounding for any float32
+    code (at SVI config 4 the float32 plain version drifts from float64
+    there by more than the tolerance, PERF.md).  So at the main path's
+    settings S* and the done rows are held to float64 and the rows still
+    updating are printed, and every row is held to float64 at pinned
+    sweeps (12 sweeps at threshold 0: no freezing, no exit), where the
+    trajectories compare exactly."""
+    import torch
+
+    K, V = eeb.shape
+    rg = dict(name=label, ms=0.0, plain_ms=0.0, flops=0.0, nbytes=0.0,
+              max_abs_err=0.0, rows=0, streamed_rows=0)
+    rows_plain = []
+    for i, b in enumerate(batches):
+        Db, Tb = b.ids.shape
+        g0 = torch.ones((Db, K), dtype=torch.float32, device=dev)
+        slots = torch.zeros((1,), dtype=torch.int64, device=dev)
+        extra = torch.zeros((1,), dtype=torch.int64, device=dev)
+        row_exit = torch.zeros((Db,), dtype=torch.int32, device=dev)
+        row_sweeps = torch.zeros_like(row_exit)
+        g_k, s_k = ragged_mod.ragged_gamma(b.ids, b.cnts, g0, eeb, alpha,
+                                           eeb_t=eeb_t, slots_out=slots,
+                                           extra_sweeps_out=extra,
+                                           row_exit_out=row_exit,
+                                           row_sweeps_out=row_sweeps, **kw)
+        g_p, s_p = plain(b.ids, b.cnts, g0, eeb, alpha, **kw)
+        g_64, s_64 = plain(b.ids, b.cnts.double(), g0.double(), eeb.double(),
+                           alpha.double(), **kw)
+        torch.cuda.synchronize()
+        ok, err, fp_text = exit_report(g_k, g_64, g_p, s_k, s_64, row_exit,
+                                       row_sweeps, extra, gamma_atol,
+                                       check_updating=not pinned)
+        del g_64
+        if pinned:
+            kw0 = dict(kw, inner_iterations=12, convergence_threshold=0.0)
+            g_k0, s_k0 = ragged_mod.ragged_gamma(b.ids, b.cnts, g0, eeb,
+                                                 alpha, eeb_t=eeb_t, **kw0)
+            g_640, _ = plain(b.ids, b.cnts.double(), g0.double(),
+                             eeb.double(), alpha.double(), **kw0)
+            diff0 = (g_k0 - g_640.float()).abs()
+            ok0 = int(s_k0) == 12 and bool(
+                (diff0 <= 5e-4 + GAMMA_RTOL * g_640.abs()).all())
+            fp_text += (f"; pinned 12 sweeps at threshold 0: max_abs_err vs "
+                        f"f64 {float(diff0.max()):.3e} (tolerance 0.0005 + "
+                        f"{GAMMA_RTOL}*|gamma|, every row) "
+                        f"{'ok' if ok0 else 'FAIL'}")
+            ok = ok and ok0
+            del g_640
+        live = (b.cnts != 0).sum(dim=1)
+        rows = int((live > 0).sum())
+        streamed = int((live > min(slot_entries(K, kw["inner_iterations"]),
+                                   Tb)).sum())
+        flops = 4.0 * K * int(slots)
+        nbytes = Db * Tb * 8 + V * K * 4 + 2 * Db * K * 4 + K * 4
+        b_ms, b_by = bound(flops, nbytes)
+        k_ms = cuda_ms(lambda: ragged_mod.ragged_gamma(
+            b.ids, b.cnts, g0, eeb, alpha, eeb_t=eeb_t, **kw), 20)
+        p_ms = cuda_ms(lambda: plain(b.ids, b.cnts, g0, eeb, alpha, **kw), 3)
+        print(f"kernel ragged_gamma {label} bucket {i} [{Db}x{Tb}, K={K}]: "
+              f"sweeps plain f32 {int(s_p)}, {fp_text}, real slots processed "
+              f"{int(slots)}, rows streamed past the slot buffer {streamed} of "
+              f"{rows}, kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} bound_ms "
+              f"{b_ms:.5f} ({b_by}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"ragged_gamma {label} bucket {i} disagrees "
+                                 f"with its plain version")
+        rg["ms"] += k_ms
+        rg["plain_ms"] += p_ms
+        rg["flops"] += flops
+        rg["nbytes"] += nbytes
+        rg["max_abs_err"] = max(rg["max_abs_err"], err)
+        rg["rows"] += rows
+        rg["streamed_rows"] += streamed
+        rows_plain.append(g_p)
+    rg["bound_ms"], rg["bound_by"] = bound(rg["flops"], rg["nbytes"])
+    return rg, rows_plain
 
 
 def zero_launches(mods) -> None:
@@ -256,8 +367,92 @@ def run_engine(label, cfg, corpus, test, dev, mods, needed):
     return counts
 
 
-def run_cli(mods) -> dict:
-    """train -> test -> infer through the CLIs' main() on the card."""
+def run_svi(cfg, corpus, test, dev, mods) -> dict:
+    """SVI at config 4: initialize, learning_many(1) warm,
+    learning_many(4) timed, one more epoch under ``torch.profiler`` (the
+    card's busy time, idle share and kernels by device time), then
+    ``inference``, ``perplexity`` and ``point_estimate_perplexity`` on
+    held-out docs; the point-estimate perplexity must fall below its
+    value at init.  Launch counters zeroed just before and read just
+    after."""
+    import numpy as np
+    import torch
+
+    from pylda_tpu_torch.models import StochasticVariationalBayes
+    from scripts.torch_engine_profile import busy_us
+
+    label = "engine svi config 4"
+    zero_launches(mods)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    eng = StochasticVariationalBayes(cfg, device=dev)
+    eng.initialize(corpus)
+    torch.cuda.synchronize()
+    mat = eng._mb_sstats.counts
+    print(f"{label}: initialize {time.perf_counter() - t0:.2f} s; geometry "
+          f"(width: rows a minibatch) {eng._svi_geometry}; device rows "
+          f"{[tuple(r.ids.shape) for r in eng._device_rows]}; counts matrix "
+          f"{tuple(mat.shape)} {str(mat.dtype)[6:]} "
+          f"({mat.numel() * mat.element_size() / 1e9:.3f} GB)")
+    pe0 = eng.point_estimate_perplexity(test)
+    eng.learning_many(1)
+    n = 4
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ests = eng.learning_many(n)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / n
+    nb = -(-corpus.num_docs // cfg.batch_size)
+    print(f"{label}: learning_many({n}) {dt:.4f} s/epoch ({dt / nb * 1e3:.3f} "
+          f"ms a minibatch, {nb} minibatches), {corpus.num_docs / dt:.1f} "
+          f"docs/s; bound estimates {[round(e, 1) for e in ests]}; sweeps per "
+          f"bucket (last minibatch) {[int(s) for s in eng.last_sweeps]}")
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        eng.learning_many(1)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy = busy_us(prof.events())
+    print(f"{label}: one epoch under torch.profiler: wall {wall_us / 1e3:.3f} "
+          f"ms, device busy {busy / 1e3:.3f} ms, idle share "
+          f"{1.0 - busy / wall_us:.3f}")
+    top = sorted((e for e in prof.key_averages()
+                  if e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)[:8]
+    for e in top:
+        print(f"  {e.self_device_time_total / 1e3:.3f} ms an epoch, "
+              f"{e.count} launches: {e.key[:90]}")
+    del prof
+    t0 = time.perf_counter()
+    ll, gamma = eng.inference(test)
+    t_inf = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ppl = eng.perplexity(test)
+    t_ppl = time.perf_counter() - t0
+    pe = eng.point_estimate_perplexity(test)
+    if not (np.isfinite(ests).all() and np.isfinite(ll) and np.isfinite(ppl)
+            and gamma.shape == (test.num_docs, cfg.number_of_topics)
+            and np.isfinite(gamma).all()):
+        raise AssertionError(f"{label}: not finite")
+    print(f"{label}: inference on {test.num_docs} held-out docs "
+          f"{t_inf * 1e3:.1f} ms (ll {ll:.1f}), perplexity {ppl:.2f} in "
+          f"{t_ppl * 1e3:.1f} ms, point-estimate perplexity {pe:.2f} (at "
+          f"init {pe0:.2f})")
+    if not pe < pe0:
+        raise AssertionError(f"{label}: held-out point-estimate perplexity "
+                             f"did not fall ({pe0:.2f} -> {pe:.2f})")
+    print(f"{label}: peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
+    counts = read_launches(mods)
+    check_launched(label, counts, ("ragged_gamma", "dense_sstats"))
+    return counts
+
+
+def run_cli(mods, mode: str) -> dict:
+    """train -> test -> infer through the CLIs' main() on the card, with
+    ``--inference_mode=mode``."""
     import numpy as np
 
     from pylda_tpu_torch.cli import infer as cli_infer
@@ -266,15 +461,16 @@ def run_cli(mods) -> dict:
     from pylda_tpu_torch.corpus.datasets import bundled_corpus_dir
 
     corpus_dir = bundled_corpus_dir()
-    shutil.rmtree(CLI_OUT, ignore_errors=True)
+    out = CLI_OUT / mode
+    shutil.rmtree(out, ignore_errors=True)
     zero_launches(mods)
     t0 = time.perf_counter()
     rc = cli_train.main([
-        f"--input_directory={corpus_dir}", f"--output_directory={CLI_OUT}",
+        f"--input_directory={corpus_dir}", f"--output_directory={out}",
         "--number_of_topics=10", "--training_iterations=6",
-        "--snapshot_interval=3", "--dump_gamma",
+        "--snapshot_interval=3", "--dump_gamma", f"--inference_mode={mode}",
     ])
-    runs = sorted((CLI_OUT / "de-news-tiny").iterdir())
+    runs = sorted((out / "de-news-tiny").iterdir())
     if rc != 0 or len(runs) != 1:
         raise AssertionError(f"cli train: rc {rc}, run dirs {runs}")
     run = runs[0]
@@ -285,26 +481,26 @@ def run_cli(mods) -> dict:
     if missing or lines[0] != "==========\t0\t==========" or len(lines) != 510:
         raise AssertionError(f"cli train outputs: missing {missing}, "
                              f"exp_beta lines {len(lines)}")
-    gamma_out = CLI_OUT / "gamma.test"
+    gamma_out = out / "gamma.test"
     rc = cli_test.main([f"--model={run / 'model-6'}",
                         f"--input_directory={corpus_dir}",
                         f"--output_file={gamma_out}", "--point_estimate"])
     gamma = np.loadtxt(gamma_out)
     if rc != 0 or gamma.shape != (100, 10) or not (gamma > 0).all():
         raise AssertionError(f"cli test: rc {rc}, gamma {gamma.shape}")
-    docs = CLI_OUT / "docs.txt"
+    docs = out / "docs.txt"
     docs.write_text("government election vote\nrain snow storm weather\n")
-    mix = CLI_OUT / "mix.tsv"
+    mix = out / "mix.tsv"
     rc = cli_infer.main([f"--model={run / 'model-6'}", f"--input={docs}",
                          f"--output={mix}", "--full"])
     theta = np.loadtxt(mix)
     if rc != 0 or theta.shape != (2, 10) or not np.allclose(
             theta.sum(axis=1), 1.0, rtol=1e-4):
         raise AssertionError(f"cli infer: rc {rc}, theta {theta.shape}")
-    print(f"cli: train 6 iterations + test + infer on {corpus_dir} in "
+    print(f"cli {mode}: train 6 iterations + test + infer on {corpus_dir} in "
           f"{time.perf_counter() - t0:.2f} s; run dir {run.name}")
     counts = read_launches(mods)
-    check_launched("cli", counts, ("dense_gamma", "dense_sstats"))
+    check_launched(f"cli {mode}", counts, ("dense_gamma", "dense_sstats"))
     return counts
 
 
@@ -317,7 +513,10 @@ def main() -> int:
     import numpy as np
 
     from pylda_tpu_torch.corpus.synthetic import synthetic_corpus
-    from pylda_tpu_torch.models import VariationalBayes
+    from pylda_tpu_torch.models import (
+        StochasticVariationalBayes,
+        VariationalBayes,
+    )
     from pylda_tpu_torch.models.vb import _assemble_gamma_device
     from pylda_tpu_torch.ops import _build
     from pylda_tpu_torch.ops import dense_estep as dense_mod
@@ -376,47 +575,9 @@ def main() -> int:
               convergence_threshold=cfg.convergence_threshold, eps=cfg.eps,
               stall_patience=cfg.estep_stall_patience)
 
-    rg = dict(ms=0.0, plain_ms=0.0, flops=0.0, nbytes=0.0, err=0.0)
-    rows_plain = []
-    for i, b in enumerate(probe._batches):
-        Db, Tb = b.ids.shape
-        g0 = torch.ones((Db, K), dtype=torch.float32, device=dev)
-        slots = torch.zeros((1,), dtype=torch.int64, device=dev)
-        extra = torch.zeros((1,), dtype=torch.int64, device=dev)
-        row_exit = torch.zeros((Db,), dtype=torch.int32, device=dev)
-        row_sweeps = torch.zeros_like(row_exit)
-        g_k, s_k = ragged_mod.ragged_gamma(b.ids, b.cnts, g0, eeb, st.alpha,
-                                           eeb_t=eeb_t, slots_out=slots,
-                                           extra_sweeps_out=extra,
-                                           row_exit_out=row_exit,
-                                           row_sweeps_out=row_sweeps, **kw)
-        g_p, s_p = estep_ragged_gamma(b.ids, b.cnts, g0, eeb, st.alpha, **kw)
-        g_64, s_64 = estep_ragged_gamma(b.ids, b.cnts.double(), g0.double(),
-                                        eeb.double(), st.alpha.double(), **kw)
-        torch.cuda.synchronize()
-        ok, err, fp_text = exit_report(g_k, g_64, g_p, s_k, s_64, row_exit,
-                                       row_sweeps, extra, gamma_atol)
-        del g_64
-        flops = 4.0 * K * int(slots)
-        nbytes = Db * Tb * 8 + V * K * 4 + 2 * Db * K * 4 + K * 4
-        b_ms, b_by = bound(flops, nbytes)
-        k_ms = cuda_ms(lambda: ragged_mod.ragged_gamma(
-            b.ids, b.cnts, g0, eeb, st.alpha, eeb_t=eeb_t, **kw), 20)
-        p_ms = cuda_ms(lambda: estep_ragged_gamma(
-            b.ids, b.cnts, g0, eeb, st.alpha, **kw), 3)
-        print(f"kernel ragged_gamma bucket {i} [{Db}x{Tb}]: sweeps plain f32 "
-              f"{int(s_p)}, {fp_text}, real slots processed {int(slots)}, "
-              f"kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} bound_ms "
-              f"{b_ms:.5f} ({b_by}) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"ragged_gamma bucket {i} disagrees with "
-                                 f"its plain version")
-        rg["ms"] += k_ms
-        rg["plain_ms"] += p_ms
-        rg["flops"] += flops
-        rg["nbytes"] += nbytes
-        rg["err"] = max(rg["err"], err)
-        rows_plain.append(g_p)
+    rg, rows_plain = ragged_checks("ragged flagship", probe._batches, eeb,
+                                   eeb_t, st.alpha, kw, gamma_atol, dev,
+                                   ragged_mod, estep_ragged_gamma)
 
     plan = probe._sstats_plan
     gamma_docs = _assemble_gamma_device(
@@ -502,6 +663,46 @@ def main() -> int:
         raise AssertionError("dense_estep disagrees with its plain version")
     del probe, st, eeb, batch, dc, g0, g_k, g_p, ss_k, ss_at_k, et_k, row_nnz
 
+    # -- kernels at SVI config 4's shapes: one minibatch's -------------------
+    svi_corpus, svi_beta, _ = synthetic_corpus(
+        num_docs=SVI_D, num_topics=SVI_K, num_types=SVI_V,
+        mean_doc_length=SVI_LEN, seed=3,
+    )
+    svi_cfg = LDAConfig(number_of_topics=SVI_K, inference_mode="svi",
+                        batch_size=SVI_BATCH, tau0=64.0, kappa=0.7,
+                        inner_iterations=50, convergence_threshold=1e-5,
+                        seed=0)
+    probe = StochasticVariationalBayes(svi_cfg, device=dev)
+    probe.initialize(svi_corpus, lam_init=(
+        1.0 / SVI_V + svi_beta * (svi_corpus.num_tokens / SVI_K)
+    ).astype(np.float32))
+    st = probe.state
+    eeb = exp_dirichlet_expectation_fast(st.lam)
+    eeb_t = ragged_mod.gather_table(eeb)
+    # The first minibatch of epoch 0, gathered from the device-resident
+    # rows, at minibatch-local positions.
+    batches, (_, sel) = next(probe._epoch(svi_cfg.seed, 0).minibatches)
+    buckets, mb_plan = probe._local_plan(batches, sel)
+    svi_rg, rows_plain = ragged_checks(
+        "svi config 4", buckets, eeb, eeb_t, st.alpha, kw,
+        5e-4 + SVI_K * svi_cfg.convergence_threshold, dev, ragged_mod,
+        estep_ragged_gamma, pinned=True)
+    rg_shapes = [rg, svi_rg]
+    print(f"kernel ragged_gamma svi config 4: rows streamed past the slot "
+          f"buffer ({slot_entries(SVI_K, kw['inner_iterations'])} entries at "
+          f"K={SVI_K}) {svi_rg['streamed_rows']} of {svi_rg['rows']}")
+    gamma_docs = _assemble_gamma_device(
+        torch.cat(rows_plain), torch.cat([b.row_index for b in buckets]),
+        st.alpha, mb_plan.num_docs,
+    )
+    counts, cidx = mb_plan.chunks[0]
+    ss_shapes.append(sstats_check(
+        "svi config-4 minibatch", counts,
+        exp_dirichlet_expectation(gamma_docs)[cidx], eeb, svi_cfg.eps,
+        sstats_mod, estep_dense_sstats))
+    del probe, st, eeb, eeb_t, batches, sel, buckets, mb_plan, rows_plain
+    del gamma_docs, counts, cidx
+
     # -- engines: the main paths ---------------------------------------------
     by_path = {}
     test, _, _ = synthetic_corpus(
@@ -519,9 +720,16 @@ def main() -> int:
                                   dtest, dev, mods,
                                   ("dense_gamma", "dense_sstats"))
     del corpus, test, dcorpus, dtest
+    svi_test, _, _ = synthetic_corpus(
+        num_docs=512, num_topics=SVI_K, num_types=SVI_V,
+        mean_doc_length=SVI_LEN, seed=103, beta=svi_beta,
+    )
+    by_path["svi"] = run_svi(svi_cfg, svi_corpus, svi_test, dev, mods)
+    del svi_corpus, svi_test
 
     # -- CLI on the bundled corpus -------------------------------------------
-    by_path["cli"] = run_cli(mods)
+    by_path["cli"] = run_cli(mods, "vb")
+    by_path["cli_svi"] = run_cli(mods, "svi")
     # Each kernel's launches on each main path (each run zeroed just before
     # and read just after), and their sum.
     paths = {name: {path: got[name] for path, got in by_path.items()}
@@ -538,21 +746,26 @@ def main() -> int:
                          doc_pad_multiple=16,
                          hyper_parameter_optimize_interval=2, seed=0)
         lam0 = np.random.default_rng(7).gamma(100.0, 0.01, (16, v_small))
-        runs = {}
-        for where in ("cuda", "cpu"):
-            e = VariationalBayes(scfg, device=where)
-            e.initialize(small, lam_init=lam0)
-            runs[where] = [e.learning() for _ in range(3)] + e.learning_many(3)
-        rel = max(abs(a - b) / abs(b)
-                  for a, b in zip(runs["cuda"], runs["cpu"]))
-        print(f"cross-check {route}: ELBOs card "
-              f"{[round(x, 2) for x in runs['cuda']]} cpu "
-              f"{[round(x, 2) for x in runs['cpu']]}, max rel diff "
-              f"{rel:.2e} (tolerance {ELBO_RTOL})")
-        if not rel <= ELBO_RTOL:
-            raise AssertionError(f"card and CPU engines disagree ({route})")
+        for engine, n in ((VariationalBayes, 3), (StochasticVariationalBayes, 2)):
+            ecfg = dataclasses.replace(
+                scfg, inference_mode="svi", batch_size=64, tau0=16.0,
+            ) if engine is StochasticVariationalBayes else scfg
+            runs = {}
+            for where in ("cuda", "cpu"):
+                e = engine(ecfg, device=where)
+                e.initialize(small, lam_init=lam0)
+                runs[where] = [e.learning() for _ in range(n)] + \
+                    e.learning_many(n)
+            rel = max(abs(a - b) / abs(b)
+                      for a, b in zip(runs["cuda"], runs["cpu"]))
+            print(f"cross-check {engine.__name__} {route}: bounds card "
+                  f"{[round(x, 2) for x in runs['cuda']]} cpu "
+                  f"{[round(x, 2) for x in runs['cpu']]}, max rel diff "
+                  f"{rel:.2e} (tolerance {ELBO_RTOL})")
+            if not rel <= ELBO_RTOL:
+                raise AssertionError(f"card and CPU engines disagree "
+                                     f"({engine.__name__}, {route})")
 
-    rg_bound, rg_by = bound(rg["flops"], rg["nbytes"])
     record = {"kernels": [
         {"name": "dense_sstats", "route": "cuda",
          "source": "pylda_tpu_torch/csrc/dense_sstats.cu",
@@ -567,9 +780,10 @@ def main() -> int:
          "source": "pylda_tpu_torch/csrc/ragged_gamma.cu",
          "replaces": "pylda_tpu/ops/pallas_ragged.py:56",
          "launches": launches["ragged_gamma"],
-         "launches_by_path": paths["ragged_gamma"], "max_abs_err": rg["err"],
-         "ms": rg["ms"], "plain_ms": rg["plain_ms"], "bound_ms": rg_bound,
-         "bound_by": rg_by, "library_ms": None},
+         "launches_by_path": paths["ragged_gamma"],
+         **{k: rg[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                               "bound_by")},
+         "library_ms": None, "shapes": rg_shapes},
         {"name": "dense_gamma", "route": "cuda",
          "source": "pylda_tpu_torch/csrc/dense_gamma.cu",
          "replaces": "pylda_tpu/ops/pallas_estep.py:97",

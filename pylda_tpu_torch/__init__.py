@@ -9,12 +9,14 @@ kernel written by hand for Hopper (``pylda_tpu_torch/csrc``), built with
 CUDA card unless the caller passes ``device="cpu"``, where each kernel's
 plain PyTorch version runs instead.
 
-Ported so far: batch VB (``VariationalBayes``) on both layouts — the
-dense route (V <= ``dense_vocab_threshold``: the dense gamma fixed point
-and sufficient statistics) and the large-vocabulary route (ragged gamma
-fixed point + dense sufficient statistics) — with ``initialize``,
-``learning``, ``learning_many``, ``inference``, ``perplexity``,
-``point_estimate_perplexity`` and ``export_beta``; the ``model-<N>`` files
+Ported so far: batch VB (``VariationalBayes``) and stochastic VI
+(``StochasticVariationalBayes``, minibatches gathered on the device) on
+both layouts — the dense route (V <= ``dense_vocab_threshold``: the dense
+gamma fixed point and sufficient statistics) and the large-vocabulary
+route (ragged gamma fixed point + dense sufficient statistics) — with
+``initialize``, ``learning``, ``learning_many``, ``inference``,
+``perplexity``, ``point_estimate_perplexity`` and ``export_beta``; the
+``model-<N>`` files
 (``save``/``load``, npz, readable by either package); the bundled corpus
 and input-directory loading (``corpus.datasets``); and the reference's
 CLIs, ``python -m pylda_tpu_torch.cli.train`` / ``.test`` / ``.infer``.
@@ -26,6 +28,7 @@ from pylda_tpu_torch.corpus.corpus import Corpus
 from pylda_tpu_torch.models import (
     Inferencer,
     LDAState,
+    StochasticVariationalBayes,
     VariationalBayes,
     make_engine,
     state_from_numpy,
@@ -40,6 +43,7 @@ __all__ = [
     "Corpus",
     "Inferencer",
     "LDAState",
+    "StochasticVariationalBayes",
     "VariationalBayes",
     "make_engine",
     "state_from_numpy",

@@ -74,7 +74,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--hyper_parameter_optimize_interval", type=int, default=0)
     p.add_argument("--inference_mode", default="vb",
                    help="vb|gibbs|hybrid|svi (or reference ints 0/1/2); "
-                        "only vb is ported")
+                        "vb and svi are ported")
     # -- engine knobs --
     p.add_argument("--inner_iterations", type=int, default=50)
     p.add_argument("--convergence_threshold", type=float, default=1e-5)

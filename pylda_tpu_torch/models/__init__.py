@@ -1,12 +1,12 @@
 from pylda_tpu_torch.models.base import Inferencer, LDAState, state_from_numpy
+from pylda_tpu_torch.models.svi import StochasticVariationalBayes
 from pylda_tpu_torch.models.vb import VariationalBayes
 
-# --inference_mode → engine class.  Only batch VB is ported so far.
-ENGINES = {"vb": VariationalBayes}
+# --inference_mode → engine class.
+ENGINES = {"vb": VariationalBayes, "svi": StochasticVariationalBayes}
 
 # Engines of the JAX package still to port, with their ROADMAP items.
 _NOT_PORTED = {
-    "svi": "ROADMAP.md Queue 1 item 10",
     "gibbs": "ROADMAP.md Queue 1 item 11",
     "hybrid": "ROADMAP.md Queue 1 item 11",
 }
@@ -25,6 +25,7 @@ __all__ = [
     "Inferencer",
     "LDAState",
     "VariationalBayes",
+    "StochasticVariationalBayes",
     "ENGINES",
     "make_engine",
     "state_from_numpy",

@@ -266,6 +266,14 @@ class Inferencer:
 
     # -- model files ----------------------------------------------------------------
 
+    def _extra_state(self) -> dict:
+        """Engine-specific arrays a ``model-<N>`` file carries (saved as
+        ``extra_<name>``, the JAX package's keys)."""
+        return {}
+
+    def _load_extra_state(self, blobs: dict) -> None:
+        """Adopt what ``_extra_state`` saved (names without ``extra_``)."""
+
     def save(
         self,
         path: str,
@@ -299,6 +307,8 @@ class Inferencer:
             "key": np.asarray([0, self._config.seed], dtype=np.uint32),
             "vocab": np.asarray(self._vocab.types if self._vocab else []),
         }
+        blobs.update({f"extra_{k}": np.asarray(v)
+                      for k, v in self._extra_state().items()})
         meta = {
             "config": {
                 k: (list(v) if isinstance(v, tuple) else v)
@@ -396,6 +406,9 @@ class Inferencer:
             eta=torch.as_tensor(blobs["eta"]),
             step=torch.tensor(int(blobs["step"]), dtype=torch.int32),
         )
+        engine._load_extra_state({k[len("extra_"):]: v
+                                  for k, v in blobs.items()
+                                  if k.startswith("extra_")})
         if corpus is not None:
             engine._corpus = corpus
             engine._prepare(corpus)

@@ -1,9 +1,9 @@
 """Batch-layout policy shared by the VB-family engines.
 
 Decides dense vs ragged by vocabulary size, plans the ragged bucket
-geometry, and splits batches into bounded-memory chunks.  All host-side
-numpy, held bit-identical to ``pylda_tpu.models.layouts`` by the tests.
-The SVI geometry helpers of that module wait for the SVI slice.
+geometry (and SVI's fixed minibatch geometry), and splits batches into
+bounded-memory chunks.  All host-side numpy, held bit-identical to
+``pylda_tpu.models.layouts`` by the tests.
 """
 
 from __future__ import annotations
@@ -196,6 +196,27 @@ def unique_counts_of(corpus: Corpus) -> Optional[np.ndarray]:
     return np.asarray(counts, dtype=np.int64)
 
 
+def aligned_width_histogram(
+    unique_counts: np.ndarray, align: int = 16, cap: int = 2048
+) -> np.ndarray:
+    """Fixed-length [cap // align] row-count vector over aligned widths
+    (bin i = width (i+1)*align; oversized docs contribute ceil(u/cap)
+    rows to the last bin).  A fixed bin set lets hosts add their vectors
+    for a global geometry plan."""
+    u = np.asarray(unique_counts, dtype=np.int64)
+    u = u[u > 0]
+    n_bins = cap // align
+    out = np.zeros((n_bins,), dtype=np.int64)
+    small = u[u <= cap]
+    # Docs with u in (align*n_bins, cap] (cap not a multiple of align)
+    # land in the last bin.
+    bins = np.minimum((small + align - 1) // align - 1, n_bins - 1)
+    np.add.at(out, bins, 1)
+    big = u[u > cap]
+    out[-1] += int((-(-big // cap)).sum())
+    return out
+
+
 def effective_bucket_sizes(
     corpus: Corpus,
     config: LDAConfig,
@@ -229,6 +250,56 @@ def effective_bucket_sizes(
             minibatch_fraction=minibatch_fraction,
         )
     return cache[key]
+
+
+def svi_capacities_from_expected(
+    sizes: Sequence[int], expected: dict, pad: int
+) -> Optional[dict]:
+    """Capacity plan (bucket size -> fixed row capacity) from EXPECTED
+    per-minibatch row counts per bucket.
+
+    Each capacity covers the hypergeometric row-count fluctuation at +4
+    sigma (overflow probability ~3e-5 per bucket per batch).  Buckets
+    expecting fewer than half a pad-multiple of rows a minibatch are
+    dropped: their documents promote into the next larger bucket.  The
+    largest size with any expected mass is always kept.  Deterministic
+    in ``(sizes, expected, pad)``."""
+    sizes = sorted(sizes)
+    top = max((s for s in sizes if expected.get(s, 0) > 0), default=sizes[0])
+    caps = {}
+    carry = 0.0  # expected rows of dropped buckets promote upward
+    for s in sizes:
+        if s > top:
+            break
+        e = float(expected.get(s, 0)) + carry
+        if s < top and e < pad / 2:
+            carry = e
+            continue
+        carry = 0.0
+        caps[s] = _round_up(int(np.ceil(e + 4.0 * np.sqrt(max(e, 1.0)))), pad)
+    return caps or None
+
+
+def plan_svi_ragged_geometry(
+    corpus: Corpus, config: LDAConfig, batch_size: int
+) -> Optional[dict]:
+    """Capacity plan (bucket size -> fixed row capacity) for SVI
+    minibatches on the ragged layout: every minibatch is packed into the
+    same bucket shapes, so the corpus's rows can sit on the device once
+    and each minibatch gathers its rows by index.  The widths are planned
+    under the minibatch capacity cost model (expected rows + 4 sigma,
+    padded); a minibatch that overflows a capacity takes per-batch shapes
+    (``GeometryOverflow``)."""
+    pad = config.doc_pad_multiple
+    D = corpus.num_docs
+    if D == 0 or batch_size <= 0:
+        return None
+    f = min(1.0, batch_size / D)
+    sizes = sorted(effective_bucket_sizes(corpus, config, minibatch_fraction=f))
+    hist = corpus.ragged_row_histogram(sizes)
+    return svi_capacities_from_expected(
+        sizes, {s: hist[s] * f for s in sizes}, pad
+    )
 
 
 def assemble_gamma(

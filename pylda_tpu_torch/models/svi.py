@@ -1,0 +1,629 @@
+"""Stochastic variational inference (minibatch) engine.
+
+Counterpart of ``pylda_tpu.models.svi.StochasticVariationalBayes``:
+Hoffman et al. 2010 minibatch natural-gradient VB.  Each epoch partitions
+the corpus into random minibatches (``Corpus.minibatch_indices`` with
+epoch seed ``counter * 100003 + seed``, the JAX engine's schedule), and
+for minibatch t of |B| documents:
+
+    local E-step on B (the batch-VB kernels),
+    lambda <- (1 - rho_t) lambda + rho_t (eta + (D/|B|) sstats),
+    rho_t = (tau0 + t)^(-kappa);
+
+``learning()`` is one epoch and returns the mean of the minibatches'
+bound estimates (D/|B| times the doc-side terms, plus the topic-side term
+at the epoch's final lambda); the Newton alpha/eta updates run at epoch
+ends on schedule.
+
+The corpus sits on the device once and each minibatch gathers its rows
+there by index:
+
+- the large-vocabulary layout (V > ``dense_vocab_threshold``): the
+  corpus's ragged rows in a fixed bucket geometry
+  (``layouts.plan_svi_ragged_geometry``), so every minibatch has the same
+  bucket shapes, and a [D+1, V_pad] counts matrix (bf16 when exact, zero
+  row D) from which the minibatch's rows are gathered for the dense
+  sufficient statistics.  The gamma fixed point runs per bucket
+  (``ragged_gamma``), gammas assemble at minibatch-local positions, and
+  ``dense_sstats`` computes sstats and the token score;
+- the dense layout: the [D+1, V] doc-term matrix, and the dense E-step
+  (``dense_estep``) on each gathered [batch, V] block.
+
+When a minibatch overflows the geometry, or the rows exceed
+``svi_device_rows_budget_mb``, the epoch's minibatches are packed on the
+host instead (per-batch shapes for an overflowing one) and uploaded; they
+run on the same device through the same kernels.
+
+PyTorch runs eagerly: ``learning_many`` is a Python loop over epochs and
+minibatches whose kernels queue on the device stream, and it reads the
+estimates back once.  Per-document gammas are kept by ``learning()``;
+after ``learning_many`` the ``gamma`` property recomputes them in one
+rho = 0 epoch.  Routes of the JAX engine not ported yet raise
+``NotImplementedError`` naming their ROADMAP item: process-local corpora
+and the mesh, disk-backed (streaming) corpora, ``phase_timings``,
+``sstats_mode="scatter"`` or a counts matrix over
+``sstats_dense_total_budget_mb`` on the large-vocabulary layout, and
+K > 256 on the card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterator, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from pylda_tpu_torch.corpus.corpus import Corpus, GeometryOverflow
+from pylda_tpu_torch.models import layouts
+from pylda_tpu_torch.models.base import LDAState
+from pylda_tpu_torch.models.vb import (
+    VariationalBayes,
+    _Bucket,
+    _Dense,
+    _elog_lambda_sum,
+    _SstatsPlan,
+)
+from pylda_tpu_torch.ops.dirichlet import beta_elbo
+from pylda_tpu_torch.ops.hyper import newton_dirichlet_mle
+from pylda_tpu_torch.ops.ragged import MAX_TOPICS
+from pylda_tpu_torch.utils import round_up
+
+
+@dataclasses.dataclass
+class _MinibatchPlan:
+    """The corpus's dense counts on the device, for each minibatch's
+    scatter-free sufficient statistics."""
+
+    counts: torch.Tensor  # [D+1, V_pad] bf16 or f32; row D is zero
+    nonempty: torch.Tensor  # [D+1]: 1 for documents with any token
+    num_docs: int  # D
+    b_cap: int  # the doc-selection length: batch_size padded
+    chunk_sizes: List[int]  # b_cap split to sstats_dense_budget_mb
+
+
+@dataclasses.dataclass
+class _Rows:
+    """The corpus's rows of one layout width on the device, an inert
+    sentinel row last (zero counts, document D), and the host-side
+    document -> rows map (CSR) that minibatch index assembly reads."""
+
+    ids: Optional[torch.Tensor]  # [R+1, w] int32 (ragged layout)
+    cnts: Optional[torch.Tensor]  # [R+1, w] (ragged layout)
+    counts: Optional[torch.Tensor]  # [D+1, V] (dense layout)
+    row_doc: torch.Tensor  # [R+1] int64: each row's document, D at the sentinel
+    cap: int  # rows a minibatch
+    chunk_sizes: List[int]  # cap split to estep_memory_budget_mb
+    doc_of_row: np.ndarray  # [R]
+    csr_start: np.ndarray  # [D+1]
+    csr_rows: np.ndarray  # [R]
+
+    @property
+    def sentinel(self) -> int:
+        return self.doc_of_row.size
+
+
+# A minibatch's selection: the [b_cap] global document ids (-1 pads) on the
+# host and on the device; None on the dense layout.
+_Sel = Optional[Tuple[np.ndarray, torch.Tensor]]
+
+
+@dataclasses.dataclass
+class _Epoch:
+    """One epoch: its minibatches (device batches with global document
+    ids as row indices, and the selection), step sizes and D/|B| scales."""
+
+    minibatches: Iterator[Tuple[list, _Sel]]
+    rhos: List[float]
+    scales: List[float]
+
+    @property
+    def n(self) -> int:
+        return len(self.rhos)
+
+
+class StochasticVariationalBayes(VariationalBayes):
+    """SVI: minibatch natural-gradient ascent on lambda."""
+
+    def __init__(self, config, device=None):
+        super().__init__(config, device)
+        self._t = 0  # global minibatch counter (kept across initialize)
+        self._mb_sstats: Optional[_MinibatchPlan] = None
+        self._svi_geometry: Optional[dict] = None
+        self._device_rows: Optional[List[_Rows]] = None
+
+    # -- setup ----------------------------------------------------------------
+
+    def _prepare(self, corpus: Corpus) -> None:
+        cfg = self._config
+        if getattr(corpus, "process_local", False):
+            raise NotImplementedError(
+                "process-local corpora and the mesh are not ported yet "
+                "(ROADMAP.md Queue 1 item 12)"
+            )
+        if getattr(corpus, "docs", None) is None:
+            raise NotImplementedError(
+                "disk-backed (streaming) corpora are not ported yet "
+                "(ROADMAP.md Queue 1 item 13)"
+            )
+        if self._device.type == "cuda" and cfg.number_of_topics > MAX_TOPICS:
+            raise NotImplementedError(
+                f"the CUDA kernels take K <= {MAX_TOPICS} (got "
+                f"{cfg.number_of_topics}); see ROADMAP.md Queue 2"
+            )
+        self._set_gammas(None, None)
+        self._mb_sstats = self._svi_geometry = self._device_rows = None
+        if self._dense_layout(corpus):
+            self._device_rows = self._build_device_dense(corpus)
+            return
+        if cfg.sstats_mode == "scatter":
+            raise NotImplementedError(
+                "sstats_mode='scatter' needs the scatter E-step "
+                "(estep_ragged), not ported yet (ROADMAP.md Queue 1 item 4)"
+            )
+        self._mb_sstats = self._plan_mb_dense_sstats(corpus)
+        self._svi_geometry = layouts.plan_svi_ragged_geometry(
+            corpus, cfg, cfg.batch_size
+        )
+        if self._svi_geometry is not None:
+            self._device_rows = self._build_device_rows(corpus)
+
+    @staticmethod
+    def _count_stats(corpus: Corpus) -> Tuple[np.ndarray, torch.dtype]:
+        """([D+1] f32, 1 for non-empty documents; the storage dtype of
+        the counts: bf16 when every count is <= 256, where it is exact)."""
+        nonempty = np.zeros((corpus.num_docs + 1,), np.float32)
+        maxc = 0.0
+        for d in range(corpus.num_docs):
+            _ids, cts = corpus.doc_unique(d)
+            if cts.size:
+                nonempty[d] = 1.0
+                maxc = max(maxc, float(cts.max()))
+        return nonempty, (torch.bfloat16 if maxc <= 256.0 else torch.float32)
+
+    def _device_counts(self, corpus: Corpus, width: int,
+                       dtype: torch.dtype) -> torch.Tensor:
+        """[D+1, width] counts of every document on the device (zero row
+        D, zero columns past V), filled in blocks of documents so the host
+        never holds a dense block."""
+        D = corpus.num_docs
+        dev = self._device
+        out = torch.zeros((D + 1, width), dtype=dtype, device=dev)
+        for start in range(0, D, 4096):
+            uniq = [corpus.doc_unique(d)
+                    for d in range(start, min(D, start + 4096))]
+            cols = np.concatenate([ids for ids, _ in uniq]).astype(np.int64)
+            if not cols.size:
+                continue
+            rows = np.repeat(np.arange(start, start + len(uniq)),
+                             [ids.size for ids, _ in uniq])
+            vals = np.concatenate([cts for _, cts in uniq])
+            out.index_put_(
+                (torch.as_tensor(rows, device=dev),
+                 torch.as_tensor(cols, device=dev)),
+                torch.as_tensor(vals, device=dev).to(dtype),
+            )
+        return out
+
+    def _plan_mb_dense_sstats(self, corpus: Corpus) -> _MinibatchPlan:
+        """The [D+1, V_pad] counts matrix of the large-vocabulary layout
+        (V padded to a multiple of 1024), and each minibatch's
+        doc-selection length split into chunks whose [chunk, V_pad]
+        work fits ``sstats_dense_budget_mb``."""
+        cfg = self._config
+        D = corpus.num_docs
+        v_pad = round_up(corpus.num_types, 1024)
+        nonempty, dtype = self._count_stats(corpus)
+        nbytes = (D + 1) * v_pad * torch.finfo(dtype).bits // 8
+        if nbytes > cfg.sstats_dense_total_budget_mb * 1e6:
+            raise NotImplementedError(
+                f"the minibatch counts matrix ({nbytes / 1e6:.0f} MB) is "
+                f"over sstats_dense_total_budget_mb "
+                f"({cfg.sstats_dense_total_budget_mb} MB): that needs the "
+                "scatter E-step (estep_ragged), not ported yet (ROADMAP.md "
+                "Queue 1 item 4)"
+            )
+        pad = cfg.doc_pad_multiple
+        b_cap = round_up(cfg.batch_size, pad)
+        rows_budget = max(pad, int(cfg.sstats_dense_budget_mb * 1e6
+                                   // (4 * v_pad)))
+        return _MinibatchPlan(
+            counts=self._device_counts(corpus, v_pad, dtype),
+            nonempty=torch.as_tensor(nonempty, device=self._device).to(
+                self._dtype),
+            num_docs=D,
+            b_cap=b_cap,
+            chunk_sizes=layouts._split_rows(b_cap, rows_budget, pad),
+        )
+
+    def _build_device_rows(self, corpus: Corpus) -> Optional[List[_Rows]]:
+        """The corpus's ragged rows in the geometry's widths, on the
+        device once; None over ``svi_device_rows_budget_mb``.  Each width's
+        capacity is chunked to ``estep_memory_budget_mb`` exactly as the
+        host packing (``build_vb_batches``) chunks it."""
+        cfg = self._config
+        caps = self._svi_geometry
+        sizes = sorted(caps)
+        hist = corpus.ragged_row_histogram(sizes)
+        if sum(hist[s] * s for s in sizes) * 8 / 1e6 > cfg.svi_device_rows_budget_mb:
+            return None
+        buckets = {
+            b.ids.shape[1]: b
+            for b in corpus.to_ragged_buckets(bucket_sizes=tuple(sizes),
+                                              doc_pad_multiple=1)
+        }
+        D, K, pad = corpus.num_docs, cfg.number_of_topics, cfg.doc_pad_multiple
+        dev = self._device
+        out = []
+        for s in sizes:
+            b = buckets.get(s)
+            ids = np.zeros((1, s), np.int32)
+            cnts = np.zeros((1, s), np.float32)
+            doc_of_row = np.zeros((0,), np.int64)
+            if b is not None:
+                ids = np.concatenate([b.ids, ids])
+                cnts = np.concatenate([b.cnts, cnts])
+                doc_of_row = np.asarray(b.doc_ids, np.int64)
+            # Rows are doc-major, so a stable sort keeps a chunked
+            # document's rows in order.
+            start = np.zeros((D + 1,), np.int64)
+            np.cumsum(np.bincount(doc_of_row, minlength=D), out=start[1:])
+            budget_rows = max(pad, int(cfg.estep_memory_budget_mb * 1e6
+                                       / (4 * s * K * 3)))
+            out.append(_Rows(
+                ids=torch.as_tensor(ids, device=dev),
+                cnts=torch.as_tensor(cnts, device=dev).to(self._dtype),
+                counts=None,
+                row_doc=torch.as_tensor(np.append(doc_of_row, D), device=dev),
+                cap=int(caps[s]),
+                chunk_sizes=layouts._split_rows(int(caps[s]), budget_rows, pad),
+                doc_of_row=doc_of_row,
+                csr_start=start,
+                csr_rows=np.argsort(doc_of_row, kind="stable"),
+            ))
+        return out
+
+    def _build_device_dense(self, corpus: Corpus) -> Optional[List[_Rows]]:
+        """Dense-layout rows: the [D+1, V] doc-term matrix on the device
+        once, with the identity document -> row map; None over
+        ``svi_device_rows_budget_mb`` (counted in f32, as the JAX engine
+        counts it)."""
+        cfg = self._config
+        D, V = corpus.num_docs, corpus.num_types
+        if (D + 1) * V * 4 / 1e6 > cfg.svi_device_rows_budget_mb:
+            return None
+        if D == 0 or cfg.batch_size <= 0:
+            return None
+        cap = round_up(cfg.batch_size, cfg.doc_pad_multiple)
+        rows = np.arange(D, dtype=np.int64)
+        return [_Rows(
+            ids=None, cnts=None,
+            counts=self._device_counts(corpus, V, self._count_stats(corpus)[1]),
+            row_doc=torch.arange(D + 1, device=self._device),
+            cap=cap, chunk_sizes=[cap], doc_of_row=rows,
+            csr_start=np.arange(D + 1, dtype=np.int64), csr_rows=rows,
+        )]
+
+    def _doc_sel_arrays(self, index_lists) -> Optional[List[np.ndarray]]:
+        """[b_cap] global document ids per minibatch (-1 pads); None on
+        the dense layout.  The minibatch's position map and docs mask
+        need each document once: the partition guarantees it, and this
+        checks it."""
+        if self._mb_sstats is None:
+            return None
+        out = []
+        for sel in index_lists:
+            if np.unique(sel).size != len(sel):
+                raise ValueError("a minibatch selects a document twice")
+            ds = np.full((self._mb_sstats.b_cap,), -1, np.int64)
+            ds[: len(sel)] = sel
+            out.append(ds)
+        return out
+
+    # -- one minibatch ----------------------------------------------------------
+
+    def _minibatch_step(self, lam, alpha, eta, batches, rho, scale,
+                        doc_sel: Optional[torch.Tensor]):
+        """Local E-step, then lambda <- (1 - rho) lambda + rho (eta +
+        scale sstats).  Returns (lambda, the doc-side bound terms times
+        scale, the sum of E[log theta] over the minibatch, gammas).
+
+        On the large-vocabulary layout ``batches`` are buckets whose
+        row_index holds each row's global document (D for padding) and
+        ``doc_sel`` is the [b_cap] selection (-1 pads): everything after
+        the fixed point runs at minibatch-local positions 0..b_cap, and
+        the one gamma block returned is in ``doc_sel`` order."""
+        gamma0s = self._gamma0s(batches)
+        if self._mb_sstats is None:
+            out = self._run_estep_dense(batches, lam, alpha, gamma0s)
+        else:
+            out = self._run_estep_hybrid(*self._local_plan(batches, doc_sel),
+                                         lam, alpha, gamma0s)
+        gammas, sstats, token_score, theta_score, elog_sum = out
+        lam = (1.0 - rho) * lam + rho * (eta[None, :] + scale * sstats)
+        return lam, scale * (token_score + theta_score), elog_sum, gammas
+
+    def _local_plan(self, batches: List[_Bucket], doc_sel: torch.Tensor
+                    ) -> Tuple[List[_Bucket], _SstatsPlan]:
+        """A large-vocabulary minibatch at minibatch-local positions: its
+        buckets with each row's position in ``doc_sel`` as row index, and
+        the dense sstats plan of its gathered count rows."""
+        plan = self._mb_sstats
+        D, b_cap = plan.num_docs, plan.b_cap
+        valid = doc_sel >= 0
+        safe = torch.where(valid, doc_sel, D)
+        pos = torch.arange(b_cap, device=doc_sel.device)
+        # Global document -> position in doc_sel; absent documents and
+        # padding -> b_cap, the assembly's dropped row.  Every padding
+        # slot writes b_cap at index D, so the repeated indices all write
+        # one value.
+        inv = torch.full((D + 1,), b_cap, dtype=torch.int64,
+                         device=doc_sel.device)
+        inv.index_put_((safe,), torch.where(valid, pos, b_cap))
+        buckets = [_Bucket(ids=b.ids, cnts=b.cnts, row_index=inv[b.row_index])
+                   for b in batches]
+        chunks, s0 = [], 0
+        for c in plan.chunk_sizes:
+            # Padding positions read the zero row D and doc 0's expEtheta:
+            # inert in sstats and the score.
+            chunks.append((plan.counts.index_select(0, safe[s0:s0 + c]),
+                           torch.where(valid[s0:s0 + c], pos[s0:s0 + c], 0)))
+            s0 += c
+        # Selected documents only and, as in batch VB, empty documents
+        # outside the theta and E[log theta] sums.
+        docs_mask = valid.to(self._dtype) * plan.nonempty[safe]
+        return buckets, _SstatsPlan(chunks, docs_mask, b_cap)
+
+    # -- epochs of minibatches --------------------------------------------------
+
+    def _epoch(self, epoch_seed: int, t: int) -> _Epoch:
+        """The epoch gathered from the device-resident rows, or packed on
+        the host when there are none or a minibatch overflows them."""
+        if self._device_rows is not None:
+            ep = self._epoch_index_stacks(epoch_seed, t)
+            if ep is not None:
+                return ep
+        return self._epoch_batches(epoch_seed, t)
+
+    def _schedule(self, index_lists, t: int):
+        D = self._corpus.num_docs
+        cfg = self._config
+        rhos = [(cfg.tau0 + t + i) ** (-cfg.kappa)
+                for i in range(len(index_lists))]
+        return rhos, [D / max(1, len(sel)) for sel in index_lists]
+
+    def _epoch_index_stacks(self, epoch_seed: int, t: int) -> Optional[_Epoch]:
+        """Row indices of each minibatch into the device-resident rows
+        (each width's capacity block cut into its chunks; the sentinel
+        row fills the rest), assembled on the host from the CSR maps;
+        None when a minibatch has more rows of a width than its
+        capacity."""
+        corpus = self._corpus
+        index_lists = corpus.minibatch_indices(self._config.batch_size,
+                                               seed=epoch_seed)
+        n = len(index_lists)
+        stacks = [np.full((n, c), rows.sentinel, np.int64)
+                  for rows in self._device_rows for c in rows.chunk_sizes]
+        gids = [[] for _ in range(n)]
+        for i, sel in enumerate(index_lists):
+            j = 0
+            for rows in self._device_rows:
+                st = rows.csr_start
+                ln = st[sel + 1] - st[sel]
+                tot = int(ln.sum())
+                if tot > rows.cap:
+                    return None
+                full = np.full((rows.cap,), rows.sentinel, np.int64)
+                g = np.full((rows.cap,), -1, np.int32)
+                if tot:
+                    base = np.repeat(st[sel], ln)
+                    offs = np.arange(tot) - np.repeat(np.cumsum(ln) - ln, ln)
+                    r = rows.csr_rows[base + offs]
+                    full[:tot] = r
+                    g[:tot] = rows.doc_of_row[r]
+                s0 = 0
+                for c in rows.chunk_sizes:
+                    stacks[j][i] = full[s0:s0 + c]
+                    gids[i].append(g[s0:s0 + c])
+                    s0 += c
+                    j += 1
+        docsels = self._doc_sel_arrays(index_lists)
+        return _Epoch(self._gathered(stacks, docsels, gids),
+                      *self._schedule(index_lists, t))
+
+    def _gathered(self, stacks, docsels, gids):
+        """Each minibatch's batches gathered on the device from the
+        resident rows; the epoch's indices go up once."""
+        dev = self._device
+        D = self._corpus.num_docs
+        idx = [torch.as_tensor(s, device=dev) for s in stacks]
+        sels = None if docsels is None else torch.as_tensor(
+            np.stack(docsels), device=dev)
+        for i in range(len(gids)):
+            batches, j = [], 0
+            for rows in self._device_rows:
+                for _c in rows.chunk_sizes:
+                    r = idx[j][i]
+                    row_doc = rows.row_doc.index_select(0, r)
+                    if rows.counts is not None:
+                        batches.append(_Dense(
+                            counts=rows.counts.index_select(0, r),
+                            mask=(row_doc < D).to(self._dtype),
+                            doc_ids=gids[i][j],
+                        ))
+                    else:
+                        batches.append(_Bucket(
+                            ids=rows.ids.index_select(0, r),
+                            cnts=rows.cnts.index_select(0, r),
+                            row_index=row_doc,
+                        ))
+                    j += 1
+            yield batches, (None if sels is None else (docsels[i], sels[i]))
+
+    def _epoch_batches(self, epoch_seed: int, t: int) -> _Epoch:
+        """The epoch's minibatches packed on the host (the fixed geometry
+        where it holds, per-batch shapes where it overflows) and uploaded
+        one at a time."""
+        cfg = self._config
+        corpus = self._corpus
+        index_lists = corpus.minibatch_indices(cfg.batch_size, seed=epoch_seed)
+        docsels = self._doc_sel_arrays(index_lists)
+
+        def minibatches():
+            for i, idx in enumerate(index_lists):
+                if self._dense_layout(corpus):
+                    bl = layouts.build_vb_batches(
+                        corpus, cfg, doc_indices=idx, pad_docs_to=cfg.batch_size
+                    )
+                else:
+                    bl = self._ragged_minibatch(corpus, cfg, idx)
+                sel = None
+                if docsels is not None:
+                    sel = (docsels[i], torch.as_tensor(docsels[i],
+                                                       device=self._device))
+                yield self._to_device(bl, corpus.num_docs), sel
+
+        return _Epoch(minibatches(), *self._schedule(index_lists, t))
+
+    def _ragged_minibatch(self, corpus, cfg, idx):
+        """The fixed geometry when one is planned; per-batch shapes when
+        it has none or this minibatch overflows it."""
+        if self._svi_geometry is not None:
+            try:
+                return layouts.build_vb_batches(
+                    corpus, cfg, doc_indices=idx,
+                    bucket_capacities=self._svi_geometry,
+                )
+            except GeometryOverflow:
+                pass
+        return layouts.build_vb_batches(corpus, cfg, doc_indices=idx)
+
+    def _run_epoch(self, lam, alpha, eta, ep: _Epoch, keep_gammas: bool):
+        """The epoch's minibatch steps from lambda: (final lambda, the
+        [n] bound estimates, the summed E[log theta], gammas and their
+        row -> document maps when kept)."""
+        dev, dt = self._device, self._dtype
+        rhos = torch.tensor(ep.rhos, dtype=dt, device=dev)
+        scales = torch.tensor(ep.scales, dtype=dt, device=dev)
+        ests, gammas, doc_ids = [], [], []
+        elog_sum = torch.zeros_like(alpha)
+        for i, (batches, sel) in enumerate(ep.minibatches):
+            lam, est, elog, gs = self._minibatch_step(
+                lam, alpha, eta, batches, rhos[i], scales[i],
+                None if sel is None else sel[1],
+            )
+            ests.append(est)
+            elog_sum = elog_sum + elog
+            if keep_gammas:
+                gammas.extend(gs)
+                doc_ids.extend([sel[0]] if sel is not None
+                               else [b.doc_ids for b in batches])
+        # The topic-side bound term once, at the epoch's final lambda.
+        ests = torch.stack(ests) + beta_elbo(lam, eta)
+        return lam, ests, elog_sum, gammas, doc_ids
+
+    def _train_epoch(self, ep: _Epoch, keep_gammas: bool) -> torch.Tensor:
+        """One epoch from ``self.state``, then the scheduled hyper
+        updates; publishes the new state and returns the estimates."""
+        cfg = self._config
+        st = self.state
+        lam, ests, elog_sum, gammas, doc_ids = self._run_epoch(
+            st.lam, st.alpha, st.eta, ep, keep_gammas
+        )
+        self._t += ep.n
+        alpha, eta = st.alpha, st.eta
+        if self._hyper_due():
+            alpha = newton_dirichlet_mle(
+                st.alpha, elog_sum, float(self._corpus.global_num_docs)
+            )
+            eta = newton_dirichlet_mle(
+                st.eta, _elog_lambda_sum(lam), float(cfg.number_of_topics)
+            )
+        self._state = LDAState(lam=lam, alpha=alpha, eta=eta,
+                               step=st.step + 1)
+        self._step_host += 1
+        if keep_gammas:
+            self._set_gammas(gammas, doc_ids)
+        return ests
+
+    # -- public training surface --------------------------------------------------
+
+    def learning(self) -> float:
+        """One epoch of minibatch updates; returns the mean of the
+        minibatches' bound estimates (a stochastic estimate, not the
+        batch ELBO)."""
+        seed = self._counter * 100003 + self._config.seed
+        ests = self._train_epoch(self._epoch(seed, self._t), keep_gammas=True)
+        return float(ests.double().mean())
+
+    def learning_many(self, n: int) -> List[float]:
+        """n epochs in a loop that stays on the device; the estimates are
+        read back once.  Every epoch's indices are assembled first: if a
+        minibatch of any of them overflows the device-resident geometry,
+        this runs n ``learning()`` calls instead (as the JAX engine does).
+        Gammas are recomputed lazily by the ``gamma`` property."""
+        if n <= 0:
+            return []
+        if self._device_rows is None:
+            return [self.learning() for _ in range(n)]
+        cfg = self._config
+        epochs, t = [], self._t
+        for e in range(n):
+            ep = self._epoch_index_stacks(
+                (self._counter + e) * 100003 + cfg.seed, t)
+            if ep is None:
+                return [self.learning() for _ in range(n)]
+            epochs.append(ep)
+            t += ep.n
+        ests = torch.stack([self._train_epoch(ep, keep_gammas=False)
+                            for ep in epochs])
+        self._set_gammas(None, None)
+        return [float(x) for x in ests.double().mean(dim=1).cpu()]
+
+    # -- lazy gamma ----------------------------------------------------------------
+
+    @property
+    def gamma(self) -> Optional[np.ndarray]:
+        """Per-document gamma [D, K] in corpus order: the last
+        ``learning()``'s minibatch gammas, or, after ``learning_many`` or
+        a new state, one rho = 0 epoch at the current state (lambda
+        unchanged, every document visited once)."""
+        if (self._gamma_np is None and self._gammas_dev is None
+                and self._corpus is not None):
+            self._recompute_gammas()
+        return VariationalBayes.gamma.fget(self)
+
+    def _recompute_gammas(self) -> None:
+        cfg = self._config
+        st = self.state
+        ep = None
+        if self._device_rows is not None:
+            # The JAX engine's seeds: a partition that fits the geometry
+            # (overflow is seed-dependent and rare).
+            for trial in range(8):
+                ep = self._epoch_index_stacks(
+                    (self._counter + 7 * trial) * 100003 + cfg.seed + trial,
+                    self._t)
+                if ep is not None:
+                    break
+        if ep is None:
+            ep = self._epoch_batches(self._counter * 100003 + cfg.seed,
+                                     self._t)
+        ep = dataclasses.replace(ep, rhos=[0.0] * ep.n)
+        _, _, _, gammas, doc_ids = self._run_epoch(
+            st.lam, st.alpha, st.eta, ep, keep_gammas=True)
+        self._set_gammas(gammas, doc_ids)
+
+    def phase_timings(self, repeats: int = 3) -> dict:
+        raise NotImplementedError(
+            "phase_timings is not ported yet (ROADMAP.md Queue 1 item 7)"
+        )
+
+    # -- model files ------------------------------------------------------------------
+
+    def _extra_state(self) -> dict:
+        return {"t": np.asarray(self._t, dtype=np.int64)}
+
+    def _load_extra_state(self, blobs: dict) -> None:
+        if "t" in blobs:
+            self._t = int(blobs["t"])

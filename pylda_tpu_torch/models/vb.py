@@ -58,7 +58,10 @@ class _Bucket:
 
     ids: torch.Tensor  # [D_b, T_b] int32
     cnts: torch.Tensor  # [D_b, T_b] f32
-    row_index: torch.Tensor  # [D_b] int64: doc id, num_docs for padding
+    # [D_b] int64: the row's document as a position in the sstats plan's
+    # documents (the corpus, or an SVI minibatch's selection), and the
+    # plan's num_docs for padding rows.
+    row_index: torch.Tensor
 
     @property
     def rows(self) -> int:
@@ -83,7 +86,9 @@ _Batch = Union[_Bucket, _Dense]
 
 @dataclasses.dataclass
 class _SstatsPlan:
-    """Corpus-static dense counts for the sufficient statistics."""
+    """Dense counts for the sufficient statistics: corpus-static for
+    batch VB, gathered for one minibatch by SVI (then ``num_docs`` is the
+    minibatch's padded selection length)."""
 
     chunks: List[Tuple[torch.Tensor, torch.Tensor]]  # (counts, doc index)
     docs_mask: torch.Tensor  # [num_docs] f32: 1 for non-empty docs
@@ -176,9 +181,16 @@ class VariationalBayes(Inferencer):
             )
 
     def _build_batches(self, corpus: Corpus) -> List[_Batch]:
+        return self._to_device(layouts.build_vb_batches(corpus, self._config),
+                               corpus.num_docs)
+
+    def _to_device(self, batches: List[layouts.VBBatch],
+                   num_docs: int) -> List[_Batch]:
+        """Layout batches on this engine's device; ragged rows of padding
+        get row index ``num_docs``."""
         dev = self._device
         out: List[_Batch] = []
-        for b in layouts.build_vb_batches(corpus, self._config):
+        for b in batches:
             if isinstance(b, DenseBatch):
                 out.append(_Dense(
                     counts=_compact_counts(b.counts, dev, self._dtype),
@@ -186,7 +198,7 @@ class VariationalBayes(Inferencer):
                     doc_ids=b.doc_ids,
                 ))
                 continue
-            row_index = np.where(b.doc_ids >= 0, b.doc_ids, corpus.num_docs)
+            row_index = np.where(b.doc_ids >= 0, b.doc_ids, num_docs)
             out.append(_Bucket(
                 ids=torch.as_tensor(b.ids, device=dev),
                 cnts=torch.as_tensor(b.cnts, device=dev).to(self._dtype),

@@ -65,12 +65,20 @@ def test_port_imports_no_jax(path):
 
 
 def test_engine_without_device_raises_without_cuda(monkeypatch):
-    from pylda_tpu_torch.models import VariationalBayes, state_from_numpy
+    from pylda_tpu_torch.models import (
+        VariationalBayes,
+        make_engine,
+        state_from_numpy,
+    )
     from pylda_tpu_torch.utils.config import LDAConfig
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         VariationalBayes(LDAConfig(number_of_topics=4))
+    svi = LDAConfig(number_of_topics=4, inference_mode="svi")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_engine(svi)
+    make_engine(svi, device="cpu")
     with pytest.raises(RuntimeError):
         VariationalBayes(LDAConfig(number_of_topics=4), device="cuda")
     with pytest.raises(RuntimeError):

@@ -135,6 +135,9 @@ _SPARSE_SSTATS = [
     (129, 700, 256, 68, 5, 0.03, True, dict(full_row=True)),  # K = 256
     (97, 333, 256, 0, 0, 0.05, False, {}),  # K = 256, f32, unaligned rows
     (100, 400, 32, 0, 0, 0.05, True, dict(max_count=256)),  # bf16 to 256
+    # An SVI minibatch block at config 4: 1024 gathered rows of the
+    # [D+1, 50176] counts matrix, 0.3% nonzero, K = 200 padded to 256.
+    (1024, 50000, 200, 176, 0, 0.003, True, dict(max_count=3)),
 ]
 
 
@@ -203,6 +206,36 @@ def test_ragged_kernel_pinned_sweeps_match_plain(cuda, D, T, K, V):
     assert int(slots) == 12 * real  # no freezing at threshold 0
     assert bool((rows == 12).all())
     torch.testing.assert_close(g, g_p, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("thresh", [0.0, 1e-5])
+def test_ragged_kernel_k200_streamed_rows_match_plain(cuda, thresh):
+    """SVI config 4's rows: K = 200 and 130-208 live entries a row, all
+    past the slot buffer (82 entries at K = 200), so every row streams its
+    compacted entries."""
+    D, T, K, V = 200, 208, 200, 50000
+    rng = np.random.default_rng(6)
+    ids = rng.integers(0, V, (D, T)).astype(np.int32)
+    cnts = rng.integers(1, 4, (D, T)).astype(np.float32)
+    pad = np.arange(T)[None, :] >= rng.integers(130, T + 1, D)[:, None]
+    ids[pad], cnts[pad] = 0, 0.0
+    ids, cnts = torch.tensor(ids, device=cuda), torch.tensor(cnts, device=cuda)
+    lam = rng.gamma(1.0, 1.0, (K, V))
+    eeb = exp_dirichlet_expectation(torch.tensor(lam, device=cuda).float())
+    g0 = torch.ones((D, K), dtype=torch.float32, device=cuda)
+    alpha = torch.full((K,), 1.0 / K, dtype=torch.float32, device=cuda)
+    kw = dict(inner_iterations=12 if thresh == 0.0 else 50,
+              convergence_threshold=thresh, stall_patience=6)
+    g, s = ragged_mod.ragged_gamma(ids, cnts, g0, eeb, alpha, **kw)
+    g_p, s_p = estep_ragged_gamma(ids, cnts, g0, eeb, alpha, **kw)
+    torch.cuda.synchronize()
+    assert int((cnts != 0).sum(dim=1).min()) > 82
+    if thresh == 0.0:
+        assert int(s) == int(s_p) == 12
+        torch.testing.assert_close(g, g_p, rtol=1e-4, atol=1e-4)
+    else:
+        assert abs(int(s) - int(s_p)) <= 1
+        torch.testing.assert_close(g, g_p, rtol=5e-4, atol=5e-4 + K * thresh)
 
 
 @pytest.mark.parametrize("D,T,K,V,thresh", [(300, 70, 100, 3000, 1e-5),
@@ -455,3 +488,46 @@ def test_engine_on_card_matches_cpu(cuda, extra):
         elbos[str(dev)] = [eng.learning() for _ in range(2)] + \
             eng.learning_many(2)
     np.testing.assert_allclose(elbos[str(cuda)], elbos["cpu"], rtol=1e-4)
+
+
+@pytest.mark.parametrize("layout", ["ragged", "dense"])
+def test_svi_engine_on_card_matches_cpu(cuda, layout):
+    """Epoch estimates rel 1e-4 (summation order and exit timing differ),
+    through the kernels on the card."""
+    from pylda_tpu_torch.corpus.synthetic import synthetic_corpus
+    from pylda_tpu_torch.models import StochasticVariationalBayes
+    from pylda_tpu_torch.utils.config import LDAConfig
+
+    corpus, _, _ = synthetic_corpus(num_docs=200, num_topics=8, num_types=600,
+                                    mean_doc_length=40.0, seed=3)
+    cfg = LDAConfig(number_of_topics=8, inference_mode="svi", batch_size=64,
+                    doc_pad_multiple=8, tau0=16.0,
+                    hyper_parameter_optimize_interval=2,
+                    dense_vocab_threshold=256 if layout == "ragged" else 4096)
+    lam0 = np.random.default_rng(11).gamma(100.0, 0.01, (8, 600))
+    ests = {}
+    for dev in (cuda, "cpu"):
+        eng = StochasticVariationalBayes(cfg, device=dev)
+        eng.initialize(corpus, lam_init=lam0)
+        assert eng._device_rows is not None
+        before = {m: m.LAUNCHES for m in (ragged_mod, sstats_mod, dense_mod)}
+        ests[str(dev)] = [eng.learning() for _ in range(2)] + \
+            eng.learning_many(2)
+        if dev is cuda:
+            ran = {m for m in before if m.LAUNCHES > before[m]}
+            assert ran == ({ragged_mod, sstats_mod} if layout == "ragged"
+                           else {dense_mod, sstats_mod})
+    np.testing.assert_allclose(ests[str(cuda)], ests["cpu"], rtol=1e-4)
+
+
+def test_svi_refuses_large_k_on_card(cuda):
+    from pylda_tpu_torch.corpus.synthetic import synthetic_corpus
+    from pylda_tpu_torch.models import StochasticVariationalBayes
+    from pylda_tpu_torch.utils.config import LDAConfig
+
+    corpus, _, _ = synthetic_corpus(num_docs=20, num_topics=4, num_types=300,
+                                    mean_doc_length=10.0, seed=1)
+    eng = StochasticVariationalBayes(
+        LDAConfig(number_of_topics=257, inference_mode="svi"), device=cuda)
+    with pytest.raises(NotImplementedError, match="Queue 2"):
+        eng.initialize(corpus)

@@ -171,11 +171,15 @@ def test_layout_variants_match_jax(data, extra):
 
 
 def test_make_engine_routes():
-    from pylda_tpu_torch.models import make_engine
+    from pylda_tpu_torch.models import StochasticVariationalBayes, make_engine
 
     assert isinstance(make_engine(LDAConfig(**CFG), device="cpu"),
                       VariationalBayes)
-    for mode in ("svi", "gibbs", "hybrid"):
+    assert isinstance(
+        make_engine(LDAConfig(**{**CFG, "inference_mode": "svi"}),
+                    device="cpu"),
+        StochasticVariationalBayes)
+    for mode in ("gibbs", "hybrid"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make_engine(LDAConfig(**{**CFG, "inference_mode": mode}),
                         device="cpu")
