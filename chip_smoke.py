@@ -22,26 +22,34 @@ Phases, in order (any failure exits non-zero):
      bf16 counts batch, and its final pass, the dense sufficient
      statistics, alone at the kernel's gamma;
    - at SVI config 4 (K=200, V=50,000, 16,384 documents, minibatches of
-     1024): the ragged gamma fixed point on each bucket of one gathered
-     minibatch (with the share of rows longer than the slot buffer) and
-     the dense sufficient statistics on its [1024, 50176] bf16 block;
+     1024) and SVI config 5 (K=1000, V=100,000, 8,192 documents,
+     minibatches of 2048, 30 inner sweeps): the ragged gamma fixed point on
+     each bucket chunk of one gathered minibatch (with the rows longer than
+     the slot buffer, their windows a sweep and the launch's geometry) and
+     the dense sufficient statistics on its first bf16 counts chunk
+     ([1024, 50176] and [1216, 100352]);
+   - at K=1000 on the dense flagship's vocabulary (V=4096, 4096
+     documents): the dense E-step with its final pass;
    the dense sufficient statistics are also called twice on each input and
    must return the same bits;
    the two gamma fixed points are held against their plain version run in
    float64, and their lines also give S* (the sweeps the batch took), the
    row-sweeps the kernels' row-major order computed past S*, and a
-   histogram of each row's first exitable sweep;
+   histogram of each row's first exitable sweep; at the SVI shapes each
+   document's share of the bound on the rows still updating at S* is held
+   to its share at the float64 gamma;
 4. engines: ``VariationalBayes`` through ``initialize``, ``learning_many``,
    ``inference`` and ``perplexity`` at each flagship, and
-   ``StochasticVariationalBayes`` at config 4 (epochs timed, one profiled,
-   held-out perplexities), with the kernel launch counters zeroed just
-   before and read just after;
+   ``StochasticVariationalBayes`` at configs 4 and 5, each at full size
+   (epochs timed, one profiled, held-out perplexities), with the kernel
+   launch counters zeroed just before and read just after;
 5. CLI: ``pylda_tpu_torch.cli.train``, ``.test`` and ``.infer`` in-process
    on the bundled corpus ``data/de-news-tiny`` (K=10) on the card, with
    ``--inference_mode`` vb and svi, their output files checked and the
    launch counters zeroed and read;
-6. cross-check: at a small size, on each route, each engine on the card
-   (kernels) and on the CPU (plain versions) give the same bounds.
+6. cross-check: at a small size, on each route, at K=16 and at K=300
+   (the kernels' wide range), each engine on the card (kernels) and on the
+   CPU (plain versions) give the same bounds.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -51,6 +59,7 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import pathlib
 import shutil
@@ -68,6 +77,14 @@ V_DENSE = 4096  # the dense flagship: the default dense_vocab_threshold
 # SVI config 4 (BASELINE.json configs[3]): K=200, vocabulary 50k, a
 # 16,384-document synthetic corpus, minibatches of 1024.
 SVI_K, SVI_V, SVI_D, SVI_LEN, SVI_BATCH = 200, 50_000, 16_384, 150.0, 1024
+# SVI config 5 (BASELINE.json configs[4], as bench_suite.py's config5
+# builds it): K=1000, vocabulary 100k, 8,192 documents (seed 4), 256
+# held-out (seed 104, same beta), minibatches of 2048, 30 inner sweeps.
+SVI5 = dict(K=1000, V=100_000, D=8192, LEN=150.0, BATCH=2048, INNER=30,
+            SEED=4, TEST_DOCS=256, TEST_SEED=104)
+# The dense E-step in the kernels' wide range: K=1000 at the dense
+# flagship's vocabulary.
+DENSE_WIDE_K = 1000
 
 # Kernel vs plain version on the card.  Sums run in different orders
 # (per-thread f32 accumulation vs cuBLAS blocking), so agreement is to
@@ -85,6 +102,18 @@ SSTATS_RTOL, SSTATS_ATOL_REL, SCORE_RTOL = 1e-4, 1e-6, 1e-5
 GAMMA_RTOL = 5e-4
 DENSE_SCORE_RTOL = 1e-4
 ELBO_RTOL = 1e-4  # card vs CPU engine, small cross-check
+# Rows still updating at S* stall without converging, so their gamma
+# depends on rounding; each such document's share of the bound
+# (ops/estep.py::ragged_doc_bound) at the kernel's gamma is held to its
+# share at the float64 plain version's gamma, to this relative tolerance:
+# at K=1000 the float32 plain version's own share moves by up to 8.0e-5
+# (PERF.md), a lost window or topic tile by ~1e-2.
+DOC_BOUND_RTOL = 2e-4
+# Sweeps of the pinned check (threshold 0, every row held to float64):
+# above K = 256 float32 reassociation grows past the tolerance within 12
+# sweeps for the float32 plain version too (PERF.md), so the wide range
+# is held after 3.
+PINNED_SWEEPS, PINNED_SWEEPS_WIDE = 12, 3
 
 REPO = pathlib.Path(__file__).resolve().parent
 CLI_OUT = REPO / "build" / "chip_smoke_cli"
@@ -157,6 +186,46 @@ def exit_report(g_k, g_64, g_32, s_k, s_64, row_exit, row_sweeps, extra,
     return ok, err, text
 
 
+def bound_check(ids, cnts, rows, g_k, g_64, g_32, eeb, alpha, doc_bound):
+    """Each document's share of the bound (``doc_bound``, in float64) on
+    ``rows`` at the kernel's gamma against its share at the float64 plain
+    version's gamma: (ok, max rel err, text); the float32 plain version's
+    error is printed beside."""
+    e64, a64, ids, cnts = eeb.double(), alpha.double(), ids[rows], cnts[rows]
+    b_64 = doc_bound(ids, cnts, g_64[rows].double(), e64, a64)
+
+    def rel(g):
+        got = doc_bound(ids, cnts, g[rows].double(), e64, a64)
+        return float(((got - b_64).abs() / b_64.abs()).max())
+
+    err, err32 = rel(g_k), rel(g_32)
+    ok = err <= DOC_BOUND_RTOL
+    return ok, err, (f"; rows updating at S* {int(rows.sum())}: their share "
+                     f"of the bound rel err vs f64 {err:.3e} (f32 plain "
+                     f"{err32:.3e}; tolerance {DOC_BOUND_RTOL}) "
+                     f"{'ok' if ok else 'FAIL'}")
+
+
+def pinned_check(run, K):
+    """A gamma kernel at pinned sweeps (threshold 0: PINNED_SWEEPS, above
+    K = 256 PINNED_SWEEPS_WIDE) against the float64 plain version, every
+    row within 0.0005 + GAMMA_RTOL * |gamma|: (ok, text).  ``run(kind,
+    kw)`` returns (gamma, sweeps) of the kernel ("kernel") or the plain
+    version in float32 ("f32") or float64 ("f64") with the extra
+    arguments kw."""
+    n = PINNED_SWEEPS if K <= 256 else PINNED_SWEEPS_WIDE
+    kw0 = dict(inner_iterations=n, convergence_threshold=0.0)
+    (g_k, s_k), (g_32, _), (g_64, _) = (run(kind, kw0)
+                                        for kind in ("kernel", "f32", "f64"))
+    diff, diff32 = (g_k - g_64.float()).abs(), (g_32 - g_64.float()).abs()
+    ok = int(s_k) == n and bool(
+        (diff <= 5e-4 + GAMMA_RTOL * g_64.abs()).all())
+    return ok, (f"; pinned {n} sweeps at threshold 0: max_abs_err vs f64 "
+                f"{float(diff.max()):.3e} (f32 plain {float(diff32.max()):.3e}"
+                f"; tolerance 0.0005 + {GAMMA_RTOL}*|gamma|, every row) "
+                f"{'ok' if ok else 'FAIL'}")
+
+
 def sstats_check(label, counts, et, eeb, eps, sstats_mod, plain) -> dict:
     """The dense sstats kernel against its plain version on one input:
     tolerances, two calls bitwise equal, times and bounds; raises if it
@@ -182,8 +251,12 @@ def sstats_check(label, counts, et, eeb, eps, sstats_mod, plain) -> dict:
     dense_ms, _ = bound(4.0 * D * K * V, nbytes)
     k_ms = cuda_ms(lambda: sstats_mod.dense_sstats(counts, et, eeb, eps=eps), 20)
     p_ms = cuda_ms(lambda: plain(counts, et, eeb, eps=eps), 20)
+    pl = sstats_mod.plan(D, Vc, K, torch.cuda.get_device_properties(
+        counts.device).multi_processor_count)
     print(f"kernel dense_sstats {label} [{D}x{Vc} {str(counts.dtype)[6:]}, "
-          f"K={K}]: nonzero counts {nnz}, kernel_ms {k_ms:.4f} plain_ms "
+          f"K={K}]: grid {pl.tiles} tiles of {pl.cols} columns x {pl.splits} "
+          f"splits, kp {pl.kp}, scratch {pl.scratch_bytes / 1e6:.1f} MB, "
+          f"nonzero counts {nnz}, kernel_ms {k_ms:.4f} plain_ms "
           f"{p_ms:.4f} bound_ms {b_ms:.5f} ({b_by}; dense form "
           f"{dense_ms:.5f}), max_abs_err {err:.3e} (tolerance {SSTATS_RTOL}"
           f"*|ref| + {SSTATS_ATOL_REL}*max|ref|), score rel err {tok_rel:.3e} "
@@ -194,25 +267,15 @@ def sstats_check(label, counts, et, eeb, eps, sstats_mod, plain) -> dict:
                              f"({label})")
     if not same:
         raise AssertionError(f"dense_sstats is not repeatable ({label})")
-    return {"name": label, "shape": [D, Vc], "nonzeros": nnz,
+    return {"name": label, "shape": [D, Vc], "K": K, "nonzeros": nnz,
             "max_abs_err": err, "score_rel_err": tok_rel, "ms": k_ms,
             "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "dense_form_bound_ms": dense_ms}
-
-
-def slot_entries(K: int, inner: int) -> int:
-    """Live entries a row keeps in the gamma kernels' shared-memory slot
-    buffer, as the launcher in ``csrc/row_fixed_point.cuh`` sizes it
-    (72 KB a block, 256 threads); a row with more streams its entries in
-    windows from a scratch list."""
-    k4 = (K + 3) // 4
-    s4 = k4 | 1
-    fixed = s4 * 4 + (256 // k4) * k4 * 4 + ((min(inner, 256) + 3) & ~3) + 28
-    return max(16, (72 * 1024 - 4 * (fixed + 12)) // (4 * (s4 * 4 + 3)))
+            "dense_form_bound_ms": dense_ms, "columns_a_tile": pl.cols,
+            "splits": pl.splits, "scratch_bytes": pl.scratch_bytes}
 
 
 def ragged_checks(label, batches, eeb, eeb_t, alpha, kw, gamma_atol, dev,
-                  ragged_mod, plain, pinned=False):
+                  ragged_mod, plain, doc_bound, pinned=False):
     """The ragged gamma kernel on each bucket against its plain version in
     float64 (``exit_report``), timed; raises if one disagrees.  Returns
     the record of the shape (summed over the buckets) and the plain
@@ -222,15 +285,20 @@ def ragged_checks(label, batches, eeb, eeb_t, alpha, kw, gamma_atol, dev,
     last sweep, and their gamma then depends on rounding for any float32
     code (at SVI config 4 the float32 plain version drifts from float64
     there by more than the tolerance, PERF.md).  So at the main path's
-    settings S* and the done rows are held to float64 and the rows still
-    updating are printed, and every row is held to float64 at pinned
-    sweeps (12 sweeps at threshold 0: no freezing, no exit), where the
-    trajectories compare exactly."""
+    settings S* and the done rows are held to float64, the rows still
+    updating are held by their share of the bound (``doc_bound``, to
+    DOC_BOUND_RTOL), and every row is held to float64 at pinned sweeps
+    (12 sweeps at threshold 0: no freezing, no exit), where the
+    trajectories compare exactly.  Each line gives the launch's geometry
+    (the slot buffer's live entries nmax, shared memory a block, blocks an
+    SM) and the rows that stream past the buffer with their windows a
+    sweep."""
     import torch
 
     K, V = eeb.shape
     rg = dict(name=label, ms=0.0, plain_ms=0.0, flops=0.0, nbytes=0.0,
-              max_abs_err=0.0, rows=0, streamed_rows=0)
+              max_abs_err=0.0, rows=0, streamed_rows=0, windows=0,
+              launches=len(batches), doc_bound_rel_err=None)
     rows_plain = []
     for i, b in enumerate(batches):
         Db, Tb = b.ids.shape
@@ -239,11 +307,13 @@ def ragged_checks(label, batches, eeb, eeb_t, alpha, kw, gamma_atol, dev,
         extra = torch.zeros((1,), dtype=torch.int64, device=dev)
         row_exit = torch.zeros((Db,), dtype=torch.int32, device=dev)
         row_sweeps = torch.zeros_like(row_exit)
+        geo = {}
         g_k, s_k = ragged_mod.ragged_gamma(b.ids, b.cnts, g0, eeb, alpha,
                                            eeb_t=eeb_t, slots_out=slots,
                                            extra_sweeps_out=extra,
                                            row_exit_out=row_exit,
-                                           row_sweeps_out=row_sweeps, **kw)
+                                           row_sweeps_out=row_sweeps,
+                                           geometry_out=geo, **kw)
         g_p, s_p = plain(b.ids, b.cnts, g0, eeb, alpha, **kw)
         g_64, s_64 = plain(b.ids, b.cnts.double(), g0.double(), eeb.double(),
                            alpha.double(), **kw)
@@ -251,37 +321,52 @@ def ragged_checks(label, batches, eeb, eeb_t, alpha, kw, gamma_atol, dev,
         ok, err, fp_text = exit_report(g_k, g_64, g_p, s_k, s_64, row_exit,
                                        row_sweeps, extra, gamma_atol,
                                        check_updating=not pinned)
+        live = (b.cnts != 0).sum(dim=1)
+        if pinned:
+            updating = (row_sweeps >= int(s_k)) & (live > 0)
+            if updating.any():
+                ok_b, rel, text = bound_check(b.ids, b.cnts, updating, g_k,
+                                              g_64, g_p, eeb, alpha,
+                                              doc_bound)
+                fp_text += text
+                ok = ok and ok_b
+                rg["doc_bound_rel_err"] = max(rel, rg["doc_bound_rel_err"]
+                                              or 0.0)
         del g_64
         if pinned:
-            kw0 = dict(kw, inner_iterations=12, convergence_threshold=0.0)
-            g_k0, s_k0 = ragged_mod.ragged_gamma(b.ids, b.cnts, g0, eeb,
-                                                 alpha, eeb_t=eeb_t, **kw0)
-            g_640, _ = plain(b.ids, b.cnts.double(), g0.double(),
-                             eeb.double(), alpha.double(), **kw0)
-            diff0 = (g_k0 - g_640.float()).abs()
-            ok0 = int(s_k0) == 12 and bool(
-                (diff0 <= 5e-4 + GAMMA_RTOL * g_640.abs()).all())
-            fp_text += (f"; pinned 12 sweeps at threshold 0: max_abs_err vs "
-                        f"f64 {float(diff0.max()):.3e} (tolerance 0.0005 + "
-                        f"{GAMMA_RTOL}*|gamma|, every row) "
-                        f"{'ok' if ok0 else 'FAIL'}")
+            def run(kind, kw0, b=b, g0=g0):
+                if kind == "kernel":
+                    return ragged_mod.ragged_gamma(b.ids, b.cnts, g0, eeb,
+                                                   alpha, eeb_t=eeb_t,
+                                                   **dict(kw, **kw0))
+                dt = torch.float64 if kind == "f64" else torch.float32
+                return plain(b.ids, b.cnts.to(dt), g0.to(dt), eeb.to(dt),
+                             alpha.to(dt), **dict(kw, **kw0))
+
+            ok0, text = pinned_check(run, K)
+            fp_text += text
             ok = ok and ok0
-            del g_640
-        live = (b.cnts != 0).sum(dim=1)
         rows = int((live > 0).sum())
-        streamed = int((live > min(slot_entries(K, kw["inner_iterations"]),
-                                   Tb)).sum())
+        nmax = geo["nmax"]
+        streamed = live > nmax
+        windows = int(((live[streamed] + nmax - 1) // nmax).sum())
+        # Bytes: ids and counts, the table rows of the chunk's distinct
+        # live ids, alpha and gamma0 read once; gamma written once.
+        rows_needed = int(torch.unique(b.ids[b.cnts != 0]).numel())
         flops = 4.0 * K * int(slots)
-        nbytes = Db * Tb * 8 + V * K * 4 + 2 * Db * K * 4 + K * 4
+        nbytes = Db * Tb * 8 + rows_needed * K * 4 + 2 * Db * K * 4 + K * 4
         b_ms, b_by = bound(flops, nbytes)
         k_ms = cuda_ms(lambda: ragged_mod.ragged_gamma(
             b.ids, b.cnts, g0, eeb, alpha, eeb_t=eeb_t, **kw), 20)
         p_ms = cuda_ms(lambda: plain(b.ids, b.cnts, g0, eeb, alpha, **kw), 3)
         print(f"kernel ragged_gamma {label} bucket {i} [{Db}x{Tb}, K={K}]: "
               f"sweeps plain f32 {int(s_p)}, {fp_text}, real slots processed "
-              f"{int(slots)}, rows streamed past the slot buffer {streamed} of "
-              f"{rows}, kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} bound_ms "
-              f"{b_ms:.5f} ({b_by}) {'ok' if ok else 'FAIL'}")
+              f"{int(slots)}, slot buffer {nmax} entries ({geo['smem_bytes']} "
+              f"B a block, {geo['blocks_per_sm']} blocks an SM, grid "
+              f"{geo['grid']}), rows streamed past it {int(streamed.sum())} of "
+              f"{rows} ({windows} windows a sweep), kernel_ms {k_ms:.4f} "
+              f"plain_ms {p_ms:.4f} bound_ms {b_ms:.5f} ({b_by}) "
+              f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"ragged_gamma {label} bucket {i} disagrees "
                                  f"with its plain version")
@@ -291,9 +376,17 @@ def ragged_checks(label, batches, eeb, eeb_t, alpha, kw, gamma_atol, dev,
         rg["nbytes"] += nbytes
         rg["max_abs_err"] = max(rg["max_abs_err"], err)
         rg["rows"] += rows
-        rg["streamed_rows"] += streamed
+        rg["streamed_rows"] += int(streamed.sum())
+        rg["windows"] += windows
+        rg.update(nmax=nmax, smem_bytes=geo["smem_bytes"],
+                  blocks_per_sm=geo["blocks_per_sm"])
         rows_plain.append(g_p)
     rg["bound_ms"], rg["bound_by"] = bound(rg["flops"], rg["nbytes"])
+    print(f"kernel ragged_gamma {label}: {rg['launches']} launches, "
+          f"{rg['ms']:.4f} ms (bound {rg['bound_ms']:.5f}, {rg['bound_by']}), "
+          f"rows streamed past the slot buffer ({rg['nmax']} entries at "
+          f"K={K}) {rg['streamed_rows']} of {rg['rows']}, {rg['windows']} "
+          f"windows a sweep")
     return rg, rows_plain
 
 
@@ -311,6 +404,187 @@ def check_launched(label: str, counts: dict, needed) -> None:
     missing = [k for k in needed if counts[k] < 1]
     if missing:
         raise AssertionError(f"{label}: kernels {missing} never ran")
+
+
+def dense_checks(label, corpus, beta, cfg, dev, pinned=False):
+    """The dense E-step (gamma kernel + final pass) on the one counts batch
+    of ``corpus`` at a sharpened lambda, against its plain version in
+    float64 (``exit_report``), the final pass at the kernel's gamma and
+    the score; timed, with bounds from this run's nonzeros.  ``pinned``
+    holds the rows still updating at S* by their share of the bound and
+    every row at pinned sweeps, as ``ragged_checks`` does.  Raises if it
+    disagrees.  Returns (its record, the final pass's sstats record)."""
+    import numpy as np
+    import torch
+
+    from pylda_tpu_torch.models import VariationalBayes
+    from pylda_tpu_torch.ops import dense_estep as dense_mod
+    from pylda_tpu_torch.ops import sstats as sstats_mod
+    from pylda_tpu_torch.ops.dirichlet import (
+        exp_dirichlet_expectation,
+        exp_dirichlet_expectation_fast,
+    )
+    from pylda_tpu_torch.ops.estep import (
+        estep_dense,
+        estep_dense_sstats,
+        ragged_doc_bound,
+    )
+
+    K, Vd = cfg.number_of_topics, corpus.num_types
+    kw = dict(inner_iterations=cfg.inner_iterations,
+              convergence_threshold=cfg.convergence_threshold, eps=cfg.eps,
+              stall_patience=cfg.estep_stall_patience)
+    gamma_atol = 5e-4 + K * cfg.convergence_threshold
+    lam = (1.0 / Vd + beta * (corpus.num_tokens / K)).astype(np.float32)
+    probe = VariationalBayes(cfg, device=dev)
+    probe.initialize(corpus, lam_init=lam)
+    st = probe.state
+    eeb = exp_dirichlet_expectation_fast(st.lam)
+    (batch,) = probe._batches
+    dc = batch.counts
+    g0 = torch.ones((dc.shape[0], K), dtype=torch.float32, device=dev)
+    row_sweeps = torch.zeros((dc.shape[0],), dtype=torch.int32, device=dev)
+    row_exit = torch.zeros_like(row_sweeps)
+    extra = torch.zeros((1,), dtype=torch.int64, device=dev)
+    geo = {}
+    g_k, ss_k, tok_k, s_k = dense_mod.dense_estep(dc, g0, eeb, st.alpha,
+                                                  row_sweeps_out=row_sweeps,
+                                                  extra_sweeps_out=extra,
+                                                  row_exit_out=row_exit,
+                                                  geometry_out=geo, **kw)
+    g_p, _, tok_p, s_p = estep_dense(dc, g0, eeb, st.alpha, **kw)
+    g_64, _, _, s_64 = estep_dense(dc.double(), g0.double(), eeb.double(),
+                                   st.alpha.double(), **kw)
+    ss_at_k, _ = estep_dense_sstats(dc, exp_dirichlet_expectation(g_k), eeb,
+                                    eps=cfg.eps)
+    torch.cuda.synchronize()
+    dg_ok, dg_err, fp_text = exit_report(g_k, g_64, g_p, s_k, s_64, row_exit,
+                                         row_sweeps, extra, gamma_atol,
+                                         check_updating=not pinned)
+    row_nnz = (dc != 0).sum(dim=1)
+    bound_err = None
+    if pinned:
+        # A dense row as its nonzero (column, count) entries, in order.
+        order = torch.sort((dc != 0).to(torch.uint8), dim=1, descending=True,
+                           stable=True).indices[:, :int(row_nnz.max())]
+        updating = (row_sweeps >= int(s_k)) & (row_nnz > 0)
+        if updating.any():
+            ok_b, bound_err, text = bound_check(
+                order.to(torch.int32), dc.gather(1, order).float(), updating,
+                g_k, g_64, g_p, eeb, st.alpha, ragged_doc_bound)
+            fp_text += text
+            dg_ok = dg_ok and ok_b
+        del order
+        def run(kind, kw0):
+            fn = dense_mod.dense_estep if kind == "kernel" else estep_dense
+            dt = torch.float64 if kind == "f64" else torch.float32
+            out = fn(dc if dt == torch.float32 else dc.double(), g0.to(dt),
+                     eeb.to(dt), st.alpha.to(dt), **dict(kw, **kw0))
+            return out[0], out[3]
+
+        ok0, text = pinned_check(run, K)
+        fp_text += text
+        dg_ok = dg_ok and ok0
+    del g_64
+    dss_ok = bool(((ss_k - ss_at_k).abs()
+                   <= SSTATS_RTOL * ss_at_k.abs()
+                   + SSTATS_ATOL_REL * float(ss_at_k.abs().max())).all())
+    dtok_rel = abs(float(tok_k) - float(tok_p)) / abs(float(tok_p))
+    Dd = dc.shape[0]
+    # The work this input needs: each sweep of a row (frozen sweeps
+    # excluded) and the final pass do 4*K FLOP for each nonzero count of
+    # the row — phinorm and the ratio are needed only there.  The dense
+    # form (every column) is printed beside it.  Bytes: counts, eeb, alpha
+    # and gamma0 read once; gamma and sstats written once.
+    dg_nnz = int(row_nnz.sum())
+    row_sweeps_total = int(row_sweeps.sum())
+    dg_work = int((row_sweeps.long() * row_nnz).sum()) + dg_nnz
+    dg_bytes = (dc.numel() * dc.element_size() + 2 * K * Vd * 4
+                + 2 * Dd * K * 4 + K * 4 + 4)
+    dg_bound, dg_by = bound(4.0 * K * dg_work, dg_bytes)
+    dg_dense_bound, _ = bound(4.0 * K * Vd * (row_sweeps_total + Dd),
+                              dg_bytes)
+    dg_ms = cuda_ms(lambda: dense_mod.dense_estep(dc, g0, eeb, st.alpha,
+                                                  **kw), 5)
+    dg_plain_ms = cuda_ms(lambda: estep_dense(dc, g0, eeb, st.alpha, **kw), 2)
+    fin = sstats_check(f"{label} final pass", dc,
+                       exp_dirichlet_expectation(g_k), eeb, cfg.eps,
+                       sstats_mod, estep_dense_sstats)
+    dg_ok = dg_ok and dss_ok and dtok_rel <= DENSE_SCORE_RTOL
+    streamed = int((row_nnz > geo["nmax"]).sum())
+    print(f"kernel dense_gamma {label} [{Dd}x{dc.shape[1]} "
+          f"{str(dc.dtype)[6:]}, K={K}]: sweeps plain f32 {int(s_p)}, "
+          f"{fp_text}, row-sweeps needed {row_sweeps_total}, "
+          f"nonzero counts {dg_nnz} ({dg_nnz / dc.numel():.4f} of the block), "
+          f"slot buffer {geo['nmax']} entries ({geo['smem_bytes']} B a block, "
+          f"{geo['blocks_per_sm']} blocks an SM), rows streamed past it "
+          f"{streamed}, kernel_ms {dg_ms:.4f} (of which final pass "
+          f"dense_sstats {fin['ms']:.4f}) plain_ms {dg_plain_ms:.4f} bound_ms "
+          f"{dg_bound:.5f} ({dg_by}; dense form {dg_dense_bound:.5f}), sstats "
+          f"at the kernel's gamma {'ok' if dss_ok else 'FAIL'} (tolerance "
+          f"{SSTATS_RTOL}*|ref| + {SSTATS_ATOL_REL}*max|ref|), score rel err "
+          f"{dtok_rel:.3e} (tolerance {DENSE_SCORE_RTOL}) "
+          f"{'ok' if dg_ok else 'FAIL'}")
+    if not dg_ok:
+        raise AssertionError(f"dense_estep disagrees with its plain version "
+                             f"({label})")
+    return {"name": label, "shape": [Dd, dc.shape[1]], "K": K,
+            "max_abs_err": dg_err, "ms": dg_ms, "plain_ms": dg_plain_ms,
+            "bound_ms": dg_bound, "bound_by": dg_by,
+            "dense_form_bound_ms": dg_dense_bound, "nmax": geo["nmax"],
+            "streamed_rows": streamed, "doc_bound_rel_err": bound_err}, fin
+
+
+def svi_kernel_lines(label, corpus, beta, cfg, dev):
+    """The ragged gamma and dense sstats kernels at one SVI config's
+    shapes: the first minibatch of epoch 0, gathered from the
+    device-resident rows at minibatch-local positions, at a sharpened
+    lambda; gamma per bucket chunk (``ragged_checks``, pinned), sstats on
+    the first counts chunk at the plain gammas.  Returns their records."""
+    import numpy as np
+    import torch
+
+    from pylda_tpu_torch.models import StochasticVariationalBayes
+    from pylda_tpu_torch.models.vb import _assemble_gamma_device
+    from pylda_tpu_torch.ops import ragged as ragged_mod
+    from pylda_tpu_torch.ops import sstats as sstats_mod
+    from pylda_tpu_torch.ops.dirichlet import (
+        exp_dirichlet_expectation,
+        exp_dirichlet_expectation_fast,
+    )
+    from pylda_tpu_torch.ops.estep import (
+        estep_dense_sstats,
+        estep_ragged_gamma,
+        ragged_doc_bound,
+    )
+
+    K, Vs = cfg.number_of_topics, corpus.num_types
+    kw = dict(inner_iterations=cfg.inner_iterations,
+              convergence_threshold=cfg.convergence_threshold, eps=cfg.eps,
+              stall_patience=cfg.estep_stall_patience)
+    probe = StochasticVariationalBayes(cfg, device=dev)
+    probe.initialize(corpus, lam_init=(
+        1.0 / Vs + beta * (corpus.num_tokens / K)).astype(np.float32))
+    st = probe.state
+    eeb = exp_dirichlet_expectation_fast(st.lam)
+    eeb_t = ragged_mod.gather_table(eeb)
+    batches, (_, sel) = next(probe._epoch(cfg.seed, 0).minibatches)
+    buckets, mb_plan = probe._local_plan(batches, sel)
+    rg, rows_plain = ragged_checks(
+        label, buckets, eeb, eeb_t, st.alpha, kw,
+        5e-4 + K * cfg.convergence_threshold, dev, ragged_mod,
+        estep_ragged_gamma, ragged_doc_bound, pinned=True)
+    gamma_docs = _assemble_gamma_device(
+        torch.cat(rows_plain), torch.cat([b.row_index for b in buckets]),
+        st.alpha, mb_plan.num_docs,
+    )
+    counts, cidx = mb_plan.chunks[0]
+    print(f"{label}: a minibatch's sstats counts chunks "
+          f"{[tuple(c.shape) for c, _ in mb_plan.chunks]}")
+    ss = sstats_check(f"{label} minibatch", counts,
+                      exp_dirichlet_expectation(gamma_docs)[cidx], eeb,
+                      cfg.eps, sstats_mod, estep_dense_sstats)
+    return rg, ss
 
 
 def run_engine(label, cfg, corpus, test, dev, mods, needed):
@@ -367,9 +641,9 @@ def run_engine(label, cfg, corpus, test, dev, mods, needed):
     return counts
 
 
-def run_svi(cfg, corpus, test, dev, mods) -> dict:
-    """SVI at config 4: initialize, learning_many(1) warm,
-    learning_many(4) timed, one more epoch under ``torch.profiler`` (the
+def run_svi(label, cfg, corpus, test, dev, mods, n) -> dict:
+    """SVI at one config: initialize, learning_many(1) warm,
+    learning_many(n) timed, one more epoch under ``torch.profiler`` (the
     card's busy time, idle share and kernels by device time), then
     ``inference``, ``perplexity`` and ``point_estimate_perplexity`` on
     held-out docs; the point-estimate perplexity must fall below its
@@ -381,7 +655,6 @@ def run_svi(cfg, corpus, test, dev, mods) -> dict:
     from pylda_tpu_torch.models import StochasticVariationalBayes
     from scripts.torch_engine_profile import busy_us
 
-    label = "engine svi config 4"
     zero_launches(mods)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -396,7 +669,6 @@ def run_svi(cfg, corpus, test, dev, mods) -> dict:
           f"({mat.numel() * mat.element_size() / 1e9:.3f} GB)")
     pe0 = eng.point_estimate_perplexity(test)
     eng.learning_many(1)
-    n = 4
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ests = eng.learning_many(n)
@@ -527,9 +799,9 @@ def main() -> int:
         exp_dirichlet_expectation_fast,
     )
     from pylda_tpu_torch.ops.estep import (
-        estep_dense,
         estep_dense_sstats,
         estep_ragged_gamma,
+        ragged_doc_bound,
     )
     from pylda_tpu_torch.utils.config import LDAConfig
 
@@ -577,7 +849,8 @@ def main() -> int:
 
     rg, rows_plain = ragged_checks("ragged flagship", probe._batches, eeb,
                                    eeb_t, st.alpha, kw, gamma_atol, dev,
-                                   ragged_mod, estep_ragged_gamma)
+                                   ragged_mod, estep_ragged_gamma,
+                                   ragged_doc_bound)
 
     plan = probe._sstats_plan
     gamma_docs = _assemble_gamma_device(
@@ -596,74 +869,23 @@ def main() -> int:
         num_docs=D, num_topics=K, num_types=V_DENSE, mean_doc_length=MEAN_LEN,
         seed=0,
     )
-    dlam = (1.0 / V_DENSE
-            + dbeta * (dcorpus.num_tokens / K)).astype(np.float32)
-    probe = VariationalBayes(cfg, device=dev)
-    probe.initialize(dcorpus, lam_init=dlam)
-    st = probe.state
-    eeb = exp_dirichlet_expectation_fast(st.lam)
-    (batch,) = probe._batches
-    dc = batch.counts
-    g0 = torch.ones((dc.shape[0], K), dtype=torch.float32, device=dev)
-    row_sweeps = torch.zeros((dc.shape[0],), dtype=torch.int32, device=dev)
-    row_exit = torch.zeros_like(row_sweeps)
-    extra = torch.zeros((1,), dtype=torch.int64, device=dev)
-    g_k, ss_k, tok_k, s_k = dense_mod.dense_estep(dc, g0, eeb, st.alpha,
-                                                  row_sweeps_out=row_sweeps,
-                                                  extra_sweeps_out=extra,
-                                                  row_exit_out=row_exit,
-                                                  **kw)
-    g_p, _, tok_p, s_p = estep_dense(dc, g0, eeb, st.alpha, **kw)
-    g_64, _, _, s_64 = estep_dense(dc.double(), g0.double(), eeb.double(),
-                                   st.alpha.double(), **kw)
-    ss_at_k, _ = estep_dense_sstats(dc, exp_dirichlet_expectation(g_k), eeb,
-                                    eps=cfg.eps)
-    torch.cuda.synchronize()
-    dg_ok, dg_err, fp_text = exit_report(g_k, g_64, g_p, s_k, s_64, row_exit,
-                                         row_sweeps, extra, gamma_atol)
-    del g_64
-    dss_ok = bool(((ss_k - ss_at_k).abs()
-                   <= SSTATS_RTOL * ss_at_k.abs()
-                   + SSTATS_ATOL_REL * float(ss_at_k.abs().max())).all())
-    dtok_rel = abs(float(tok_k) - float(tok_p)) / abs(float(tok_p))
-    Dd, Vd = dc.shape
-    # The work this input needs: each sweep of a row (frozen sweeps
-    # excluded) and the final pass do 4*K FLOP for each nonzero count of
-    # the row — phinorm and the ratio are needed only there.  The dense
-    # form (every column) is printed beside it.  Bytes: counts, eeb, alpha
-    # and gamma0 read once; gamma and sstats written once.
-    row_nnz = (dc != 0).sum(dim=1)
-    dg_nnz = int(row_nnz.sum())
-    row_sweeps_total = int(row_sweeps.sum())
-    dg_work = int((row_sweeps.long() * row_nnz).sum()) + dg_nnz
-    dg_bytes = (dc.numel() * dc.element_size() + 2 * K * V_DENSE * 4
-                + 2 * Dd * K * 4 + K * 4 + 4)
-    dg_bound, dg_by = bound(4.0 * K * dg_work, dg_bytes)
-    dg_dense_bound, _ = bound(4.0 * K * V_DENSE * (row_sweeps_total + Dd),
-                              dg_bytes)
-    dg_ms = cuda_ms(lambda: dense_mod.dense_estep(dc, g0, eeb, st.alpha,
-                                                  **kw), 5)
-    dg_plain_ms = cuda_ms(lambda: estep_dense(dc, g0, eeb, st.alpha, **kw), 2)
-    et_k = exp_dirichlet_expectation(g_k)
-    ss_shapes.append(sstats_check("dense flagship final pass", dc, et_k, eeb,
-                                  cfg.eps, sstats_mod, estep_dense_sstats))
-    fin_ms = ss_shapes[-1]["ms"]
-    dg_ok = dg_ok and dss_ok and dtok_rel <= DENSE_SCORE_RTOL
-    print(f"kernel dense_gamma [{Dd}x{Vd} {str(dc.dtype)[6:]}, K={K}]: sweeps "
-          f"plain f32 {int(s_p)}, {fp_text}, row-sweeps needed "
-          f"{row_sweeps_total}, "
-          f"nonzero counts {dg_nnz} ({dg_nnz / dc.numel():.4f} of the block), "
-          f"kernel_ms {dg_ms:.4f} (of which final pass dense_sstats "
-          f"{fin_ms:.4f}) plain_ms {dg_plain_ms:.4f} bound_ms {dg_bound:.5f} "
-          f"({dg_by}; dense form {dg_dense_bound:.5f}), sstats at the kernel's "
-          f"gamma {'ok' if dss_ok else 'FAIL'} (tolerance {SSTATS_RTOL}*|ref| "
-          f"+ {SSTATS_ATOL_REL}*max|ref|), score rel err {dtok_rel:.3e} "
-          f"(tolerance {DENSE_SCORE_RTOL}) {'ok' if dg_ok else 'FAIL'}")
-    if not dg_ok:
-        raise AssertionError("dense_estep disagrees with its plain version")
-    del probe, st, eeb, batch, dc, g0, g_k, g_p, ss_k, ss_at_k, et_k, row_nnz
+    dg, fin = dense_checks("dense flagship", dcorpus, dbeta, cfg, dev)
+    ss_shapes.append(fin)
+    # ... and at K=1000 on its vocabulary: the core's wide kernels and the
+    # 16-lane sstats build.
+    wcorpus, wbeta, _ = synthetic_corpus(
+        num_docs=D, num_topics=DENSE_WIDE_K, num_types=V_DENSE,
+        mean_doc_length=MEAN_LEN, seed=0,
+    )
+    dg_wide, fin_wide = dense_checks(
+        f"dense K={DENSE_WIDE_K}", wcorpus, wbeta,
+        dataclasses.replace(cfg, number_of_topics=DENSE_WIDE_K), dev,
+        pinned=True)
+    ss_shapes.append(fin_wide)
+    dg_shapes = [dg, dg_wide]
+    del wcorpus, wbeta
 
-    # -- kernels at SVI config 4's shapes: one minibatch's -------------------
+    # -- kernels at SVI config 4's and 5's shapes: one minibatch's ----------
     svi_corpus, svi_beta, _ = synthetic_corpus(
         num_docs=SVI_D, num_topics=SVI_K, num_types=SVI_V,
         mean_doc_length=SVI_LEN, seed=3,
@@ -672,36 +894,19 @@ def main() -> int:
                         batch_size=SVI_BATCH, tau0=64.0, kappa=0.7,
                         inner_iterations=50, convergence_threshold=1e-5,
                         seed=0)
-    probe = StochasticVariationalBayes(svi_cfg, device=dev)
-    probe.initialize(svi_corpus, lam_init=(
-        1.0 / SVI_V + svi_beta * (svi_corpus.num_tokens / SVI_K)
-    ).astype(np.float32))
-    st = probe.state
-    eeb = exp_dirichlet_expectation_fast(st.lam)
-    eeb_t = ragged_mod.gather_table(eeb)
-    # The first minibatch of epoch 0, gathered from the device-resident
-    # rows, at minibatch-local positions.
-    batches, (_, sel) = next(probe._epoch(svi_cfg.seed, 0).minibatches)
-    buckets, mb_plan = probe._local_plan(batches, sel)
-    svi_rg, rows_plain = ragged_checks(
-        "svi config 4", buckets, eeb, eeb_t, st.alpha, kw,
-        5e-4 + SVI_K * svi_cfg.convergence_threshold, dev, ragged_mod,
-        estep_ragged_gamma, pinned=True)
-    rg_shapes = [rg, svi_rg]
-    print(f"kernel ragged_gamma svi config 4: rows streamed past the slot "
-          f"buffer ({slot_entries(SVI_K, kw['inner_iterations'])} entries at "
-          f"K={SVI_K}) {svi_rg['streamed_rows']} of {svi_rg['rows']}")
-    gamma_docs = _assemble_gamma_device(
-        torch.cat(rows_plain), torch.cat([b.row_index for b in buckets]),
-        st.alpha, mb_plan.num_docs,
+    svi_rg, svi_ss = svi_kernel_lines("svi config 4", svi_corpus, svi_beta,
+                                      svi_cfg, dev)
+    svi5_corpus, svi5_beta, _ = synthetic_corpus(
+        num_docs=SVI5["D"], num_topics=SVI5["K"], num_types=SVI5["V"],
+        mean_doc_length=SVI5["LEN"], seed=SVI5["SEED"],
     )
-    counts, cidx = mb_plan.chunks[0]
-    ss_shapes.append(sstats_check(
-        "svi config-4 minibatch", counts,
-        exp_dirichlet_expectation(gamma_docs)[cidx], eeb, svi_cfg.eps,
-        sstats_mod, estep_dense_sstats))
-    del probe, st, eeb, eeb_t, batches, sel, buckets, mb_plan, rows_plain
-    del gamma_docs, counts, cidx
+    svi5_cfg = LDAConfig(number_of_topics=SVI5["K"], inference_mode="svi",
+                         batch_size=SVI5["BATCH"], tau0=64.0, kappa=0.7,
+                         seed=0, inner_iterations=SVI5["INNER"])
+    svi5_rg, svi5_ss = svi_kernel_lines("svi config 5", svi5_corpus,
+                                        svi5_beta, svi5_cfg, dev)
+    rg_shapes = [rg, svi_rg, svi5_rg]
+    ss_shapes += [svi_ss, svi5_ss]
 
     # -- engines: the main paths ---------------------------------------------
     by_path = {}
@@ -724,8 +929,17 @@ def main() -> int:
         num_docs=512, num_topics=SVI_K, num_types=SVI_V,
         mean_doc_length=SVI_LEN, seed=103, beta=svi_beta,
     )
-    by_path["svi"] = run_svi(svi_cfg, svi_corpus, svi_test, dev, mods)
+    by_path["svi"] = run_svi("engine svi config 4", svi_cfg, svi_corpus,
+                             svi_test, dev, mods, 4)
     del svi_corpus, svi_test
+    svi5_test, _, _ = synthetic_corpus(
+        num_docs=SVI5["TEST_DOCS"], num_topics=SVI5["K"],
+        num_types=SVI5["V"], mean_doc_length=SVI5["LEN"],
+        seed=SVI5["TEST_SEED"], beta=svi5_beta,
+    )
+    by_path["svi5"] = run_svi("engine svi config 5", svi5_cfg, svi5_corpus,
+                              svi5_test, dev, mods, 2)
+    del svi5_corpus, svi5_test, svi5_beta
 
     # -- CLI on the bundled corpus -------------------------------------------
     by_path["cli"] = run_cli(mods, "vb")
@@ -738,14 +952,15 @@ def main() -> int:
     print(f"main paths: kernel launches {paths}")
 
     # -- cross-check: card vs CPU at a small size, on each route -------------
-    for route, v_small in (("ragged", 3000), ("dense", 1000)):
-        small, _, _ = synthetic_corpus(num_docs=256, num_topics=16,
+    for (route, v_small), k_small in itertools.product(
+            (("ragged", 3000), ("dense", 1000)), (16, 300)):
+        small, _, _ = synthetic_corpus(num_docs=256, num_topics=k_small,
                                        num_types=v_small, mean_doc_length=60.0,
                                        seed=5)
-        scfg = LDAConfig(number_of_topics=16, dense_vocab_threshold=2048,
+        scfg = LDAConfig(number_of_topics=k_small, dense_vocab_threshold=2048,
                          doc_pad_multiple=16,
                          hyper_parameter_optimize_interval=2, seed=0)
-        lam0 = np.random.default_rng(7).gamma(100.0, 0.01, (16, v_small))
+        lam0 = np.random.default_rng(7).gamma(100.0, 0.01, (k_small, v_small))
         for engine, n in ((VariationalBayes, 3), (StochasticVariationalBayes, 2)):
             ecfg = dataclasses.replace(
                 scfg, inference_mode="svi", batch_size=64, tau0=16.0,
@@ -758,13 +973,14 @@ def main() -> int:
                     e.learning_many(n)
             rel = max(abs(a - b) / abs(b)
                       for a, b in zip(runs["cuda"], runs["cpu"]))
-            print(f"cross-check {engine.__name__} {route}: bounds card "
-                  f"{[round(x, 2) for x in runs['cuda']]} cpu "
+            print(f"cross-check {engine.__name__} {route} K={k_small}: bounds "
+                  f"card {[round(x, 2) for x in runs['cuda']]} cpu "
                   f"{[round(x, 2) for x in runs['cpu']]}, max rel diff "
                   f"{rel:.2e} (tolerance {ELBO_RTOL})")
             if not rel <= ELBO_RTOL:
                 raise AssertionError(f"card and CPU engines disagree "
-                                     f"({engine.__name__}, {route})")
+                                     f"({engine.__name__}, {route}, "
+                                     f"K={k_small})")
 
     record = {"kernels": [
         {"name": "dense_sstats", "route": "cuda",
@@ -788,10 +1004,10 @@ def main() -> int:
          "source": "pylda_tpu_torch/csrc/dense_gamma.cu",
          "replaces": "pylda_tpu/ops/pallas_estep.py:97",
          "launches": launches["dense_gamma"],
-         "launches_by_path": paths["dense_gamma"], "max_abs_err": dg_err,
-         "ms": dg_ms, "plain_ms": dg_plain_ms, "bound_ms": dg_bound,
-         "bound_by": dg_by, "dense_form_bound_ms": dg_dense_bound,
-         "library_ms": None},
+         "launches_by_path": paths["dense_gamma"],
+         **{k: dg[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                               "bound_by", "dense_form_bound_ms")},
+         "library_ms": None, "shapes": dg_shapes},
     ]}
     print(f"nvidia-smi: {nvidia_smi()}")
     print(json.dumps(record))

@@ -39,7 +39,9 @@
 // K=100, 63 at K=256) writes its compacted (column, count) list once to the
 // block's scratch in global memory and streams it in windows of nmax
 // nonzeros each sweep, gathering each window's B rows from L2: the L2
-// reads of such a row are its nonzeros x 4 ldb bytes a sweep.
+// reads of such a row are its nonzeros x 4 ldb bytes a sweep.  At K > 256
+// the core's wide kernels run (a thread owns several topics; 25 slots of
+// 4 KB at K=1000, so rows of more nonzeros stream).
 
 #include "row_fixed_point.cuh"
 
@@ -47,10 +49,11 @@ extern "C" {
 
 // params: a Params (row_fixed_point.cuh) with ids null, cnts the counts
 // [D, ld] (bf16 if cnts_bf16, else f32; the first L = V columns used) and
-// table [V, ldb] = expElogbeta^T; stream: a cudaStream_t.  Returns the
-// cudaError_t of the launch.
-int pylda_dense_gamma(const void* params, void* stream) {
-  Params p = *static_cast<const Params*>(params);
+// table [V, ldb] = expElogbeta^T, 1 <= K <= 4096; the launch's nmax,
+// nhist and geometry are written back into it.  stream: a cudaStream_t.
+// Returns the cudaError_t of the launch.
+int pylda_dense_gamma(void* params, void* stream) {
+  Params& p = *static_cast<Params*>(params);
   if (p.ids) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // Rows of up to 128 nonzeros take the register tile, longer ones the

@@ -38,16 +38,28 @@
 // writes its compacted (id, count) list once to the block's scratch in
 // global memory and streams it in windows of nmax live slots each sweep,
 // gathering each window's B rows from L2.
+//
+// At K > 256 (the core's wide kernels; SVI config 5: K=1000, V=100k,
+// minibatches of 2048 documents in buckets of width 160 / 176 / 208, ~307k
+// live slots) a slot is 4 KB, the buffer holds 25 of them, and every row
+// streams: each sweep gathers every live slot's B row again, and the
+// 400 MB table is read from device memory, not L2 (~1.23 GB a sweep over
+// a minibatch, ~0.37 ms at 3.35 TB/s), against a bound of 4*K FLOP a live
+// slot a sweep (0.54 ms for the 30 sweeps of a minibatch at 67 TFLOP/s).
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md): 16.2 ms for a
+// minibatch's 12 launches at a trained lambda, ~2.2 TB/s of 4 KB gathers:
+// the re-gathering, not the arithmetic, sets the time.
 
 #include "row_fixed_point.cuh"
 
 extern "C" {
 
 // params: a Params (row_fixed_point.cuh) with ids and cnts [D, T] int32 and
-// f32 (cnts_bf16 0, ld = L = T) and table [V, ldb] = expElogbeta^T;
-// stream: a cudaStream_t.  Returns the cudaError_t of the launch.
-int pylda_ragged_gamma(const void* params, void* stream) {
-  Params p = *static_cast<const Params*>(params);
+// f32 (cnts_bf16 0, ld = L = T), table [V, ldb] = expElogbeta^T and
+// 1 <= K <= 4096; the launch's nmax, nhist and geometry are written back
+// into it.  stream: a cudaStream_t.  Returns the cudaError_t of the launch.
+int pylda_ragged_gamma(void* params, void* stream) {
+  Params& p = *static_cast<Params*>(params);
   if (!p.ids || p.cnts_bf16) return (int)cudaErrorInvalidValue;
   // Buckets whose rows all fit the register tile take it.
   return (int)launch_row_fixed_point<float>(

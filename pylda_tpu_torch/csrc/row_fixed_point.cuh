@@ -61,6 +61,21 @@
 //      sum_k |dgamma| and sum_k gamma', the new expEtheta goes to shared
 //      memory, and every thread keeps the row's best, age and done (the
 //      block sums are the same in every thread).
+//
+// Wide rows (K > 256, up to kMaxTopics = 4096: the kWide kernels).  A
+// thread no longer owns one topic.  In step B, G = max(1, 256 / k4) slot
+// groups, and thread tid owns the float4s q = tid + 256 j (j < 4) of group
+// 0 when k4 > 256, so each thread keeps up to 4 float4 sums in registers.
+// In step C thread tid owns topics tid, tid + 256, ..: gamma' goes to
+// shared memory (gam), alpha is read from global memory, and the thread
+// sums its own topics in topic order before the block sums (a fixed order:
+// two calls give the same bits).  A slot holds K floats (4 KB at K=1000),
+// so the buffer is sized from the shared memory of an SM: two blocks an SM
+// (~113 KB each on an H100) where a slot fits, else one block with what it
+// may opt into; at K=1000 that is 25 slots, and rows of more live entries
+// stream (every row of an SVI config-5 minibatch), gathering each window's
+// B rows from device memory every sweep, since the [V, K] table does not
+// fit the L2 at V=100k.  K <= 256 keeps the narrow kernels and their bits.
 // The slot buffer's row stride is an odd number of float4, so the float4
 // loads of A and B meet no bank conflicts beyond the 4 wavefronts a warp's
 // 512 bytes need.  What bounds a resident row: shared-memory bandwidth,
@@ -93,15 +108,22 @@ namespace cg = cooperative_groups;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+// Largest K the kernels take; the wide kernels' step-B float4 sums a
+// thread (k4 <= kThreads * kWideQ).
+constexpr int kMaxTopics = 4096;
+constexpr int kWideQ = kMaxTopics / 4 / kThreads;
 // Per-sweep not-exitable counts kept in shared memory; later sweeps go to
 // the device array directly.
 constexpr int kMaxHist = 256;
-// Shared memory a block aims at: 3 blocks an SM (227 KB).
+// Shared memory a block aims at: 3 blocks an SM (227 KB).  The wide
+// kernels aim at two blocks an SM, less the 1 KB the card reserves a block.
 constexpr int kBlockSmemTarget = 72 * 1024;
+constexpr int kBlockSmemReserved = 1024;
 
 // The kernel's arguments, and the whole C interface of both entries: each
 // takes a pointer to a Params and a stream (ops/row_fixed_point.py mirrors
-// the struct field for field).  The launcher sets nmax and nhist.
+// the struct field for field).  The launcher sets nmax, nhist and the
+// launch geometry after it, and the entries write them back.
 struct Params {
   const int* ids;        // [D, ld] (ragged) or null (dense: id = column)
   const void* cnts;      // [D, ld] f32 or bf16 (cnts_bf16)
@@ -130,20 +152,23 @@ struct Params {
   float eps;
   int patience;
   int use_stall;
+  int smem_bytes, blocks_per_sm, grid;  // out: the launch's geometry
 };
 
 // Offsets (in floats, each a multiple of 4) into the dynamic shared memory.
+// gam (gamma of the row) is there in the wide kernels only.
 struct Layout {
   int k4, s4, groups;
-  int b, et, part, ratio, cnt, ids, hist, scan, red, flags, total;
-  __host__ __device__ Layout(int K, int nmax, int nhist) {
+  int b, et, gam, part, ratio, cnt, ids, hist, scan, red, flags, total;
+  __host__ __device__ Layout(int K, int nmax, int nhist, bool wide) {
     k4 = (K + 3) / 4;
     s4 = k4 | 1;  // odd float4 stride: conflict-free float4 rows
-    groups = kThreads / k4;
+    groups = k4 < kThreads ? kThreads / k4 : 1;
     const int n4 = (nmax + 3) & ~3;
     b = 0;
     et = b + nmax * s4 * 4;
-    part = et + s4 * 4;
+    gam = et + s4 * 4;
+    part = gam + (wide ? s4 * 4 : 0);
     ratio = part + groups * k4 * 4;
     cnt = ratio + n4;
     ids = cnt + n4;
@@ -278,13 +303,14 @@ __device__ __forceinline__ void gather(const Params& p, const Layout& L,
   __syncthreads();
 }
 
-// Steps A and B of a sweep over the n slots in the buffer: returns acc
-// plus this thread's share of sum_t ratio[t] * B[t, 4q..4q+3].  The loops
-// are kept rolled: the kernel's code must stay small for the instruction
-// cache.
-__device__ __forceinline__ float4 sweep_slots(const Params& p,
-                                              const Layout& L, float* smem,
-                                              int n, float4 acc) {
+// Steps A and B of a sweep over the n slots in the buffer: adds to acc[j]
+// this thread's share of sum_t ratio[t] * B[t, 4q..4q+3] for its float4s
+// q (kQ = 1: q = tid % k4 in group tid / k4).  The loops are kept rolled:
+// the kernel's code must stay small for the instruction cache.
+template <int kQ>
+__device__ __forceinline__ void sweep_slots(const Params& p, const Layout& L,
+                                            float* smem, int n,
+                                            float4 (&acc)[kQ]) {
   const float4* b4 = reinterpret_cast<const float4*>(smem + L.b);
   const float4* e4 = reinterpret_cast<const float4*>(smem + L.et);
   float* ratio_s = smem + L.ratio;
@@ -319,19 +345,22 @@ __device__ __forceinline__ float4 sweep_slots(const Params& p,
   }
   __syncthreads();
   // B. acc += ratio[t] * B[t, 4q..4q+3] for slots t = g, g + G, ...
-  const int q = tid % k4, g = tid / k4;
-  if (g < L.groups) {
+#pragma unroll
+  for (int j = 0; j < kQ; ++j) {
+    const int idx = tid + kThreads * j;
+    const int q = idx % k4, g = idx / k4;
+    if (g < L.groups) {
 #pragma unroll 2
-    for (int t = g; t < n; t += L.groups) {
-      const float r = ratio_s[t];
-      const float4 b = b4[t * s4 + q];
-      acc.x = fmaf(b.x, r, acc.x);
-      acc.y = fmaf(b.y, r, acc.y);
-      acc.z = fmaf(b.z, r, acc.z);
-      acc.w = fmaf(b.w, r, acc.w);
+      for (int t = g; t < n; t += L.groups) {
+        const float r = ratio_s[t];
+        const float4 b = b4[t * s4 + q];
+        acc[j].x = fmaf(b.x, r, acc[j].x);
+        acc[j].y = fmaf(b.y, r, acc[j].y);
+        acc[j].z = fmaf(b.z, r, acc[j].z);
+        acc[j].w = fmaf(b.w, r, acc[j].w);
+      }
     }
   }
-  return acc;
 }
 
 // Slots a warp keeps in registers: rows of up to kWarps * kRegSlots = 128
@@ -390,6 +419,41 @@ __device__ __forceinline__ float4 sweep_registers(const Params& p,
   return acc;
 }
 
+// Step C of the wide kernels: thread tid owns topics tid, tid + kThreads,
+// ..; it forms their gamma' into gam_s and returns (sum |dgamma|,
+// sum gamma') over them, in topic order.
+__device__ __forceinline__ float2 wide_gamma(const Params& p, const Layout& L,
+                                             float* smem, int groups) {
+  const float* et_s = smem + L.et;
+  float* gam_s = smem + L.gam;
+  float dabs = 0.f, sum = 0.f;
+  for (int k = threadIdx.x; k < p.K; k += kThreads) {
+    const float* part = smem + L.part + k;
+    float a = 0.f;
+#pragma unroll 4
+    for (int gg = 0; gg < groups; ++gg) a += part[gg * L.k4 * 4];
+    const float x = __ldg(p.alpha + k) + et_s[k] * a;
+    dabs += fabsf(x - gam_s[k]);
+    sum += x;
+    gam_s[k] = x;
+  }
+  return make_float2(dabs, sum);
+}
+
+// The new expEtheta of the wide kernels' topics from gam_s and the row's
+// sum of gamma'.
+__device__ __forceinline__ void wide_expectation(const Params& p,
+                                                 const Layout& L, float* smem,
+                                                 float row_sum) {
+  const float* gam_s = smem + L.gam;
+  float* et_s = smem + L.et;
+  const float r = psi_row_term(row_sum);
+  for (int k = threadIdx.x; k < p.K; k += kThreads) {
+    const float x = gam_s[k];
+    et_s[k] = (x + 2.0f) * expf(psi_tail(x) - r);
+  }
+}
+
 struct RowRun {
   int sweeps;      // sweeps run
   int first_exit;  // first exitable sweep (1-based), 0 if none
@@ -399,20 +463,23 @@ struct RowRun {
 // Runs `row` from gamma0 for at most max_sweeps sweeps, stopping when it
 // is done; writes its gamma.  In phase 1 (count) it adds its not-exitable
 // sweeps to the block's histogram.  Thread k < K keeps gamma[k] and
-// alpha[k] in registers; every thread keeps the row's exit state (the
-// block sums are the same in every thread, so every thread takes the same
-// decisions).
-template <typename CT, bool kReg>
+// alpha[k] in registers (kWide: thread tid keeps the gamma of its topics
+// in gam_s); every thread keeps the row's exit state (the block sums are
+// the same in every thread, so every thread takes the same decisions).
+template <typename CT, bool kReg, bool kWide>
 __device__ __forceinline__ RowRun run_row(const Params& p, const Layout& L,
                                           float* smem, int row,
                                           int max_sweeps, bool count) {
+  constexpr int kQ = kWide ? kWideQ : 1;
   const int tid = threadIdx.x, K = p.K;
   float* et_s = smem + L.et;
   int* hist_s = reinterpret_cast<int*>(smem + L.hist);
   const size_t base = (size_t)row * K;
   for (int k = tid; k < L.s4 * 4; k += kThreads)
     et_s[k] = k < K ? p.et0[base + k] : 0.f;
-  const bool mine = tid < K;
+  if constexpr (kWide)
+    for (int k = tid; k < K; k += kThreads) smem[L.gam + k] = p.gamma0[base + k];
+  const bool mine = !kWide && tid < K;
   float gam = mine ? p.gamma0[base + tid] : 0.f;
   const float alpha = mine ? p.alpha[tid] : 0.f;
   // Compaction of the whole row, once; with more live entries than the
@@ -422,7 +489,6 @@ __device__ __forceinline__ RowRun run_row(const Params& p, const Layout& L,
   if (resident) gather(p, L, smem, n);
   const int windows = resident ? 1 : (n + p.nmax - 1) / p.nmax;
   const bool freeze = p.threshold > 0.f;
-  const int q = tid % L.k4, g = tid / L.k4;
   const int lane = tid % 32, warp = tid / 32;
   // Rows of up to 128 live entries keep B in registers (kReg kernels).
   const bool in_regs = kReg && resident && n <= kWarps * kRegSlots;
@@ -445,10 +511,12 @@ __device__ __forceinline__ RowRun run_row(const Params& p, const Layout& L,
   int age = 0, first = 0;
   int s = 0;
   while (s < max_sweeps) {
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    float4 acc[kQ];
+#pragma unroll
+    for (int j = 0; j < kQ; ++j) acc[j] = make_float4(0.f, 0.f, 0.f, 0.f);
     if (in_regs) {
-      if constexpr (kReg) acc = sweep_registers(p, L, smem, breg, creg, n);
-      if (lane < L.k4) part4[warp * L.k4 + lane] = acc;
+      if constexpr (kReg) acc[0] = sweep_registers(p, L, smem, breg, creg, n);
+      if (lane < L.k4) part4[warp * L.k4 + lane] = acc[0];
     } else {
       for (int w = 0; w < windows; ++w) {
         int m = n;
@@ -458,9 +526,14 @@ __device__ __forceinline__ RowRun run_row(const Params& p, const Layout& L,
           load_window(p, L, smem, w0, m);
           gather(p, L, smem, m);
         }
-        if (m) acc = sweep_slots(p, L, smem, m, acc);
+        if (m) sweep_slots<kQ>(p, L, smem, m, acc);
       }
-      if (g < L.groups) part4[g * L.k4 + q] = acc;
+#pragma unroll
+      for (int j = 0; j < kQ; ++j) {
+        const int idx = tid + kThreads * j;
+        const int q = idx % L.k4, g = idx / L.k4;
+        if (g < L.groups) part4[g * L.k4 + q] = acc[j];
+      }
     }
     __syncthreads();
     // C. gamma' = alpha + expEtheta * acc, one thread a topic (K <= 256).
@@ -473,11 +546,17 @@ __device__ __forceinline__ RowRun run_row(const Params& p, const Layout& L,
       x = alpha + et_s[tid] * a;
       dabs = fabsf(x - gam);
     }
+    if constexpr (kWide) {
+      const float2 mine_sums = wide_gamma(p, L, smem, groups);
+      dabs = mine_sums.x;
+      x = mine_sums.y;
+    }
     const float2 sums = block_sum2(dabs, x, smem + L.red);
     if (mine) {
       gam = x;
       et_s[tid] = (x + 2.0f) * expf(psi_tail(x) - psi_row_term(sums.y));
     }
+    if constexpr (kWide) wide_expectation(p, L, smem, sums.y);
     const float change = sums.x / (float)K;
     const bool improved = change < 0.99f * best;
     age = improved ? 0 : age + 1;
@@ -494,6 +573,8 @@ __device__ __forceinline__ RowRun run_row(const Params& p, const Layout& L,
     if (done) break;
   }
   if (mine) p.gamma[base + tid] = gam;
+  if constexpr (kWide)
+    for (int k = tid; k < K; k += kThreads) p.gamma[base + k] = smem[L.gam + k];
   return {s, first, n};
 }
 
@@ -507,12 +588,12 @@ __device__ __forceinline__ int next_row(int* queue, int* flags) {
 }
 
 // kReg kernels keep rows of up to 128 live entries in registers (K <= 128)
-// and fit 2 blocks an SM; the others 3.
-template <typename CT, bool kReg>
-__global__ void __launch_bounds__(kThreads, kReg ? 2 : 3)
+// and fit 2 blocks an SM; the kWide kernels (K > 256) 2; the others 3.
+template <typename CT, bool kReg, bool kWide>
+__global__ void __launch_bounds__(kThreads, kReg || kWide ? 2 : 3)
 row_fixed_point_kernel(Params p) {
   extern __shared__ __align__(16) float smem[];
-  const Layout L(p.K, p.nmax, p.nhist);
+  const Layout L(p.K, p.nmax, p.nhist, kWide);
   int* hist_s = reinterpret_cast<int*>(smem + L.hist);
   int* flags = reinterpret_cast<int*>(smem + L.flags);
   const int tid = threadIdx.x;
@@ -554,8 +635,8 @@ row_fixed_point_kernel(Params p) {
         if (run <= S) continue;
         sweeps = S;
       }
-      const RowRun r = run_row<CT, kReg>(p, L, smem, row, sweeps,
-                                         phase == 0);
+      const RowRun r = run_row<CT, kReg, kWide>(p, L, smem, row, sweeps,
+                                                phase == 0);
       if (phase == 0 && tid == 0) {
         p.row_run[row] = r.sweeps;
         p.row_nnz[row] = r.nnz;
@@ -572,34 +653,52 @@ row_fixed_point_kernel(Params p) {
 // Sizes the slot buffer and launches the kernel cooperatively: as many
 // blocks as fit on the card at once, at most one a row, and, where a row
 // can stream (L > nmax), at most list_blocks (never binding: the buffer
-// then takes ~72 KB a block, so 3 blocks an SM).
+// then takes ~72 KB a block, 3 blocks an SM, or at K > 256 half an SM's
+// shared memory or more, 2 or 1).
 template <typename CT>
 cudaError_t launch_row_fixed_point(Params& p, bool registers,
                                    cudaStream_t stream) {
-  if (p.D < 1 || p.K < 1 || p.K > kThreads || p.inner_iterations < 1 ||
+  if (p.D < 1 || p.K < 1 || p.K > kMaxTopics || p.inner_iterations < 1 ||
       p.L < 0 || p.L > p.ld || p.ldb != 4 * ((p.K + 3) / 4))
     return cudaErrorInvalidValue;
+  const bool wide = p.K > kThreads;
+  int dev = 0, sms = 0, per_sm = 0, sm_bytes = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(
+      &sm_bytes, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (err != cudaSuccess) return err;
   p.nhist = min(p.inner_iterations, kMaxHist);
-  const Layout fixed(p.K, 0, p.nhist);
+  const Layout fixed(p.K, 0, p.nhist, wide);
   const int per_slot = (int)sizeof(float) * (fixed.s4 * 4 + 3);
-  int nmax = (kBlockSmemTarget - (int)sizeof(float) * (fixed.total + 12)) /
-             per_slot;
-  if (nmax < 16) nmax = 16;
+  const int fixed_bytes = (int)sizeof(float) * (fixed.total + 12);
+  int nmax;
+  if (!wide) {
+    nmax = (kBlockSmemTarget - fixed_bytes) / per_slot;
+    if (nmax < 16) nmax = 16;
+  } else {
+    // Two blocks an SM where a slot fits, else one with all it may have.
+    nmax = (sm_bytes / 2 - kBlockSmemReserved - fixed_bytes) / per_slot;
+    if (nmax < 1) nmax = (optin - fixed_bytes) / per_slot;
+    if (nmax < 1) return cudaErrorInvalidValue;
+  }
   p.nmax = max(min(nmax, p.L), 1);
   const bool streams = p.L > p.nmax;
   if (streams && (!p.lists || p.list_blocks < 1))
     return cudaErrorInvalidValue;
   const size_t smem =
-      sizeof(float) * (size_t)Layout(p.K, p.nmax, p.nhist).total;
-  auto kern = registers && p.K <= 4 * 32 ? row_fixed_point_kernel<CT, true>
-                                         : row_fixed_point_kernel<CT, false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0, per_sm = 0;
-  err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      sizeof(float) * (size_t)Layout(p.K, p.nmax, p.nhist, wide).total;
+  auto kern = wide ? row_fixed_point_kernel<CT, false, true>
+              : registers && p.K <= 4 * 32
+                  ? row_fixed_point_kernel<CT, true, false>
+                  : row_fixed_point_kernel<CT, false, false>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
   if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads,
                                                       smem);
@@ -608,6 +707,9 @@ cudaError_t launch_row_fixed_point(Params& p, bool registers,
   int grid = per_sm * sms;
   if (p.D < grid) grid = p.D;
   if (streams && p.list_blocks < grid) grid = p.list_blocks;
+  p.smem_bytes = (int)smem;
+  p.blocks_per_sm = per_sm;
+  p.grid = grid;
   void* args[] = {&p};
   err = cudaLaunchCooperativeKernel((const void*)kern, dim3(grid),
                                     dim3(kThreads), args, smem, stream);

@@ -42,8 +42,9 @@ rho = 0 epoch.  Routes of the JAX engine not ported yet raise
 ``NotImplementedError`` naming their ROADMAP item: process-local corpora
 and the mesh, disk-backed (streaming) corpora, ``phase_timings``,
 ``sstats_mode="scatter"`` or a counts matrix over
-``sstats_dense_total_budget_mb`` on the large-vocabulary layout, and
-K > 256 on the card.
+``sstats_dense_total_budget_mb`` on the large-vocabulary layout; on
+the card, K above the kernels' 4096 is refused by the kernel wrappers at
+the first E-step.
 """
 
 from __future__ import annotations
@@ -66,7 +67,6 @@ from pylda_tpu_torch.models.vb import (
 )
 from pylda_tpu_torch.ops.dirichlet import beta_elbo
 from pylda_tpu_torch.ops.hyper import newton_dirichlet_mle
-from pylda_tpu_torch.ops.ragged import MAX_TOPICS
 from pylda_tpu_torch.utils import round_up
 
 
@@ -145,11 +145,6 @@ class StochasticVariationalBayes(VariationalBayes):
             raise NotImplementedError(
                 "disk-backed (streaming) corpora are not ported yet "
                 "(ROADMAP.md Queue 1 item 13)"
-            )
-        if self._device.type == "cuda" and cfg.number_of_topics > MAX_TOPICS:
-            raise NotImplementedError(
-                f"the CUDA kernels take K <= {MAX_TOPICS} (got "
-                f"{cfg.number_of_topics}); see ROADMAP.md Queue 2"
             )
         self._set_gammas(None, None)
         self._mb_sstats = self._svi_geometry = self._device_rows = None

@@ -30,13 +30,12 @@ import torch
 from pylda_tpu_torch.ops import row_fixed_point
 from pylda_tpu_torch.ops.dirichlet import exp_dirichlet_expectation
 from pylda_tpu_torch.ops.estep import estep_dense
+from pylda_tpu_torch.ops.row_fixed_point import MAX_TOPICS
 from pylda_tpu_torch.ops.sstats import dense_sstats
 
 # Launches of the gamma kernel made by dense_estep (one per call on CUDA
 # tensors; its final pass counts in ops.sstats.LAUNCHES).
 LAUNCHES = 0
-# Largest topic count the kernel takes (a thread a topic).
-MAX_TOPICS = 256
 
 
 def _kernel():
@@ -55,6 +54,7 @@ def dense_estep(
     row_sweeps_out: Optional[torch.Tensor] = None,
     extra_sweeps_out: Optional[torch.Tensor] = None,
     row_exit_out: Optional[torch.Tensor] = None,
+    geometry_out: Optional[dict] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """(gamma [D, K], sstats [K, V], token score 0-d, sweeps_used 0-d
     int32) — see ``estep_dense``.  Optional outputs, filled on CUDA
@@ -66,7 +66,9 @@ def dense_estep(
     - ``extra_sweeps_out`` (1-element int64) has added to it the
       row-sweeps the kernel's row-major order computed beyond those;
     - ``row_exit_out`` ([D] int32) gets each row's first exitable sweep
-      (1-based; 0 if it never was)."""
+      (1-based; 0 if it never was);
+    - ``geometry_out`` (a dict) gets the gamma launch's
+      ``row_fixed_point.GEOMETRY``."""
     global LAUNCHES
     if not counts.is_cuda:
         return estep_dense(
@@ -92,7 +94,7 @@ def dense_estep(
     if K > MAX_TOPICS:
         raise NotImplementedError(
             f"the dense gamma kernel takes K <= {MAX_TOPICS} (got {K}); "
-            "see ROADMAP.md Queue 2"
+            "see ROADMAP.md Queue 2 item 1"
         )
     if inner_iterations < 1:
         raise ValueError("inner_iterations must be positive")
@@ -109,7 +111,8 @@ def dense_estep(
         _kernel(), None, counts, V, row_fixed_point.gather_table(exp_elog_beta),
         alpha, gamma_init, inner_iterations, convergence_threshold, eps,
         stall_patience, row_sweeps_out=row_sweeps_out,
-        row_exit_out=row_exit_out, extra_sweeps_out=extra_sweeps_out)
+        row_exit_out=row_exit_out, extra_sweeps_out=extra_sweeps_out,
+        geometry_out=geometry_out)
     LAUNCHES += 1
     # The final pass at the EXACT expectation of the converged gamma.
     sstats, token_score = dense_sstats(

@@ -81,13 +81,11 @@ def gammaln_fast(x: torch.Tensor) -> torch.Tensor:
     return stirling - torch.log(x * (x + 1.0) * (x + 2.0))
 
 
-def theta_elbo(
-    gamma: torch.Tensor, alpha: torch.Tensor, mask: torch.Tensor
-) -> torch.Tensor:
-    """Per-document theta terms of the bound, masked and summed:
-    sum_d [ sum_k (alpha_k - gamma_dk) Elogtheta_dk + log B(gamma_d)
-            - log B(alpha) ]  with log B(x) = sum gammaln(x) - gammaln(sum x).
-    """
+def theta_elbo_per_doc(gamma: torch.Tensor, alpha: torch.Tensor
+                       ) -> torch.Tensor:
+    """The theta terms of the bound of each document, [D]:
+    sum_k (alpha_k - gamma_dk) Elogtheta_dk + log B(gamma_d) - log B(alpha)
+    with log B(x) = sum gammaln(x) - gammaln(sum x)."""
     elog = digamma_fast(gamma) - digamma_fast(
         gamma.sum(dim=-1, keepdim=True)
     )
@@ -97,7 +95,14 @@ def theta_elbo(
         - gammaln_fast(gamma.sum(-1))
     )
     prior = gammaln(alpha.sum()) - gammaln(alpha).sum()
-    return (mask * (per_doc + prior)).sum()
+    return per_doc + prior
+
+
+def theta_elbo(
+    gamma: torch.Tensor, alpha: torch.Tensor, mask: torch.Tensor
+) -> torch.Tensor:
+    """Per-document theta terms of the bound, masked and summed."""
+    return (mask * theta_elbo_per_doc(gamma, alpha)).sum()
 
 
 def beta_elbo(lam: torch.Tensor, eta: torch.Tensor) -> torch.Tensor:

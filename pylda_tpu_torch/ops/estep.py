@@ -22,6 +22,7 @@ import torch
 from pylda_tpu_torch.ops.dirichlet import (
     exp_dirichlet_expectation,
     exp_dirichlet_expectation_fast,
+    theta_elbo_per_doc,
 )
 
 
@@ -200,3 +201,25 @@ def estep_dense_sstats(
     sstats = exp_elog_beta * (exp_etheta.T @ ratio)[:, :V]
     token_score = (c * torch.log(phinorm)).sum()
     return sstats, token_score
+
+
+def ragged_doc_bound(
+    ids: torch.Tensor,  # [D, T] int32 (0 on padded slots)
+    cnts: torch.Tensor,  # [D, T] float (0 on padded slots)
+    gamma: torch.Tensor,  # [D, K]
+    exp_elog_beta: torch.Tensor,  # [K, V]
+    alpha: torch.Tensor,  # [K]
+    eps: float = 1e-30,
+) -> torch.Tensor:
+    """Each row's share of the bound at its gamma, [D]: its token score
+    sum_t cnt_t log(expEtheta . expElogbeta[:, id_t] + eps) at the exact
+    expectation, plus its theta terms.  At a fixed point the bound is
+    stationary in gamma, so two gammas that differ by rounding give
+    shares that agree to second order: the check on rows whose gamma
+    depends on rounding."""
+    dt = gamma.dtype
+    et = exp_dirichlet_expectation(gamma)
+    phinorm = torch.einsum("dtk,dk->dt", exp_elog_beta.T.to(dt)[ids.long()],
+                           et) + eps
+    score = (cnts.to(dt) * torch.log(phinorm)).sum(-1)
+    return score + theta_elbo_per_doc(gamma, alpha.to(dt))

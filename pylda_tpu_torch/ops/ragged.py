@@ -20,12 +20,10 @@ import torch
 
 from pylda_tpu_torch.ops import row_fixed_point
 from pylda_tpu_torch.ops.estep import estep_ragged_gamma
-from pylda_tpu_torch.ops.row_fixed_point import gather_table
+from pylda_tpu_torch.ops.row_fixed_point import MAX_TOPICS, gather_table
 
 # Kernel launches made by ragged_gamma (one per call on CUDA tensors).
 LAUNCHES = 0
-# Largest topic count the kernel takes (a thread a topic).
-MAX_TOPICS = 256
 
 
 def _kernel():
@@ -47,6 +45,7 @@ def ragged_gamma(
     extra_sweeps_out: Optional[torch.Tensor] = None,
     row_exit_out: Optional[torch.Tensor] = None,
     row_sweeps_out: Optional[torch.Tensor] = None,
+    geometry_out: Optional[dict] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(gamma [D, K], sweeps_used 0-d int32) — see ``estep_ragged_gamma``.
 
@@ -63,7 +62,10 @@ def ragged_gamma(
       (1-based; 0 if it never was);
     - ``row_sweeps_out`` ([D] int32) has added to each row the number of
       sweeps the batch loop updates it in (fewer than the sweeps used
-      only for a row that was done and froze)."""
+      only for a row that was done and froze);
+    - ``geometry_out`` (a dict) gets the launch's
+      ``row_fixed_point.GEOMETRY``: the slot buffer's live entries (a row
+      with more streams), shared memory a block, blocks an SM, grid."""
     global LAUNCHES
     if not ids.is_cuda:
         return estep_ragged_gamma(
@@ -85,7 +87,7 @@ def ragged_gamma(
     if K > MAX_TOPICS:
         raise NotImplementedError(
             f"the ragged gamma kernel takes K <= {MAX_TOPICS} (got {K}); "
-            "see ROADMAP.md Queue 2"
+            "see ROADMAP.md Queue 2 item 1"
         )
     if inner_iterations < 1:
         raise ValueError("inner_iterations must be positive")
@@ -105,6 +107,6 @@ def ragged_gamma(
         _kernel(), ids, cnts, T, eeb_t, alpha, gamma_init, inner_iterations,
         convergence_threshold, eps, stall_patience, row_exit_out=row_exit_out,
         row_sweeps_out=row_sweeps_out, slots_out=slots_out,
-        extra_sweeps_out=extra_sweeps_out)
+        extra_sweeps_out=extra_sweeps_out, geometry_out=geometry_out)
     LAUNCHES += 1
     return gamma, sweeps

@@ -5,11 +5,13 @@ and ``ops/dense_estep.py::dense_estep``.
 Both C entries take the same two arguments, a pointer to the core's
 ``Params`` struct (mirrored here field for field) and a CUDA stream::
 
-    int pylda_ragged_gamma(const void* params, void* stream);
-    int pylda_dense_gamma(const void* params, void* stream);
+    int pylda_ragged_gamma(void* params, void* stream);
+    int pylda_dense_gamma(void* params, void* stream);
 
 ``launch`` allocates the scratch the kernel needs, fills a ``Params``,
-makes the call and returns the output gamma and sweep count.
+makes the call and returns the output gamma and sweep count.  The
+launcher writes the geometry it chose back into the ``Params``
+(``GEOMETRY``).  Both kernels take 1 <= K <= ``MAX_TOPICS``.
 """
 
 from __future__ import annotations
@@ -23,15 +25,23 @@ from pylda_tpu_torch.ops import _build
 from pylda_tpu_torch.ops.dirichlet import exp_dirichlet_expectation
 
 # The blocks of one streamed row's scratch list an SM needs: a row longer
-# than the slot buffer implies a ~72 KB buffer, so 3 blocks an SM.
+# than the slot buffer implies a ~72 KB buffer, so 3 blocks an SM (at
+# K > 256, 2 or 1).
 LIST_BLOCKS_PER_SM = 3
+# Largest K the kernels take (kMaxTopics of the core: its wide kernels
+# keep up to 4 float4 sums a thread).
+MAX_TOPICS = 4096
+# The launch geometry the launcher writes back: live entries the slot
+# buffer holds (a row with more streams), shared memory a block, blocks an
+# SM, and the grid.
+GEOMETRY = ("nmax", "smem_bytes", "blocks_per_sm", "grid")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 class Params(ctypes.Structure):
     """``struct Params`` of ``csrc/row_fixed_point.cuh``; the launcher sets
-    ``nmax`` and ``nhist``."""
+    ``nmax``, ``nhist`` and the launch geometry."""
 
     _fields_ = [
         ("ids", _P), ("cnts", _P), ("table", _P), ("alpha", _P),
@@ -43,6 +53,7 @@ class Params(ctypes.Structure):
         ("cnts_bf16", _I), ("list_blocks", _I), ("nmax", _I), ("nhist", _I),
         ("inner_iterations", _I), ("threshold", _F), ("eps", _F),
         ("patience", _I), ("use_stall", _I),
+        ("smem_bytes", _I), ("blocks_per_sm", _I), ("grid", _I),
     ]
 
 
@@ -108,10 +119,12 @@ def launch(
     row_exit_out: Optional[torch.Tensor] = None,
     slots_out: Optional[torch.Tensor] = None,
     extra_sweeps_out: Optional[torch.Tensor] = None,
+    geometry_out: Optional[dict] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One launch of a row-resident kernel (``kernel``, a bound entry) on
     checked CUDA inputs: (gamma [D, K], sweeps 0-d int32).  Checks the
-    optional outputs; raises if the launch fails."""
+    optional outputs; ``geometry_out`` gets the ``GEOMETRY`` the launcher
+    chose.  Raises if the launch fails."""
     D, K = gamma_init.shape
     dev = gamma_init.device
     check_out(row_sweeps_out, torch.int32, (D,), dev, "row_sweeps_out")
@@ -156,4 +169,6 @@ def launch(
         rc = kernel(ctypes.byref(p), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{kernel.__name__} launch failed: cudaError {rc}")
+    if geometry_out is not None:
+        geometry_out.update({f: getattr(p, f) for f in GEOMETRY})
     return gamma, sweeps

@@ -14,11 +14,13 @@ against ~3 us of arithmetic for its 1.2% nonzeros); what holds it back
 from the bound is each row chunk's latency and the grid's fixed cost
 (``PERF.md``).  Design and determinism: the source note of
 ``csrc/dense_sstats.cu``.  The grid is planned here (``plan``), so the
-CPU tests reach it: 64-column vocab tiles, 32-row chunks, and row splits
-enough for ``MIN_CTAS_PER_SM`` CTAs on every SM; the splits' partial sums
-meet in split order, so two calls on the same inputs return the same
-bits.  The scratch (score and split partials, the tiles' counters, which
-each launch leaves zero) is kept per device and stream and reused.
+CPU tests reach it: vocab tiles of ``Plan.cols`` columns (64 at K <= 256;
+32, 16 or 8 above, where more lanes hold a column's sums), 32-row chunks,
+and row splits enough for ``MIN_CTAS_PER_SM`` CTAs on every SM; the
+splits' partial sums meet in split order, so two calls on the same inputs
+return the same bits.  The scratch (score and split partials, the tiles'
+counters, which each launch leaves zero) is kept per device and stream
+and reused.  The kernel takes 1 <= K <= ``MAX_TOPICS``.
 """
 
 from __future__ import annotations
@@ -35,19 +37,27 @@ from pylda_tpu_torch.ops.estep import estep_dense_sstats
 
 # Kernel launches made by dense_sstats (one per call on CUDA tensors).
 LAUNCHES = 0
-# Largest topic count the kernel takes (its register accumulator).
-MAX_TOPICS = 256
-# Vocab columns a CTA owns (4 lanes a column, 256 threads).
+# Largest topic count the kernel takes (its largest build).
+MAX_TOPICS = 4096
+# Threads of a CTA; vocab columns a CTA owns at 4 lanes a column.
+THREADS = 256
 TILE_V = 64
 # Rows a chunk: the kernel's kRows (a column's row mask is a 32-bit word).
 CHUNK_ROWS = 32
-# float4s of topics a lane holds in the kernel's builds: K <= 16 * n4.
-TOPIC_FLOAT4S = (1, 2, 4, 7, 8, 16)
+# The kernel's builds, (n4, lanes) of ``PYLDA_BUILD`` in
+# ``csrc/dense_sstats.cu``: a column's sums are held by ``lanes`` lanes of
+# n4 float4s each, so K <= 4 * lanes * n4 topics (kp), and a CTA owns
+# THREADS / lanes columns.  The first build that takes K runs.
+BUILDS = ((1, 4), (2, 4), (4, 4), (7, 4), (8, 4), (16, 4),
+          (16, 8), (16, 16), (16, 32), (32, 32))
 # The grid has at least this many CTAs an SM, and a split at most
-# CHUNKS_PER_SPLIT chunks: the fewest splits that meet both.  (Measured on
-# an H100, PERF.md: fewer rows a split add CTAs whose fixed cost, the
-# expElogbeta tile and the partial sums, is paid again; more rows leave
-# too few CTAs to hide each chunk's latency.)
+# CHUNKS_PER_SPLIT chunks (times kp / 256 above kp = 256): the fewest
+# splits that meet both.  (Measured on an H100 at kp <= 256, PERF.md:
+# fewer rows a split add CTAs whose fixed cost, the expElogbeta tile and
+# the partial sums, is paid again; more rows leave too few CTAs to hide
+# each chunk's latency.  Above kp = 256 that fixed cost, [cols, kp] floats
+# twice, grows with kp while a lane's work a nonzero does not: the rows a
+# split grow with it, a choice not measured.)
 MIN_CTAS_PER_SM = 2
 CHUNKS_PER_SPLIT = 26
 
@@ -56,15 +66,17 @@ _BOUND = False
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """The kernel's grid for one call: ``tiles`` x ``splits`` CTAs; split s
-    owns rows [s * rows_per_split, (s + 1) * rows_per_split) in chunks of
-    ``CHUNK_ROWS``; ``kp`` topics (K padded to the kernel build's 16 *
-    n4) are the length of a column's partial sums."""
+    """The kernel's grid for one call: ``tiles`` x ``splits`` CTAs, a tile
+    ``cols`` vocab columns; split s owns rows [s * rows_per_split,
+    (s + 1) * rows_per_split) in chunks of ``CHUNK_ROWS``; ``kp`` topics
+    (K padded to the kernel build's 4 * lanes * n4) are the length of a
+    column's partial sums."""
 
     tiles: int
     splits: int
     rows_per_split: int
     kp: int
+    cols: int
 
     @property
     def blocks(self) -> int:
@@ -76,25 +88,39 @@ class Plan:
         """f32 scratch of the splits' partial sums (none for one split)."""
         if self.splits == 1:
             return 0
-        return self.blocks * TILE_V * self.kp
+        return self.blocks * self.cols * self.kp
+
+    @property
+    def scratch_bytes(self) -> int:
+        """Device scratch of the call: f64 score partials, f32 split
+        partials and the int32 counters."""
+        return 8 * self.blocks + 4 * self.partial_floats + 4 * (self.tiles + 1)
+
+
+def build_for(K: int) -> Tuple[int, int]:
+    """(n4, lanes) of the kernel build that runs at K topics."""
+    if not 1 <= K <= MAX_TOPICS:
+        raise ValueError(f"K must be in [1, {MAX_TOPICS}], got {K}")
+    return next(b for b in BUILDS if 4 * b[0] * b[1] >= K)
 
 
 def plan(D: int, Vc: int, K: int, sms: int) -> Plan:
     """The grid for counts [D, Vc] at K topics on a card of ``sms`` SMs:
-    the fewest row splits that give ``MIN_CTAS_PER_SM`` CTAs an SM and at
-    most ``CHUNKS_PER_SPLIT`` 32-row chunks a split (both read at call
-    time), no more splits than chunks, and no empty split."""
-    if not 1 <= K <= MAX_TOPICS:
-        raise ValueError(f"K must be in [1, {MAX_TOPICS}], got {K}")
-    tiles = max(1, -(-Vc // TILE_V))
+    the build's tile width, then the fewest row splits that give
+    ``MIN_CTAS_PER_SM`` CTAs an SM and at most ``CHUNKS_PER_SPLIT`` (times
+    kp / 256 above 256) 32-row chunks a split (both read at call time), no
+    more splits than chunks, and no empty split."""
+    n4, lanes = build_for(K)
+    kp, cols = 4 * lanes * n4, THREADS // lanes
+    tiles = max(1, -(-Vc // cols))
     chunks = max(1, -(-D // CHUNK_ROWS))
-    want = max(-(-MIN_CTAS_PER_SM * sms // tiles),
-               -(-chunks // CHUNKS_PER_SPLIT))
+    per_split = CHUNKS_PER_SPLIT * max(1, kp // 256)
+    want = max(-(-MIN_CTAS_PER_SM * sms // tiles), -(-chunks // per_split))
     splits = min(chunks, max(1, want))
     rows_per_split = -(-chunks // splits) * CHUNK_ROWS
     splits = max(1, -(-D // rows_per_split))
     return Plan(tiles=tiles, splits=splits, rows_per_split=rows_per_split,
-                kp=16 * next(n for n in TOPIC_FLOAT4S if 16 * n >= K))
+                kp=kp, cols=cols)
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -168,7 +194,7 @@ def dense_sstats(
     if K > MAX_TOPICS:
         raise NotImplementedError(
             f"the dense sstats kernel takes K <= {MAX_TOPICS} (got {K}); "
-            "see ROADMAP.md Queue 2"
+            "see ROADMAP.md Queue 2 item 1"
         )
     dev = counts.device
     if exp_etheta.device != dev or exp_elog_beta.device != dev:

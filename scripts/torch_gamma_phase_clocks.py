@@ -50,7 +50,7 @@ MARKS = [
      "  if (tid == 0) {\n"
      "    atomicAdd(&g_clk[4], (unsigned long long)(clock64() - clk0));\n"
      "    atomicAdd(&g_clk[5], 1ull);\n  }\n"),
-    ("    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);\n    if (in_regs)",
+    ("    float4 acc[kQ];\n",
      "    long long clk1 = clock64();\n"),
     ("    __syncthreads();\n    // C. gamma' = alpha + expEtheta * acc",
      "    long long clk2 = clock64();\n"),

@@ -21,7 +21,15 @@ every column nonzero, many row splits a tile, Vc >> V, K in {1, 32, 100,
 the same bits.  Both gamma kernels run row after row (``csrc/row_fixed_point.cuh``):
 cases here also take the re-run of rows past S* and rows longer than the
 shared-memory slot buffer (166 slots at K=100, 63 at K=256), which stream
-their compacted entries in windows from a scratch list.
+their compacted entries in windows from a scratch list.  The wide range
+(K in {257, 1000, 1024, 1025, 2048, 4096}: the core's wide kernels, whose
+slot buffer holds ~25 entries at K=1000 and 4 at K=4096, and the sstats
+builds of 8, 16 and 32 lanes a column) is held the same way, with rows on
+both sides of the slot buffer, bf16 and f32 counts and two calls bitwise
+equal; above 4096 every kernel refuses.  On rows still updating at S*
+(stalled, not done) gamma depends on rounding, so there each document's
+share of the bound (``ragged_doc_bound``) at the kernel's gamma is held
+to its share at the float64 plain version's gamma, to rel 1e-5.
 """
 
 import numpy as np
@@ -36,7 +44,12 @@ from pylda_tpu_torch.ops.estep import (
     estep_dense,
     estep_dense_sstats,
     estep_ragged_gamma,
+    ragged_doc_bound,
 )
+
+# The wide range: the core's wide kernels and the sstats builds of 8, 16
+# and 32 lanes a column, at each edge.
+WIDE_K = [257, 1000, 1024, 1025, 2048, 4096]
 
 pytestmark = pytest.mark.gpu
 
@@ -165,9 +178,31 @@ def test_dense_sstats_kernel_sparsity_cases(cuda, D, V, K, v_pad, pad_rows,
 
 
 def test_dense_sstats_kernel_refuses_large_k(cuda):
-    ct, et, eeb = _sstats_inputs(8, 100, 257, 0, 0, False, cuda)
-    with pytest.raises(NotImplementedError):
+    """Above its largest build (K = 4096) the kernel refuses, naming the
+    ROADMAP item."""
+    ct, et, eeb = _sstats_inputs(8, 100, 4097, 0, 0, False, cuda)
+    with pytest.raises(NotImplementedError, match="Queue 2 item 1"):
         sstats_mod.dense_sstats(ct, et, eeb)
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("K", WIDE_K)
+def test_dense_sstats_kernel_wide_k(cuda, K, bf16):
+    """The wide builds against the plain version at the tolerances above,
+    a column every row uses and a row with every column nonzero, rows off
+    every chunk, two calls bitwise equal."""
+    ct, et, eeb = _sparse_sstats_inputs(70, 300, K, 20, 3, 0.03, bf16, cuda,
+                                        hot=True, full_row=True)
+    before = sstats_mod.LAUNCHES
+    ss, tok = sstats_mod.dense_sstats(ct, et, eeb)
+    ss2, tok2 = sstats_mod.dense_sstats(ct, et, eeb)
+    assert sstats_mod.LAUNCHES == before + 2
+    ss_p, tok_p = estep_dense_sstats(ct, et, eeb)
+    torch.cuda.synchronize()
+    assert torch.equal(ss, ss2) and torch.equal(tok, tok2)
+    tol = 1e-4 * ss_p.abs() + 1e-6 * ss_p.abs().max()
+    assert bool(((ss - ss_p).abs() <= tol).all()), float((ss - ss_p).abs().max())
+    assert float(tok) == pytest.approx(float(tok_p), rel=1e-5)
 
 
 def _ragged_inputs(D, T, K, V, dev, seed=0, lam_shape=1.0):
@@ -321,9 +356,101 @@ def test_dense_estep_exit_rule_matches_plain(cuda, D, V, K, pad_rows, bf16,
 
 
 def test_dense_estep_refuses_large_k(cuda):
-    ct, g0, eeb, alpha = _dense_inputs(8, 100, 257, 0, False, cuda)
-    with pytest.raises(NotImplementedError):
+    """Above K = 4096 the gamma kernels refuse, naming the ROADMAP item."""
+    ct, g0, eeb, alpha = _dense_inputs(8, 100, 4097, 0, False, cuda)
+    with pytest.raises(NotImplementedError, match="Queue 2 item 1"):
         dense_mod.dense_estep(ct, g0, eeb, alpha)
+    ids = torch.zeros((8, 4), dtype=torch.int32, device=cuda)
+    with pytest.raises(NotImplementedError, match="Queue 2 item 1"):
+        ragged_mod.ragged_gamma(ids, ids.float(), g0[:8], eeb, alpha)
+
+
+def _wide_ragged_inputs(K, dev, seed=8):
+    """24 rows of 20 to 120 live slots: at K >= 1000 rows on both sides of
+    the slot buffer (25 entries at K = 1000, 4 at K = 4096), at K = 257
+    (104 entries) too."""
+    rng = np.random.default_rng(seed)
+    D, T, V = 24, 120, 3000
+    ids = rng.integers(0, V, (D, T)).astype(np.int32)
+    cnts = rng.integers(1, 4, (D, T)).astype(np.float32)
+    pad = np.arange(T)[None, :] >= rng.integers(20, T + 1, D)[:, None]
+    ids[pad], cnts[pad] = 0, 0.0
+    ids[0, :3], cnts[0, :3] = rng.integers(0, V, 3), 2.0  # 3 live slots
+    ids[0, 3:], cnts[0, 3:] = 0, 0.0
+    lam = rng.gamma(1.0, 1.0, (K, V))
+    eeb = exp_dirichlet_expectation(torch.tensor(lam, device=dev).float())
+    g0 = torch.ones((D, K), dtype=torch.float32, device=dev)
+    alpha = torch.full((K,), 1.0 / K, dtype=torch.float32, device=dev)
+    return (torch.tensor(ids, device=dev), torch.tensor(cnts, device=dev),
+            g0, eeb, alpha)
+
+
+@pytest.mark.parametrize("K", WIDE_K)
+def test_ragged_kernel_wide_k_matches_plain(cuda, K):
+    """At pinned sweeps (12, threshold 0) rtol 1e-4 with every row held;
+    with the exit rule, rtol 5e-4 (atol 5e-4 + K * threshold) and the sweep
+    count within +-1; rows resident and streamed; two calls bitwise
+    equal."""
+    ids, cnts, g0, eeb, alpha = _wide_ragged_inputs(K, cuda)
+    live = (cnts != 0).sum(dim=1)
+    geo = {}
+    kw = dict(inner_iterations=12, convergence_threshold=0.0)
+    g, s = ragged_mod.ragged_gamma(ids, cnts, g0, eeb, alpha,
+                                   geometry_out=geo, **kw)
+    g2, _ = ragged_mod.ragged_gamma(ids, cnts, g0, eeb, alpha, **kw)
+    g_p, s_p = estep_ragged_gamma(ids, cnts, g0, eeb, alpha, **kw)
+    torch.cuda.synchronize()
+    assert 1 <= geo["nmax"] < int(live.max()) and int(live.min()) <= geo["nmax"]
+    assert torch.equal(g, g2)
+    assert int(s) == int(s_p) == 12
+    torch.testing.assert_close(g, g_p, rtol=1e-4, atol=1e-4)
+    kw = dict(inner_iterations=50, convergence_threshold=1e-5,
+              stall_patience=6)
+    g, s = ragged_mod.ragged_gamma(ids, cnts, g0, eeb, alpha, **kw)
+    g_p, s_p = estep_ragged_gamma(ids, cnts, g0, eeb, alpha, **kw)
+    torch.cuda.synchronize()
+    assert abs(int(s) - int(s_p)) <= 1
+    torch.testing.assert_close(g, g_p, rtol=5e-4, atol=5e-4 + K * 1e-5)
+
+
+def test_ragged_kernel_stalled_rows_keep_their_bound(cuda):
+    """K = 1000 at a sharpened lambda, SVI config 5's settings (30 sweeps,
+    threshold 1e-5, patience 6): on the rows still updating at S*, each
+    document's share of the bound at the kernel's gamma agrees with its
+    share at the float64 plain version's gamma to rel 1e-5 — their gamma
+    may drift by rounding, their bound may not."""
+    K, V, D, T = 1000, 5000, 64, 160
+    rng = np.random.default_rng(9)
+    beta = rng.dirichlet(np.full(V, 0.02), size=K)
+    theta = rng.dirichlet(np.full(K, 0.05), size=D)
+    ids = np.zeros((D, T), np.int32)
+    cnts = np.zeros((D, T), np.float32)
+    for d in range(D):
+        words = np.array([rng.choice(V, p=beta[rng.choice(K, p=theta[d])])
+                          for _ in range(150)])
+        u, c = np.unique(words, return_counts=True)
+        ids[d, :u.size], cnts[d, :u.size] = u[:T], c[:T]
+    lam = (1.0 / V + beta * (D * 150 / K)).astype(np.float32)
+    ids, cnts = torch.tensor(ids, device=cuda), torch.tensor(cnts, device=cuda)
+    eeb = exp_dirichlet_expectation(torch.tensor(lam, device=cuda))
+    g0 = torch.ones((D, K), dtype=torch.float32, device=cuda)
+    alpha = torch.full((K,), 1.0 / K, dtype=torch.float32, device=cuda)
+    kw = dict(inner_iterations=30, convergence_threshold=1e-5,
+              stall_patience=6)
+    rows = torch.zeros((D,), dtype=torch.int32, device=cuda)
+    g, s = ragged_mod.ragged_gamma(ids, cnts, g0, eeb, alpha,
+                                   row_sweeps_out=rows, **kw)
+    g_64, s_64 = estep_ragged_gamma(ids, cnts.double(), g0.double(),
+                                    eeb.double(), alpha.double(), **kw)
+    torch.cuda.synchronize()
+    assert abs(int(s) - int(s_64)) <= 1
+    updating = rows == int(s)
+    assert bool(updating.any())
+    b_k = ragged_doc_bound(ids, cnts, g.double(), eeb.double(),
+                           alpha.double())
+    b_64 = ragged_doc_bound(ids, cnts, g_64, eeb.double(), alpha.double())
+    rel = ((b_k - b_64).abs() / b_64.abs())[updating]
+    assert float(rel.max()) <= 1e-5, float(rel.max())
 
 
 def _gamma_call(layout, inputs, kw, **outs):
@@ -398,6 +525,42 @@ def test_gamma_kernel_long_rows_match_plain(cuda, layout, rows, width, K,
     else:
         assert abs(int(s) - int(s_p)) <= 1
         torch.testing.assert_close(g, g_p, rtol=5e-4, atol=5e-4 + K * thresh)
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("K", WIDE_K)
+def test_dense_estep_wide_k_matches_plain(cuda, K, bf16):
+    """The dense E-step at the wide K: rows of 0 to ~150 nonzeros, so on
+    both sides of the slot buffer; pinned sweeps rtol 1e-4, the final pass
+    at the kernel's gamma at the sstats tolerances, the score rel 1e-4;
+    two calls bitwise equal."""
+    rng = np.random.default_rng(10)
+    D, V = 40, 600
+    rates = rng.choice([0.0, 0.005, 0.03, 0.25], size=D)
+    counts = rng.poisson(rates[:, None], (D, V)).astype(np.float32)
+    ct = torch.tensor(counts, device=cuda)
+    if bf16:
+        ct = ct.to(torch.bfloat16)
+    lam = rng.gamma(1.0, 1.0, (K, V))
+    eeb = exp_dirichlet_expectation(torch.tensor(lam, device=cuda).float())
+    g0 = torch.ones((D, K), dtype=torch.float32, device=cuda)
+    alpha = torch.full((K,), 1.0 / K, dtype=torch.float32, device=cuda)
+    kw = dict(inner_iterations=12, convergence_threshold=0.0)
+    geo = {}
+    g, ss, tok, s = dense_mod.dense_estep(ct, g0, eeb, alpha,
+                                          geometry_out=geo, **kw)
+    g2, ss2, tok2, _ = dense_mod.dense_estep(ct, g0, eeb, alpha, **kw)
+    g_p, _, tok_p, s_p = estep_dense(ct, g0, eeb, alpha, **kw)
+    torch.cuda.synchronize()
+    nnz = (counts != 0).sum(axis=1)
+    assert nnz.min() <= geo["nmax"] < nnz.max()
+    assert torch.equal(g, g2) and torch.equal(ss, ss2) and torch.equal(tok, tok2)
+    assert int(s) == int(s_p) == 12
+    torch.testing.assert_close(g, g_p, rtol=1e-4, atol=1e-4)
+    ss_at_g, _ = estep_dense_sstats(ct, exp_dirichlet_expectation(g), eeb)
+    tol = 1e-4 * ss_at_g.abs() + 1e-6 * ss_at_g.abs().max()
+    assert bool(((ss - ss_at_g).abs() <= tol).all())
+    assert float(tok) == pytest.approx(float(tok_p), rel=1e-4)
 
 
 @pytest.mark.parametrize("K,bf16", [(100, True), (256, False)])
@@ -521,6 +684,7 @@ def test_svi_engine_on_card_matches_cpu(cuda, layout):
 
 
 def test_svi_refuses_large_k_on_card(cuda):
+    """Above K = 4096 the kernels refuse at the first E-step."""
     from pylda_tpu_torch.corpus.synthetic import synthetic_corpus
     from pylda_tpu_torch.models import StochasticVariationalBayes
     from pylda_tpu_torch.utils.config import LDAConfig
@@ -528,6 +692,7 @@ def test_svi_refuses_large_k_on_card(cuda):
     corpus, _, _ = synthetic_corpus(num_docs=20, num_topics=4, num_types=300,
                                     mean_doc_length=10.0, seed=1)
     eng = StochasticVariationalBayes(
-        LDAConfig(number_of_topics=257, inference_mode="svi"), device=cuda)
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        eng.initialize(corpus)
+        LDAConfig(number_of_topics=4097, inference_mode="svi"), device=cuda)
+    eng.initialize(corpus)
+    with pytest.raises(NotImplementedError, match="Queue 2 item 1"):
+        eng.learning()

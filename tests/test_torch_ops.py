@@ -256,3 +256,93 @@ def test_gather_table_pads_topics_to_four(K):
     assert table.shape == (57, ldb) and table.is_contiguous()
     assert torch.equal(table[:, :K], eeb.T)
     assert not table[:, K:].any()
+
+
+# -- K above 256 (the CUDA kernels' wide builds) -------------------------------
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_dense_sstats_k300_matches_pallas_interpret(bf16):
+    """K = 300 (the Pallas kernel pads it to 384, the CUDA kernel to 512):
+    the plain version against the Pallas kernel in interpret mode, rtol
+    2e-5 (atol 1e-6) on sstats and rel 2e-5 on the score."""
+    from pylda_tpu.ops.pallas_sstats import pallas_dense_sstats
+
+    counts, et, eeb = _sstats_case(24, 300, 300, seed=5, v_pad=84, pad_rows=8)
+    counts[3, :40] += 1.0  # a long row
+    ct = _t(counts).to(torch.bfloat16) if bf16 else _t(counts)
+    cj = _j(counts).astype(jnp.bfloat16) if bf16 else _j(counts)
+    ss, tok = sstats_mod.dense_sstats(ct, _t(et), _t(eeb))
+    ss_p, tok_p = pallas_dense_sstats(cj, _j(et), _j(eeb), interpret=True)
+    assert ss.shape == (300, 300)
+    np.testing.assert_allclose(ss.numpy(), np.asarray(ss_p), rtol=2e-5,
+                               atol=1e-6)
+    assert float(tok) == pytest.approx(float(tok_p), rel=2e-5)
+
+
+@pytest.mark.parametrize("inner", [1, 12])
+def test_ragged_gamma_k300_pinned_sweeps_match_jax(inner):
+    """K = 300 at threshold 0: the XLA function, rtol 1e-4 (atol 1e-5):
+    phinorm sums 300 products in another order in each package, and 12
+    sweeps of the fixed point carry that noise (up to 5.7e-5 relative
+    here), ten times K = 13's."""
+    g, s, g_j, s_j = _both_ragged(_ragged_case(D=30, T=21, K=300, V=400),
+                                  inner_iterations=inner,
+                                  convergence_threshold=0.0)
+    assert s == s_j == inner
+    np.testing.assert_allclose(g, g_j, rtol=1e-4, atol=1e-5)
+
+
+def test_ragged_gamma_k300_matches_pallas_interpret():
+    """K = 300 at threshold 0: the wrapper's CPU route against the Pallas
+    kernel in interpret mode to 5e-4 (its in-kernel digamma series
+    differs), as at K = 13."""
+    from pylda_tpu.ops.pallas_ragged import pallas_estep_ragged_gamma
+
+    ids, cnts, g0, eeb, alpha = _ragged_case(D=20, T=21, K=300, V=400)
+    g, s = ragged_mod.ragged_gamma(_t(ids), _t(cnts), _t(g0), _t(eeb),
+                                   _t(alpha), inner_iterations=30,
+                                   convergence_threshold=0.0)
+    assert int(s) == 30
+    g_p, _ = pallas_estep_ragged_gamma(
+        _j(ids), _j(cnts), _j(g0), _j(eeb), _j(alpha), inner_iterations=30,
+        convergence_threshold=0.0, interpret=True,
+    )
+    np.testing.assert_allclose(g.numpy(), np.asarray(g_p), rtol=5e-4,
+                               atol=5e-4)
+
+
+def test_ragged_gamma_k300_default_exit_matches_jax():
+    """K = 300, default exit rule (freeze + stall, patience 6): per row
+    rtol 5e-4 (atol 5e-4 + K * threshold), the sweep count within +-1."""
+    case = _ragged_case(D=40, T=30, K=300, V=600, seed=3)
+    g, s, g_j, s_j = _both_ragged(case, inner_iterations=50,
+                                  convergence_threshold=1e-5,
+                                  stall_patience=6)
+    assert abs(s - s_j) <= 1
+    np.testing.assert_allclose(g, g_j, rtol=5e-4, atol=5e-4 + 300 * 1e-5)
+
+
+def test_ragged_doc_bound_sums_to_the_bound_terms():
+    """Each row's share of the bound, summed over the rows, is the token
+    score of the dense counts at the exact expectation plus the theta
+    terms (float64, rel 1e-12)."""
+    from pylda_tpu_torch.ops.dirichlet import (
+        exp_dirichlet_expectation,
+        theta_elbo,
+    )
+    from pylda_tpu_torch.ops.estep import ragged_doc_bound
+
+    ids, cnts, g0, eeb, alpha = _ragged_case(D=30, T=21, K=300, V=400)
+    ids, cnts, g, eeb, alpha = (_t(x).double() if x.dtype != np.int32
+                                else _t(x) for x in (ids, cnts, g0, eeb,
+                                                     alpha))
+    per_row = ragged_doc_bound(ids, cnts, g, eeb, alpha)
+    dense = torch.zeros((30, 400), dtype=torch.float64)
+    dense.index_put_((torch.arange(30)[:, None].expand(-1, 21), ids.long()),
+                     cnts, accumulate=True)
+    _, tok = estep_dense_sstats(dense, exp_dirichlet_expectation(g), eeb)
+    want = float(tok) + float(theta_elbo(g, alpha, torch.ones(30,
+                                                              dtype=torch.float64)))
+    assert per_row.shape == (30,)
+    assert float(per_row.sum()) == pytest.approx(want, rel=1e-12)

@@ -1,17 +1,20 @@
 """The schedule of the dense sufficient-statistics kernel, on the CPU.
 
 ``csrc/dense_sstats.cu`` computes the function of ``estep_dense_sstats``
-over the nonzero counts only, in its own order: 64-column vocab tiles;
-row splits from ``ops/sstats.py::plan``; in each split, chunks of rows
-whose nonzeros are compacted into one row mask a column; the four owners
-of a column walk its mask in row order (step t takes each column's t-th
-nonzero), adding expEtheta[d] * C / phinorm into the column's sums; the
-splits' partial sums meet in split order and are scaled by expElogbeta.
-Here that schedule runs in PyTorch from the same plan and must give the
-plain version's result: to 1e-12 in float64, and, in float32, JAX's
-``estep_dense_sstats`` to rtol 2e-5.  The plan's own tests: >= 2 CTAs an
-SM at both flagship shapes on 132 SMs, splits that cover every row, and
-scratch that covers every split.
+over the nonzero counts only, in its own order: vocab tiles of the plan's
+width (64 columns at K <= 256, 32 / 16 / 8 at wider K); row splits from
+``ops/sstats.py::plan``; in each split, chunks of rows whose nonzeros are
+compacted into one row mask a column; the owners of a column walk its
+mask in row order (step t takes each column's t-th nonzero), adding
+expEtheta[d] * C / phinorm into the column's sums; the splits' partial
+sums meet in split order and are scaled by expElogbeta.  Here that
+schedule runs in PyTorch from the same plan and must give the plain
+version's result: to 1e-12 in float64, and, in float32, JAX's
+``estep_dense_sstats`` to rtol 2e-5, at K up to 256 and at K in {257,
+300, 1000, 1025} (the wide builds).  The plan's own tests: >= 2 CTAs an
+SM at both flagship shapes on 132 SMs, splits that cover every row,
+scratch that covers every split, the builds read from the source, and
+the K range 1..4096.
 """
 
 import itertools
@@ -29,7 +32,6 @@ from pylda_tpu_torch.ops.dirichlet import exp_dirichlet_expectation
 from pylda_tpu_torch.ops.estep import estep_dense_sstats
 
 H100_SMS = 132
-TILE = sstats_mod.TILE_V
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -45,6 +47,7 @@ def kernel_schedule(counts, et, eeb, eps, pl):
     D, Vc = counts.shape
     K, V = eeb.shape
     dt = et.dtype
+    TILE = pl.cols
     width = pl.tiles * TILE
     c = torch.nn.functional.pad(counts.to(dt), (0, width - Vc))
     eeb_w = torch.nn.functional.pad(eeb, (0, width - V))
@@ -52,7 +55,7 @@ def kernel_schedule(counts, et, eeb, eps, pl):
     score = torch.zeros((), dtype=torch.float64)
     for tile in range(pl.tiles):
         cols = slice(tile * TILE, (tile + 1) * TILE)
-        b = eeb_w[:, cols].T  # [64, K]: the staged column of each owner
+        b = eeb_w[:, cols].T  # [TILE, K]: the staged column of each owner
         partials = []
         for split in range(pl.splits):
             acc = torch.zeros((TILE, K), dtype=dt)
@@ -106,10 +109,18 @@ _CASES = [
     (97, 64, 100, 64, 31, 0.03, 2),
     (40, 90, 3, 6, 0, 1.0, 3),  # every count nonzero
 ]
+# The wide builds (K > 256): 32, 16 and 8 columns a tile.
+_WIDE_CASES = [
+    (45, 70, 257, 6, 3, 0.04, 2),
+    (70, 90, 300, 0, 5, 0.03, 3),
+    (40, 50, 1000, 14, 0, 0.05, 2),
+    (33, 40, 1025, 0, 2, 0.05, 1),
+]
 
 
 @pytest.mark.parametrize("per_split", [1, 26])
-@pytest.mark.parametrize("D,V,K,v_pad,pad_rows,density,sms", _CASES)
+@pytest.mark.parametrize("D,V,K,v_pad,pad_rows,density,sms",
+                         _CASES + _WIDE_CASES)
 def test_schedule_matches_plain_f64(D, V, K, v_pad, pad_rows, density, sms,
                                     per_split, monkeypatch):
     counts, et, eeb = _case(D, V, K, v_pad, pad_rows, density, seed=D + V,
@@ -122,7 +133,8 @@ def test_schedule_matches_plain_f64(D, V, K, v_pad, pad_rows, density, sms,
     assert float(tok) == pytest.approx(float(tok_p), rel=1e-12)
 
 
-@pytest.mark.parametrize("D,V,K,v_pad,pad_rows,density,sms", _CASES[:3])
+@pytest.mark.parametrize("D,V,K,v_pad,pad_rows,density,sms",
+                         _CASES[:3] + _WIDE_CASES)
 def test_schedule_f32_matches_jax(D, V, K, v_pad, pad_rows, density, sms):
     counts, et, eeb = _case(D, V, K, v_pad, pad_rows, density, seed=D + K,
                             dtype=torch.float32)
@@ -152,41 +164,61 @@ def test_schedule_all_zero_counts():
 def test_plan_fills_an_h100_at_the_flagships(D, Vc, label):
     pl = sstats_mod.plan(D, Vc, 100, H100_SMS)
     assert pl.blocks >= 2 * H100_SMS, label
-    assert pl.tiles * TILE >= Vc and (pl.tiles - 1) * TILE < Vc
-    assert pl.kp == 112
+    assert pl.tiles * pl.cols >= Vc and (pl.tiles - 1) * pl.cols < Vc
+    assert pl.kp == 112 and pl.cols == 64
 
 
 @pytest.mark.parametrize("D", [1, 31, 33, 500, 4096])
 def test_plan_covers_rows_and_scratch(D, monkeypatch):
-    for K, Vc, per_split in itertools.product([1, 7, 16, 17, 100, 113, 256],
-                                              [1, 64, 65, 4096],
-                                              [1, 4, 26, 1000]):
+    for K, Vc, per_split in itertools.product(
+            [1, 7, 16, 17, 100, 113, 256, 257, 300, 1000, 1024, 1025, 4096],
+            [1, 64, 65, 4096], [1, 4, 26, 1000]):
         monkeypatch.setattr(sstats_mod, "CHUNKS_PER_SPLIT", per_split)
         pl = sstats_mod.plan(D, Vc, K, H100_SMS)
-        assert pl.kp // 16 in sstats_mod.TOPIC_FLOAT4S and pl.kp >= K
+        n4, lanes = sstats_mod.build_for(K)
+        assert (n4, lanes) in sstats_mod.BUILDS
+        assert pl.kp == 4 * n4 * lanes >= K
+        assert pl.cols * lanes == sstats_mod.THREADS
+        # The smallest build that takes K.
+        assert all(4 * n * ln < K for n, ln in sstats_mod.BUILDS
+                   if 4 * n * ln < pl.kp)
+        assert pl.rows_per_split <= (per_split * max(1, pl.kp // 256)
+                                     * sstats_mod.CHUNK_ROWS)
         assert pl.rows_per_split % sstats_mod.CHUNK_ROWS == 0
-        assert pl.rows_per_split <= per_split * sstats_mod.CHUNK_ROWS
         # Every row in one split, no split empty.
         assert pl.splits * pl.rows_per_split >= D
         assert (pl.splits - 1) * pl.rows_per_split < max(D, 1)
-        # Scratch: one [64, kp] partial a CTA when the rows are split.
+        # Scratch: one [cols, kp] partial a CTA when the rows are split.
         if pl.splits > 1:
-            assert pl.partial_floats == pl.blocks * TILE * pl.kp
+            assert pl.partial_floats == pl.blocks * pl.cols * pl.kp
         else:
             assert pl.partial_floats == 0
         assert pl.blocks == pl.tiles * pl.splits
+        assert pl.scratch_bytes == (8 * pl.blocks + 4 * pl.partial_floats
+                                    + 4 * (pl.tiles + 1))
 
 
 def test_plan_topic_padding_matches_the_kernel_builds():
-    """The scratch a split partial needs follows the kernel's builds
-    (``PYLDA_N4(n)`` in ``csrc/dense_sstats.cu``): one for each n."""
+    """The tile width and the scratch a split partial needs follow the
+    kernel's builds (``PYLDA_BUILD(n4, lanes)`` in ``csrc/dense_sstats.cu``,
+    tried in order): one for each (n4, lanes)."""
     src = (_build.CSRC / "dense_sstats.cu").read_text()
-    builds = tuple(int(n) for n in re.findall(r"PYLDA_N4\((\d+)\)\n", src))
-    assert builds == sstats_mod.TOPIC_FLOAT4S
+    builds = tuple((int(n), int(lanes)) for n, lanes in re.findall(
+        r"PYLDA_BUILD\((\d+), (\d+)\)\n", src))
+    assert builds == sstats_mod.BUILDS
+    kps = [4 * n * lanes for n, lanes in builds]
+    assert kps == sorted(kps) and kps[-1] == sstats_mod.MAX_TOPICS
 
 
 def test_plan_refuses_what_the_kernel_does_not_take():
+    """The kernel's range: every K in 1..4096 has a build (the wide ones
+    above 256: 32, 16 or 8 columns a tile); 0 and 4097 raise."""
+    for K, cols in ((1, 64), (256, 64), (257, 32), (512, 32), (513, 16),
+                    (1000, 16), (1024, 16), (1025, 8), (2048, 8), (2049, 8),
+                    (4096, 8)):
+        pl = sstats_mod.plan(10, 10, K, H100_SMS)
+        assert pl.cols == cols and pl.kp >= K, K
     with pytest.raises(ValueError):
-        sstats_mod.plan(10, 10, 257, H100_SMS)
+        sstats_mod.plan(10, 10, 4097, H100_SMS)
     with pytest.raises(ValueError):
         sstats_mod.plan(10, 10, 0, H100_SMS)

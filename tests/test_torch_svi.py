@@ -175,6 +175,30 @@ def test_svi_learning_many_equals_learning_loop(data, layout):
     assert torch.equal(a.state.alpha, b.state.alpha)
 
 
+def test_svi_k300_ragged_matches_jax():
+    """K = 300 (the CUDA kernels' wide range) on the ragged layout at
+    pinned sweeps (threshold 0: at K = 300 a row at the threshold freezes
+    a sweep apart in the two packages often enough to move rare-word
+    lambda entries by ~1e-3): learning() x2 then learning_many(1),
+    estimates rel 1e-4, lambda rtol 1e-4 + atol 1e-4, alpha and eta rtol
+    1e-4."""
+    kw = dict(num_docs=96, num_topics=300, num_types=400,
+              mean_doc_length=30.0, seed=2)
+    lam0 = np.random.default_rng(3).gamma(100.0, 0.01, (300, 400))
+    extra = dict(RAGGED, number_of_topics=300, batch_size=32,
+                 inner_iterations=12, convergence_threshold=0.0)
+    ours = StochasticVariationalBayes(LDAConfig(**{**CFG, **extra}),
+                                      device="cpu")
+    ours.initialize(synthetic_corpus(**kw)[0], lam_init=lam0)
+    theirs = JaxSVI(JaxConfig(**{**CFG, **extra}))
+    theirs.initialize(jax_synthetic(**kw)[0], lam_init=lam0)
+    assert ours._device_rows is not None
+    e_ours = [ours.learning() for _ in range(2)] + ours.learning_many(1)
+    e_theirs = [theirs.learning() for _ in range(2)] + theirs.learning_many(1)
+    np.testing.assert_allclose(e_ours, e_theirs, rtol=RTOL)
+    _assert_state_close(ours, theirs)
+
+
 # -- (c) float64 against the oracle ----------------------------------------------
 
 
