@@ -38,20 +38,31 @@ Phases, in order (any failure exits non-zero):
    histogram of each row's first exitable sweep; at the SVI shapes each
    document's share of the bound on the rows still updating at S* is held
    to its share at the float64 gamma;
+   the bf16 builds of the three kernels (``compute_dtype="bfloat16"``) at
+   the ragged flagship's buckets and chunk, the dense flagship with its
+   final pass and SVI config 5's minibatch, each beside the float32 line
+   of the same input and held to its plain version with the same rounding
+   points: gamma after one pinned sweep, each document's share of the
+   bound at the main path's exit rule, sstats at equal inputs and over
+   two calls;
 4. engines: ``VariationalBayes`` through ``initialize``, ``learning_many``,
    ``inference`` and ``perplexity`` at each flagship, and
    ``StochasticVariationalBayes`` at configs 4 and 5, each at full size
-   (epochs timed, one profiled, held-out perplexities), with the kernel
-   launch counters zeroed just before and read just after;
+   (epochs timed, one profiled, held-out perplexities); the flagships and
+   config 5 again in bf16, each held to its float32 run (ELBO rel 2e-3,
+   held-out perplexity rel 5e-3); the kernel launch counters of each
+   build zeroed just before and read just after;
 5. CLI: ``pylda_tpu_torch.cli.train``, ``.test`` and ``.infer`` in-process
    on the bundled corpus ``data/de-news-tiny`` (K=10) on the card, with
-   ``--inference_mode`` vb and svi, their output files checked and the
-   launch counters zeroed and read;
+   ``--inference_mode`` vb and svi and ``--compute_dtype`` float32 and
+   bfloat16, their output files checked and the launch counters zeroed
+   and read;
 6. cross-check: at a small size, on each route, at K=16 and at K=300
-   (the kernels' wide range), each engine on the card (kernels) and on the
-   CPU (plain versions) give the same bounds.
+   (the kernels' wide range), in float32 and in bf16, each engine on the
+   card (kernels) and on the CPU (plain versions) give the same bounds.
 
-The line before the last is the kernels' JSON record; the last line is
+The line before the last is the kernels' JSON record (the bf16 builds
+as ``<kernel>_bf16``); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
 exits non-zero and prints no result.
 """
@@ -68,9 +79,13 @@ import sys
 import time
 
 # Peak rates of one H100 SXM at its 700 W limit (NVIDIA data sheet):
-# float32 outside the tensor cores, and HBM3 bandwidth.
+# float32 outside the tensor cores, dense bf16 products with float32 sums
+# on the tensor cores (the bf16 operand mode's work: bf16 x bf16 products
+# summed in float32), and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
+BF16 = "bfloat16"
 
 K, V, D, MEAN_LEN = 100, 10_000, 4096, 120.0
 V_DENSE = 4096  # the dense flagship: the default dense_vocab_threshold
@@ -114,6 +129,33 @@ DOC_BOUND_RTOL = 2e-4
 # sweeps for the float32 plain version too (PERF.md), so the wide range
 # is held after 3.
 PINNED_SWEEPS, PINNED_SWEEPS_WIDE = 12, 3
+# The bf16 builds against their plain version with the same rounding
+# points (compute_dtype="bfloat16").  Both round the same values; only f32
+# summation order differs, so after ONE pinned sweep gamma agrees to rel
+# 1e-5, except on rows where a ratio counts / phinorm lay at a bf16
+# rounding midpoint and the two versions' phinorm sums rounded it one bf16
+# ulp apart (2^-8): at most BF16_FLIP_ROWS of the live rows (a row of 170
+# live slots at K=1000 carries such a ratio more often: 3 of 256 rows on
+# the card; without the rounding points every row misses by > 1e-3), each
+# within BF16_FLIP_RTOL.  Past one sweep such flips are carried forward, and the
+# bf16 map's rows limit-cycle at its noise floor, so at the main path's
+# exit rule each document's share of the bound is held to its share at
+# the float64 plain version's gamma (same rounding points) within
+# DOC_BOUND_RTOL, or within BF16_BOUND_FACTOR times the float32 plain
+# version's own gap where that is larger: the plain version shares every
+# rounding point and differs from the kernel only in summation order
+# (scripts/torch_bf16_bound_gaps.py on the card: both reach 2.2e-4 to
+# 3.5e-2 at K = 257 to 4096, kernel / plain 0.70 to 1.5).  The sufficient statistics at equal inputs: every
+# entry within the float32 tolerance except at most BF16_FLIP_ENTRIES of
+# them (the columns whose ratio flipped), each within BF16_FLIP_RTOL of
+# its value; the score (f32 phinorm) as in float32.
+BF16_ONE_SWEEP_RTOL = 1e-5
+BF16_FLIP_RTOL = 2.0 ** -7
+BF16_FLIP_ROWS, BF16_FLIP_ENTRIES = 0.05, 1e-3
+BF16_BOUND_FACTOR = 2.0
+# The bf16 engines against the same tree's float32 run: the JAX package's
+# bars for its bf16 mode (tests/test_vb_engine.py).
+BF16_ELBO_RTOL, BF16_PPL_RTOL = 2e-3, 5e-3
 
 REPO = pathlib.Path(__file__).resolve().parent
 CLI_OUT = REPO / "build" / "chip_smoke_cli"
@@ -145,8 +187,9 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
+def bound(flops: float, nbytes: float, compute_dtype: str = "float32"):
+    peak = PEAK_BF16_FLOPS if compute_dtype == BF16 else PEAK_F32_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -226,40 +269,57 @@ def pinned_check(run, K):
                 f"{'ok' if ok else 'FAIL'}")
 
 
-def sstats_check(label, counts, et, eeb, eps, sstats_mod, plain) -> dict:
-    """The dense sstats kernel against its plain version on one input:
-    tolerances, two calls bitwise equal, times and bounds; raises if it
-    disagrees.  The record of the shape."""
+def sstats_check(label, counts, et, eeb, eps, sstats_mod, plain,
+                 compute_dtype="float32") -> dict:
+    """The dense sstats kernel (the build of ``compute_dtype``) against its
+    plain version on one input: tolerances, two calls bitwise equal,
+    times and bounds; raises if it disagrees.  The record of the shape."""
     import torch
 
-    ss_k, tok_k = sstats_mod.dense_sstats(counts, et, eeb, eps=eps)
-    ss_k2, tok_k2 = sstats_mod.dense_sstats(counts, et, eeb, eps=eps)
-    ss_p, tok_p = plain(counts, et, eeb, eps=eps)
+    mode = dict(eps=eps, compute_dtype=compute_dtype)
+    ss_k, tok_k = sstats_mod.dense_sstats(counts, et, eeb, **mode)
+    ss_k2, tok_k2 = sstats_mod.dense_sstats(counts, et, eeb, **mode)
+    ss_p, tok_p = plain(counts, et, eeb, **mode)
     torch.cuda.synchronize()
     same = torch.equal(ss_k, ss_k2) and torch.equal(tok_k, tok_k2)
-    err = float((ss_k - ss_p).abs().max())
-    tol = SSTATS_RTOL * ss_p.abs() + SSTATS_ATOL_REL * float(ss_p.abs().max())
+    diff = (ss_k - ss_p).abs()
+    err = float(diff.max())
+    atol = SSTATS_ATOL_REL * float(ss_p.abs().max())
+    off = diff > SSTATS_RTOL * ss_p.abs() + atol
     tok_rel = abs(float(tok_k) - float(tok_p)) / abs(float(tok_p))
-    ok = bool(((ss_k - ss_p).abs() <= tol).all()) and tok_rel <= SCORE_RTOL
+    ok = tok_rel <= SCORE_RTOL
+    flips = ""
+    if compute_dtype == BF16:
+        frac = float(off.float().mean())
+        ok = ok and frac <= BF16_FLIP_ENTRIES and bool(
+            (diff <= BF16_FLIP_RTOL * ss_p.abs() + atol).all())
+        flips = (f", entries past the float32 tolerance {int(off.sum())} "
+                 f"({frac:.2e} of them; at most {BF16_FLIP_ENTRIES}, each "
+                 f"within {BF16_FLIP_RTOL:g}*|ref|: ratios rounded one bf16 "
+                 f"ulp apart)")
+    else:
+        ok = ok and not bool(off.any())
     D, Vc = counts.shape
     K, V = eeb.shape
     # phinorm and the ratio are needed only where a count is nonzero, and
     # the second product sums over those columns only: 4*K FLOP a nonzero.
     nnz = int((counts != 0).sum())
     nbytes = counts.numel() * counts.element_size() + D * K * 4 + 2 * K * V * 4 + 4
-    b_ms, b_by = bound(4.0 * K * nnz, nbytes)
-    dense_ms, _ = bound(4.0 * D * K * V, nbytes)
-    k_ms = cuda_ms(lambda: sstats_mod.dense_sstats(counts, et, eeb, eps=eps), 20)
-    p_ms = cuda_ms(lambda: plain(counts, et, eeb, eps=eps), 20)
+    b_ms, b_by = bound(4.0 * K * nnz, nbytes, compute_dtype)
+    dense_ms, _ = bound(4.0 * D * K * V, nbytes, compute_dtype)
+    k_ms = cuda_ms(lambda: sstats_mod.dense_sstats(counts, et, eeb, **mode), 20)
+    p_ms = cuda_ms(lambda: plain(counts, et, eeb, **mode), 20)
     pl = sstats_mod.plan(D, Vc, K, torch.cuda.get_device_properties(
         counts.device).multi_processor_count)
-    print(f"kernel dense_sstats {label} [{D}x{Vc} {str(counts.dtype)[6:]}, "
-          f"K={K}]: grid {pl.tiles} tiles of {pl.cols} columns x {pl.splits} "
-          f"splits, kp {pl.kp}, scratch {pl.scratch_bytes / 1e6:.1f} MB, "
+    print(f"kernel dense_sstats{'' if compute_dtype == 'float32' else '_bf16'} "
+          f"{label} [{D}x{Vc} {str(counts.dtype)[6:]}, K={K}]: grid "
+          f"{pl.tiles} tiles of {pl.cols} columns x {pl.splits} splits, "
+          f"kp {pl.kp}, scratch {pl.scratch_bytes / 1e6:.1f} MB, "
           f"nonzero counts {nnz}, kernel_ms {k_ms:.4f} plain_ms "
           f"{p_ms:.4f} bound_ms {b_ms:.5f} ({b_by}; dense form "
           f"{dense_ms:.5f}), max_abs_err {err:.3e} (tolerance {SSTATS_RTOL}"
-          f"*|ref| + {SSTATS_ATOL_REL}*max|ref|), score rel err {tok_rel:.3e} "
+          f"*|ref| + {SSTATS_ATOL_REL}*max|ref|{flips}), score rel err "
+          f"{tok_rel:.3e} "
           f"(tolerance {SCORE_RTOL}), two calls bitwise equal {same} "
           f"{'ok' if ok and same else 'FAIL'}")
     if not ok:
@@ -390,20 +450,274 @@ def ragged_checks(label, batches, eeb, eeb_t, alpha, kw, gamma_atol, dev,
     return rg, rows_plain
 
 
+def bf16_gamma_check(run, ids, cnts, eeb, alpha, doc_bound, kw):
+    """A gamma kernel's bf16 build against its plain version with the same
+    rounding points: after one pinned sweep, gamma (BF16_ONE_SWEEP_RTOL,
+    flipped rows apart); at the main path's exit rule ``kw``, each live
+    row's share of the bound against the float64 plain version's
+    (DOC_BOUND_RTOL, or BF16_BOUND_FACTOR times the float32 plain
+    version's gap).  ``run(kind, kw)`` returns (gamma, sweeps) of the
+    bf16 build ("kernel"), or of the plain version in bf16 mode in
+    float32 ("plain") or float64 ("f64"), or in float32 mode ("f32",
+    printed only: it lacks the rounding points).  ``ids``/``cnts`` are
+    the rows' live entries.  Returns (ok, max abs err after one sweep,
+    share rel err, text, the plain version's gamma at ``kw``)."""
+    import torch
+
+    live = (cnts != 0).any(dim=1)
+    if not live.any():  # a chunk of padding rows only
+        return True, 0.0, 0.0, "no live rows", run("plain", kw)[0]
+    kw1 = dict(kw, inner_iterations=1, convergence_threshold=0.0)
+    (g_k, _), (g_p, _), (g_32, _) = (run(kind, kw1)
+                                     for kind in ("kernel", "plain", "f32"))
+    rel = ((g_k - g_p).abs() / g_p.abs()).amax(dim=1)[live]
+    rel32 = float(((g_32 - g_p).abs() / g_p.abs()).max())
+    flipped = rel > BF16_ONE_SWEEP_RTOL
+    ok = (float(flipped.float().mean()) <= BF16_FLIP_ROWS
+          and float(rel.max()) <= BF16_FLIP_RTOL)
+    err = float((g_k - g_p).abs().max())
+    (g_k, s_k), (g_p, s_p), (g_64, s_64) = (run(kind, kw)
+                                            for kind in ("kernel", "plain",
+                                                         "f64"))
+    e64, a64 = eeb.double(), alpha.double()
+    ids, cnts = ids[live], cnts[live].double()
+    b_64 = doc_bound(ids, cnts, g_64[live].double(), e64, a64)
+
+    def share_err(g):
+        got = doc_bound(ids, cnts, g[live].double(), e64, a64)
+        return float(((got - b_64).abs() / b_64.abs()).max())
+
+    eb, eb_p = share_err(g_k), share_err(g_p)
+    bar = max(DOC_BOUND_RTOL, BF16_BOUND_FACTOR * eb_p)
+    ok = ok and eb <= bar
+    text = (f"one pinned sweep: max rel err vs the plain version (same "
+            f"rounding) {float(rel.max()):.3e}, rows past "
+            f"{BF16_ONE_SWEEP_RTOL:g} {int(flipped.sum())} of {int(live.sum())}"
+            f" (at most {BF16_FLIP_ROWS:g} of them, each within "
+            f"{BF16_FLIP_RTOL:g}; float32 mode's plain version {rel32:.3e}); "
+            f"exit rule: S* kernel {int(s_k)} plain {int(s_p)} plain f64 "
+            f"{int(s_64)}, each row's share of the bound rel err vs f64 "
+            f"{eb:.3e} (plain {eb_p:.3e}; tolerance {bar:.3e}: "
+            f"{DOC_BOUND_RTOL} or {BF16_BOUND_FACTOR:g} x the plain "
+            f"version's)")
+    return ok, err, eb, text, g_p
+
+
+def ragged_checks_bf16(label, batches, eeb, alpha, kw, dev, ragged_mod,
+                       plain, doc_bound, f32_line):
+    """The ragged gamma kernel's bf16 build on each bucket
+    (``bf16_gamma_check``), timed beside the float32 line of the same
+    input (``f32_line``, a ``ragged_checks`` record); raises if one
+    disagrees.  Returns the record of the shape (summed over the buckets)
+    and the plain version's gammas."""
+    import torch
+
+    K, V = eeb.shape
+    eeb_t = ragged_mod.gather_table(eeb, BF16)
+    rg = dict(name=label, ms=0.0, plain_ms=0.0, flops=0.0, nbytes=0.0,
+              max_abs_err=0.0, doc_bound_rel_err=0.0, rows=0,
+              streamed_rows=0, windows=0, launches=len(batches))
+    rows_plain = []
+    for i, b in enumerate(batches):
+        Db, Tb = b.ids.shape
+        g0 = torch.ones((Db, K), dtype=torch.float32, device=dev)
+
+        def run(kind, kw0, b=b, g0=g0):
+            if kind == "kernel":
+                return ragged_mod.ragged_gamma(b.ids, b.cnts, g0, eeb, alpha,
+                                               eeb_t=eeb_t, compute_dtype=BF16,
+                                               **kw0)
+            dt = torch.float64 if kind == "f64" else torch.float32
+            return plain(b.ids, b.cnts.to(dt), g0.to(dt), eeb.to(dt),
+                         alpha.to(dt), **kw0,
+                         compute_dtype="float32" if kind == "f32" else BF16)
+
+        ok, err, eb, text, g_p = bf16_gamma_check(run, b.ids, b.cnts, eeb,
+                                                  alpha, doc_bound, kw)
+        slots = torch.zeros((1,), dtype=torch.int64, device=dev)
+        geo = {}
+        ragged_mod.ragged_gamma(b.ids, b.cnts, g0, eeb, alpha, eeb_t=eeb_t,
+                                compute_dtype=BF16, slots_out=slots,
+                                geometry_out=geo, **kw)
+        live = (b.cnts != 0).sum(dim=1)
+        nmax = geo["nmax"]
+        streamed = live > nmax
+        windows = int(((live[streamed] + nmax - 1) // nmax).sum())
+        # Bytes: ids and counts, the bf16 table rows of the launch's
+        # distinct live ids, alpha and gamma0 read once; gamma written.
+        rows_needed = int(torch.unique(b.ids[b.cnts != 0]).numel())
+        flops = 4.0 * K * int(slots)
+        nbytes = (Db * Tb * 8 + rows_needed * eeb_t.shape[1] * 2
+                  + 2 * Db * K * 4 + K * 4)
+        b_ms, b_by = bound(flops, nbytes, BF16)
+        k_ms = cuda_ms(lambda: run("kernel", kw), 20)
+        p_ms = cuda_ms(lambda: run("plain", kw), 3)
+        print(f"kernel ragged_gamma_bf16 {label} bucket {i} [{Db}x{Tb}, "
+              f"K={K}]: {text}, real slots processed {int(slots)}, slot "
+              f"buffer {nmax} entries ({geo['smem_bytes']} B a block, "
+              f"{geo['blocks_per_sm']} blocks an SM, grid {geo['grid']}), rows "
+              f"streamed past it {int(streamed.sum())} of "
+              f"{int((live > 0).sum())} ({windows} windows a sweep), kernel_ms "
+              f"{k_ms:.4f} plain_ms {p_ms:.4f} bound_ms {b_ms:.5f} ({b_by}) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"ragged_gamma bf16 {label} bucket {i} "
+                                 f"disagrees with its plain version")
+        rg["ms"] += k_ms
+        rg["plain_ms"] += p_ms
+        rg["flops"] += flops
+        rg["nbytes"] += nbytes
+        rg["max_abs_err"] = max(rg["max_abs_err"], err)
+        rg["doc_bound_rel_err"] = max(rg["doc_bound_rel_err"], eb)
+        rg["rows"] += int((live > 0).sum())
+        rg["streamed_rows"] += int(streamed.sum())
+        rg["windows"] += windows
+        rg.update(nmax=nmax, smem_bytes=geo["smem_bytes"],
+                  blocks_per_sm=geo["blocks_per_sm"])
+        rows_plain.append(g_p)
+    rg["bound_ms"], rg["bound_by"] = bound(rg["flops"], rg["nbytes"], BF16)
+    print(f"kernel ragged_gamma_bf16 {label}: {rg['launches']} launches, "
+          f"{rg['ms']:.4f} ms (bound {rg['bound_ms']:.5f}, {rg['bound_by']}), "
+          f"slot buffer {rg['nmax']} entries, rows streamed past it "
+          f"{rg['streamed_rows']} of {rg['rows']}, {rg['windows']} windows a "
+          f"sweep; the float32 line of this input: {f32_line['ms']:.4f} ms "
+          f"(bound {f32_line['bound_ms']:.5f}), slot buffer "
+          f"{f32_line['nmax']} entries, {f32_line['windows']} windows a sweep")
+    return rg, rows_plain
+
+
+def dense_checks_bf16(label, corpus, beta, cfg, dev, f32_line):
+    """The dense E-step's bf16 builds (gamma kernel + final pass) on the
+    one counts batch of ``corpus`` at a sharpened lambda
+    (``bf16_gamma_check``; the final pass by ``sstats_check`` at the
+    kernel's gamma), timed beside the float32 line of the same input
+    (``f32_line``, a ``dense_checks`` record).  Raises if it disagrees.
+    Returns (its record, the final pass's sstats record)."""
+    import torch
+
+    from pylda_tpu_torch.ops import dense_estep as dense_mod
+    from pylda_tpu_torch.ops import sstats as sstats_mod
+    from pylda_tpu_torch.ops.dirichlet import exp_dirichlet_expectation
+    from pylda_tpu_torch.ops.estep import (
+        estep_dense,
+        estep_dense_sstats,
+        ragged_doc_bound,
+    )
+
+    K, Vd = cfg.number_of_topics, corpus.num_types
+    kw = dict(inner_iterations=cfg.inner_iterations,
+              convergence_threshold=cfg.convergence_threshold, eps=cfg.eps,
+              stall_patience=cfg.estep_stall_patience)
+    alpha, eeb, dc, g0 = dense_probe(corpus, beta, cfg, dev)
+    Dd = dc.shape[0]
+    row_nnz = (dc != 0).sum(dim=1)
+    ids, cnts = dense_entries(dc, row_nnz)
+
+    def run(kind, kw0):
+        if kind == "kernel":
+            out = dense_mod.dense_estep(dc, g0, eeb, alpha, compute_dtype=BF16,
+                                        **kw0)
+        else:
+            dt = torch.float64 if kind == "f64" else torch.float32
+            out = estep_dense(dc if dt == torch.float32 else dc.double(),
+                              g0.to(dt), eeb.to(dt), alpha.to(dt), **kw0,
+                              compute_dtype="float32" if kind == "f32"
+                              else BF16)
+        return out[0], out[3]
+
+    ok, err, eb, text, _ = bf16_gamma_check(run, ids, cnts, eeb, alpha,
+                                            ragged_doc_bound, kw)
+    del ids, cnts
+    row_sweeps = torch.zeros((Dd,), dtype=torch.int32, device=dev)
+    geo = {}
+    g_k = dense_mod.dense_estep(dc, g0, eeb, alpha, compute_dtype=BF16,
+                                row_sweeps_out=row_sweeps, geometry_out=geo,
+                                **kw)[0]
+    fin = sstats_check(f"{label} final pass", dc,
+                       exp_dirichlet_expectation(g_k), eeb, cfg.eps,
+                       sstats_mod, estep_dense_sstats, compute_dtype=BF16)
+    nnz = int(row_nnz.sum())
+    work = int((row_sweeps.long() * row_nnz).sum()) + nnz
+    nbytes = (dc.numel() * dc.element_size() + 2 * K * Vd * 4
+              + 2 * Dd * K * 4 + K * 4 + 4)
+    b_ms, b_by = bound(4.0 * K * work, nbytes, BF16)
+    k_ms = cuda_ms(lambda: run("kernel", kw), 5)
+    p_ms = cuda_ms(lambda: run("plain", kw), 2)
+    streamed = int((row_nnz > geo["nmax"]).sum())
+    print(f"kernel dense_gamma_bf16 {label} [{Dd}x{dc.shape[1]} "
+          f"{str(dc.dtype)[6:]}, K={K}]: {text}, slot buffer {geo['nmax']} "
+          f"entries ({geo['smem_bytes']} B a block, {geo['blocks_per_sm']} "
+          f"blocks an SM), rows streamed past it {streamed}, kernel_ms "
+          f"{k_ms:.4f} (of which final pass dense_sstats_bf16 "
+          f"{fin['ms']:.4f}) plain_ms {p_ms:.4f} bound_ms {b_ms:.5f} "
+          f"({b_by}); the float32 line of this input: {f32_line['ms']:.4f} ms "
+          f"(bound {f32_line['bound_ms']:.5f}), slot buffer "
+          f"{f32_line['nmax']} entries {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"dense_estep bf16 disagrees with its plain "
+                             f"version ({label})")
+    return {"name": label, "shape": [Dd, dc.shape[1]], "K": K,
+            "max_abs_err": err, "doc_bound_rel_err": eb, "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "nmax": geo["nmax"], "streamed_rows": streamed}, fin
+
+
 def zero_launches(mods) -> None:
     for mod in mods.values():
-        mod.LAUNCHES = 0
+        mod.LAUNCHES = mod.BF16_LAUNCHES = 0
 
 
 def read_launches(mods) -> dict:
-    return {name: mod.LAUNCHES for name, mod in mods.items()}
+    """Each kernel's launches of its float32 build (its name) and of its
+    bf16 build (its name + "_bf16")."""
+    out = {}
+    for name, mod in mods.items():
+        out[name] = mod.LAUNCHES
+        out[f"{name}_bf16"] = mod.BF16_LAUNCHES
+    return out
 
 
 def check_launched(label: str, counts: dict, needed) -> None:
+    """Raises unless every kernel build in ``needed`` ran, and no build of
+    the other operand mode did (a bf16 path never runs a float32 build,
+    nor the reverse)."""
     print(f"{label}: kernel launches {counts}")
     missing = [k for k in needed if counts[k] < 1]
-    if missing:
-        raise AssertionError(f"{label}: kernels {missing} never ran")
+    bf16 = needed[0].endswith("_bf16")
+    stray = [k for k, n in counts.items() if n and k.endswith("_bf16") != bf16]
+    if missing or stray:
+        raise AssertionError(f"{label}: kernels {missing} never ran; builds "
+                             f"{stray} of the other mode ran")
+
+
+def dense_probe(corpus, beta, cfg, dev):
+    """The dense E-step's inputs on the one counts batch of ``corpus`` at a
+    sharpened lambda: (alpha, expElogbeta, counts [D, V], gamma init)."""
+    import numpy as np
+    import torch
+
+    from pylda_tpu_torch.models import VariationalBayes
+    from pylda_tpu_torch.ops.dirichlet import exp_dirichlet_expectation_fast
+
+    K, Vd = cfg.number_of_topics, corpus.num_types
+    lam = (1.0 / Vd + beta * (corpus.num_tokens / K)).astype(np.float32)
+    probe = VariationalBayes(cfg, device=dev)
+    probe.initialize(corpus, lam_init=lam)
+    (batch,) = probe._batches
+    dc = batch.counts
+    g0 = torch.ones((dc.shape[0], K), dtype=torch.float32, device=dev)
+    return (probe.state.alpha, exp_dirichlet_expectation_fast(probe.state.lam),
+            dc, g0)
+
+
+def dense_entries(dc, row_nnz):
+    """Each dense row as its nonzero (column, count) entries, in column
+    order: (ids int32, counts f32) [D, max nonzeros], zero-padded."""
+    import torch
+
+    order = torch.sort((dc != 0).to(torch.uint8), dim=1, descending=True,
+                       stable=True).indices[:, :int(row_nnz.max())]
+    return order.to(torch.int32), dc.gather(1, order).float()
 
 
 def dense_checks(label, corpus, beta, cfg, dev, pinned=False):
@@ -414,16 +728,11 @@ def dense_checks(label, corpus, beta, cfg, dev, pinned=False):
     holds the rows still updating at S* by their share of the bound and
     every row at pinned sweeps, as ``ragged_checks`` does.  Raises if it
     disagrees.  Returns (its record, the final pass's sstats record)."""
-    import numpy as np
     import torch
 
-    from pylda_tpu_torch.models import VariationalBayes
     from pylda_tpu_torch.ops import dense_estep as dense_mod
     from pylda_tpu_torch.ops import sstats as sstats_mod
-    from pylda_tpu_torch.ops.dirichlet import (
-        exp_dirichlet_expectation,
-        exp_dirichlet_expectation_fast,
-    )
+    from pylda_tpu_torch.ops.dirichlet import exp_dirichlet_expectation
     from pylda_tpu_torch.ops.estep import (
         estep_dense,
         estep_dense_sstats,
@@ -435,26 +744,19 @@ def dense_checks(label, corpus, beta, cfg, dev, pinned=False):
               convergence_threshold=cfg.convergence_threshold, eps=cfg.eps,
               stall_patience=cfg.estep_stall_patience)
     gamma_atol = 5e-4 + K * cfg.convergence_threshold
-    lam = (1.0 / Vd + beta * (corpus.num_tokens / K)).astype(np.float32)
-    probe = VariationalBayes(cfg, device=dev)
-    probe.initialize(corpus, lam_init=lam)
-    st = probe.state
-    eeb = exp_dirichlet_expectation_fast(st.lam)
-    (batch,) = probe._batches
-    dc = batch.counts
-    g0 = torch.ones((dc.shape[0], K), dtype=torch.float32, device=dev)
+    alpha, eeb, dc, g0 = dense_probe(corpus, beta, cfg, dev)
     row_sweeps = torch.zeros((dc.shape[0],), dtype=torch.int32, device=dev)
     row_exit = torch.zeros_like(row_sweeps)
     extra = torch.zeros((1,), dtype=torch.int64, device=dev)
     geo = {}
-    g_k, ss_k, tok_k, s_k = dense_mod.dense_estep(dc, g0, eeb, st.alpha,
+    g_k, ss_k, tok_k, s_k = dense_mod.dense_estep(dc, g0, eeb, alpha,
                                                   row_sweeps_out=row_sweeps,
                                                   extra_sweeps_out=extra,
                                                   row_exit_out=row_exit,
                                                   geometry_out=geo, **kw)
-    g_p, _, tok_p, s_p = estep_dense(dc, g0, eeb, st.alpha, **kw)
+    g_p, _, tok_p, s_p = estep_dense(dc, g0, eeb, alpha, **kw)
     g_64, _, _, s_64 = estep_dense(dc.double(), g0.double(), eeb.double(),
-                                   st.alpha.double(), **kw)
+                                   alpha.double(), **kw)
     ss_at_k, _ = estep_dense_sstats(dc, exp_dirichlet_expectation(g_k), eeb,
                                     eps=cfg.eps)
     torch.cuda.synchronize()
@@ -464,22 +766,18 @@ def dense_checks(label, corpus, beta, cfg, dev, pinned=False):
     row_nnz = (dc != 0).sum(dim=1)
     bound_err = None
     if pinned:
-        # A dense row as its nonzero (column, count) entries, in order.
-        order = torch.sort((dc != 0).to(torch.uint8), dim=1, descending=True,
-                           stable=True).indices[:, :int(row_nnz.max())]
         updating = (row_sweeps >= int(s_k)) & (row_nnz > 0)
         if updating.any():
             ok_b, bound_err, text = bound_check(
-                order.to(torch.int32), dc.gather(1, order).float(), updating,
-                g_k, g_64, g_p, eeb, st.alpha, ragged_doc_bound)
+                *dense_entries(dc, row_nnz), updating,
+                g_k, g_64, g_p, eeb, alpha, ragged_doc_bound)
             fp_text += text
             dg_ok = dg_ok and ok_b
-        del order
         def run(kind, kw0):
             fn = dense_mod.dense_estep if kind == "kernel" else estep_dense
             dt = torch.float64 if kind == "f64" else torch.float32
             out = fn(dc if dt == torch.float32 else dc.double(), g0.to(dt),
-                     eeb.to(dt), st.alpha.to(dt), **dict(kw, **kw0))
+                     eeb.to(dt), alpha.to(dt), **dict(kw, **kw0))
             return out[0], out[3]
 
         ok0, text = pinned_check(run, K)
@@ -504,9 +802,9 @@ def dense_checks(label, corpus, beta, cfg, dev, pinned=False):
     dg_bound, dg_by = bound(4.0 * K * dg_work, dg_bytes)
     dg_dense_bound, _ = bound(4.0 * K * Vd * (row_sweeps_total + Dd),
                               dg_bytes)
-    dg_ms = cuda_ms(lambda: dense_mod.dense_estep(dc, g0, eeb, st.alpha,
+    dg_ms = cuda_ms(lambda: dense_mod.dense_estep(dc, g0, eeb, alpha,
                                                   **kw), 5)
-    dg_plain_ms = cuda_ms(lambda: estep_dense(dc, g0, eeb, st.alpha, **kw), 2)
+    dg_plain_ms = cuda_ms(lambda: estep_dense(dc, g0, eeb, alpha, **kw), 2)
     fin = sstats_check(f"{label} final pass", dc,
                        exp_dirichlet_expectation(g_k), eeb, cfg.eps,
                        sstats_mod, estep_dense_sstats)
@@ -535,12 +833,15 @@ def dense_checks(label, corpus, beta, cfg, dev, pinned=False):
             "streamed_rows": streamed, "doc_bound_rel_err": bound_err}, fin
 
 
-def svi_kernel_lines(label, corpus, beta, cfg, dev):
+def svi_kernel_lines(label, corpus, beta, cfg, dev, bf16=False):
     """The ragged gamma and dense sstats kernels at one SVI config's
     shapes: the first minibatch of epoch 0, gathered from the
     device-resident rows at minibatch-local positions, at a sharpened
     lambda; gamma per bucket chunk (``ragged_checks``, pinned), sstats on
-    the first counts chunk at the plain gammas.  Returns their records."""
+    the first counts chunk at the plain gammas.  Returns their records;
+    with ``bf16`` also those of the bf16 builds on the same minibatch
+    (``ragged_checks_bf16``, sstats at the bf16 plain gammas), else
+    None for them."""
     import numpy as np
     import torch
 
@@ -584,13 +885,28 @@ def svi_kernel_lines(label, corpus, beta, cfg, dev):
     ss = sstats_check(f"{label} minibatch", counts,
                       exp_dirichlet_expectation(gamma_docs)[cidx], eeb,
                       cfg.eps, sstats_mod, estep_dense_sstats)
-    return rg, ss
+    if not bf16:
+        return rg, ss, None, None
+    del rows_plain, gamma_docs, eeb_t
+    rg16, rows_plain = ragged_checks_bf16(
+        label, buckets, eeb, st.alpha, kw, dev, ragged_mod,
+        estep_ragged_gamma, ragged_doc_bound, rg)
+    gamma_docs = _assemble_gamma_device(
+        torch.cat(rows_plain), torch.cat([b.row_index for b in buckets]),
+        st.alpha, mb_plan.num_docs,
+    )
+    ss16 = sstats_check(f"{label} minibatch", counts,
+                        exp_dirichlet_expectation(gamma_docs)[cidx], eeb,
+                        cfg.eps, sstats_mod, estep_dense_sstats,
+                        compute_dtype=BF16)
+    return rg, ss, rg16, ss16
 
 
-def run_engine(label, cfg, corpus, test, dev, mods, needed):
+def run_engine(label, cfg, corpus, test, dev, mods, needed) -> dict:
     """The main path at one flagship: initialize, learning_many(2) warm,
     learning_many(20) timed, inference and perplexity on held-out docs;
-    launch counters zeroed just before and read just after."""
+    launch counters zeroed just before and read just after.  Returns the
+    launches ("launches"), the last ELBO and the held-out perplexity."""
     import numpy as np
     import torch
 
@@ -638,7 +954,23 @@ def run_engine(label, cfg, corpus, test, dev, mods, needed):
           f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
     counts = read_launches(mods)
     check_launched(label, counts, needed)
-    return counts
+    return {"launches": counts, "elbo": allq[-1], "perplexity": ppl}
+
+
+def hold_bf16(label, r32: dict, r16: dict) -> None:
+    """An engine's bf16 run against the same tree's float32 run: its last
+    bound (ELBO, or SVI's estimate) and held-out perplexity, with the JAX
+    package's bars; raises past them."""
+    e = abs(r16["elbo"] - r32["elbo"]) / abs(r32["elbo"])
+    p = abs(r16["perplexity"] - r32["perplexity"]) / r32["perplexity"]
+    ok = e <= BF16_ELBO_RTOL and p <= BF16_PPL_RTOL
+    print(f"{label}: bf16 against float32: bound {r16['elbo']:.1f} vs "
+          f"{r32['elbo']:.1f} (rel {e:.3e}, tolerance {BF16_ELBO_RTOL}), "
+          f"held-out perplexity {r16['perplexity']:.2f} vs "
+          f"{r32['perplexity']:.2f} (rel {p:.3e}, tolerance {BF16_PPL_RTOL}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: bf16 and float32 runs disagree")
 
 
 def run_svi(label, cfg, corpus, test, dev, mods, n) -> dict:
@@ -648,7 +980,8 @@ def run_svi(label, cfg, corpus, test, dev, mods, n) -> dict:
     ``inference``, ``perplexity`` and ``point_estimate_perplexity`` on
     held-out docs; the point-estimate perplexity must fall below its
     value at init.  Launch counters zeroed just before and read just
-    after."""
+    after.  Returns the launches ("launches"), the last epoch's bound
+    estimate ("elbo") and the held-out perplexity."""
     import numpy as np
     import torch
 
@@ -718,13 +1051,16 @@ def run_svi(label, cfg, corpus, test, dev, mods, n) -> dict:
     print(f"{label}: peak device memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
     counts = read_launches(mods)
-    check_launched(label, counts, ("ragged_gamma", "dense_sstats"))
-    return counts
+    suffix = "_bf16" if cfg.compute_dtype == BF16 else ""
+    check_launched(label, counts, (f"ragged_gamma{suffix}",
+                                   f"dense_sstats{suffix}"))
+    return {"launches": counts, "elbo": ests[-1], "perplexity": ppl}
 
 
-def run_cli(mods, mode: str) -> dict:
+def run_cli(mods, mode: str, compute_dtype: str = "float32") -> dict:
     """train -> test -> infer through the CLIs' main() on the card, with
-    ``--inference_mode=mode``."""
+    ``--inference_mode=mode`` and ``--compute_dtype=compute_dtype`` (test
+    and infer read the mode from the model file)."""
     import numpy as np
 
     from pylda_tpu_torch.cli import infer as cli_infer
@@ -733,7 +1069,8 @@ def run_cli(mods, mode: str) -> dict:
     from pylda_tpu_torch.corpus.datasets import bundled_corpus_dir
 
     corpus_dir = bundled_corpus_dir()
-    out = CLI_OUT / mode
+    suffix = "_bf16" if compute_dtype == BF16 else ""
+    out = CLI_OUT / f"{mode}{suffix}"
     shutil.rmtree(out, ignore_errors=True)
     zero_launches(mods)
     t0 = time.perf_counter()
@@ -741,6 +1078,7 @@ def run_cli(mods, mode: str) -> dict:
         f"--input_directory={corpus_dir}", f"--output_directory={out}",
         "--number_of_topics=10", "--training_iterations=6",
         "--snapshot_interval=3", "--dump_gamma", f"--inference_mode={mode}",
+        f"--compute_dtype={compute_dtype}",
     ])
     runs = sorted((out / "de-news-tiny").iterdir())
     if rc != 0 or len(runs) != 1:
@@ -769,10 +1107,18 @@ def run_cli(mods, mode: str) -> dict:
     if rc != 0 or theta.shape != (2, 10) or not np.allclose(
             theta.sum(axis=1), 1.0, rtol=1e-4):
         raise AssertionError(f"cli infer: rc {rc}, theta {theta.shape}")
-    print(f"cli {mode}: train 6 iterations + test + infer on {corpus_dir} in "
-          f"{time.perf_counter() - t0:.2f} s; run dir {run.name}")
+    with open(run / "metrics.jsonl") as f:
+        ppl = [json.loads(line) for line in f][-1]["perplexity"]
+    meta = json.loads(bytes(np.load(run / "model-6")["meta_json"]).decode())
+    if meta["config"]["compute_dtype"] != compute_dtype:
+        raise AssertionError(f"cli train: the model file says "
+                             f"{meta['config']['compute_dtype']}")
+    print(f"cli {mode} {compute_dtype}: train 6 iterations + test + infer on "
+          f"{corpus_dir} in {time.perf_counter() - t0:.2f} s; run dir "
+          f"{run.name}; final held-out perplexity {ppl:.4f}")
     counts = read_launches(mods)
-    check_launched(f"cli {mode}", counts, ("dense_gamma", "dense_sstats"))
+    check_launched(f"cli {mode} {compute_dtype}", counts,
+                   (f"dense_gamma{suffix}", f"dense_sstats{suffix}"))
     return counts
 
 
@@ -862,7 +1208,20 @@ def main() -> int:
     et_c = et_docs[cidx]
     ss_shapes = [sstats_check("ragged flagship chunk", counts, et_c, eeb,
                               cfg.eps, sstats_mod, estep_dense_sstats)]
-    del probe, st, eeb, eeb_t, rows_plain, gamma_docs, et_docs, et_c
+    del eeb_t, rows_plain, gamma_docs, et_docs, et_c
+    # ... and the bf16 builds on the same inputs.
+    rg16, rows_plain = ragged_checks_bf16(
+        "ragged flagship", probe._batches, eeb, st.alpha, kw, dev, ragged_mod,
+        estep_ragged_gamma, ragged_doc_bound, rg)
+    gamma_docs = _assemble_gamma_device(
+        torch.cat(rows_plain), torch.cat([b.row_index for b in probe._batches]),
+        st.alpha, plan.num_docs,
+    )
+    ss16_shapes = [sstats_check(
+        "ragged flagship chunk", counts,
+        exp_dirichlet_expectation(gamma_docs)[cidx], eeb, cfg.eps, sstats_mod,
+        estep_dense_sstats, compute_dtype=BF16)]
+    del probe, st, eeb, rows_plain, gamma_docs
 
     # -- kernels at the dense flagship's shapes -------------------------------
     dcorpus, dbeta, _ = synthetic_corpus(
@@ -871,6 +1230,9 @@ def main() -> int:
     )
     dg, fin = dense_checks("dense flagship", dcorpus, dbeta, cfg, dev)
     ss_shapes.append(fin)
+    dg16, fin16 = dense_checks_bf16("dense flagship", dcorpus, dbeta, cfg, dev,
+                                    dg)
+    ss16_shapes.append(fin16)
     # ... and at K=1000 on its vocabulary: the core's wide kernels and the
     # 16-lane sstats build.
     wcorpus, wbeta, _ = synthetic_corpus(
@@ -894,8 +1256,8 @@ def main() -> int:
                         batch_size=SVI_BATCH, tau0=64.0, kappa=0.7,
                         inner_iterations=50, convergence_threshold=1e-5,
                         seed=0)
-    svi_rg, svi_ss = svi_kernel_lines("svi config 4", svi_corpus, svi_beta,
-                                      svi_cfg, dev)
+    svi_rg, svi_ss, _, _ = svi_kernel_lines("svi config 4", svi_corpus,
+                                            svi_beta, svi_cfg, dev)
     svi5_corpus, svi5_beta, _ = synthetic_corpus(
         num_docs=SVI5["D"], num_topics=SVI5["K"], num_types=SVI5["V"],
         mean_doc_length=SVI5["LEN"], seed=SVI5["SEED"],
@@ -903,10 +1265,12 @@ def main() -> int:
     svi5_cfg = LDAConfig(number_of_topics=SVI5["K"], inference_mode="svi",
                          batch_size=SVI5["BATCH"], tau0=64.0, kappa=0.7,
                          seed=0, inner_iterations=SVI5["INNER"])
-    svi5_rg, svi5_ss = svi_kernel_lines("svi config 5", svi5_corpus,
-                                        svi5_beta, svi5_cfg, dev)
+    svi5_rg, svi5_ss, svi5_rg16, svi5_ss16 = svi_kernel_lines(
+        "svi config 5", svi5_corpus, svi5_beta, svi5_cfg, dev, bf16=True)
     rg_shapes = [rg, svi_rg, svi5_rg]
     ss_shapes += [svi_ss, svi5_ss]
+    rg16_shapes = [rg16, svi5_rg16]
+    ss16_shapes.append(svi5_ss16)
 
     # -- engines: the main paths ---------------------------------------------
     by_path = {}
@@ -914,51 +1278,64 @@ def main() -> int:
         num_docs=1024, num_topics=K, num_types=V, mean_doc_length=MEAN_LEN,
         seed=1, beta=beta,
     )
-    by_path["ragged"] = run_engine("engine ragged flagship", cfg, corpus,
-                                   test, dev, mods,
-                                   ("ragged_gamma", "dense_sstats"))
+    cfg16 = dataclasses.replace(cfg, compute_dtype=BF16)
     dtest, _, _ = synthetic_corpus(
         num_docs=1024, num_topics=K, num_types=V_DENSE,
         mean_doc_length=MEAN_LEN, seed=1, beta=dbeta,
     )
-    by_path["dense"] = run_engine("engine dense flagship", cfg, dcorpus,
-                                  dtest, dev, mods,
-                                  ("dense_gamma", "dense_sstats"))
+    for route, data in (("ragged", (corpus, test)), ("dense", (dcorpus, dtest))):
+        label = f"engine {route} flagship"
+        gamma = "ragged_gamma" if route == "ragged" else "dense_gamma"
+        r32 = run_engine(label, cfg, *data, dev, mods,
+                         (gamma, "dense_sstats"))
+        r16 = run_engine(f"{label} bf16", cfg16, *data, dev, mods,
+                         (f"{gamma}_bf16", "dense_sstats_bf16"))
+        hold_bf16(label, r32, r16)
+        by_path[route] = r32["launches"]
+        by_path[f"{route}_bf16"] = r16["launches"]
     del corpus, test, dcorpus, dtest
     svi_test, _, _ = synthetic_corpus(
         num_docs=512, num_topics=SVI_K, num_types=SVI_V,
         mean_doc_length=SVI_LEN, seed=103, beta=svi_beta,
     )
     by_path["svi"] = run_svi("engine svi config 4", svi_cfg, svi_corpus,
-                             svi_test, dev, mods, 4)
+                             svi_test, dev, mods, 4)["launches"]
     del svi_corpus, svi_test
     svi5_test, _, _ = synthetic_corpus(
         num_docs=SVI5["TEST_DOCS"], num_topics=SVI5["K"],
         num_types=SVI5["V"], mean_doc_length=SVI5["LEN"],
         seed=SVI5["TEST_SEED"], beta=svi5_beta,
     )
-    by_path["svi5"] = run_svi("engine svi config 5", svi5_cfg, svi5_corpus,
-                              svi5_test, dev, mods, 2)
+    r32 = run_svi("engine svi config 5", svi5_cfg, svi5_corpus, svi5_test,
+                  dev, mods, 2)
+    r16 = run_svi("engine svi config 5 bf16",
+                  dataclasses.replace(svi5_cfg, compute_dtype=BF16),
+                  svi5_corpus, svi5_test, dev, mods, 2)
+    hold_bf16("engine svi config 5", r32, r16)
+    by_path["svi5"], by_path["svi5_bf16"] = r32["launches"], r16["launches"]
     del svi5_corpus, svi5_test, svi5_beta
 
     # -- CLI on the bundled corpus -------------------------------------------
-    by_path["cli"] = run_cli(mods, "vb")
-    by_path["cli_svi"] = run_cli(mods, "svi")
-    # Each kernel's launches on each main path (each run zeroed just before
-    # and read just after), and their sum.
+    for mode, cd in itertools.product(("vb", "svi"), ("float32", BF16)):
+        path = ("cli" if mode == "vb" else "cli_svi") + (
+            "_bf16" if cd == BF16 else "")
+        by_path[path] = run_cli(mods, mode, cd)
+    # Each kernel build's launches on each main path (each run zeroed just
+    # before and read just after), and their sum.
     paths = {name: {path: got[name] for path, got in by_path.items()}
-             for name in mods}
+             for name in read_launches(mods)}
     launches = {name: sum(per.values()) for name, per in paths.items()}
     print(f"main paths: kernel launches {paths}")
 
     # -- cross-check: card vs CPU at a small size, on each route -------------
-    for (route, v_small), k_small in itertools.product(
-            (("ragged", 3000), ("dense", 1000)), (16, 300)):
+    disagree = []
+    for (route, v_small), k_small, cd in itertools.product(
+            (("ragged", 3000), ("dense", 1000)), (16, 300), ("float32", BF16)):
         small, _, _ = synthetic_corpus(num_docs=256, num_topics=k_small,
                                        num_types=v_small, mean_doc_length=60.0,
                                        seed=5)
         scfg = LDAConfig(number_of_topics=k_small, dense_vocab_threshold=2048,
-                         doc_pad_multiple=16,
+                         doc_pad_multiple=16, compute_dtype=cd,
                          hyper_parameter_optimize_interval=2, seed=0)
         lam0 = np.random.default_rng(7).gamma(100.0, 0.01, (k_small, v_small))
         for engine, n in ((VariationalBayes, 3), (StochasticVariationalBayes, 2)):
@@ -973,14 +1350,14 @@ def main() -> int:
                     e.learning_many(n)
             rel = max(abs(a - b) / abs(b)
                       for a, b in zip(runs["cuda"], runs["cpu"]))
-            print(f"cross-check {engine.__name__} {route} K={k_small}: bounds "
-                  f"card {[round(x, 2) for x in runs['cuda']]} cpu "
+            print(f"cross-check {engine.__name__} {route} K={k_small} {cd}: "
+                  f"bounds card {[round(x, 2) for x in runs['cuda']]} cpu "
                   f"{[round(x, 2) for x in runs['cpu']]}, max rel diff "
                   f"{rel:.2e} (tolerance {ELBO_RTOL})")
             if not rel <= ELBO_RTOL:
-                raise AssertionError(f"card and CPU engines disagree "
-                                     f"({engine.__name__}, {route}, "
-                                     f"K={k_small})")
+                disagree.append(f"{engine.__name__} {route} K={k_small} {cd}")
+    if disagree:
+        raise AssertionError(f"card and CPU engines disagree: {disagree}")
 
     record = {"kernels": [
         {"name": "dense_sstats", "route": "cuda",
@@ -1009,6 +1386,19 @@ def main() -> int:
                                "bound_by", "dense_form_bound_ms")},
          "library_ms": None, "shapes": dg_shapes},
     ]}
+    # The bf16 builds (nvcc -DPYLDA_BF16=1 of the same sources).
+    for name, line, shapes in (("dense_sstats", ss16_shapes[0], ss16_shapes),
+                               ("ragged_gamma", rg16, rg16_shapes),
+                               ("dense_gamma", dg16, [dg16])):
+        f32 = next(k for k in record["kernels"] if k["name"] == name)
+        record["kernels"].append({
+            **{k: f32[k] for k in ("route", "source", "replaces")},
+            "name": f"{name}_bf16", "build": "-DPYLDA_BF16=1",
+            "launches": launches[f"{name}_bf16"],
+            "launches_by_path": paths[f"{name}_bf16"],
+            **{k: line[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by")},
+            "library_ms": None, "shapes": shapes})
     print(f"nvidia-smi: {nvidia_smi()}")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

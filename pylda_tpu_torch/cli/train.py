@@ -167,7 +167,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--compute_dtype", default="float32",
                    choices=["float32", "bfloat16"],
                    help="bfloat16 = mixed-precision E-step contractions "
-                        "(not ported yet)")
+                        "(bf16 operands, f32 sums: the kernels' bf16 "
+                        "builds)")
     p.add_argument("--gamma_init", default=None,
                    choices=["gamma", "normal", "ones"],
                    help="per-E-step cold-start init (default: the "

@@ -67,6 +67,15 @@
 // last CTA of the grid sums those in a fixed order.  No atomic adds a
 // floating-point value, so every call returns the same bits.  Plain f32
 // FMAs and IEEE division, no TF32: the CPU reference is plain f32.
+//
+// bf16 operands (built with -DPYLDA_BF16=1, ops/_build.py): the function
+// of estep_dense_sstats(compute_dtype="bfloat16") and of the Pallas
+// kernel's bf16 mode.  expEtheta (in phinorm and in the sums), expElogbeta
+// as phinorm reads it, and the ratio are rounded to bf16 (nearest even)
+// where the walk reads or forms them; the sums stay f32.  phinorm, hence
+// the score, and the epilogue's multiply by expElogbeta use the staged
+// f32 values: the tile is staged in f32 and rounded only when phinorm
+// reads it.
 
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
@@ -74,7 +83,14 @@
 
 #include <cstdint>
 
+// The build's operand mode: 0 float32, 1 bf16 operands (-DPYLDA_BF16=1).
+#ifndef PYLDA_BF16
+#define PYLDA_BF16 0
+#endif
+
 namespace {
+
+constexpr bool kBf16 = PYLDA_BF16 != 0;
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 256;
@@ -141,6 +157,15 @@ __device__ __forceinline__ unsigned nonzero8(const float* p) {
 
 __device__ __forceinline__ float4 lds4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
+}
+
+// An operand as the build's mode reads it: as is, or rounded to bf16
+// (nearest even) and widened back.
+__device__ __forceinline__ float operand(float x) {
+  return kBf16 ? __bfloat162float(__float2bfloat16_rn(x)) : x;
+}
+__device__ __forceinline__ float4 operand4(float4 v) {
+  return make_float4(operand(v.x), operand(v.y), operand(v.z), operand(v.w));
 }
 
 // Issues the copies of counts rows [d0, d0 + kRows) x columns
@@ -375,10 +400,10 @@ __device__ __forceinline__ void sstats_tile(
       if (on) {  // lanes without a nonzero read nothing
 #pragma unroll
         for (int i = 0; i < N4; ++i) {
-          const float4 e = L::STAGE_ET
-                               ? lds4(erow + 4 * LPC * i)
-                               : et4(erow, 4 * (j + LPC * i), K, et_vec);
-          const float4 b = lds4(bcol + 4 * LPC * i);
+          const float4 e = operand4(
+              L::STAGE_ET ? lds4(erow + 4 * LPC * i)
+                          : et4(erow, 4 * (j + LPC * i), K, et_vec));
+          const float4 b = operand4(lds4(bcol + 4 * LPC * i));
           q.x = fmaf(e.x, b.x, q.x);
           q.y = fmaf(e.y, b.y, q.y);
           q.z = fmaf(e.z, b.z, q.z);
@@ -393,13 +418,13 @@ __device__ __forceinline__ void sstats_tile(
       if (on) {
         const float cv = to_float(cnt[r * cnt_ld<CT, COLS>() + c]);
         const float pn = p + eps;
-        const float ratio = cv / pn;
+        const float ratio = operand(cv / pn);
         if (j == 0) score += (double)(cv * logf(pn));
 #pragma unroll
         for (int i = 0; i < N4; ++i) {
-          const float4 e = L::STAGE_ET
-                               ? lds4(erow + 4 * LPC * i)
-                               : et4(erow, 4 * (j + LPC * i), K, et_vec);
+          const float4 e = operand4(
+              L::STAGE_ET ? lds4(erow + 4 * LPC * i)
+                          : et4(erow, 4 * (j + LPC * i), K, et_vec));
           acc[i].x = fmaf(e.x, ratio, acc[i].x);
           acc[i].y = fmaf(e.y, ratio, acc[i].y);
           acc[i].z = fmaf(e.z, ratio, acc[i].z);

@@ -49,20 +49,27 @@
 // Measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md): 16.2 ms for a
 // minibatch's 12 launches at a trained lambda, ~2.2 TB/s of 4 KB gathers:
 // the re-gathering, not the arithmetic, sets the time.
+//
+// Built twice (ops/_build.py): as is, and with -DPYLDA_BF16=1, the bf16
+// operand mode of estep_ragged_gamma(compute_dtype="bfloat16"): a bf16
+// table (2 KB rows at K=1000, so half the bytes a re-gather and about
+// twice the slots a buffer), expEtheta and the ratio rounded to bf16 where
+// the reference rounds them, sums in f32 (row_fixed_point.cuh).
 
 #include "row_fixed_point.cuh"
 
 extern "C" {
 
 // params: a Params (row_fixed_point.cuh) with ids and cnts [D, T] int32 and
-// f32 (cnts_bf16 0, ld = L = T), table [V, ldb] = expElogbeta^T and
+// f32 (cnts_bf16 0, ld = L = T), table [V, ldb] = expElogbeta^T (f32, or
+// bf16 with table_bf16 set in a build with -DPYLDA_BF16=1) and
 // 1 <= K <= 4096; the launch's nmax, nhist and geometry are written back
 // into it.  stream: a cudaStream_t.  Returns the cudaError_t of the launch.
 int pylda_ragged_gamma(void* params, void* stream) {
   Params& p = *static_cast<Params*>(params);
   if (!p.ids || p.cnts_bf16) return (int)cudaErrorInvalidValue;
   // Buckets whose rows all fit the register tile take it.
-  return (int)launch_row_fixed_point<float>(
+  return (int)launch_row_fixed_point<float, PYLDA_BF16 != 0>(
       p, p.L <= kWarps * kRegSlots, static_cast<cudaStream_t>(stream));
 }
 

@@ -82,6 +82,20 @@
 // 2 float4 reads (~5 wavefronts a warp with the broadcast operand) for
 // every 8 FMAs of a slot and topic.
 //
+// bf16 operands (kBf16 builds: nvcc -DPYLDA_BF16=1, ops/_build.py).  The
+// JAX function's bf16 mode rounds three operands to bf16 and sums in f32:
+// the gathered B, expEtheta as it enters phinorm, and the ratio.  Here the
+// table is bf16 [V, ldb] (ldb = K rounded up to 8) and a slot holds its B
+// row as bf16 in 16-byte units of 8 topics (odd unit stride s8, the same
+// conflict-free layout as the f32 float4 rows): step A reads 8 topics a
+// 16-byte load, step B and the register tile 4 topics as 8 bytes, each
+// widened to f32 (exact), and the FMAs stay f32 (a product of two bf16
+// values is exact in f32).  Step A reads a rounded copy of expEtheta (etr,
+// written wherever et is), and the ratio is rounded where it is formed;
+// step C keeps the f32 expEtheta for gamma' = alpha + expEtheta * acc.  A
+// slot is half the bytes (2 KB at K=1000), so the buffer holds about twice
+// the entries.  The float32 builds (kBf16 false) are the code above.
+//
 // Register tile.  At K <= 128 a row of up to 128 live entries moves its B
 // from shared memory into registers once (warp w holds slots w, w + 8, ..,
 // lane l topics 4l..4l+3: 16 float4 a thread), and A and B run from there:
@@ -100,6 +114,11 @@
 #include <cuda_runtime.h>
 
 #include "exp_psi.cuh"
+
+// The build's operand mode: 0 float32, 1 bf16 operands (-DPYLDA_BF16=1).
+#ifndef PYLDA_BF16
+#define PYLDA_BF16 0
+#endif
 
 namespace {
 
@@ -127,7 +146,9 @@ constexpr int kBlockSmemReserved = 1024;
 struct Params {
   const int* ids;        // [D, ld] (ragged) or null (dense: id = column)
   const void* cnts;      // [D, ld] f32 or bf16 (cnts_bf16)
-  const float* table;    // [V, ldb] expElogbeta^T, zero columns past K
+  const void* table;     // [V, ldb] expElogbeta^T, zero columns past K:
+                         // f32 (ldb = K rounded up to 4), or bf16 in the
+                         // bf16 builds (table_bf16; K rounded up to 8)
   const float* alpha;    // [K]
   const float* gamma0;   // [D, K]
   const float* et0;      // [D, K] exact expEtheta(gamma0)
@@ -145,6 +166,7 @@ struct Params {
                          // row as L ids, then L counts (f32 bits)
   int D, ld, L, K, ldb;
   int cnts_bf16;
+  int table_bf16;
   int list_blocks;
   int nmax, nhist;
   int inner_iterations;
@@ -156,18 +178,26 @@ struct Params {
 };
 
 // Offsets (in floats, each a multiple of 4) into the dynamic shared memory.
-// gam (gamma of the row) is there in the wide kernels only.
+// gam (gamma of the row) is there in the wide kernels only, etr (the
+// rounded expEtheta, 8 * k8 floats) in the bf16 builds only.  A slot is
+// `slot` floats: s4 float4 of f32 topics, or s8 16-byte units of 8 bf16
+// topics.
 struct Layout {
-  int k4, s4, groups;
-  int b, et, gam, part, ratio, cnt, ids, hist, scan, red, flags, total;
-  __host__ __device__ Layout(int K, int nmax, int nhist, bool wide) {
+  int k4, s4, k8, s8, slot, groups;
+  int b, et, etr, gam, part, ratio, cnt, ids, hist, scan, red, flags, total;
+  __host__ __device__ Layout(int K, int nmax, int nhist, bool wide,
+                             bool bf16) {
     k4 = (K + 3) / 4;
     s4 = k4 | 1;  // odd float4 stride: conflict-free float4 rows
+    k8 = (K + 7) / 8;
+    s8 = k8 | 1;  // odd 16-byte stride: the same for bf16 rows
+    slot = bf16 ? s8 * 4 : s4 * 4;
     groups = k4 < kThreads ? kThreads / k4 : 1;
     const int n4 = (nmax + 3) & ~3;
     b = 0;
-    et = b + nmax * s4 * 4;
-    gam = et + s4 * 4;
+    et = b + nmax * slot;
+    etr = et + s4 * 4;
+    gam = etr + (bf16 ? k8 * 8 : 0);
     part = gam + (wide ? s4 * 4 : 0);
     ratio = part + groups * k4 * 4;
     cnt = ratio + n4;
@@ -183,6 +213,32 @@ struct Layout {
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+
+// x rounded to bf16 (nearest even) and widened back.
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// The two bf16 values of a 32-bit word (lower address first) as f32.
+__device__ __forceinline__ float bf16_lo(unsigned w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf16_hi(unsigned w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+// Topics 4q..4q+3 of slot t of the slot buffer, as f32.
+template <bool kBf16>
+__device__ __forceinline__ float4 slot4(const float* b_s, const Layout& L,
+                                        int t, int q) {
+  if constexpr (kBf16) {
+    const uint2 u = reinterpret_cast<const uint2*>(b_s)[t * (L.slot / 2) + q];
+    return make_float4(bf16_lo(u.x), bf16_hi(u.x), bf16_lo(u.y),
+                       bf16_hi(u.y));
+  } else {
+    return reinterpret_cast<const float4*>(b_s)[t * L.s4 + q];
+  }
 }
 
 // Exclusive prefix sum of v over the block; *total gets the block's sum.
@@ -288,60 +344,107 @@ __device__ __forceinline__ void load_window(const Params& p, const Layout& L,
   __syncthreads();
 }
 
-// Gathers the B rows of the n compacted entries into the slot buffer.
+// Gathers the B rows of the n compacted entries into the slot buffer, 16
+// bytes a copy (4 f32 or 8 bf16 topics).
+template <bool kBf16>
 __device__ __forceinline__ void gather(const Params& p, const Layout& L,
                                        float* smem, int n) {
   const int* ids_s = reinterpret_cast<const int*>(smem + L.ids);
   float* b_s = smem + L.b;
-  for (int i = threadIdx.x; i < n * L.k4; i += kThreads) {
-    const int t = i / L.k4, q = i - t * L.k4;
-    __pipeline_memcpy_async(b_s + (t * L.s4 + q) * 4,
-                            p.table + (size_t)ids_s[t] * p.ldb + 4 * q, 16);
+  const int units = kBf16 ? L.k8 : L.k4;
+  for (int i = threadIdx.x; i < n * units; i += kThreads) {
+    const int t = i / units, q = i - t * units;
+    if constexpr (kBf16)
+      __pipeline_memcpy_async(
+          b_s + t * L.slot + 4 * q,
+          static_cast<const __nv_bfloat16*>(p.table) +
+              (size_t)ids_s[t] * p.ldb + 8 * q,
+          16);
+    else
+      __pipeline_memcpy_async(
+          b_s + (t * L.s4 + q) * 4,
+          static_cast<const float*>(p.table) + (size_t)ids_s[t] * p.ldb +
+              4 * q,
+          16);
   }
   __pipeline_commit();
   __pipeline_wait_prior(0);
   __syncthreads();
 }
 
+// Half h's share of slot t's phinorm dot: over the float4 runs 4h..4h+3,
+// 4h+8.. (f32), so a quarter warp's 8 float4 loads hit 8 bank quads; bf16:
+// the same runs of 16-byte units of 8 topics, against the rounded
+// expEtheta (etr).
+template <bool kBf16>
+__device__ __forceinline__ float slot_dot(const Layout& L, const float* smem,
+                                          int t, int h) {
+  float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+  if constexpr (kBf16) {
+    const uint4* bt = reinterpret_cast<const uint4*>(smem + L.b) + t * L.s8;
+    const float4* r4 = reinterpret_cast<const float4*>(smem + L.etr);
+#pragma unroll 1
+    for (int q0 = 4 * h; q0 < L.k8; q0 += 8) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int q = q0 + j;
+        if (q < L.k8) {
+          const uint4 b = bt[q];
+          const float4 e = r4[2 * q], f = r4[2 * q + 1];
+          a0 = fmaf(bf16_lo(b.x), e.x, a0);
+          a1 = fmaf(bf16_hi(b.x), e.y, a1);
+          a2 = fmaf(bf16_lo(b.y), e.z, a2);
+          a3 = fmaf(bf16_hi(b.y), e.w, a3);
+          a0 = fmaf(bf16_lo(b.z), f.x, a0);
+          a1 = fmaf(bf16_hi(b.z), f.y, a1);
+          a2 = fmaf(bf16_lo(b.w), f.z, a2);
+          a3 = fmaf(bf16_hi(b.w), f.w, a3);
+        }
+      }
+    }
+  } else {
+    const float4* bt = reinterpret_cast<const float4*>(smem + L.b) + t * L.s4;
+    const float4* e4 = reinterpret_cast<const float4*>(smem + L.et);
+#pragma unroll 1
+    for (int q0 = 4 * h; q0 < L.k4; q0 += 8) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int q = q0 + j;
+        if (q < L.k4) {
+          const float4 b = bt[q], e = e4[q];
+          a0 = fmaf(b.x, e.x, a0);
+          a1 = fmaf(b.y, e.y, a1);
+          a2 = fmaf(b.z, e.z, a2);
+          a3 = fmaf(b.w, e.w, a3);
+        }
+      }
+    }
+  }
+  return (a0 + a1) + (a2 + a3);
+}
+
 // Steps A and B of a sweep over the n slots in the buffer: adds to acc[j]
 // this thread's share of sum_t ratio[t] * B[t, 4q..4q+3] for its float4s
 // q (kQ = 1: q = tid % k4 in group tid / k4).  The loops are kept rolled:
 // the kernel's code must stay small for the instruction cache.
-template <int kQ>
+template <int kQ, bool kBf16>
 __device__ __forceinline__ void sweep_slots(const Params& p, const Layout& L,
                                             float* smem, int n,
                                             float4 (&acc)[kQ]) {
-  const float4* b4 = reinterpret_cast<const float4*>(smem + L.b);
-  const float4* e4 = reinterpret_cast<const float4*>(smem + L.et);
   float* ratio_s = smem + L.ratio;
   const float* cnt_s = smem + L.cnt;
-  const int tid = threadIdx.x, k4 = L.k4, s4 = L.s4;
-  // A. phinorm and ratio: slot t0 + tid / 2, half h over the topic runs
-  // 4h..4h+3, 4h+8.., so a quarter warp's 8 float4 loads hit 8 bank quads.
+  const int tid = threadIdx.x, k4 = L.k4;
+  // A. phinorm and ratio: slot t0 + tid / 2, half h (slot_dot).  bf16:
+  // the ratio is rounded where it is stored.
   const int h = tid & 1;
   for (int t0 = 0; t0 < n; t0 += kThreads / 2) {
     const int t = t0 + (tid >> 1);
-    float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-    if (t < n) {
-      const float4* bt = b4 + t * s4;
-#pragma unroll 1
-      for (int q0 = 4 * h; q0 < k4; q0 += 8) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int q = q0 + j;
-          if (q < k4) {
-            const float4 b = bt[q], e = e4[q];
-            a0 = fmaf(b.x, e.x, a0);
-            a1 = fmaf(b.y, e.y, a1);
-            a2 = fmaf(b.z, e.z, a2);
-            a3 = fmaf(b.w, e.w, a3);
-          }
-        }
-      }
-    }
-    float ph = (a0 + a1) + (a2 + a3);
+    float ph = t < n ? slot_dot<kBf16>(L, smem, t, h) : 0.f;
     ph += __shfl_xor_sync(kFull, ph, 1);
-    if (t < n && h == 0) ratio_s[t] = cnt_s[t] / (ph + p.eps);
+    if (t < n && h == 0) {
+      const float r = cnt_s[t] / (ph + p.eps);
+      ratio_s[t] = kBf16 ? bf16_round(r) : r;
+    }
   }
   __syncthreads();
   // B. acc += ratio[t] * B[t, 4q..4q+3] for slots t = g, g + G, ...
@@ -353,7 +456,7 @@ __device__ __forceinline__ void sweep_slots(const Params& p, const Layout& L,
 #pragma unroll 2
       for (int t = g; t < n; t += L.groups) {
         const float r = ratio_s[t];
-        const float4 b = b4[t * s4 + q];
+        const float4 b = slot4<kBf16>(smem + L.b, L, t, q);
         acc[j].x = fmaf(b.x, r, acc[j].x);
         acc[j].y = fmaf(b.y, r, acc[j].y);
         acc[j].z = fmaf(b.z, r, acc[j].z);
@@ -386,6 +489,9 @@ __device__ __forceinline__ void fold(float (&v)[kRegSlots], int lane) {
 // the warp by a halving butterfly (8 + 4 + 2 + 1 + 1 shuffles), after
 // which lane l holds slot (l >> 1) & 15's; the ratios go back to every
 // lane by 16 shuffles.  Returns the warp's share of sum_t ratio[t] * B[t].
+// bf16: phinorm against the rounded expEtheta, and each ratio rounded in
+// the lane that forms it, before the shuffles.
+template <bool kBf16>
 __device__ __forceinline__ float4 sweep_registers(const Params& p,
                                                   const Layout& L,
                                                   const float* smem,
@@ -393,7 +499,7 @@ __device__ __forceinline__ float4 sweep_registers(const Params& p,
                                                   float c, int n) {
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const float4 e = lane < L.k4
-      ? reinterpret_cast<const float4*>(smem + L.et)[lane]
+      ? reinterpret_cast<const float4*>(smem + (kBf16 ? L.etr : L.et))[lane]
       : make_float4(0.f, 0.f, 0.f, 0.f);
   float v[kRegSlots];
 #pragma unroll
@@ -406,7 +512,8 @@ __device__ __forceinline__ float4 sweep_registers(const Params& p,
   fold<1>(v, lane);
   const float ph = v[0] + __shfl_xor_sync(kFull, v[0], 1);
   const int t = warp + kWarps * ((lane >> 1) & (kRegSlots - 1));
-  const float r = t < n ? c / (ph + p.eps) : 0.f;
+  float r = t < n ? c / (ph + p.eps) : 0.f;
+  if constexpr (kBf16) r = bf16_round(r);
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
   for (int j = 0; j < kRegSlots; ++j) {
@@ -441,7 +548,8 @@ __device__ __forceinline__ float2 wide_gamma(const Params& p, const Layout& L,
 }
 
 // The new expEtheta of the wide kernels' topics from gam_s and the row's
-// sum of gamma'.
+// sum of gamma' (bf16: and its rounded copy).
+template <bool kBf16>
 __device__ __forceinline__ void wide_expectation(const Params& p,
                                                  const Layout& L, float* smem,
                                                  float row_sum) {
@@ -451,6 +559,7 @@ __device__ __forceinline__ void wide_expectation(const Params& p,
   for (int k = threadIdx.x; k < p.K; k += kThreads) {
     const float x = gam_s[k];
     et_s[k] = (x + 2.0f) * expf(psi_tail(x) - r);
+    if constexpr (kBf16) smem[L.etr + k] = bf16_round(et_s[k]);
   }
 }
 
@@ -466,7 +575,8 @@ struct RowRun {
 // alpha[k] in registers (kWide: thread tid keeps the gamma of its topics
 // in gam_s); every thread keeps the row's exit state (the block sums are
 // the same in every thread, so every thread takes the same decisions).
-template <typename CT, bool kReg, bool kWide>
+// kBf16: the table and slots hold bf16, and etr follows et rounded.
+template <typename CT, bool kBf16, bool kReg, bool kWide>
 __device__ __forceinline__ RowRun run_row(const Params& p, const Layout& L,
                                           float* smem, int row,
                                           int max_sweeps, bool count) {
@@ -477,6 +587,9 @@ __device__ __forceinline__ RowRun run_row(const Params& p, const Layout& L,
   const size_t base = (size_t)row * K;
   for (int k = tid; k < L.s4 * 4; k += kThreads)
     et_s[k] = k < K ? p.et0[base + k] : 0.f;
+  if constexpr (kBf16)
+    for (int k = tid; k < L.k8 * 8; k += kThreads)
+      smem[L.etr + k] = k < K ? bf16_round(p.et0[base + k]) : 0.f;
   if constexpr (kWide)
     for (int k = tid; k < K; k += kThreads) smem[L.gam + k] = p.gamma0[base + k];
   const bool mine = !kWide && tid < K;
@@ -486,7 +599,7 @@ __device__ __forceinline__ RowRun run_row(const Params& p, const Layout& L,
   // buffer holds, each sweep loads and gathers them window by window.
   const int n = compact<CT>(p, L, smem, row);
   const bool resident = n <= p.nmax;
-  if (resident) gather(p, L, smem, n);
+  if (resident) gather<kBf16>(p, L, smem, n);
   const int windows = resident ? 1 : (n + p.nmax - 1) / p.nmax;
   const bool freeze = p.threshold > 0.f;
   const int lane = tid % 32, warp = tid / 32;
@@ -495,11 +608,10 @@ __device__ __forceinline__ RowRun run_row(const Params& p, const Layout& L,
   float4 breg[kReg ? kRegSlots : 1];
   float creg = 0.f;
   if (in_regs) {
-    const float4* b4 = reinterpret_cast<const float4*>(smem + L.b);
 #pragma unroll
     for (int j = 0; j < (kReg ? kRegSlots : 1); ++j) {
       const int t = warp + kWarps * j;
-      breg[j] = t < n && lane < L.k4 ? b4[t * L.s4 + lane]
+      breg[j] = t < n && lane < L.k4 ? slot4<kBf16>(smem + L.b, L, t, lane)
                                      : make_float4(0.f, 0.f, 0.f, 0.f);
     }
     const int t = warp + kWarps * ((lane >> 1) & (kRegSlots - 1));
@@ -515,7 +627,8 @@ __device__ __forceinline__ RowRun run_row(const Params& p, const Layout& L,
 #pragma unroll
     for (int j = 0; j < kQ; ++j) acc[j] = make_float4(0.f, 0.f, 0.f, 0.f);
     if (in_regs) {
-      if constexpr (kReg) acc[0] = sweep_registers(p, L, smem, breg, creg, n);
+      if constexpr (kReg)
+        acc[0] = sweep_registers<kBf16>(p, L, smem, breg, creg, n);
       if (lane < L.k4) part4[warp * L.k4 + lane] = acc[0];
     } else {
       for (int w = 0; w < windows; ++w) {
@@ -524,9 +637,9 @@ __device__ __forceinline__ RowRun run_row(const Params& p, const Layout& L,
           const int w0 = w * p.nmax;
           m = min(p.nmax, n - w0);
           load_window(p, L, smem, w0, m);
-          gather(p, L, smem, m);
+          gather<kBf16>(p, L, smem, m);
         }
-        if (m) sweep_slots<kQ>(p, L, smem, m, acc);
+        if (m) sweep_slots<kQ, kBf16>(p, L, smem, m, acc);
       }
 #pragma unroll
       for (int j = 0; j < kQ; ++j) {
@@ -555,8 +668,9 @@ __device__ __forceinline__ RowRun run_row(const Params& p, const Layout& L,
     if (mine) {
       gam = x;
       et_s[tid] = (x + 2.0f) * expf(psi_tail(x) - psi_row_term(sums.y));
+      if constexpr (kBf16) smem[L.etr + tid] = bf16_round(et_s[tid]);
     }
-    if constexpr (kWide) wide_expectation(p, L, smem, sums.y);
+    if constexpr (kWide) wide_expectation<kBf16>(p, L, smem, sums.y);
     const float change = sums.x / (float)K;
     const bool improved = change < 0.99f * best;
     age = improved ? 0 : age + 1;
@@ -589,11 +703,11 @@ __device__ __forceinline__ int next_row(int* queue, int* flags) {
 
 // kReg kernels keep rows of up to 128 live entries in registers (K <= 128)
 // and fit 2 blocks an SM; the kWide kernels (K > 256) 2; the others 3.
-template <typename CT, bool kReg, bool kWide>
+template <typename CT, bool kBf16, bool kReg, bool kWide>
 __global__ void __launch_bounds__(kThreads, kReg || kWide ? 2 : 3)
 row_fixed_point_kernel(Params p) {
   extern __shared__ __align__(16) float smem[];
-  const Layout L(p.K, p.nmax, p.nhist, kWide);
+  const Layout L(p.K, p.nmax, p.nhist, kWide, kBf16);
   int* hist_s = reinterpret_cast<int*>(smem + L.hist);
   int* flags = reinterpret_cast<int*>(smem + L.flags);
   const int tid = threadIdx.x;
@@ -635,8 +749,8 @@ row_fixed_point_kernel(Params p) {
         if (run <= S) continue;
         sweeps = S;
       }
-      const RowRun r = run_row<CT, kReg, kWide>(p, L, smem, row, sweeps,
-                                                phase == 0);
+      const RowRun r = run_row<CT, kBf16, kReg, kWide>(p, L, smem, row,
+                                                       sweeps, phase == 0);
       if (phase == 0 && tid == 0) {
         p.row_run[row] = r.sweeps;
         p.row_nnz[row] = r.nnz;
@@ -654,12 +768,16 @@ row_fixed_point_kernel(Params p) {
 // blocks as fit on the card at once, at most one a row, and, where a row
 // can stream (L > nmax), at most list_blocks (never binding: the buffer
 // then takes ~72 KB a block, 3 blocks an SM, or at K > 256 half an SM's
-// shared memory or more, 2 or 1).
-template <typename CT>
+// shared memory or more, 2 or 1).  A slot's bytes follow the table's
+// element: half at bf16 (kBf16), so the buffer holds about twice the
+// entries.
+template <typename CT, bool kBf16>
 cudaError_t launch_row_fixed_point(Params& p, bool registers,
                                    cudaStream_t stream) {
+  const int unit = kBf16 ? 8 : 4;  // topics a 16-byte copy of a table row
   if (p.D < 1 || p.K < 1 || p.K > kMaxTopics || p.inner_iterations < 1 ||
-      p.L < 0 || p.L > p.ld || p.ldb != 4 * ((p.K + 3) / 4))
+      p.L < 0 || p.L > p.ld || p.table_bf16 != (int)kBf16 ||
+      p.ldb != unit * ((p.K + unit - 1) / unit))
     return cudaErrorInvalidValue;
   const bool wide = p.K > kThreads;
   int dev = 0, sms = 0, per_sm = 0, sm_bytes = 0, optin = 0;
@@ -674,8 +792,8 @@ cudaError_t launch_row_fixed_point(Params& p, bool registers,
                                dev);
   if (err != cudaSuccess) return err;
   p.nhist = min(p.inner_iterations, kMaxHist);
-  const Layout fixed(p.K, 0, p.nhist, wide);
-  const int per_slot = (int)sizeof(float) * (fixed.s4 * 4 + 3);
+  const Layout fixed(p.K, 0, p.nhist, wide, kBf16);
+  const int per_slot = (int)sizeof(float) * (fixed.slot + 3);
   const int fixed_bytes = (int)sizeof(float) * (fixed.total + 12);
   int nmax;
   if (!wide) {
@@ -691,12 +809,12 @@ cudaError_t launch_row_fixed_point(Params& p, bool registers,
   const bool streams = p.L > p.nmax;
   if (streams && (!p.lists || p.list_blocks < 1))
     return cudaErrorInvalidValue;
-  const size_t smem =
-      sizeof(float) * (size_t)Layout(p.K, p.nmax, p.nhist, wide).total;
-  auto kern = wide ? row_fixed_point_kernel<CT, false, true>
+  const size_t smem = sizeof(float) *
+                      (size_t)Layout(p.K, p.nmax, p.nhist, wide, kBf16).total;
+  auto kern = wide ? row_fixed_point_kernel<CT, kBf16, false, true>
               : registers && p.K <= 4 * 32
-                  ? row_fixed_point_kernel<CT, true, false>
-                  : row_fixed_point_kernel<CT, false, false>;
+                  ? row_fixed_point_kernel<CT, kBf16, true, false>
+                  : row_fixed_point_kernel<CT, kBf16, false, false>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return err;

@@ -14,8 +14,10 @@ layouts:
   kernel on the card);
 
 then lambda = eta + sstats, the ELBO and, on schedule, the Newton
-alpha/eta updates.  ``export_beta``, ``save``/``load`` and the CLIs
-(``pylda_tpu_torch.cli``) sit on top (``models/base.py``).
+alpha/eta updates.  ``compute_dtype="bfloat16"`` runs every kernel (or,
+on the CPU, every plain version) in the JAX engine's bf16 operand mode.
+``export_beta``, ``save``/``load`` and the CLIs (``pylda_tpu_torch.cli``)
+sit on top (``models/base.py``).
 
 PyTorch runs eagerly, so there is no jit or scan here: ``learning_many``
 is a Python loop whose kernels queue on the device stream; it reads the
@@ -135,11 +137,6 @@ class VariationalBayes(Inferencer):
     ):
         super().__init__(config, device)
         cfg = self._config
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError(
-                "compute_dtype='bfloat16' is not ported yet: the kernels "
-                "compute in float32 (ROADMAP.md Queue 2, bf16 operands)"
-            )
         if cfg.gamma_init != "ones":
             raise NotImplementedError(
                 f"gamma_init={cfg.gamma_init!r} needs a torch random stream; "
@@ -271,6 +268,7 @@ class VariationalBayes(Inferencer):
             convergence_threshold=cfg.convergence_threshold,
             eps=cfg.eps,
             stall_patience=cfg.estep_stall_patience,
+            compute_dtype=cfg.compute_dtype,
         )
 
     def _run_estep_dense(self, batches: List[_Dense], lam, alpha, gamma0s):
@@ -309,8 +307,8 @@ class VariationalBayes(Inferencer):
         cfg = self._config
         eeb = exp_dirichlet_expectation_fast(lam)
         # The kernel gathers rows of expElogbeta^T: build the table once
-        # for all buckets of this E-step.
-        eeb_t = gather_table(eeb) if eeb.is_cuda else None
+        # for all buckets of this E-step (bf16 in the bf16 operand mode).
+        eeb_t = gather_table(eeb, cfg.compute_dtype) if eeb.is_cuda else None
         kw = self._fixed_point_kw()
         rows, sweeps = [], []
         for b, gamma0 in zip(batches, gamma0s):
@@ -328,7 +326,8 @@ class VariationalBayes(Inferencer):
         sstats = None
         token_score = torch.zeros((), dtype=lam.dtype, device=lam.device)
         for counts, cidx in plan.chunks:
-            ss, tok = dense_sstats(counts, et_docs[cidx], eeb, eps=cfg.eps)
+            ss, tok = dense_sstats(counts, et_docs[cidx], eeb, eps=cfg.eps,
+                                   compute_dtype=cfg.compute_dtype)
             sstats = ss if sstats is None else sstats + ss
             token_score = token_score + tok
         theta_score = theta_elbo(gamma_docs, alpha, plan.docs_mask)

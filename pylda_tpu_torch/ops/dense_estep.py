@@ -18,7 +18,10 @@ bytes, at the dense flagship's 2.8% nonzeros); it is held back by each
 it returns the same bits on every call (each sum has one owner, row
 splits meet in a fixed order).  For CPU tensors it runs the plain
 version, ``pylda_tpu_torch.ops.estep.estep_dense``.  A CUDA tensor the
-kernel does not take raises.
+kernel does not take raises.  ``compute_dtype="bfloat16"`` launches both
+kernels' bf16 builds (a bf16 gather table; expEtheta, expElogbeta in
+phinorm and the ratio rounded as the reference rounds them), never the
+float32 builds.
 """
 
 from __future__ import annotations
@@ -29,17 +32,19 @@ import torch
 
 from pylda_tpu_torch.ops import row_fixed_point
 from pylda_tpu_torch.ops.dirichlet import exp_dirichlet_expectation
-from pylda_tpu_torch.ops.estep import estep_dense
+from pylda_tpu_torch.ops.estep import check_compute_dtype, estep_dense
 from pylda_tpu_torch.ops.row_fixed_point import MAX_TOPICS
 from pylda_tpu_torch.ops.sstats import dense_sstats
 
 # Launches of the gamma kernel made by dense_estep (one per call on CUDA
-# tensors; its final pass counts in ops.sstats.LAUNCHES).
+# tensors; its final pass counts in ops.sstats): of the float32 build, and
+# of the bf16 build.
 LAUNCHES = 0
+BF16_LAUNCHES = 0
 
 
-def _kernel():
-    return row_fixed_point.entry("dense_gamma")
+def _kernel(compute_dtype: str):
+    return row_fixed_point.entry("dense_gamma", compute_dtype)
 
 
 def dense_estep(
@@ -55,6 +60,7 @@ def dense_estep(
     extra_sweeps_out: Optional[torch.Tensor] = None,
     row_exit_out: Optional[torch.Tensor] = None,
     geometry_out: Optional[dict] = None,
+    compute_dtype: str = "float32",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """(gamma [D, K], sstats [K, V], token score 0-d, sweeps_used 0-d
     int32) — see ``estep_dense``.  Optional outputs, filled on CUDA
@@ -69,13 +75,15 @@ def dense_estep(
       (1-based; 0 if it never was);
     - ``geometry_out`` (a dict) gets the gamma launch's
       ``row_fixed_point.GEOMETRY``."""
-    global LAUNCHES
+    global LAUNCHES, BF16_LAUNCHES
+    check_compute_dtype(compute_dtype)
     if not counts.is_cuda:
         return estep_dense(
             counts, gamma_init, exp_elog_beta, alpha,
             inner_iterations=inner_iterations,
             convergence_threshold=convergence_threshold,
             eps=eps, stall_patience=stall_patience,
+            compute_dtype=compute_dtype,
         )
     D, Vc = counts.shape
     K, V = exp_elog_beta.shape
@@ -108,14 +116,19 @@ def dense_estep(
                 torch.zeros((), dtype=torch.int32, device=dev))
     counts = counts.contiguous()
     gamma, sweeps = row_fixed_point.launch(
-        _kernel(), None, counts, V, row_fixed_point.gather_table(exp_elog_beta),
+        _kernel(compute_dtype), None, counts, V,
+        row_fixed_point.gather_table(exp_elog_beta, compute_dtype),
         alpha, gamma_init, inner_iterations, convergence_threshold, eps,
         stall_patience, row_sweeps_out=row_sweeps_out,
         row_exit_out=row_exit_out, extra_sweeps_out=extra_sweeps_out,
         geometry_out=geometry_out)
-    LAUNCHES += 1
+    if compute_dtype == "bfloat16":
+        BF16_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     # The final pass at the EXACT expectation of the converged gamma.
     sstats, token_score = dense_sstats(
-        counts, exp_dirichlet_expectation(gamma), exp_elog_beta, eps=eps
+        counts, exp_dirichlet_expectation(gamma), exp_elog_beta, eps=eps,
+        compute_dtype=compute_dtype,
     )
     return gamma, sstats, token_score, sweeps

@@ -7,10 +7,21 @@ for CPU tensors, the tests hold them against the JAX functions, and
 ``chip_smoke.py`` holds each kernel against them on the card.
 
 Only the "dtk" layout ([D, T, K], topics last) is ported: the JAX
-package's "kdt" layout, bf16 factor storage and token-axis blocking
-(``_factor_layout``, ``_b_storage_dtype``, ``_pick_t_block``) are
-lowering choices for XLA on a TPU.  All contractions run in the input
-dtype (float32, or float64 in the tests).
+package's "kdt" layout, bf16 factor storage in float32 mode and
+token-axis blocking (``_factor_layout``, ``_b_storage_dtype``,
+``_pick_t_block``) are lowering choices for XLA on a TPU.  All
+contractions run in the input dtype (float32, or float64 in the tests).
+
+``compute_dtype="bfloat16"`` is the JAX functions' bf16 operand mode: each
+contraction's inputs are rounded to bf16 (round to nearest even) and the
+sums stay in the input dtype.  Each function rounds at exactly the
+reference's three points and nowhere else — the gathered or dense
+expElogbeta, expEtheta as it enters phinorm (and, in the sufficient
+statistics, the sum), and the ratio counts / phinorm — while phinorm,
+gamma' = alpha + expEtheta * (...), the token score and the outer
+multiply of the sufficient statistics by expElogbeta keep the unrounded
+values.  In float64 the same points give the "bf16 operands, exact sums"
+version the kernels' bf16 builds are held against.
 """
 
 from __future__ import annotations
@@ -19,11 +30,32 @@ from typing import Tuple
 
 import torch
 
+COMPUTE_DTYPES = ("float32", "bfloat16")
+
 from pylda_tpu_torch.ops.dirichlet import (
     exp_dirichlet_expectation,
     exp_dirichlet_expectation_fast,
     theta_elbo_per_doc,
 )
+
+
+def check_compute_dtype(compute_dtype: str) -> bool:
+    """True for the bf16 operand mode; raises on an unknown mode."""
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, "
+                         f"got {compute_dtype!r}")
+    return compute_dtype == "bfloat16"
+
+
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (round to nearest even), kept in x's dtype."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def _rounder(compute_dtype: str):
+    """The rounding of a contraction's operands: bf16_round in bf16 mode,
+    else none."""
+    return bf16_round if check_compute_dtype(compute_dtype) else (lambda x: x)
 
 
 def _exit_update(change, best, age, done, threshold, use_stall, patience):
@@ -94,16 +126,19 @@ def _fixed_point(sweep, gamma_init, inner_iterations, convergence_threshold,
 def _ragged_sweep_loop(
     ids, cnts, gamma_init, exp_elog_beta, alpha,
     inner_iterations, convergence_threshold, eps, stall_patience=0,
+    compute_dtype="float32",
 ):
     """Ragged fixed point over one (ids, cnts) block: the block
     B = expElogbeta.T[ids] ([D, T, K]) is gathered once; each sweep is two
-    batched contractions against it."""
-    B = exp_elog_beta.T[ids]  # [D, T, K]
+    batched contractions against it.  bf16 mode rounds B, expEtheta as it
+    enters phinorm, and the ratio."""
+    rnd = _rounder(compute_dtype)
+    B = rnd(exp_elog_beta.T[ids])  # [D, T, K]
 
     def sweep(exp_etheta):
-        phinorm = torch.einsum("dk,dtk->dt", exp_etheta, B) + eps
+        phinorm = torch.einsum("dk,dtk->dt", rnd(exp_etheta), B) + eps
         return alpha[None, :] + exp_etheta * torch.einsum(
-            "dt,dtk->dk", cnts / phinorm, B
+            "dt,dtk->dk", rnd(cnts / phinorm), B
         )
 
     return _fixed_point(sweep, gamma_init, inner_iterations,
@@ -119,9 +154,11 @@ def estep_dense(
     convergence_threshold: float = 1e-5,
     eps: float = 1e-30,
     stall_patience: int = 0,
+    compute_dtype: str = "float32",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Dense doc-term E-step — ``pylda_tpu``'s ``estep_dense`` in the input
-    dtype.  Each sweep is two products against expElogbeta:
+    dtype (bf16 mode: expElogbeta, expEtheta in phinorm and the ratio
+    rounded).  Each sweep is two products against expElogbeta:
 
         phinorm = expEtheta @ expElogbeta + eps            # [D, Vc]
         gamma'  = alpha + expEtheta * ((counts / phinorm) @ expElogbeta^T)
@@ -133,17 +170,20 @@ def estep_dense(
     token_score, sweeps_used) with sweeps_used a 0-d int32 tensor."""
     # Padding columns are all-zero counts: leave them out of the sweeps.
     c = counts[:, : exp_elog_beta.shape[1]].to(gamma_init.dtype)
+    rnd = _rounder(compute_dtype)
+    eeb_c = rnd(exp_elog_beta)
 
     def sweep(exp_etheta):
-        phinorm = exp_etheta @ exp_elog_beta + eps
+        phinorm = rnd(exp_etheta) @ eeb_c + eps
         return alpha[None, :] + exp_etheta * (
-            (c / phinorm) @ exp_elog_beta.T
+            rnd(c / phinorm) @ eeb_c.T
         )
 
     i, gamma = _fixed_point(sweep, gamma_init, inner_iterations,
                             convergence_threshold, stall_patience)
     sstats, token_score = estep_dense_sstats(
-        counts, exp_dirichlet_expectation(gamma), exp_elog_beta, eps
+        counts, exp_dirichlet_expectation(gamma), exp_elog_beta, eps,
+        compute_dtype=compute_dtype,
     )
     return (gamma, sstats, token_score,
             torch.tensor(i, dtype=torch.int32, device=gamma.device))
@@ -159,6 +199,7 @@ def estep_ragged_gamma(
     convergence_threshold: float = 1e-5,
     eps: float = 1e-30,
     stall_patience: int = 0,
+    compute_dtype: str = "float32",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Ragged fixed point only — returns (gamma, sweeps_used) with
     sweeps_used a 0-d int32 tensor, as ``pylda_tpu``'s
@@ -167,7 +208,7 @@ def estep_ragged_gamma(
     i, gamma = _ragged_sweep_loop(
         ids, cnts, gamma_init, exp_elog_beta, alpha,
         inner_iterations, convergence_threshold, eps,
-        stall_patience=stall_patience,
+        stall_patience=stall_patience, compute_dtype=compute_dtype,
     )
     return gamma, torch.tensor(i, dtype=torch.int32, device=gamma.device)
 
@@ -177,6 +218,7 @@ def estep_dense_sstats(
     exp_etheta: torch.Tensor,  # [D, K] exp E[log theta] at converged gamma
     exp_elog_beta: torch.Tensor,  # [K, V]
     eps: float = 1e-30,
+    compute_dtype: str = "float32",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Scatter-free sufficient statistics + token score from dense counts:
 
@@ -187,18 +229,22 @@ def estep_dense_sstats(
     ``counts`` may arrive vocab-prepadded (Vc > V, zero columns) and in
     bf16 (exact for integer counts <= 256): it is upcast to the compute
     dtype.  Padding columns see expElogbeta = 0 and are sliced away;
-    all-zero rows contribute nothing."""
+    all-zero rows contribute nothing.  bf16 mode rounds expEtheta (in
+    both products), expElogbeta in phinorm and the ratio; phinorm, the
+    score and the outer multiply by expElogbeta stay unrounded."""
     dt = exp_etheta.dtype
     V = exp_elog_beta.shape[1]
     Vc = counts.shape[1]
     c = counts.to(dt)
+    rnd = _rounder(compute_dtype)
     eeb_w = (
         torch.nn.functional.pad(exp_elog_beta, (0, Vc - V)) if Vc > V
         else exp_elog_beta
     )
-    phinorm = exp_etheta @ eeb_w + eps  # [D, Vc]
+    et_c = rnd(exp_etheta)
+    phinorm = et_c @ rnd(eeb_w) + eps  # [D, Vc]
     ratio = c / phinorm
-    sstats = exp_elog_beta * (exp_etheta.T @ ratio)[:, :V]
+    sstats = exp_elog_beta * (et_c.T @ rnd(ratio))[:, :V]
     token_score = (c * torch.log(phinorm)).sum()
     return sstats, token_score
 

@@ -9,7 +9,9 @@ note in ``csrc/ragged_gamma.cu``, design in ``csrc/row_fixed_point.cuh``);
 for CPU tensors it runs the plain version,
 ``pylda_tpu_torch.ops.estep.estep_ragged_gamma``.  A CUDA tensor the
 kernel does not take raises.  The launch itself, shared with the dense
-kernel's wrapper, is ``ops/row_fixed_point.py``.
+kernel's wrapper, is ``ops/row_fixed_point.py``.  ``compute_dtype=
+"bfloat16"`` launches the kernel's bf16 build on a bf16 gather table (or
+runs the plain version in that mode on the CPU); never the float32 build.
 """
 
 from __future__ import annotations
@@ -19,15 +21,21 @@ from typing import Optional, Tuple
 import torch
 
 from pylda_tpu_torch.ops import row_fixed_point
-from pylda_tpu_torch.ops.estep import estep_ragged_gamma
-from pylda_tpu_torch.ops.row_fixed_point import MAX_TOPICS, gather_table
+from pylda_tpu_torch.ops.estep import check_compute_dtype, estep_ragged_gamma
+from pylda_tpu_torch.ops.row_fixed_point import (
+    MAX_TOPICS,
+    gather_table,
+    table_width,
+)
 
-# Kernel launches made by ragged_gamma (one per call on CUDA tensors).
+# Kernel launches made by ragged_gamma (one per call on CUDA tensors): of
+# the float32 build, and of the bf16 build.
 LAUNCHES = 0
+BF16_LAUNCHES = 0
 
 
-def _kernel():
-    return row_fixed_point.entry("ragged_gamma")
+def _kernel(compute_dtype: str):
+    return row_fixed_point.entry("ragged_gamma", compute_dtype)
 
 
 def ragged_gamma(
@@ -46,11 +54,12 @@ def ragged_gamma(
     row_exit_out: Optional[torch.Tensor] = None,
     row_sweeps_out: Optional[torch.Tensor] = None,
     geometry_out: Optional[dict] = None,
+    compute_dtype: str = "float32",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(gamma [D, K], sweeps_used 0-d int32) — see ``estep_ragged_gamma``.
 
-    ``eeb_t`` optionally passes ``gather_table(exp_elog_beta)``.  Optional
-    outputs, filled on CUDA tensors only:
+    ``eeb_t`` optionally passes ``gather_table(exp_elog_beta,
+    compute_dtype)``.  Optional outputs, filled on CUDA tensors only:
 
     - ``slots_out`` (1-element int64) has added to it the live token slots
       of each row times the sweeps the batch loop computes it in (frozen
@@ -66,13 +75,15 @@ def ragged_gamma(
     - ``geometry_out`` (a dict) gets the launch's
       ``row_fixed_point.GEOMETRY``: the slot buffer's live entries (a row
       with more streams), shared memory a block, blocks an SM, grid."""
-    global LAUNCHES
+    global LAUNCHES, BF16_LAUNCHES
+    bf16 = check_compute_dtype(compute_dtype)
     if not ids.is_cuda:
         return estep_ragged_gamma(
             ids, cnts, gamma_init, exp_elog_beta, alpha,
             inner_iterations=inner_iterations,
             convergence_threshold=convergence_threshold,
             eps=eps, stall_patience=stall_patience,
+            compute_dtype=compute_dtype,
         )
     D, T = ids.shape
     K, V = exp_elog_beta.shape
@@ -93,10 +104,12 @@ def ragged_gamma(
         raise ValueError("inner_iterations must be positive")
     dev = ids.device
     if eeb_t is None:
-        eeb_t = gather_table(exp_elog_beta)
-    ldb = -(-K // 4) * 4
-    if eeb_t.shape != (V, ldb) or not eeb_t.is_contiguous():
-        raise ValueError("eeb_t must be gather_table(exp_elog_beta)")
+        eeb_t = gather_table(exp_elog_beta, compute_dtype)
+    if (eeb_t.shape != (V, table_width(K, compute_dtype))
+            or eeb_t.dtype != (torch.bfloat16 if bf16 else torch.float32)
+            or not eeb_t.is_contiguous()):
+        raise ValueError("eeb_t must be gather_table(exp_elog_beta, "
+                         f"{compute_dtype!r})")
     for t in (cnts, gamma_init, alpha, eeb_t):
         if t.device != dev:
             raise ValueError("all inputs must be on one device")
@@ -104,9 +117,13 @@ def ragged_gamma(
         return gamma_init.clone(), torch.zeros((), dtype=torch.int32,
                                                device=dev)
     gamma, sweeps = row_fixed_point.launch(
-        _kernel(), ids, cnts, T, eeb_t, alpha, gamma_init, inner_iterations,
+        _kernel(compute_dtype), ids, cnts, T,
+        eeb_t, alpha, gamma_init, inner_iterations,
         convergence_threshold, eps, stall_patience, row_exit_out=row_exit_out,
         row_sweeps_out=row_sweeps_out, slots_out=slots_out,
         extra_sweeps_out=extra_sweeps_out, geometry_out=geometry_out)
-    LAUNCHES += 1
+    if compute_dtype == "bfloat16":
+        BF16_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return gamma, sweeps

@@ -11,7 +11,10 @@ Both C entries take the same two arguments, a pointer to the core's
 ``launch`` allocates the scratch the kernel needs, fills a ``Params``,
 makes the call and returns the output gamma and sweep count.  The
 launcher writes the geometry it chose back into the ``Params``
-(``GEOMETRY``).  Both kernels take 1 <= K <= ``MAX_TOPICS``.
+(``GEOMETRY``).  Both kernels take 1 <= K <= ``MAX_TOPICS``.  Each is
+built in two modes (``ops/_build.py``): float32, and the bf16 operand
+mode, whose entry takes a bf16 gather table (``gather_table(..,
+"bfloat16")``) and rounds expEtheta and the ratio as the reference does.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch
 
 from pylda_tpu_torch.ops import _build
 from pylda_tpu_torch.ops.dirichlet import exp_dirichlet_expectation
+from pylda_tpu_torch.ops.estep import check_compute_dtype
 
 # The blocks of one streamed row's scratch list an SM needs: a row longer
 # than the slot buffer implies a ~72 KB buffer, so 3 blocks an SM (at
@@ -50,7 +54,8 @@ class Params(ctypes.Structure):
         ("sweeps_out", _P), ("row_sweeps", _P), ("row_exit", _P),
         ("slots_out", _P), ("extra_out", _P), ("lists", _P),
         ("D", _I), ("ld", _I), ("L", _I), ("K", _I), ("ldb", _I),
-        ("cnts_bf16", _I), ("list_blocks", _I), ("nmax", _I), ("nhist", _I),
+        ("cnts_bf16", _I), ("table_bf16", _I), ("list_blocks", _I),
+        ("nmax", _I), ("nhist", _I),
         ("inner_iterations", _I), ("threshold", _F), ("eps", _F),
         ("patience", _I), ("use_stall", _I),
         ("smem_bytes", _I), ("blocks_per_sm", _I), ("grid", _I),
@@ -68,25 +73,40 @@ def bind(lib: ctypes.CDLL, name: str) -> Callable:
 _ENTRIES = {}
 
 
-def entry(source: str) -> Callable:
-    """The bound entry ``pylda_<source>`` of ``csrc/<source>.cu``."""
-    fn = _ENTRIES.get(source)
+def entry(source: str, compute_dtype: str = "float32") -> Callable:
+    """The bound entry ``pylda_<source>`` of ``csrc/<source>.cu`` built in
+    the ``compute_dtype`` mode."""
+    fn = _ENTRIES.get((source, compute_dtype))
     if fn is None:
-        fn = _ENTRIES[source] = bind(_build.library(source), f"pylda_{source}")
+        fn = _ENTRIES[(source, compute_dtype)] = bind(
+            _build.library(source, compute_dtype), f"pylda_{source}")
     return fn
 
 
-def gather_table(exp_elog_beta: torch.Tensor) -> torch.Tensor:
-    """expElogbeta^T as the kernels gather it: [V, ldb] with ldb = K
-    rounded up to a multiple of 4 (zero columns), so each row is whole
-    16-byte loads.  Callers running several buckets against one
-    expElogbeta build it once and pass it as ``eeb_t``."""
+def table_width(K: int, compute_dtype: str = "float32") -> int:
+    """ldb of the gather table: K rounded up to 4 (float32) or 8 (bf16),
+    so each row is whole 16-byte copies."""
+    unit = 8 if check_compute_dtype(compute_dtype) else 4
+    return -(-K // unit) * unit
+
+
+def gather_table(exp_elog_beta: torch.Tensor,
+                 compute_dtype: str = "float32") -> torch.Tensor:
+    """expElogbeta^T as the kernels gather it: [V, ldb] with ldb =
+    ``table_width(K, compute_dtype)`` (zero columns past K), in float32,
+    or in bf16 (each value rounded to nearest even) for the bf16 operand
+    mode, built from expElogbeta in one pass.  Callers running several
+    buckets against one expElogbeta build it once and pass it as
+    ``eeb_t``."""
     K, V = exp_elog_beta.shape
-    ldb = -(-K // 4) * 4
-    if ldb == K:
+    ldb = table_width(K, compute_dtype)
+    dtype = (torch.bfloat16 if compute_dtype == "bfloat16"
+             else exp_elog_beta.dtype)
+    if ldb == K and dtype == exp_elog_beta.dtype:
         return exp_elog_beta.T.contiguous()
-    table = exp_elog_beta.new_zeros((V, ldb))
-    table[:, :K] = exp_elog_beta.T
+    table = exp_elog_beta.new_empty((V, ldb), dtype=dtype)
+    table[:, :K].copy_(exp_elog_beta.T)
+    table[:, K:].zero_()
     return table
 
 
@@ -108,7 +128,7 @@ def launch(
     ids: Optional[torch.Tensor],  # [D, ld] int32, or None: id = column
     cnts: torch.Tensor,  # [D, ld] f32 or bf16
     length: int,  # entries of a row used: its first `length` columns
-    table: torch.Tensor,  # gather_table(expElogbeta) [V, ldb]
+    table: torch.Tensor,  # gather_table(expElogbeta, mode) [V, ldb]
     alpha: torch.Tensor,  # [K] f32
     gamma_init: torch.Tensor,  # [D, K] f32
     inner_iterations: int,
@@ -157,7 +177,8 @@ def launch(
         row_exit=_ptr(row_exit_out), slots_out=_ptr(slots_out),
         extra_out=_ptr(extra_sweeps_out), lists=lists.data_ptr(),
         D=D, ld=cnts.shape[1], L=length, K=K, ldb=table.shape[1],
-        cnts_bf16=int(cnts.dtype == torch.bfloat16), list_blocks=list_blocks,
+        cnts_bf16=int(cnts.dtype == torch.bfloat16),
+        table_bf16=int(table.dtype == torch.bfloat16), list_blocks=list_blocks,
         inner_iterations=int(inner_iterations),
         threshold=float(convergence_threshold), eps=float(eps),
         patience=int(stall_patience),

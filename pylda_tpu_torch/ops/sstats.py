@@ -21,6 +21,9 @@ splits' partial sums meet in split order, so two calls on the same inputs
 return the same bits.  The scratch (score and split partials, the tiles'
 counters, which each launch leaves zero) is kept per device and stream
 and reused.  The kernel takes 1 <= K <= ``MAX_TOPICS``.
+``compute_dtype="bfloat16"`` launches its bf16 build (``ops/_build.py``:
+expEtheta, expElogbeta in phinorm and the ratio rounded to bf16, the
+outer multiply by expElogbeta in float32), never the float32 build.
 """
 
 from __future__ import annotations
@@ -33,10 +36,12 @@ from typing import Dict, Tuple
 import torch
 
 from pylda_tpu_torch.ops import _build
-from pylda_tpu_torch.ops.estep import estep_dense_sstats
+from pylda_tpu_torch.ops.estep import check_compute_dtype, estep_dense_sstats
 
-# Kernel launches made by dense_sstats (one per call on CUDA tensors).
+# Kernel launches made by dense_sstats (one per call on CUDA tensors): of
+# the float32 build, and of the bf16 build.
 LAUNCHES = 0
+BF16_LAUNCHES = 0
 # Largest topic count the kernel takes (its largest build).
 MAX_TOPICS = 4096
 # Threads of a CTA; vocab columns a CTA owns at 4 lanes a column.
@@ -61,7 +66,7 @@ BUILDS = ((1, 4), (2, 4), (4, 4), (7, 4), (8, 4), (16, 4),
 MIN_CTAS_PER_SM = 2
 CHUNKS_PER_SPLIT = 26
 
-_BOUND = False
+_BOUND = set()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,12 +139,11 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-def _lib() -> ctypes.CDLL:
-    global _BOUND
-    lib = _build.library("dense_sstats")
-    if not _BOUND:
+def _lib(compute_dtype: str) -> ctypes.CDLL:
+    lib = _build.library("dense_sstats", compute_dtype)
+    if compute_dtype not in _BOUND:
         bind(lib)
-        _BOUND = True
+        _BOUND.add(compute_dtype)
     return lib
 
 
@@ -175,11 +179,14 @@ def dense_sstats(
     exp_etheta: torch.Tensor,  # [D, K] f32
     exp_elog_beta: torch.Tensor,  # [K, V] f32
     eps: float = 1e-30,
+    compute_dtype: str = "float32",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(sstats [K, V], token score 0-d) — see ``estep_dense_sstats``."""
-    global LAUNCHES
+    global LAUNCHES, BF16_LAUNCHES
+    check_compute_dtype(compute_dtype)
     if not counts.is_cuda:
-        return estep_dense_sstats(counts, exp_etheta, exp_elog_beta, eps)
+        return estep_dense_sstats(counts, exp_etheta, exp_elog_beta, eps,
+                                  compute_dtype=compute_dtype)
     D, Vc = counts.shape
     K, V = exp_elog_beta.shape
     if counts.dtype not in (torch.bfloat16, torch.float32):
@@ -199,9 +206,12 @@ def dense_sstats(
     dev = counts.device
     if exp_etheta.device != dev or exp_elog_beta.device != dev:
         raise ValueError("all inputs must be on one device")
-    out = launch(_lib(), counts.contiguous(), exp_etheta.contiguous(),
+    out = launch(_lib(compute_dtype), counts.contiguous(), exp_etheta.contiguous(),
                  exp_elog_beta.contiguous(), eps)
-    LAUNCHES += 1
+    if compute_dtype == "bfloat16":
+        BF16_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return out
 
 

@@ -101,8 +101,8 @@ def build() -> dict:
         lib.phase_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
     kernels = {name: row_fixed_point.bind(lib, f"pylda_{name}")
                for name, lib in libs.items()}
-    ragged_mod._kernel = lambda: kernels["ragged_gamma"]
-    dense_mod._kernel = lambda: kernels["dense_gamma"]
+    ragged_mod._kernel = lambda compute_dtype: kernels["ragged_gamma"]
+    dense_mod._kernel = lambda compute_dtype: kernels["dense_gamma"]
     return libs
 
 

@@ -696,3 +696,224 @@ def test_svi_refuses_large_k_on_card(cuda):
     eng.initialize(corpus)
     with pytest.raises(NotImplementedError, match="Queue 2 item 1"):
         eng.learning()
+
+
+# -- the bf16 builds (compute_dtype="bfloat16") ----------------------------------
+#
+# Held against the plain version with the same rounding points.  Both round
+# the same values, and only f32 summation order differs; where a ratio
+# counts / phinorm lies at a bf16 rounding midpoint, the two versions'
+# phinorm sums can round it one bf16 ulp apart (2^-8).  So after one pinned
+# sweep gamma agrees to rel 1e-5 on all but at most 5% of the live rows,
+# each within 2^-7; sstats at equal inputs agree to the float32 tolerance on
+# all but at most 0.1% of the entries, each within 2^-7 of its value, and
+# the score (f32 phinorm) to rel 1e-5.  At the exit rule the flips are
+# carried forward and rows limit-cycle at the bf16 map's noise floor:
+# each document's share of the bound is held to its share at the float64
+# plain version's gamma (same rounding points) within rel 2e-4, or within
+# twice the float32 plain version's own gap where that is larger (the plain
+# version shares every rounding point and differs from the kernel only in
+# summation order; on the card both reach 2.2e-4 to 3.5e-2 at K = 257 to
+# 4096, scripts/torch_bf16_bound_gaps.py).  The float32 builds miss the one-sweep bar against the bf16 plain
+# version by > 1e-3 (the negative control).
+
+BF16 = "bfloat16"
+BF16_K = [16, 100, 257, 1000, 4096]
+
+
+def _hold_bf16_gamma(g, g_p, cnts_live):
+    live = cnts_live.any(dim=1)
+    rel = ((g - g_p).abs() / g_p.abs()).amax(dim=1)[live]
+    assert float((rel > 1e-5).float().mean()) <= 0.05, float(rel.max())
+    assert float(rel.max()) <= 2.0 ** -7
+
+
+def _hold_bf16_sstats(ss, ss_p):
+    diff, atol = (ss - ss_p).abs(), 1e-6 * float(ss_p.abs().max())
+    off = diff > 1e-4 * ss_p.abs() + atol
+    assert float(off.float().mean()) <= 1e-3, int(off.sum())
+    assert bool((diff <= 2.0 ** -7 * ss_p.abs() + atol).all())
+
+
+def _shares_err(ids, cnts, g, g_ref, eeb, alpha):
+    live = (cnts != 0).any(dim=1)
+    e64, a64 = eeb.double(), alpha.double()
+    args = (ids[live], cnts[live].double())
+    got = ragged_doc_bound(*args, g[live].double(), e64, a64)
+    want = ragged_doc_bound(*args, g_ref[live].double(), e64, a64)
+    return float(((got - want).abs() / want.abs()).max())
+
+
+def _hold_bf16_shares(ids, cnts, g, g_plain, g_64, eeb, alpha):
+    """The kernel's shares of the bound against the float64 plain
+    version's: within 2e-4, or twice the float32 plain version's gap."""
+    bar = max(2e-4, 2.0 * _shares_err(ids, cnts, g_plain, g_64, eeb, alpha))
+    assert _shares_err(ids, cnts, g, g_64, eeb, alpha) <= bar
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("K", BF16_K)
+def test_dense_sstats_bf16_build_matches_plain(cuda, K, bf16):
+    ct, et, eeb = _sparse_sstats_inputs(250, 1500, K, 36, 10, 0.03, bf16,
+                                        cuda, hot=True)
+    before = (sstats_mod.LAUNCHES, sstats_mod.BF16_LAUNCHES)
+    ss, tok = sstats_mod.dense_sstats(ct, et, eeb, compute_dtype=BF16)
+    ss2, tok2 = sstats_mod.dense_sstats(ct, et, eeb, compute_dtype=BF16)
+    assert (sstats_mod.LAUNCHES, sstats_mod.BF16_LAUNCHES) == (
+        before[0], before[1] + 2)
+    ss_p, tok_p = estep_dense_sstats(ct, et, eeb, compute_dtype=BF16)
+    ss_32, _ = sstats_mod.dense_sstats(ct, et, eeb)
+    torch.cuda.synchronize()
+    assert torch.equal(ss, ss2) and torch.equal(tok, tok2)
+    _hold_bf16_sstats(ss, ss_p)
+    assert float(tok) == pytest.approx(float(tok_p), rel=1e-5)
+    # The float32 build is another function: most entries miss the bar.
+    off = (ss_32 - ss_p).abs() > 1e-4 * ss_p.abs() + 1e-6 * ss_p.abs().max()
+    assert float(off.float().mean()) > 0.1
+
+
+def _bf16_ragged_inputs(K, T, dev, seed=11):
+    """40 rows of 1 to T live slots (some rows of the register tile, of
+    the slot buffer and past it, by K and T) at a sharp lambda."""
+    rng = np.random.default_rng(seed)
+    D, V = 40, 3000
+    ids = rng.integers(0, V, (D, T)).astype(np.int32)
+    cnts = rng.integers(1, 4, (D, T)).astype(np.float32)
+    pad = np.arange(T)[None, :] >= rng.integers(1, T + 1, D)[:, None]
+    pad[0] = False  # one full row
+    ids[pad], cnts[pad] = 0, 0.0
+    lam = rng.gamma(0.1, 1.0, (K, V)) * 100.0 + 0.01
+    eeb = exp_dirichlet_expectation(torch.tensor(lam, device=dev).float())
+    g0 = torch.ones((D, K), dtype=torch.float32, device=dev)
+    alpha = torch.full((K,), 1.0 / K, dtype=torch.float32, device=dev)
+    return (torch.tensor(ids, device=dev), torch.tensor(cnts, device=dev),
+            g0, eeb, alpha)
+
+
+# (K, T): the register tile (K <= 128, rows <= 128), rows on both sides of
+# the slot buffer (~330 entries at K = 100, ~125 at 257, ~49 at 1000, 6 at
+# 4096 in the bf16 builds).
+_BF16_RAGGED = [(16, 100), (100, 120), (100, 600), (257, 300), (1000, 160),
+                (4096, 24)]
+
+
+@pytest.mark.parametrize("K,T", _BF16_RAGGED)
+def test_ragged_bf16_build_matches_plain(cuda, K, T):
+    ids, cnts, g0, eeb, alpha = _bf16_ragged_inputs(K, T, cuda)
+    live = (cnts != 0).sum(dim=1)
+    one = dict(inner_iterations=1, convergence_threshold=0.0)
+    geo = {}
+    before = (ragged_mod.LAUNCHES, ragged_mod.BF16_LAUNCHES)
+    g, s = ragged_mod.ragged_gamma(ids, cnts, g0, eeb, alpha,
+                                   compute_dtype=BF16, geometry_out=geo, **one)
+    g2, _ = ragged_mod.ragged_gamma(ids, cnts, g0, eeb, alpha,
+                                    compute_dtype=BF16, **one)
+    assert (ragged_mod.LAUNCHES, ragged_mod.BF16_LAUNCHES) == (
+        before[0], before[1] + 2)
+    g_p, _ = estep_ragged_gamma(ids, cnts, g0, eeb, alpha, compute_dtype=BF16,
+                                **one)
+    g_32, _ = ragged_mod.ragged_gamma(ids, cnts, g0, eeb, alpha, **one)
+    torch.cuda.synchronize()
+    if K > 128 or T > 128:  # else every row takes the register tile
+        assert int(live.min()) <= geo["nmax"]
+    if T > 300 or K >= 1000:
+        assert int(live.max()) > geo["nmax"]  # rows that stream
+    assert int(s) == 1 and torch.equal(g, g2)
+    _hold_bf16_gamma(g, g_p, cnts != 0)
+    assert float(((g_32 - g_p).abs() / g_p.abs()).max()) > 1e-3
+    kw = dict(inner_iterations=50, convergence_threshold=1e-5,
+              stall_patience=6)
+    g, s = ragged_mod.ragged_gamma(ids, cnts, g0, eeb, alpha,
+                                   compute_dtype=BF16, **kw)
+    g_p, _ = estep_ragged_gamma(ids, cnts, g0, eeb, alpha, compute_dtype=BF16,
+                                **kw)
+    g_64, _ = estep_ragged_gamma(ids, cnts.double(), g0.double(),
+                                 eeb.double(), alpha.double(),
+                                 compute_dtype=BF16, **kw)
+    torch.cuda.synchronize()
+    _hold_bf16_shares(ids, cnts, g, g_p, g_64, eeb, alpha)
+
+
+def test_ragged_bf16_stalled_rows_keep_their_bound(cuda):
+    """At SVI config 5's settings (K = 1000, 30 sweeps, threshold 1e-5,
+    patience 6) on a sharp lambda: the rows still updating at S* keep
+    their share of the bound (``_hold_bf16_shares``)."""
+    ids, cnts, g0, eeb, alpha = _bf16_ragged_inputs(1000, 160, cuda, seed=12)
+    kw = dict(inner_iterations=30, convergence_threshold=1e-5,
+              stall_patience=6, compute_dtype=BF16)
+    rows = torch.zeros((ids.shape[0],), dtype=torch.int32, device=cuda)
+    g, s = ragged_mod.ragged_gamma(ids, cnts, g0, eeb, alpha,
+                                   row_sweeps_out=rows, **kw)
+    g_p, _ = estep_ragged_gamma(ids, cnts, g0, eeb, alpha, **kw)
+    g_64, _ = estep_ragged_gamma(ids, cnts.double(), g0.double(),
+                                 eeb.double(), alpha.double(), **kw)
+    torch.cuda.synchronize()
+    m = (rows == int(s)) & (cnts != 0).any(dim=1)
+    assert bool(m.any())
+    _hold_bf16_shares(ids[m], cnts[m], g[m], g_p[m], g_64[m], eeb, alpha)
+
+
+# (D, V, K, bf16 counts, densest row): rows resident and past the slot
+# buffer at each K (at K <= 128 rows of the register tile too).
+_BF16_DENSE = [(60, 4000, 16, True, 0.5), (60, 3000, 100, False, 0.2),
+               (60, 3000, 257, True, 0.2), (40, 1500, 1000, False, 0.2),
+               (24, 600, 4096, True, 0.2)]
+
+
+@pytest.mark.parametrize("D,V,K,bf16,dmax", _BF16_DENSE)
+def test_dense_estep_bf16_build_matches_plain(cuda, D, V, K, bf16, dmax):
+    rng = np.random.default_rng(K)
+    counts = ((rng.random((D, V)) < rng.uniform(0.01, dmax, (D, 1)))
+              * rng.integers(1, 4, (D, V))).astype(np.float32)
+    counts[0] = 0.0
+    counts[0, :3] = 2.0  # a row every slot buffer holds
+    ct = torch.tensor(counts, device=cuda)
+    ct = ct.to(torch.bfloat16) if bf16 else ct
+    lam = rng.gamma(0.1, 1.0, (K, V)) * 100.0 + 0.01
+    eeb = exp_dirichlet_expectation(torch.tensor(lam, device=cuda).float())
+    g0 = torch.ones((D, K), dtype=torch.float32, device=cuda)
+    alpha = torch.full((K,), 1.0 / K, dtype=torch.float32, device=cuda)
+    one = dict(inner_iterations=1, convergence_threshold=0.0)
+    geo = {}
+    before = (dense_mod.LAUNCHES, dense_mod.BF16_LAUNCHES,
+              sstats_mod.LAUNCHES, sstats_mod.BF16_LAUNCHES)
+    g, ss, tok, _ = dense_mod.dense_estep(ct, g0, eeb, alpha,
+                                          compute_dtype=BF16,
+                                          geometry_out=geo, **one)
+    assert (dense_mod.LAUNCHES, dense_mod.BF16_LAUNCHES, sstats_mod.LAUNCHES,
+            sstats_mod.BF16_LAUNCHES) == (before[0], before[1] + 1,
+                                          before[2], before[3] + 1)
+    g_p, _, tok_p, _ = estep_dense(ct, g0, eeb, alpha, compute_dtype=BF16,
+                                   **one)
+    ss_at_k, _ = estep_dense_sstats(ct, exp_dirichlet_expectation(g), eeb,
+                                    compute_dtype=BF16)
+    torch.cuda.synchronize()
+    nnz = (ct != 0).sum(dim=1)
+    assert int(nnz.max()) > geo["nmax"] >= int(nnz.min())
+    _hold_bf16_gamma(g, g_p, ct != 0)
+    _hold_bf16_sstats(ss, ss_at_k)
+    assert float(tok) == pytest.approx(float(tok_p), rel=1e-4)
+    kw = dict(inner_iterations=50, convergence_threshold=1e-5,
+              stall_patience=6, compute_dtype=BF16)
+    g = dense_mod.dense_estep(ct, g0, eeb, alpha, **kw)[0]
+    g_p = estep_dense(ct, g0, eeb, alpha, **kw)[0]
+    g_64 = estep_dense(ct.double(), g0.double(), eeb.double(), alpha.double(),
+                       **kw)[0]
+    order = torch.sort((ct != 0).to(torch.uint8), dim=1, descending=True,
+                       stable=True).indices[:, :int(nnz.max())]
+    torch.cuda.synchronize()
+    _hold_bf16_shares(order.to(torch.int32), ct.gather(1, order).float(), g,
+                      g_p, g_64, eeb, alpha)
+
+
+def test_bf16_table_is_checked(cuda):
+    """A bf16 request launches the bf16 build on a bf16 table and refuses
+    the float32 table (no fallback to the float32 build)."""
+    ids, cnts, g0, eeb, alpha = _bf16_ragged_inputs(100, 40, cuda)
+    with pytest.raises(ValueError, match="gather_table"):
+        ragged_mod.ragged_gamma(ids, cnts, g0, eeb, alpha,
+                                eeb_t=ragged_mod.gather_table(eeb),
+                                compute_dtype=BF16)
+    with pytest.raises(ValueError, match="gather_table"):
+        ragged_mod.ragged_gamma(ids, cnts, g0, eeb, alpha,
+                                eeb_t=ragged_mod.gather_table(eeb, BF16))

@@ -133,9 +133,9 @@ def test_unported_routes_raise(data):
         eng = VariationalBayes(LDAConfig(**{**CFG, **kw}), device="cpu")
         with pytest.raises(NotImplementedError, match=match):
             eng.initialize(data["corpus"], lam_init=data["lam0"])
-    for kw in (dict(compute_dtype="bfloat16"), dict(gamma_init="normal")):
-        with pytest.raises(NotImplementedError):
-            VariationalBayes(LDAConfig(**{**CFG, **kw}), device="cpu")
+    with pytest.raises(NotImplementedError):
+        VariationalBayes(LDAConfig(**{**CFG, "gamma_init": "normal"}),
+                         device="cpu")
 
 
 @pytest.mark.parametrize(
