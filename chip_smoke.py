@@ -52,11 +52,20 @@ Phases, in order (any failure exits non-zero):
    config 5 again in bf16, each held to its float32 run (ELBO rel 2e-3,
    held-out perplexity rel 5e-3); the kernel launch counters of each
    build zeroed just before and read just after;
+   the sampling engines, collapsed Gibbs (``MonteCarlo``) and ``Hybrid``,
+   at BASELINE config 3 at full size (K=100, V=30,000, 4,096 documents,
+   512 held-out): 16 warm and 16 timed sweeps or iterations, 40 more,
+   counts conserved on the card, one under ``torch.profiler`` (busy and
+   idle share, device launches), held-out native and point-estimate
+   perplexity, peak memory, and the gate hybrid point-estimate
+   perplexity <= 1.1x Gibbs's; they are plain PyTorch and must launch no
+   kernel build; at Gibbs's buckets each sampler's sweep on the card is
+   held to the CPU from the same noise, and the count tables bitwise;
 5. CLI: ``pylda_tpu_torch.cli.train``, ``.test`` and ``.infer`` in-process
    on the bundled corpus ``data/de-news-tiny`` (K=10) on the card, with
    ``--inference_mode`` vb and svi and ``--compute_dtype`` float32 and
-   bfloat16, their output files checked and the launch counters zeroed
-   and read;
+   bfloat16, and with gibbs and hybrid (no kernel), their output files
+   checked and the launch counters zeroed and read;
 6. cross-check: at a small size, on each route, at K=16 and at K=300
    (the kernels' wide range), in float32 and in bf16, each engine on the
    card (kernels) and on the CPU (plain versions) give the same bounds.
@@ -156,6 +165,17 @@ BF16_BOUND_FACTOR = 2.0
 # The bf16 engines against the same tree's float32 run: the JAX package's
 # bars for its bf16 mode (tests/test_vb_engine.py).
 BF16_ELBO_RTOL, BF16_PPL_RTOL = 2e-3, 5e-3
+# BASELINE config 3 (as bench_suite.py's config3 builds it): collapsed
+# Gibbs and the hybrid engine at K=100, vocabulary 30k, 4,096 documents of
+# mean length 120 (seed 2), 512 held-out documents of the same beta (seed
+# 102), 5 kept sweeps after 3 burn-in; the gate: hybrid point-estimate
+# perplexity <= 1.1x Gibbs's.
+CFG3 = dict(K=100, V=30_000, D=4096, LEN=120.0, SEED=2, TEST_DOCS=512,
+            TEST_SEED=102, SAMPLES=5, BURN_IN=3, EXTRA=40, GATE=1.1)
+# The sweep on the card against the CPU from the same noise: a draw within
+# an ulp of a boundary may land one topic over (another exp/log/cumsum
+# rounding), so z may differ on this share of the documents.
+SWEEP_DOC_ALLOWANCE = 1e-3
 
 REPO = pathlib.Path(__file__).resolve().parent
 CLI_OUT = REPO / "build" / "chip_smoke_cli"
@@ -680,11 +700,16 @@ def read_launches(mods) -> dict:
 def check_launched(label: str, counts: dict, needed) -> None:
     """Raises unless every kernel build in ``needed`` ran, and no build of
     the other operand mode did (a bf16 path never runs a float32 build,
-    nor the reverse)."""
+    nor the reverse).  With ``needed`` empty (the sampling paths, plain
+    PyTorch) no build may have run at all."""
     print(f"{label}: kernel launches {counts}")
     missing = [k for k in needed if counts[k] < 1]
-    bf16 = needed[0].endswith("_bf16")
-    stray = [k for k, n in counts.items() if n and k.endswith("_bf16") != bf16]
+    if needed:
+        bf16 = needed[0].endswith("_bf16")
+        stray = [k for k, n in counts.items()
+                 if n and k.endswith("_bf16") != bf16]
+    else:
+        stray = [k for k, n in counts.items() if n]
     if missing or stray:
         raise AssertionError(f"{label}: kernels {missing} never ran; builds "
                              f"{stray} of the other mode ran")
@@ -986,7 +1011,6 @@ def run_svi(label, cfg, corpus, test, dev, mods, n) -> dict:
     import torch
 
     from pylda_tpu_torch.models import StochasticVariationalBayes
-    from scripts.torch_engine_profile import busy_us
 
     zero_launches(mods)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1012,24 +1036,13 @@ def run_svi(label, cfg, corpus, test, dev, mods, n) -> dict:
           f"ms a minibatch, {nb} minibatches), {corpus.num_docs / dt:.1f} "
           f"docs/s; bound estimates {[round(e, 1) for e in ests]}; sweeps per "
           f"bucket (last minibatch) {[int(s) for s in eng.last_sweeps]}")
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        eng.learning_many(1)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    busy = busy_us(prof.events())
-    print(f"{label}: one epoch under torch.profiler: wall {wall_us / 1e3:.3f} "
-          f"ms, device busy {busy / 1e3:.3f} ms, idle share "
-          f"{1.0 - busy / wall_us:.3f}")
-    top = sorted((e for e in prof.key_averages()
-                  if e.self_device_time_total > 0),
-                 key=lambda e: -e.self_device_time_total)[:8]
-    for e in top:
-        print(f"  {e.self_device_time_total / 1e3:.3f} ms an epoch, "
-              f"{e.count} launches: {e.key[:90]}")
-    del prof
+    prof = profile_window(lambda: eng.learning_many(1))
+    print(f"{label}: one epoch under torch.profiler: wall "
+          f"{prof['wall_ms']:.3f} ms, device busy {prof['busy_ms']:.3f} ms, "
+          f"idle share {prof['idle_share']:.3f}")
+    for count, dev_us, key in sorted(prof["ops"], key=lambda r: -r[1])[:8]:
+        print(f"  {dev_us / 1e3:.3f} ms an epoch, {count} launches: "
+              f"{key[:90]}")
     t0 = time.perf_counter()
     ll, gamma = eng.inference(test)
     t_inf = time.perf_counter() - t0
@@ -1057,10 +1070,209 @@ def run_svi(label, cfg, corpus, test, dev, mods, n) -> dict:
     return {"launches": counts, "elbo": ests[-1], "perplexity": ppl}
 
 
-def run_cli(mods, mode: str, compute_dtype: str = "float32") -> dict:
+def profile_window(fn) -> dict:
+    """Run ``fn`` once under ``torch.profiler``: host wall time (ending in
+    a synchronize), the device's busy time and idle share, device kernel
+    launches, and (count, device µs, name) of each op with device time."""
+    import torch
+    from torch.autograd import DeviceType
+
+    from scripts.torch_engine_profile import busy_us
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.events()
+    busy = busy_us(events)
+    launches = sum(1 for e in events if e.device_type == DeviceType.CUDA)
+    ops = [(e.count, e.self_device_time_total, e.key)
+           for e in prof.key_averages() if e.self_device_time_total > 0]
+    del prof
+    return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
+            "idle_share": 1.0 - busy / wall_us, "device_launches": launches,
+            "ops": ops}
+
+
+def sampling_conserved(label, eng, corpus) -> None:
+    """Counts conserved on the card: Gibbs's n_kv sums to the corpus's
+    tokens and equals its recount from z, each row of n_dk sums to its
+    slots; the hybrid's sufficient statistics (lambda - eta) sum to the
+    tokens and each document's gamma - alpha to its length."""
+    import numpy as np
+    import torch
+
+    from pylda_tpu_torch.ops.sampling import count_table
+
+    if hasattr(eng, "_n_kv"):
+        K, V = eng._n_kv.shape
+        recount = sum(count_table(b.tokens, b.token_mask, z, K, V)
+                      for b, z in zip(eng._buckets, eng._z))
+        ok = (float(eng._n_kv.sum()) == corpus.num_tokens
+              and torch.equal(recount, eng._n_kv)
+              and all(torch.equal(n.sum(1), b.token_mask.sum(1))
+                      for b, n in zip(eng._buckets, eng._ndk)))
+        what = (f"n_kv sums to {float(eng._n_kv.sum()):.0f} of "
+                f"{corpus.num_tokens} tokens, equals its recount from z, "
+                f"n_dk rows sum to their slots")
+    else:
+        st = eng.state
+        total = float((st.lam - st.eta[None, :]).sum(dtype=torch.float64))
+        lengths = np.asarray([d.size for d in corpus.docs], np.float64)
+        gamma = eng.gamma
+        row_err = np.abs(gamma.sum(1) - float(st.alpha.sum()) - lengths
+                         ).max()
+        ok = (abs(total - corpus.num_tokens) <= 1e-5 * corpus.num_tokens
+              and row_err <= 1e-3)
+        what = (f"lambda - eta sums to {total:.2f} of {corpus.num_tokens} "
+                f"tokens, gamma - alpha rows within {row_err:.2e} of the "
+                f"document lengths")
+    print(f"{label}: conservation on the card: {what} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: counts not conserved")
+
+
+def run_sampling(label, cfg, corpus, test, dev, mods, extra) -> dict:
+    """A sampling engine (Gibbs or hybrid) at BASELINE config 3:
+    initialize, learning_many(16) warm, learning_many(16) timed,
+    learning_many(``extra``) more, conservation on the card, one sweep or
+    iteration under ``torch.profiler``, held-out native and
+    point-estimate perplexity, peak memory.  The launch counters are
+    zeroed just before and read just after: no kernel build may run.
+    Returns the launches and the numbers."""
+    import numpy as np
+    import torch
+
+    from pylda_tpu_torch.models import make_engine
+
+    zero_launches(mods)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    eng = make_engine(cfg, device=dev)
+    eng.initialize(corpus)
+    torch.cuda.synchronize()
+    buckets = eng._buckets if hasattr(eng, "_buckets") else eng._batches
+    print(f"{label}: initialize {time.perf_counter() - t0:.2f} s; sequence "
+          f"buckets {[tuple(b.tokens.shape) for b in buckets]}")
+    objs = eng.learning_many(16)
+    n = 16
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    objs += eng.learning_many(n)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / n
+    unit = "sweep" if cfg.inference_mode == "gibbs" else "iteration"
+    print(f"{label}: learning_many({n}) {dt * 1e3:.3f} ms a {unit}, "
+          f"{corpus.num_docs / dt:.1f} docs/s")
+    t0 = time.perf_counter()
+    objs += eng.learning_many(extra)
+    torch.cuda.synchronize()
+    print(f"{label}: learning_many({extra}) more in "
+          f"{time.perf_counter() - t0:.2f} s; objective every 8th "
+          f"{[round(x, 1) for x in objs[::8]]} last {objs[-1]:.1f}")
+    if not (np.isfinite(objs).all() and objs[-1] > objs[0]):
+        raise AssertionError(f"{label}: objective not finite or not rising")
+    sampling_conserved(label, eng, corpus)
+    prof = profile_window(lambda: eng.learning_many(1))
+    print(f"{label}: one {unit} under torch.profiler: wall "
+          f"{prof['wall_ms']:.3f} ms, device busy {prof['busy_ms']:.3f} ms, "
+          f"idle share {prof['idle_share']:.3f}, {prof['device_launches']} "
+          f"device kernel launches")
+    for count, dev_us, key in sorted(prof["ops"], reverse=True)[:8]:
+        print(f"  {count} launches, {dev_us / 1e3:.3f} ms: {key[:90]}")
+    t0 = time.perf_counter()
+    ppl = eng.perplexity(test)
+    t_ppl = time.perf_counter() - t0
+    pe = eng.point_estimate_perplexity(test)
+    if not (np.isfinite(ppl) and np.isfinite(pe)):
+        raise AssertionError(f"{label}: held-out perplexity not finite")
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"{label}: held-out perplexity on {test.num_docs} docs {ppl:.2f} "
+          f"(native, {t_ppl * 1e3:.1f} ms), point-estimate {pe:.2f}; peak "
+          f"device memory {peak / 2**20:.1f} MiB ({(peak - base) / 2**20:.1f} "
+          f"MiB above the {base / 2**20:.1f} MiB allocated before the phase)")
+    counts = read_launches(mods)
+    check_launched(label, counts, ())
+    return {"engine": eng, "launches": counts, "ms": dt * 1e3,
+            "docs_per_s": corpus.num_docs / dt, "objective": objs[-1],
+            "perplexity": ppl, "point_perplexity": pe,
+            "idle_share": prof["idle_share"], "busy_ms": prof["busy_ms"],
+            "device_launches": prof["device_launches"],
+            "peak_mib": peak / 2**20,
+            "peak_above_base_mib": (peak - base) / 2**20}
+
+
+def sampling_card_vs_cpu(eng, dev) -> None:
+    """The sampling ops on the card against the CPU at config 3's shapes
+    (the Gibbs engine's buckets and factor): each sampler's sweep from
+    noise drawn on the CPU, z and n_dk equal except on at most
+    SWEEP_DOC_ALLOWANCE of the documents, and the count table of every
+    bucket's z bitwise equal."""
+    import torch
+
+    from pylda_tpu_torch.models.gibbs import _log_phi_hat
+    from pylda_tpu_torch.ops.sampling import (
+        count_table,
+        draw_noise,
+        noise_shape,
+        stream,
+        sweep_doc_topics,
+    )
+
+    cfg = eng.config
+    K, V = eng._n_kv.shape
+    log_tw = _log_phi_hat(eng._n_kv, eng.state.eta)
+    i = max(range(len(eng._buckets)),
+            key=lambda j: eng._buckets[j].tokens.numel())
+    b, z0 = eng._buckets[i], eng._z[i]
+    D, L = b.tokens.shape
+    B = cfg.sampler_block_positions
+    bad = []
+    for sampler in ("cdf", "gumbel", "race"):
+        g = stream("cpu", 0xC0DE)
+        noise = [draw_noise(sampler, noise_shape(sampler, D, L, K, B), g)
+                 for _ in range(2)]
+        runs = {}
+        for where in (dev, torch.device("cpu")):
+            args = [x.to(where) for x in (b.tokens, b.token_mask, log_tw,
+                                          eng.state.alpha, z0)]
+            _g, _ss, z, ndk = sweep_doc_topics(
+                *args, lambda s: noise[s], num_types=V, burn_in=1,
+                num_samples=1, sampler=sampler, block_positions=B)
+            runs[where.type] = (z.cpu(), ndk.cpu())
+        (z, ndk), (zc, ndkc) = runs["cuda"], runs["cpu"]
+        differ = int(((z != zc).any(1) | (ndk != ndkc).any(1)).sum())
+        ok = differ <= SWEEP_DOC_ALLOWANCE * D
+        print(f"cross-check sweep {sampler} [{D}, {L}] K={K} B={B}: card and "
+              f"CPU differ on {differ} of {D} documents (allowance "
+              f"{SWEEP_DOC_ALLOWANCE}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            bad.append(f"sweep {sampler}")
+    same = all(
+        torch.equal(count_table(bb.tokens, bb.token_mask, z, K, V).cpu(),
+                    count_table(bb.tokens.cpu(), bb.token_mask.cpu(),
+                                z.cpu(), K, V))
+        for bb, z in zip(eng._buckets, eng._z))
+    print(f"cross-check count_table on {len(eng._buckets)} buckets: card "
+          f"and CPU bitwise equal: {same}")
+    if not same:
+        bad.append("count_table")
+    if bad:
+        raise AssertionError(f"card and CPU sampling disagree: {bad}")
+
+
+def run_cli(mods, mode: str, compute_dtype: str = "float32",
+            needed=None) -> dict:
     """train -> test -> infer through the CLIs' main() on the card, with
     ``--inference_mode=mode`` and ``--compute_dtype=compute_dtype`` (test
-    and infer read the mode from the model file)."""
+    and infer read the mode from the model file); ``needed``: the kernel
+    builds the path must launch (default: the dense route's)."""
     import numpy as np
 
     from pylda_tpu_torch.cli import infer as cli_infer
@@ -1117,8 +1329,9 @@ def run_cli(mods, mode: str, compute_dtype: str = "float32") -> dict:
           f"{corpus_dir} in {time.perf_counter() - t0:.2f} s; run dir "
           f"{run.name}; final held-out perplexity {ppl:.4f}")
     counts = read_launches(mods)
-    check_launched(f"cli {mode} {compute_dtype}", counts,
-                   (f"dense_gamma{suffix}", f"dense_sstats{suffix}"))
+    if needed is None:
+        needed = (f"dense_gamma{suffix}", f"dense_sstats{suffix}")
+    check_launched(f"cli {mode} {compute_dtype}", counts, needed)
     return counts
 
 
@@ -1315,11 +1528,45 @@ def main() -> int:
     by_path["svi5"], by_path["svi5_bf16"] = r32["launches"], r16["launches"]
     del svi5_corpus, svi5_test, svi5_beta
 
+    # -- the sampling engines at BASELINE config 3 (plain PyTorch) -----------
+    c3_kw = dict(num_topics=CFG3["K"], num_types=CFG3["V"],
+                 mean_doc_length=CFG3["LEN"])
+    c3, c3_beta, _ = synthetic_corpus(num_docs=CFG3["D"], seed=CFG3["SEED"],
+                                      **c3_kw)
+    c3_test, _, _ = synthetic_corpus(num_docs=CFG3["TEST_DOCS"],
+                                     seed=CFG3["TEST_SEED"], beta=c3_beta,
+                                     **c3_kw)
+    sampling = {}
+    for mode in ("gibbs", "hybrid"):
+        c3_cfg = LDAConfig(number_of_topics=CFG3["K"], inference_mode=mode,
+                           number_of_samples=CFG3["SAMPLES"],
+                           burn_in_sweeps=CFG3["BURN_IN"], seed=0)
+        r = run_sampling(f"engine {mode} config 3", c3_cfg, c3, c3_test, dev,
+                         mods, CFG3["EXTRA"])
+        eng = r.pop("engine")
+        by_path[mode] = r.pop("launches")
+        sampling[mode] = r
+        if mode == "gibbs":
+            sampling_card_vs_cpu(eng, dev)
+        del eng
+    ratio = (sampling["hybrid"]["point_perplexity"]
+             / sampling["gibbs"]["point_perplexity"])
+    print(f"config 3 gate: hybrid point-estimate perplexity "
+          f"{sampling['hybrid']['point_perplexity']:.2f} is {ratio:.4f}x "
+          f"Gibbs's {sampling['gibbs']['point_perplexity']:.2f} (gate "
+          f"<= {CFG3['GATE']}x) {'ok' if ratio <= CFG3['GATE'] else 'FAIL'}")
+    print(f"sampling: {json.dumps(sampling)}")
+    if not ratio <= CFG3["GATE"]:
+        raise AssertionError("config 3: hybrid misses the 1.1x gate")
+    del c3, c3_test, c3_beta
+
     # -- CLI on the bundled corpus -------------------------------------------
     for mode, cd in itertools.product(("vb", "svi"), ("float32", BF16)):
         path = ("cli" if mode == "vb" else "cli_svi") + (
             "_bf16" if cd == BF16 else "")
         by_path[path] = run_cli(mods, mode, cd)
+    for mode in ("gibbs", "hybrid"):
+        by_path[f"cli_{mode}"] = run_cli(mods, mode, needed=())
     # Each kernel build's launches on each main path (each run zeroed just
     # before and read just after), and their sum.
     paths = {name: {path: got[name] for path, got in by_path.items()}

@@ -9,14 +9,17 @@ kernel written by hand for Hopper (``pylda_tpu_torch/csrc``), built with
 CUDA card unless the caller passes ``device="cpu"``, where each kernel's
 plain PyTorch version runs instead.
 
-Ported so far: batch VB (``VariationalBayes``) and stochastic VI
-(``StochasticVariationalBayes``, minibatches gathered on the device) on
-both layouts — the dense route (V <= ``dense_vocab_threshold``: the dense
-gamma fixed point and sufficient statistics) and the large-vocabulary
-route (ragged gamma fixed point + dense sufficient statistics) — with
-``initialize``, ``learning``, ``learning_many``, ``inference``,
-``perplexity``, ``point_estimate_perplexity`` and ``export_beta``; the
-``model-<N>`` files
+Ported: all four engines of the JAX package.  Batch VB
+(``VariationalBayes``) and stochastic VI (``StochasticVariationalBayes``,
+minibatches gathered on the device) on both layouts — the dense route
+(V <= ``dense_vocab_threshold``: the dense gamma fixed point and
+sufficient statistics) and the large-vocabulary route (ragged gamma fixed
+point + dense sufficient statistics); the sampling engines, collapsed
+Gibbs (``MonteCarlo``) and the hybrid VB/Gibbs engine (``Hybrid``), in
+plain PyTorch on the sequence layout (``ops/sampling.py``; the
+reference's sampling code is XLA, not Pallas).  Each has ``initialize``,
+``learning``, ``learning_many``, ``inference``, ``perplexity``,
+``point_estimate_perplexity`` and ``export_beta``; the ``model-<N>`` files
 (``save``/``load``, npz, readable by either package); the bundled corpus
 and input-directory loading (``corpus.datasets``); and the reference's
 CLIs, ``python -m pylda_tpu_torch.cli.train`` / ``.test`` / ``.infer``.
@@ -26,8 +29,10 @@ from pylda_tpu_torch.utils.config import LDAConfig
 from pylda_tpu_torch.corpus.vocabulary import Vocabulary
 from pylda_tpu_torch.corpus.corpus import Corpus
 from pylda_tpu_torch.models import (
+    Hybrid,
     Inferencer,
     LDAState,
+    MonteCarlo,
     StochasticVariationalBayes,
     VariationalBayes,
     make_engine,
@@ -43,6 +48,8 @@ __all__ = [
     "Corpus",
     "Inferencer",
     "LDAState",
+    "MonteCarlo",
+    "Hybrid",
     "StochasticVariationalBayes",
     "VariationalBayes",
     "make_engine",

@@ -73,8 +73,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--snapshot_interval", type=int, default=10)
     p.add_argument("--hyper_parameter_optimize_interval", type=int, default=0)
     p.add_argument("--inference_mode", default="vb",
-                   help="vb|gibbs|hybrid|svi (or reference ints 0/1/2); "
-                        "vb and svi are ported")
+                   help="vb|gibbs|hybrid|svi (or reference ints 0/1/2)")
     # -- engine knobs --
     p.add_argument("--inner_iterations", type=int, default=50)
     p.add_argument("--convergence_threshold", type=float, default=1e-5)
@@ -118,7 +117,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "(Gibbs/hybrid; default: the config default)")
     p.add_argument("--gibbs_rebuild_interval", type=int, default=None,
                    help="Gibbs: rebuild the [K,V] count table every R "
-                        "sweeps (default: the config default)")
+                        "sweeps of a learning_many chunk and at its end "
+                        "(1 = exact per-sweep sync; default: the config "
+                        "default).  At R > 1 the log-likelihood printed "
+                        "for a sweep without a rebuild is approximate: "
+                        "the last rebuilt table's topic side plus that "
+                        "sweep's doc side, not the joint LL of one state "
+                        "(the JAX package prints the same values)")
     p.add_argument("--slice_samples", type=int, default=None,
                    help="Wallach slice-sampler draws per hyperopt call "
                         "(Gibbs; default: the config default)")

@@ -17,7 +17,7 @@ import json
 import os
 import threading
 import warnings
-from typing import Mapping, Optional, Tuple, Union
+from typing import Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -73,6 +73,31 @@ def state_from_numpy(
         step=torch.tensor(int(np.asarray(arrays["step"])), dtype=torch.int32,
                           device=dev),
     )
+
+
+def bucket_tensors(
+    arrays: Sequence[np.ndarray],
+    buckets: Sequence,
+    dtype: torch.dtype,
+    device: torch.device,
+    name: str,
+    width: Optional[int] = None,
+) -> list:
+    """Per-bucket numpy arrays (a JAX engine's sampling chains, or a model
+    file's ``<name>_<i>`` blobs) as tensors on ``device``: one [rows,
+    width] array a bucket, ``width`` the bucket's own row width unless
+    given.  Raises ``ValueError`` unless every shape matches."""
+    if len(arrays) != len(buckets):
+        raise ValueError(f"{len(arrays)} {name} arrays for {len(buckets)} "
+                         f"buckets")
+    out = []
+    for i, (a, b) in enumerate(zip(arrays, buckets)):
+        want = (b.rows, width or b.tokens.shape[1])
+        a = np.array(a)
+        if a.shape != want:
+            raise ValueError(f"{name}_{i} has shape {a.shape}, want {want}")
+        out.append(torch.as_tensor(a, device=device).to(dtype))
+    return out
 
 
 class Inferencer:
@@ -200,13 +225,13 @@ class Inferencer:
     def point_estimate_perplexity(self, test_corpus: Corpus) -> float:
         """Convention-neutral held-out perplexity: p(w|d) = theta_hat @
         beta_hat with theta_hat from this engine's inference gamma and
-        beta_hat = lambda / sum(lambda), in float64 on the host.  Only the
-        observed (doc, type) pairs are scored, in document blocks of
-        bounded size."""
+        beta_hat the engine's topic-word point estimate (``_point_beta``:
+        lambda / sum(lambda), or Gibbs's (n_kv + beta) / (n_k + sum beta)),
+        in float64 on the host.  Only the observed (doc, type) pairs are
+        scored, in document blocks of bounded size."""
         _ll, gamma = self.inference(test_corpus)
         theta = (gamma / gamma.sum(axis=1, keepdims=True)).astype(np.float64)
-        lam = self.state.lam.cpu().numpy().astype(np.float64)
-        beta = lam / lam.sum(axis=1, keepdims=True)
+        beta = self._point_beta()
         K = beta.shape[0]
         entries_budget = max(1, int(256e6 / (8 * K)))
         tot_ll = 0.0
@@ -232,6 +257,12 @@ class Inferencer:
             tot_ll += float((all_cnts * np.log(p + 1e-30)).sum())
             tot_n += int(all_cnts.sum())
         return float(np.exp(-tot_ll / max(1, tot_n)))
+
+    def _point_beta(self) -> np.ndarray:
+        """Topic-word point estimate [K, V] in float64: lambda / sum(lambda)
+        for the VB family."""
+        lam = self.state.lam.cpu().numpy().astype(np.float64)
+        return lam / lam.sum(axis=1, keepdims=True)
 
     # -- topics --------------------------------------------------------------------
 

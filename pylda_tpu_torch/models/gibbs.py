@@ -1,0 +1,429 @@
+"""Collapsed Gibbs sampling engine.
+
+Counterpart of ``pylda_tpu.models.gibbs.MonteCarlo``: persistent per-token
+topic assignments z on the sequence layout (length buckets of padded
+token rows, ``layouts.effective_sequence_bucket_sizes``), the count tables
+n_dk and n_kv, one sweep of every bucket per ``learning()`` call, the
+Griffiths-Steyvers joint log likelihood as the training objective, and
+Wallach slice-sampled alpha/eta every ``hyper_parameter_optimize_interval``
+sweeps.
+
+The chain is the JAX engine's AD-LDA approximation (Newman et al. 2009):
+the topic-word table is frozen at sweep start, within-document updates
+are exact and sequential (leave-block-out at ``sampler_block_positions``
+> 1, ``ops/sampling.py``), and n_kv is rebuilt from z after the sweep.
+Parity with the JAX engine is statistical: the random streams differ.
+
+Random streams: each bucket's sweep draws from a ``torch.Generator`` on
+the engine's device seeded from (config seed, purpose tag, sweep index,
+bucket), so ``learning()`` n times and ``learning_many(n)`` draw the same
+chain, and a run resumed from a model file continues the unbroken one's.
+
+PyTorch runs eagerly: ``learning_many`` is a Python loop whose operations
+queue on the device stream; it keeps every sweep's likelihood on the
+device and reads them once a chunk (chunks end at hyperopt boundaries,
+where the slice sampler reads the likelihood on the host).
+``phase_timings``, process-local corpora and the mesh raise
+``NotImplementedError`` naming their ROADMAP items.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+from torch.special import gammaln
+
+from pylda_tpu_torch.corpus.corpus import Corpus
+from pylda_tpu_torch.models import layouts
+from pylda_tpu_torch.models.base import Inferencer, LDAState, bucket_tensors
+from pylda_tpu_torch.ops.dirichlet import gammaln_fast
+from pylda_tpu_torch.ops.hyper import slice_sample
+from pylda_tpu_torch.ops.sampling import (
+    count_table,
+    random_assignments,
+    sample_doc_topics,
+    sequence_token_score,
+    stream,
+    stream_seed,
+)
+
+# Purpose tags of the random streams (the JAX engine's fold_in constants).
+TAG_INIT, TAG_SWEEP, TAG_TEST, TAG_SLICE = 0x51BB5, 0x5EE9, 0x7E57, 0x511CE
+
+
+@dataclasses.dataclass
+class SeqBatch:
+    """One sequence bucket on the device."""
+
+    tokens: torch.Tensor  # [D_b, L_b] int64 (0 on padding)
+    token_mask: torch.Tensor  # [D_b, L_b]: 1 on real token slots
+    mask: torch.Tensor  # [D_b]: 1 on real rows
+    doc_ids: np.ndarray  # [D_b] int32, -1 for padding rows
+
+    @property
+    def rows(self) -> int:
+        return self.tokens.shape[0]
+
+
+def sequence_batches(corpus: Corpus, config, device, dtype) -> List[SeqBatch]:
+    """The corpus's sequence buckets (documents over the largest width
+    chunked into rows sharing their doc id) on ``device``."""
+    buckets = corpus.to_sequence_buckets(
+        bucket_sizes=layouts.effective_sequence_bucket_sizes(corpus, config),
+        doc_pad_multiple=config.doc_pad_multiple,
+    )
+    return [
+        SeqBatch(
+            tokens=torch.as_tensor(b.tokens, device=device).long(),
+            token_mask=torch.as_tensor(b.token_mask, device=device).to(dtype),
+            mask=torch.as_tensor(b.mask, device=device).to(dtype),
+            doc_ids=b.doc_ids,
+        )
+        for b in buckets
+    ]
+
+
+def refuse_process_local(corpus: Corpus) -> None:
+    if getattr(corpus, "process_local", False):
+        raise NotImplementedError(
+            "process-local corpora and the mesh are not ported yet "
+            "(ROADMAP.md Queue 1 item 12)"
+        )
+
+
+def doc_topic_counts(z, token_mask, num_topics: int) -> torch.Tensor:
+    """n_dk [D, K] of assignments z [D, L]."""
+    ndk = torch.zeros((z.shape[0], num_topics), dtype=token_mask.dtype,
+                      device=token_mask.device)
+    return ndk.scatter_add_(1, z.long(), token_mask)
+
+
+def _log_phi_hat(n_kv, beta):
+    """log[(n_kv + beta_v) / (n_k + sum beta)]."""
+    n_k = n_kv.sum(dim=1, keepdim=True)
+    return torch.log(n_kv + beta[None, :]) - torch.log(n_k + beta.sum())
+
+
+def _topic_side_ll(n_kv, beta):
+    """K[logG(sum b) - sum logG(b)] + sum_k[sum_v logG(n_kv + b) -
+    logG(n_k + sum b)], the [K, V] surface at the fast lgamma."""
+    K = n_kv.shape[0]
+    n_k = n_kv.sum(dim=1)
+    s = K * (gammaln(beta.sum()) - gammaln(beta).sum())
+    s = s + gammaln_fast(n_kv + beta[None, :]).sum()
+    return s - gammaln_fast(n_k + beta.sum()).sum()
+
+
+def _doc_side_ll(ndk, mask, alpha):
+    """D[logG(sum a) - sum logG(a)] + sum_d[...], padding rows masked."""
+    n_d = ndk.sum(dim=1)
+    per_doc = (
+        gammaln_fast(ndk + alpha[None, :]).sum(dim=1)
+        - gammaln_fast(n_d + alpha.sum())
+        + gammaln(alpha.sum())
+        - gammaln(alpha).sum()
+    )
+    return (mask * per_doc).sum()
+
+
+class MonteCarlo(Inferencer):
+    """Collapsed Gibbs with per-sweep table synchronisation."""
+
+    def __init__(self, config, device=None):
+        super().__init__(config, device)
+        self._buckets: Optional[List[SeqBatch]] = None
+        self._z: List[torch.Tensor] = []
+        self._ndk: List[torch.Tensor] = []
+        self._n_kv: Optional[torch.Tensor] = None
+        self._restore: Optional[dict] = None
+
+    # -- corpus preparation -------------------------------------------------
+
+    def _prepare(self, corpus: Corpus) -> None:
+        refuse_process_local(corpus)
+        cfg = self._config
+        K = cfg.number_of_topics
+        self._buckets = sequence_batches(corpus, cfg, self._device,
+                                         self._dtype)
+        if self._restore_chains():
+            return
+        self._z = [
+            random_assignments(b.tokens.shape, K,
+                               stream(self._device, cfg.seed, TAG_INIT, i))
+            for i, b in enumerate(self._buckets)
+        ]
+        self._ndk = [doc_topic_counts(z, b.token_mask, K)
+                     for z, b in zip(self._z, self._buckets)]
+        self._n_kv = self._count_all(self._z)
+
+    def _restore_chains(self) -> bool:
+        """Adopt the chains of a loaded model file when its bucket layout
+        matches this corpus's (otherwise the chains start afresh)."""
+        blobs = self._restore
+        if not blobs or "n_kv" not in blobs:
+            return False
+        n = sum(1 for k in blobs if k.startswith("z_"))
+        try:
+            self.set_chains(blobs["n_kv"],
+                            [blobs[f"z_{i}"] for i in range(n)],
+                            [blobs[f"ndk_{i}"] for i in range(n)])
+        except (KeyError, ValueError):
+            return False
+        return True
+
+    def set_chains(self, n_kv, zs, ndks) -> None:
+        """Place Gibbs chains given as numpy arrays (a JAX engine's state,
+        or a model file's ``n_kv``, ``z_<i>`` and ``ndk_<i>`` blobs) on the
+        engine's device: the [K, V] table ``n_kv`` and, per sequence
+        bucket, the assignments ``zs`` [rows, width] and doc-topic counts
+        ``ndks`` [rows, K].  Raises ``ValueError`` unless every shape
+        matches this engine's buckets."""
+        K, dev = self._config.number_of_topics, self._device
+        want = (K, self._number_of_types)
+        if np.shape(n_kv) != want:
+            raise ValueError(f"n_kv has shape {np.shape(n_kv)}, want {want}")
+        z = bucket_tensors(zs, self._buckets, torch.int32, dev, "z")
+        ndk = bucket_tensors(ndks, self._buckets, self._dtype, dev, "ndk",
+                             width=K)
+        self._n_kv = torch.as_tensor(np.array(n_kv), device=dev).to(
+            self._dtype)
+        self._z, self._ndk = z, ndk
+
+    def _count_all(self, zs) -> torch.Tensor:
+        K, V = self._config.number_of_topics, self._number_of_types
+        n_kv = None
+        for b, z in zip(self._buckets, zs):
+            t = count_table(b.tokens, b.token_mask, z, K, V)
+            n_kv = t if n_kv is None else n_kv + t
+        return n_kv
+
+    # -- sweeps -------------------------------------------------------------------
+
+    def _sample_buckets(self, sweep: int, log_tw, accumulate: bool):
+        """One sweep of every bucket against a fixed factor; sweep index
+        ``sweep`` seeds the streams.  Returns (z, ndk, n_kv or None)."""
+        cfg = self._config
+        alpha = self.state.alpha
+        z_out, ndk_out, n_kv = [], [], None
+        for i, (b, z) in enumerate(zip(self._buckets, self._z)):
+            _g, counts, z_new, ndk = sample_doc_topics(
+                b.tokens, b.token_mask, log_tw, alpha, z,
+                stream(self._device, cfg.seed, TAG_SWEEP, sweep, i),
+                num_types=self._number_of_types, burn_in=0, num_samples=1,
+                sampler=cfg.resolved_topic_sampler(),
+                block_positions=cfg.sampler_block_positions,
+                accumulate_counts=accumulate,
+            )
+            z_out.append(z_new)
+            ndk_out.append(ndk)
+            if accumulate:
+                n_kv = counts if n_kv is None else n_kv + counts
+        return z_out, ndk_out, n_kv
+
+    def _doc_ll(self, ndks, alpha) -> torch.Tensor:
+        s = torch.zeros((), dtype=self._dtype, device=self._device)
+        for b, ndk in zip(self._buckets, ndks):
+            s = s + _doc_side_ll(ndk, b.mask, alpha)
+        return s
+
+    def _exact_sweep(self, sweep: int) -> torch.Tensor:
+        """One AD-LDA sweep: sample against the table frozen at sweep
+        start, rebuild it from z; returns the joint LL (0-d, on the
+        device)."""
+        st = self.state
+        log_tw = _log_phi_hat(self._n_kv, st.eta)
+        self._z, self._ndk, self._n_kv = self._sample_buckets(
+            sweep, log_tw, accumulate=True)
+        return _topic_side_ll(self._n_kv, st.eta) + self._doc_ll(
+            self._ndk, st.alpha)
+
+    def _interval_sweeps(self, n: int) -> List[torch.Tensor]:
+        """n sweeps at ``gibbs_rebuild_interval`` R > 1: every sweep
+        samples against the carried factor, and the [K, V] table, its
+        factor and the topic side of the LL are rebuilt only on every
+        R-th sweep of the call and on its last one, so the returned tables
+        are exact.
+
+        The LL of a sweep without a rebuild is the JAX engine's, kept for
+        parity with its printed values: the latest rebuilt table's topic
+        side plus that sweep's fresh doc side.  It mixes a stale topic
+        side with a fresh doc side, so it is not the joint LL of any one
+        state; only the sweeps with a rebuild report one."""
+        st = self.state
+        R = self._config.gibbs_rebuild_interval
+        log_tw = _log_phi_hat(self._n_kv, st.eta)
+        ll_topic = _topic_side_ll(self._n_kv, st.eta)
+        lls = []
+        for i in range(n):
+            self._z, self._ndk, _ = self._sample_buckets(
+                self._counter + i, log_tw, accumulate=False)
+            if (i + 1) % R == 0 or i == n - 1:
+                self._n_kv = self._count_all(self._z)
+                log_tw = _log_phi_hat(self._n_kv, st.eta)
+                ll_topic = _topic_side_ll(self._n_kv, st.eta)
+            lls.append(ll_topic + self._doc_ll(self._ndk, st.alpha))
+        return lls
+
+    def _advance(self, n: int) -> None:
+        st = self.state
+        self._state = LDAState(lam=st.lam, alpha=st.alpha, eta=st.eta,
+                               step=st.step + n)
+        self._step_host += n
+
+    def _hyper_due_now(self) -> bool:
+        interval = self._config.hyper_parameter_optimize_interval
+        return interval > 0 and self._counter % interval == 0
+
+    # -- training -----------------------------------------------------------------
+
+    def learning(self) -> float:
+        """One exact Gibbs sweep over the corpus (also at a rebuild
+        interval R > 1, as in the JAX engine); returns joint log p(w, z)."""
+        ll = self._exact_sweep(self._counter)
+        self._advance(1)
+        if self._hyper_due_now():
+            cfg = self._config
+            self.optimize_hyperparameters(cfg.slice_samples, cfg.slice_step)
+            return self.compute_likelihood()
+        return float(ll)
+
+    def learning_many(self, n: int) -> List[float]:
+        """n sweeps in chunks that end at hyperopt boundaries; each
+        chunk's likelihoods stay on the device until its end."""
+        cfg = self._config
+        interval = cfg.hyper_parameter_optimize_interval
+        out: List[float] = []
+        remaining = n
+        while remaining > 0:
+            chunk = remaining
+            if interval > 0:
+                chunk = min(remaining, interval - self._counter % interval)
+            if cfg.gibbs_rebuild_interval > 1:
+                lls = self._interval_sweeps(chunk)
+            else:
+                lls = [self._exact_sweep(self._counter + i)
+                       for i in range(chunk)]
+            self._advance(chunk)
+            vals = torch.stack(lls).cpu().tolist()
+            if self._hyper_due_now():
+                self.optimize_hyperparameters(cfg.slice_samples,
+                                              cfg.slice_step)
+                vals[-1] = self.compute_likelihood()
+            out.extend(vals)
+            remaining -= chunk
+        return out
+
+    def compute_likelihood(self, alpha_scalar: Optional[float] = None,
+                           beta_scalar: Optional[float] = None) -> float:
+        """Griffiths-Steyvers joint log likelihood at the current counts,
+        optionally at scalar alpha / beta."""
+        st = self.state
+        alpha = (st.alpha if alpha_scalar is None
+                 else torch.full_like(st.alpha, alpha_scalar))
+        beta = (st.eta if beta_scalar is None
+                else torch.full_like(st.eta, beta_scalar))
+        return float(_topic_side_ll(self._n_kv, beta)
+                     + self._doc_ll(self._ndk, alpha))
+
+    def optimize_hyperparameters(self, samples: int = 5, step: float = 3.0
+                                 ) -> None:
+        """Slice sampling on (log alpha, log beta) scalars
+        (``ops/hyper.slice_sample``): host-side control loop, likelihoods
+        on the device.  Its uniforms come from a numpy generator seeded
+        from this engine's stream at the current step."""
+        st = self.state
+        rng = np.random.default_rng(
+            stream_seed(self._config.seed, TAG_SLICE, self._counter))
+        x0 = np.array([math.log(float(st.alpha.mean())),
+                       math.log(float(st.eta.mean()))])
+        x = slice_sample(
+            lambda x: self.compute_likelihood(math.exp(x[0]), math.exp(x[1])),
+            x0, rng, samples, step)
+        self._state = LDAState(
+            lam=st.lam, alpha=torch.full_like(st.alpha, math.exp(x[0])),
+            eta=torch.full_like(st.eta, math.exp(x[1])), step=st.step)
+
+    def phase_timings(self, repeats: int = 3) -> dict:
+        raise NotImplementedError(
+            "phase_timings is not ported yet (ROADMAP.md Queue 1 item 7)"
+        )
+
+    # -- topics / held-out ----------------------------------------------------------
+
+    def topic_word_distribution(self) -> np.ndarray:
+        """(n_kv + beta) / (n_k + sum beta) point estimate, float64."""
+        n_kv = self._n_kv.cpu().numpy().astype(np.float64)
+        beta = self.state.eta.cpu().numpy().astype(np.float64)
+        return (n_kv + beta[None, :]) / (
+            n_kv.sum(axis=1, keepdims=True) + beta.sum())
+
+    _point_beta = topic_word_distribution
+
+    def inference(self, test_corpus: Corpus) -> Tuple[float, np.ndarray]:
+        """Sample test-doc topics against the frozen topic counts
+        (``burn_in_sweeps`` + ``number_of_samples`` sweeps from random z),
+        then score tokens with the point-estimate predictive p(w|d) =
+        sum_k theta_hat phi_hat.  Returns (log likelihood, gamma =
+        alpha + mean kept n_dk in corpus order; chunk rows of one long
+        document recombine additively)."""
+        refuse_process_local(test_corpus)
+        st = self.state
+        cfg = self._config
+        K = cfg.number_of_topics
+        log_tw = _log_phi_hat(self._n_kv, st.eta)
+        batches = sequence_batches(test_corpus, cfg, self._device,
+                                   self._dtype)
+        ll = torch.zeros((), dtype=self._dtype, device=self._device)
+        gammas = []
+        for i, b in enumerate(batches):
+            tag = (cfg.seed, TAG_TEST, self._counter, i)
+            z0 = random_assignments(b.tokens.shape, K,
+                                    stream(self._device, *tag, 1))
+            gamma_b, _ss, _z, _ndk = sample_doc_topics(
+                b.tokens, b.token_mask, log_tw, st.alpha, z0,
+                stream(self._device, *tag, 2),
+                num_types=self._number_of_types,
+                burn_in=cfg.burn_in_sweeps, num_samples=cfg.number_of_samples,
+                sampler=cfg.resolved_topic_sampler(),
+                block_positions=cfg.sampler_block_positions,
+            )
+            theta_hat = gamma_b / gamma_b.sum(dim=1, keepdim=True)
+            ll = ll + sequence_token_score(b.tokens, b.token_mask,
+                                           torch.log(theta_hat), log_tw)
+            gammas.append(gamma_b)
+        gamma = layouts.assemble_gamma(
+            [b.doc_ids for b in batches], [g.cpu().numpy() for g in gammas],
+            test_corpus.num_docs, st.alpha.cpu().numpy())
+        return float(ll), gamma
+
+    @property
+    def gamma(self) -> Optional[np.ndarray]:
+        """Per-document alpha + n_dk [D, K] in corpus order, from the
+        current tables (the VB family's gamma surface, for
+        ``--dump_gamma``)."""
+        if not self._ndk:
+            return None
+        alpha = self.state.alpha.cpu().numpy()
+        return layouts.assemble_gamma(
+            [b.doc_ids for b in self._buckets],
+            [alpha[None, :] + n.cpu().numpy() for n in self._ndk],
+            self._corpus.global_num_docs, alpha)
+
+    # -- model files ----------------------------------------------------------------
+
+    def _extra_state(self) -> dict:
+        d = {"n_kv": self._n_kv.cpu().numpy()}
+        for i, (z, ndk) in enumerate(zip(self._z, self._ndk)):
+            d[f"z_{i}"] = z.cpu().numpy()
+            d[f"ndk_{i}"] = ndk.cpu().numpy()
+        return d
+
+    def _load_extra_state(self, blobs: dict) -> None:
+        if "n_kv" in blobs:
+            self._n_kv = torch.as_tensor(blobs["n_kv"], device=self._device
+                                         ).to(self._dtype)
+            self._restore = blobs  # chains adopted in _prepare

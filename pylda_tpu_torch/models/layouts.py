@@ -252,6 +252,34 @@ def effective_bucket_sizes(
     return cache[key]
 
 
+def effective_sequence_bucket_sizes(corpus: Corpus, config: LDAConfig
+                                    ) -> tuple:
+    """The sequence-layout geometry of the sampling engines (Gibbs,
+    hybrid): ``effective_bucket_sizes`` keyed on each document's TOKEN
+    count (a sweep's cost is rows x width), with documents over the cap
+    chunked to cap-wide rows.  The same fallbacks to the fixed
+    ``bucket_sizes``, and a corpus without in-RAM documents keeps them."""
+    fixed = tuple(config.bucket_sizes)
+    if config.bucket_policy != "auto":
+        return fixed
+    if fixed != LDAConfig.__dataclass_fields__["bucket_sizes"].default:
+        return fixed
+    if getattr(corpus, "process_local", False):
+        return fixed
+    uniques = getattr(corpus, "_uniques", None)
+    if uniques is None:
+        return fixed
+    key = ("seq", max(fixed), config.doc_pad_multiple)
+    cache = corpus.__dict__.setdefault("_auto_bucket_cache", {})
+    if key not in cache:
+        cache[key] = plan_bucket_sizes(
+            [int(c.sum()) for _, c in uniques],
+            cap=key[1],
+            row_pad=key[2],
+        )
+    return cache[key]
+
+
 def svi_capacities_from_expected(
     sizes: Sequence[int], expected: dict, pad: int
 ) -> Optional[dict]:

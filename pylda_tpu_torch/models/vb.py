@@ -130,6 +130,9 @@ def _compact_counts(counts: np.ndarray, device, dtype) -> torch.Tensor:
 class VariationalBayes(Inferencer):
     """Batch VB over the full corpus each iteration."""
 
+    # The E-step starts each row's fixed point from ``gamma_init``.
+    _USES_GAMMA_INIT = True
+
     def __init__(
         self,
         config: LDAConfig,
@@ -137,7 +140,7 @@ class VariationalBayes(Inferencer):
     ):
         super().__init__(config, device)
         cfg = self._config
-        if cfg.gamma_init != "ones":
+        if self._USES_GAMMA_INIT and cfg.gamma_init != "ones":
             raise NotImplementedError(
                 f"gamma_init={cfg.gamma_init!r} needs a torch random stream; "
                 "not ported yet (ROADMAP.md Queue 1 item 7)"
@@ -337,6 +340,8 @@ class VariationalBayes(Inferencer):
         return [gamma_docs], sstats, token_score, theta_score, elog_sum
 
     def _run_estep(self, batches, plan, lam, alpha, gamma0s):
+        """The E-step of ``batches``: (gammas, sstats, token_score,
+        theta_score, elog_sum)."""
         if plan is None:
             return self._run_estep_dense(batches, lam, alpha, gamma0s)
         return self._run_estep_hybrid(batches, plan, lam, alpha, gamma0s)
@@ -357,8 +362,8 @@ class VariationalBayes(Inferencer):
         (new_state, elbo 0-d tensor, gammas)."""
         cfg = self._config
         st = self.state
-        gammas, sstats, token_score, theta_score, elog_sum = self._run_estep(
-            self._batches, self._sstats_plan, st.lam, st.alpha, gamma0s
+        gammas, sstats, token_score, theta_score, elog_sum = (
+            self._train_estep(gamma0s)
         )
         elbo = token_score + theta_score + beta_elbo(st.lam, st.eta)
         lam_new = st.eta[None, :] + sstats
@@ -374,6 +379,12 @@ class VariationalBayes(Inferencer):
             lam=lam_new, alpha=alpha_new, eta=eta_new, step=st.step + 1
         )
         return new_state, elbo, gammas
+
+    def _train_estep(self, gamma0s):
+        """The training corpus's E-step at the current state."""
+        st = self.state
+        return self._run_estep(self._batches, self._sstats_plan, st.lam,
+                               st.alpha, gamma0s)
 
     def _hyper_due(self) -> bool:
         interval = self._config.hyper_parameter_optimize_interval

@@ -4,11 +4,16 @@ Newton–Raphson maximum-likelihood update for a Dirichlet concentration
 vector given expected sufficient statistics — the Blei lda-c linear-time
 shared-Hessian (Sherman–Morrison) form with halving backtracking, as
 ``pylda_tpu.ops.hyper.newton_dirichlet_mle``.  Used for both alpha (given
-sum_d E[log theta_d]) and eta (given sum_k E[log beta_k]).
+sum_d E[log theta_d]) and eta (given sum_k E[log beta_k]).  And the
+Wallach slice sampler of the Gibbs engine (``slice_sample``).
 """
 
 from __future__ import annotations
 
+import math
+from typing import Callable
+
+import numpy as np
 import torch
 from torch.special import digamma, polygamma
 
@@ -57,3 +62,31 @@ def newton_dirichlet_mle(
         if not bool(delta > tol):
             break
     return a
+
+
+def slice_sample(
+    log_lik: Callable[[np.ndarray], float],
+    x0: np.ndarray,
+    rng: np.random.Generator,
+    samples: int = 5,
+    step: float = 3.0,
+) -> np.ndarray:
+    """Wallach's slice sampler on a point ``x0`` (Gibbs's (log alpha,
+    log beta)): ``samples`` draws, each from a bracket of width ``step``
+    placed at random around the current point and shrunk toward it on
+    every rejection.  ``log_lik`` evaluates the point; the uniforms come
+    from ``rng`` in the JAX engine's order, so the same seed and
+    likelihood give the same path."""
+    x0 = np.asarray(x0, dtype=np.float64)
+    for _ in range(samples):
+        log_u = log_lik(x0) + math.log(rng.random())
+        lo = x0 - step * rng.random(x0.size)
+        hi = lo + step
+        while True:
+            x1 = lo + rng.random(x0.size) * (hi - lo)
+            if log_lik(x1) > log_u:
+                x0 = x1
+                break
+            lo = np.where(x1 < x0, x1, lo)
+            hi = np.where(x1 >= x0, x1, hi)
+    return x0

@@ -75,10 +75,13 @@ def test_engine_without_device_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         VariationalBayes(LDAConfig(number_of_topics=4))
-    svi = LDAConfig(number_of_topics=4, inference_mode="svi")
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        make_engine(svi)
-    make_engine(svi, device="cpu")
+    for mode in ("svi", "gibbs", "hybrid"):
+        cfg = LDAConfig(number_of_topics=4, inference_mode=mode)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make_engine(cfg)
+        with pytest.raises(RuntimeError):
+            make_engine(cfg, device="cuda")
+        make_engine(cfg, device="cpu")
     with pytest.raises(RuntimeError):
         VariationalBayes(LDAConfig(number_of_topics=4), device="cuda")
     with pytest.raises(RuntimeError):

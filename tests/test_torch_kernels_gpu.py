@@ -29,7 +29,11 @@ both sides of the slot buffer, bf16 and f32 counts and two calls bitwise
 equal; above 4096 every kernel refuses.  On rows still updating at S*
 (stalled, not done) gamma depends on rounding, so there each document's
 share of the bound (``ragged_doc_bound``) at the kernel's gamma is held
-to its share at the float64 plain version's gamma, to rel 1e-5.
+to its share at the float64 plain version's gamma, to rel 1e-5.  The
+sampling engines (plain PyTorch, no kernel) are held here too: each
+sampler's sweep on the card against the CPU from the same noise (z equal
+but on at most 0.1% of the documents), count tables bitwise, and both
+engines on the card conserving counts and launching no kernel.
 """
 
 import numpy as np
@@ -917,3 +921,100 @@ def test_bf16_table_is_checked(cuda):
     with pytest.raises(ValueError, match="gather_table"):
         ragged_mod.ragged_gamma(ids, cnts, g0, eeb, alpha,
                                 eeb_t=ragged_mod.gather_table(eeb, BF16))
+
+
+# -- the sampling engines on the card (plain PyTorch, no kernel) ---------------
+
+
+def _sampling_problem(D, L, V, K, seed=0):
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, V, size=(D, L)).astype(np.int64)
+    mask = (np.arange(L)[None, :]
+            < rng.integers(1, L + 1, size=(D, 1))).astype(np.float32)
+    tokens *= mask.astype(np.int64)
+    log_tw = np.log(rng.dirichlet(np.full(V, 0.1), size=K)).astype(np.float32)
+    z0 = rng.integers(0, K, size=(D, L)).astype(np.int32)
+    return [torch.as_tensor(x) for x in
+            (tokens, mask, log_tw, np.full(K, 0.3, np.float32), z0)]
+
+
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("K", [16, 100])
+@pytest.mark.parametrize("sampler", ["cdf", "gumbel", "race"])
+def test_sampling_sweep_card_matches_cpu(cuda, sampler, K, B):
+    """The sweep on the card and on the CPU from the same noise (drawn on
+    the CPU): z and n_dk equal except on at most 0.1% of the documents (a
+    draw within an ulp of a boundary), counts conserved on the card."""
+    from pylda_tpu_torch.ops.sampling import (
+        draw_noise,
+        noise_shape,
+        stream,
+        sweep_doc_topics,
+    )
+
+    D, L, V = 2048, 40, 700
+    args = _sampling_problem(D, L, V, K)
+    g = stream("cpu", K, B)
+    noise = [draw_noise(sampler, noise_shape(sampler, D, L, K, B), g)
+             for _ in range(3)]
+    kw = dict(num_types=V, burn_in=1, num_samples=2, sampler=sampler,
+              block_positions=B)
+    out = {}
+    for dev in (cuda, "cpu"):
+        out[str(dev)] = [x.cpu() for x in sweep_doc_topics(
+            *[a.to(dev) for a in args], lambda s: noise[s], **kw)]
+    _g, ss, z, ndk = out[str(cuda)]
+    _gc, _ssc, zc, ndkc = out["cpu"]
+    mask = args[1]
+    np.testing.assert_array_equal(ndk.sum(1).numpy(), mask.sum(1).numpy())
+    assert float(ss.sum()) == float(mask.sum())
+    differ = ((z != zc).any(1) | (ndk != ndkc).any(1)).sum().item()
+    assert differ <= 1e-3 * D
+
+
+def test_count_table_card_bitwise_equals_cpu(cuda):
+    from pylda_tpu_torch.ops import sampling
+
+    tokens, mask, _, _, z = _sampling_problem(3000, 50, 5000, 100, seed=1)
+    cpu = sampling.count_table(tokens, mask, z, 100, 5000)
+    card = sampling.count_table(tokens.to(cuda), mask.to(cuda), z.to(cuda),
+                                100, 5000)
+    assert torch.equal(card.cpu(), cpu)
+
+
+@pytest.mark.parametrize("mode", ["gibbs", "hybrid"])
+def test_sampling_engines_on_card(cuda, mode):
+    """make_engine places both engines on the card; counts are conserved
+    there and no CUDA kernel of the package runs."""
+    from pylda_tpu_torch.corpus.synthetic import synthetic_corpus
+    from pylda_tpu_torch.models import Hybrid, MonteCarlo, make_engine
+    from pylda_tpu_torch.ops.sampling import count_table
+    from pylda_tpu_torch.utils.config import LDAConfig
+
+    corpus, _, _ = synthetic_corpus(num_docs=300, num_topics=8,
+                                    num_types=900, mean_doc_length=60.0,
+                                    seed=3)
+    eng = make_engine(LDAConfig(number_of_topics=8, inference_mode=mode,
+                                number_of_samples=3, burn_in_sweeps=2,
+                                doc_pad_multiple=16))
+    assert type(eng) is {"gibbs": MonteCarlo, "hybrid": Hybrid}[mode]
+    eng.initialize(corpus)
+    mods = (ragged_mod, sstats_mod, dense_mod)
+    before = [(m.LAUNCHES, m.BF16_LAUNCHES) for m in mods]
+    objs = eng.learning_many(4)
+    assert [(m.LAUNCHES, m.BF16_LAUNCHES) for m in mods] == before
+    assert np.isfinite(objs).all() and objs[-1] > objs[0]
+    if mode == "gibbs":
+        assert eng._n_kv.is_cuda
+        assert float(eng._n_kv.sum()) == corpus.num_tokens
+        recount = sum(count_table(b.tokens, b.token_mask, z, 8, 900)
+                      for b, z in zip(eng._buckets, eng._z))
+        assert torch.equal(recount, eng._n_kv)
+        for b, ndk in zip(eng._buckets, eng._ndk):
+            assert torch.equal(ndk.sum(1), b.token_mask.sum(1))
+    else:
+        assert eng.state.lam.is_cuda
+        sstats = eng.state.lam - eng.state.eta[None, :]
+        assert float(sstats.sum()) == pytest.approx(corpus.num_tokens,
+                                                    rel=1e-5)
+    assert np.isfinite(eng.perplexity(corpus.subset(range(40))))

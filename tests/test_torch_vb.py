@@ -179,7 +179,9 @@ def test_make_engine_routes():
         make_engine(LDAConfig(**{**CFG, "inference_mode": "svi"}),
                     device="cpu"),
         StochasticVariationalBayes)
-    for mode in ("gibbs", "hybrid"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_engine(LDAConfig(**{**CFG, "inference_mode": mode}),
-                        device="cpu")
+    from pylda_tpu_torch.models import Hybrid, MonteCarlo
+
+    for mode, cls in (("gibbs", MonteCarlo), ("hybrid", Hybrid)):
+        eng = make_engine(LDAConfig(**{**CFG, "inference_mode": mode}),
+                          device="cpu")
+        assert type(eng) is cls
