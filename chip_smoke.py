@@ -61,17 +61,38 @@ Phases, in order (any failure exits non-zero):
    perplexity <= 1.1x Gibbs's; they are plain PyTorch and must launch no
    kernel build; at Gibbs's buckets each sampler's sweep on the card is
    held to the CPU from the same noise, and the count tables bitwise;
+   the scatter route (``sstats_mode="scatter"``: each bucket's gamma
+   kernel, then the row scatter ``ops/estep.scatter_sstats`` in plain
+   PyTorch, and no sstats kernel): ``estep_ragged`` on the card against
+   the CPU at the ragged flagship's largest bucket (pinned sweeps); batch
+   VB at the ragged flagship against its dense-sstats run from one lambda
+   at pinned sweeps, and SVI at config 4 (16,384 documents) one epoch
+   from one lambda, each with the sstats of one batch or minibatch by
+   both routes timed; two calls of ``estep_ragged`` at a config-4
+   minibatch bitwise equal; SVI at config 4 from a disk-backed
+   ``StreamingCorpus`` (the corpus written to a doc.dat under build/)
+   bitwise equal to the in-memory run; and ``svi4_full``: SVI at config
+   4's published 100,000 documents (auto picks the scatter route, no
+   counts matrix; initialize timed, one warm and two timed epochs, one
+   profiled, the epoch's device time split into gamma and scatter,
+   held-out perplexities, peak memory);
 5. CLI: ``pylda_tpu_torch.cli.train``, ``.test`` and ``.infer`` in-process
    on the bundled corpus ``data/de-news-tiny`` (K=10) on the card, with
    ``--inference_mode`` vb and svi and ``--compute_dtype`` float32 and
-   bfloat16, and with gibbs and hybrid (no kernel), their output files
+   bfloat16, with gibbs and hybrid (no kernel), and with svi and
+   ``--streaming_input`` (from a copy of the corpus), their output files
    checked and the launch counters zeroed and read;
-6. cross-check: at a small size, on each route, at K=16 and at K=300
-   (the kernels' wide range), in float32 and in bf16, each engine on the
-   card (kernels) and on the CPU (plain versions) give the same bounds.
+6. cross-check: at a small size, on each route (the scatter route
+   among them), at K=16 and at K=300 (the kernels' wide range), in
+   float32 and in bf16, each engine on the card (kernels) and on the CPU
+   (plain versions) give the same bounds.
+
+The line before the kernels' record gives the card's name and power
+limit; before it, a ``scatter:`` line holds the scatter route's numbers.
 
 The line before the last is the kernels' JSON record (the bf16 builds
-as ``<kernel>_bf16``); the last line is
+as ``<kernel>_bf16``; ``launches_by_path`` names each main path); the
+last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
 exits non-zero and prints no result.
 """
@@ -172,6 +193,21 @@ BF16_ELBO_RTOL, BF16_PPL_RTOL = 2e-3, 5e-3
 # perplexity <= 1.1x Gibbs's.
 CFG3 = dict(K=100, V=30_000, D=4096, LEN=120.0, SEED=2, TEST_DOCS=512,
             TEST_SEED=102, SAMPLES=5, BURN_IN=3, EXTRA=40, GATE=1.1)
+# BASELINE config 4 at its published size (BASELINE.json configs[3],
+# "Wikipedia-100k"): 100,000 documents, as bench_suite.py's config4 builds
+# it with num_docs=100_000, and its 512 held-out documents (seed 103, same
+# beta).  The [D+1, V_pad] counts matrix would be 10.04 GB in bf16, over
+# sstats_dense_total_budget_mb, so the engine takes the scatter route.
+SVI4_FULL_D, SVI_TEST_DOCS, SVI_TEST_SEED = 100_000, 512, 103
+# The scatter route against the dense-sstats route where both run (summation
+# order only): batch VB one E-step from one lambda at pinned sweeps, sstats
+# rel (of the largest entry) and ELBO rel; SVI over one epoch, each
+# minibatch's update from one lambda, lambda rel.  estep_ragged on the card against the CPU at pinned sweeps:
+# sstats (rel of the largest entry) and the score.
+SCATTER_SSTATS_REL, SCATTER_ELBO_REL, SCATTER_LAM_REL = 1e-5, 1e-6, 1e-5
+SCATTER_CARD_CPU_REL = 1e-5
+STREAM_DIR = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_stream"
+
 # The sweep on the card against the CPU from the same noise: a draw within
 # an ulp of a boundary may land one topic over (another exp/log/cumsum
 # rounding), so z may differ on this share of the documents.
@@ -697,22 +733,24 @@ def read_launches(mods) -> dict:
     return out
 
 
-def check_launched(label: str, counts: dict, needed) -> None:
+def check_launched(label: str, counts: dict, needed, absent=()) -> None:
     """Raises unless every kernel build in ``needed`` ran, and no build of
     the other operand mode did (a bf16 path never runs a float32 build,
-    nor the reverse).  With ``needed`` empty (the sampling paths, plain
-    PyTorch) no build may have run at all."""
+    nor the reverse), nor any build in ``absent`` (the scatter route
+    never runs the sstats kernel).  With ``needed`` empty (the sampling
+    paths, plain PyTorch) no build may have run at all."""
     print(f"{label}: kernel launches {counts}")
     missing = [k for k in needed if counts[k] < 1]
     if needed:
         bf16 = needed[0].endswith("_bf16")
         stray = [k for k, n in counts.items()
-                 if n and k.endswith("_bf16") != bf16]
+                 if n and (k.endswith("_bf16") != bf16 or k in absent)]
     else:
         stray = [k for k, n in counts.items() if n]
     if missing or stray:
         raise AssertionError(f"{label}: kernels {missing} never ran; builds "
-                             f"{stray} of the other mode ran")
+                             f"{stray} of the other mode, or kept off this "
+                             f"path, ran")
 
 
 def dense_probe(corpus, beta, cfg, dev):
@@ -1073,11 +1111,13 @@ def run_svi(label, cfg, corpus, test, dev, mods, n) -> dict:
 def profile_window(fn) -> dict:
     """Run ``fn`` once under ``torch.profiler``: host wall time (ending in
     a synchronize), the device's busy time and idle share, device kernel
-    launches, and (count, device µs, name) of each op with device time."""
+    launches, (count, device µs, name) of each op with device time, and
+    the device µs of the kernels under each profiler range
+    (``record_function``) in "ranges"."""
     import torch
     from torch.autograd import DeviceType
 
-    from scripts.torch_engine_profile import busy_us
+    from scripts.torch_engine_profile import busy_us, is_range
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -1089,13 +1129,17 @@ def profile_window(fn) -> dict:
         wall_us = (time.perf_counter() - t0) * 1e6
     events = prof.events()
     busy = busy_us(events)
-    launches = sum(1 for e in events if e.device_type == DeviceType.CUDA)
-    ops = [(e.count, e.self_device_time_total, e.key)
-           for e in prof.key_averages() if e.self_device_time_total > 0]
+    launches = sum(1 for e in events if e.device_type == DeviceType.CUDA
+                   and not is_range(e))
+    rows = prof.key_averages()
+    ops = [(e.count, e.self_device_time_total, e.key) for e in rows
+           if e.self_device_time_total > 0 and not is_range(e)]
+    ranges = {e.key: e.device_time_total for e in rows
+              if is_range(e) and e.device_type == DeviceType.CPU}
     del prof
     return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
             "idle_share": 1.0 - busy / wall_us, "device_launches": launches,
-            "ops": ops}
+            "ops": ops, "ranges": ranges}
 
 
 def sampling_conserved(label, eng, corpus) -> None:
@@ -1268,11 +1312,13 @@ def sampling_card_vs_cpu(eng, dev) -> None:
 
 
 def run_cli(mods, mode: str, compute_dtype: str = "float32",
-            needed=None) -> dict:
+            needed=None, streaming=False) -> dict:
     """train -> test -> infer through the CLIs' main() on the card, with
     ``--inference_mode=mode`` and ``--compute_dtype=compute_dtype`` (test
     and infer read the mode from the model file); ``needed``: the kernel
-    builds the path must launch (default: the dense route's)."""
+    builds the path must launch (default: the dense route's).
+    ``streaming`` trains with ``--streaming_input`` from a copy of the
+    bundled corpus (its row sidecar is written beside the copy)."""
     import numpy as np
 
     from pylda_tpu_torch.cli import infer as cli_infer
@@ -1282,15 +1328,20 @@ def run_cli(mods, mode: str, compute_dtype: str = "float32",
 
     corpus_dir = bundled_corpus_dir()
     suffix = "_bf16" if compute_dtype == BF16 else ""
-    out = CLI_OUT / f"{mode}{suffix}"
+    out = CLI_OUT / f"{mode}{suffix}{'_streaming' if streaming else ''}"
     shutil.rmtree(out, ignore_errors=True)
+    extra = []
+    if streaming:
+        corpus_dir = str(shutil.copytree(corpus_dir,
+                                         out / "input" / "de-news-tiny"))
+        extra = ["--streaming_input"]
     zero_launches(mods)
     t0 = time.perf_counter()
     rc = cli_train.main([
         f"--input_directory={corpus_dir}", f"--output_directory={out}",
         "--number_of_topics=10", "--training_iterations=6",
         "--snapshot_interval=3", "--dump_gamma", f"--inference_mode={mode}",
-        f"--compute_dtype={compute_dtype}",
+        f"--compute_dtype={compute_dtype}", *extra,
     ])
     runs = sorted((out / "de-news-tiny").iterdir())
     if rc != 0 or len(runs) != 1:
@@ -1325,14 +1376,432 @@ def run_cli(mods, mode: str, compute_dtype: str = "float32",
     if meta["config"]["compute_dtype"] != compute_dtype:
         raise AssertionError(f"cli train: the model file says "
                              f"{meta['config']['compute_dtype']}")
-    print(f"cli {mode} {compute_dtype}: train 6 iterations + test + infer on "
+    label = f"cli {mode} {compute_dtype}{' streaming' if streaming else ''}"
+    if streaming and not list(pathlib.Path(corpus_dir).glob(
+            "doc.dat.rowcache.v2.*/meta.json")):
+        raise AssertionError(f"{label}: no row sidecar beside {corpus_dir}")
+    print(f"{label}: train 6 iterations + test + infer on "
           f"{corpus_dir} in {time.perf_counter() - t0:.2f} s; run dir "
           f"{run.name}; final held-out perplexity {ppl:.4f}")
     counts = read_launches(mods)
     if needed is None:
         needed = (f"dense_gamma{suffix}", f"dense_sstats{suffix}")
-    check_launched(f"cli {mode} {compute_dtype}", counts, needed)
+    check_launched(label, counts, needed)
     return counts
+
+
+def norm_rel(got, want) -> float:
+    """max |got - want| / max |want| (a tensor's error relative to its
+    largest entry; a scalar's relative error)."""
+    return float((got.double() - want.double()).abs().max()
+                 / want.double().abs().max())
+
+
+def scatter_card_vs_cpu(label, b, eeb, alpha) -> dict:
+    """``estep_ragged`` (the gamma kernel, then the row scatter) on the card
+    against the CPU's (the plain version, the same scatter) on one bucket
+    at PINNED_SWEEPS pinned sweeps (threshold 0): sstats and the score
+    within SCATTER_CARD_CPU_REL of their largest entry; gamma within
+    SCATTER_CARD_CPU_REL or, where float32 rounding has grown past it over
+    the sweeps, twice the float32 plain version's own distance from its
+    float64 run (two float32 versions of one map part by about as much as
+    either parts from float64).  Raises past the bars."""
+    import torch
+
+    from pylda_tpu_torch.ops.estep import estep_ragged
+
+    kw = dict(inner_iterations=PINNED_SWEEPS, convergence_threshold=0.0)
+    g0 = torch.ones((b.ids.shape[0], eeb.shape[0]), device=eeb.device)
+    card = estep_ragged(b.ids, b.cnts, g0, eeb, alpha, **kw)
+    args = [x.cpu() for x in (b.ids, b.cnts, g0, eeb, alpha)]
+    cpu = estep_ragged(*args, **kw)
+    g64 = estep_ragged(args[0], *(x.double() for x in args[1:]), **kw)[0]
+    errs = [norm_rel(card[i].cpu(), cpu[i]) for i in range(3)]
+    gap32, gap_card = norm_rel(cpu[0], g64), norm_rel(card[0].cpu(), g64)
+    bar = max(SCATTER_CARD_CPU_REL, 2.0 * gap32)
+    ok = (errs[0] <= bar and max(errs[1:]) <= SCATTER_CARD_CPU_REL
+          and int(card[3]) == int(cpu[3]) == PINNED_SWEEPS)
+    print(f"scatter {label} [{b.ids.shape[0]}x{b.ids.shape[1]}, "
+          f"K={eeb.shape[0]}]: estep_ragged card vs CPU at {PINNED_SWEEPS} "
+          f"pinned sweeps: sstats rel {errs[1]:.3e}, score rel {errs[2]:.3e} "
+          f"(tolerance {SCATTER_CARD_CPU_REL}); gamma rel {errs[0]:.3e} "
+          f"(tolerance {bar:.3e}: {SCATTER_CARD_CPU_REL} or twice the f32 "
+          f"plain version's {gap32:.3e} from f64; the kernel's {gap_card:.3e})"
+          f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"estep_ragged card and CPU disagree ({label})")
+    return {"gamma_rel": errs[0], "gamma_f32_gap": gap32,
+            "sstats_rel": errs[1], "score_rel": errs[2]}
+
+
+def sstats_route_ms(buckets, gammas, eeb, alpha, cfg, dense_buckets,
+                    plan) -> tuple:
+    """CUDA-event ms of the sufficient statistics of one batch or minibatch
+    by each route, at the same bucket-row gammas: the scatter (each
+    bucket's expEtheta and ``scatter_sstats``) and the dense route (gamma
+    assembly by ``dense_buckets``' row indices — the same rows in the same
+    order — expEtheta and ``dense_sstats`` on each counts chunk of the
+    sstats ``plan``)."""
+    import torch
+
+    from pylda_tpu_torch.models.vb import _assemble_gamma_device
+    from pylda_tpu_torch.ops.dirichlet import exp_dirichlet_expectation
+    from pylda_tpu_torch.ops.estep import scatter_sstats
+    from pylda_tpu_torch.ops.ragged import gather_table
+    from pylda_tpu_torch.ops.sstats import dense_sstats
+
+    eeb_t = gather_table(eeb)
+    rows = torch.cat(gammas)
+    row_index = torch.cat([b.row_index for b in dense_buckets])
+
+    def scatter():
+        for b, g in zip(buckets, gammas):
+            scatter_sstats(b.ids, b.cnts, exp_dirichlet_expectation(g), eeb,
+                           eeb_t, cfg.eps)
+
+    def dense():
+        et = exp_dirichlet_expectation(_assemble_gamma_device(
+            rows, row_index, alpha, plan.num_docs))
+        for counts, cidx in plan.chunks:
+            dense_sstats(counts, et[cidx], eeb, eps=cfg.eps)
+
+    return cuda_ms(scatter, 10), cuda_ms(dense, 10)
+
+
+def vb_scatter_vs_dense(label, cfg, corpus, dev, mods) -> dict:
+    """Batch VB with ``sstats_mode="scatter"`` against its auto run (dense
+    sstats) at pinned sweeps (threshold 0, ``inner_iterations`` sweeps)
+    from one lambda: one E-step each, sstats (lambda - eta) rel and ELBO
+    rel (summation order only: no document is split over rows here), then
+    5 timed iterations of each; the scatter engine's launches are zeroed
+    just before and read just after (its path: the gamma kernel only).
+    Then the sstats of one iteration by each route at the same gammas
+    (``sstats_route_ms``).  Raises past the bars."""
+    import torch
+
+    from pylda_tpu_torch.models import VariationalBayes
+    from pylda_tpu_torch.ops.dirichlet import exp_dirichlet_expectation_fast
+
+    pinned = dataclasses.replace(cfg, convergence_threshold=0.0)
+    engs, out = {}, {}
+    for mode in ("auto", "scatter"):
+        if mode == "scatter":
+            zero_launches(mods)
+        eng = VariationalBayes(dataclasses.replace(pinned, sstats_mode=mode),
+                               device=dev)
+        eng.initialize(corpus)
+        if (eng._sstats_plan is None) != (mode == "scatter"):
+            raise AssertionError(f"{label}: {mode} took the wrong route")
+        st, elbo, gammas = eng._iteration(False, eng._gamma0s(eng._batches))
+        out[mode] = (st.lam - eng.state.eta[None, :], float(elbo), gammas)
+        eng.learning_many(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.learning_many(5)
+        torch.cuda.synchronize()
+        out[mode] += ((time.perf_counter() - t0) / 5 * 1e3,)
+        engs[mode] = eng
+    counts = read_launches(mods)
+    check_launched(f"{label} scatter", counts, ("ragged_gamma",),
+                   absent=("dense_sstats",))
+    ss_rel = norm_rel(out["scatter"][0], out["auto"][0])
+    elbo_rel = abs(out["scatter"][1] - out["auto"][1]) / abs(out["auto"][1])
+    # The scatter's bucket-row gammas; the auto engine's buckets hold the
+    # same rows.
+    auto = engs["auto"]
+    scatter_ms, dense_ms = sstats_route_ms(
+        engs["scatter"]._batches, out["scatter"][2],
+        exp_dirichlet_expectation_fast(auto.state.lam), auto.state.alpha,
+        cfg, auto._batches, auto._sstats_plan)
+    ok = ss_rel <= SCATTER_SSTATS_REL and elbo_rel <= SCATTER_ELBO_REL
+    print(f"{label}: scatter vs dense sstats from one lambda at "
+          f"{cfg.inner_iterations} pinned sweeps: sstats rel {ss_rel:.3e} (tolerance {SCATTER_SSTATS_REL}), ELBO "
+          f"{out['scatter'][1]:.2f} vs {out['auto'][1]:.2f} rel "
+          f"{elbo_rel:.3e} (tolerance {SCATTER_ELBO_REL}) "
+          f"{'ok' if ok else 'FAIL'}; an iteration {out['scatter'][3]:.3f} "
+          f"ms (scatter) vs {out['auto'][3]:.3f} ms (dense sstats); sstats "
+          f"of one iteration at the same gammas: scatter {scatter_ms:.4f} ms"
+          f" vs dense_sstats {dense_ms:.4f} ms (with the gamma assembly; "
+          f"CUDA events)")
+    if not ok:
+        raise AssertionError(f"{label}: scatter and dense sstats disagree")
+    return {"launches": counts, "sstats_rel": ss_rel, "elbo_rel": elbo_rel,
+            "scatter_ms": scatter_ms, "dense_sstats_ms": dense_ms,
+            "iteration_ms_scatter": out["scatter"][3],
+            "iteration_ms_dense": out["auto"][3]}
+
+
+def svi_scatter_vs_dense(label, cfg, corpus, dev, mods) -> dict:
+    """SVI with ``sstats_mode="scatter"`` against its auto run (dense
+    sstats) from one lambda over one epoch: each minibatch's update by
+    each route from the same lambda (the scatter's lambda carried on), the
+    two lambdas within SCATTER_LAM_REL at every step — summation order
+    only, since both routes run the gamma kernel on the same rows.  Each
+    engine also runs the epoch on its own (``learning()``, launches of
+    the scatter engine's zeroed just before and read just after: the
+    gamma kernel only), and the two lambdas' distance is printed: there
+    it also carries the fixed points' sensitivity to lambda's rounding
+    (rows still updating at S* depend on it).  At the first minibatch of
+    the next epoch: two calls of ``estep_ragged`` on each bucket give the
+    same bits, and the sstats of the minibatch by each route
+    (``sstats_route_ms``).  Raises past the bars."""
+    import numpy as np
+    import torch
+
+    from pylda_tpu_torch.models import StochasticVariationalBayes
+    from pylda_tpu_torch.ops.dirichlet import exp_dirichlet_expectation_fast
+    from pylda_tpu_torch.ops.estep import estep_ragged
+    from pylda_tpu_torch.ops.ragged import gather_table
+
+    engs, lams, ests = {}, {}, {}
+    for mode in ("auto", "scatter"):
+        if mode == "scatter":
+            zero_launches(mods)
+        eng = StochasticVariationalBayes(
+            dataclasses.replace(cfg, sstats_mode=mode), device=dev)
+        eng.initialize(corpus)
+        if (eng._mb_sstats is None) != (mode == "scatter"):
+            raise AssertionError(f"{label}: {mode} took the wrong route")
+        st0 = eng.state
+        ests[mode] = eng.learning()
+        lams[mode] = eng.state.lam
+        engs[mode] = eng
+    counts = read_launches(mods)
+    check_launched(f"{label} scatter", counts, ("ragged_gamma",),
+                   absent=("dense_sstats",))
+    free_rel = norm_rel(lams["scatter"], lams["auto"])
+    # The same epoch again, each minibatch's update from one lambda.
+    sc, au = engs["scatter"], engs["auto"]
+    ep_s, ep_a = sc._epoch(cfg.seed, 0), au._epoch(cfg.seed, 0)
+    lam, step_rel = st0.lam, 0.0
+    for rho, scale, (bs, _), (ba, sel) in zip(ep_s.rhos, ep_s.scales,
+                                              ep_s.minibatches,
+                                              ep_a.minibatches):
+        lam_s = sc._minibatch_step(lam, st0.alpha, st0.eta, bs, rho, scale,
+                                   None)[0]
+        lam_a = au._minibatch_step(lam, st0.alpha, st0.eta, ba, rho, scale,
+                                   sel[1])[0]
+        step_rel = max(step_rel, norm_rel(lam_s, lam_a))
+        lam = lam_s
+    # The first minibatch of the next epoch, in each engine.
+    seed = cfg.seed + 100003
+    batches, _ = next(sc._epoch(seed, sc._t).minibatches)
+    abatches, (_, sel) = next(au._epoch(seed, au._t).minibatches)
+    st = sc.state
+    eeb = exp_dirichlet_expectation_fast(st.lam)
+    eeb_t = gather_table(eeb)
+    kw = sc._fixed_point_kw()
+    same, gammas = True, []
+    for b in batches:
+        g0 = torch.ones((b.ids.shape[0], cfg.number_of_topics), device=dev)
+        one, two = (estep_ragged(b.ids, b.cnts, g0, eeb, st.alpha,
+                                 eeb_t=eeb_t, **kw) for _ in range(2))
+        same = same and all(torch.equal(x, y) for x, y in zip(one, two))
+        gammas.append(one[0])
+    scatter_ms, dense_ms = sstats_route_ms(
+        batches, gammas, eeb, st.alpha, cfg, *au._local_plan(abatches, sel))
+    ok = (step_rel <= SCATTER_LAM_REL and same
+          and np.isfinite(ests["scatter"]))
+    print(f"{label}: scatter vs dense sstats over one epoch from one lambda: "
+          f"each minibatch's update from the same lambda, lambda rel at most "
+          f"{step_rel:.3e} (tolerance {SCATTER_LAM_REL}); each engine's own "
+          f"epoch: bound estimates {ests['scatter']:.2f} vs "
+          f"{ests['auto']:.2f}, lambda rel {free_rel:.3e}; estep_ragged "
+          f"twice on each of the minibatch's {len(batches)} buckets "
+          f"{[tuple(b.ids.shape) for b in batches]}: gamma, sstats, score "
+          f"and sweeps bitwise equal {same}; sstats of the minibatch at the "
+          f"same gammas: scatter {scatter_ms:.4f} ms vs dense_sstats "
+          f"{dense_ms:.4f} ms (with the gamma assembly; CUDA events) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: the scatter route disagrees or is "
+                             f"not repeatable")
+    return {"launches": counts, "lambda_rel_a_step": step_rel,
+            "lambda_rel_epoch": free_rel, "scatter_ms": scatter_ms,
+            "dense_sstats_ms": dense_ms, "repeatable": same}
+
+
+def write_doc_dat(corpus, directory: pathlib.Path) -> pathlib.Path:
+    """The corpus's documents as doc.dat text (one line a document, its
+    tokens' types), in a fresh ``directory``."""
+    shutil.rmtree(directory, ignore_errors=True)
+    directory.mkdir(parents=True)
+    path = directory / "doc.dat"
+    types = corpus.vocab.types
+    with open(path, "w") as f:
+        for doc in corpus.docs:
+            f.write(" ".join([types[t] for t in doc]) + "\n")
+    return path
+
+
+def svi_streaming_vs_memory(label, cfg, corpus, dev, mods) -> dict:
+    """SVI with ``sstats_mode="scatter"`` from a disk-backed
+    ``StreamingCorpus`` (the corpus written to a doc.dat under build/, its
+    row sidecar beside it) against the in-memory corpus, on the card:
+    ``learning()`` then ``learning_many(1)`` in each, bitwise equal bound
+    estimates, lambda and gamma (the JAX package's contract); launches
+    zeroed just before the streaming run and read just after it (the
+    in-memory run lies outside that window).  Raises if they differ."""
+    import numpy as np
+    import torch
+
+    from pylda_tpu_torch.corpus.streaming import StreamingCorpus
+    from pylda_tpu_torch.models import StochasticVariationalBayes
+
+    t0 = time.perf_counter()
+    path = write_doc_dat(corpus, STREAM_DIR)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stream = StreamingCorpus(str(path), corpus.vocab)
+    t_index = time.perf_counter() - t0
+    if (stream.num_docs != corpus.num_docs
+            or stream.num_tokens != corpus.num_tokens
+            or stream._row_ids is None):
+        raise AssertionError(f"{label}: the streaming corpus differs")
+    scfg = dataclasses.replace(cfg, sstats_mode="scatter")
+    runs = {}
+    for name, c in (("memory", corpus), ("streaming", stream)):
+        if name == "streaming":
+            zero_launches(mods)
+        t0 = time.perf_counter()
+        eng = StochasticVariationalBayes(scfg, device=dev)
+        eng.initialize(c)
+        t_init = time.perf_counter() - t0
+        if eng._mb_sstats is not None or eng._device_rows is None:
+            raise AssertionError(f"{label}: {name} took the wrong route")
+        ests = [eng.learning()] + eng.learning_many(1)
+        runs[name] = (ests, eng.state.lam, eng.gamma, t_init)
+    counts = read_launches(mods)  # the streaming run's alone
+    check_launched(label, counts, ("ragged_gamma",), absent=("dense_sstats",))
+    (e_m, lam_m, g_m, ti_m), (e_s, lam_s, g_s, ti_s) = (runs["memory"],
+                                                        runs["streaming"])
+    same = (e_m == e_s and torch.equal(lam_m, lam_s)
+            and np.array_equal(g_m, g_s))
+    print(f"{label}: {corpus.num_docs} documents written to {path} in "
+          f"{t_write:.2f} s, indexed (row sidecar written) in {t_index:.2f} "
+          f"s; initialize {ti_s:.2f} s streaming vs {ti_m:.2f} s in memory;"
+          f" learning() + learning_many(1): bound estimates, lambda and gamma"
+          f" bitwise equal to the in-memory run {same} "
+          f"{'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError(f"{label}: streaming and in-memory SVI differ")
+    shutil.rmtree(STREAM_DIR, ignore_errors=True)
+    return {"launches": counts, "index_s": t_index, "init_s": ti_s}
+
+
+def run_svi4_full(label, cfg, dev, mods) -> dict:
+    """SVI at BASELINE config 4's published size (SVI4_FULL_D documents):
+    the corpus and its held-out documents made from their seeds;
+    ``initialize`` (timed; auto must pick the scatter route — no counts
+    matrix — and keep the rows on the device) and the point-estimate
+    perplexity at init; then the training path, with the launch counters
+    zeroed just before and read just after: one warm and two timed
+    epochs, one more under ``torch.profiler`` (the gamma kernel must run,
+    the sstats kernel must not); then the held-out path, zeroed and read
+    the same way: ``inference``, ``perplexity`` and the point-estimate
+    perplexity (it must fall).  The 512 held-out documents' dense counts
+    fit the budget, so there the engine takes the dense-sstats route, as
+    the JAX engine does.  The profiled epoch's device time is split into
+    the gamma kernel, the scatter (the kernels under ``estep_ragged``'s
+    profiler range) and the rest.  Returns the numbers and the launches
+    of each path ("launches", "launches_heldout")."""
+    import numpy as np
+    import torch
+
+    from pylda_tpu_torch.corpus.synthetic import synthetic_corpus
+    from pylda_tpu_torch.models import StochasticVariationalBayes
+    from pylda_tpu_torch.ops.estep import SCATTER_RANGE
+
+    kw = dict(num_topics=SVI_K, num_types=SVI_V, mean_doc_length=SVI_LEN)
+    t0 = time.perf_counter()
+    corpus, beta, _ = synthetic_corpus(num_docs=SVI4_FULL_D, seed=3, **kw)
+    test, _, _ = synthetic_corpus(num_docs=SVI_TEST_DOCS, seed=SVI_TEST_SEED,
+                                  beta=beta, **kw)
+    print(f"{label}: corpus of {corpus.num_docs} documents "
+          f"({corpus.num_tokens} tokens) and {test.num_docs} held-out made in "
+          f"{time.perf_counter() - t0:.2f} s")
+    del beta
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    eng = StochasticVariationalBayes(cfg, device=dev)
+    eng.initialize(corpus)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    if eng._mb_sstats is not None or eng._device_rows is None:
+        raise AssertionError(f"{label}: auto did not pick the scatter route "
+                             f"with the rows on the device")
+    rows_mb = sum(r.ids.numel() * 8 for r in eng._device_rows) / 1e6
+    print(f"{label}: initialize {t_init:.2f} s; auto picked the scatter route"
+          f" (no counts matrix: {(corpus.num_docs + 1) * 50_176 * 2 / 1e9:.2f}"
+          f" GB in bf16 > {cfg.sstats_dense_total_budget_mb} MB); geometry "
+          f"(width: rows a minibatch) {eng._svi_geometry}; device rows "
+          f"{[tuple(r.ids.shape) for r in eng._device_rows]} ({rows_mb:.1f} "
+          f"MB)")
+    pe0 = eng.point_estimate_perplexity(test)
+    zero_launches(mods)
+    eng.learning_many(1)
+    torch.cuda.synchronize()
+    n = 2
+    t0 = time.perf_counter()
+    ests = eng.learning_many(n)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / n
+    nb = -(-corpus.num_docs // cfg.batch_size)
+    print(f"{label}: learning_many({n}) {dt:.4f} s/epoch ({dt / nb * 1e3:.3f} "
+          f"ms a minibatch, {nb} minibatches), {corpus.num_docs / dt:.1f} "
+          f"docs/s; bound estimates {[round(e, 1) for e in ests]}; sweeps per "
+          f"bucket (last minibatch) {[int(s) for s in eng.last_sweeps]}")
+    prof = profile_window(lambda: eng.learning_many(1))
+    print(f"{label}: one epoch under torch.profiler: wall "
+          f"{prof['wall_ms']:.3f} ms, device busy {prof['busy_ms']:.3f} ms, "
+          f"idle share {prof['idle_share']:.3f}, {prof['device_launches']} "
+          f"device launches")
+    for count, dev_us, key in sorted(prof["ops"], key=lambda r: -r[1])[:10]:
+        print(f"  {dev_us / 1e3:.3f} ms an epoch, {count} launches: "
+              f"{key[:90]}")
+    split = {"gamma_ms": sum(us for _, us, key in prof["ops"]
+                             if "row_fixed_point_kernel" in key) / 1e3,
+             "scatter_ms": prof["ranges"].get(SCATTER_RANGE, 0.0) / 1e3}
+    split["rest_ms"] = (prof["busy_ms"] - split["gamma_ms"]
+                        - split["scatter_ms"])
+    print(f"{label}: the profiled epoch's device busy time by part: gamma "
+          f"kernel {split['gamma_ms']:.3f} ms, scatter (range "
+          f"{SCATTER_RANGE}: expEtheta and scatter_sstats) "
+          f"{split['scatter_ms']:.3f} ms, the rest (plain tensor code: "
+          f"gathers, bound terms, lambda updates) {split['rest_ms']:.3f} ms")
+    if not (split["gamma_ms"] > 0 and split["scatter_ms"] > 0):
+        raise AssertionError(f"{label}: the profile holds no gamma kernel or "
+                             f"no scatter range")
+    counts = read_launches(mods)
+    check_launched(label, counts, ("ragged_gamma",), absent=("dense_sstats",))
+    zero_launches(mods)
+    t0 = time.perf_counter()
+    ll, gamma = eng.inference(test)
+    t_inf = time.perf_counter() - t0
+    ppl = eng.perplexity(test)
+    pe = eng.point_estimate_perplexity(test)
+    peak = torch.cuda.max_memory_allocated(dev)
+    held = read_launches(mods)
+    if not (np.isfinite(ests).all() and np.isfinite(ll) and np.isfinite(ppl)
+            and gamma.shape == (test.num_docs, cfg.number_of_topics)
+            and np.isfinite(gamma).all()):
+        raise AssertionError(f"{label}: not finite")
+    print(f"{label}: inference on {test.num_docs} held-out docs "
+          f"{t_inf * 1e3:.1f} ms (ll {ll:.1f}), perplexity {ppl:.2f}, "
+          f"point-estimate perplexity {pe:.2f} (at init {pe0:.2f}); peak "
+          f"device memory {peak / 2**20:.1f} MiB")
+    if not pe < pe0:
+        raise AssertionError(f"{label}: held-out point-estimate perplexity "
+                             f"did not fall ({pe0:.2f} -> {pe:.2f})")
+    check_launched(f"{label} held-out", held, ("ragged_gamma",
+                                               "dense_sstats"))
+    return {"launches": counts, "launches_heldout": held,
+            "init_s": t_init, "epoch_s": dt,
+            "docs_per_s": corpus.num_docs / dt,
+            "busy_ms": prof["busy_ms"], "idle_share": prof["idle_share"],
+            "wall_ms": prof["wall_ms"], "peak_mib": peak / 2**20,
+            "perplexity": ppl, "point_perplexity": pe,
+            "point_perplexity_init": pe0, **split}
 
 
 def main() -> int:
@@ -1434,6 +1903,10 @@ def main() -> int:
         "ragged flagship chunk", counts,
         exp_dirichlet_expectation(gamma_docs)[cidx], eeb, cfg.eps, sstats_mod,
         estep_dense_sstats, compute_dtype=BF16)]
+    # The scatter E-step on the card against the CPU at the largest bucket.
+    scatter = {"card_vs_cpu": scatter_card_vs_cpu(
+        "ragged flagship largest bucket",
+        max(probe._batches, key=lambda b: b.ids.shape[0]), eeb, st.alpha)}
     del probe, st, eeb, rows_plain, gamma_docs
 
     # -- kernels at the dense flagship's shapes -------------------------------
@@ -1506,6 +1979,10 @@ def main() -> int:
         hold_bf16(label, r32, r16)
         by_path[route] = r32["launches"]
         by_path[f"{route}_bf16"] = r16["launches"]
+    # The scatter route against the dense-sstats route at the ragged flagship.
+    scatter["vb_ragged_flagship"] = vb_scatter_vs_dense(
+        "engine ragged flagship", cfg, corpus, dev, mods)
+    by_path["vb_scatter"] = scatter["vb_ragged_flagship"].pop("launches")
     del corpus, test, dcorpus, dtest
     svi_test, _, _ = synthetic_corpus(
         num_docs=512, num_topics=SVI_K, num_types=SVI_V,
@@ -1513,6 +1990,13 @@ def main() -> int:
     )
     by_path["svi"] = run_svi("engine svi config 4", svi_cfg, svi_corpus,
                              svi_test, dev, mods, 4)["launches"]
+    # ... the scatter route against it, and from a disk-backed corpus.
+    scatter["svi_config4"] = svi_scatter_vs_dense(
+        "engine svi config 4", svi_cfg, svi_corpus, dev, mods)
+    by_path["svi_scatter"] = scatter["svi_config4"].pop("launches")
+    scatter["svi_streaming"] = svi_streaming_vs_memory(
+        "engine svi config 4 streaming", svi_cfg, svi_corpus, dev, mods)
+    by_path["svi_streaming"] = scatter["svi_streaming"].pop("launches")
     del svi_corpus, svi_test
     svi5_test, _, _ = synthetic_corpus(
         num_docs=SVI5["TEST_DOCS"], num_topics=SVI5["K"],
@@ -1527,6 +2011,12 @@ def main() -> int:
     hold_bf16("engine svi config 5", r32, r16)
     by_path["svi5"], by_path["svi5_bf16"] = r32["launches"], r16["launches"]
     del svi5_corpus, svi5_test, svi5_beta
+
+    # -- SVI at config 4's published 100,000 documents: the scatter route -----
+    scatter["svi4_full"] = run_svi4_full("engine svi config 4 full", svi_cfg,
+                                         dev, mods)
+    by_path["svi4_full"] = scatter["svi4_full"].pop("launches")
+    by_path["svi4_full_heldout"] = scatter["svi4_full"].pop("launches_heldout")
 
     # -- the sampling engines at BASELINE config 3 (plain PyTorch) -----------
     c3_kw = dict(num_topics=CFG3["K"], num_types=CFG3["V"],
@@ -1567,6 +2057,7 @@ def main() -> int:
         by_path[path] = run_cli(mods, mode, cd)
     for mode in ("gibbs", "hybrid"):
         by_path[f"cli_{mode}"] = run_cli(mods, mode, needed=())
+    by_path["cli_svi_streaming"] = run_cli(mods, "svi", streaming=True)
     # Each kernel build's launches on each main path (each run zeroed just
     # before and read just after), and their sum.
     paths = {name: {path: got[name] for path, got in by_path.items()}
@@ -1577,13 +2068,16 @@ def main() -> int:
     # -- cross-check: card vs CPU at a small size, on each route -------------
     disagree = []
     for (route, v_small), k_small, cd in itertools.product(
-            (("ragged", 3000), ("dense", 1000)), (16, 300), ("float32", BF16)):
+            (("ragged", 3000), ("scatter", 3000), ("dense", 1000)), (16, 300),
+            ("float32", BF16)):
         small, _, _ = synthetic_corpus(num_docs=256, num_topics=k_small,
                                        num_types=v_small, mean_doc_length=60.0,
                                        seed=5)
         scfg = LDAConfig(number_of_topics=k_small, dense_vocab_threshold=2048,
                          doc_pad_multiple=16, compute_dtype=cd,
-                         hyper_parameter_optimize_interval=2, seed=0)
+                         hyper_parameter_optimize_interval=2, seed=0,
+                         sstats_mode="scatter" if route == "scatter"
+                         else "auto")
         lam0 = np.random.default_rng(7).gamma(100.0, 0.01, (k_small, v_small))
         for engine, n in ((VariationalBayes, 3), (StochasticVariationalBayes, 2)):
             ecfg = dataclasses.replace(
@@ -1646,6 +2140,7 @@ def main() -> int:
             **{k: line[k] for k in ("max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by")},
             "library_ms": None, "shapes": shapes})
+    print(f"scatter: {json.dumps(scatter)}")
     print(f"nvidia-smi: {nvidia_smi()}")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

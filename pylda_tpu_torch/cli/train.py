@@ -47,7 +47,6 @@ _UNPORTED = (
     ("num_processes", "--num_processes", "Queue 1 item 12"),
     ("process_id", "--process_id", "Queue 1 item 12"),
     ("process_sharded_input", "--process_sharded_input", "Queue 1 item 12"),
-    ("streaming_input", "--streaming_input", "Queue 1 item 13"),
     ("profile_dir", "--profile_dir", "Queue 1 item 13"),
     ("roofline", "--roofline", "Queue 1 item 9"),
     ("phase_timing", "--phase_timing", "Queue 1 item 7"),
@@ -100,8 +99,9 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["auto", "scatter", "dense"],
                    help="ragged-layout sufficient statistics: 'auto' uses "
                         "the scatter-free dense form when the "
-                        "corpus-static dense counts fit the budget; "
-                        "'scatter' is not ported yet")
+                        "corpus-static dense counts fit the budget, "
+                        "else the row scatter; 'scatter' always takes "
+                        "the row scatter")
     p.add_argument("--sstats_dense_total_budget_mb", type=int, default=4096,
                    help="budget for the dense sstats counts matrix")
     p.add_argument("--sstats_kernel", default="auto",
@@ -165,7 +165,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--process_sharded_input", action="store_true",
                    help="multi-host sharded input (not ported yet)")
     p.add_argument("--streaming_input", action="store_true",
-                   help="disk-backed SVI input (not ported yet)")
+                   help="disk-backed SVI input: doc.dat read by line "
+                        "offsets and a parsed-row sidecar beside it "
+                        "(requires --inference_mode=svi)")
     # -- misc --
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--dtype", default="float32")
@@ -288,7 +290,11 @@ def main(argv: Optional[List[str]] = None) -> int:
             "(ROADMAP.md Queue 1 item 6)"
         )
 
-    train, test, vocab = load_input_directory(args.input_directory)
+    if args.streaming_input and config.inference_mode != "svi":
+        raise SystemExit("--streaming_input requires --inference_mode=svi")
+    train, test, vocab = load_input_directory(
+        args.input_directory, streaming=args.streaming_input
+    )
     run_dir = output_run_directory(args, config)
     if is_host_zero():
         os.makedirs(run_dir, exist_ok=True)

@@ -5,6 +5,7 @@ from pylda_tpu_torch.corpus.corpus import (
     RaggedBucket,
     SequenceBucket,
 )
+from pylda_tpu_torch.corpus.streaming import StreamingCorpus
 from pylda_tpu_torch.corpus.synthetic import synthetic_corpus
 
 __all__ = [
@@ -13,5 +14,6 @@ __all__ = [
     "DenseBatch",
     "RaggedBucket",
     "SequenceBucket",
+    "StreamingCorpus",
     "synthetic_corpus",
 ]

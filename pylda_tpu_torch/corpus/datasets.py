@@ -12,11 +12,12 @@ regenerated inside the repository).
 from __future__ import annotations
 
 import os
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 
 from pylda_tpu_torch.corpus.corpus import Corpus
+from pylda_tpu_torch.corpus.streaming import StreamingCorpus
 from pylda_tpu_torch.corpus.vocabulary import Vocabulary
 
 # Ten human-readable themes imitating the de-news newswire register.
@@ -119,18 +120,15 @@ def load_input_directory(
     process_index: Optional[int] = None,
     process_count: Optional[int] = None,
     streaming: bool = False,
-) -> Tuple[Corpus, Optional[Corpus], Vocabulary]:
+) -> Tuple[Union[Corpus, StreamingCorpus], Optional[Corpus], Vocabulary]:
     """Load the reference's input contract: doc.dat + voc.dat [+ test.dat].
 
     Without voc.dat the vocabulary is built from the training documents
-    (sorted).  The JAX package's streaming (disk-backed) and process-local
-    (one block of documents per host) loaders are not ported yet and
-    raise."""
-    if streaming:
-        raise NotImplementedError(
-            "streaming (disk-backed) corpora are not ported yet (ROADMAP.md "
-            "Queue 1 item 13)"
-        )
+    (sorted).  ``streaming`` returns the training documents as a
+    disk-backed ``StreamingCorpus`` (line offsets in RAM, documents
+    parsed on demand or read from its row sidecar); the held-out
+    documents stay in RAM.  The JAX package's process-local loader (one
+    block of documents per host) is not ported yet and raises."""
     if process_count not in (None, 1) or process_index not in (None, 0):
         raise NotImplementedError(
             "process-local corpus loading is not ported yet (ROADMAP.md "
@@ -149,7 +147,10 @@ def load_input_directory(
     else:
         with open(doc_path, "r", encoding="utf-8") as f:
             vocab = Vocabulary.from_corpus_lines(f)
-    train = Corpus.from_file(doc_path, vocab)
+    if streaming:
+        train = StreamingCorpus(doc_path, vocab)
+    else:
+        train = Corpus.from_file(doc_path, vocab)
     test = None
     test_path = os.path.join(input_directory, "test.dat")
     if os.path.exists(test_path):

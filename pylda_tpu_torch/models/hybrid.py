@@ -12,8 +12,7 @@ of the bound is ``sequence_token_score``.
 
 It rides on ``VariationalBayes`` through its seams: the sequence
 buckets (``_build_batches``), no dense sufficient statistics
-(``_plan_dense_sstats``), only the process-local refusal
-(``_check_route``) and the sampled local step (``_run_estep`` for
+(``_plan_dense_sstats``) and the sampled local step (``_run_estep`` for
 held-out inference and ``gamma``, ``_train_estep`` for training).  It
 never reaches VB's ragged + dense-sstats route, so it launches none of
 the CUDA kernels.  With ``hybrid_persistent_z`` the topic assignments are
@@ -29,11 +28,7 @@ import torch
 
 from pylda_tpu_torch.corpus.corpus import Corpus
 from pylda_tpu_torch.models.base import bucket_tensors
-from pylda_tpu_torch.models.gibbs import (
-    SeqBatch,
-    refuse_process_local,
-    sequence_batches,
-)
+from pylda_tpu_torch.models.gibbs import SeqBatch, sequence_batches
 from pylda_tpu_torch.models.vb import VariationalBayes
 from pylda_tpu_torch.ops.dirichlet import dirichlet_expectation, theta_elbo
 from pylda_tpu_torch.ops.sampling import (
@@ -52,9 +47,6 @@ class Hybrid(VariationalBayes):
     """VB global step + within-document Gibbs local step."""
 
     _USES_GAMMA_INIT = False
-
-    def _check_route(self, corpus: Corpus) -> None:
-        refuse_process_local(corpus)
 
     def _build_batches(self, corpus: Corpus) -> List[SeqBatch]:
         return sequence_batches(corpus, self._config, self._device,

@@ -21,18 +21,25 @@ there by index:
 - the large-vocabulary layout (V > ``dense_vocab_threshold``): the
   corpus's ragged rows in a fixed bucket geometry
   (``layouts.plan_svi_ragged_geometry``), so every minibatch has the same
-  bucket shapes, and a [D+1, V_pad] counts matrix (bf16 when exact, zero
-  row D) from which the minibatch's rows are gathered for the dense
-  sufficient statistics.  The gamma fixed point runs per bucket
-  (``ragged_gamma``), gammas assemble at minibatch-local positions, and
-  ``dense_sstats`` computes sstats and the token score;
+  bucket shapes.  While a [D+1, V_pad] counts matrix (bf16 when exact,
+  zero row D) fits ``sstats_dense_total_budget_mb`` it sits on the device
+  too, and each minibatch gathers its rows for the dense sufficient
+  statistics: the gamma fixed point runs per bucket (``ragged_gamma``),
+  gammas assemble at minibatch-local positions, and ``dense_sstats``
+  computes sstats and the token score.  Otherwise, and for
+  ``sstats_mode="scatter"``, each bucket runs the scatter E-step
+  (``estep_ragged``: the same gamma kernel, then the row scatter) and no
+  counts matrix is built;
 - the dense layout: the [D+1, V] doc-term matrix, and the dense E-step
   (``dense_estep``) on each gathered [batch, V] block.
 
 When a minibatch overflows the geometry, or the rows exceed
 ``svi_device_rows_budget_mb``, the epoch's minibatches are packed on the
 host instead (per-batch shapes for an overflowing one) and uploaded; they
-run on the same device through the same kernels.
+run on the same device through the same kernels.  A disk-backed
+``corpus.streaming.StreamingCorpus`` feeds every one of these routes:
+its rows, parsed blocks or dense blocks are read from its row sidecar
+(or re-parsed) when the engine builds them.
 
 PyTorch runs eagerly: ``learning_many`` is a Python loop over epochs and
 minibatches whose kernels queue on the device stream, and it reads the
@@ -40,11 +47,8 @@ estimates back once.  Per-document gammas are kept by ``learning()``;
 after ``learning_many`` the ``gamma`` property recomputes them in one
 rho = 0 epoch.  Routes of the JAX engine not ported yet raise
 ``NotImplementedError`` naming their ROADMAP item: process-local corpora
-and the mesh, disk-backed (streaming) corpora, ``phase_timings``,
-``sstats_mode="scatter"`` or a counts matrix over
-``sstats_dense_total_budget_mb`` on the large-vocabulary layout; on
-the card, K above the kernels' 4096 is refused by the kernel wrappers at
-the first E-step.
+and the mesh, and ``phase_timings``; on the card, K above the kernels'
+4096 is refused by the kernel wrappers at the first E-step.
 """
 
 from __future__ import annotations
@@ -141,21 +145,11 @@ class StochasticVariationalBayes(VariationalBayes):
                 "process-local corpora and the mesh are not ported yet "
                 "(ROADMAP.md Queue 1 item 12)"
             )
-        if getattr(corpus, "docs", None) is None:
-            raise NotImplementedError(
-                "disk-backed (streaming) corpora are not ported yet "
-                "(ROADMAP.md Queue 1 item 13)"
-            )
         self._set_gammas(None, None)
         self._mb_sstats = self._svi_geometry = self._device_rows = None
         if self._dense_layout(corpus):
             self._device_rows = self._build_device_dense(corpus)
             return
-        if cfg.sstats_mode == "scatter":
-            raise NotImplementedError(
-                "sstats_mode='scatter' needs the scatter E-step "
-                "(estep_ragged), not ported yet (ROADMAP.md Queue 1 item 4)"
-            )
         self._mb_sstats = self._plan_mb_dense_sstats(corpus)
         self._svi_geometry = layouts.plan_svi_ragged_geometry(
             corpus, cfg, cfg.batch_size
@@ -164,16 +158,30 @@ class StochasticVariationalBayes(VariationalBayes):
             self._device_rows = self._build_device_rows(corpus)
 
     @staticmethod
-    def _count_stats(corpus: Corpus) -> Tuple[np.ndarray, torch.dtype]:
+    def _unique_blocks(corpus: Corpus, block: int = 4096):
+        """(start, [(ids, counts)] of documents start..start+block) over
+        the corpus: its cached rows, or for a disk-backed corpus (no
+        ``doc_unique``) one parsed block at a time."""
+        D = corpus.num_docs
+        for start in range(0, D, block):
+            stop = min(D, start + block)
+            if hasattr(corpus, "doc_unique"):
+                yield start, [corpus.doc_unique(d) for d in range(start, stop)]
+            else:
+                sub = corpus.subset(range(start, stop))
+                yield start, [sub.doc_unique(d) for d in range(stop - start)]
+
+    @classmethod
+    def _count_stats(cls, corpus: Corpus) -> Tuple[np.ndarray, torch.dtype]:
         """([D+1] f32, 1 for non-empty documents; the storage dtype of
         the counts: bf16 when every count is <= 256, where it is exact)."""
         nonempty = np.zeros((corpus.num_docs + 1,), np.float32)
         maxc = 0.0
-        for d in range(corpus.num_docs):
-            _ids, cts = corpus.doc_unique(d)
-            if cts.size:
-                nonempty[d] = 1.0
-                maxc = max(maxc, float(cts.max()))
+        for start, uniq in cls._unique_blocks(corpus):
+            for d, (_ids, cts) in enumerate(uniq, start):
+                if cts.size:
+                    nonempty[d] = 1.0
+                    maxc = max(maxc, float(cts.max()))
         return nonempty, (torch.bfloat16 if maxc <= 256.0 else torch.float32)
 
     def _device_counts(self, corpus: Corpus, width: int,
@@ -184,9 +192,7 @@ class StochasticVariationalBayes(VariationalBayes):
         D = corpus.num_docs
         dev = self._device
         out = torch.zeros((D + 1, width), dtype=dtype, device=dev)
-        for start in range(0, D, 4096):
-            uniq = [corpus.doc_unique(d)
-                    for d in range(start, min(D, start + 4096))]
+        for start, uniq in self._unique_blocks(corpus):
             cols = np.concatenate([ids for ids, _ in uniq]).astype(np.int64)
             if not cols.size:
                 continue
@@ -200,24 +206,26 @@ class StochasticVariationalBayes(VariationalBayes):
             )
         return out
 
-    def _plan_mb_dense_sstats(self, corpus: Corpus) -> _MinibatchPlan:
+    def _plan_mb_dense_sstats(self, corpus: Corpus
+                              ) -> Optional[_MinibatchPlan]:
         """The [D+1, V_pad] counts matrix of the large-vocabulary layout
         (V padded to a multiple of 1024), and each minibatch's
         doc-selection length split into chunks whose [chunk, V_pad]
-        work fits ``sstats_dense_budget_mb``."""
+        work fits ``sstats_dense_budget_mb``.  None — the minibatches run
+        the scatter E-step — where the JAX engine's plan is None:
+        ``sstats_mode="scatter"``, no documents or minibatch, or a matrix
+        over ``sstats_dense_total_budget_mb`` (tested in bf16 before the
+        corpus scan, then in its storage dtype)."""
         cfg = self._config
         D = corpus.num_docs
         v_pad = round_up(corpus.num_types, 1024)
+        budget = cfg.sstats_dense_total_budget_mb * 1e6
+        if (cfg.sstats_mode == "scatter" or D == 0 or cfg.batch_size <= 0
+                or (D + 1) * v_pad * 2 > budget):
+            return None
         nonempty, dtype = self._count_stats(corpus)
-        nbytes = (D + 1) * v_pad * torch.finfo(dtype).bits // 8
-        if nbytes > cfg.sstats_dense_total_budget_mb * 1e6:
-            raise NotImplementedError(
-                f"the minibatch counts matrix ({nbytes / 1e6:.0f} MB) is "
-                f"over sstats_dense_total_budget_mb "
-                f"({cfg.sstats_dense_total_budget_mb} MB): that needs the "
-                "scatter E-step (estep_ragged), not ported yet (ROADMAP.md "
-                "Queue 1 item 4)"
-            )
+        if (D + 1) * v_pad * torch.finfo(dtype).bits // 8 > budget:
+            return None
         pad = cfg.doc_pad_multiple
         b_cap = round_up(cfg.batch_size, pad)
         rows_budget = max(pad, int(cfg.sstats_dense_budget_mb * 1e6
@@ -323,14 +331,16 @@ class StochasticVariationalBayes(VariationalBayes):
         scale sstats).  Returns (lambda, the doc-side bound terms times
         scale, the sum of E[log theta] over the minibatch, gammas).
 
-        On the large-vocabulary layout ``batches`` are buckets whose
+        With the dense sstats plan ``batches`` are buckets whose
         row_index holds each row's global document (D for padding) and
         ``doc_sel`` is the [b_cap] selection (-1 pads): everything after
         the fixed point runs at minibatch-local positions 0..b_cap, and
-        the one gamma block returned is in ``doc_sel`` order."""
+        the one gamma block returned is in ``doc_sel`` order.  Without it
+        (the dense layout, the scatter route) each batch runs its whole
+        E-step and returns its own gamma block."""
         gamma0s = self._gamma0s(batches)
         if self._mb_sstats is None:
-            out = self._run_estep_dense(batches, lam, alpha, gamma0s)
+            out = self._run_estep_batches(batches, lam, alpha, gamma0s)
         else:
             out = self._run_estep_hybrid(*self._local_plan(batches, doc_sel),
                                          lam, alpha, gamma0s)
@@ -355,7 +365,7 @@ class StochasticVariationalBayes(VariationalBayes):
         inv = torch.full((D + 1,), b_cap, dtype=torch.int64,
                          device=doc_sel.device)
         inv.index_put_((safe,), torch.where(valid, pos, b_cap))
-        buckets = [_Bucket(ids=b.ids, cnts=b.cnts, row_index=inv[b.row_index])
+        buckets = [dataclasses.replace(b, row_index=inv[b.row_index])
                    for b in batches]
         chunks, s0 = [], 0
         for c in plan.chunk_sizes:
@@ -451,6 +461,8 @@ class StochasticVariationalBayes(VariationalBayes):
                             ids=rows.ids.index_select(0, r),
                             cnts=rows.cnts.index_select(0, r),
                             row_index=row_doc,
+                            mask=(row_doc < D).to(self._dtype),
+                            doc_ids=gids[i][j],
                         ))
                     j += 1
             yield batches, (None if sels is None else (docsels[i], sels[i]))

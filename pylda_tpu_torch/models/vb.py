@@ -1,17 +1,22 @@
 """Batch mean-field variational Bayes engine.
 
-Counterpart of ``pylda_tpu.models.vb.VariationalBayes`` on both of its
-layouts:
+Counterpart of ``pylda_tpu.models.vb.VariationalBayes`` on each of its
+routes:
 
 - the dense route (V <= ``dense_vocab_threshold``): per dense doc-term
   batch, the whole E-step — gamma fixed point, then sufficient statistics
   and token score at the converged gamma — in ``ops/dense_estep``
   (``dense_estep``, CUDA kernels on the card);
-- the large-vocab route: per length bucket the gamma fixed point
-  (``ops/ragged.ragged_gamma``, a CUDA kernel on the card), per-document
-  gamma assembly, then sufficient statistics and token score against
-  corpus-static dense count chunks (``ops/sstats.dense_sstats``, a CUDA
-  kernel on the card);
+- the large-vocab route with dense sufficient statistics (the default
+  while the corpus's dense counts fit ``sstats_dense_total_budget_mb``):
+  per length bucket the gamma fixed point (``ops/ragged.ragged_gamma``, a
+  CUDA kernel on the card), per-document gamma assembly, then sufficient
+  statistics and token score against corpus-static dense count chunks
+  (``ops/sstats.dense_sstats``, a CUDA kernel on the card);
+- the large-vocab scatter route (``sstats_mode="scatter"``, a corpus over
+  the budget, or a disk-backed corpus): per bucket the whole E-step in
+  ``ops/estep.estep_ragged`` — the same gamma kernel, then the row
+  scatter in plain PyTorch — and the bound terms per bucket row;
 
 then lambda = eta + sstats, the ELBO and, on schedule, the Newton
 alpha/eta updates.  ``compute_dtype="bfloat16"`` runs every kernel (or,
@@ -22,10 +27,8 @@ sit on top (``models/base.py``).
 PyTorch runs eagerly, so there is no jit or scan here: ``learning_many``
 is a Python loop whose kernels queue on the device stream; it reads the
 ELBOs back once at the end (the Newton updates read one scalar per Newton
-step).  Routes of the JAX engine not ported yet raise
-``NotImplementedError`` naming their ROADMAP item: ``sstats_mode="scatter"``
-and a corpus over ``sstats_dense_total_budget_mb`` on the large-vocab
-route.
+step).  Process-local corpora raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from pylda_tpu_torch.ops.dirichlet import (
     exp_dirichlet_expectation_fast,
     theta_elbo,
 )
+from pylda_tpu_torch.ops.estep import estep_ragged
 from pylda_tpu_torch.ops.hyper import newton_dirichlet_mle
 from pylda_tpu_torch.ops.ragged import gather_table, ragged_gamma
 from pylda_tpu_torch.ops.sstats import dense_sstats
@@ -64,6 +68,8 @@ class _Bucket:
     # documents (the corpus, or an SVI minibatch's selection), and the
     # plan's num_docs for padding rows.
     row_index: torch.Tensor
+    mask: torch.Tensor  # [D_b] f32: 1 for rows of a document
+    doc_ids: np.ndarray  # [D_b] int32, -1 for padding rows
 
     @property
     def rows(self) -> int:
@@ -158,26 +164,11 @@ class VariationalBayes(Inferencer):
         return corpus.num_types <= self._config.dense_vocab_threshold
 
     def _check_route(self, corpus: Corpus) -> None:
-        """Raise for the routes of the JAX engine not ported yet."""
-        cfg = self._config
+        """Raise for the one route of the JAX engine not ported yet."""
         if getattr(corpus, "process_local", False):
             raise NotImplementedError(
                 "process-local corpora are not ported yet (ROADMAP.md Queue 1 "
                 "item 12)"
-            )
-        if self._dense_layout(corpus):
-            return  # the dense E-step computes its own sstats
-        if cfg.sstats_mode == "scatter":
-            raise NotImplementedError(
-                "sstats_mode='scatter' is not ported yet (ROADMAP.md Queue 1 "
-                "item 7)"
-            )
-        total_mb = corpus.num_docs * corpus.num_types * 4 / 1e6
-        if total_mb > cfg.sstats_dense_total_budget_mb:
-            raise NotImplementedError(
-                f"a corpus over sstats_dense_total_budget_mb ({total_mb:.0f} "
-                f"> {cfg.sstats_dense_total_budget_mb} MB) needs the scatter "
-                "route, not ported yet (ROADMAP.md Queue 1 item 7)"
             )
 
     def _build_batches(self, corpus: Corpus) -> List[_Batch]:
@@ -204,17 +195,26 @@ class VariationalBayes(Inferencer):
                 cnts=torch.as_tensor(b.cnts, device=dev).to(self._dtype),
                 row_index=torch.as_tensor(row_index, dtype=torch.int64,
                                           device=dev),
+                mask=torch.as_tensor(b.mask, device=dev).to(self._dtype),
+                doc_ids=b.doc_ids,
             ))
         return out
 
     def _plan_dense_sstats(self, corpus: Corpus) -> Optional[_SstatsPlan]:
         """Corpus-static dense counts chunks of the large-vocab route
         (docs chunked to ``sstats_dense_budget_mb``), vocab-prepadded once
-        to a multiple of 1024; None on the dense route, whose E-step
-        computes its own sstats."""
-        if self._dense_layout(corpus):
-            return None
+        to a multiple of 1024.  None — each bucket's E-step computes its
+        own sstats — where the JAX engine's plan is None: on the dense
+        route, for ``sstats_mode="scatter"``, for a corpus whose [D, V]
+        float32 counts exceed ``sstats_dense_total_budget_mb``, and for a
+        corpus without documents in RAM (disk-backed)."""
         cfg = self._config
+        if (self._dense_layout(corpus) or cfg.sstats_mode == "scatter"
+                or getattr(corpus, "docs", None) is None):
+            return None
+        if (corpus.num_docs * corpus.num_types * 4 / 1e6
+                > cfg.sstats_dense_total_budget_mb):
+            return None
         dev = self._device
         pad = cfg.doc_pad_multiple
         rows_budget = int(cfg.sstats_dense_budget_mb * 1e6
@@ -274,20 +274,34 @@ class VariationalBayes(Inferencer):
             compute_dtype=cfg.compute_dtype,
         )
 
-    def _run_estep_dense(self, batches: List[_Dense], lam, alpha, gamma0s):
-        """Whole dense E-step per batch (``_vb_dense_batch`` of the JAX
-        engine).  Returns (gammas, sstats, token_score, theta_score,
-        elog_sum), one gamma per batch; the sweeps each batch took stay on
-        the device in ``last_sweeps``."""
+    def _run_estep_batches(self, batches: List[_Batch], lam, alpha,
+                           gamma0s):
+        """The whole E-step batch by batch (the JAX engine's
+        ``_vb_dense_batch`` and ``_vb_ragged_batch``): a dense batch's in
+        ``dense_estep``, a ragged bucket's in ``estep_ragged`` (the gamma
+        kernel, then the row scatter).  The bound terms sum each batch's
+        rows under its row mask, so a document chunked over several rows
+        adds one theta term a row, as in the JAX engine.  Returns (gammas,
+        sstats, token_score, theta_score, elog_sum), one gamma per batch;
+        the sweeps each batch took stay on the device in
+        ``last_sweeps``."""
         eeb = exp_dirichlet_expectation_fast(lam)
         kw = self._fixed_point_kw()
+        # The gamma kernel gathers rows of expElogbeta^T, and so does the
+        # scatter: one table for all buckets of this E-step.
+        eeb_t = (gather_table(eeb, self._config.compute_dtype)
+                 if any(isinstance(b, _Bucket) for b in batches) else None)
         sstats = None
         token_score = torch.zeros((), dtype=lam.dtype, device=lam.device)
         theta_score = torch.zeros((), dtype=lam.dtype, device=lam.device)
         elog_sum = torch.zeros(alpha.shape, dtype=lam.dtype, device=lam.device)
         gammas, sweeps = [], []
         for b, gamma0 in zip(batches, gamma0s):
-            g, ss, tok, s = dense_estep(b.counts, gamma0, eeb, alpha, **kw)
+            if isinstance(b, _Dense):
+                g, ss, tok, s = dense_estep(b.counts, gamma0, eeb, alpha, **kw)
+            else:
+                g, ss, tok, s = estep_ragged(b.ids, b.cnts, gamma0, eeb, alpha,
+                                             eeb_t=eeb_t, **kw)
             sstats = ss if sstats is None else sstats + ss
             token_score = token_score + tok
             theta_score = theta_score + theta_elbo(g, alpha, b.mask)
@@ -343,14 +357,14 @@ class VariationalBayes(Inferencer):
         """The E-step of ``batches``: (gammas, sstats, token_score,
         theta_score, elog_sum)."""
         if plan is None:
-            return self._run_estep_dense(batches, lam, alpha, gamma0s)
+            return self._run_estep_batches(batches, lam, alpha, gamma0s)
         return self._run_estep_hybrid(batches, plan, lam, alpha, gamma0s)
 
     @staticmethod
     def _gamma_doc_ids_for(batches, plan) -> List[np.ndarray]:
         """Row->document maps matching the gammas ``_run_estep`` returns:
-        one per dense batch, or one per-document block on the large-vocab
-        route."""
+        one per batch, or one per-document block with a dense sstats
+        plan."""
         if plan is not None:
             return [np.arange(plan.num_docs, dtype=np.int32)]
         return [b.doc_ids for b in batches]

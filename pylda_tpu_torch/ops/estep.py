@@ -5,6 +5,10 @@ references of the three CUDA kernels (``ops/ragged.py``,
 ``ops/sstats.py``, ``ops/dense_estep.py``): the kernel wrappers call them
 for CPU tensors, the tests hold them against the JAX functions, and
 ``chip_smoke.py`` holds each kernel against them on the card.
+``estep_ragged`` (the scatter route) is the exception: its fixed point is
+the ragged kernel's wrapper, and its sufficient statistics
+(``scatter_sstats``) are plain PyTorch on every device, as the JAX
+function's are XLA.
 
 Only the "dtk" layout ([D, T, K], topics last) is ported: the JAX
 package's "kdt" layout, bf16 factor storage in float32 mode and
@@ -26,11 +30,19 @@ version the kernels' bf16 builds are held against.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 COMPUTE_DTYPES = ("float32", "bfloat16")
+# Slots a part of a word's run in the scatter's two-level sum
+# (``sum_by_word``): at a config-4 minibatch on an H100 parts of 64 sum in
+# 0.83 ms, of 32 in 0.95 ms, and one segment a word takes 5.81 ms
+# (scripts/torch_scatter_sum_order.py).
+SUM_RUN = 64
+# The profiler range ``estep_ragged`` runs its scatter in (its expEtheta
+# and ``scatter_sstats``): the device time of the scatter in a profile.
+SCATTER_RANGE = "estep_ragged.scatter"
 
 from pylda_tpu_torch.ops.dirichlet import (
     exp_dirichlet_expectation,
@@ -247,6 +259,126 @@ def estep_dense_sstats(
     sstats = exp_elog_beta * (et_c.T @ rnd(ratio))[:, :V]
     token_score = (c * torch.log(phinorm)).sum()
     return sstats, token_score
+
+
+def scatter_sstats(
+    ids: torch.Tensor,  # [D, T] int32 (0 on padded slots)
+    cnts: torch.Tensor,  # [D, T] float (0 on padded slots)
+    exp_etheta: torch.Tensor,  # [D, K] exp E[log theta] at converged gamma
+    exp_elog_beta: torch.Tensor,  # [K, V]
+    eeb_t: torch.Tensor,  # gather_table(exp_elog_beta, compute_dtype)
+    eps: float = 1e-30,
+    compute_dtype: str = "float32",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sufficient statistics + token score of one ragged block by the row
+    scatter — what ``pylda_tpu``'s ``estep_ragged`` does after its loop:
+
+        phinorm[d, t] = expEtheta[d] . expElogbeta[:, ids[d, t]] + eps
+        A[v]          = sum over slots (d, t) with ids = v of
+                        expEtheta[d] * cnts[d, t] / phinorm[d, t]
+        sstats        = expElogbeta * A^T           # [K, V]
+        score         = sum cnts * log(phinorm)
+
+    bf16 mode rounds expEtheta and the gathered expElogbeta in phinorm
+    only; the products and sums stay in the input dtype.  The rows of
+    expElogbeta^T are gathered from ``eeb_t``, the ragged kernel's table
+    (``ops.row_fixed_point.gather_table``: its bf16 table holds the
+    rounded values).  Padding slots (count 0) add exactly 0 to A[0].
+
+    The sum is the same on every call: the flattened ids are sorted
+    stably (slot order within a word) and ``sum_by_word`` sums each
+    word's run in a fixed order with ``torch.segment_reduce`` — no
+    atomics."""
+    D, T = ids.shape
+    K, V = exp_elog_beta.shape
+    rnd = _rounder(compute_dtype)
+    flat = ids.reshape(-1).long()
+    B = eeb_t.index_select(0, flat)[:, :K].to(exp_etheta.dtype)
+    phinorm = torch.einsum("dtk,dk->dt", B.reshape(D, T, K),
+                           rnd(exp_etheta)) + eps
+    del B
+    ratio = cnts.to(exp_etheta.dtype) / phinorm
+    token_score = (cnts.to(phinorm.dtype) * torch.log(phinorm)).sum()
+    words, perm = torch.sort(flat, stable=True)
+    U = (exp_etheta.index_select(0, torch.div(perm, T, rounding_mode="floor"))
+         * ratio.reshape(-1)[perm][:, None])
+    return exp_elog_beta * sum_by_word(words, U, V).T, token_score
+
+
+def sum_by_word(words: torch.Tensor, U: torch.Tensor, V: int,
+                run: int = SUM_RUN) -> torch.Tensor:
+    """A [V, K]: the rows of U [N, K] summed by word, for ``words`` [N]
+    sorted (int64), in one fixed order on every device.
+
+    ``torch.segment_reduce`` sums each segment in sequence, and a frequent
+    word's slots run to thousands, a chain of dependent adds.  So the sum
+    takes two levels: each word's run is cut into parts of at most
+    ``run`` slots, summed in slot order, and then each word's parts are
+    summed in order.  Every shape is fixed by (N, V, run): the number of
+    parts is bounded by V + ceil(N / run), the parts past the last are
+    empty, and nothing waits on the device."""
+    N = words.numel()
+    dev = words.device
+    v = torch.arange(V + 1, dtype=words.dtype, device=dev)
+    offsets = torch.searchsorted(words, v)  # [V + 1] start of each run
+    parts = torch.div(offsets[1:] - offsets[:-1] + run - 1, run,
+                      rounding_mode="floor")
+    base = torch.zeros(V + 1, dtype=words.dtype, device=dev)
+    torch.cumsum(parts, 0, out=base[1:])  # [V + 1] first part of each word
+    s = torch.arange(V + -(-N // run) + 1, dtype=words.dtype, device=dev)
+    # Part s belongs to the last word whose first part is <= s (words
+    # with no slots have no part); past the last part, to V.
+    owner = torch.searchsorted(base, s, right=True) - 1
+    starts = torch.clamp(offsets[owner] + (s - base[owner]) * run, max=N)
+    partial = torch.segment_reduce(U, "sum", offsets=starts, axis=0,
+                                   unsafe=True)
+    return torch.segment_reduce(partial, "sum", offsets=base, axis=0,
+                                unsafe=True)
+
+
+def estep_ragged(
+    ids: torch.Tensor,  # [D, T] int32 (0 on padded slots)
+    cnts: torch.Tensor,  # [D, T] float (0 on padded slots)
+    gamma_init: torch.Tensor,  # [D, K]
+    exp_elog_beta: torch.Tensor,  # [K, V]
+    alpha: torch.Tensor,  # [K]
+    inner_iterations: int = 50,
+    convergence_threshold: float = 1e-5,
+    eps: float = 1e-30,
+    stall_patience: int = 0,
+    compute_dtype: str = "float32",
+    eeb_t: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Ragged (ids, counts) E-step with scatter sufficient statistics —
+    ``pylda_tpu``'s ``estep_ragged``.  Returns (gamma, sstats [K, V],
+    token_score, sweeps_used 0-d int32).
+
+    Its loop is the loop of ``estep_ragged_gamma`` (the JAX function's
+    trajectory is the same at pinned sweeps), so it runs
+    ``ops.ragged.ragged_gamma``: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors.  Then ``scatter_sstats`` at the EXACT
+    expectation of the converged gamma, gathering from one table
+    ``eeb_t`` (``gather_table(exp_elog_beta, compute_dtype)``, built here
+    when not passed).  The scatter runs in the profiler range
+    ``SCATTER_RANGE``."""
+    # ops.ragged imports this module for its plain version.
+    from pylda_tpu_torch.ops.ragged import gather_table, ragged_gamma
+
+    if eeb_t is None:
+        eeb_t = gather_table(exp_elog_beta, compute_dtype)
+    gamma, sweeps = ragged_gamma(
+        ids, cnts, gamma_init, exp_elog_beta, alpha,
+        inner_iterations=inner_iterations,
+        convergence_threshold=convergence_threshold, eps=eps,
+        stall_patience=stall_patience, eeb_t=eeb_t,
+        compute_dtype=compute_dtype,
+    )
+    with torch.profiler.record_function(SCATTER_RANGE):
+        sstats, token_score = scatter_sstats(
+            ids, cnts, exp_dirichlet_expectation(gamma), exp_elog_beta,
+            eeb_t, eps, compute_dtype=compute_dtype,
+        )
+    return gamma, sstats, token_score, sweeps
 
 
 def ragged_doc_bound(

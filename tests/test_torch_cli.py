@@ -181,7 +181,7 @@ def test_learning_many_matches_learning_loop(corpus_dir):
     "flag",
     ["--mesh=2,1", "--shard_vocab", "--shard_topics",
      "--coordinator_address=localhost:1", "--num_processes=2",
-     "--process_id=0", "--process_sharded_input", "--streaming_input",
+     "--process_id=0", "--process_sharded_input",
      "--profile_dir=/x", "--roofline", "--phase_timing",
      "--tensorboard_dir=/x", "--coherence", "--checkpoint_format=orbax"],
 )
@@ -290,8 +290,9 @@ def test_model_file_refusals(corpus_dir, tmp_path):
     assert loaded.gamma.shape == (120, 5)  # prepared for training
 
 
-def test_bundled_corpus_matches_jax():
-    """data/de-news-tiny parses to the same corpus in both packages."""
+def test_bundled_corpus_matches_jax(tmp_path):
+    """data/de-news-tiny parses to the same corpus in both packages (in
+    RAM, and, from a copy, disk-backed)."""
     ours = load_input_directory(bundled_corpus_dir())
     theirs = jax_load(bundled_corpus_dir())
     assert ours[2].types == theirs[2].types
@@ -301,8 +302,15 @@ def test_bundled_corpus_matches_jax():
             np.testing.assert_array_equal(c.docs[d], np.asarray(c_j.docs[d]))
             for a, b in zip(c.doc_unique(d), c_j.doc_unique(d)):
                 np.testing.assert_array_equal(a, np.asarray(b))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        load_input_directory(bundled_corpus_dir(), streaming=True)
+    for name in ("doc.dat", "voc.dat", "test.dat"):
+        with open(os.path.join(bundled_corpus_dir(), name), "rb") as f:
+            (tmp_path / name).write_bytes(f.read())
+    stream = load_input_directory(str(tmp_path), streaming=True)[0]
+    theirs_stream = jax_load(str(tmp_path), streaming=True)[0]
+    assert stream.num_tokens == theirs_stream.num_tokens == ours[0].num_tokens
+    for d in range(stream.num_docs):
+        np.testing.assert_array_equal(stream.subset([d]).docs[0],
+                                      ours[0].docs[d])
     with pytest.raises(NotImplementedError, match="item 12"):
         load_input_directory(bundled_corpus_dir(), process_index=1,
                              process_count=2)

@@ -1018,3 +1018,124 @@ def test_sampling_engines_on_card(cuda, mode):
         assert float(sstats.sum()) == pytest.approx(corpus.num_tokens,
                                                     rel=1e-5)
     assert np.isfinite(eng.perplexity(corpus.subset(range(40))))
+
+
+# -- the scatter E-step (estep_ragged: the gamma kernel + the row scatter) ----
+
+
+def _scatter_problem(D, T, K, V, live, seed=0):
+    """A ragged block (padding slots and two padding rows) whose few words
+    each fill many slots, so a word's run spans many rows: the order of
+    its sum is what makes the scatter repeatable or not."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, V, (D, T)).astype(np.int32)
+    cnts = rng.integers(1, 4, (D, T)).astype(np.float32)
+    ids[:, live:] = 0
+    cnts[:, live:] = 0.0
+    ids[-2:] = 0
+    cnts[-2:] = 0.0
+    lam = rng.gamma(0.1, 1.0, (K, V)) * 100.0 + 0.01
+    eeb = exp_dirichlet_expectation(torch.tensor(lam)).float()
+    return (torch.tensor(ids), torch.tensor(cnts), eeb,
+            torch.full((K,), 1.0 / K))
+
+
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+@pytest.mark.parametrize("K", [16, 200, 1000])
+def test_estep_ragged_card_matches_cpu(cuda, K, cd):
+    """At pinned sweeps (12, above K = 256 three; bf16 mode: one) the
+    card's estep_ragged — the gamma kernel, then the scatter — against
+    the CPU's (the plain version): gamma rtol 1e-4 (atol 1e-4), the score
+    rel 1e-5, sstats rel 1e-5 of the largest entry; one kernel launch.
+    In bf16 mode expEtheta is rounded to bf16 in phinorm, and where the
+    two gammas differ at 1e-6 a rounded value may land one bf16 ulp
+    (2^-8) apart, moving each term of an entry's sum by at most about
+    2^-8 of itself: there the route's sstats are held entry by entry to
+    2^-7 of the entry (atol 1e-6 of the largest) and in all to 1e-3 of
+    the largest entry (seen 1.3e-4 at K = 1000), and the scatter at one
+    expEtheta on both devices to 1e-5."""
+    from pylda_tpu_torch.ops.estep import estep_ragged, scatter_sstats
+
+    ids, cnts, eeb, alpha = _scatter_problem(131, 48, K, 700, 37)
+    # Pinned sweeps as the gamma kernels' own checks: above K = 256 float32
+    # reassociation grows past the tolerance within 12 sweeps.
+    kw = dict(inner_iterations=(12 if K <= 256 else 3) if cd == "float32"
+              else 1, convergence_threshold=0.0, compute_dtype=cd)
+    args = (ids, cnts, torch.ones((131, K)), eeb, alpha)
+    before = ragged_mod.LAUNCHES + ragged_mod.BF16_LAUNCHES
+    g, ss, tok, s = estep_ragged(*[a.to(cuda) for a in args], **kw)
+    assert ragged_mod.LAUNCHES + ragged_mod.BF16_LAUNCHES == before + 1
+    g_c, ss_c, tok_c, s_c = estep_ragged(*args, **kw)
+    assert int(s) == int(s_c) == kw["inner_iterations"]
+    np.testing.assert_allclose(g.cpu().numpy(), g_c.numpy(), rtol=1e-4,
+                               atol=1e-4)
+    diff, top = (ss.cpu() - ss_c).abs(), float(ss_c.abs().max())
+    err = float(diff.max()) / top
+    assert err <= (1e-5 if cd == "float32" else 1e-3), err
+    if cd == BF16:
+        assert bool((diff <= 2.0 ** -7 * ss_c.abs() + 1e-6 * top).all())
+    assert float(tok) == pytest.approx(float(tok_c), rel=1e-5)
+    et = exp_dirichlet_expectation(g)
+    ss_e = scatter_sstats(ids.to(cuda), cnts.to(cuda), et, eeb.to(cuda),
+                          ragged_mod.gather_table(eeb.to(cuda), cd),
+                          compute_dtype=cd)[0].cpu()
+    ss_ec = scatter_sstats(ids, cnts, et.cpu(), eeb,
+                           ragged_mod.gather_table(eeb, cd),
+                           compute_dtype=cd)[0]
+    assert float((ss_e - ss_ec).abs().max() / ss_ec.abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+def test_scatter_card_bitwise_repeatable(cuda, cd):
+    """Two calls give the same bits (no atomics: a stable sort and one
+    segment a word), and the card's scatter at the CPU's gamma agrees
+    with the CPU's to rel 1e-5 of the largest entry."""
+    from pylda_tpu_torch.ops.estep import estep_ragged, scatter_sstats
+    from pylda_tpu_torch.ops.row_fixed_point import gather_table
+
+    ids, cnts, eeb, alpha = _scatter_problem(2000, 64, 100, 40, 60, seed=2)
+    dev_args = [a.to(cuda) for a in (ids, cnts, torch.ones((2000, 100)), eeb,
+                                     alpha)]
+    eeb_t = gather_table(dev_args[3], cd)
+    outs = [estep_ragged(*dev_args, compute_dtype=cd, eeb_t=eeb_t)
+            for _ in range(2)]
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    et = exp_dirichlet_expectation(outs[0][0]).cpu()
+    ss, tok = scatter_sstats(ids.to(cuda), cnts.to(cuda), et.to(cuda),
+                             dev_args[3], eeb_t, compute_dtype=cd)
+    ss_c, tok_c = scatter_sstats(ids, cnts, et, eeb, gather_table(eeb, cd),
+                                 compute_dtype=cd)
+    assert float((ss.cpu() - ss_c).abs().max() / ss_c.abs().max()) <= 1e-5
+    assert float(tok) == pytest.approx(float(tok_c), rel=1e-5)
+
+
+@pytest.mark.parametrize("engine", ["vb", "svi"])
+def test_scatter_route_engine_card_matches_cpu(cuda, engine):
+    """sstats_mode="scatter" on the ragged layout, on the card against the
+    CPU from one lambda: bounds rel 1e-4; the gamma kernel runs, the
+    sstats kernel does not."""
+    from pylda_tpu_torch.corpus.synthetic import synthetic_corpus
+    from pylda_tpu_torch.models import make_engine
+    from pylda_tpu_torch.utils.config import LDAConfig
+
+    corpus, _, _ = synthetic_corpus(num_docs=300, num_topics=16,
+                                    num_types=3000, mean_doc_length=60.0,
+                                    seed=5)
+    cfg = LDAConfig(number_of_topics=16, inference_mode=engine,
+                    dense_vocab_threshold=2048, doc_pad_multiple=16,
+                    batch_size=64, tau0=16.0, sstats_mode="scatter",
+                    hyper_parameter_optimize_interval=2)
+    lam0 = np.random.default_rng(7).gamma(100.0, 0.01, (16, 3000))
+    runs = {}
+    for where in (cuda, "cpu"):
+        eng = make_engine(cfg, device=where)
+        eng.initialize(corpus, lam_init=lam0)
+        before = (ragged_mod.LAUNCHES, sstats_mod.LAUNCHES)
+        runs[str(where)] = [eng.learning() for _ in range(2)] + \
+            eng.learning_many(2)
+        launched = (ragged_mod.LAUNCHES - before[0],
+                    sstats_mod.LAUNCHES - before[1])
+        assert launched[1] == 0
+        assert (launched[0] > 0) == (where != "cpu")
+    np.testing.assert_allclose(runs[str(cuda)], runs["cpu"], rtol=1e-4)

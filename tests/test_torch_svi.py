@@ -288,20 +288,19 @@ def test_svi_model_file_loads_in_both_packages(data, tmp_path):
 
 
 def test_svi_unported_routes_raise(data):
-    for extra, match in ((dict(sstats_mode="scatter"), "item 4"),
-                         (dict(sstats_dense_total_budget_mb=0), "item 4")):
-        with pytest.raises(NotImplementedError, match=match):
-            _ours(data, **RAGGED, **extra)
+    """Process-local corpora and phase_timings still raise, naming their
+    items.  sstats_mode="scatter" and a counts matrix over the budget
+    (item 4, ported) now take the scatter route: no counts matrix."""
+    for extra in (dict(sstats_mode="scatter"),
+                  dict(sstats_dense_total_budget_mb=0)):
+        eng = _ours(data, **RAGGED, **extra)
+        assert eng._mb_sstats is None and eng._device_rows is not None
+        assert np.isfinite(eng.learning())
     eng = StochasticVariationalBayes(LDAConfig(**CFG), device="cpu")
     local = synthetic_corpus(num_docs=20, num_topics=K, num_types=V,
                              mean_doc_length=10.0, seed=1)[0]
     local.process_local = True
     with pytest.raises(NotImplementedError, match="item 12"):
-        eng.initialize(local)
-    local = synthetic_corpus(num_docs=20, num_topics=K, num_types=V,
-                             mean_doc_length=10.0, seed=1)[0]
-    del local.docs  # a disk-backed corpus keeps no document list
-    with pytest.raises(NotImplementedError, match="item 13"):
         eng.initialize(local)
     with pytest.raises(NotImplementedError, match="item 7"):
         _ours(data).phase_timings()

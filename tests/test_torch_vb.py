@@ -128,11 +128,20 @@ def test_state_from_numpy_carries_jax_training(data):
 
 
 def test_unported_routes_raise(data):
-    for kw, match in ((dict(sstats_mode="scatter"), "scatter"),
-                      (dict(sstats_dense_total_budget_mb=0), "budget")):
+    """The random gamma inits and process-local corpora still raise.
+    sstats_mode="scatter" and a corpus over the dense sstats budget (item
+    4, ported) take the scatter route: no dense counts plan."""
+    for kw in (dict(sstats_mode="scatter"),
+               dict(sstats_dense_total_budget_mb=0)):
         eng = VariationalBayes(LDAConfig(**{**CFG, **kw}), device="cpu")
-        with pytest.raises(NotImplementedError, match=match):
-            eng.initialize(data["corpus"], lam_init=data["lam0"])
+        eng.initialize(data["corpus"], lam_init=data["lam0"])
+        assert eng._sstats_plan is None
+        assert np.isfinite(eng.learning())
+    local = synthetic_corpus(num_docs=8, num_topics=K, num_types=V,
+                             mean_doc_length=10.0, seed=1)[0]
+    local.process_local = True
+    with pytest.raises(NotImplementedError, match="item 12"):
+        VariationalBayes(LDAConfig(**CFG), device="cpu").initialize(local)
     with pytest.raises(NotImplementedError):
         VariationalBayes(LDAConfig(**{**CFG, "gamma_init": "normal"}),
                          device="cpu")
