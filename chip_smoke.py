@@ -87,8 +87,29 @@ Phases, in order (any failure exits non-zero):
    float32 and in bf16, each engine on the card (kernels) and on the CPU
    (plain versions) give the same bounds.
 
+Beside those phases:
+
+- ``vb_gamma_init``: batch VB at each flagship from each random
+  ``gamma_init`` ("gamma", "normal"): the gamma inits drawn on the card
+  (mean, std, minimum, the same bits twice), learning_many(6) (the gamma
+  kernel launched, the ELBO finite and rising), and held-out inference
+  against the CPU plain version handed the card's gamma inits;
+- the roofline at every engine cell (the flagships, SVI configs 4 and 5,
+  ``svi4_full`` and config 3's Gibbs and hybrid): ``phase_timings``
+  beside ``pylda_tpu_torch.utils.roofline``'s bounds, each phase's
+  unclipped bound / measured ratio at most 1.05, the state bitwise
+  unchanged by the timing;
+- ``native_index``: the streaming index pass and ``initialize`` at
+  16,384 and at 100,000 documents through the C tokenizer and through
+  Python (the tokenizer must build; rows and sidecars bitwise equal);
+- ``cli_observability``: train with ``--phase_timing --roofline
+  --coherence --tensorboard_dir --profile_dir`` and test
+  ``--coherence`` on the bundled corpus (the events, the TensorBoard
+  file, a CUDA kernel of the port in the profiler trace).
+
 The line before the kernels' record gives the card's name and power
-limit; before it, a ``scatter:`` line holds the scatter route's numbers.
+limit; before it, ``scatter:``, ``roofline:`` and ``native:`` lines hold
+those phases' numbers.
 
 The line before the last is the kernels' JSON record (the bf16 builds
 as ``<kernel>_bf16``; ``launches_by_path`` names each main path); the
@@ -99,6 +120,7 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -108,13 +130,6 @@ import subprocess
 import sys
 import time
 
-# Peak rates of one H100 SXM at its 700 W limit (NVIDIA data sheet):
-# float32 outside the tensor cores, dense bf16 products with float32 sums
-# on the tensor cores (the bf16 operand mode's work: bf16 x bf16 products
-# summed in float32), and HBM3 bandwidth.
-PEAK_F32_FLOPS = 67e12
-PEAK_BF16_FLOPS = 989e12
-PEAK_HBM_BYTES = 3.35e12
 BF16 = "bfloat16"
 
 K, V, D, MEAN_LEN = 100, 10_000, 4096, 120.0
@@ -244,10 +259,13 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def bound(flops: float, nbytes: float, compute_dtype: str = "float32"):
-    peak = PEAK_BF16_FLOPS if compute_dtype == BF16 else PEAK_F32_FLOPS
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+    """(least ms, "operations" or "bytes") at one H100's peaks, the port's
+    one copy of them (``pylda_tpu_torch.utils.roofline.H100``): float32
+    outside the tensor cores, or bf16 products with float32 sums on them
+    for the bf16 operand mode, and HBM3 bandwidth."""
+    from pylda_tpu_torch.utils.roofline import bound_ms
+
+    return bound_ms(flops, nbytes, compute_dtype)
 
 
 def exit_report(g_k, g_64, g_32, s_k, s_64, row_exit, row_sweeps, extra,
@@ -1017,7 +1035,8 @@ def run_engine(label, cfg, corpus, test, dev, mods, needed) -> dict:
           f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
     counts = read_launches(mods)
     check_launched(label, counts, needed)
-    return {"launches": counts, "elbo": allq[-1], "perplexity": ppl}
+    return {"launches": counts, "elbo": allq[-1], "perplexity": ppl,
+            "engine": eng, "iteration_ms": dt * 1e3}
 
 
 def hold_bf16(label, r32: dict, r16: dict) -> None:
@@ -1105,7 +1124,8 @@ def run_svi(label, cfg, corpus, test, dev, mods, n) -> dict:
     suffix = "_bf16" if cfg.compute_dtype == BF16 else ""
     check_launched(label, counts, (f"ragged_gamma{suffix}",
                                    f"dense_sstats{suffix}"))
-    return {"launches": counts, "elbo": ests[-1], "perplexity": ppl}
+    return {"launches": counts, "elbo": ests[-1], "perplexity": ppl,
+            "engine": eng}
 
 
 def profile_window(fn) -> dict:
@@ -1578,9 +1598,9 @@ def svi_scatter_vs_dense(label, cfg, corpus, dev, mods) -> dict:
                                               ep_s.minibatches,
                                               ep_a.minibatches):
         lam_s = sc._minibatch_step(lam, st0.alpha, st0.eta, bs, rho, scale,
-                                   None)[0]
+                                   None, ())[0]
         lam_a = au._minibatch_step(lam, st0.alpha, st0.eta, ba, rho, scale,
-                                   sel[1])[0]
+                                   sel[1], ())[0]
         step_rel = max(step_rel, norm_rel(lam_s, lam_a))
         lam = lam_s
     # The first minibatch of the next epoch, in each engine.
@@ -1689,7 +1709,7 @@ def svi_streaming_vs_memory(label, cfg, corpus, dev, mods) -> dict:
     return {"launches": counts, "index_s": t_index, "init_s": ti_s}
 
 
-def run_svi4_full(label, cfg, dev, mods) -> dict:
+def run_svi4_full(label, cfg, corpus, test, dev, mods) -> dict:
     """SVI at BASELINE config 4's published size (SVI4_FULL_D documents):
     the corpus and its held-out documents made from their seeds;
     ``initialize`` (timed; auto must pick the scatter route — no counts
@@ -1703,24 +1723,14 @@ def run_svi4_full(label, cfg, dev, mods) -> dict:
     fit the budget, so there the engine takes the dense-sstats route, as
     the JAX engine does.  The profiled epoch's device time is split into
     the gamma kernel, the scatter (the kernels under ``estep_ragged``'s
-    profiler range) and the rest.  Returns the numbers and the launches
-    of each path ("launches", "launches_heldout")."""
+    profiler range) and the rest.  Returns the numbers, the engine and the
+    launches of each path ("launches", "launches_heldout")."""
     import numpy as np
     import torch
 
-    from pylda_tpu_torch.corpus.synthetic import synthetic_corpus
     from pylda_tpu_torch.models import StochasticVariationalBayes
     from pylda_tpu_torch.ops.estep import SCATTER_RANGE
 
-    kw = dict(num_topics=SVI_K, num_types=SVI_V, mean_doc_length=SVI_LEN)
-    t0 = time.perf_counter()
-    corpus, beta, _ = synthetic_corpus(num_docs=SVI4_FULL_D, seed=3, **kw)
-    test, _, _ = synthetic_corpus(num_docs=SVI_TEST_DOCS, seed=SVI_TEST_SEED,
-                                  beta=beta, **kw)
-    print(f"{label}: corpus of {corpus.num_docs} documents "
-          f"({corpus.num_tokens} tokens) and {test.num_docs} held-out made in "
-          f"{time.perf_counter() - t0:.2f} s")
-    del beta
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     eng = StochasticVariationalBayes(cfg, device=dev)
@@ -1795,13 +1805,307 @@ def run_svi4_full(label, cfg, dev, mods) -> dict:
                              f"did not fall ({pe0:.2f} -> {pe:.2f})")
     check_launched(f"{label} held-out", held, ("ragged_gamma",
                                                "dense_sstats"))
-    return {"launches": counts, "launches_heldout": held,
+    return {"launches": counts, "launches_heldout": held, "engine": eng,
             "init_s": t_init, "epoch_s": dt,
             "docs_per_s": corpus.num_docs / dt,
             "busy_ms": prof["busy_ms"], "idle_share": prof["idle_share"],
             "wall_ms": prof["wall_ms"], "peak_mib": peak / 2**20,
             "perplexity": ppl, "point_perplexity": pe,
             "point_perplexity_init": pe0, **split}
+
+
+# The roofline: a phase's bound over its measured time may not pass this
+# (a bound is the least time the card could take; above 1 the cost model
+# counts work the code does not do, and timing noise is far below 5%).
+ROOFLINE_RATIO_MAX = 1.05
+# The random gamma inits drawn on the card (1 + 0.1 N(0, 1) clipped at
+# 0.2, or Gamma(100) * 0.01): mean and std within these of 1 and 0.1.
+GAMMA0_MEAN_TOL, GAMMA0_STD_TOL = 0.005, 0.005
+GAMMA0_ITERATIONS = 6
+GAMMA0_TEST_DOCS = 512  # held-out documents of the card-vs-CPU check
+NATIVE_DIR = REPO / "build" / "chip_smoke_native"
+OBS_OUT = REPO / "build" / "chip_smoke_cli" / "observability"
+# The port's CUDA kernels by the names a profiler trace gives them.
+KERNEL_NAMES = ("row_fixed_point_kernel", "dense_sstats_kernel")
+
+
+def state_of(eng) -> list:
+    """Copies of what phase timing must leave as it was: lambda, alpha,
+    eta, the step, SVI's minibatch counter and Gibbs's chains."""
+    st = eng.state
+    out = [t.clone() for t in (st.lam, st.alpha, st.eta, st.step)]
+    out.append(getattr(eng, "_t", None))
+    if hasattr(eng, "_n_kv"):
+        out += [eng._n_kv.clone()] + [t.clone() for t in eng._z + eng._ndk]
+    return out
+
+
+def same_state(a: list, b: list) -> bool:
+    import torch
+
+    return len(a) == len(b) and all(
+        torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+        for x, y in zip(a, b))
+
+
+def roofline_phase(label, eng, mods, iteration_ms=None) -> dict:
+    """``phase_timings`` and ``roofline_report`` on an engine at its cell,
+    launch counters zeroed just before and read just after: each phase
+    beside its bound and the unclipped bound / measured ratio, which may
+    not pass ROOFLINE_RATIO_MAX; the engine's state bitwise unchanged by
+    the timing.  For batch VB, ``iteration_ms`` (a measured
+    ``learning_many`` iteration) is printed beside estep_total_ms +
+    mstep_ms."""
+    from pylda_tpu_torch.utils.roofline import roofline_report
+
+    before = state_of(eng)
+    zero_launches(mods)
+    times = eng.phase_timings(repeats=3)
+    rows = roofline_report(eng, timings=times)
+    counts = read_launches(mods)
+    unchanged = same_state(before, state_of(eng))
+    print(f"{label}: phase_timings (ms, best of 3, CUDA events) "
+          f"{json.dumps(times)}")
+    ratios = {}
+    for phase, r in rows.items():
+        if phase == "sweep_counts":
+            print(f"  sweep counts a batch {[int(s) for s in r]}")
+            continue
+        ratios[phase] = r["bound_ms"] / r["measured_ms"]
+        print(f"  {phase}: measured {r['measured_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.5f} ms, bound / measured {ratios[phase]:.4f} "
+              f"(at most {ROOFLINE_RATIO_MAX})")
+    if iteration_ms is not None:
+        print(f"  estep_total_ms + mstep_ms "
+              f"{times['estep_total_ms'] + times['mstep_ms']:.4f} against a "
+              f"measured learning_many iteration of {iteration_ms:.4f} ms")
+    print(f"  state (lambda, alpha, eta, step, _t, chains) bitwise unchanged "
+          f"by the timing: {unchanged}")
+    if not unchanged:
+        raise AssertionError(f"{label}: phase_timings changed the state")
+    bad = {k: v for k, v in ratios.items() if not v <= ROOFLINE_RATIO_MAX}
+    if not ratios or bad:
+        raise AssertionError(f"{label}: bound / measured above "
+                             f"{ROOFLINE_RATIO_MAX}: {bad or 'no rows'}")
+    return {"timings": times, "rows": rows, "launches": counts}
+
+
+def vb_gamma_init(label, cfg, corpus, test, dev, mods, gamma_name) -> dict:
+    """Batch VB with each random ``gamma_init`` at one flagship: the
+    gamma inits drawn on the card (their mean, std and minimum, and the
+    same bits from one seed twice); learning_many(GAMMA0_ITERATIONS) from
+    them, launch counters zeroed just before and read just after (the
+    gamma kernel ``gamma_name`` must run), the ELBO finite and rising;
+    then held-out inference on the card against the CPU plain version
+    handed the card's gamma inits (the bound within ELBO_RTOL, the
+    card-vs-CPU bar).  Returns the launches of each mode's run."""
+    import numpy as np
+    import torch
+
+    from pylda_tpu_torch.models import VariationalBayes
+    from pylda_tpu_torch.models.vb import TAG_GAMMA_FUSED, TAG_GAMMA_TEST
+
+    out = {}
+    for mode in ("gamma", "normal"):
+        gcfg = dataclasses.replace(cfg, gamma_init=mode)
+        eng = VariationalBayes(gcfg, device=dev)
+        eng.initialize(corpus)
+        g0 = eng._gamma0s(eng._batches, TAG_GAMMA_FUSED, 0)
+        again = eng._gamma0s(eng._batches, TAG_GAMMA_FUSED, 0)
+        same = all(torch.equal(a, b) for a, b in zip(g0, again))
+        flat = torch.cat([g.reshape(-1) for g in g0]).double()
+        mean, std, low = float(flat.mean()), float(flat.std()), float(flat.min())
+        ok = (abs(mean - 1.0) <= GAMMA0_MEAN_TOL
+              and abs(std - 0.1) <= GAMMA0_STD_TOL
+              and (low >= 0.2 if mode == "normal" else low > 0.0) and same)
+        print(f"{label} gamma_init={mode}: {flat.numel()} gamma inits drawn "
+              f"on the card: mean {mean:.5f} (1 +- {GAMMA0_MEAN_TOL}), std "
+              f"{std:.5f} (0.1 +- {GAMMA0_STD_TOL}), min {low:.4f}, the same "
+              f"bits drawn twice {same} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{label} gamma_init={mode}: the draws")
+        del g0, again, flat
+        zero_launches(mods)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        elbos = eng.learning_many(GAMMA0_ITERATIONS)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / GAMMA0_ITERATIONS
+        counts = read_launches(mods)
+        print(f"{label} gamma_init={mode}: learning_many"
+              f"({GAMMA0_ITERATIONS}) {dt * 1e3:.3f} ms/iteration, ELBOs "
+              f"{[round(e, 1) for e in elbos]}; sweeps per batch "
+              f"{[int(s) for s in eng.last_sweeps]}")
+        if not (np.isfinite(elbos).all() and elbos[-1] > elbos[0]):
+            raise AssertionError(f"{label} gamma_init={mode}: ELBO not "
+                                 f"finite or not rising")
+        check_launched(f"{label} gamma_init={mode}", counts, (gamma_name,))
+        # The held-out E-step on the card, and on the CPU from the card's
+        # gamma inits (the same layout of the same documents).
+        g_test = [g.cpu() for g in eng._gamma0s(
+            eng._build_batches(test), TAG_GAMMA_TEST, eng._counter)]
+        ll_card, _ = eng.inference(test)
+        cpu = VariationalBayes(gcfg, device="cpu")
+        cpu._vocab = corpus.vocab
+        cpu.state = eng.state
+        cpu._gamma0s = lambda batches, *tag: g_test
+        t0 = time.perf_counter()
+        ll_cpu, _ = cpu.inference(test)
+        rel = abs(ll_card - ll_cpu) / abs(ll_cpu)
+        print(f"{label} gamma_init={mode}: held-out bound on {test.num_docs} "
+              f"docs from the card's gamma inits: card {ll_card:.2f}, CPU "
+              f"plain version {ll_cpu:.2f} ({time.perf_counter() - t0:.1f} s),"
+              f" rel {rel:.2e} (tolerance {ELBO_RTOL}) "
+              f"{'ok' if rel <= ELBO_RTOL else 'FAIL'}")
+        if not rel <= ELBO_RTOL:
+            raise AssertionError(f"{label} gamma_init={mode}: card and CPU "
+                                 f"disagree")
+        out[mode] = counts
+        del eng, cpu
+    return out
+
+
+class python_parser:
+    """Within it, corpora parse in Python: the C tokenizer is set aside
+    (``pylda_tpu_torch.native``'s loaded module), and restored after."""
+
+    def __enter__(self):
+        from pylda_tpu_torch import native
+
+        self._saved = native.native_module()
+        native._STATE["module"] = None
+
+    def __exit__(self, *exc):
+        from pylda_tpu_torch import native
+
+        native._STATE["module"] = self._saved
+
+
+def native_index(label, cfg, corpus, dev) -> dict:
+    """The streaming index pass (``StreamingCorpus``: line offsets, the
+    parse, the row sidecar) and SVI's ``initialize`` from a doc.dat of
+    ``corpus``, once with the C tokenizer and once with the Python parser,
+    each from its own copy of the file: the C tokenizer must be built
+    (``HAVE_NATIVE``), the sidecars' bytes and the engines' device rows
+    bitwise equal.  Returns the times."""
+    import torch
+
+    from pylda_tpu_torch import native
+    from pylda_tpu_torch.corpus.streaming import StreamingCorpus
+    from pylda_tpu_torch.models import StochasticVariationalBayes
+
+    if not native.HAVE_NATIVE:
+        raise AssertionError(f"{label}: the C tokenizer did not build: "
+                             f"{native.BUILD_ERROR}")
+    shutil.rmtree(NATIVE_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    path = write_doc_dat(corpus, NATIVE_DIR / "native")
+    t_write = time.perf_counter() - t0
+    (NATIVE_DIR / "python").mkdir()
+    shutil.copy(path, NATIVE_DIR / "python" / "doc.dat")
+    scfg = dataclasses.replace(cfg, sstats_mode="scatter")
+    runs = {}
+    for route in ("native", "python"):
+        ctx = python_parser() if route == "python" else contextlib.nullcontext()
+        with ctx:
+            t0 = time.perf_counter()
+            sc = StreamingCorpus(str(NATIVE_DIR / route / "doc.dat"),
+                                 corpus.vocab)
+            t_index = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        eng = StochasticVariationalBayes(scfg, device=dev)
+        eng.initialize(sc)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        side = sorted((NATIVE_DIR / route).glob("doc.dat.rowcache.v2.*/*"))
+        runs[route] = dict(
+            index_s=t_index, init_s=t_init,
+            side={p.name: p.read_bytes() for p in side
+                  if p.name != "meta.json"},
+            rows=[t for r in eng._device_rows
+                  for t in (r.ids, r.cnts, r.counts) if t is not None],
+            tokens=sc.num_tokens)
+        del eng, sc
+    a, b = runs["native"], runs["python"]
+    same = (a["side"] == b["side"] and len(a["side"]) >= 6
+            and a["tokens"] == b["tokens"] == corpus.num_tokens
+            and len(a["rows"]) == len(b["rows"])
+            and all(torch.equal(x, y) for x, y in zip(a["rows"], b["rows"])))
+    print(f"{label}: {corpus.num_docs} documents ({corpus.num_tokens} tokens)"
+          f" written in {t_write:.2f} s; index pass native "
+          f"{a['index_s']:.3f} s, Python {b['index_s']:.3f} s "
+          f"({b['index_s'] / a['index_s']:.2f}x); initialize native "
+          f"{a['init_s']:.3f} s, Python {b['init_s']:.3f} s; sidecars and "
+          f"device rows bitwise equal {same} {'ok' if same else 'FAIL'}")
+    shutil.rmtree(NATIVE_DIR, ignore_errors=True)
+    if not same:
+        raise AssertionError(f"{label}: the two parsers' rows differ")
+    return {"docs": corpus.num_docs, "write_s": t_write,
+            "index_native_s": a["index_s"], "index_python_s": b["index_s"],
+            "init_native_s": a["init_s"], "init_python_s": b["init_s"]}
+
+
+def cli_observability(mods) -> dict:
+    """train with --phase_timing --roofline --coherence --tensorboard_dir
+    --profile_dir, then test --coherence, through the CLIs' main() on the
+    bundled corpus on the card; launch counters zeroed just before and
+    read just after.  metrics.jsonl must hold the phase_timing, roofline,
+    roofline_measured and coherence events (each measured row within
+    ROOFLINE_RATIO_MAX), the TensorBoard event file must exist (or a
+    tensorboard_unavailable event say why), and the profiler trace must
+    name one of the port's CUDA kernels."""
+    from pylda_tpu_torch.cli import test as cli_test
+    from pylda_tpu_torch.cli import train as cli_train
+    from pylda_tpu_torch.corpus.datasets import bundled_corpus_dir
+
+    shutil.rmtree(OBS_OUT, ignore_errors=True)
+    tb, prof = OBS_OUT / "tensorboard", OBS_OUT / "profile"
+    zero_launches(mods)
+    t0 = time.perf_counter()
+    rc = cli_train.main([
+        f"--input_directory={bundled_corpus_dir()}",
+        f"--output_directory={OBS_OUT}", "--number_of_topics=10",
+        "--training_iterations=6", "--snapshot_interval=3", "--phase_timing",
+        "--roofline", "--coherence", f"--tensorboard_dir={tb}",
+        f"--profile_dir={prof}",
+    ])
+    runs = sorted((OBS_OUT / "de-news-tiny").iterdir())
+    if rc != 0 or len(runs) != 1:
+        raise AssertionError(f"cli observability: rc {rc}, runs {runs}")
+    with open(runs[0] / "metrics.jsonl") as f:
+        events = [json.loads(line) for line in f]
+    kinds = {e["event"] for e in events}
+    rc_test = cli_test.main([f"--model={runs[0] / 'model-6'}",
+                             f"--input_directory={bundled_corpus_dir()}",
+                             f"--output_file={OBS_OUT / 'gamma.test'}",
+                             "--coherence"])
+    wall = time.perf_counter() - t0
+    counts = read_launches(mods)
+    tb_files = list(tb.glob("events.out.tfevents.*"))
+    trace = (prof / cli_train.PROFILE_TRACE).read_text()
+    named = [k for k in KERNEL_NAMES if k in trace]
+    measured = [e for e in events if e["event"] == "roofline_measured"
+                and "bound_ms" in e]
+    ratios = {e["phase"]: e["bound_ms"] / e["measured_ms"] for e in measured}
+    need = {"phase_timing", "roofline", "roofline_measured", "coherence"}
+    ok = (need <= kinds and rc_test == 0 and named and ratios
+          and all(r <= ROOFLINE_RATIO_MAX for r in ratios.values())
+          and (tb_files or "tensorboard_unavailable" in kinds))
+    print(f"cli observability: train 6 iterations with --phase_timing "
+          f"--roofline --coherence --tensorboard_dir --profile_dir, then test "
+          f"--coherence, in {wall:.2f} s; events {sorted(kinds)}; phase_timing "
+          f"{[e for e in events if e['event'] == 'phase_timing']}; roofline "
+          f"bound / measured {ratios}; coherence "
+          f"{[e['mean_umass'] for e in events if e['event'] == 'coherence']};"
+          f" TensorBoard files {[p.name for p in tb_files]}; the trace "
+          f"({len(trace) / 1e6:.1f} MB) names {named} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("cli observability: missing events, files or "
+                             "kernels")
+    check_launched("cli observability", counts,
+                   ("dense_gamma", "dense_sstats"))
+    return counts
 
 
 def main() -> int:
@@ -1969,16 +2273,30 @@ def main() -> int:
         num_docs=1024, num_topics=K, num_types=V_DENSE,
         mean_doc_length=MEAN_LEN, seed=1, beta=dbeta,
     )
+    roofline = {}
     for route, data in (("ragged", (corpus, test)), ("dense", (dcorpus, dtest))):
         label = f"engine {route} flagship"
         gamma = "ragged_gamma" if route == "ragged" else "dense_gamma"
         r32 = run_engine(label, cfg, *data, dev, mods,
                          (gamma, "dense_sstats"))
+        rl = roofline_phase(label, r32.pop("engine"), mods,
+                            iteration_ms=r32["iteration_ms"])
+        roofline[route] = rl["rows"]
+        by_path[f"roofline_{route}"] = rl["launches"]
         r16 = run_engine(f"{label} bf16", cfg16, *data, dev, mods,
                          (f"{gamma}_bf16", "dense_sstats_bf16"))
+        del r16["engine"]
         hold_bf16(label, r32, r16)
         by_path[route] = r32["launches"]
         by_path[f"{route}_bf16"] = r16["launches"]
+        # Batch VB from each random gamma init on the card.
+        held = synthetic_corpus(num_docs=GAMMA0_TEST_DOCS, num_topics=K,
+                                num_types=data[0].num_types,
+                                mean_doc_length=MEAN_LEN, seed=1,
+                                beta=beta if route == "ragged" else dbeta)[0]
+        for mode, got in vb_gamma_init(label, cfg, data[0], held, dev, mods,
+                                       gamma).items():
+            by_path[f"vb_gamma_init_{route}_{mode}"] = got
     # The scatter route against the dense-sstats route at the ragged flagship.
     scatter["vb_ragged_flagship"] = vb_scatter_vs_dense(
         "engine ragged flagship", cfg, corpus, dev, mods)
@@ -1988,8 +2306,11 @@ def main() -> int:
         num_docs=512, num_topics=SVI_K, num_types=SVI_V,
         mean_doc_length=SVI_LEN, seed=103, beta=svi_beta,
     )
-    by_path["svi"] = run_svi("engine svi config 4", svi_cfg, svi_corpus,
-                             svi_test, dev, mods, 4)["launches"]
+    r = run_svi("engine svi config 4", svi_cfg, svi_corpus, svi_test, dev,
+                mods, 4)
+    by_path["svi"] = r["launches"]
+    rl = roofline_phase("engine svi config 4", r.pop("engine"), mods)
+    roofline["svi4"], by_path["roofline_svi4"] = rl["rows"], rl["launches"]
     # ... the scatter route against it, and from a disk-backed corpus.
     scatter["svi_config4"] = svi_scatter_vs_dense(
         "engine svi config 4", svi_cfg, svi_corpus, dev, mods)
@@ -1997,6 +2318,9 @@ def main() -> int:
     scatter["svi_streaming"] = svi_streaming_vs_memory(
         "engine svi config 4 streaming", svi_cfg, svi_corpus, dev, mods)
     by_path["svi_streaming"] = scatter["svi_streaming"].pop("launches")
+    # The index pass through the C tokenizer and through Python.
+    native = {"config4": native_index("native index svi config 4", svi_cfg,
+                                      svi_corpus, dev)}
     del svi_corpus, svi_test
     svi5_test, _, _ = synthetic_corpus(
         num_docs=SVI5["TEST_DOCS"], num_topics=SVI5["K"],
@@ -2005,18 +2329,37 @@ def main() -> int:
     )
     r32 = run_svi("engine svi config 5", svi5_cfg, svi5_corpus, svi5_test,
                   dev, mods, 2)
+    rl = roofline_phase("engine svi config 5", r32.pop("engine"), mods)
+    roofline["svi5"], by_path["roofline_svi5"] = rl["rows"], rl["launches"]
     r16 = run_svi("engine svi config 5 bf16",
                   dataclasses.replace(svi5_cfg, compute_dtype=BF16),
                   svi5_corpus, svi5_test, dev, mods, 2)
+    del r16["engine"]
     hold_bf16("engine svi config 5", r32, r16)
     by_path["svi5"], by_path["svi5_bf16"] = r32["launches"], r16["launches"]
     del svi5_corpus, svi5_test, svi5_beta
 
     # -- SVI at config 4's published 100,000 documents: the scatter route -----
+    kw4 = dict(num_topics=SVI_K, num_types=SVI_V, mean_doc_length=SVI_LEN)
+    t0 = time.perf_counter()
+    corpus4, beta4, _ = synthetic_corpus(num_docs=SVI4_FULL_D, seed=3, **kw4)
+    test4, _, _ = synthetic_corpus(num_docs=SVI_TEST_DOCS, seed=SVI_TEST_SEED,
+                                   beta=beta4, **kw4)
+    print(f"engine svi config 4 full: corpus of {corpus4.num_docs} documents "
+          f"({corpus4.num_tokens} tokens) and {test4.num_docs} held-out made "
+          f"in {time.perf_counter() - t0:.2f} s")
+    del beta4
     scatter["svi4_full"] = run_svi4_full("engine svi config 4 full", svi_cfg,
-                                         dev, mods)
+                                         corpus4, test4, dev, mods)
     by_path["svi4_full"] = scatter["svi4_full"].pop("launches")
     by_path["svi4_full_heldout"] = scatter["svi4_full"].pop("launches_heldout")
+    rl = roofline_phase("engine svi config 4 full",
+                        scatter["svi4_full"].pop("engine"), mods)
+    roofline["svi4_full"] = rl["rows"]
+    by_path["roofline_svi4_full"] = rl["launches"]
+    native["svi4_full"] = native_index("native index svi config 4 full",
+                                       svi_cfg, corpus4, dev)
+    del corpus4, test4
 
     # -- the sampling engines at BASELINE config 3 (plain PyTorch) -----------
     c3_kw = dict(num_topics=CFG3["K"], num_types=CFG3["V"],
@@ -2036,6 +2379,9 @@ def main() -> int:
         eng = r.pop("engine")
         by_path[mode] = r.pop("launches")
         sampling[mode] = r
+        rl = roofline_phase(f"engine {mode} config 3", eng, mods)
+        roofline[mode] = rl["rows"]
+        by_path[f"roofline_{mode}"] = rl["launches"]
         if mode == "gibbs":
             sampling_card_vs_cpu(eng, dev)
         del eng
@@ -2058,6 +2404,7 @@ def main() -> int:
     for mode in ("gibbs", "hybrid"):
         by_path[f"cli_{mode}"] = run_cli(mods, mode, needed=())
     by_path["cli_svi_streaming"] = run_cli(mods, "svi", streaming=True)
+    by_path["cli_observability"] = cli_observability(mods)
     # Each kernel build's launches on each main path (each run zeroed just
     # before and read just after), and their sum.
     paths = {name: {path: got[name] for path, got in by_path.items()}
@@ -2141,6 +2488,8 @@ def main() -> int:
                                     "bound_ms", "bound_by")},
             "library_ms": None, "shapes": shapes})
     print(f"scatter: {json.dumps(scatter)}")
+    print(f"roofline: {json.dumps(roofline)}")
+    print(f"native: {json.dumps(native)}")
     print(f"nvidia-smi: {nvidia_smi()}")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -8,7 +8,9 @@ Counterpart of ``pylda_tpu.cli.test`` (``pylda-test``): restore a
 --input_directory (test.dat, or doc.dat with --use_train_split or when
 test.dat is missing) against the model's own vocabulary, run
 ``inference()`` with the global state frozen, write per-document gamma,
-and log the held-out log likelihood and per-word perplexity.
+and log the held-out log likelihood and per-word perplexity (and, with
+``--coherence``, the model's UMass topic coherence on the evaluated
+corpus).
 """
 
 from __future__ import annotations
@@ -19,12 +21,9 @@ from typing import List, Optional
 
 import numpy as np
 
-from pylda_tpu_torch.cli import refuse_unported
 from pylda_tpu_torch.corpus.corpus import Corpus
 from pylda_tpu_torch.corpus.datasets import load_input_directory
 from pylda_tpu_torch.utils.metrics import MetricsLogger
-
-_UNPORTED = (("coherence", "--coherence", "Queue 1 item 13"),)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -40,7 +39,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--use_train_split", action="store_true",
                    help="evaluate doc.dat instead of test.dat")
     p.add_argument("--coherence", action="store_true",
-                   help="UMass topic coherence (not ported yet)")
+                   help="also report per-topic UMass coherence of the "
+                        "model's top words, scored on the evaluated "
+                        "corpus (utils/coherence.py)")
     p.add_argument("--coherence_top_n", type=int, default=10)
     p.add_argument("--point_estimate", action="store_true",
                    help="also report the convention-neutral "
@@ -53,7 +54,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    refuse_unported(args, _UNPORTED)
 
     from pylda_tpu_torch.models import Inferencer
 
@@ -81,7 +81,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         extra["point_estimate_perplexity"] = round(
             engine.point_estimate_perplexity(corpus), 4
         )
-    MetricsLogger().log(
+    metrics = MetricsLogger()
+    metrics.log(
         event="heldout",
         model=args.model,
         documents=corpus.num_docs,
@@ -91,6 +92,16 @@ def main(argv: Optional[List[str]] = None) -> int:
         gamma_file=out,
         **extra,
     )
+    if args.coherence:
+        from pylda_tpu_torch.utils.coherence import engine_coherence
+
+        coh = engine_coherence(engine, corpus, top_n=args.coherence_top_n)
+        metrics.log(
+            event="coherence",
+            mean_umass=round(coh["mean"], 4),
+            top_n=coh["top_n"],
+            per_topic=[round(c, 3) for c in coh["per_topic"]],
+        )
     return 0
 
 

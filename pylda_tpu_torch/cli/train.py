@@ -10,9 +10,15 @@ the run directory ``<out>/<corpus>/<timestamp>-lda-I..-S..-K..-aa..-ab..
 iteration's wall time and log-likelihood to stdout and ``metrics.jsonl``,
 and writes ``exp_beta-<N>``, ``model-<N>`` (and, with ``--dump_gamma``,
 ``gamma-<N>``) at every snapshot and at the end, with held-out perplexity
-when test.dat exists.  ``--device`` picks the torch device (the CUDA card
-by default).  Flags whose machinery is not ported exit with a message
-naming their ROADMAP item.
+when test.dat exists.  The observability flags: ``--coherence`` (UMass
+coherence at each snapshot), ``--tensorboard_dir`` (TensorBoard scalars
+through ``torch.utils.tensorboard``), ``--profile_dir`` (a
+``torch.profiler`` Chrome trace of the training loop, with the card's
+kernels when the engine runs there), ``--phase_timing`` (the engine's
+``phase_timings`` after training) and ``--roofline`` (the cost model at
+start, the measured phases beside their H100 bounds after training).
+``--device`` picks the torch device (the CUDA card by default).  The mesh
+and multi-process flags exit with a message naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -47,12 +53,9 @@ _UNPORTED = (
     ("num_processes", "--num_processes", "Queue 1 item 12"),
     ("process_id", "--process_id", "Queue 1 item 12"),
     ("process_sharded_input", "--process_sharded_input", "Queue 1 item 12"),
-    ("profile_dir", "--profile_dir", "Queue 1 item 13"),
-    ("roofline", "--roofline", "Queue 1 item 9"),
-    ("phase_timing", "--phase_timing", "Queue 1 item 7"),
-    ("tensorboard_dir", "--tensorboard_dir", "Queue 1 item 13"),
-    ("coherence", "--coherence", "Queue 1 item 13"),
 )
+# The Chrome trace --profile_dir writes.
+PROFILE_TRACE = "train_trace.json"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -179,25 +182,26 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--gamma_init", default=None,
                    choices=["gamma", "normal", "ones"],
                    help="per-E-step cold-start init (default: the "
-                        "config default, ones; only ones is ported)")
+                        "config default, ones)")
     p.add_argument("--checkpoint_format", default="npz",
                    choices=["npz", "orbax"],
                    help="model-<N> snapshots as one npz file; orbax is "
                         "JAX-only")
     p.add_argument("--profile_dir", default=None,
-                   help="profiler trace directory (not ported yet)")
+                   help="write a torch.profiler Chrome trace of the "
+                        f"training loop here ({PROFILE_TRACE})")
     p.add_argument("--phase_timing", action="store_true",
-                   help="per-phase device times (not ported yet)")
+                   help="log per-phase device times after training")
     p.add_argument("--coherence", action="store_true",
-                   help="UMass topic coherence at snapshots (not ported "
-                        "yet)")
+                   help="log UMass topic coherence at snapshots")
     p.add_argument("--async_checkpoint", action="store_true",
                    help="write periodic model-<N> snapshots from a "
                         "background thread")
     p.add_argument("--roofline", action="store_true",
-                   help="roofline cost model (not ported yet)")
+                   help="log the H100 roofline cost model at start and "
+                        "the measured phases beside it after training")
     p.add_argument("--tensorboard_dir", default=None,
-                   help="TensorBoard scalars (not ported yet)")
+                   help="write TensorBoard scalars here")
     p.add_argument("--resume", default=None,
                    help="path to a model-<N> checkpoint to resume from")
     p.add_argument("--dump_gamma", action="store_true",
@@ -323,6 +327,34 @@ def main(argv: Optional[List[str]] = None) -> int:
         engine.initialize(train, vocab)
         start_iter = 0
 
+    if args.roofline and hasattr(engine, "_batches"):
+        from pylda_tpu_torch.utils.roofline import estep_cost_model
+
+        for phase, row in estep_cost_model(engine).items():
+            metrics.log(event="roofline", phase=phase, **{
+                k: (round(v, 4) if isinstance(v, float) else v)
+                for k, v in row.items()
+            })
+
+    tb_writer = None
+    if args.tensorboard_dir and is_host_zero():
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+
+            tb_writer = SummaryWriter(args.tensorboard_dir)
+        except ImportError as e:
+            metrics.log(event="tensorboard_unavailable", error=str(e))
+
+    profiler = None
+    if args.profile_dir:
+        import torch
+
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if engine._device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=acts)
+        profiler.start()
+
     # Iterations run in learning_many chunks between snapshot boundaries.
     it = start_iter
     while it < config.training_iterations:
@@ -342,6 +374,10 @@ def main(argv: Optional[List[str]] = None) -> int:
                 log_likelihood=ll,
                 docs_per_sec=round(global_docs / max(dt, 1e-9), 2),
             )
+            if tb_writer is not None:
+                tb_writer.add_scalar("train/log_likelihood", ll, it + j + 1)
+                tb_writer.add_scalar("train/docs_per_sec",
+                                     global_docs / max(dt, 1e-9), it + j + 1)
         it += chunk
         if snap > 0 and it % snap == 0:
             engine.export_beta(
@@ -349,6 +385,13 @@ def main(argv: Optional[List[str]] = None) -> int:
             )
             engine.save(os.path.join(run_dir, f"model-{it}"),
                         async_write=args.async_checkpoint)
+            if args.coherence and getattr(train, "_uniques", None) is not None:
+                from pylda_tpu_torch.utils.coherence import engine_coherence
+
+                coh = engine_coherence(engine, train)
+                metrics.log(event="coherence", iteration=it,
+                            mean_umass=round(coh["mean"], 4),
+                            top_n=coh["top_n"])
             if args.dump_gamma and engine.gamma is not None and is_host_zero():
                 np.savetxt(
                     os.path.join(run_dir, f"gamma-{it}"),
@@ -359,6 +402,34 @@ def main(argv: Optional[List[str]] = None) -> int:
                 metrics.log(
                     event="heldout", iteration=it, perplexity=round(pp, 4)
                 )
+                if tb_writer is not None:
+                    tb_writer.add_scalar("eval/perplexity", pp, it)
+
+    if profiler is not None:
+        profiler.stop()
+        os.makedirs(args.profile_dir, exist_ok=True)
+        profiler.export_chrome_trace(
+            os.path.join(args.profile_dir, PROFILE_TRACE))
+
+    if args.phase_timing:
+        times = engine.phase_timings()
+        if times:
+            metrics.log(event="phase_timing", **times)
+
+    if args.roofline:
+        # The measured phases beside their bounds at the sweeps the
+        # engine ran.
+        from pylda_tpu_torch.utils.roofline import roofline_report
+
+        try:
+            for phase, r in roofline_report(engine).items():
+                if phase == "sweep_counts":
+                    metrics.log(event="roofline_measured", phase=phase,
+                                counts=r)
+                else:
+                    metrics.log(event="roofline_measured", phase=phase, **r)
+        except Exception as e:  # never sink a finished run on a report
+            metrics.log(event="roofline_measured_failed", error=str(e))
 
     n = config.training_iterations
     engine.export_beta(os.path.join(run_dir, f"exp_beta-{n}"), top_k=50)
@@ -370,6 +441,9 @@ def main(argv: Optional[List[str]] = None) -> int:
             perplexity=round(engine.perplexity(test), 4),
             run_dir=run_dir,
         )
+    if tb_writer is not None:
+        tb_writer.flush()
+        tb_writer.close()
     metrics.close()
     return 0
 

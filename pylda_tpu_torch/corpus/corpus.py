@@ -24,6 +24,7 @@ from typing import Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 
 from pylda_tpu_torch.corpus.vocabulary import Vocabulary
+from pylda_tpu_torch.native import parse_lines
 from pylda_tpu_torch.utils import round_up as _round_up
 
 
@@ -85,17 +86,6 @@ class GeometryOverflow(ValueError):
     largest bucket's capacity overflowed)."""
 
 
-def _python_parse(lines: Iterable[str], vocab) -> List[np.ndarray]:
-    """Reference parser semantics: lowercase, whitespace split, OOV
-    tokens dropped; one int32 id array per line."""
-    docs = []
-    for line in lines:
-        toks = line.lower().split()
-        ids = [vocab.get(t) for t in toks]
-        docs.append(np.asarray([i for i in ids if i >= 0], dtype=np.int32))
-    return docs
-
-
 class Corpus:
     """A tokenised corpus: per-document token-id sequences + vocabulary."""
 
@@ -141,8 +131,9 @@ class Corpus:
         cls, lines: Iterable[str], vocab: Vocabulary
     ) -> "Corpus":
         """Reference parser semantics (lowercase, whitespace split, OOV
-        dropped), in pure Python."""
-        return cls(_python_parse(lines, vocab), vocab)
+        dropped), through the C tokenizer (``pylda_tpu_torch.native``:
+        ASCII text; other text, or no built tokenizer, in Python)."""
+        return cls(parse_lines(list(lines), vocab), vocab)
 
     @classmethod
     def from_file(cls, path: str, vocab: Vocabulary) -> "Corpus":

@@ -22,9 +22,11 @@ so a sidecar written by either package is valid for the other.  When the
 directory is unwritable (or ``row_cache="off"``) documents are re-parsed
 from their lines on demand.
 
-Documents parse with the port's Python parser (``corpus._python_parse``:
-lowercase, whitespace split, out-of-vocabulary tokens dropped), the
-semantics of the JAX package's native tokenizer.
+Documents parse through the C tokenizer (``pylda_tpu_torch.native``:
+lowercase, whitespace split, out-of-vocabulary tokens dropped; the
+indexing pass reuses one vocabulary table for all its blocks), or in
+Python for non-ASCII text or without a built tokenizer: the same
+documents either way.
 
 Duck-types the part of the ``Corpus`` surface the engines use:
 ``num_docs / num_types / num_tokens / global_num_docs /
@@ -45,13 +47,9 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
-from pylda_tpu_torch.corpus.corpus import (
-    Corpus,
-    DenseBatch,
-    RaggedBucket,
-    _python_parse,
-)
+from pylda_tpu_torch.corpus.corpus import Corpus, DenseBatch, RaggedBucket
 from pylda_tpu_torch.corpus.vocabulary import Vocabulary
+from pylda_tpu_torch.native import NativeVocabTable, have_native, parse_lines
 
 _ROWCACHE_VERSION = 2
 _PARSE_BLOCK = 4096  # lines a parse step of the indexing pass
@@ -119,11 +117,12 @@ class StreamingCorpus:
 
     def _index_scan(self, write_cache: bool) -> None:
         files = self._open_cache_files() if write_cache else []
+        table = NativeVocabTable(self.vocab.types) if have_native() else None
         uniq_chunks: List[np.ndarray] = []
         lens_chunks: List[np.ndarray] = []
 
         def consume(lines: List[str]) -> None:
-            docs = _python_parse(lines, self.vocab)
+            docs = parse_lines(lines, self.vocab, table=table)
             nuniq = np.empty((len(docs),), dtype=np.int32)
             for di, d in enumerate(docs):
                 uids, ucnts = np.unique(d, return_counts=True)
@@ -299,7 +298,7 @@ class StreamingCorpus:
                 f.seek(self._offsets[g])
                 lines.append(f.read(self._offsets[g + 1] - self._offsets[g])
                              .decode("utf-8", errors="replace"))
-        return Corpus(_python_parse(lines, self.vocab), self.vocab)
+        return Corpus(parse_lines(lines, self.vocab), self.vocab)
 
     @staticmethod
     def _remap(batch, doc_indices):

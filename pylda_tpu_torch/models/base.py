@@ -216,6 +216,11 @@ class Inferencer:
         (log likelihood bound, per-doc gamma [D_test, K])."""
         raise NotImplementedError
 
+    def phase_timings(self, repeats: int = 3) -> dict:
+        """Per-phase device times in ms (engines that time their phases
+        override this); the ``--phase_timing`` and roofline hook."""
+        return {}
+
     def perplexity(self, test_corpus: Corpus) -> float:
         """Per-word held-out perplexity under the engine's native
         convention (the VB family scores tokens with E[log beta])."""

@@ -23,8 +23,9 @@ PyTorch runs eagerly: ``learning_many`` is a Python loop whose operations
 queue on the device stream; it keeps every sweep's likelihood on the
 device and reads them once a chunk (chunks end at hyperopt boundaries,
 where the slice sampler reads the likelihood on the host).
-``phase_timings``, process-local corpora and the mesh raise
-``NotImplementedError`` naming their ROADMAP items.
+``phase_timings`` times a sweep and the joint likelihood apart.
+Process-local corpora and the mesh raise ``NotImplementedError`` naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -50,6 +51,7 @@ from pylda_tpu_torch.ops.sampling import (
     stream,
     stream_seed,
 )
+from pylda_tpu_torch.utils.timing import best_ms
 
 # Purpose tags of the random streams (the JAX engine's fold_in constants).
 TAG_INIT, TAG_SWEEP, TAG_TEST, TAG_SLICE = 0x51BB5, 0x5EE9, 0x7E57, 0x511CE
@@ -230,16 +232,22 @@ class MonteCarlo(Inferencer):
             s = s + _doc_side_ll(ndk, b.mask, alpha)
         return s
 
-    def _exact_sweep(self, sweep: int) -> torch.Tensor:
-        """One AD-LDA sweep: sample against the table frozen at sweep
-        start, rebuild it from z; returns the joint LL (0-d, on the
-        device)."""
+    def _sweep(self, sweep: int):
+        """One AD-LDA sweep from the current chains, which it leaves as
+        they are: sample against the table frozen at sweep start, rebuild
+        it from z.  Returns (z, ndk, n_kv)."""
+        log_tw = _log_phi_hat(self._n_kv, self.state.eta)
+        return self._sample_buckets(sweep, log_tw, accumulate=True)
+
+    def _joint_ll(self, n_kv, ndks) -> torch.Tensor:
         st = self.state
-        log_tw = _log_phi_hat(self._n_kv, st.eta)
-        self._z, self._ndk, self._n_kv = self._sample_buckets(
-            sweep, log_tw, accumulate=True)
-        return _topic_side_ll(self._n_kv, st.eta) + self._doc_ll(
-            self._ndk, st.alpha)
+        return _topic_side_ll(n_kv, st.eta) + self._doc_ll(ndks, st.alpha)
+
+    def _exact_sweep(self, sweep: int) -> torch.Tensor:
+        """One AD-LDA sweep, adopted; returns the joint LL (0-d, on the
+        device)."""
+        self._z, self._ndk, self._n_kv = self._sweep(sweep)
+        return self._joint_ll(self._n_kv, self._ndk)
 
     def _interval_sweeps(self, n: int) -> List[torch.Tensor]:
         """n sweeps at ``gibbs_rebuild_interval`` R > 1: every sweep
@@ -348,9 +356,20 @@ class MonteCarlo(Inferencer):
             eta=torch.full_like(st.eta, math.exp(x[1])), step=st.step)
 
     def phase_timings(self, repeats: int = 3) -> dict:
-        raise NotImplementedError(
-            "phase_timings is not ported yet (ROADMAP.md Queue 1 item 7)"
-        )
+        """Device times in ms (``utils.timing``, best of ``repeats`` after
+        a warm call) of one sweep (``gibbs_sweep_ms``: the factor refresh,
+        every bucket's sampling and the n_kv rebuild) and of the joint
+        likelihood at the current tables (``joint_likelihood_ms``), the
+        keys of ``pylda_tpu.models.gibbs``.  The timed sweep's chains are
+        dropped: z, the count tables and the step stay as they were, and
+        its streams are seeded afresh from the step, as every sweep's
+        are, so the next ``learning()`` draws what it would have."""
+        dev = self._device
+        sweep_ms, _ = best_ms(lambda: self._sweep(self._counter), dev, repeats)
+        ll_ms, _ = best_ms(lambda: self._joint_ll(self._n_kv, self._ndk), dev,
+                           repeats)
+        return {"gibbs_sweep_ms": round(sweep_ms, 6),
+                "joint_likelihood_ms": round(ll_ms, 6)}
 
     # -- topics / held-out ----------------------------------------------------------
 

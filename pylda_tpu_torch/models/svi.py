@@ -45,9 +45,12 @@ PyTorch runs eagerly: ``learning_many`` is a Python loop over epochs and
 minibatches whose kernels queue on the device stream, and it reads the
 estimates back once.  Per-document gammas are kept by ``learning()``;
 after ``learning_many`` the ``gamma`` property recomputes them in one
-rho = 0 epoch.  Routes of the JAX engine not ported yet raise
-``NotImplementedError`` naming their ROADMAP item: process-local corpora
-and the mesh, and ``phase_timings``; on the card, K above the kernels'
+rho = 0 epoch.  Minibatch i of the epoch at step s draws its gamma inits
+(a random ``gamma_init``) from the streams (config seed, tag, s, i,
+batch), so ``learning_many(n)`` draws what n ``learning()`` calls draw.
+``phase_timings`` times one minibatch step.  Routes of the JAX engine not
+ported yet raise ``NotImplementedError`` naming their ROADMAP item:
+process-local corpora and the mesh; on the card, K above the kernels'
 4096 is refused by the kernel wrappers at the first E-step.
 """
 
@@ -63,6 +66,9 @@ from pylda_tpu_torch.corpus.corpus import Corpus, GeometryOverflow
 from pylda_tpu_torch.models import layouts
 from pylda_tpu_torch.models.base import LDAState
 from pylda_tpu_torch.models.vb import (
+    TAG_GAMMA_REFRESH,
+    TAG_GAMMA_SVI,
+    TAG_TIMING,
     VariationalBayes,
     _Bucket,
     _Dense,
@@ -72,6 +78,7 @@ from pylda_tpu_torch.models.vb import (
 from pylda_tpu_torch.ops.dirichlet import beta_elbo
 from pylda_tpu_torch.ops.hyper import newton_dirichlet_mle
 from pylda_tpu_torch.utils import round_up
+from pylda_tpu_torch.utils.timing import best_ms
 
 
 @dataclasses.dataclass
@@ -326,10 +333,11 @@ class StochasticVariationalBayes(VariationalBayes):
     # -- one minibatch ----------------------------------------------------------
 
     def _minibatch_step(self, lam, alpha, eta, batches, rho, scale,
-                        doc_sel: Optional[torch.Tensor]):
+                        doc_sel: Optional[torch.Tensor], tag: tuple):
         """Local E-step, then lambda <- (1 - rho) lambda + rho (eta +
         scale sstats).  Returns (lambda, the doc-side bound terms times
         scale, the sum of E[log theta] over the minibatch, gammas).
+        ``tag`` seeds the gamma inits' streams (``_gamma0s``).
 
         With the dense sstats plan ``batches`` are buckets whose
         row_index holds each row's global document (D for padding) and
@@ -338,7 +346,7 @@ class StochasticVariationalBayes(VariationalBayes):
         the one gamma block returned is in ``doc_sel`` order.  Without it
         (the dense layout, the scatter route) each batch runs its whole
         E-step and returns its own gamma block."""
-        gamma0s = self._gamma0s(batches)
+        gamma0s = self._gamma0s(batches, *tag)
         if self._mb_sstats is None:
             out = self._run_estep_batches(batches, lam, alpha, gamma0s)
         else:
@@ -505,10 +513,12 @@ class StochasticVariationalBayes(VariationalBayes):
                 pass
         return layouts.build_vb_batches(corpus, cfg, doc_indices=idx)
 
-    def _run_epoch(self, lam, alpha, eta, ep: _Epoch, keep_gammas: bool):
+    def _run_epoch(self, lam, alpha, eta, ep: _Epoch, keep_gammas: bool,
+                   tag: tuple):
         """The epoch's minibatch steps from lambda: (final lambda, the
         [n] bound estimates, the summed E[log theta], gammas and their
-        row -> document maps when kept)."""
+        row -> document maps when kept).  Minibatch i's gamma inits draw
+        from the streams (config seed, *tag, i, batch)."""
         dev, dt = self._device, self._dtype
         rhos = torch.tensor(ep.rhos, dtype=dt, device=dev)
         scales = torch.tensor(ep.scales, dtype=dt, device=dev)
@@ -517,7 +527,7 @@ class StochasticVariationalBayes(VariationalBayes):
         for i, (batches, sel) in enumerate(ep.minibatches):
             lam, est, elog, gs = self._minibatch_step(
                 lam, alpha, eta, batches, rhos[i], scales[i],
-                None if sel is None else sel[1],
+                None if sel is None else sel[1], (*tag, i),
             )
             ests.append(est)
             elog_sum = elog_sum + elog
@@ -535,7 +545,8 @@ class StochasticVariationalBayes(VariationalBayes):
         cfg = self._config
         st = self.state
         lam, ests, elog_sum, gammas, doc_ids = self._run_epoch(
-            st.lam, st.alpha, st.eta, ep, keep_gammas
+            st.lam, st.alpha, st.eta, ep, keep_gammas,
+            (TAG_GAMMA_SVI, self._counter),
         )
         self._t += ep.n
         alpha, eta = st.alpha, st.eta
@@ -618,13 +629,40 @@ class StochasticVariationalBayes(VariationalBayes):
                                      self._t)
         ep = dataclasses.replace(ep, rhos=[0.0] * ep.n)
         _, _, _, gammas, doc_ids = self._run_epoch(
-            st.lam, st.alpha, st.eta, ep, keep_gammas=True)
+            st.lam, st.alpha, st.eta, ep, keep_gammas=True,
+            tag=(TAG_GAMMA_REFRESH, self._counter))
         self._set_gammas(gammas, doc_ids)
 
+    def timing_minibatch(self):
+        """(the first minibatch of the epoch the next ``learning()`` runs:
+        its device batches and selection, its rho and D/|B| scale, the
+        epoch's minibatch count).  ``_t`` does not move: the epoch takes
+        the counter as an argument, and only ``_train_epoch`` advances
+        it."""
+        ep = self._epoch(self._counter * 100003 + self._config.seed, self._t)
+        batches, sel = next(iter(ep.minibatches))
+        return batches, sel, ep.rhos[0], ep.scales[0], ep.n
+
     def phase_timings(self, repeats: int = 3) -> dict:
-        raise NotImplementedError(
-            "phase_timings is not ported yet (ROADMAP.md Queue 1 item 7)"
-        )
+        """One minibatch step's device time in ms (``svi_minibatch_ms``:
+        the local E-step, the natural-gradient lambda step and the bound
+        terms, best of ``repeats`` after a warm call; ``utils.timing``)
+        and ``minibatches_per_epoch``, the keys of
+        ``pylda_tpu.models.svi``.  The step runs from the current state
+        and its results are dropped: lambda, alpha, eta, the step and
+        ``_t`` (the rho schedule) stay as they were, and the gamma inits
+        draw from a stream of their own (``TAG_TIMING``).
+        ``last_sweeps`` holds the timed minibatch's sweeps a batch."""
+        st = self.state
+        batches, sel, rho, scale, n = self.timing_minibatch()
+        dev, dt = self._device, self._dtype
+        rho_t = torch.tensor(rho, dtype=dt, device=dev)
+        scale_t = torch.tensor(scale, dtype=dt, device=dev)
+        ms, _ = best_ms(lambda: self._minibatch_step(
+            st.lam, st.alpha, st.eta, batches, rho_t, scale_t,
+            None if sel is None else sel[1], (TAG_TIMING, self._counter, 0),
+        ), dev, repeats)
+        return {"svi_minibatch_ms": round(ms, 6), "minibatches_per_epoch": n}
 
     # -- model files ------------------------------------------------------------------
 

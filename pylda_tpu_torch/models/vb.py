@@ -27,13 +27,23 @@ sit on top (``models/base.py``).
 PyTorch runs eagerly, so there is no jit or scan here: ``learning_many``
 is a Python loop whose kernels queue on the device stream; it reads the
 ELBOs back once at the end (the Newton updates read one scalar per Newton
-step).  Process-local corpora raise ``NotImplementedError`` naming their
-ROADMAP item.
+step).
+
+Each row's fixed point starts from ``gamma_init``: ones, or a random
+draw ("normal", "gamma") from a ``torch.Generator`` on the engine's
+device seeded by (config seed, purpose tag, step, batch) through
+``ops/sampling.stream``, on the JAX engine's schedule: ``learning()``
+draws a set an iteration, ``learning_many(n)`` one set for all n, and
+held-out inference, the lazy ``gamma`` refresh and ``phase_timings``
+draw from tags of their own.  ``phase_timings`` times each phase of an
+iteration on the device.  Process-local corpora raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import List, Optional, Tuple, Union
 
 import numpy as np
@@ -53,9 +63,11 @@ from pylda_tpu_torch.ops.dirichlet import (
 from pylda_tpu_torch.ops.estep import estep_ragged
 from pylda_tpu_torch.ops.hyper import newton_dirichlet_mle
 from pylda_tpu_torch.ops.ragged import gather_table, ragged_gamma
+from pylda_tpu_torch.ops.sampling import stream
 from pylda_tpu_torch.ops.sstats import dense_sstats
 from pylda_tpu_torch.utils import round_up as _round_up
 from pylda_tpu_torch.utils.config import LDAConfig
+from pylda_tpu_torch.utils.timing import best_ms
 
 
 @dataclasses.dataclass
@@ -103,11 +115,61 @@ class _SstatsPlan:
     num_docs: int
 
 
-def _gamma_init(shape, dtype, device) -> torch.Tensor:
-    """The per-row gamma init of the fixed point: the deterministic "ones"
-    cold start, ``gamma_init``'s default (the engine refuses the random
-    modes at construction)."""
-    return torch.ones(shape, dtype=dtype, device=device)
+# Purpose tags of the gamma-init streams: the JAX engine's fold_in
+# constants where it has one (a fused dispatch, held-out inference, the
+# lazy refresh, phase timing); learning() and SVI's minibatches split the
+# JAX state key instead, and take tags of their own here.
+TAG_GAMMA_ITER, TAG_GAMMA_FUSED, TAG_GAMMA_SVI = 0x17E4, 0x60A4, 0x5B1
+TAG_GAMMA_TEST, TAG_GAMMA_REFRESH, TAG_TIMING = 0x7E57, 0x6A33A, 0x7131
+
+# Gamma(GAMMA_SHAPE) * GAMMA_SCALE: mean 1, std 0.1.
+GAMMA_SHAPE, GAMMA_SCALE = 100.0, 0.01
+
+
+def standard_gamma(shape_param: float, size, generator: torch.Generator,
+                   dtype=torch.float32) -> torch.Tensor:
+    """Gamma(``shape_param``, 1) draws of ``size`` on the generator's
+    device, by Marsaglia and Tsang (2000) for a shape >= 1: one normal x
+    and one uniform u a candidate, v = (1 + c x)^3, accepted when
+    log u < x^2/2 + d - d v + d log v, the draw d v.  Rejected entries
+    are drawn again until none is left (at shape 100 over 99% of
+    candidates are accepted).  ``torch.distributions.Gamma`` takes no
+    generator, so it cannot give repeatable streams."""
+    if shape_param < 1.0:
+        raise ValueError("standard_gamma needs a shape >= 1")
+    d = shape_param - 1.0 / 3.0
+    c = 1.0 / math.sqrt(9.0 * d)
+    dev = generator.device
+    n = math.prod(size)
+    out = torch.empty((n,), dtype=dtype, device=dev)
+    todo = torch.arange(n, device=dev)
+    while todo.numel():
+        m = todo.numel()
+        x = torch.randn((m,), generator=generator, dtype=dtype, device=dev)
+        u = torch.rand((m,), generator=generator, dtype=dtype, device=dev)
+        v = (1.0 + c * x) ** 3
+        ok = (v > 0) & (torch.log(u) < 0.5 * x * x + d - d * v
+                        + d * torch.log(v.clamp_min(1e-30)))
+        out[todo[ok]] = d * v[ok]
+        todo = todo[~ok]
+    return out.reshape(size)
+
+
+def gamma_init(shape, mode: str, generator: Optional[torch.Generator],
+               dtype=torch.float32, device=None) -> torch.Tensor:
+    """A fixed point's per-row cold start (``pylda_tpu.models.vb``'s
+    ``_gamma_init``): ones; "normal", clip(1 + 0.1 N(0, 1), 0.2); or
+    "gamma", Gamma(100) * 0.01.  The random modes draw from
+    ``generator``, on its device."""
+    if mode == "ones":
+        return torch.ones(shape, dtype=dtype, device=device)
+    if mode == "normal":
+        x = torch.randn(shape, generator=generator, dtype=dtype,
+                        device=generator.device)
+        return (1.0 + 0.1 * x).clamp_(min=0.2)
+    if mode == "gamma":
+        return standard_gamma(GAMMA_SHAPE, shape, generator, dtype) * GAMMA_SCALE
+    raise ValueError(f"unknown gamma_init: {mode}")
 
 
 def _elog_lambda_sum(lam: torch.Tensor) -> torch.Tensor:
@@ -145,12 +207,6 @@ class VariationalBayes(Inferencer):
         device: Union[str, torch.device, None] = None,
     ):
         super().__init__(config, device)
-        cfg = self._config
-        if self._USES_GAMMA_INIT and cfg.gamma_init != "ones":
-            raise NotImplementedError(
-                f"gamma_init={cfg.gamma_init!r} needs a torch random stream; "
-                "not ported yet (ROADMAP.md Queue 1 item 7)"
-            )
         if self._device.type == "cuda" and self._dtype != torch.float32:
             raise NotImplementedError("the CUDA kernels take float32 only")
         self.last_sweeps: List[torch.Tensor] = []
@@ -255,11 +311,19 @@ class VariationalBayes(Inferencer):
     def _state_changed(self) -> None:
         self._set_gammas(None, None)
 
-    def _gamma0s(self, batches: List[_Batch]) -> List[torch.Tensor]:
-        K = self._config.number_of_topics
+    def _gamma0s(self, batches: List[_Batch], *tag: int
+                 ) -> List[torch.Tensor]:
+        """One gamma init a batch; a random mode draws batch i's from the
+        stream (config seed, *tag, i), ``tag`` being (purpose, step, ...)."""
+        cfg = self._config
+        K = cfg.number_of_topics
+        mode = cfg.gamma_init if self._USES_GAMMA_INIT else "ones"
         return [
-            _gamma_init((b.rows, K), self._dtype, self._device)
-            for b in batches
+            gamma_init((b.rows, K), mode,
+                       None if mode == "ones"
+                       else stream(self._device, cfg.seed, *tag, i),
+                       self._dtype, self._device)
+            for i, b in enumerate(batches)
         ]
 
     # -- E-step ---------------------------------------------------------------
@@ -313,6 +377,24 @@ class VariationalBayes(Inferencer):
         self.last_sweeps = sweeps
         return gammas, sstats, token_score, theta_score, elog_sum
 
+    def _ragged_fixed_points(self, batches: List[_Bucket], lam, alpha,
+                             gamma0s: List[torch.Tensor]):
+        """(expElogbeta, each bucket's gamma rows, each bucket's sweeps):
+        the gamma fixed points alone."""
+        eeb = exp_dirichlet_expectation_fast(lam)
+        # The kernel gathers rows of expElogbeta^T: build the table once
+        # for all buckets of this E-step (bf16 in the bf16 operand mode).
+        eeb_t = (gather_table(eeb, self._config.compute_dtype) if eeb.is_cuda
+                 else None)
+        kw = self._fixed_point_kw()
+        rows, sweeps = [], []
+        for b, gamma0 in zip(batches, gamma0s):
+            g, s = ragged_gamma(b.ids, b.cnts, gamma0, eeb, alpha,
+                                eeb_t=eeb_t, **kw)
+            rows.append(g)
+            sweeps.append(s)
+        return eeb, rows, sweeps
+
     def _run_estep_hybrid(
         self, batches: List[_Bucket], plan: _SstatsPlan, lam, alpha,
         gamma0s: List[torch.Tensor],
@@ -322,17 +404,8 @@ class VariationalBayes(Inferencer):
         elog_sum); the sweeps each bucket took stay on the device in
         ``last_sweeps``."""
         cfg = self._config
-        eeb = exp_dirichlet_expectation_fast(lam)
-        # The kernel gathers rows of expElogbeta^T: build the table once
-        # for all buckets of this E-step (bf16 in the bf16 operand mode).
-        eeb_t = gather_table(eeb, cfg.compute_dtype) if eeb.is_cuda else None
-        kw = self._fixed_point_kw()
-        rows, sweeps = [], []
-        for b, gamma0 in zip(batches, gamma0s):
-            g, s = ragged_gamma(b.ids, b.cnts, gamma0, eeb, alpha,
-                                eeb_t=eeb_t, **kw)
-            rows.append(g)
-            sweeps.append(s)
+        eeb, rows, sweeps = self._ragged_fixed_points(batches, lam, alpha,
+                                                      gamma0s)
         self.last_sweeps = sweeps
         gamma_docs = _assemble_gamma_device(
             torch.cat(rows, dim=0),
@@ -410,7 +483,8 @@ class VariationalBayes(Inferencer):
         """One batch-VB iteration: E-step, bound, M-step, hyper updates.
         Returns the ELBO at (gamma*, lambda used in the E-step)."""
         new_state, elbo, gammas = self._iteration(
-            self._hyper_due(), self._gamma0s(self._batches)
+            self._hyper_due(),
+            self._gamma0s(self._batches, TAG_GAMMA_ITER, self._counter),
         )
         self._state = new_state
         self._step_host += 1
@@ -421,11 +495,12 @@ class VariationalBayes(Inferencer):
 
     def learning_many(self, n: int) -> List[float]:
         """n iterations in a loop that stays on the device; the gamma
-        inits are made once for all n (as the JAX scan does).  Returns
-        the per-iteration ELBOs."""
+        inits are drawn once for all n (as the JAX scan does: the init is
+        an arbitrary cold start whose distribution, not its freshness,
+        matters).  Returns the per-iteration ELBOs."""
         if n <= 0:
             return []
-        gamma0s = self._gamma0s(self._batches)
+        gamma0s = self._gamma0s(self._batches, TAG_GAMMA_FUSED, self._counter)
         elbos = []
         for _ in range(n):
             new_state, elbo, _ = self._iteration(self._hyper_due(), gamma0s)
@@ -434,6 +509,69 @@ class VariationalBayes(Inferencer):
             elbos.append(elbo)
         self._set_gammas(None, None)  # lazy: .gamma re-runs the E-step
         return [float(x) for x in torch.stack(elbos).cpu()]
+
+    # -- per-phase timing ----------------------------------------------------------
+
+    def phase_timings(self, repeats: int = 3) -> dict:
+        """Per-phase device times in ms of one training iteration at the
+        current state (``pylda_tpu.models.vb``'s keys): on the dense
+        sstats plan ``estep_hybrid_full_ms`` (the whole E-step) and
+        ``estep_sweeps_only_ms`` (expectations and the gamma fixed points
+        alone), otherwise ``estep_batch{i}_{shape}_ms`` a batch; then
+        ``estep_total_ms``, ``mstep_ms``, ``bound_ms`` and
+        ``hyper_newton_ms``.  Each phase runs alone (``utils.timing``:
+        CUDA events on the card, the best of ``repeats`` after a warm
+        call and a synchronize), so their sum leaves out the host work
+        an iteration does between phases.
+
+        The engine's state is left bitwise as it was: the phases are pure
+        functions of it, and the gamma inits come from a stream of their
+        own (``TAG_TIMING``).  ``last_sweeps`` holds the timed E-step's
+        sweeps a batch."""
+        st = self.state
+        cfg = self._config
+        dev = self._device
+        batches = self._batches
+        gamma0s = self._gamma0s(batches, TAG_TIMING, self._counter)
+        out = {}
+
+        def timed(name, fn):
+            ms, r = best_ms(fn, dev, repeats)
+            out[name] = round(ms, 6)
+            return r
+
+        plan = self._sstats_plan
+        if plan is not None:
+            r = timed("estep_hybrid_full_ms", lambda: self._run_estep_hybrid(
+                batches, plan, st.lam, st.alpha, gamma0s))
+            sweeps = self.last_sweeps
+            sstats, elog_sum = r[1], r[4]
+            timed("estep_sweeps_only_ms", lambda: self._ragged_fixed_points(
+                batches, st.lam, st.alpha, gamma0s))
+            out["estep_total_ms"] = out["estep_hybrid_full_ms"]
+        else:
+            sstats, elog_sum, sweeps = None, None, []
+            for i, (b, g0) in enumerate(zip(batches, gamma0s)):
+                shape = (f"dense{tuple(b.counts.shape)}"
+                         if isinstance(b, _Dense) else f"rows{b.mask.shape[0]}")
+                r = timed(f"estep_batch{i}_{shape}_ms", lambda b=b, g0=g0:
+                          self._run_estep([b], None, st.lam, st.alpha, [g0]))
+                sweeps.extend(self.last_sweeps)
+                sstats = r[1] if sstats is None else sstats + r[1]
+                elog_sum = r[4] if elog_sum is None else elog_sum + r[4]
+            out["estep_total_ms"] = round(
+                sum(v for k, v in out.items() if k.startswith("estep_batch")),
+                6)
+        self.last_sweeps = sweeps
+        lam_new = timed("mstep_ms", lambda: st.eta[None, :] + sstats)
+        timed("bound_ms", lambda: beta_elbo(st.lam, st.eta))
+        timed("hyper_newton_ms", lambda: (
+            newton_dirichlet_mle(st.alpha, elog_sum,
+                                 float(self._corpus.global_num_docs)),
+            newton_dirichlet_mle(st.eta, _elog_lambda_sum(lam_new),
+                                 float(cfg.number_of_topics)),
+        ))
+        return out
 
     # -- gamma bookkeeping --------------------------------------------------------
 
@@ -456,7 +594,8 @@ class VariationalBayes(Inferencer):
                 st = self.state
                 gammas = self._run_estep(
                     self._batches, self._sstats_plan, st.lam, st.alpha,
-                    self._gamma0s(self._batches),
+                    self._gamma0s(self._batches, TAG_GAMMA_REFRESH,
+                                  self._counter),
                 )[0]
                 self._set_gammas(gammas, self._gamma_doc_ids_for(
                     self._batches, self._sstats_plan))
@@ -478,7 +617,8 @@ class VariationalBayes(Inferencer):
         batches = self._build_batches(test_corpus)
         plan = self._plan_dense_sstats(test_corpus)
         gammas, _, token_score, theta_score, _ = self._run_estep(
-            batches, plan, st.lam, st.alpha, self._gamma0s(batches)
+            batches, plan, st.lam, st.alpha,
+            self._gamma0s(batches, TAG_GAMMA_TEST, self._counter),
         )
         gamma = layouts.assemble_gamma(
             self._gamma_doc_ids_for(batches, plan),

@@ -182,8 +182,7 @@ def test_learning_many_matches_learning_loop(corpus_dir):
     ["--mesh=2,1", "--shard_vocab", "--shard_topics",
      "--coordinator_address=localhost:1", "--num_processes=2",
      "--process_id=0", "--process_sharded_input",
-     "--profile_dir=/x", "--roofline", "--phase_timing",
-     "--tensorboard_dir=/x", "--coherence", "--checkpoint_format=orbax"],
+     "--checkpoint_format=orbax"],
 )
 def test_unported_train_flags_exit(corpus_dir, tmp_path, flag):
     with pytest.raises(SystemExit, match="ROADMAP.md Queue 1 item"):
@@ -193,9 +192,7 @@ def test_unported_train_flags_exit(corpus_dir, tmp_path, flag):
 
 def test_unported_test_flag_and_default_device(corpus_dir, tmp_path,
                                                monkeypatch):
-    with pytest.raises(SystemExit, match="ROADMAP.md Queue 1 item 13"):
-        run_launch_test(["--model=/x", f"--input_directory={corpus_dir}",
-                   "--coherence"])
+    # The test CLI has no unported flag left (--coherence is ported).
     # Without --device the CLIs run on the card, and raise without one.
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -393,3 +390,109 @@ def test_sampling_modes_train_test_infer_like_jax(mode, tmp_path):
     theta = np.loadtxt(mix)
     assert rc == 0 and theta.shape == (2, 10)
     np.testing.assert_allclose(theta.sum(axis=1), 1.0, rtol=1e-4)
+
+
+# -- observability flags ----------------------------------------------------------
+
+
+def _events(run):
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def test_observability_flags_on_the_bundled_corpus(tmp_path):
+    """--phase_timing --roofline --coherence --tensorboard_dir
+    --profile_dir on data/de-news-tiny, then test --coherence."""
+    out, tb, prof = (str(tmp_path / d) for d in ("out", "tb", "prof"))
+    assert train_main([
+        f"--input_directory={bundled_corpus_dir()}", f"--output_directory={out}",
+        "--number_of_topics=10", "--training_iterations=4",
+        "--snapshot_interval=2", "--inner_iterations=20", CPU,
+        "--phase_timing", "--roofline", "--coherence",
+        f"--tensorboard_dir={tb}", f"--profile_dir={prof}",
+    ]) == 0
+    run = glob.glob(os.path.join(out, "*", "*"))[0]
+    events = _events(run)
+    by = {}
+    for e in events:
+        by.setdefault(e["event"], []).append(e)
+    assert {"phase_timing", "roofline", "roofline_measured",
+            "coherence"} <= set(by)
+    times = by["phase_timing"][0]
+    assert {"estep_total_ms", "mstep_ms", "bound_ms",
+            "hyper_newton_ms"} <= set(times)
+    assert {e["phase"] for e in by["roofline"]} == {
+        "sweeps_per_sweep", "sstats", "elog_beta"}
+    measured = {e["phase"]: e for e in by["roofline_measured"]}
+    assert set(measured) == {"iteration", "sweep_counts"}
+    assert measured["iteration"]["bound_ms"] > 0
+    assert [e["iteration"] for e in by["coherence"]] == [2, 4]
+    assert all(e["top_n"] == 10 and e["mean_umass"] < 0
+               for e in by["coherence"])
+    # TensorBoard's event file, or the event saying why there is none.
+    assert (glob.glob(os.path.join(tb, "events.out.tfevents.*"))
+            or "tensorboard_unavailable" in by)
+    with open(os.path.join(prof, "train_trace.json")) as f:
+        trace = json.load(f)
+    assert trace["traceEvents"]
+    assert events[-1]["event"] == "final"
+
+    assert run_launch_test([f"--model={os.path.join(run, 'model-4')}",
+                            f"--input_directory={bundled_corpus_dir()}",
+                            f"--output_file={tmp_path / 'g'}", CPU,
+                            "--coherence", "--coherence_top_n=7"]) == 0
+
+
+def test_test_cli_coherence_event(corpus_dir, tmp_path, capsys):
+    out = str(tmp_path / "out")
+    assert _train(corpus_dir, out, "--training_iterations=2",
+                  "--snapshot_interval=2", "--inner_iterations=10") == 0
+    model = glob.glob(os.path.join(out, "*", "*", "model-2"))[0]
+    capsys.readouterr()
+    assert run_launch_test([f"--model={model}",
+                            f"--input_directory={corpus_dir}", CPU,
+                            f"--output_file={tmp_path / 'g'}",
+                            "--coherence", "--coherence_top_n=4"]) == 0
+    line = [ln for ln in capsys.readouterr().out.splitlines()
+            if ln.startswith("event=coherence")]
+    assert len(line) == 1 and "top_n=4" in line[0]
+    per = json.loads(line[0].split("per_topic=")[1].split(" wall_time")[0])
+    assert len(per) == 5
+
+
+@pytest.mark.parametrize("mode", ["vb", "svi", "gibbs", "hybrid"])
+def test_phase_timing_and_roofline_flags_every_engine(corpus_dir, tmp_path,
+                                                      mode):
+    out = str(tmp_path / "out")
+    assert _train(corpus_dir, out, f"--inference_mode={mode}",
+                  "--training_iterations=2", "--snapshot_interval=2",
+                  "--inner_iterations=10", "--number_of_samples=2",
+                  "--burn_in_sweeps=1", "--batch_size=40",
+                  "--phase_timing", "--roofline") == 0
+    events = _events(glob.glob(os.path.join(out, "*", "*"))[0])
+    times = [e for e in events if e["event"] == "phase_timing"]
+    assert len(times) == 1
+    assert all(v > 0 for k, v in times[0].items()
+               if k.endswith("_ms"))
+    measured = {e["phase"] for e in events
+                if e["event"] == "roofline_measured"}
+    want = {"vb": {"iteration", "sweep_counts"},
+            "hybrid": {"iteration", "sweep_counts"},
+            "svi": {"minibatch", "sweep_counts"},
+            "gibbs": {"sweep", "joint_likelihood"}}[mode]
+    assert measured == want
+    # The cost model at start: the VB family (as in the JAX CLI).
+    assert any(e["event"] == "roofline" for e in events) == (mode != "gibbs")
+
+
+def test_tensorboard_unavailable_is_logged(corpus_dir, tmp_path, monkeypatch):
+    import sys
+
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    out = str(tmp_path / "out")
+    assert _train(corpus_dir, out, "--training_iterations=1",
+                  "--snapshot_interval=1", "--inner_iterations=5",
+                  f"--tensorboard_dir={tmp_path / 'tb'}") == 0
+    events = _events(glob.glob(os.path.join(out, "*", "*"))[0])
+    assert [e["event"] for e in events].count("tensorboard_unavailable") == 1
+    assert events[-1]["event"] == "final"

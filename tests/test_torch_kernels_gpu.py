@@ -33,7 +33,11 @@ to its share at the float64 plain version's gamma, to rel 1e-5.  The
 sampling engines (plain PyTorch, no kernel) are held here too: each
 sampler's sweep on the card against the CPU from the same noise (z equal
 but on at most 0.1% of the documents), count tables bitwise, and both
-engines on the card conserving counts and launching no kernel.
+engines on the card conserving counts and launching no kernel.  The
+random gamma inits drawn on the card are held by their statistics (mean
+1 and std 0.1 within 0.005 at 10^6 draws) and repeat bit for bit from
+one seed, and ``phase_timings`` on the card (CUDA events) leaves every
+engine's state bitwise as it was.
 """
 
 import numpy as np
@@ -1139,3 +1143,63 @@ def test_scatter_route_engine_card_matches_cpu(cuda, engine):
         assert launched[1] == 0
         assert (launched[0] > 0) == (where != "cpu")
     np.testing.assert_allclose(runs[str(cuda)], runs["cpu"], rtol=1e-4)
+
+
+# -- the random gamma inits and phase_timings on the card ----------------------------
+
+
+@pytest.mark.parametrize("mode", ["normal", "gamma"])
+def test_gamma_init_draws_on_card(cuda, mode):
+    """The card's generator draws other bits than the CPU's, so the
+    draws are held by their statistics at 10^6 draws (mean 1 and std 0.1
+    within 0.005, min 0.2 for "normal") and repeat bit for bit from one
+    seed."""
+    from pylda_tpu_torch.models.vb import gamma_init
+    from pylda_tpu_torch.ops.sampling import stream
+
+    g = gamma_init((10_000, 100), mode, stream(cuda, 0, 0x60A4, 0, 0))
+    assert g.device.type == "cuda" and g.dtype == torch.float32
+    assert abs(float(g.mean()) - 1.0) < 0.005
+    assert abs(float(g.std()) - 0.1) < 0.005
+    assert float(g.min()) >= (0.2 if mode == "normal" else 0.0)
+    again = gamma_init((10_000, 100), mode, stream(cuda, 0, 0x60A4, 0, 0))
+    assert torch.equal(g, again)
+
+
+@pytest.mark.parametrize("mode,extra", [
+    ("vb", dict(dense_vocab_threshold=0)),
+    ("vb", dict()),
+    ("svi", dict(dense_vocab_threshold=0)),
+    ("gibbs", dict()),
+    ("hybrid", dict()),
+], ids=["vb_ragged", "vb_dense", "svi", "gibbs", "hybrid"])
+def test_phase_timings_leave_state_on_card(cuda, mode, extra):
+    """Timing on the card (CUDA events) leaves lambda, alpha, eta, the
+    step, _t and Gibbs's tables bitwise as they were, and every phase
+    takes a positive time."""
+    from pylda_tpu_torch.corpus.synthetic import synthetic_corpus
+    from pylda_tpu_torch.models import make_engine
+    from pylda_tpu_torch.utils.config import LDAConfig
+
+    corpus = synthetic_corpus(num_docs=300, num_topics=12, num_types=900,
+                              mean_doc_length=50.0, seed=4)[0]
+    eng = make_engine(LDAConfig(number_of_topics=12, inference_mode=mode,
+                                gamma_init="gamma", batch_size=100,
+                                number_of_samples=2, burn_in_sweeps=1,
+                                seed=0, **extra), device=cuda)
+    eng.initialize(corpus)
+    eng.learning()
+    st = eng.state
+    before = [t.clone() for t in (st.lam, st.alpha, st.eta, st.step)]
+    tables = ([eng._n_kv.clone()] + [z.clone() for z in eng._z]
+              if mode == "gibbs" else [])
+    t_before = getattr(eng, "_t", None)
+    times = eng.phase_timings(repeats=2)
+    assert times and all(v > 0 for v in times.values()), times
+    st = eng.state
+    assert all(torch.equal(a, b) for a, b in
+               zip(before, (st.lam, st.alpha, st.eta, st.step)))
+    if mode == "gibbs":
+        assert all(torch.equal(a, b) for a, b in
+                   zip(tables, [eng._n_kv] + list(eng._z)))
+    assert getattr(eng, "_t", None) == t_before

@@ -288,9 +288,10 @@ def test_svi_model_file_loads_in_both_packages(data, tmp_path):
 
 
 def test_svi_unported_routes_raise(data):
-    """Process-local corpora and phase_timings still raise, naming their
-    items.  sstats_mode="scatter" and a counts matrix over the budget
-    (item 4, ported) now take the scatter route: no counts matrix."""
+    """Process-local corpora still raise, naming their item.
+    sstats_mode="scatter" and a counts matrix over the budget (item 4,
+    ported) now take the scatter route: no counts matrix; phase_timings
+    (item 7, ported) times a minibatch."""
     for extra in (dict(sstats_mode="scatter"),
                   dict(sstats_dense_total_budget_mb=0)):
         eng = _ours(data, **RAGGED, **extra)
@@ -302,8 +303,8 @@ def test_svi_unported_routes_raise(data):
     local.process_local = True
     with pytest.raises(NotImplementedError, match="item 12"):
         eng.initialize(local)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        _ours(data).phase_timings()
+    assert set(_ours(data).phase_timings()) == {
+        "svi_minibatch_ms", "minibatches_per_epoch"}
 
 
 # -- (g) the CLI ---------------------------------------------------------------------------

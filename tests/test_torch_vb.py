@@ -128,9 +128,10 @@ def test_state_from_numpy_carries_jax_training(data):
 
 
 def test_unported_routes_raise(data):
-    """The random gamma inits and process-local corpora still raise.
-    sstats_mode="scatter" and a corpus over the dense sstats budget (item
-    4, ported) take the scatter route: no dense counts plan."""
+    """Process-local corpora still raise.  sstats_mode="scatter" and a
+    corpus over the dense sstats budget (item 4, ported) take the scatter
+    route: no dense counts plan; the random gamma inits (item 7, ported)
+    train."""
     for kw in (dict(sstats_mode="scatter"),
                dict(sstats_dense_total_budget_mb=0)):
         eng = VariationalBayes(LDAConfig(**{**CFG, **kw}), device="cpu")
@@ -142,9 +143,10 @@ def test_unported_routes_raise(data):
     local.process_local = True
     with pytest.raises(NotImplementedError, match="item 12"):
         VariationalBayes(LDAConfig(**CFG), device="cpu").initialize(local)
-    with pytest.raises(NotImplementedError):
-        VariationalBayes(LDAConfig(**{**CFG, "gamma_init": "normal"}),
-                         device="cpu")
+    eng = VariationalBayes(LDAConfig(**{**CFG, "gamma_init": "normal"}),
+                           device="cpu")
+    eng.initialize(data["corpus"], lam_init=data["lam0"])
+    assert np.isfinite(eng.learning())
 
 
 @pytest.mark.parametrize(
