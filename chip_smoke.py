@@ -87,6 +87,31 @@ Phases, in order (any failure exits non-zero):
    float32 and in bf16, each engine on the card (kernels) and on the CPU
    (plain versions) give the same bounds.
 
+7. across ranks (``parallel/mesh.py``; one card, so two ranks share it
+   over gloo, and NCCL runs at world size 1):
+   - ``dist_nccl1``: batch VB at the ragged flagship (3 iterations at
+     pinned sweeps) and SVI config 5 (one epoch) under an NCCL group of
+     one rank, every all-reduce a real call: lambda bitwise equal to the
+     same run without a group, the all-reduces counted, one timed;
+   - two ranks of this script (``--dist-rank``) on the card over gloo,
+     each launching the kernels on its own documents:
+     ``dist_gloo2_vb`` (the ragged flagship split over the ranks, lambda
+     bitwise equal across them after every iteration, the sufficient
+     statistics and ELBOs held to the one-process card run at pinned
+     sweeps), ``dist_gloo2_svi5`` (config 5 process-local: a block of
+     4,096 documents a rank, the negotiated geometry, one epoch, held-out
+     perplexity falling), ``dist_gloo2_gibbs`` and ``dist_gloo2_hybrid``
+     (config 3, 4 sweeps or iterations, counts conserved globally, the
+     tables equal across the ranks, no kernel launched);
+   - ``cli_dist``: the config-1 CLI in two processes with the process
+     flags, ``--process_sharded_input`` and ``--mesh 2,1``, its model-6
+     held to the one-process CLI's;
+   - ``dist_nccl2``: ``dist_gloo2_vb`` under NCCL on two cards, where
+     ``torch.cuda.device_count() >= 2`` (otherwise a line says why not);
+   each rank's launches join ``launches_by_path`` and the
+   ``collectives_by_path`` line gives each phase's all-reduces beside
+   those it must make.
+
 Beside those phases:
 
 - ``vb_gamma_init``: batch VB at each flagship from each random
@@ -108,8 +133,8 @@ Beside those phases:
   file, a CUDA kernel of the port in the profiler trace).
 
 The line before the kernels' record gives the card's name and power
-limit; before it, ``scatter:``, ``roofline:`` and ``native:`` lines hold
-those phases' numbers.
+limit; before it, ``scatter:``, ``roofline:``, ``native:`` and ``dist:``
+lines hold those phases' numbers.
 
 The line before the last is the kernels' JSON record (the bf16 builds
 as ``<kernel>_bf16``; ``launches_by_path`` names each main path); the
@@ -122,6 +147,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import itertools
 import json
 import pathlib
@@ -2108,6 +2134,546 @@ def cli_observability(mods) -> dict:
     return counts
 
 
+# -- across ranks: parallel/mesh.py ------------------------------------------
+
+DIST_DIR = REPO / "build" / "chip_smoke_dist"
+# Batch-VB iterations of each distributed phase, at pinned sweeps
+# (threshold 0, 50 sweeps a row) so a rank's batches and the one-process
+# batches run the same sweeps: DIST_ITERS learning() calls, the replicas
+# checked after each, then DIST_TIMED in one timed learning_many.  Gibbs
+# sweeps and hybrid iterations of the sampling phases (the first one
+# untimed).
+DIST_ITERS, DIST_TIMED, DIST_SWEEPS = 3, 3, 4
+# phase_timings' repeats for the all-reduce (the best of them, after a
+# warm call).
+DIST_TIMING_REPEATS = 5
+# Two ranks against one process at pinned sweeps: the sufficient
+# statistics (lambda - eta after the first iteration; max-entry relative)
+# and each ELBO.  Only the summation order over documents differs.
+DIST_REL = 1e-5
+# The config-1 CLI across two processes against one process, lambda of
+# model-6 (max-entry relative).  Both run with the stall exit off: a
+# rank's batches hold its own documents, so with it on a stalled row's
+# last sweep follows its rank's batch (ROADMAP Queue 3; 2.3e-3 on the
+# CPU), while the per-row freeze at the threshold keeps each row
+# independent of its batch.
+CLI_DIST_REL = 1e-3
+# Seconds a rank may run, and its process group's timeout.
+DIST_RANK_LIMIT, DIST_GROUP_TIMEOUT = 600, 300
+# The collectives each phase must make: two all-reduces a batch-VB or
+# hybrid iteration and an SVI minibatch (the sufficient statistics, the
+# packed doc-level scalars), n_kv and the doc side a Gibbs sweep (and n_kv
+# once at initialize).
+DIST_SVI5_MINIBATCHES = 4  # an epoch: 4096 documents a rank, 1024 a minibatch
+
+
+def dist_cfg(name: str):
+    """The configuration of a distributed phase (the matching one-rank
+    cell's, batch VB at pinned sweeps)."""
+    from pylda_tpu_torch.utils.config import LDAConfig
+
+    if name == "vb":
+        return LDAConfig(number_of_topics=K, inference_mode="vb",
+                         inner_iterations=50, convergence_threshold=0.0,
+                         seed=0)
+    if name == "svi5":
+        return LDAConfig(number_of_topics=SVI5["K"], inference_mode="svi",
+                         batch_size=SVI5["BATCH"], tau0=64.0, kappa=0.7,
+                         seed=0, inner_iterations=SVI5["INNER"])
+    return LDAConfig(number_of_topics=CFG3["K"], inference_mode=name,
+                     number_of_samples=CFG3["SAMPLES"],
+                     burn_in_sweeps=CFG3["BURN_IN"], seed=0)
+
+
+@functools.lru_cache(maxsize=None)
+def dist_corpus(name: str):
+    """(training corpus, held-out corpus or None) of a distributed phase:
+    the ragged flagship, SVI config 5, or BASELINE config 3 (made once a
+    process)."""
+    from pylda_tpu_torch.corpus.synthetic import synthetic_corpus
+
+    if name == "vb":
+        return synthetic_corpus(num_docs=D, num_topics=K, num_types=V,
+                                mean_doc_length=MEAN_LEN, seed=0)[0], None
+    if name == "svi5":
+        kw = dict(num_topics=SVI5["K"], num_types=SVI5["V"],
+                  mean_doc_length=SVI5["LEN"])
+        corpus, beta, _ = synthetic_corpus(num_docs=SVI5["D"],
+                                           seed=SVI5["SEED"], **kw)
+        test = synthetic_corpus(num_docs=SVI5["TEST_DOCS"],
+                                seed=SVI5["TEST_SEED"], beta=beta, **kw)[0]
+        return corpus, test
+    return synthetic_corpus(num_docs=CFG3["D"], num_topics=CFG3["K"],
+                            num_types=CFG3["V"], mean_doc_length=CFG3["LEN"],
+                            seed=CFG3["SEED"])[0], None
+
+
+def dist_lam0(cfg, V_):
+    import numpy as np
+
+    return np.random.default_rng(7).gamma(100.0, 0.01,
+                                          (cfg.number_of_topics, V_))
+
+
+def dist_vb(label, mesh, dev, mods) -> dict:
+    """Batch VB at the ragged flagship over ``mesh`` (``None``: one
+    process): DIST_ITERS learning() calls from one lambda at pinned
+    sweeps, the replicas checked after each, then learning_many
+    (DIST_TIMED) timed; the launches and all-reduces of those calls, then
+    phase_timings' all-reduce.  Returns numbers and the tensors to
+    compare."""
+    import torch
+
+    from pylda_tpu_torch.models import VariationalBayes
+    from pylda_tpu_torch.parallel import mesh as pmesh
+
+    cfg = dist_cfg("vb")
+    corpus, _ = dist_corpus("vb")
+    eng = VariationalBayes(cfg, device=dev)
+    eng.initialize(corpus, lam_init=dist_lam0(cfg, V), mesh=mesh)
+    zero_launches(mods)
+    pmesh.COLLECTIVES.clear()
+    objs, lam1 = [], None
+    for i in range(DIST_ITERS):
+        objs.append(eng.learning())
+        if mesh is not None:
+            pmesh.assert_replicas_consistent(eng.state, mesh)
+        if i == 0:
+            lam1 = eng.state.lam.clone()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    objs += eng.learning_many(DIST_TIMED)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if mesh is not None:
+        pmesh.assert_replicas_consistent(eng.state, mesh)
+    out = {"objs": objs, "ms_per_iteration": secs / DIST_TIMED * 1e3,
+           "launches": read_launches(mods),
+           "all_reduce": pmesh.COLLECTIVES["all_reduce"],
+           "sstats1": lam1 - eng.state.eta[None, :], "lam": eng.state.lam,
+           "lam_sum": float(eng.state.lam.double().sum())}
+    if mesh is not None and mesh.grouped:
+        t = eng.phase_timings(DIST_TIMING_REPEATS)
+        out.update(allreduce_ms=t["allreduce_ms"],
+                   allreduce_bytes=t["allreduce_bytes"])
+    print(f"{label}: {DIST_ITERS} + {DIST_TIMED} iterations, "
+          f"{out['ms_per_iteration']:.3f} ms an iteration (learning_many), ELBOs {[round(e, 1) for e in objs]}, "
+          f"all-reduces {out['all_reduce']}"
+          + (f", one all-reduce of {out['allreduce_bytes']} bytes "
+             f"{out['allreduce_ms']:.3f} ms" if "allreduce_ms" in out
+             else ""))
+    return out
+
+
+def dist_svi5(label, mesh, dev, mods) -> dict:
+    """SVI config 5 over ``mesh``: a process-local block a rank (the
+    negotiated geometry), one epoch from the seed's lambda (learning(),
+    the replicas checked), then one timed (learning_many), held-out
+    point-estimate perplexity before and after; or (``mesh`` of one rank,
+    or None) the whole corpus."""
+    import torch
+
+    from pylda_tpu_torch.models import StochasticVariationalBayes
+    from pylda_tpu_torch.parallel import mesh as pmesh
+
+    cfg = dist_cfg("svi5")
+    corpus, test = dist_corpus("svi5")
+    if mesh is not None and mesh.data > 1:
+        lo, hi = pmesh.block_bounds(corpus.num_docs, mesh.rank, mesh.data)
+        block = corpus.subset(range(lo, hi))
+        block.process_local = True
+        block.global_num_docs = corpus.num_docs
+        block.global_doc_offset = lo
+        corpus = block
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = StochasticVariationalBayes(cfg, device=dev)
+    eng.initialize(corpus, lam_init=dist_lam0(cfg, SVI5["V"]), mesh=mesh)
+    pp0 = eng.point_estimate_perplexity(test)
+    zero_launches(mods)
+    pmesh.COLLECTIVES.clear()
+    est = eng.learning()
+    if mesh is not None:
+        pmesh.assert_replicas_consistent(eng.state, mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    est2 = eng.learning_many(1)[0]
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    out = {"objs": [est, est2], "epoch_s": epoch_s,
+           "launches": read_launches(mods),
+           "all_reduce": pmesh.COLLECTIVES["all_reduce"],
+           "lam": eng.state.lam,
+           "lam_sum": float(eng.state.lam.double().sum()),
+           "geometry": {str(w): int(c) for w, c in sorted(
+               (eng._svi_geometry or {}).items())}}
+    if mesh is not None:
+        pmesh.assert_replicas_consistent(eng.state, mesh)
+    pp1 = eng.point_estimate_perplexity(test)
+    out.update(pp0=pp0, pp1=pp1,
+               peak_mib=torch.cuda.max_memory_allocated(dev) / 2**20)
+    if mesh is not None and mesh.grouped:
+        t = eng.phase_timings(DIST_TIMING_REPEATS)
+        out.update(allreduce_ms=t["allreduce_ms"],
+                   allreduce_bytes=t["allreduce_bytes"],
+                   minibatch_ms=t["svi_minibatch_ms"])
+    print(f"{label}: the second epoch {epoch_s:.4f} s (estimates {est:.1f}, "
+          f"{est2:.1f}), "
+          f"all-reduces {out['all_reduce']}, geometry {out['geometry']}, "
+          f"held-out point-estimate perplexity {pp0:.2f} -> {pp1:.2f}, peak "
+          f"{out['peak_mib']:.1f} MiB"
+          + (f", one all-reduce of {out['allreduce_bytes']} bytes "
+             f"{out['allreduce_ms']:.3f} ms, a minibatch "
+             f"{out['minibatch_ms']:.3f} ms" if "allreduce_ms" in out
+             else ""))
+    if not pp1 < pp0:
+        raise AssertionError(f"{label}: held-out perplexity did not fall")
+    return out
+
+
+def dist_sampling(label, name, mesh, dev, mods) -> dict:
+    """Gibbs or hybrid at config 3 over ``mesh``: DIST_SWEEPS sweeps or
+    iterations, counts conserved globally, the replicated tables checked
+    after each; no kernel may launch."""
+    import numpy as np
+    import torch
+
+    from pylda_tpu_torch.models import Hybrid, MonteCarlo
+    from pylda_tpu_torch.parallel import mesh as pmesh
+
+    cfg = dist_cfg(name)
+    corpus, _ = dist_corpus(name)
+    eng = (MonteCarlo if name == "gibbs" else Hybrid)(cfg, device=dev)
+    zero_launches(mods)
+    pmesh.COLLECTIVES.clear()
+    eng.initialize(corpus, mesh=mesh)
+    objs, secs = [], 0.0
+    for i in range(DIST_SWEEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        objs.append(eng.learning())
+        if i:
+            secs += time.perf_counter() - t0
+        tables = ({"n_kv": eng._n_kv} if name == "gibbs"
+                  else {"lam": eng.state.lam})
+        pmesh.assert_replicas_consistent(tables, mesh)
+    if name == "gibbs":
+        total = float(eng._n_kv.sum(dtype=torch.float64))
+    else:
+        st = eng.state
+        total = float((st.lam - st.eta[None, :]).sum(dtype=torch.float64))
+    ok = (abs(total - corpus.num_tokens) <= 1e-5 * corpus.num_tokens
+          and np.isfinite(objs).all())
+    out = {"objs": objs, "ms_per_sweep": secs / (DIST_SWEEPS - 1) * 1e3,
+           "launches": read_launches(mods),
+           "all_reduce": pmesh.COLLECTIVES["all_reduce"], "total": total,
+           "lam_sum": float(eng.state.lam.double().sum())}
+    print(f"{label}: {DIST_SWEEPS} {'sweeps' if name == 'gibbs' else 'iterations'}"
+          f", the last {DIST_SWEEPS - 1} {out['ms_per_sweep']:.3f} ms each, "
+          f"objectives "
+          f"{[round(o, 1) for o in objs]}, counts {total:.1f} of "
+          f"{corpus.num_tokens} tokens {'ok' if ok else 'FAIL'}, all-reduces "
+          f"{out['all_reduce']}")
+    if not ok:
+        raise AssertionError(f"{label}: counts not conserved or not finite")
+    return out
+
+
+def dist_rank(argv) -> int:
+    """One rank of the two-process phases (``--dist-rank RANK WORLD
+    RENDEZVOUS OUT PHASES``): joins the group on the card (NCCL with a card
+    a rank, else gloo), runs each phase, writes its numbers to
+    OUT/rank<RANK>.json and, for batch VB, its tensors to OUT."""
+    import datetime
+
+    import torch
+
+    from pylda_tpu_torch.ops import dense_estep as dense_mod
+    from pylda_tpu_torch.ops import ragged as ragged_mod
+    from pylda_tpu_torch.ops import sstats as sstats_mod
+    from pylda_tpu_torch.parallel import mesh as pmesh
+
+    rank, world, rendezvous, out_dir, phases = argv
+    rank, world, out_dir = int(rank), int(world), pathlib.Path(out_dir)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    backend = pmesh.init_distributed(
+        num_processes=world, process_id=rank, device="cuda",
+        init_method=f"file://{rendezvous}",
+        timeout=datetime.timedelta(seconds=DIST_GROUP_TIMEOUT))
+    mesh = pmesh.make_mesh()
+    dev = mesh.device
+    mods = {"dense_gamma": dense_mod, "dense_sstats": sstats_mod,
+            "ragged_gamma": ragged_mod}
+    results = {"backend": backend, "device": str(dev)}
+    for name in phases.split(","):
+        label = f"{name} rank {rank}/{world} ({backend})"
+        if name == "vb":
+            r = dist_vb(label, mesh, dev, mods)
+            torch.save({k: r.pop(k).cpu() for k in ("sstats1", "lam")},
+                       out_dir / f"vb_rank{rank}.pt")
+        elif name == "svi5":
+            r = dist_svi5(label, mesh, dev, mods)
+            del r["lam"]
+        else:
+            r = dist_sampling(label, name, mesh, dev, mods)
+        results[name] = r
+    (out_dir / f"rank{rank}.json").write_text(json.dumps(results))
+    pmesh.shutdown()
+    return 0
+
+
+def wait_all(procs) -> list:
+    """Each process's output, waiting DIST_RANK_LIMIT s at most for each;
+    one still running then is killed (so none outlives this script)."""
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DIST_RANK_LIMIT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return outs
+
+
+def run_rank_pair(out_dir: pathlib.Path, phases: str) -> list:
+    """Two ranks of this script (``dist_rank``) on the card(s); returns
+    each rank's results.  A rank that fails, or outlives DIST_RANK_LIMIT,
+    fails the run."""
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    procs = [subprocess.Popen(
+        [sys.executable, str(REPO / "chip_smoke.py"), "--dist-rank", str(r),
+         "2", str(out_dir / "rendezvous"), str(out_dir), phases],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(2)]
+    outs = wait_all(procs)
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.splitlines():
+            print(f"  [rank {r}] {line}")
+        if p.returncode != 0:
+            raise AssertionError(f"rank {r} of {phases} exited "
+                                 f"{p.returncode}")
+    return [json.loads((out_dir / f"rank{r}.json").read_text())
+            for r in range(2)]
+
+
+def hold_ranks(label, ranks, name, keys=("objs", "lam_sum")) -> None:
+    """Both ranks' replicated numbers the same bits."""
+    for k in keys:
+        if ranks[0][name][k] != ranks[1][name][k]:
+            raise AssertionError(f"{label}: ranks differ in {k}: "
+                                 f"{ranks[0][name][k]} / {ranks[1][name][k]}")
+
+
+def hold_vb_to_one(label, out_dir, ranks, ref) -> dict:
+    """Two ranks' batch VB against the one-process run on the card at
+    pinned sweeps: the first iteration's sufficient statistics and every
+    ELBO within DIST_REL."""
+    import torch
+
+    got = torch.load(out_dir / "vb_rank0.pt")
+    ss = norm_rel(got["sstats1"], ref["sstats1"].cpu())
+    lam = norm_rel(got["lam"], ref["lam"].cpu())
+    elbo = max(abs(a - b) / abs(b)
+               for a, b in zip(ranks[0]["vb"]["objs"], ref["objs"]))
+    ok = max(ss, elbo) <= DIST_REL
+    print(f"{label}: against one process at pinned sweeps: sstats rel "
+          f"{ss:.3e}, ELBO rel {elbo:.3e} (tolerance {DIST_REL}), lambda "
+          f"after {DIST_ITERS + DIST_TIMED} iterations rel {lam:.3e}; ranks' "
+          f"ELBOs and lambda bitwise equal {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: two ranks and one process disagree")
+    return {"sstats_rel": ss, "elbo_rel": elbo, "lam_rel": lam}
+
+
+# The train CLI's main() in a process of its own, then its kernel launches
+# (each build's counter) as one "LAUNCHES {json}" line.
+CLI_WITH_LAUNCHES = """
+import json, sys
+from pylda_tpu_torch.cli.train import main
+from pylda_tpu_torch.ops import dense_estep, ragged, sstats
+rc = main(sys.argv[1:])
+mods = {"dense_gamma": dense_estep, "dense_sstats": sstats,
+        "ragged_gamma": ragged}
+counts = {}
+for name, mod in mods.items():
+    counts[name] = mod.LAUNCHES
+    counts[name + "_bf16"] = mod.BF16_LAUNCHES
+print("LAUNCHES " + json.dumps(counts), flush=True)
+sys.exit(rc)
+"""
+
+
+def cli_dist(smi: str) -> dict:
+    """The config-1 CLI across two processes on the card
+    (``--coordinator_address``, ``--num_processes``, ``--process_id``,
+    ``--process_sharded_input``, ``--mesh 2,1``) beside the one-process
+    CLI, all three processes at once: model-6 of the two held to the
+    one-process model within CLI_DIST_REL (max-entry relative)."""
+    import socket
+
+    import numpy as np
+    import torch
+
+    from pylda_tpu_torch.corpus.datasets import bundled_corpus_dir
+
+    out = DIST_DIR / "cli"
+    shutil.rmtree(out, ignore_errors=True)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+
+    def train(dest, *extra):
+        return subprocess.Popen(
+            [sys.executable, "-c", CLI_WITH_LAUNCHES,
+             f"--input_directory={bundled_corpus_dir()}",
+             f"--output_directory={out / dest}", "--number_of_topics=10",
+             "--training_iterations=6", "--snapshot_interval=6",
+             "--estep_stall_patience=0", *extra],
+            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+
+    t0 = time.perf_counter()
+    flags = [f"--coordinator_address=127.0.0.1:{port}", "--num_processes=2",
+             "--process_sharded_input", "--mesh=2,1"]
+    procs = [train("dist", *flags, f"--process_id={r}") for r in range(2)]
+    procs.append(train("one"))
+    outs = wait_all(procs)
+    wall = time.perf_counter() - t0
+    for p, o in zip(procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"cli_dist: a process exited "
+                                 f"{p.returncode}:\n{o[-3000:]}")
+    models = {d: sorted((out / d).glob("*/*/model-6")) for d in ("dist", "one")}
+    if [len(m) for m in models.values()] != [1, 1]:
+        raise AssertionError(f"cli_dist: model files {models}")
+    lam = {d: torch.as_tensor(np.load(m[0])["lam"]) for d, m in models.items()}
+    rel = norm_rel(lam["dist"], lam["one"])
+    ok = rel <= CLI_DIST_REL and "backend=gloo" in outs[0]
+    print(f"cli_dist: config-1 CLI, 2 processes on {smi} (backend gloo, "
+          f"--process_sharded_input --mesh 2,1) and 1 process at once in "
+          f"{wall:.2f} s: model-6 lambda rel {rel:.3e} (tolerance "
+          f"{CLI_DIST_REL}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("cli_dist: the two-process model disagrees")
+    launches = [json.loads(o.rsplit("LAUNCHES ", 1)[1].splitlines()[0])
+                for o in outs[:2]]
+    return {"lam_rel": rel, "wall_s": wall, "launches": launches}
+
+
+def dist_phases(mods, dev, by_path: dict) -> dict:
+    """The distributed phases (module docstring): dist_nccl1 here, the
+    two-rank phases in two processes of this script, cli_dist, and
+    dist_nccl2 where a second card is present.  Adds each phase's (and
+    each rank's) launches to ``by_path``; returns the numbers and the
+    collectives each phase made beside those it must make."""
+    import torch
+
+    from pylda_tpu_torch.parallel import mesh as pmesh
+
+    smi = nvidia_smi()
+    coll = {}
+    res = {}
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    DIST_DIR.mkdir(parents=True)
+    # -- dist_nccl1: NCCL at world size 1, real collectives ------------------
+    backend = pmesh.init_distributed(
+        num_processes=1, process_id=0, device="cuda",
+        init_method=f"file://{DIST_DIR / 'nccl1_rendezvous'}")
+    if backend != "nccl":
+        raise AssertionError(f"dist_nccl1: backend {backend}, want nccl")
+    mesh = pmesh.make_mesh()
+    try:
+        for name, fn in (("vb", dist_vb), ("svi5", dist_svi5)):
+            label = f"dist_nccl1 {name}"
+            plain = fn(f"{label} without a group", None, dev, mods)
+            grouped = fn(f"{label} (nccl, world 1) on {smi}", mesh, dev, mods)
+            same = torch.equal(plain["lam"], grouped["lam"])
+            want = 2 * (DIST_ITERS + DIST_TIMED if name == "vb"
+                        else 2 * DIST_SVI5_MINIBATCHES)
+            coll[f"dist_nccl1_{name}"] = {"all_reduce": grouped["all_reduce"],
+                                          "expected": want}
+            print(f"{label}: lambda bitwise equal to the run without a group "
+                  f"{'ok' if same else 'FAIL'}; all-reduces "
+                  f"{grouped['all_reduce']} (expected {want})")
+            if not same or grouped["all_reduce"] != want:
+                raise AssertionError(f"{label}: a reduce of one rank is not "
+                                     f"exact, or the collectives are off")
+            needed = ("ragged_gamma", "dense_sstats")
+            check_launched(label, grouped["launches"], needed)
+            by_path[f"dist_nccl1_{name}"] = grouped["launches"]
+            res[f"dist_nccl1_{name}"] = {
+                k: grouped[k] for k in grouped
+                if k in ("ms_per_iteration", "epoch_s", "allreduce_ms",
+                         "allreduce_bytes", "minibatch_ms", "peak_mib")}
+            if name == "vb":
+                ref_vb = plain
+            del plain, grouped
+    finally:
+        pmesh.shutdown()
+    # -- two ranks sharing the card over gloo ----------------------------------
+    out_dir = DIST_DIR / "gloo2"
+    ranks = run_rank_pair(out_dir, "vb,svi5,gibbs,hybrid")
+    want = {"vb": 2 * (DIST_ITERS + DIST_TIMED),
+            "svi5": 4 * DIST_SVI5_MINIBATCHES,
+            "gibbs": 1 + 2 * DIST_SWEEPS, "hybrid": 2 * DIST_SWEEPS}
+    for name in ("vb", "svi5", "gibbs", "hybrid"):
+        label = f"dist_gloo2_{name}"
+        if ranks[0]["backend"] != "gloo":
+            raise AssertionError(f"{label}: backend {ranks[0]['backend']}")
+        hold_ranks(label, ranks, name)
+        needed = (("ragged_gamma", "dense_sstats")
+                  if name in ("vb", "svi5") else ())
+        for r in range(2):
+            check_launched(f"{label} rank {r}", ranks[r][name]["launches"],
+                           needed)
+            by_path[f"{label}_rank{r}"] = ranks[r][name]["launches"]
+            coll[f"{label}_rank{r}"] = {
+                "all_reduce": ranks[r][name]["all_reduce"],
+                "expected": want[name]}
+            if ranks[r][name]["all_reduce"] != want[name]:
+                raise AssertionError(f"{label}: rank {r} made "
+                                     f"{ranks[r][name]['all_reduce']} "
+                                     f"all-reduces, not {want[name]}")
+        res[label] = {k: v for k, v in ranks[0][name].items()
+                      if k not in ("launches", "objs")}
+        print(f"{label}: 2 ranks on {smi} (gloo): {res[label]}")
+    if ranks[0]["svi5"]["geometry"] != ranks[1]["svi5"]["geometry"]:
+        raise AssertionError("dist_gloo2_svi5: the ranks negotiated "
+                             "different geometries")
+    res["dist_gloo2_vb"].update(hold_vb_to_one("dist_gloo2_vb", out_dir,
+                                               ranks, ref_vb))
+    # -- the config-1 CLI across two processes ---------------------------------
+    res["cli_dist"] = cli_dist(smi)
+    for r, got in enumerate(res["cli_dist"].pop("launches")):
+        check_launched(f"cli_dist rank {r}", got,
+                       ("dense_gamma", "dense_sstats"))
+        by_path[f"cli_dist_rank{r}"] = got
+    # -- NCCL across two cards, where there are two ---------------------------
+    if torch.cuda.device_count() >= 2:
+        out_dir = DIST_DIR / "nccl2"
+        ranks = run_rank_pair(out_dir, "vb")
+        if ranks[0]["backend"] != "nccl":
+            raise AssertionError(f"dist_nccl2: backend {ranks[0]['backend']}")
+        hold_ranks("dist_nccl2", ranks, "vb")
+        for r in range(2):
+            check_launched(f"dist_nccl2 rank {r}", ranks[r]["vb"]["launches"],
+                           ("ragged_gamma", "dense_sstats"))
+            by_path[f"dist_nccl2_vb_rank{r}"] = ranks[r]["vb"]["launches"]
+            coll[f"dist_nccl2_vb_rank{r}"] = {
+                "all_reduce": ranks[r]["vb"]["all_reduce"],
+                "expected": want["vb"]}
+        res["dist_nccl2"] = hold_vb_to_one("dist_nccl2", out_dir, ranks,
+                                           ref_vb)
+    else:
+        print(f"dist_nccl2: not run: {torch.cuda.device_count()} card(s); "
+              f"NCCL needs a card a rank, so two ranks on one card run over "
+              f"gloo (dist_gloo2_*). Not counted as a pass.")
+    print(f"collectives_by_path: {json.dumps(coll)}")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -2405,6 +2971,8 @@ def main() -> int:
         by_path[f"cli_{mode}"] = run_cli(mods, mode, needed=())
     by_path["cli_svi_streaming"] = run_cli(mods, "svi", streaming=True)
     by_path["cli_observability"] = cli_observability(mods)
+    # -- across ranks ----------------------------------------------------------
+    dist = dist_phases(mods, dev, by_path)
     # Each kernel build's launches on each main path (each run zeroed just
     # before and read just after), and their sum.
     paths = {name: {path: got[name] for path, got in by_path.items()}
@@ -2490,6 +3058,7 @@ def main() -> int:
     print(f"scatter: {json.dumps(scatter)}")
     print(f"roofline: {json.dumps(roofline)}")
     print(f"native: {json.dumps(native)}")
+    print(f"dist: {json.dumps(dist)}")
     print(f"nvidia-smi: {nvidia_smi()}")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -2498,4 +3067,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-rank"]:
+        sys.exit(dist_rank(sys.argv[2:]))
     sys.exit(main())

@@ -17,8 +17,19 @@ through ``torch.utils.tensorboard``), ``--profile_dir`` (a
 kernels when the engine runs there), ``--phase_timing`` (the engine's
 ``phase_timings`` after training) and ``--roofline`` (the cost model at
 start, the measured phases beside their H100 bounds after training).
-``--device`` picks the torch device (the CUDA card by default).  The mesh
-and multi-process flags exit with a message naming their ROADMAP item.
+``--device`` picks the torch device (the CUDA card by default).
+
+Across processes, one a card: ``--coordinator_address HOST:PORT
+--num_processes P --process_id R`` joins the process group
+(``parallel.mesh.init_distributed``; run under ``torchrun`` without these
+flags, its ``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE`` and ``RANK``
+do the same), ``--mesh P,1`` splits the documents over the P ranks, and
+``--process_sharded_input`` makes each rank parse only its own block of
+doc.dat (streaming too).  Rank 0 writes the run directory, the logs and
+the files; every rank runs the snapshots, which are collective.  A mesh
+whose data axis is not the number of processes exits saying how to launch
+them; ``--shard_vocab``, ``--shard_topics`` and a model axis above 1 exit
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -33,6 +44,7 @@ import numpy as np
 
 from pylda_tpu_torch.cli import refuse_unported
 from pylda_tpu_torch.corpus.datasets import load_input_directory
+from pylda_tpu_torch.parallel import mesh as pmesh
 from pylda_tpu_torch.utils.config import LDAConfig
 from pylda_tpu_torch.utils.metrics import MetricsLogger, is_host_zero
 
@@ -46,13 +58,8 @@ _MODE_ALIASES = {
 
 # (attribute, flag, ROADMAP item) of the flags not ported yet.
 _UNPORTED = (
-    ("mesh", "--mesh", "Queue 1 item 12"),
     ("shard_vocab", "--shard_vocab", "Queue 1 item 12"),
     ("shard_topics", "--shard_topics", "Queue 1 item 12"),
-    ("coordinator_address", "--coordinator_address", "Queue 1 item 12"),
-    ("num_processes", "--num_processes", "Queue 1 item 12"),
-    ("process_id", "--process_id", "Queue 1 item 12"),
-    ("process_sharded_input", "--process_sharded_input", "Queue 1 item 12"),
 )
 # The Chrome trace --profile_dir writes.
 PROFILE_TRACE = "train_trace.json"
@@ -157,16 +164,20 @@ def build_parser() -> argparse.ArgumentParser:
                    help="JAX package only (kept in the config); this "
                         "package runs its CUDA kernels on the card")
     p.add_argument("--mesh", default=None,
-                   help="data,model mesh shape (not ported yet)")
-    p.add_argument("--shard_vocab", action="store_true")
+                   help="data,model mesh shape: data = the number of "
+                        "processes (one a card), model = 1")
+    p.add_argument("--shard_vocab", action="store_true",
+                   help="shard lambda's vocabulary axis (not ported yet)")
     p.add_argument("--shard_topics", action="store_true",
                    help="shard lambda's topic axis (not ported yet)")
     p.add_argument("--coordinator_address", default=None,
-                   help="multi-host: ip:port of process 0 (not ported yet)")
+                   help="multi-process: host:port of process 0's "
+                        "rendezvous")
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
     p.add_argument("--process_sharded_input", action="store_true",
-                   help="multi-host sharded input (not ported yet)")
+                   help="each process parses only its own block of "
+                        "doc.dat")
     p.add_argument("--streaming_input", action="store_true",
                    help="disk-backed SVI input: doc.dat read by line "
                         "offsets and a parsed-row sidecar beside it "
@@ -284,6 +295,29 @@ def output_run_directory(args, config: LDAConfig) -> str:
     return os.path.join(args.output_directory, corpus_name, suffix)
 
 
+def join_processes(args) -> Optional[str]:
+    """Join the process group the flags (or ``torchrun``'s environment)
+    describe; returns the device group's backend, or None in one process.
+    ``--num_processes`` or ``--process_id`` without a coordinator do
+    nothing, as in the JAX package; a coordinator without both exits."""
+    if args.coordinator_address is not None:
+        if args.num_processes is None or args.process_id is None:
+            raise SystemExit(
+                "--coordinator_address needs --num_processes and "
+                "--process_id (every process passes the same address and "
+                "count, and its own id)")
+        flags = (args.coordinator_address, args.num_processes,
+                 args.process_id)
+    elif args.num_processes is None and args.process_id is None:
+        flags = pmesh.environment_process_flags()
+    else:
+        flags = None
+    if flags is None:
+        return None
+    device = "cpu" if str(args.device or "cuda").startswith("cpu") else "cuda"
+    return pmesh.init_distributed(*flags, device=device)
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     config = config_from_args(args)
@@ -293,38 +327,67 @@ def main(argv: Optional[List[str]] = None) -> int:
             "--checkpoint_format=orbax is JAX-only; this package writes npz "
             "(ROADMAP.md Queue 1 item 6)"
         )
-
     if args.streaming_input and config.inference_mode != "svi":
         raise SystemExit("--streaming_input requires --inference_mode=svi")
-    train, test, vocab = load_input_directory(
-        args.input_directory, streaming=args.streaming_input
-    )
-    run_dir = output_run_directory(args, config)
+
+    backend = join_processes(args)
+    try:
+        return _train(args, config, backend)
+    finally:
+        pmesh.shutdown()
+
+
+def _train(args, config: LDAConfig, backend: Optional[str]) -> int:
+    mesh = None
+    if config.mesh_shape is not None:
+        try:
+            mesh = pmesh.make_mesh(config.mesh_shape)
+        except ValueError as e:
+            raise SystemExit(str(e)) from e
+    rank, world = pmesh.world()
+    if args.process_sharded_input:
+        train, test, vocab = load_input_directory(
+            args.input_directory, process_index=rank, process_count=world,
+            streaming=args.streaming_input,
+        )
+    else:
+        train, test, vocab = load_input_directory(
+            args.input_directory, streaming=args.streaming_input
+        )
+    # Rank 0's run directory (and timestamp) for every rank.
+    run_dir = pmesh.broadcast_object(output_run_directory(args, config))
     if is_host_zero():
         os.makedirs(run_dir, exist_ok=True)
     metrics = MetricsLogger(run_dir)
+    # Corpus-wide counts: each rank of a process-local run holds a block.
     global_docs = train.global_num_docs
+    global_tokens = train.num_tokens
+    if getattr(train, "process_local", False):
+        global_tokens = int(sum(pmesh.allgather_numpy(train.num_tokens)))
     metrics.log(
         event="start",
         corpus=args.input_directory,
         documents=global_docs,
         types=len(vocab),
-        tokens=train.num_tokens,
+        tokens=global_tokens,
         mode=config.inference_mode,
         K=config.number_of_topics,
         mesh=str(config.mesh_shape),
         device=args.device or "cuda",
+        processes=world,
+        backend=backend,
     )
 
     from pylda_tpu_torch.models import Inferencer, make_engine
 
     if args.resume:
-        engine = Inferencer.load(args.resume, corpus=train, device=args.device)
+        engine = Inferencer.load(args.resume, corpus=train, device=args.device,
+                                 mesh=mesh)
         start_iter = engine._counter
         metrics.log(event="resume", checkpoint=args.resume, iteration=start_iter)
     else:
         engine = make_engine(config, device=args.device)
-        engine.initialize(train, vocab)
+        engine.initialize(train, vocab, mesh=mesh)
         start_iter = 0
 
     if args.roofline and hasattr(engine, "_batches"):
@@ -379,6 +442,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                 tb_writer.add_scalar("train/docs_per_sec",
                                      global_docs / max(dt, 1e-9), it + j + 1)
         it += chunk
+        # Snapshots run on every rank: saving and gamma gather per-rank
+        # chains and documents, and rank 0 writes.
         if snap > 0 and it % snap == 0:
             engine.export_beta(
                 os.path.join(run_dir, f"exp_beta-{it}"), top_k=50
@@ -392,10 +457,11 @@ def main(argv: Optional[List[str]] = None) -> int:
                 metrics.log(event="coherence", iteration=it,
                             mean_umass=round(coh["mean"], 4),
                             top_n=coh["top_n"])
-            if args.dump_gamma and engine.gamma is not None and is_host_zero():
+            gamma = engine.gamma if args.dump_gamma else None
+            if gamma is not None and is_host_zero():
                 np.savetxt(
                     os.path.join(run_dir, f"gamma-{it}"),
-                    engine.gamma, fmt="%.8g", delimiter="\t",
+                    gamma, fmt="%.8g", delimiter="\t",
                 )
             if test is not None:
                 pp = engine.perplexity(test)

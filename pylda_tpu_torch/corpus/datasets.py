@@ -11,6 +11,7 @@ regenerated inside the repository).
 
 from __future__ import annotations
 
+import itertools
 import os
 from typing import Optional, Tuple, Union
 
@@ -19,6 +20,7 @@ import numpy as np
 from pylda_tpu_torch.corpus.corpus import Corpus
 from pylda_tpu_torch.corpus.streaming import StreamingCorpus
 from pylda_tpu_torch.corpus.vocabulary import Vocabulary
+from pylda_tpu_torch.parallel.mesh import block_bounds
 
 # Ten human-readable themes imitating the de-news newswire register.
 _THEMES = {
@@ -127,13 +129,14 @@ def load_input_directory(
     (sorted).  ``streaming`` returns the training documents as a
     disk-backed ``StreamingCorpus`` (line offsets in RAM, documents
     parsed on demand or read from its row sidecar); the held-out
-    documents stay in RAM.  The JAX package's process-local loader (one
-    block of documents per host) is not ported yet and raises."""
-    if process_count not in (None, 1) or process_index not in (None, 0):
-        raise NotImplementedError(
-            "process-local corpus loading is not ported yet (ROADMAP.md "
-            "Queue 1 item 12)"
-        )
+    documents stay in RAM.
+
+    Process-local input: with ``process_index`` and ``process_count`` > 1
+    each process parses only its own contiguous block of ``doc.dat`` (the
+    ceil block size, the last blocks short or empty): the returned corpus
+    has ``process_local`` True, ``global_num_docs`` and
+    ``global_doc_offset``.  The vocabulary and the held-out ``test.dat``
+    load whole on every process."""
     doc_path = os.path.join(input_directory, "doc.dat")
     if not os.path.exists(doc_path):
         alt = os.path.join(input_directory, "train.dat")
@@ -148,9 +151,21 @@ def load_input_directory(
         with open(doc_path, "r", encoding="utf-8") as f:
             vocab = Vocabulary.from_corpus_lines(f)
     if streaming:
-        train = StreamingCorpus(doc_path, vocab)
-    else:
+        train = StreamingCorpus(doc_path, vocab, process_index=process_index,
+                                process_count=process_count)
+    elif process_index is None or process_count in (None, 1):
         train = Corpus.from_file(doc_path, vocab)
+    else:
+        # A cheap pass counts the lines; then only this block is read.
+        with open(doc_path, "r", encoding="utf-8") as f:
+            total = sum(1 for _ in f)
+        lo, hi = block_bounds(total, process_index, process_count)
+        with open(doc_path, "r", encoding="utf-8") as f:
+            window = list(itertools.islice(f, lo, hi))
+        train = Corpus.from_lines(window, vocab)
+        train.process_local = True
+        train.global_num_docs = total
+        train.global_doc_offset = lo
     test = None
     test_path = os.path.join(input_directory, "test.dat")
     if os.path.exists(test_path):

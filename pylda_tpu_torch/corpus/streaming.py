@@ -31,9 +31,11 @@ documents either way.
 Duck-types the part of the ``Corpus`` surface the engines use:
 ``num_docs / num_types / num_tokens / global_num_docs /
 minibatch_indices / to_dense / ragged_row_histogram / to_ragged_buckets
-/ subset``.  ``process_index``/``process_count`` > 1 (one block of
-documents a host) raise: process-local input is ROADMAP.md Queue 1 item
-12.
+/ subset``.  With ``process_index``/``process_count`` > 1 it indexes
+only block ``process_index`` of the file's documents (the loader's ceil
+block size): ``process_local`` is True, ``global_doc_offset`` is the
+block's first line and ``global_num_docs`` the file's count, and the
+sidecar is the block's own (``.<lo>-<hi>``).
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ import numpy as np
 from pylda_tpu_torch.corpus.corpus import Corpus, DenseBatch, RaggedBucket
 from pylda_tpu_torch.corpus.vocabulary import Vocabulary
 from pylda_tpu_torch.native import NativeVocabTable, have_native, parse_lines
+from pylda_tpu_torch.parallel.mesh import block_bounds
 
 _ROWCACHE_VERSION = 2
 _PARSE_BLOCK = 4096  # lines a parse step of the indexing pass
@@ -72,11 +75,6 @@ class StreamingCorpus:
     ):
         if row_cache not in ("auto", "off"):
             raise ValueError(f"unknown row_cache mode: {row_cache}")
-        if (process_count or 1) > 1:
-            raise NotImplementedError(
-                "process-local streaming corpora are not ported yet "
-                "(ROADMAP.md Queue 1 item 12)"
-            )
         self.path = os.path.abspath(path)
         self.vocab = vocab
         # Pass 1: byte offsets only (8 bytes a document, no parsing).
@@ -85,7 +83,13 @@ class StreamingCorpus:
             for line in f:
                 offsets.append(offsets[-1] + len(line))
         self._offsets = np.asarray(offsets, dtype=np.int64)
-        self._lo, self._hi = 0, len(offsets) - 1
+        self._total_docs = len(offsets) - 1
+        self._lo, self._hi = 0, self._total_docs
+        if process_index is not None and (process_count or 1) > 1:
+            self._lo, self._hi = block_bounds(self._total_docs, process_index,
+                                              process_count)
+            self.process_local = True
+            self.global_doc_offset = self._lo
         self._row_ids = None  # memmap of the sidecar's int32 token stream
         self._row_offsets = None  # int64 [num_docs + 1]
         if row_cache == "auto" and self._load_rowcache():
@@ -264,7 +268,7 @@ class StreamingCorpus:
 
     @property
     def global_num_docs(self) -> int:
-        return self.num_docs
+        return self._total_docs
 
     @property
     def num_types(self) -> int:

@@ -8,6 +8,13 @@ explicit device, and the ``model-<N>`` files (``save``/``load``, npz, the
 same keys as the JAX package's, so each package loads the other's).
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without a card and without that argument they raise.
+
+Across processes (``initialize(..., mesh=...)``, ``parallel/mesh.py``)
+each rank trains on its block of documents (``_local_corpus``): a
+process-local corpus as it is, a corpus loaded whole cut to the block
+the process-local loader would give the rank.  State stays replicated;
+``save`` and ``export_beta`` write from rank 0 after every rank has
+called them (engines gather their per-rank chains into the file).
 """
 
 from __future__ import annotations
@@ -24,8 +31,16 @@ import torch
 
 from pylda_tpu_torch.corpus.corpus import Corpus
 from pylda_tpu_torch.corpus.vocabulary import Vocabulary
+from pylda_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_reduce_sum,
+    allgather_object,
+    block_bounds,
+    world,
+)
 from pylda_tpu_torch.utils.config import INFERENCE_MODES, LDAConfig
 from pylda_tpu_torch.utils.metrics import is_host_zero
+from pylda_tpu_torch.utils.timing import best_ms
 
 
 @dataclasses.dataclass
@@ -115,6 +130,7 @@ class Inferencer:
         self._state: Optional[LDAState] = None
         self._step_host = 0
         self._dtype = getattr(torch, config.dtype)
+        self._mesh: Optional[Mesh] = None
 
     # -- reference-parity accessors --------------------------------------------
 
@@ -166,13 +182,17 @@ class Inferencer:
         corpus: Corpus,
         vocab: Optional[Vocabulary] = None,
         lam_init: Optional[np.ndarray] = None,
+        mesh: Optional[Mesh] = None,
     ) -> None:
         """Build state + device batches (reference's ``_initialize``).
 
         ``lam_init`` replaces the random lambda init, which is the
         reference's Gamma(100, 0.01) drawn from
-        ``numpy.random.default_rng(config.seed)``."""
+        ``numpy.random.default_rng(config.seed)``.  ``mesh``
+        (``parallel.mesh.make_mesh``) splits the documents over its ranks;
+        every rank must pass the same ``lam_init`` and config."""
         cfg = self._config
+        self._set_mesh(mesh)
         self._corpus = corpus
         self._vocab = vocab if vocab is not None else corpus.vocab
         K = cfg.number_of_topics
@@ -199,6 +219,44 @@ class Inferencer:
     # reference-compatible alias
     _initialize = initialize
 
+    def _set_mesh(self, mesh: Optional[Mesh]) -> None:
+        if mesh is not None and self._config.doc_pad_multiple % mesh.data:
+            raise ValueError(
+                "doc_pad_multiple must be divisible by the data-axis size")
+        self._mesh = mesh
+
+    @property
+    def _split(self) -> bool:
+        """True when the documents are split over more than one rank."""
+        return self._mesh is not None and self._mesh.data > 1
+
+    def _local_corpus(self, corpus: Corpus):
+        """The documents this rank trains on: the corpus itself in one
+        process, a process-local corpus's block as it is, and for a corpus
+        loaded whole the block ``[lo, hi)`` of ``ceil(D / P)`` documents
+        the process-local loader would give the rank (``process_local``,
+        ``global_num_docs`` and ``global_doc_offset`` set).  Raises the JAX
+        engine's ``ValueError`` for a process-local corpus across
+        processes without a mesh."""
+        local = getattr(corpus, "process_local", False)
+        if not self._split:
+            if local and world()[1] > 1:
+                raise ValueError(
+                    "a process-sharded corpus requires a mesh (--mesh); "
+                    "each host holds only its doc block, so training "
+                    "without the global sharding would silently diverge"
+                )
+            return corpus
+        if local:
+            return corpus
+        lo, hi = block_bounds(corpus.num_docs, self._mesh.rank,
+                              self._mesh.data)
+        block = corpus.subset(range(lo, hi))
+        block.process_local = True
+        block.global_num_docs = corpus.num_docs
+        block.global_doc_offset = lo
+        return block
+
     def _prepare(self, corpus: Corpus) -> None:
         """Engine-specific device batch construction."""
         raise NotImplementedError
@@ -220,6 +278,30 @@ class Inferencer:
         """Per-phase device times in ms (engines that time their phases
         override this); the ``--phase_timing`` and roofline hook."""
         return {}
+
+    def _gathered_rows(self, doc_ids: list, rows: list) -> Tuple[list, list]:
+        """Per-batch (doc ids, rows) of every rank, in rank order, when the
+        documents are split over ranks (collective); as given otherwise."""
+        if not self._split:
+            return doc_ids, rows
+        parts = allgather_object((doc_ids, rows), self._mesh)
+        return ([i for p in parts for i in p[0]],
+                [r for p in parts for r in p[1]])
+
+    def _allreduce_timing(self, tensor: torch.Tensor, repeats: int) -> dict:
+        """``allreduce_ms`` (``utils.timing``: one all-reduce of a copy of
+        ``tensor``, the step's largest, best of ``repeats``),
+        ``allreduce_bytes`` and ``allreduce_backend`` under a mesh with a
+        process group; {} otherwise.  Collective: every rank times."""
+        mesh = self._mesh
+        if mesh is None or not mesh.grouped:
+            return {}
+        buf = tensor.detach().clone().contiguous()
+        ms, _ = best_ms(lambda: all_reduce_sum(buf, mesh), self._device,
+                        repeats)
+        return {"allreduce_ms": round(ms, 6),
+                "allreduce_bytes": buf.numel() * buf.element_size(),
+                "allreduce_backend": mesh.backend}
 
     def perplexity(self, test_corpus: Corpus) -> float:
         """Per-word held-out perplexity under the engine's native
@@ -391,11 +473,14 @@ class Inferencer:
         path: str,
         corpus: Optional[Corpus] = None,
         device: Union[str, torch.device, None] = None,
+        mesh: Optional[Mesh] = None,
     ) -> "Inferencer":
         """Restore an engine from a ``model-<N>`` npz file written by this
         package or by ``pylda_tpu``, on ``device`` (the CUDA card by
         default).  With ``corpus`` the engine is prepared for continued
-        training; otherwise inference and export are available."""
+        training, split over ``mesh``'s ranks when one is given (elastic:
+        the state is replicated, so the saving run's world size does not
+        matter); otherwise inference and export are available."""
         from pylda_tpu_torch import models as _models
 
         if os.path.isdir(path):
@@ -446,6 +531,7 @@ class Inferencer:
                                   for k, v in blobs.items()
                                   if k.startswith("extra_")})
         if corpus is not None:
+            engine._set_mesh(mesh)
             engine._corpus = corpus
             engine._prepare(corpus)
         return engine

@@ -24,15 +24,25 @@ queue on the device stream; it keeps every sweep's likelihood on the
 device and reads them once a chunk (chunks end at hyperopt boundaries,
 where the slice sampler reads the likelihood on the host).
 ``phase_timings`` times a sweep and the joint likelihood apart.
-Process-local corpora and the mesh raise ``NotImplementedError`` naming
-their ROADMAP item.
+
+Under a mesh (``parallel/mesh.py``) this is the JAX engine's multi-host
+AD-LDA: each rank holds its block of documents (``_local_corpus``) as
+sequence buckets of the configured widths padded to the ranks' largest
+row counts (``local_sequence_batches``), its own z and n_dk, and draws
+from streams of its own (the rank in the purpose tag, ``_tag``); each
+sweep sums n_kv over the ranks in one all-reduce (exact: the counts are
+integers) and the doc side of the likelihood in another, so n_kv and the
+likelihood are the same bits on every rank.  ``gibbs_rebuild_interval``
+> 1 warns and runs the exact per-sweep rebuild there.  A model file
+carries every rank's chains, gathered bucket by bucket in rank order.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional, Tuple
+import warnings
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -50,6 +60,12 @@ from pylda_tpu_torch.ops.sampling import (
     sequence_token_score,
     stream,
     stream_seed,
+)
+from pylda_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_reduce_sum,
+    host_gather,
+    lift_process_local_buckets,
 )
 from pylda_tpu_torch.utils.timing import best_ms
 
@@ -74,10 +90,56 @@ class SeqBatch:
 def sequence_batches(corpus: Corpus, config, device, dtype) -> List[SeqBatch]:
     """The corpus's sequence buckets (documents over the largest width
     chunked into rows sharing their doc id) on ``device``."""
-    buckets = corpus.to_sequence_buckets(
+    return _on_device(corpus.to_sequence_buckets(
         bucket_sizes=layouts.effective_sequence_bucket_sizes(corpus, config),
         doc_pad_multiple=config.doc_pad_multiple,
-    )
+    ), device, dtype)
+
+
+def local_sequence_batches(corpus: Corpus, config, mesh: Mesh, device,
+                           dtype) -> List[SeqBatch]:
+    """A rank's document block as sequence buckets of the configured
+    ``bucket_sizes``, padded to the ranks' largest row counts with inert
+    rows and doc ids re-based to global (``lift_process_local_buckets``),
+    on ``device``.  Collective."""
+    return _on_device(lift_process_local_buckets(
+        corpus.to_sequence_buckets(bucket_sizes=tuple(config.bucket_sizes),
+                                   doc_pad_multiple=1),
+        config.bucket_sizes, config.doc_pad_multiple, mesh,
+        corpus.global_doc_offset,
+    ), device, dtype)
+
+
+def rank_tag(tag: int, mesh: Optional[Mesh]) -> int:
+    """A stream's purpose tag, with the rank in its bits above 40 when the
+    documents are split over ranks (each rank draws its own noise)."""
+    if mesh is None or mesh.data == 1:
+        return tag
+    return tag | ((mesh.rank + 1) << 40)
+
+
+def gather_chains(tensors: Sequence[torch.Tensor], mesh: Optional[Mesh]
+                  ) -> List[np.ndarray]:
+    """Per-bucket chains as numpy arrays: this rank's rows, or, with the
+    documents split over ranks, every rank's rows in rank order (the
+    layout of the JAX engine's global buckets).  Collective then."""
+    return [host_gather(t, mesh) for t in tensors]
+
+
+def local_chains(arrays: Sequence[np.ndarray], mesh: Optional[Mesh]
+                 ) -> List[np.ndarray]:
+    """This rank's rows of chains ``gather_chains`` wrote under a mesh of
+    the same size (each array's rows split evenly over the ranks)."""
+    if mesh is None or mesh.data == 1:
+        return list(arrays)
+    out = []
+    for a in arrays:
+        rows = a.shape[0] // mesh.data
+        out.append(a[mesh.rank * rows:(mesh.rank + 1) * rows])
+    return out
+
+
+def _on_device(buckets, device, dtype) -> List[SeqBatch]:
     return [
         SeqBatch(
             tokens=torch.as_tensor(b.tokens, device=device).long(),
@@ -87,14 +149,6 @@ def sequence_batches(corpus: Corpus, config, device, dtype) -> List[SeqBatch]:
         )
         for b in buckets
     ]
-
-
-def refuse_process_local(corpus: Corpus) -> None:
-    if getattr(corpus, "process_local", False):
-        raise NotImplementedError(
-            "process-local corpora and the mesh are not ported yet "
-            "(ROADMAP.md Queue 1 item 12)"
-        )
 
 
 def doc_topic_counts(z, token_mask, num_topics: int) -> torch.Tensor:
@@ -145,17 +199,31 @@ class MonteCarlo(Inferencer):
 
     # -- corpus preparation -------------------------------------------------
 
+    def _tag(self, tag: int) -> int:
+        return rank_tag(tag, self._mesh)
+
     def _prepare(self, corpus: Corpus) -> None:
-        refuse_process_local(corpus)
         cfg = self._config
         K = cfg.number_of_topics
-        self._buckets = sequence_batches(corpus, cfg, self._device,
-                                         self._dtype)
+        local = self._local_corpus(corpus)
+        if self._split:
+            self._buckets = local_sequence_batches(
+                local, cfg, self._mesh, self._device, self._dtype)
+        else:
+            self._buckets = sequence_batches(corpus, cfg, self._device,
+                                             self._dtype)
+        if cfg.gibbs_rebuild_interval > 1 and self._mesh is not None:
+            warnings.warn(
+                "gibbs_rebuild_interval > 1 is single-process only; "
+                "running the exact per-sweep rebuild under the mesh",
+                stacklevel=2,
+            )
         if self._restore_chains():
             return
         self._z = [
             random_assignments(b.tokens.shape, K,
-                               stream(self._device, cfg.seed, TAG_INIT, i))
+                               stream(self._device, cfg.seed,
+                                      self._tag(TAG_INIT), i))
             for i, b in enumerate(self._buckets)
         ]
         self._ndk = [doc_topic_counts(z, b.token_mask, K)
@@ -170,9 +238,11 @@ class MonteCarlo(Inferencer):
             return False
         n = sum(1 for k in blobs if k.startswith("z_"))
         try:
-            self.set_chains(blobs["n_kv"],
-                            [blobs[f"z_{i}"] for i in range(n)],
-                            [blobs[f"ndk_{i}"] for i in range(n)])
+            self.set_chains(
+                blobs["n_kv"],
+                local_chains([blobs[f"z_{i}"] for i in range(n)], self._mesh),
+                local_chains([blobs[f"ndk_{i}"] for i in range(n)],
+                             self._mesh))
         except (KeyError, ValueError):
             return False
         return True
@@ -201,7 +271,7 @@ class MonteCarlo(Inferencer):
         for b, z in zip(self._buckets, zs):
             t = count_table(b.tokens, b.token_mask, z, K, V)
             n_kv = t if n_kv is None else n_kv + t
-        return n_kv
+        return all_reduce_sum(n_kv, self._mesh)
 
     # -- sweeps -------------------------------------------------------------------
 
@@ -214,7 +284,8 @@ class MonteCarlo(Inferencer):
         for i, (b, z) in enumerate(zip(self._buckets, self._z)):
             _g, counts, z_new, ndk = sample_doc_topics(
                 b.tokens, b.token_mask, log_tw, alpha, z,
-                stream(self._device, cfg.seed, TAG_SWEEP, sweep, i),
+                stream(self._device, cfg.seed, self._tag(TAG_SWEEP), sweep,
+                       i),
                 num_types=self._number_of_types, burn_in=0, num_samples=1,
                 sampler=cfg.resolved_topic_sampler(),
                 block_positions=cfg.sampler_block_positions,
@@ -224,13 +295,15 @@ class MonteCarlo(Inferencer):
             ndk_out.append(ndk)
             if accumulate:
                 n_kv = counts if n_kv is None else n_kv + counts
+        if accumulate:
+            n_kv = all_reduce_sum(n_kv, self._mesh)
         return z_out, ndk_out, n_kv
 
     def _doc_ll(self, ndks, alpha) -> torch.Tensor:
         s = torch.zeros((), dtype=self._dtype, device=self._device)
         for b, ndk in zip(self._buckets, ndks):
             s = s + _doc_side_ll(ndk, b.mask, alpha)
-        return s
+        return all_reduce_sum(s, self._mesh)
 
     def _sweep(self, sweep: int):
         """One AD-LDA sweep from the current chains, which it leaves as
@@ -310,7 +383,7 @@ class MonteCarlo(Inferencer):
             chunk = remaining
             if interval > 0:
                 chunk = min(remaining, interval - self._counter % interval)
-            if cfg.gibbs_rebuild_interval > 1:
+            if cfg.gibbs_rebuild_interval > 1 and self._mesh is None:
                 lls = self._interval_sweeps(chunk)
             else:
                 lls = [self._exact_sweep(self._counter + i)
@@ -360,7 +433,9 @@ class MonteCarlo(Inferencer):
         a warm call) of one sweep (``gibbs_sweep_ms``: the factor refresh,
         every bucket's sampling and the n_kv rebuild) and of the joint
         likelihood at the current tables (``joint_likelihood_ms``), the
-        keys of ``pylda_tpu.models.gibbs``.  The timed sweep's chains are
+        keys of ``pylda_tpu.models.gibbs``; under a mesh with a process
+        group also ``allreduce_ms`` (n_kv's all-reduce; every rank must
+        call this).  The timed sweep's chains are
         dropped: z, the count tables and the step stay as they were, and
         its streams are seeded afresh from the step, as every sweep's
         are, so the next ``learning()`` draws what it would have."""
@@ -369,7 +444,8 @@ class MonteCarlo(Inferencer):
         ll_ms, _ = best_ms(lambda: self._joint_ll(self._n_kv, self._ndk), dev,
                            repeats)
         return {"gibbs_sweep_ms": round(sweep_ms, 6),
-                "joint_likelihood_ms": round(ll_ms, 6)}
+                "joint_likelihood_ms": round(ll_ms, 6),
+                **self._allreduce_timing(self._n_kv, repeats)}
 
     # -- topics / held-out ----------------------------------------------------------
 
@@ -388,8 +464,8 @@ class MonteCarlo(Inferencer):
         then score tokens with the point-estimate predictive p(w|d) =
         sum_k theta_hat phi_hat.  Returns (log likelihood, gamma =
         alpha + mean kept n_dk in corpus order; chunk rows of one long
-        document recombine additively)."""
-        refuse_process_local(test_corpus)
+        document recombine additively).  Replicated under a mesh: each
+        rank samples the whole ``test_corpus`` from the same streams."""
         st = self.state
         cfg = self._config
         K = cfg.number_of_topics
@@ -423,22 +499,26 @@ class MonteCarlo(Inferencer):
     def gamma(self) -> Optional[np.ndarray]:
         """Per-document alpha + n_dk [D, K] in corpus order, from the
         current tables (the VB family's gamma surface, for
-        ``--dump_gamma``)."""
+        ``--dump_gamma``).  Under a mesh every rank gathers every rank's
+        documents: collective."""
         if not self._ndk:
             return None
         alpha = self.state.alpha.cpu().numpy()
-        return layouts.assemble_gamma(
+        ids, rows = self._gathered_rows(
             [b.doc_ids for b in self._buckets],
-            [alpha[None, :] + n.cpu().numpy() for n in self._ndk],
-            self._corpus.global_num_docs, alpha)
+            [alpha[None, :] + n.cpu().numpy() for n in self._ndk])
+        return layouts.assemble_gamma(ids, rows,
+                                      self._corpus.global_num_docs, alpha)
 
     # -- model files ----------------------------------------------------------------
 
     def _extra_state(self) -> dict:
         d = {"n_kv": self._n_kv.cpu().numpy()}
-        for i, (z, ndk) in enumerate(zip(self._z, self._ndk)):
-            d[f"z_{i}"] = z.cpu().numpy()
-            d[f"ndk_{i}"] = ndk.cpu().numpy()
+        zs = gather_chains(self._z, self._mesh)
+        ndks = gather_chains(self._ndk, self._mesh)
+        for i, (z, ndk) in enumerate(zip(zs, ndks)):
+            d[f"z_{i}"] = z
+            d[f"ndk_{i}"] = ndk
         return d
 
     def _load_extra_state(self, blobs: dict) -> None:

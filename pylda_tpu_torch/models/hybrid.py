@@ -18,6 +18,11 @@ never reaches VB's ragged + dense-sstats route, so it launches none of
 the CUDA kernels.  With ``hybrid_persistent_z`` the topic assignments are
 carried across iterations (and saved as ``zh_<i>`` blobs); otherwise each
 iteration starts every chain from random z.
+
+Under a mesh each rank samples its block of documents
+(``_build_local_batches``: ``gibbs.local_sequence_batches``) from streams
+of its own (the rank in the purpose tag), and VB's ``_reduce_estep`` sums
+the sufficient statistics and doc-level terms over the ranks.
 """
 
 from __future__ import annotations
@@ -28,7 +33,14 @@ import torch
 
 from pylda_tpu_torch.corpus.corpus import Corpus
 from pylda_tpu_torch.models.base import bucket_tensors
-from pylda_tpu_torch.models.gibbs import SeqBatch, sequence_batches
+from pylda_tpu_torch.models.gibbs import (
+    SeqBatch,
+    gather_chains,
+    local_chains,
+    local_sequence_batches,
+    rank_tag,
+    sequence_batches,
+)
 from pylda_tpu_torch.models.vb import VariationalBayes
 from pylda_tpu_torch.ops.dirichlet import dirichlet_expectation, theta_elbo
 from pylda_tpu_torch.ops.sampling import (
@@ -52,6 +64,10 @@ class Hybrid(VariationalBayes):
         return sequence_batches(corpus, self._config, self._device,
                                 self._dtype)
 
+    def _build_local_batches(self, corpus: Corpus) -> List[SeqBatch]:
+        return local_sequence_batches(corpus, self._config, self._mesh,
+                                      self._device, self._dtype)
+
     def _plan_dense_sstats(self, corpus: Corpus):
         return None  # sstats come from the sampled assignments
 
@@ -63,7 +79,8 @@ class Hybrid(VariationalBayes):
             return
         self._z_hyb = [
             random_assignments(b.tokens.shape, cfg.number_of_topics,
-                               stream(self._device, cfg.seed, TAG_CHAIN, i))
+                               stream(self._device, cfg.seed,
+                                      rank_tag(TAG_CHAIN, self._mesh), i))
             for i, b in enumerate(self._batches)
         ]
         blobs = getattr(self, "_zh_restore", None)
@@ -72,7 +89,8 @@ class Hybrid(VariationalBayes):
             # corpus's; otherwise the fresh chains stand (one more
             # burn-in transient, never an error).
             try:
-                self.set_chains([blobs[f"zh_{i}"] for i in range(len(blobs))])
+                self.set_chains(local_chains(
+                    [blobs[f"zh_{i}"] for i in range(len(blobs))], self._mesh))
             except (KeyError, ValueError):
                 pass
 
@@ -87,10 +105,10 @@ class Hybrid(VariationalBayes):
     # -- the sampled local step ------------------------------------------------
 
     def _sampled_estep(self, batches: List[SeqBatch], lam, alpha, tag,
-                       zs=None):
+                       zs=None, replicated: bool = False):
         """Sampled local step over every sequence bucket, from the chains
         ``zs`` (None: random z a bucket).  ``tag`` (purpose, step) seeds
-        the streams.  Returns the VB E-step contract (gammas, sstats,
+        the streams, with the rank in the purpose unless ``replicated``.  Returns the VB E-step contract (gammas, sstats,
         token_score, theta_score, elog_sum) plus the advanced z."""
         cfg = self._config
         dev = self._device
@@ -101,7 +119,8 @@ class Hybrid(VariationalBayes):
         elog_sum = torch.zeros(alpha.shape, dtype=lam.dtype, device=dev)
         gammas, z_out = [], []
         for i, b in enumerate(batches):
-            seeds = (cfg.seed, *tag, i)
+            purpose = tag[0] if replicated else rank_tag(tag[0], self._mesh)
+            seeds = (cfg.seed, purpose, *tag[1:], i)
             z0 = zs[i] if zs is not None else random_assignments(
                 b.tokens.shape, cfg.number_of_topics, stream(dev, *seeds, 1))
             gamma_b, ss, z_new, _ndk = sample_doc_topics(
@@ -125,9 +144,11 @@ class Hybrid(VariationalBayes):
     def _run_estep(self, batches, plan, lam, alpha, gamma0s):
         """Held-out inference and ``gamma``: cold chains.  ``plan`` is
         always None and ``gamma0s`` unused (the sampled step initialises
-        assignments, not gamma)."""
+        assignments, not gamma).  Held-out inference draws the same
+        streams on every rank, so it runs replicated."""
         return self._sampled_estep(batches, lam, alpha,
-                                   (TAG_TEST, self._counter))[:5]
+                                   (TAG_TEST, self._counter),
+                                   replicated=True)[:5]
 
     def _train_estep(self, gamma0s):
         """The training step: persistent chains advance in place."""
@@ -143,8 +164,9 @@ class Hybrid(VariationalBayes):
 
     def _extra_state(self) -> dict:
         d = super()._extra_state()
-        for i, z in enumerate(getattr(self, "_z_hyb", None) or ()):
-            d[f"zh_{i}"] = z.cpu().numpy()
+        zs = gather_chains(getattr(self, "_z_hyb", None) or (), self._mesh)
+        for i, z in enumerate(zs):
+            d[f"zh_{i}"] = z
         return d
 
     def _load_extra_state(self, blobs: dict) -> None:

@@ -48,10 +48,27 @@ after ``learning_many`` the ``gamma`` property recomputes them in one
 rho = 0 epoch.  Minibatch i of the epoch at step s draws its gamma inits
 (a random ``gamma_init``) from the streams (config seed, tag, s, i,
 batch), so ``learning_many(n)`` draws what n ``learning()`` calls draw.
-``phase_timings`` times one minibatch step.  Routes of the JAX engine not
-ported yet raise ``NotImplementedError`` naming their ROADMAP item:
-process-local corpora and the mesh; on the card, K above the kernels'
-4096 is refused by the kernel wrappers at the first E-step.
+``phase_timings`` times one minibatch step.  On the card, K above the
+kernels' 4096 is refused by the kernel wrappers at the first E-step.
+
+Under a mesh (``parallel/mesh.py``) every minibatch's sufficient
+statistics and doc-level terms are summed over the ranks
+(``_reduce_estep``: two all-reduces a minibatch), so every rank takes the
+same lambda step:
+
+- a corpus loaded whole on every rank runs the one-process schedule: the
+  same global minibatches, rhos and D/|B| scales, each rank taking the
+  r-th contiguous slice of each minibatch's selection;
+- a process-local corpus (BASELINE config 5: each rank holds its own
+  block of documents) runs the JAX engine's per-host schedule
+  (``_process_local_plan``): b_local = ceil(batch_size / P) documents of
+  the rank's block a minibatch, in the order of a permutation seeded by
+  (epoch seed, rank), which every rank can reconstruct for every other,
+  so the global minibatch sizes, scales and rhos agree without
+  communication; on the large-vocabulary layout the bucket geometry is
+  negotiated across ranks (``negotiate_svi_ragged_geometry``).  The
+  dense sufficient statistics run over the rank's own counts matrix,
+  where the JAX engine takes the row scatter.
 """
 
 from __future__ import annotations
@@ -77,6 +94,10 @@ from pylda_tpu_torch.models.vb import (
 )
 from pylda_tpu_torch.ops.dirichlet import beta_elbo
 from pylda_tpu_torch.ops.hyper import newton_dirichlet_mle
+from pylda_tpu_torch.parallel.mesh import (
+    block_bounds,
+    negotiate_svi_ragged_geometry,
+)
 from pylda_tpu_torch.utils import round_up
 from pylda_tpu_torch.utils.timing import best_ms
 
@@ -142,27 +163,40 @@ class StochasticVariationalBayes(VariationalBayes):
         self._mb_sstats: Optional[_MinibatchPlan] = None
         self._svi_geometry: Optional[dict] = None
         self._device_rows: Optional[List[_Rows]] = None
+        self._process_local = False
 
     # -- setup ----------------------------------------------------------------
 
     def _prepare(self, corpus: Corpus) -> None:
         cfg = self._config
-        if getattr(corpus, "process_local", False):
-            raise NotImplementedError(
-                "process-local corpora and the mesh are not ported yet "
-                "(ROADMAP.md Queue 1 item 12)"
-            )
+        local = getattr(corpus, "process_local", False)
+        if local:
+            self._local_corpus(corpus)  # the JAX engine's refusal, where due
+        self._process_local = self._split and local
+        self._doc_offset = (corpus.global_doc_offset if self._process_local
+                            else 0)
         self._set_gammas(None, None)
         self._mb_sstats = self._svi_geometry = self._device_rows = None
         if self._dense_layout(corpus):
             self._device_rows = self._build_device_dense(corpus)
             return
         self._mb_sstats = self._plan_mb_dense_sstats(corpus)
-        self._svi_geometry = layouts.plan_svi_ragged_geometry(
-            corpus, cfg, cfg.batch_size
-        )
+        if self._process_local:
+            self._svi_geometry = negotiate_svi_ragged_geometry(
+                corpus, cfg, self._mb_docs(), self._mesh)
+        else:
+            self._svi_geometry = layouts.plan_svi_ragged_geometry(
+                corpus, cfg, cfg.batch_size
+            )
         if self._svi_geometry is not None:
             self._device_rows = self._build_device_rows(corpus)
+
+    def _mb_docs(self) -> int:
+        """Documents of this rank's corpus a minibatch draws at most:
+        b_local = ceil(batch_size / P) for a process-local corpus, else
+        ``batch_size``."""
+        bs = self._config.batch_size
+        return -(-bs // self._mesh.data) if self._process_local else bs
 
     @staticmethod
     def _unique_blocks(corpus: Corpus, block: int = 4096):
@@ -234,7 +268,7 @@ class StochasticVariationalBayes(VariationalBayes):
         if (D + 1) * v_pad * torch.finfo(dtype).bits // 8 > budget:
             return None
         pad = cfg.doc_pad_multiple
-        b_cap = round_up(cfg.batch_size, pad)
+        b_cap = round_up(self._mb_docs(), pad)
         rows_budget = max(pad, int(cfg.sstats_dense_budget_mb * 1e6
                                    // (4 * v_pad)))
         return _MinibatchPlan(
@@ -304,7 +338,7 @@ class StochasticVariationalBayes(VariationalBayes):
             return None
         if D == 0 or cfg.batch_size <= 0:
             return None
-        cap = round_up(cfg.batch_size, cfg.doc_pad_multiple)
+        cap = round_up(self._mb_docs(), cfg.doc_pad_multiple)
         rows = np.arange(D, dtype=np.int64)
         return [_Rows(
             ids=None, cnts=None,
@@ -353,6 +387,8 @@ class StochasticVariationalBayes(VariationalBayes):
             out = self._run_estep_hybrid(*self._local_plan(batches, doc_sel),
                                          lam, alpha, gamma0s)
         gammas, sstats, token_score, theta_score, elog_sum = out
+        sstats, token_score, theta_score, elog_sum = self._reduce_estep(
+            sstats, token_score, theta_score, elog_sum)
         lam = (1.0 - rho) * lam + rho * (eta[None, :] + scale * sstats)
         return lam, scale * (token_score + theta_score), elog_sum, gammas
 
@@ -398,12 +434,49 @@ class StochasticVariationalBayes(VariationalBayes):
                 return ep
         return self._epoch_batches(epoch_seed, t)
 
-    def _schedule(self, index_lists, t: int):
-        D = self._corpus.num_docs
+    def _rhos(self, t: int, n: int) -> List[float]:
         cfg = self._config
-        rhos = [(cfg.tau0 + t + i) ** (-cfg.kappa)
-                for i in range(len(index_lists))]
-        return rhos, [D / max(1, len(sel)) for sel in index_lists]
+        return [(cfg.tau0 + t + i) ** (-cfg.kappa) for i in range(n)]
+
+    def _epoch_plan(self, epoch_seed: int, t: int):
+        """(each minibatch's documents of this rank's corpus, the rhos, the
+        D/|B| scales) of the epoch: the one-process schedule (under a mesh
+        each rank takes its contiguous slice of each minibatch's
+        selection), or the per-host schedule of a process-local corpus."""
+        if self._process_local:
+            return self._process_local_plan(epoch_seed, t)
+        D = self._corpus.num_docs
+        index_lists = self._corpus.minibatch_indices(self._config.batch_size,
+                                                     seed=epoch_seed)
+        scales = [D / max(1, len(sel)) for sel in index_lists]
+        if self._split:
+            P, r = self._mesh.data, self._mesh.rank
+            index_lists = [sel[slice(*block_bounds(len(sel), r, P))]
+                           for sel in index_lists]
+        return index_lists, self._rhos(t, len(index_lists)), scales
+
+    def _process_local_plan(self, epoch_seed: int, t: int):
+        """The JAX engine's ``_process_local_epoch`` schedule: rank p's
+        block of ceil(D / P) documents in the order of
+        ``default_rng((epoch_seed, p)).permutation``, b_local documents of
+        it a minibatch, ceil(block / b_local) minibatches; each scale is D
+        over the global minibatch's documents, summed over every rank's
+        block without communication."""
+        P, my = self._mesh.data, self._mesh.rank
+        total = self._corpus.global_num_docs
+        per = -(-total // P)
+        b_local = self._mb_docs()
+        n = -(-per // b_local)
+        counts = [max(0, min(per, total - p * per)) for p in range(P)]
+        perm = np.random.default_rng((epoch_seed, my)).permutation(counts[my])
+        index_lists = [perm[i * b_local:(i + 1) * b_local] for i in range(n)]
+        scales = [total / max(1, sum(min(b_local, max(0, c - i * b_local))
+                                     for c in counts)) for i in range(n)]
+        return index_lists, self._rhos(t, n), scales
+
+    def _global_ids(self, doc_ids: np.ndarray) -> np.ndarray:
+        """This rank's document indices (-1 pads) as global ones."""
+        return np.where(doc_ids >= 0, doc_ids + self._doc_offset, -1)
 
     def _epoch_index_stacks(self, epoch_seed: int, t: int) -> Optional[_Epoch]:
         """Row indices of each minibatch into the device-resident rows
@@ -411,9 +484,7 @@ class StochasticVariationalBayes(VariationalBayes):
         row fills the rest), assembled on the host from the CSR maps;
         None when a minibatch has more rows of a width than its
         capacity."""
-        corpus = self._corpus
-        index_lists = corpus.minibatch_indices(self._config.batch_size,
-                                               seed=epoch_seed)
+        index_lists, rhos, scales = self._epoch_plan(epoch_seed, t)
         n = len(index_lists)
         stacks = [np.full((n, c), rows.sentinel, np.int64)
                   for rows in self._device_rows for c in rows.chunk_sizes]
@@ -441,8 +512,7 @@ class StochasticVariationalBayes(VariationalBayes):
                     s0 += c
                     j += 1
         docsels = self._doc_sel_arrays(index_lists)
-        return _Epoch(self._gathered(stacks, docsels, gids),
-                      *self._schedule(index_lists, t))
+        return _Epoch(self._gathered(stacks, docsels, gids), rhos, scales)
 
     def _gathered(self, stacks, docsels, gids):
         """Each minibatch's batches gathered on the device from the
@@ -481,14 +551,15 @@ class StochasticVariationalBayes(VariationalBayes):
         one at a time."""
         cfg = self._config
         corpus = self._corpus
-        index_lists = corpus.minibatch_indices(cfg.batch_size, seed=epoch_seed)
+        index_lists, rhos, scales = self._epoch_plan(epoch_seed, t)
         docsels = self._doc_sel_arrays(index_lists)
 
         def minibatches():
             for i, idx in enumerate(index_lists):
                 if self._dense_layout(corpus):
                     bl = layouts.build_vb_batches(
-                        corpus, cfg, doc_indices=idx, pad_docs_to=cfg.batch_size
+                        corpus, cfg, doc_indices=idx,
+                        pad_docs_to=self._mb_docs(),
                     )
                 else:
                     bl = self._ragged_minibatch(corpus, cfg, idx)
@@ -498,7 +569,7 @@ class StochasticVariationalBayes(VariationalBayes):
                                                        device=self._device))
                 yield self._to_device(bl, corpus.num_docs), sel
 
-        return _Epoch(minibatches(), *self._schedule(index_lists, t))
+        return _Epoch(minibatches(), rhos, scales)
 
     def _ragged_minibatch(self, corpus, cfg, idx):
         """The fixed geometry when one is planned; per-batch shapes when
@@ -533,8 +604,9 @@ class StochasticVariationalBayes(VariationalBayes):
             elog_sum = elog_sum + elog
             if keep_gammas:
                 gammas.extend(gs)
-                doc_ids.extend([sel[0]] if sel is not None
-                               else [b.doc_ids for b in batches])
+                doc_ids.extend(self._global_ids(ids) for ids in (
+                    [sel[0]] if sel is not None
+                    else [b.doc_ids for b in batches]))
         # The topic-side bound term once, at the epoch's final lambda.
         ests = torch.stack(ests) + beta_elbo(lam, eta)
         return lam, ests, elog_sum, gammas, doc_ids
@@ -648,7 +720,9 @@ class StochasticVariationalBayes(VariationalBayes):
         the local E-step, the natural-gradient lambda step and the bound
         terms, best of ``repeats`` after a warm call; ``utils.timing``)
         and ``minibatches_per_epoch``, the keys of
-        ``pylda_tpu.models.svi``.  The step runs from the current state
+        ``pylda_tpu.models.svi``, and under a mesh with a process group
+        ``allreduce_ms`` (one minibatch's sufficient statistics; every rank
+        must call this).  The step runs from the current state
         and its results are dropped: lambda, alpha, eta, the step and
         ``_t`` (the rho schedule) stay as they were, and the gamma inits
         draw from a stream of their own (``TAG_TIMING``).
@@ -662,7 +736,8 @@ class StochasticVariationalBayes(VariationalBayes):
             st.lam, st.alpha, st.eta, batches, rho_t, scale_t,
             None if sel is None else sel[1], (TAG_TIMING, self._counter, 0),
         ), dev, repeats)
-        return {"svi_minibatch_ms": round(ms, 6), "minibatches_per_epoch": n}
+        return {"svi_minibatch_ms": round(ms, 6), "minibatches_per_epoch": n,
+                **self._allreduce_timing(st.lam, repeats)}
 
     # -- model files ------------------------------------------------------------------
 

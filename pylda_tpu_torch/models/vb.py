@@ -36,8 +36,18 @@ device seeded by (config seed, purpose tag, step, batch) through
 draws a set an iteration, ``learning_many(n)`` one set for all n, and
 held-out inference, the lazy ``gamma`` refresh and ``phase_timings``
 draw from tags of their own.  ``phase_timings`` times each phase of an
-iteration on the device.  Process-local corpora raise
-``NotImplementedError`` naming their ROADMAP item.
+iteration on the device.
+
+Under a mesh (``initialize(..., mesh=...)``, ``parallel/mesh.py``) each
+rank runs the E-step over its block of documents (``_local_corpus``) in
+the geometry of the JAX engine's process-local builds (one dense batch of
+the ranks' uniform row count, or configured-width ragged buckets padded
+to the ranks' largest row counts, ``_build_local_batches``), and each
+iteration sums the sufficient statistics in one all-reduce and the
+doc-level scalars in another (``_reduce_estep``), so lambda, alpha, eta
+and the ELBO are the same bits on every rank.  Held-out inference runs
+replicated: every rank holds the whole test corpus, runs its E-step alone
+and gets the same answer.  ``gamma`` gathers each rank's documents.
 """
 
 from __future__ import annotations
@@ -65,6 +75,11 @@ from pylda_tpu_torch.ops.hyper import newton_dirichlet_mle
 from pylda_tpu_torch.ops.ragged import gather_table, ragged_gamma
 from pylda_tpu_torch.ops.sampling import stream
 from pylda_tpu_torch.ops.sstats import dense_sstats
+from pylda_tpu_torch.parallel.mesh import (
+    all_reduce_sum,
+    lift_process_local_batch,
+    lift_process_local_buckets,
+)
 from pylda_tpu_torch.utils import round_up as _round_up
 from pylda_tpu_torch.utils.config import LDAConfig
 from pylda_tpu_torch.utils.timing import best_ms
@@ -212,6 +227,7 @@ class VariationalBayes(Inferencer):
         self.last_sweeps: List[torch.Tensor] = []
         self._batches: Optional[List[_Batch]] = None
         self._sstats_plan: Optional[_SstatsPlan] = None
+        self._doc_offset = 0  # the rank's first global document
         self._set_gammas(None, None)
 
     # -- corpus preparation ---------------------------------------------------
@@ -219,22 +235,36 @@ class VariationalBayes(Inferencer):
     def _dense_layout(self, corpus: Corpus) -> bool:
         return corpus.num_types <= self._config.dense_vocab_threshold
 
-    def _check_route(self, corpus: Corpus) -> None:
-        """Raise for the one route of the JAX engine not ported yet."""
-        if getattr(corpus, "process_local", False):
-            raise NotImplementedError(
-                "process-local corpora are not ported yet (ROADMAP.md Queue 1 "
-                "item 12)"
-            )
-
     def _build_batches(self, corpus: Corpus) -> List[_Batch]:
         return self._to_device(layouts.build_vb_batches(corpus, self._config),
                                corpus.num_docs)
 
+    def _build_local_batches(self, corpus: Corpus) -> List[_Batch]:
+        """A rank's document block under a mesh, in a geometry uniform
+        across ranks (the JAX engine's process-local builds): the dense
+        layout as one batch of ceil(D / P) rows rounded up to
+        ``doc_pad_multiple``; the ragged layout as buckets of the
+        configured ``bucket_sizes`` padded to the ranks' largest row
+        counts.  Doc ids are global.  Collective."""
+        cfg, mesh = self._config, self._mesh
+        off = corpus.global_doc_offset
+        if self._dense_layout(corpus):
+            rows = _round_up(-(-corpus.global_num_docs // mesh.data),
+                             cfg.doc_pad_multiple)
+            batches = [lift_process_local_batch(
+                corpus.to_dense(pad_docs_to=rows), mesh, off)]
+        else:
+            batches = lift_process_local_buckets(
+                corpus.to_ragged_buckets(
+                    bucket_sizes=tuple(cfg.bucket_sizes), doc_pad_multiple=1),
+                cfg.bucket_sizes, cfg.doc_pad_multiple, mesh, off)
+        return self._to_device(batches, corpus.num_docs, off)
+
     def _to_device(self, batches: List[layouts.VBBatch],
-                   num_docs: int) -> List[_Batch]:
-        """Layout batches on this engine's device; ragged rows of padding
-        get row index ``num_docs``."""
+                   num_docs: int, offset: int = 0) -> List[_Batch]:
+        """Layout batches on this engine's device; a ragged row's index is
+        its global doc id less ``offset`` (the documents' first), and
+        ``num_docs`` for padding rows."""
         dev = self._device
         out: List[_Batch] = []
         for b in batches:
@@ -245,7 +275,7 @@ class VariationalBayes(Inferencer):
                     doc_ids=b.doc_ids,
                 ))
                 continue
-            row_index = np.where(b.doc_ids >= 0, b.doc_ids, num_docs)
+            row_index = np.where(b.doc_ids >= 0, b.doc_ids - offset, num_docs)
             out.append(_Bucket(
                 ids=torch.as_tensor(b.ids, device=dev),
                 cnts=torch.as_tensor(b.cnts, device=dev).to(self._dtype),
@@ -303,9 +333,11 @@ class VariationalBayes(Inferencer):
         )
 
     def _prepare(self, corpus: Corpus) -> None:
-        self._check_route(corpus)
-        self._batches = self._build_batches(corpus)
-        self._sstats_plan = self._plan_dense_sstats(corpus)
+        local = self._local_corpus(corpus)
+        self._doc_offset = local.global_doc_offset if self._split else 0
+        self._batches = (self._build_local_batches(local) if self._split
+                         else self._build_batches(local))
+        self._sstats_plan = self._plan_dense_sstats(local)
         self._set_gammas(None, None)
 
     def _state_changed(self) -> None:
@@ -434,13 +466,26 @@ class VariationalBayes(Inferencer):
         return self._run_estep_hybrid(batches, plan, lam, alpha, gamma0s)
 
     @staticmethod
-    def _gamma_doc_ids_for(batches, plan) -> List[np.ndarray]:
+    def _gamma_doc_ids_for(batches, plan, offset: int = 0
+                           ) -> List[np.ndarray]:
         """Row->document maps matching the gammas ``_run_estep`` returns:
-        one per batch, or one per-document block with a dense sstats
-        plan."""
+        one per batch, or one per-document block (from document
+        ``offset``) with a dense sstats plan."""
         if plan is not None:
-            return [np.arange(plan.num_docs, dtype=np.int32)]
+            return [np.arange(offset, offset + plan.num_docs, dtype=np.int32)]
         return [b.doc_ids for b in batches]
+
+    def _reduce_estep(self, sstats, token_score, theta_score, elog_sum):
+        """A rank's E-step summed over the mesh: the sufficient statistics
+        in one all-reduce, the token score, theta terms and E[log theta]
+        sums packed into another.  As they are without a process group."""
+        mesh = self._mesh
+        if mesh is None or not mesh.grouped:
+            return sstats, token_score, theta_score, elog_sum
+        sstats = all_reduce_sum(sstats.contiguous(), mesh)
+        packed = all_reduce_sum(torch.cat([
+            token_score.reshape(1), theta_score.reshape(1), elog_sum]), mesh)
+        return sstats, packed[0], packed[1], packed[2:]
 
     # -- one full VB iteration ------------------------------------------------
 
@@ -452,6 +497,8 @@ class VariationalBayes(Inferencer):
         gammas, sstats, token_score, theta_score, elog_sum = (
             self._train_estep(gamma0s)
         )
+        sstats, token_score, theta_score, elog_sum = self._reduce_estep(
+            sstats, token_score, theta_score, elog_sum)
         elbo = token_score + theta_score + beta_elbo(st.lam, st.eta)
         lam_new = st.eta[None, :] + sstats
         alpha_new, eta_new = st.alpha, st.eta
@@ -488,9 +535,8 @@ class VariationalBayes(Inferencer):
         )
         self._state = new_state
         self._step_host += 1
-        self._set_gammas(
-            gammas, self._gamma_doc_ids_for(self._batches, self._sstats_plan)
-        )
+        self._set_gammas(gammas, self._gamma_doc_ids_for(
+            self._batches, self._sstats_plan, self._doc_offset))
         return float(elbo)
 
     def learning_many(self, n: int) -> List[float]:
@@ -519,7 +565,10 @@ class VariationalBayes(Inferencer):
         ``estep_sweeps_only_ms`` (expectations and the gamma fixed points
         alone), otherwise ``estep_batch{i}_{shape}_ms`` a batch; then
         ``estep_total_ms``, ``mstep_ms``, ``bound_ms`` and
-        ``hyper_newton_ms``.  Each phase runs alone (``utils.timing``:
+        ``hyper_newton_ms``; under a mesh with a process group also
+        ``allreduce_ms`` (the sufficient statistics' all-reduce,
+        ``allreduce_bytes`` and ``allreduce_backend`` beside it; every
+        rank must call this).  Each phase runs alone (``utils.timing``:
         CUDA events on the card, the best of ``repeats`` after a warm
         call and a synchronize), so their sum leaves out the host work
         an iteration does between phases.
@@ -571,6 +620,7 @@ class VariationalBayes(Inferencer):
             newton_dirichlet_mle(st.eta, _elog_lambda_sum(lam_new),
                                  float(cfg.number_of_topics)),
         ))
+        out.update(self._allreduce_timing(sstats, repeats))
         return out
 
     # -- gamma bookkeeping --------------------------------------------------------
@@ -586,7 +636,8 @@ class VariationalBayes(Inferencer):
     @property
     def gamma(self) -> Optional[np.ndarray]:
         """Per-document gamma [D, K] in corpus order (host array; re-run
-        at the current lambda when a ``learning_many`` left it stale)."""
+        at the current lambda when a ``learning_many`` left it stale).
+        Under a mesh every rank gathers every rank's documents: collective."""
         if self._gamma_np is None:
             if self._gammas_dev is None:
                 if self._batches is None:
@@ -598,11 +649,12 @@ class VariationalBayes(Inferencer):
                                   self._counter),
                 )[0]
                 self._set_gammas(gammas, self._gamma_doc_ids_for(
-                    self._batches, self._sstats_plan))
-            self._gamma_np = layouts.assemble_gamma(
+                    self._batches, self._sstats_plan, self._doc_offset))
+            ids, rows = self._gathered_rows(
                 self._gamma_doc_ids,
-                [g.cpu().numpy() for g in self._gammas_dev],
-                self._corpus.global_num_docs,
+                [g.cpu().numpy() for g in self._gammas_dev])
+            self._gamma_np = layouts.assemble_gamma(
+                ids, rows, self._corpus.global_num_docs,
                 self.state.alpha.cpu().numpy(),
             )
         return self._gamma_np
@@ -611,8 +663,8 @@ class VariationalBayes(Inferencer):
 
     def inference(self, test_corpus: Corpus) -> Tuple[float, np.ndarray]:
         """E-step on held-out docs with lambda frozen; returns (doc-side
-        bound, gamma in corpus order)."""
-        self._check_route(test_corpus)
+        bound, gamma in corpus order).  Replicated under a mesh: each rank
+        runs the whole ``test_corpus`` alone (no collective)."""
         st = self.state
         batches = self._build_batches(test_corpus)
         plan = self._plan_dense_sstats(test_corpus)

@@ -341,6 +341,24 @@ def suite_mfu(eng, measured_seconds: float) -> float:
     return round(utilisation(measured_seconds * 1e3, bound), 6)
 
 
+def allreduce_row(engine, timings: dict) -> dict:
+    """The step's all-reduce (``phase_timings``' ``allreduce_ms``) beside
+    its bound where one holds: NCCL on one card, where the in-place
+    reduce of one rank need only read the tensor once, over the memory
+    rate.  Across ranks, or over gloo (staged through the host), the time
+    is printed with "no bound"."""
+    ms, nbytes = timings["allreduce_ms"], timings["allreduce_bytes"]
+    backend = timings["allreduce_backend"]
+    row = {"measured_ms": round(ms, 6), "bytes": nbytes, "backend": backend}
+    if backend == "nccl" and engine._mesh.data == 1:
+        bound = nbytes / H100.hbm_bytes * 1e3
+        row.update(bound_ms=round(bound, 6),
+                   utilisation=round(utilisation(ms, bound), 4))
+    else:
+        row.update(bound_ms=None, bound="no bound")
+    return row
+
+
 def roofline_report(engine, repeats: int = 3,
                     timings: Optional[dict] = None) -> dict:
     """Measured phase times (``engine.phase_timings(repeats)``, or
@@ -353,7 +371,9 @@ def roofline_report(engine, repeats: int = 3,
       ``sweep_counts``;
     - SVI: ``minibatch`` (one minibatch step) and ``sweep_counts``;
     - Gibbs: ``sweep`` (sampling, rebuild, factor refresh) and
-      ``joint_likelihood``."""
+      ``joint_likelihood``;
+    - under a mesh with a process group, also ``allreduce``
+      (``allreduce_row``)."""
     if timings is None:
         timings = engine.phase_timings(repeats=repeats)
     rows: dict = {}
@@ -363,6 +383,8 @@ def roofline_report(engine, repeats: int = 3,
                       "bound_ms": round(bound, 6),
                       "utilisation": round(utilisation(measured, bound), 4)}
 
+    if "allreduce_ms" in timings:
+        rows["allreduce"] = allreduce_row(engine, timings)
     mode = engine.config.inference_mode
     if mode == "gibbs":
         ph = gibbs_learning_phase_bounds(engine)

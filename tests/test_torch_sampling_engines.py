@@ -56,6 +56,7 @@ from pylda_tpu_torch.models import (
     layouts,
     state_from_numpy,
 )
+from pylda_tpu_torch.models import base as base_mod
 from pylda_tpu_torch.models import hybrid as hybrid_mod
 from pylda_tpu_torch.ops.hyper import slice_sample
 from pylda_tpu_torch.ops.sampling import (
@@ -290,14 +291,20 @@ def test_gibbs_heldout_inference_matches_oracle(corpus, corpus_j):
     assert np.abs(th - th_o).mean() < 0.05
 
 
-def test_gibbs_unported_surfaces(corpus):
+def test_gibbs_unported_surfaces(corpus, monkeypatch):
+    """phase_timings' keys; a process-local corpus in one process samples
+    like a whole one (the same chains); across two processes without a
+    mesh it raises the JAX engine's ValueError."""
     eng = _ours("gibbs", corpus)
     assert set(eng.phase_timings()) == {"gibbs_sweep_ms",
                                         "joint_likelihood_ms"}
     local = synthetic_corpus(**CORPUS)[0]
     local.process_local = True
     for mode in ("gibbs", "hybrid"):
-        with pytest.raises(NotImplementedError, match="item 12"):
+        assert _ours(mode, local).learning() == _ours(mode, corpus).learning()
+    monkeypatch.setattr(base_mod, "world", lambda: (0, 2))
+    for mode in ("gibbs", "hybrid"):
+        with pytest.raises(ValueError, match="requires a mesh"):
             _ours(mode, local)
 
 

@@ -217,10 +217,32 @@ def test_streaming_corpus_holds_no_documents(corpus, tmp_path):
 
 
 def test_process_local_streaming_raises(corpus, tmp_path):
+    """A process's block of a streaming corpus: the same documents,
+    offsets and sidecar name as the JAX package's StreamingCorpus for the
+    same block, each block's sidecar its own; a process index outside the
+    count raises."""
     path, vocab = _write(corpus, tmp_path)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        StreamingCorpus(path, vocab, process_index=0, process_count=2)
-    StreamingCorpus(path, vocab, process_index=0, process_count=1)
+    vocab_j = JaxVocabulary(vocab.types)
+    whole = StreamingCorpus(path, vocab, process_index=0, process_count=1)
+    assert not whole.process_local
+    for p in range(2):
+        ours = StreamingCorpus(path, vocab, process_index=p, process_count=2)
+        theirs = JaxStreaming(path, vocab_j, process_index=p,
+                                    process_count=2)
+        assert ours.process_local and theirs.process_local
+        assert (ours.num_docs, ours.global_num_docs, ours.global_doc_offset,
+                ours.num_tokens) == (
+            theirs.num_docs, theirs.global_num_docs,
+            theirs.global_doc_offset, theirs.num_tokens)
+        assert ours._rowcache_dir() == theirs._rowcache_dir()
+        assert os.path.isdir(ours._rowcache_dir())
+        lo = ours.global_doc_offset
+        for d in range(ours.num_docs):
+            np.testing.assert_array_equal(ours.subset([d]).docs[0],
+                                          whole.subset([lo + d]).docs[0])
+    assert len(glob.glob(path + ".rowcache.v2.*")) == 3
+    with pytest.raises(ValueError, match="outside"):
+        StreamingCorpus(path, vocab, process_index=2, process_count=2)
 
 
 def test_load_input_directory_streaming(tmp_path):

@@ -31,6 +31,7 @@ from pylda_tpu_torch.cli.train import main as train_main
 from pylda_tpu_torch.corpus.datasets import bundled_corpus_dir, load_input_directory
 from pylda_tpu_torch.corpus.synthetic import synthetic_corpus
 from pylda_tpu_torch.models import Inferencer, StochasticVariationalBayes
+from pylda_tpu_torch.models import base as base_mod
 from pylda_tpu_torch.models import layouts
 from pylda_tpu_torch.utils.config import LDAConfig
 
@@ -287,11 +288,12 @@ def test_svi_model_file_loads_in_both_packages(data, tmp_path):
 # -- (f) routes not ported ----------------------------------------------------------------
 
 
-def test_svi_unported_routes_raise(data):
-    """Process-local corpora still raise, naming their item.
-    sstats_mode="scatter" and a counts matrix over the budget (item 4,
-    ported) now take the scatter route: no counts matrix; phase_timings
-    (item 7, ported) times a minibatch."""
+def test_svi_unported_routes_raise(data, monkeypatch):
+    """A process-local corpus in one process trains like a whole one;
+    across two processes without a mesh it raises the JAX engine's
+    ValueError.  sstats_mode="scatter" and a counts matrix over the budget
+    (item 4, ported) now take the scatter route: no counts matrix;
+    phase_timings (item 7, ported) times a minibatch."""
     for extra in (dict(sstats_mode="scatter"),
                   dict(sstats_dense_total_budget_mb=0)):
         eng = _ours(data, **RAGGED, **extra)
@@ -300,8 +302,15 @@ def test_svi_unported_routes_raise(data):
     eng = StochasticVariationalBayes(LDAConfig(**CFG), device="cpu")
     local = synthetic_corpus(num_docs=20, num_topics=K, num_types=V,
                              mean_doc_length=10.0, seed=1)[0]
+    lam0 = np.random.default_rng(4).gamma(100.0, 0.01, (K, V))
+    eng.initialize(local, lam_init=lam0)
+    want = eng.learning()
     local.process_local = True
-    with pytest.raises(NotImplementedError, match="item 12"):
+    eng = StochasticVariationalBayes(LDAConfig(**CFG), device="cpu")
+    eng.initialize(local, lam_init=lam0)
+    assert eng.learning() == want
+    monkeypatch.setattr(base_mod, "world", lambda: (0, 2))
+    with pytest.raises(ValueError, match="requires a mesh"):
         eng.initialize(local)
     assert set(_ours(data).phase_timings()) == {
         "svi_minibatch_ms", "minibatches_per_epoch"}

@@ -21,6 +21,7 @@ from pylda_tpu.models import VariationalBayes as JaxVB
 from pylda_tpu.utils.config import LDAConfig as JaxConfig
 from pylda_tpu_torch.corpus.synthetic import synthetic_corpus
 from pylda_tpu_torch.models import VariationalBayes, state_from_numpy
+from pylda_tpu_torch.models import base as base_mod
 from pylda_tpu_torch.utils.config import LDAConfig
 
 K, V, D = 8, 600, 96
@@ -127,11 +128,13 @@ def test_state_from_numpy_carries_jax_training(data):
     _assert_state_close(ours, theirs)
 
 
-def test_unported_routes_raise(data):
-    """Process-local corpora still raise.  sstats_mode="scatter" and a
-    corpus over the dense sstats budget (item 4, ported) take the scatter
-    route: no dense counts plan; the random gamma inits (item 7, ported)
-    train."""
+def test_unported_routes_raise(data, monkeypatch):
+    """A process-local corpus in one process trains like a whole one (as
+    in the JAX engine, which checks the process count first); across two
+    processes without a mesh it raises the JAX engine's ValueError.
+    sstats_mode="scatter" and a corpus over the dense sstats budget (item
+    4, ported) take the scatter route: no dense counts plan; the random
+    gamma inits (item 7, ported) train."""
     for kw in (dict(sstats_mode="scatter"),
                dict(sstats_dense_total_budget_mb=0)):
         eng = VariationalBayes(LDAConfig(**{**CFG, **kw}), device="cpu")
@@ -140,8 +143,14 @@ def test_unported_routes_raise(data):
         assert np.isfinite(eng.learning())
     local = synthetic_corpus(num_docs=8, num_topics=K, num_types=V,
                              mean_doc_length=10.0, seed=1)[0]
+    whole = VariationalBayes(LDAConfig(**CFG), device="cpu")
+    whole.initialize(local, lam_init=data["lam0"])
     local.process_local = True
-    with pytest.raises(NotImplementedError, match="item 12"):
+    one = VariationalBayes(LDAConfig(**CFG), device="cpu")
+    one.initialize(local, lam_init=data["lam0"])
+    assert one.learning() == whole.learning()
+    monkeypatch.setattr(base_mod, "world", lambda: (0, 2))
+    with pytest.raises(ValueError, match="requires a mesh"):
         VariationalBayes(LDAConfig(**CFG), device="cpu").initialize(local)
     eng = VariationalBayes(LDAConfig(**{**CFG, "gamma_init": "normal"}),
                            device="cpu")

@@ -1,0 +1,209 @@
+"""One rank of a multi-process run of pylda_tpu_torch on the CPU.
+
+    python tests/torch_dist_worker.py CASE RANK WORLD INIT_FILE OUT SPEC_JSON
+
+Joins a gloo process group through ``file://INIT_FILE`` (60 s timeout),
+runs CASE with the JSON spec, and writes its results to ``OUT`` (an npz).
+``tests/torch_dist.py::run_ranks`` starts one process a rank.  This file
+imports the port only (no JAX): the tests hold its results against the
+JAX package in their own process.
+"""
+
+import datetime
+import json
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+from pylda_tpu_torch.corpus.datasets import load_input_directory  # noqa: E402
+from pylda_tpu_torch.corpus.synthetic import synthetic_corpus  # noqa: E402
+from pylda_tpu_torch.models import make_engine  # noqa: E402
+from pylda_tpu_torch.parallel import mesh as pmesh  # noqa: E402
+from pylda_tpu_torch.utils.config import LDAConfig  # noqa: E402
+
+
+def _corpora(spec, mesh):
+    """(train, test, vocab): from ``corpus_dir`` (process-local when
+    ``process_local``, disk-backed when ``streaming``) or a seeded
+    synthetic corpus (cut to the rank's block when ``process_local``)."""
+    local = spec.get("process_local", False)
+    if "corpus_dir" in spec:
+        return load_input_directory(
+            spec["corpus_dir"],
+            process_index=mesh.rank if local else None,
+            process_count=mesh.data if local else None,
+            streaming=spec.get("streaming", False),
+        )
+    train, beta, _ = synthetic_corpus(**spec["corpus"])
+    test = None
+    if "test" in spec:
+        test = synthetic_corpus(beta=beta, **spec["test"])[0]
+    if local:
+        lo, hi = pmesh.block_bounds(train.num_docs, mesh.rank, mesh.data)
+        block = train.subset(range(lo, hi))
+        block.process_local = True
+        block.global_num_docs = train.num_docs
+        block.global_doc_offset = lo
+        train = block
+    return train, test, train.vocab
+
+
+def case_engine(spec, mesh):
+    """Initialize, ``iterations`` learning() calls (replicas checked after
+    each), ``many`` in learning_many; the state, the objectives, gamma,
+    held-out perplexities and the collectives each phase made."""
+    train, test, vocab = _corpora(spec, mesh)
+    cfg = LDAConfig(**spec["cfg"]).validate()
+    K, V = cfg.number_of_topics, len(vocab)
+    lam0 = None
+    if spec.get("lam_seed") is not None:
+        lam0 = np.random.default_rng(spec["lam_seed"]).gamma(
+            100.0, 0.01, (K, V))
+    eng = make_engine(cfg, device="cpu")
+    eng.initialize(train, vocab, lam_init=lam0,
+                   mesh=mesh if spec.get("mesh", True) else None)
+    out = {}
+    objs, reduces = [], []
+    for _ in range(spec.get("iterations", 2)):
+        before = pmesh.COLLECTIVES["all_reduce"]
+        objs.append(eng.learning())
+        reduces.append(pmesh.COLLECTIVES["all_reduce"] - before)
+        pmesh.assert_replicas_consistent(eng.state, mesh)
+    objs += eng.learning_many(spec.get("many", 0))
+    out["objs"] = np.asarray(objs, np.float64)
+    out["reduces"] = np.asarray(reduces)
+    st = eng.state
+    for k in ("lam", "alpha", "eta"):
+        out[k] = getattr(st, k).numpy()
+    out["gamma"] = eng.gamma
+    if cfg.inference_mode == "gibbs":
+        out["n_kv"] = eng._n_kv.numpy()
+        pmesh.assert_replicas_consistent({"n_kv": eng._n_kv}, mesh)
+    out["tokens"] = (sum(int(t) for t in pmesh.allgather_numpy(
+        train.num_tokens, mesh)) if getattr(train, "process_local", False)
+        else train.num_tokens)
+    if getattr(eng, "_svi_geometry", None):
+        geo = eng._svi_geometry
+        out["geometry"] = np.asarray([[w, geo[w]] for w in sorted(geo)])
+    if test is not None:
+        out["perplexity"] = eng.perplexity(test)
+        out["point_perplexity"] = eng.point_estimate_perplexity(test)
+    if spec.get("save"):
+        eng.save(spec["save"])
+    if spec.get("timings"):
+        from pylda_tpu_torch.utils.roofline import roofline_report
+
+        times = eng.phase_timings(1)
+        out["timings"] = json.dumps(times)
+        out["roofline"] = json.dumps(roofline_report(eng, timings=times))
+    return out
+
+
+def case_replicas(spec, mesh):
+    """One iteration, then rank 1's lambda nudged by one ulp-sized step:
+    the replica check must raise on both ranks."""
+    train, _, vocab = _corpora(spec, mesh)
+    eng = make_engine(LDAConfig(**spec["cfg"]), device="cpu")
+    eng.initialize(train, vocab, mesh=mesh)
+    eng.learning()
+    sums = pmesh.replica_checksums(eng.state, mesh)
+    same = all(len(set(v)) == 1 for v in sums.values())
+    if mesh.rank == 1:
+        eng.state.lam[0, 0] = torch.nextafter(eng.state.lam[0, 0],
+                                              torch.tensor(np.inf))
+    try:
+        pmesh.assert_replicas_consistent(eng.state, mesh)
+        diverged = False
+    except AssertionError:
+        diverged = True
+    return {"same_before": same, "diverged": diverged,
+            "ranks_in_sums": len(sums["lam"])}
+
+
+def case_resume(spec, mesh):
+    """A model file resumed over the mesh: for Gibbs, this rank's rows of
+    each saved chain adopted; for the VB family, one more iteration."""
+    from pylda_tpu_torch.models import Inferencer
+    from pylda_tpu_torch.models.gibbs import local_chains
+
+    train, _, _ = _corpora(spec, mesh)
+    eng = Inferencer.load(spec["path"], corpus=train, device="cpu", mesh=mesh)
+    if eng.config.inference_mode != "gibbs":
+        obj = eng.learning()
+        return {"obj": obj, "lam": eng.state.lam.numpy(),
+                "step": eng._counter}
+    blobs = np.load(spec["path"])
+    n = sum(1 for k in blobs.files if k.startswith("extra_z_"))
+    want = local_chains([blobs[f"extra_z_{i}"] for i in range(n)], mesh)
+    adopted = len(eng._z) == n and all(
+        np.array_equal(z.numpy(), w) for z, w in zip(eng._z, want))
+    return {"adopted": adopted, "n_kv": eng._n_kv.numpy()}
+
+
+def case_batches(spec, mesh):
+    """The rank's VB batches (rows, doc ids) and dense sstats plan size."""
+    train, _, vocab = _corpora(spec, mesh)
+    eng = make_engine(LDAConfig(**spec["cfg"]), device="cpu")
+    eng.initialize(train, vocab, mesh=mesh)
+    out = {"num_batches": len(eng._batches),
+           "doc_offset": eng._doc_offset,
+           "plan_docs": (-1 if eng._sstats_plan is None
+                         else eng._sstats_plan.num_docs)}
+    for i, b in enumerate(eng._batches):
+        out[f"doc_ids_{i}"] = np.asarray(b.doc_ids)
+    return out
+
+
+def case_hang(spec, mesh):
+    """On a group with a short timeout (``collective_timeout`` s, made by
+    both ranks), rank 0 all-reduces and rank 1 never joins.  Rank 0
+    reports the error and how long it waited."""
+    import dataclasses
+
+    short = torch.distributed.new_group(
+        backend="gloo",
+        timeout=datetime.timedelta(seconds=spec["collective_timeout"]))
+    mesh = dataclasses.replace(mesh, device_group=short)
+    t0 = time.monotonic()
+    err = ""
+    if mesh.rank == 0:
+        try:
+            pmesh.all_reduce_sum(torch.ones(4), mesh)
+        except Exception as e:  # the group's timeout
+            err = type(e).__name__ + ": " + str(e)[:200]
+    else:
+        time.sleep(spec["sleep"])
+    return {"error": err, "waited": time.monotonic() - t0}
+
+
+CASES = {"engine": case_engine, "batches": case_batches, "hang": case_hang,
+         "replicas": case_replicas, "resume": case_resume}
+
+
+def main(argv):
+    case, rank, world, init_file, out, spec = argv
+    torch.set_num_threads(1)
+    spec = json.loads(spec)
+    pmesh.init_distributed(
+        num_processes=int(world), process_id=int(rank), device="cpu",
+        init_method=f"file://{init_file}",
+        timeout=datetime.timedelta(seconds=60),
+    )
+    mesh = pmesh.make_mesh(device="cpu")
+    result = CASES[case](spec, mesh)
+    result["collectives"] = json.dumps(dict(pmesh.COLLECTIVES))
+    result["backend"] = mesh.backend
+    np.savez(out, **result)
+    if case != "hang":
+        pmesh.shutdown()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
