@@ -112,6 +112,30 @@ Phases, in order (any failure exits non-zero):
    ``collectives_by_path`` line gives each phase's all-reduces beside
    those it must make.
 
+8. lambda split over the mesh's model axis (``parallel/lam_shard.py``;
+   ranks share the one card over gloo): ``shard_vocab_vb`` and
+   ``shard_topics_vb`` (the ragged flagship at mesh (1, 2): 3 + 3
+   iterations at pinned sweeps, the ELBOs and the first step's
+   sufficient statistics (Frobenius) held to dist_nccl1's one-process run
+   within DIST_REL, the gathered lambda compared, bitwise too; 3
+   iterations at default settings held at
+   tests/test_sharding.py's bars, and for the topic split 3 in bf16
+   held at BF16_ELBO_RTOL; each lambda block checked bitwise
+   across its data group and the blocks' tiling after every iteration;
+   the all-gather timed), ``shard_vocab_vb_2x2`` (mesh (2, 2), four
+   processes, pinned sweeps), ``shard_vocab_svi5`` (config 5 at (1, 2):
+   two epochs at its defaults and at pinned sweeps, one in bf16, each
+   held to its one-process run on the card) and ``cli_shard`` (config 1
+   through the CLI in two processes with ``--mesh 1,2`` and each flag,
+   model-6 held to ``cli_dist``'s one-process model and read by the test
+   and infer CLIs); every run's launches and collectives (each checked
+   against those it must make) join ``launches_by_path`` and
+   ``collectives_by_path``, and the topic split's paths must launch the
+   sstats kernel's topic range (``dense_sstats_range``).  The kernel
+   lines add that range launch, float32 and bf16, at the ragged
+   flagship's chunk and config 5's, each half of the topics: bitwise
+   equal to the full launch's rows, against the plain version's range.
+
 Beside those phases:
 
 - ``vb_gamma_init``: batch VB at each flagship from each random
@@ -134,7 +158,8 @@ Beside those phases:
 
 The line before the kernels' record gives the card's name and power
 limit; before it, ``scatter:``, ``roofline:``, ``native:`` and ``dist:``
-lines hold those phases' numbers.
+lines hold those phases' numbers (``shard:`` the lambda-sharding
+phases').
 
 The line before the last is the kernels' JSON record (the bf16 builds
 as ``<kernel>_bf16``; ``launches_by_path`` names each main path); the
@@ -369,6 +394,23 @@ def pinned_check(run, K):
                 f"{'ok' if ok else 'FAIL'}")
 
 
+def sstats_agree(ss, ss_p, compute_dtype):
+    """(the entries within the sstats bars, the largest error, the
+    entries past the float32 tolerance SSTATS_RTOL |ref| + SSTATS_ATOL_REL
+    max |ref|): in float32 none may be past it; in bf16 at most
+    BF16_FLIP_ENTRIES of them, each within BF16_FLIP_RTOL |ref| + that
+    atol (ratios rounded one bf16 ulp apart)."""
+    diff = (ss - ss_p).abs()
+    atol = SSTATS_ATOL_REL * float(ss_p.abs().max())
+    off = diff > SSTATS_RTOL * ss_p.abs() + atol
+    if compute_dtype == BF16:
+        ok = float(off.float().mean()) <= BF16_FLIP_ENTRIES and bool(
+            (diff <= BF16_FLIP_RTOL * ss_p.abs() + atol).all())
+    else:
+        ok = not bool(off.any())
+    return ok, float(diff.max()), off
+
+
 def sstats_check(label, counts, et, eeb, eps, sstats_mod, plain,
                  compute_dtype="float32") -> dict:
     """The dense sstats kernel (the build of ``compute_dtype``) against its
@@ -382,23 +424,15 @@ def sstats_check(label, counts, et, eeb, eps, sstats_mod, plain,
     ss_p, tok_p = plain(counts, et, eeb, **mode)
     torch.cuda.synchronize()
     same = torch.equal(ss_k, ss_k2) and torch.equal(tok_k, tok_k2)
-    diff = (ss_k - ss_p).abs()
-    err = float(diff.max())
-    atol = SSTATS_ATOL_REL * float(ss_p.abs().max())
-    off = diff > SSTATS_RTOL * ss_p.abs() + atol
+    ok, err, off = sstats_agree(ss_k, ss_p, compute_dtype)
     tok_rel = abs(float(tok_k) - float(tok_p)) / abs(float(tok_p))
-    ok = tok_rel <= SCORE_RTOL
+    ok = ok and tok_rel <= SCORE_RTOL
     flips = ""
     if compute_dtype == BF16:
-        frac = float(off.float().mean())
-        ok = ok and frac <= BF16_FLIP_ENTRIES and bool(
-            (diff <= BF16_FLIP_RTOL * ss_p.abs() + atol).all())
         flips = (f", entries past the float32 tolerance {int(off.sum())} "
-                 f"({frac:.2e} of them; at most {BF16_FLIP_ENTRIES}, each "
-                 f"within {BF16_FLIP_RTOL:g}*|ref|: ratios rounded one bf16 "
-                 f"ulp apart)")
-    else:
-        ok = ok and not bool(off.any())
+                 f"({float(off.float().mean()):.2e} of them; at most "
+                 f"{BF16_FLIP_ENTRIES}, each within {BF16_FLIP_RTOL:g}*|ref|: "
+                 f"ratios rounded one bf16 ulp apart)")
     D, Vc = counts.shape
     K, V = eeb.shape
     # phinorm and the ratio are needed only where a count is nonzero, and
@@ -432,6 +466,63 @@ def sstats_check(label, counts, et, eeb, eps, sstats_mod, plain,
             "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
             "dense_form_bound_ms": dense_ms, "columns_a_tile": pl.cols,
             "splits": pl.splits, "scratch_bytes": pl.scratch_bytes}
+
+
+def sstats_range_check(label, counts, et, eeb, eps, sstats_mod, plain,
+                       compute_dtype="float32") -> list:
+    """The dense sstats kernel's topic-range launch (lambda split over
+    topics) on one input, at each half of [0, K): its rows bitwise equal
+    to the full launch's rows and its score to the full score, two calls
+    bitwise equal, and against the plain version's range at
+    ``sstats_check``'s tolerances; times and bounds beside the full
+    launch's.  Raises if it disagrees; returns a record a half."""
+    import torch
+
+    mode = dict(eps=eps, compute_dtype=compute_dtype)
+    D, Vc = counts.shape
+    K, V = eeb.shape
+    ss_f, tok_f = sstats_mod.dense_sstats(counts, et, eeb, **mode)
+    full_ms = cuda_ms(lambda: sstats_mod.dense_sstats(counts, et, eeb,
+                                                      **mode), 20)
+    nnz = int((counts != 0).sum())
+    suffix = "" if compute_dtype == "float32" else "_bf16"
+    out = []
+    for k0, k1 in ((0, K // 2), (K // 2, K)):
+        rng = dict(mode, topic_range=(k0, k1))
+        ss, tok = sstats_mod.dense_sstats(counts, et, eeb, **rng)
+        ss2, tok2 = sstats_mod.dense_sstats(counts, et, eeb, **rng)
+        ss_p, tok_p = plain(counts, et, eeb, **rng)
+        torch.cuda.synchronize()
+        bitwise = (torch.equal(ss, ss_f[k0:k1]) and torch.equal(tok, tok_f)
+                   and torch.equal(ss, ss2) and torch.equal(tok, tok2))
+        ok, err, _ = sstats_agree(ss, ss_p, compute_dtype)
+        ok = ok and (abs(float(tok) - float(tok_p))
+                     <= SCORE_RTOL * abs(float(tok_p)))
+        # phinorm over all K topics and the sums over the range's: 2 K +
+        # 2 (k1 - k0) FLOP a nonzero; the counts, expEtheta and
+        # expElogbeta read once, the range's rows written once.
+        nbytes = (counts.numel() * counts.element_size() + D * K * 4
+                  + K * V * 4 + (k1 - k0) * V * 4 + 4)
+        b_ms, b_by = bound((2.0 * K + 2.0 * (k1 - k0)) * nnz, nbytes,
+                           compute_dtype)
+        k_ms = cuda_ms(lambda: sstats_mod.dense_sstats(counts, et, eeb,
+                                                       **rng), 20)
+        p_ms = cuda_ms(lambda: plain(counts, et, eeb, **rng), 20)
+        print(f"kernel dense_sstats_range{suffix} {label} [{D}x{Vc}, K={K}, "
+              f"topics {k0}..{k1 - 1}]: kernel_ms {k_ms:.4f} (full range "
+              f"{full_ms:.4f}) plain_ms {p_ms:.4f} bound_ms {b_ms:.5f} "
+              f"({b_by}), max_abs_err {err:.3e}, rows and score bitwise equal "
+              f"to the full launch's and over two calls {bitwise} "
+              f"{'ok' if ok and bitwise else 'FAIL'}")
+        if not (ok and bitwise):
+            raise AssertionError(f"dense_sstats topic range {k0}..{k1} "
+                                 f"({label}) disagrees")
+        out.append({"name": label, "shape": [D, Vc], "K": K,
+                    "topic_range": [k0, k1], "max_abs_err": err, "ms": k_ms,
+                    "full_range_ms": full_ms, "plain_ms": p_ms,
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "bitwise_to_full": bitwise})
+    return out
 
 
 def ragged_checks(label, batches, eeb, eeb_t, alpha, kw, gamma_atol, dev,
@@ -765,15 +856,22 @@ def dense_checks_bf16(label, corpus, beta, cfg, dev, f32_line):
 def zero_launches(mods) -> None:
     for mod in mods.values():
         mod.LAUNCHES = mod.BF16_LAUNCHES = 0
+        if hasattr(mod, "RANGE_LAUNCHES"):
+            mod.RANGE_LAUNCHES = mod.BF16_RANGE_LAUNCHES = 0
 
 
 def read_launches(mods) -> dict:
     """Each kernel's launches of its float32 build (its name) and of its
-    bf16 build (its name + "_bf16")."""
+    bf16 build (its name + "_bf16"); for the sstats kernel also its
+    topic-range launches ("dense_sstats_range", "dense_sstats_range_bf16",
+    counted in its builds' launches too)."""
     out = {}
     for name, mod in mods.items():
         out[name] = mod.LAUNCHES
         out[f"{name}_bf16"] = mod.BF16_LAUNCHES
+        if hasattr(mod, "RANGE_LAUNCHES"):
+            out[f"{name}_range"] = mod.RANGE_LAUNCHES
+            out[f"{name}_range_bf16"] = mod.BF16_RANGE_LAUNCHES
     return out
 
 
@@ -940,7 +1038,8 @@ def dense_checks(label, corpus, beta, cfg, dev, pinned=False):
             "streamed_rows": streamed, "doc_bound_rel_err": bound_err}, fin
 
 
-def svi_kernel_lines(label, corpus, beta, cfg, dev, bf16=False):
+def svi_kernel_lines(label, corpus, beta, cfg, dev, bf16=False,
+                     range_lines=None):
     """The ragged gamma and dense sstats kernels at one SVI config's
     shapes: the first minibatch of epoch 0, gathered from the
     device-resident rows at minibatch-local positions, at a sharpened
@@ -948,7 +1047,8 @@ def svi_kernel_lines(label, corpus, beta, cfg, dev, bf16=False):
     the first counts chunk at the plain gammas.  Returns their records;
     with ``bf16`` also those of the bf16 builds on the same minibatch
     (``ragged_checks_bf16``, sstats at the bf16 plain gammas), else
-    None for them."""
+    None for them.  ``range_lines`` (a dict of lists by build) gets the
+    topic-range sstats records on the same chunk."""
     import numpy as np
     import torch
 
@@ -992,6 +1092,11 @@ def svi_kernel_lines(label, corpus, beta, cfg, dev, bf16=False):
     ss = sstats_check(f"{label} minibatch", counts,
                       exp_dirichlet_expectation(gamma_docs)[cidx], eeb,
                       cfg.eps, sstats_mod, estep_dense_sstats)
+    if range_lines is not None:
+        range_lines["float32"] += sstats_range_check(
+            f"{label} minibatch", counts,
+            exp_dirichlet_expectation(gamma_docs)[cidx], eeb, cfg.eps,
+            sstats_mod, estep_dense_sstats)
     if not bf16:
         return rg, ss, None, None
     del rows_plain, gamma_docs, eeb_t
@@ -1006,6 +1111,11 @@ def svi_kernel_lines(label, corpus, beta, cfg, dev, bf16=False):
                         exp_dirichlet_expectation(gamma_docs)[cidx], eeb,
                         cfg.eps, sstats_mod, estep_dense_sstats,
                         compute_dtype=BF16)
+    if range_lines is not None:
+        range_lines[BF16] += sstats_range_check(
+            f"{label} minibatch", counts,
+            exp_dirichlet_expectation(gamma_docs)[cidx], eeb, cfg.eps,
+            sstats_mod, estep_dense_sstats, compute_dtype=BF16)
     return rg, ss, rg16, ss16
 
 
@@ -2165,6 +2275,9 @@ DIST_RANK_LIMIT, DIST_GROUP_TIMEOUT = 600, 300
 # packed doc-level scalars), n_kv and the doc side a Gibbs sweep (and n_kv
 # once at initialize).
 DIST_SVI5_MINIBATCHES = 4  # an epoch: 4096 documents a rank, 1024 a minibatch
+# ... and of the corpus whole on every rank of a model group: 8192
+# documents, 2048 a minibatch.
+DIST_SVI5_MINIBATCHES_WHOLE = 4
 
 
 def dist_cfg(name: str):
@@ -2378,11 +2491,198 @@ def dist_sampling(label, name, mesh, dev, mods) -> dict:
     return out
 
 
+# Lambda split over the model axis (``--shard_vocab`` / ``--shard_topics``):
+# the ragged flagship at mesh (1, 2) and (2, 2), config 5 at (1, 2).  Its
+# default-settings runs are held to one process at tests/test_sharding.py's
+# bars: batch VB ELBO rel 1e-4 and topic-word atol 3e-3 (:74, :90), SVI
+# estimates rel 1e-3 and lambda rtol 5e-3 atol 1e-5 (:188), and at pinned
+# sweeps rel 1e-4 and rtol 2e-4 (:211); batch VB at pinned sweeps within
+# DIST_REL (ELBOs and the gathered lambda), SVI in bf16 at BF16_ELBO_RTOL.
+SHARD_VB_ELBO_REL, SHARD_TWD_ATOL = 1e-4, 3e-3
+SHARD_SVI_EST_REL, SHARD_SVI_LAM_RTOL, SHARD_SVI_LAM_ATOL = 1e-3, 5e-3, 1e-5
+SHARD_SVI_PINNED_REL, SHARD_SVI_PINNED_RTOL = 1e-4, 2e-4
+SHARD_DEFAULT_ITERS = 3
+
+
+def shard_cfg(name: str, mode: str, shape, **kw):
+    """A shard phase's config: ``dist_cfg(name)`` (pinned batch VB, or
+    config 5 SVI at its defaults) with the flag of ``mode`` and the mesh,
+    then ``kw``."""
+    return dataclasses.replace(
+        dist_cfg(name), mesh_shape=tuple(shape),
+        **{"shard_vocab" if mode == "vocab" else "shard_topics": True}, **kw)
+
+
+def shard_collectives(mode: str, steps: int, ends: int, checks: int) -> dict:
+    """The collectives a shard run must make: a step (a batch-VB iteration
+    or an SVI minibatch) gathers expElogbeta once and all-reduces the
+    sufficient statistics and the packed doc-level terms over the data
+    group, and under ``shard_vocab`` the row sums and the token score over
+    the model group; the bound's topic side (an iteration's, an epoch's
+    end) all-reduces its part (and the row sums again under
+    ``shard_vocab``); each replica check gathers checksums and block
+    shapes (two host gathers)."""
+    vocab = mode == "vocab"
+    return {"all_reduce": steps * (4 if vocab else 2) + ends * (2 if vocab
+                                                                 else 1),
+            "all_gather": steps + 2 * checks}
+
+
+def shard_vb(label, mode, mesh, dev, mods) -> dict:
+    """Batch VB at the ragged flagship with lambda split over the model
+    group: at pinned sweeps DIST_ITERS learning() calls (each lambda block
+    checked bitwise across its data group and the blocks' tiling after
+    each) and DIST_TIMED timed in learning_many, then phase_timings'
+    all-reduce and all-gather; at default settings (mesh (1, M) only)
+    SHARD_DEFAULT_ITERS learning() calls, and as many in bf16 for
+    ``shard_topics``.  Each run's launches and
+    collectives are zeroed just before and read just after; rank 0 saves
+    the gathered lambdas."""
+    import torch
+
+    from pylda_tpu_torch.models import VariationalBayes
+    from pylda_tpu_torch.parallel import mesh as pmesh
+
+    corpus, _ = dist_corpus("vb")
+    shape = (mesh.data, mesh.model)
+    runs = [("pinned", shard_cfg("vb", mode, shape))]
+    if mesh.data == 1:
+        runs.append(("default", shard_cfg(
+            "vb", mode, shape, convergence_threshold=1e-5)))
+    if mesh.data == 1 and mode == "topics":
+        # The topic range's bf16 build on its main path.
+        runs.append(("bf16", shard_cfg("vb", mode, shape,
+                                       convergence_threshold=1e-5,
+                                       compute_dtype=BF16)))
+    out = {}
+    for name, cfg in runs:
+        torch.cuda.reset_peak_memory_stats(dev)
+        eng = VariationalBayes(cfg, device=dev)
+        eng.initialize(corpus, lam_init=dist_lam0(cfg, V), mesh=mesh)
+        zero_launches(mods)
+        pmesh.COLLECTIVES.clear()
+        iters = DIST_ITERS if name == "pinned" else SHARD_DEFAULT_ITERS
+        objs, sstats1 = [], None
+        for i in range(iters):
+            objs.append(eng.learning())
+            pmesh.assert_replicas_consistent(eng.state, mesh, sharded=("lam",),
+                                             full_shape=(K, V))
+            if i == 0 and name == "pinned":
+                # The first step's sufficient statistics, gathered.
+                sstats1 = (eng.gathered_lam() - eng.state.eta[None, :]).cpu()
+        r = {}
+        if name == "pinned":
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            objs += eng.learning_many(DIST_TIMED)
+            torch.cuda.synchronize()
+            r["ms_per_iteration"] = (time.perf_counter() - t0) / DIST_TIMED * 1e3
+        steps = len(objs)
+        # The gather of the first step's sstats is the test's own.
+        gathers = steps + 2 * iters + (sstats1 is not None)
+        r.update(objs=objs, launches=read_launches(mods),
+                 collectives=dict(pmesh.COLLECTIVES),
+                 expected={**shard_collectives(mode, steps, steps, iters),
+                           "all_gather": gathers},
+                 block=list(eng.state.lam.shape),
+                 peak_mib=torch.cuda.max_memory_allocated(dev) / 2**20)
+        lam = eng.gathered_lam()
+        r["lam_sum"] = float(lam.double().sum())
+        if name == "pinned":
+            t = eng.phase_timings(DIST_TIMING_REPEATS)
+            r.update({k: t[k] for k in ("allreduce_ms", "allreduce_bytes",
+                                        "allgather_ms", "allgather_bytes")})
+        if mesh.rank == 0:
+            torch.save(lam.cpu(), DIST_DIR / f"{label.split()[0]}_{name}.pt")
+            if sstats1 is not None:
+                torch.save(sstats1, DIST_DIR / f"{label.split()[0]}_sstats1.pt")
+        print(f"{label} {name}: {len(objs)} iterations, blocks {r['block']}, "
+              f"ELBOs {[round(e, 1) for e in objs]}, collectives "
+              f"{r['collectives']} (expected {r['expected']})"
+              + (f", {r['ms_per_iteration']:.3f} ms an iteration "
+                 f"(learning_many), all-gather of {r['allgather_bytes']} bytes "
+                 f"{r['allgather_ms']:.3f} ms, all-reduce of "
+                 f"{r['allreduce_bytes']} bytes {r['allreduce_ms']:.3f} ms"
+                 if name == "pinned" else "")
+              + f", peak {r['peak_mib']:.1f} MiB")
+        out[name] = r
+        del eng, lam
+    return out
+
+
+def shard_svi5(label, mode, mesh, dev, mods) -> dict:
+    """SVI config 5 with lambda split over the model group (the corpus
+    whole on each rank: the one-process schedule): two epochs (learning(),
+    the blocks checked, then learning_many(1) timed) at its defaults and
+    at pinned sweeps, one epoch in bf16; then phase_timings' minibatch,
+    all-reduce and all-gather.  Rank 0 saves each run's gathered
+    lambda."""
+    import torch
+
+    from pylda_tpu_torch.models import StochasticVariationalBayes
+    from pylda_tpu_torch.parallel import mesh as pmesh
+
+    corpus, _ = dist_corpus("svi5")
+    shape = (mesh.data, mesh.model)
+    runs = (("default", shard_cfg("svi5", mode, shape), 2),
+            ("pinned", shard_cfg("svi5", mode, shape,
+                                 convergence_threshold=0.0), 2),
+            ("bf16", shard_cfg("svi5", mode, shape, compute_dtype=BF16), 1))
+    out = {}
+    for name, cfg, epochs in runs:
+        torch.cuda.reset_peak_memory_stats(dev)
+        eng = StochasticVariationalBayes(cfg, device=dev)
+        eng.initialize(corpus, lam_init=dist_lam0(cfg, SVI5["V"]), mesh=mesh)
+        zero_launches(mods)
+        pmesh.COLLECTIVES.clear()
+        objs = [eng.learning()]
+        pmesh.assert_replicas_consistent(
+            eng.state, mesh, sharded=("lam",),
+            full_shape=(SVI5["K"], SVI5["V"]))
+        r = {}
+        if epochs == 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            objs += eng.learning_many(1)
+            torch.cuda.synchronize()
+            r["epoch_s"] = time.perf_counter() - t0
+        r.update(objs=objs, launches=read_launches(mods),
+                 collectives=dict(pmesh.COLLECTIVES),
+                 expected=shard_collectives(
+                     mode, epochs * DIST_SVI5_MINIBATCHES_WHOLE, epochs, 1),
+                 block=list(eng.state.lam.shape),
+                 peak_mib=torch.cuda.max_memory_allocated(dev) / 2**20)
+        lam = eng.gathered_lam()
+        r["lam_sum"] = float(lam.double().sum())
+        if name == "default":
+            t = eng.phase_timings(DIST_TIMING_REPEATS)
+            r.update({k: t[k] for k in (
+                "svi_minibatch_ms", "allreduce_ms", "allreduce_bytes",
+                "allgather_ms", "allgather_bytes")})
+        if mesh.rank == 0:
+            torch.save(lam.cpu(), DIST_DIR / f"{label.split()[0]}_{name}.pt")
+        print(f"{label} {name}: {len(objs)} epoch(s), blocks {r['block']}, "
+              f"estimates {[round(e, 1) for e in objs]}, collectives "
+              f"{r['collectives']} (expected {r['expected']})"
+              + (f", the second epoch {r['epoch_s']:.4f} s" if epochs == 2
+                 else "")
+              + (f", a minibatch {r['svi_minibatch_ms']:.3f} ms, all-gather "
+                 f"of {r['allgather_bytes']} bytes {r['allgather_ms']:.3f} "
+                 f"ms, all-reduce of {r['allreduce_bytes']} bytes "
+                 f"{r['allreduce_ms']:.3f} ms" if name == "default" else "")
+              + f", peak {r['peak_mib']:.1f} MiB")
+        out[name] = r
+        del eng, lam
+        torch.cuda.empty_cache()
+    return out
+
+
 def dist_rank(argv) -> int:
-    """One rank of the two-process phases (``--dist-rank RANK WORLD
-    RENDEZVOUS OUT PHASES``): joins the group on the card (NCCL with a card
-    a rank, else gloo), runs each phase, writes its numbers to
-    OUT/rank<RANK>.json and, for batch VB, its tensors to OUT."""
+    """One rank of the multi-process phases (``--dist-rank RANK WORLD
+    RENDEZVOUS OUT PHASES MESH``): joins the group on the card (NCCL with
+    a card a rank, else gloo), makes the mesh MESH ("D,M"), runs each
+    phase, writes its numbers to OUT/rank<RANK>.json and, for batch VB,
+    its tensors to OUT."""
     import datetime
 
     import torch
@@ -2392,20 +2692,20 @@ def dist_rank(argv) -> int:
     from pylda_tpu_torch.ops import sstats as sstats_mod
     from pylda_tpu_torch.parallel import mesh as pmesh
 
-    rank, world, rendezvous, out_dir, phases = argv
+    rank, world, rendezvous, out_dir, phases, shape = argv
     rank, world, out_dir = int(rank), int(world), pathlib.Path(out_dir)
     torch.backends.cuda.matmul.allow_tf32 = False
     backend = pmesh.init_distributed(
         num_processes=world, process_id=rank, device="cuda",
         init_method=f"file://{rendezvous}",
         timeout=datetime.timedelta(seconds=DIST_GROUP_TIMEOUT))
-    mesh = pmesh.make_mesh()
+    mesh = pmesh.make_mesh(tuple(int(x) for x in shape.split(",")))
     dev = mesh.device
     mods = {"dense_gamma": dense_mod, "dense_sstats": sstats_mod,
             "ragged_gamma": ragged_mod}
     results = {"backend": backend, "device": str(dev)}
     for name in phases.split(","):
-        label = f"{name} rank {rank}/{world} ({backend})"
+        label = f"{name} rank {rank}/{world} ({backend}, mesh {shape})"
         if name == "vb":
             r = dist_vb(label, mesh, dev, mods)
             torch.save({k: r.pop(k).cpu() for k in ("sstats1", "lam")},
@@ -2413,6 +2713,10 @@ def dist_rank(argv) -> int:
         elif name == "svi5":
             r = dist_svi5(label, mesh, dev, mods)
             del r["lam"]
+        elif name.startswith("shard_"):
+            mode = name.split("_")[1]
+            fn = shard_svi5 if "svi5" in name else shard_vb
+            r = fn(label, mode, mesh, dev, mods)
         else:
             r = dist_sampling(label, name, mesh, dev, mods)
         results[name] = r
@@ -2436,17 +2740,19 @@ def wait_all(procs) -> list:
     return outs
 
 
-def run_rank_pair(out_dir: pathlib.Path, phases: str) -> list:
-    """Two ranks of this script (``dist_rank``) on the card(s); returns
-    each rank's results.  A rank that fails, or outlives DIST_RANK_LIMIT,
-    fails the run."""
+def run_ranks(out_dir: pathlib.Path, phases: str, shape=(2, 1)) -> list:
+    """D * M ranks of this script (``dist_rank``) on the card(s) on a mesh
+    ``shape`` (D, M); returns each rank's results.  A rank that fails, or
+    outlives DIST_RANK_LIMIT, fails the run."""
     shutil.rmtree(out_dir, ignore_errors=True)
     out_dir.mkdir(parents=True)
+    world = shape[0] * shape[1]
     procs = [subprocess.Popen(
         [sys.executable, str(REPO / "chip_smoke.py"), "--dist-rank", str(r),
-         "2", str(out_dir / "rendezvous"), str(out_dir), phases],
+         str(world), str(out_dir / "rendezvous"), str(out_dir), phases,
+         f"{shape[0]},{shape[1]}"],
         cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for r in range(2)]
+        text=True) for r in range(world)]
     outs = wait_all(procs)
     for r, (p, out) in enumerate(zip(procs, outs)):
         for line in out.splitlines():
@@ -2455,15 +2761,16 @@ def run_rank_pair(out_dir: pathlib.Path, phases: str) -> list:
             raise AssertionError(f"rank {r} of {phases} exited "
                                  f"{p.returncode}")
     return [json.loads((out_dir / f"rank{r}.json").read_text())
-            for r in range(2)]
+            for r in range(world)]
 
 
 def hold_ranks(label, ranks, name, keys=("objs", "lam_sum")) -> None:
-    """Both ranks' replicated numbers the same bits."""
+    """Every rank's replicated numbers the same bits."""
     for k in keys:
-        if ranks[0][name][k] != ranks[1][name][k]:
-            raise AssertionError(f"{label}: ranks differ in {k}: "
-                                 f"{ranks[0][name][k]} / {ranks[1][name][k]}")
+        for r in ranks[1:]:
+            if r[name][k] != ranks[0][name][k]:
+                raise AssertionError(f"{label}: ranks differ in {k}: "
+                                     f"{ranks[0][name][k]} / {r[name][k]}")
 
 
 def hold_vb_to_one(label, out_dir, ranks, ref) -> dict:
@@ -2500,6 +2807,8 @@ counts = {}
 for name, mod in mods.items():
     counts[name] = mod.LAUNCHES
     counts[name + "_bf16"] = mod.BF16_LAUNCHES
+counts["dense_sstats_range"] = sstats.RANGE_LAUNCHES
+counts["dense_sstats_range_bf16"] = sstats.BF16_RANGE_LAUNCHES
 print("LAUNCHES " + json.dumps(counts), flush=True)
 sys.exit(rc)
 """
@@ -2562,6 +2871,336 @@ def cli_dist(smi: str) -> dict:
     return {"lam_rel": rel, "wall_s": wall, "launches": launches}
 
 
+def cli_shard(smi: str) -> dict:
+    """The config-1 CLI in two processes with ``--mesh 1,2`` and
+    ``--shard_vocab``, and in two more with ``--shard_topics``, all four
+    at once (``--process_sharded_input``: a model group reads one block);
+    each model-6 (the whole lambda, rank 0's file) held to ``cli_dist``'s
+    one-process model within CLI_DIST_REL, then read by the test and infer
+    CLIs in this process on the card.  Returns each run's ranks'
+    launches."""
+    import socket
+
+    import numpy as np
+    import torch
+
+    from pylda_tpu_torch.cli.infer import main as infer_main
+    from pylda_tpu_torch.cli.test import main as test_main
+    from pylda_tpu_torch.corpus.datasets import bundled_corpus_dir
+
+    out = DIST_DIR / "cli_shard"
+    shutil.rmtree(out, ignore_errors=True)
+    procs, t0 = {}, time.perf_counter()
+    for mode in ("vocab", "topics"):
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        procs[mode] = [subprocess.Popen(
+            [sys.executable, "-c", CLI_WITH_LAUNCHES,
+             f"--input_directory={bundled_corpus_dir()}",
+             f"--output_directory={out / mode}", "--number_of_topics=10",
+             "--training_iterations=6", "--snapshot_interval=6",
+             "--estep_stall_patience=0",
+             f"--coordinator_address=127.0.0.1:{port}", "--num_processes=2",
+             f"--process_id={r}", "--process_sharded_input", "--mesh=1,2",
+             f"--shard_{mode}"],
+            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for r in range(2)]
+    outs = dict(zip(procs, (wait_all(p) for p in procs.values())))
+    wall = time.perf_counter() - t0
+    one = sorted((DIST_DIR / "cli" / "one").glob("*/*/model-6"))
+    lam_one = torch.as_tensor(np.load(one[0])["lam"])
+    res = {"wall_s": wall}
+    docs = out / "docs.txt"
+    docs.write_text("government election vote\nrain snow storm\n")
+    for mode, ps in procs.items():
+        for p, o in zip(ps, outs[mode]):
+            if p.returncode != 0:
+                raise AssertionError(f"cli_shard {mode}: a process exited "
+                                     f"{p.returncode}:\n{o[-3000:]}")
+        model = sorted((out / mode).glob("*/*/model-6"))
+        lam = torch.as_tensor(np.load(model[0])["lam"])
+        rel = norm_rel(lam, lam_one)
+        rc_test = test_main([f"--model={model[0]}",
+                             f"--input_directory={bundled_corpus_dir()}",
+                             f"--output_file={out / mode / 'gamma.out'}",
+                             "--point_estimate"])
+        rc_infer = infer_main([f"--model={model[0]}", f"--input={docs}",
+                               f"--output={out / mode / 'mix.tsv'}"])
+        ok = (len(model) == 1 and tuple(lam.shape) == tuple(lam_one.shape)
+              and rel <= CLI_DIST_REL and rc_test == 0 and rc_infer == 0)
+        print(f"cli_shard {mode}: config-1 CLI, 2 processes on {smi} "
+              f"(--mesh 1,2 --shard_{mode}): model-6 lambda {tuple(lam.shape)}"
+              f" rel {rel:.3e} to the one-process CLI's (tolerance "
+              f"{CLI_DIST_REL}); test CLI rc {rc_test}, infer CLI rc "
+              f"{rc_infer} on it {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"cli_shard {mode}: the model disagrees or "
+                                 f"a CLI failed on it")
+        res[mode] = {"lam_rel": rel, "launches": [
+            json.loads(o.rsplit("LAUNCHES ", 1)[1].splitlines()[0])
+            for o in outs[mode]]}
+    print(f"cli_shard: the four processes in {wall:.2f} s")
+    return res
+
+
+def topic_words(lam):
+    """The topic-word matrix of ``topic_word_distribution`` from a lambda
+    tensor (float64 on the host)."""
+    import numpy as np
+    from scipy.special import psi
+
+    lam = lam.double().numpy()
+    elog = psi(lam) - psi(lam.sum(axis=1, keepdims=True))
+    e = np.exp(elog - elog.max(axis=1, keepdims=True))
+    return e / e.sum(axis=1, keepdims=True)
+
+
+@contextlib.contextmanager
+def row_sums_in_blocks(M: int):
+    """One process's expElogbeta with each topic's row sum taken as the
+    sum of its M column blocks' sums (``block_bounds``, each block summed
+    as a contiguous tensor, the sums added in block order), as a
+    ``shard_vocab`` model group of M ranks takes it: the reference whose
+    expElogbeta is the sharded run's bit for bit.  Past the first sweeps
+    an ulp of a row sum moves the rows that stall at pinned sweeps, so
+    the plain one-process run is not that reference (its gap is
+    printed)."""
+    from pylda_tpu_torch.models import vb as vbmod
+    from pylda_tpu_torch.parallel.mesh import block_bounds
+
+    plain = vbmod.exp_dirichlet_expectation_fast
+
+    def blocked(x, row_sum=None):
+        if row_sum is None:
+            V_ = x.shape[-1]
+            row_sum = sum(x[:, lo:hi].contiguous().sum(dim=-1, keepdim=True)
+                          for lo, hi in (block_bounds(V_, m, M)
+                                         for m in range(M)))
+        return plain(x, row_sum)
+
+    vbmod.exp_dirichlet_expectation_fast = blocked
+    try:
+        yield
+    finally:
+        vbmod.exp_dirichlet_expectation_fast = plain
+
+
+def one_process_refs(dev, mods) -> dict:
+    """The one-process runs on the card the shard phases are held to
+    (beside dist_nccl1's): batch VB at the ragged flagship at pinned
+    sweeps with its row sums in two blocks (``row_sums_in_blocks``; 3 + 3
+    iterations) and at default settings (SHARD_DEFAULT_ITERS learning()
+    calls, in float32 and in bf16), config 5 SVI at pinned sweeps (two epochs) and in bf16 (one),
+    each from dist_lam0; objectives, lambda and the first step's
+    sufficient statistics on the host."""
+    import torch
+
+    from pylda_tpu_torch.models import (
+        StochasticVariationalBayes,
+        VariationalBayes,
+    )
+
+    refs = {}
+    with row_sums_in_blocks(2):
+        r = dist_vb("one process, row sums in two blocks", None, dev, mods)
+    refs["vb_pinned_blocked"] = {k: (r[k].cpu() if k != "objs" else r[k])
+                                 for k in ("objs", "lam", "sstats1")}
+    cfg = dataclasses.replace(dist_cfg("vb"), convergence_threshold=1e-5)
+    eng = VariationalBayes(cfg, device=dev)
+    eng.initialize(dist_corpus("vb")[0], lam_init=dist_lam0(cfg, V))
+    refs["vb_default"] = {"objs": [eng.learning()
+                                   for _ in range(SHARD_DEFAULT_ITERS)],
+                          "lam": eng.state.lam.cpu()}
+    eng = VariationalBayes(dataclasses.replace(cfg, compute_dtype=BF16),
+                           device=dev)
+    eng.initialize(dist_corpus("vb")[0], lam_init=dist_lam0(cfg, V))
+    refs["vb_bf16"] = {"objs": [eng.learning()
+                                for _ in range(SHARD_DEFAULT_ITERS)],
+                       "lam": eng.state.lam.cpu()}
+    for name, kw, epochs in (("svi5_pinned", {"convergence_threshold": 0.0},
+                              2), ("svi5_bf16", {"compute_dtype": BF16}, 1)):
+        cfg = dataclasses.replace(dist_cfg("svi5"), **kw)
+        eng = StochasticVariationalBayes(cfg, device=dev)
+        eng.initialize(dist_corpus("svi5")[0],
+                       lam_init=dist_lam0(cfg, SVI5["V"]))
+        objs = [eng.learning()] + eng.learning_many(epochs - 1)
+        refs[name] = {"objs": objs, "lam": eng.state.lam.cpu()}
+        del eng
+        torch.cuda.empty_cache()
+    print(f"one-process references: {json.dumps({k: v['objs'] for k, v in refs.items()})}")
+    return refs
+
+
+def fro_rel(got, want) -> float:
+    """||got - want|| / ||want|| (Frobenius, in float64): the measure of
+    ``tests/torch_dist.py::norm_rel``."""
+    return float((got.double() - want.double()).norm() / want.double().norm())
+
+
+def hold_shard(label, got: dict, lam, ref: dict, elbo_rel: float,
+               sstats1=None, rtol=None, atol=0.0, twd_atol=None, also=None):
+    """A shard run (rank 0's objectives, its gathered lambda) against one
+    process: each objective within ``elbo_rel``; the first step's
+    sufficient statistics within ``sstats1`` (the largest entry's error
+    relative to the largest entry; Frobenius printed beside it, and
+    lambda after the last step: past a step the float32 ulps of a
+    perturbed expElogbeta are amplified by the rows that stall at pinned
+    sweeps, ROADMAP Queue 3); every entry of lambda within ``rtol`` |ref|
+    + ``atol``; the topic-word matrices within ``twd_atol``.  ``also``:
+    another one-process run (the plain one where ``ref`` takes the row
+    sums in blocks) whose gaps are printed, and theirs to ``ref``.
+    Returns (numbers, ok)."""
+    import torch
+
+    elbo = max(abs(a - b) / abs(b) for a, b in zip(got["objs"], ref["objs"]))
+    out = {"elbo_rel": elbo, "lam_rel": norm_rel(lam, ref["lam"]),
+           "lam_fro_rel": fro_rel(lam, ref["lam"])}
+    ok = len(got["objs"]) == len(ref["objs"]) and elbo <= elbo_rel
+    text = (f"objectives rel {elbo:.3e} (tolerance {elbo_rel}), lambda after "
+            f"the last step rel {out['lam_rel']:.3e} (largest entry), "
+            f"{out['lam_fro_rel']:.3e} (Frobenius)")
+    if sstats1 is not None:
+        got1 = torch.load(DIST_DIR / f"{label.split()[0]}_sstats1.pt")
+        out["sstats1_rel"] = norm_rel(got1, ref["sstats1"])
+        out["sstats1_fro_rel"] = fro_rel(got1, ref["sstats1"])
+        out["sstats1_bitwise"] = bool(torch.equal(got1, ref["sstats1"]))
+        ok = ok and out["sstats1_rel"] <= sstats1
+        text += (f", the first step's sstats rel {out['sstats1_rel']:.3e} "
+                 f"(largest entry; tolerance {sstats1}), "
+                 f"{out['sstats1_fro_rel']:.3e} (Frobenius), bitwise "
+                 f"{out['sstats1_bitwise']}")
+        if also is not None:
+            out["plain_sstats1_rel"] = norm_rel(got1, also["sstats1"])
+            out["plain_sstats1_fro_rel"] = fro_rel(got1, also["sstats1"])
+            out["plain_elbo_rel"] = max(abs(a - b) / abs(b) for a, b in
+                                        zip(got["objs"], also["objs"]))
+            out["blocks_vs_plain_sstats1_fro_rel"] = fro_rel(
+                ref["sstats1"], also["sstats1"])
+            text += (f"; against the plain one process (row sums whole) "
+                     f"sstats rel {out['plain_sstats1_rel']:.3e} (largest "
+                     f"entry), {out['plain_sstats1_fro_rel']:.3e} "
+                     f"(Frobenius), objectives {out['plain_elbo_rel']:.3e}, "
+                     f"where one process with its row sums in blocks is "
+                     f"{out['blocks_vs_plain_sstats1_fro_rel']:.3e} "
+                     f"(Frobenius) from it")
+    if rtol is not None:
+        worst = float(((lam.double() - ref["lam"].double()).abs()
+                       - atol).div(ref["lam"].double().abs()).max())
+        out["lam_worst_rtol"] = worst
+        ok = ok and worst <= rtol
+        text += f", lambda worst (|diff| - {atol:g}) / |ref| {worst:.3e} " \
+                f"(tolerance rtol {rtol})"
+    if twd_atol is not None:
+        import numpy as np
+
+        out["twd_max_abs"] = float(np.abs(topic_words(lam)
+                                          - topic_words(ref["lam"])).max())
+        ok = ok and out["twd_max_abs"] <= twd_atol
+        text += f", topic-word max abs {out['twd_max_abs']:.3e} (tolerance " \
+                f"{twd_atol})"
+    out["lam_bitwise"] = bool(torch.equal(lam, ref["lam"]))
+    print(f"{label}: against one process on the card: {text}; lambda bitwise "
+          f"equal {out['lam_bitwise']} {'ok' if ok else 'FAIL'}")
+    return out, ok
+
+
+def shard_phases(mods, by_path: dict, coll: dict, refs: dict) -> dict:
+    """The lambda-sharding phases (module docstring): two ranks at mesh
+    (1, 2) over gloo on the card (``shard_vocab_vb``, ``shard_topics_vb``,
+    ``shard_vocab_svi5``), four at (2, 2) (``shard_vocab_vb_2x2``), each
+    run's launches and collectives checked and recorded, then each held to
+    its one-process run; and ``cli_shard``."""
+    import torch
+
+    smi = nvidia_smi()
+    res, failed = {}, []
+    ranks12 = run_ranks(DIST_DIR / "shard",
+                        "shard_vocab_vb,shard_topics_vb,shard_vocab_svi5",
+                        (1, 2))
+    ranks22 = run_ranks(DIST_DIR / "shard_2x2", "shard_vocab_vb_2x2", (2, 2))
+    holds = {
+        ("shard_vocab_vb", "pinned"): dict(ref=refs["vb_pinned_blocked"],
+                                           also=refs["vb_pinned"],
+                                           elbo_rel=DIST_REL,
+                                           sstats1=DIST_REL),
+        ("shard_topics_vb", "pinned"): dict(ref=refs["vb_pinned"],
+                                            elbo_rel=DIST_REL,
+                                            sstats1=DIST_REL),
+        ("shard_vocab_vb_2x2", "pinned"): dict(
+            ref=refs["vb_pinned_blocked"], also=refs["vb_pinned"],
+            elbo_rel=DIST_REL, sstats1=DIST_REL),
+        ("shard_vocab_vb", "default"): dict(ref=refs["vb_default"],
+                                            elbo_rel=SHARD_VB_ELBO_REL,
+                                            twd_atol=SHARD_TWD_ATOL),
+        ("shard_topics_vb", "default"): dict(ref=refs["vb_default"],
+                                             elbo_rel=SHARD_VB_ELBO_REL,
+                                             twd_atol=SHARD_TWD_ATOL),
+        ("shard_vocab_svi5", "default"): dict(
+            ref=refs["svi5_default"], elbo_rel=SHARD_SVI_EST_REL,
+            rtol=SHARD_SVI_LAM_RTOL, atol=SHARD_SVI_LAM_ATOL),
+        ("shard_vocab_svi5", "pinned"): dict(
+            ref=refs["svi5_pinned"], elbo_rel=SHARD_SVI_PINNED_REL,
+            rtol=SHARD_SVI_PINNED_RTOL),
+        ("shard_vocab_svi5", "bf16"): dict(ref=refs["svi5_bf16"],
+                                           elbo_rel=BF16_ELBO_RTOL),
+        ("shard_topics_vb", "bf16"): dict(ref=refs["vb_bf16"],
+                                          elbo_rel=BF16_ELBO_RTOL),
+    }
+    for (phase, run), hold in holds.items():
+        ranks = ranks22 if phase.endswith("2x2") else ranks12
+        label = f"{phase}_{run}"
+        if ranks[0]["backend"] != "gloo":
+            raise AssertionError(f"{label}: backend {ranks[0]['backend']}")
+        rows = [{phase: r[phase][run]} for r in ranks]
+        hold_ranks(label, rows, phase)
+        topics = "topics" in phase
+        suffix = "_bf16" if run == "bf16" else ""
+        needed = tuple(f"{k}{suffix}" for k in (
+            "ragged_gamma", "dense_sstats")
+            + (("dense_sstats_range",) if topics else ()))
+        for r, row in enumerate(rows):
+            got = row[phase]
+            check_launched(f"{label} rank {r}", got["launches"], needed,
+                           absent=() if topics else ("dense_sstats_range",
+                                                     "dense_sstats_range_bf16"))
+            by_path[f"{label}_rank{r}"] = got["launches"]
+            coll[f"{label}_rank{r}"] = {**got["collectives"],
+                                       "expected": got["expected"]}
+            if any(got["collectives"].get(k, 0) != n
+                   for k, n in got["expected"].items()):
+                raise AssertionError(f"{label}: rank {r} made "
+                                     f"{got['collectives']} collectives, not "
+                                     f"{got['expected']}")
+        lam = torch.load(DIST_DIR / f"{phase}_{run}.pt")
+        ref = hold.pop("ref")
+        numbers = {k: v for k, v in rows[0][phase].items()
+                   if k not in ("launches", "objs", "collectives",
+                                "expected")}
+        held, ok = hold_shard(f"{phase} {run} on {smi}", rows[0][phase],
+                              lam, ref, **hold)
+        numbers.update(held)
+        res[label] = numbers
+        if not ok:
+            failed.append(label)
+    # Every hold is printed before a failing one stops the run.
+    if failed:
+        print(f"shard: {json.dumps(res)}")
+        raise AssertionError(f"shard runs disagree with one process: "
+                             f"{failed}")
+    res["cli_shard"] = cli_shard(smi)
+    for mode in ("vocab", "topics"):
+        needed = ("dense_gamma", "dense_sstats") + (
+            ("dense_sstats_range",) if mode == "topics" else ())
+        for r, got in enumerate(res["cli_shard"][mode].pop("launches")):
+            check_launched(f"cli_shard_{mode} rank {r}", got, needed,
+                           absent=() if mode == "topics"
+                           else ("dense_sstats_range",))
+            by_path[f"cli_shard_{mode}_rank{r}"] = got
+    print(f"shard: {json.dumps(res)}")
+    return res
+
+
 def dist_phases(mods, dev, by_path: dict) -> dict:
     """The distributed phases (module docstring): dist_nccl1 here, the
     two-rank phases in two processes of this script, cli_dist, and
@@ -2575,6 +3214,7 @@ def dist_phases(mods, dev, by_path: dict) -> dict:
     smi = nvidia_smi()
     coll = {}
     res = {}
+    refs = {}
     shutil.rmtree(DIST_DIR, ignore_errors=True)
     DIST_DIR.mkdir(parents=True)
     # -- dist_nccl1: NCCL at world size 1, real collectives ------------------
@@ -2609,12 +3249,15 @@ def dist_phases(mods, dev, by_path: dict) -> dict:
                          "allreduce_bytes", "minibatch_ms", "peak_mib")}
             if name == "vb":
                 ref_vb = plain
+            refs[f"{name}_pinned" if name == "vb" else "svi5_default"] = {
+                "objs": plain["objs"], "lam": plain["lam"].cpu(),
+                "sstats1": plain.get("sstats1", plain["lam"]).cpu()}
             del plain, grouped
     finally:
         pmesh.shutdown()
     # -- two ranks sharing the card over gloo ----------------------------------
     out_dir = DIST_DIR / "gloo2"
-    ranks = run_rank_pair(out_dir, "vb,svi5,gibbs,hybrid")
+    ranks = run_ranks(out_dir, "vb,svi5,gibbs,hybrid")
     want = {"vb": 2 * (DIST_ITERS + DIST_TIMED),
             "svi5": 4 * DIST_SVI5_MINIBATCHES,
             "gibbs": 1 + 2 * DIST_SWEEPS, "hybrid": 2 * DIST_SWEEPS}
@@ -2650,10 +3293,15 @@ def dist_phases(mods, dev, by_path: dict) -> dict:
         check_launched(f"cli_dist rank {r}", got,
                        ("dense_gamma", "dense_sstats"))
         by_path[f"cli_dist_rank{r}"] = got
+    # -- lambda split over the model axis ---------------------------------------
+    refs.update(one_process_refs(dev, mods))
+    torch.cuda.empty_cache()
+    res.update(shard_phases(mods, by_path, coll, refs))
+    del refs
     # -- NCCL across two cards, where there are two ---------------------------
     if torch.cuda.device_count() >= 2:
         out_dir = DIST_DIR / "nccl2"
-        ranks = run_rank_pair(out_dir, "vb")
+        ranks = run_ranks(out_dir, "vb")
         if ranks[0]["backend"] != "nccl":
             raise AssertionError(f"dist_nccl2: backend {ranks[0]['backend']}")
         hold_ranks("dist_nccl2", ranks, "vb")
@@ -2760,6 +3408,10 @@ def main() -> int:
     et_c = et_docs[cidx]
     ss_shapes = [sstats_check("ragged flagship chunk", counts, et_c, eeb,
                               cfg.eps, sstats_mod, estep_dense_sstats)]
+    # The topic-range launch (lambda split over topics), each half.
+    range_lines = {"float32": sstats_range_check(
+        "ragged flagship chunk", counts, et_c, eeb, cfg.eps, sstats_mod,
+        estep_dense_sstats), BF16: []}
     del eeb_t, rows_plain, gamma_docs, et_docs, et_c
     # ... and the bf16 builds on the same inputs.
     rg16, rows_plain = ragged_checks_bf16(
@@ -2773,6 +3425,10 @@ def main() -> int:
         "ragged flagship chunk", counts,
         exp_dirichlet_expectation(gamma_docs)[cidx], eeb, cfg.eps, sstats_mod,
         estep_dense_sstats, compute_dtype=BF16)]
+    range_lines[BF16] += sstats_range_check(
+        "ragged flagship chunk", counts,
+        exp_dirichlet_expectation(gamma_docs)[cidx], eeb, cfg.eps, sstats_mod,
+        estep_dense_sstats, compute_dtype=BF16)
     # The scatter E-step on the card against the CPU at the largest bucket.
     scatter = {"card_vs_cpu": scatter_card_vs_cpu(
         "ragged flagship largest bucket",
@@ -2822,7 +3478,8 @@ def main() -> int:
                          batch_size=SVI5["BATCH"], tau0=64.0, kappa=0.7,
                          seed=0, inner_iterations=SVI5["INNER"])
     svi5_rg, svi5_ss, svi5_rg16, svi5_ss16 = svi_kernel_lines(
-        "svi config 5", svi5_corpus, svi5_beta, svi5_cfg, dev, bf16=True)
+        "svi config 5", svi5_corpus, svi5_beta, svi5_cfg, dev, bf16=True,
+        range_lines=range_lines)
     rg_shapes = [rg, svi_rg, svi5_rg]
     ss_shapes += [svi_ss, svi5_ss]
     rg16_shapes = [rg16, svi5_rg16]
@@ -3018,7 +3675,7 @@ def main() -> int:
     record = {"kernels": [
         {"name": "dense_sstats", "route": "cuda",
          "source": "pylda_tpu_torch/csrc/dense_sstats.cu",
-         "replaces": "pylda_tpu/ops/pallas_sstats.py:43",
+         "replaces": "pylda_tpu/ops/pallas_sstats.py:114",
          "launches": launches["dense_sstats"],
          "launches_by_path": paths["dense_sstats"],
          **{k: ss_shapes[0][k] for k in (
@@ -3027,7 +3684,7 @@ def main() -> int:
          "library_ms": None, "shapes": ss_shapes},
         {"name": "ragged_gamma", "route": "cuda",
          "source": "pylda_tpu_torch/csrc/ragged_gamma.cu",
-         "replaces": "pylda_tpu/ops/pallas_ragged.py:56",
+         "replaces": "pylda_tpu/ops/pallas_ragged.py:212",
          "launches": launches["ragged_gamma"],
          "launches_by_path": paths["ragged_gamma"],
          **{k: rg[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -3035,7 +3692,7 @@ def main() -> int:
          "library_ms": None, "shapes": rg_shapes},
         {"name": "dense_gamma", "route": "cuda",
          "source": "pylda_tpu_torch/csrc/dense_gamma.cu",
-         "replaces": "pylda_tpu/ops/pallas_estep.py:97",
+         "replaces": "pylda_tpu/ops/pallas_estep.py:272",
          "launches": launches["dense_gamma"],
          "launches_by_path": paths["dense_gamma"],
          **{k: dg[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -3055,6 +3712,20 @@ def main() -> int:
             **{k: line[k] for k in ("max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by")},
             "library_ms": None, "shapes": shapes})
+    # The sstats kernel's topic-range launches (lambda split over topics):
+    # counted in its builds' launches above too.
+    f32 = record["kernels"][0]
+    for cd, suffix in (("float32", ""), (BF16, "_bf16")):
+        name = f"dense_sstats_range{suffix}"
+        line = range_lines[cd][0]
+        record["kernels"].append({
+            **{k: f32[k] for k in ("route", "source", "replaces")},
+            "name": name, **({"build": "-DPYLDA_BF16=1"} if suffix else {}),
+            "entry": "pylda_dense_sstats_range",
+            "launches": launches[name], "launches_by_path": paths[name],
+            **{k: line[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "full_range_ms")},
+            "library_ms": None, "shapes": range_lines[cd]})
     print(f"scatter: {json.dumps(scatter)}")
     print(f"roofline: {json.dumps(roofline)}")
     print(f"native: {json.dumps(native)}")

@@ -23,13 +23,17 @@ Across processes, one a card: ``--coordinator_address HOST:PORT
 --num_processes P --process_id R`` joins the process group
 (``parallel.mesh.init_distributed``; run under ``torchrun`` without these
 flags, its ``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE`` and ``RANK``
-do the same), ``--mesh P,1`` splits the documents over the P ranks, and
-``--process_sharded_input`` makes each rank parse only its own block of
-doc.dat (streaming too).  Rank 0 writes the run directory, the logs and
-the files; every rank runs the snapshots, which are collective.  A mesh
-whose data axis is not the number of processes exits saying how to launch
-them; ``--shard_vocab``, ``--shard_topics`` and a model axis above 1 exit
-naming their ROADMAP item.
+do the same), ``--mesh D,M`` runs D * M ranks, the documents split over
+the D data coordinates (rank r at d = r // M), and
+``--process_sharded_input`` makes each rank parse only the block of
+doc.dat of its data coordinate (streaming too; the M ranks of a model
+group read the same block).  With M > 1, ``--shard_vocab`` or
+``--shard_topics`` splits lambda over the model group's M ranks (batch
+VB and SVI; Gibbs and hybrid with M > 1 exit naming their ROADMAP item).
+Rank 0 writes the run directory, the logs and the files, in the
+one-process format; every rank runs the snapshots, which are collective.
+A mesh whose D * M is not the number of processes exits saying how to
+launch them; both shard flags together exit with the config's error.
 """
 
 from __future__ import annotations
@@ -42,7 +46,6 @@ from typing import List, Optional
 
 import numpy as np
 
-from pylda_tpu_torch.cli import refuse_unported
 from pylda_tpu_torch.corpus.datasets import load_input_directory
 from pylda_tpu_torch.parallel import mesh as pmesh
 from pylda_tpu_torch.utils.config import LDAConfig
@@ -56,11 +59,9 @@ _MODE_ALIASES = {
     "3": "svi", "svi": "svi", "online": "svi", "stochastic": "svi",
 }
 
-# (attribute, flag, ROADMAP item) of the flags not ported yet.
-_UNPORTED = (
-    ("shard_vocab", "--shard_vocab", "Queue 1 item 12"),
-    ("shard_topics", "--shard_topics", "Queue 1 item 12"),
-)
+# The engines that run under a model axis above 1 (ROADMAP.md Queue 1
+# item 14 ports the others).
+_MODEL_AXIS_MODES = ("vb", "svi")
 # The Chrome trace --profile_dir writes.
 PROFILE_TRACE = "train_trace.json"
 
@@ -164,20 +165,23 @@ def build_parser() -> argparse.ArgumentParser:
                    help="JAX package only (kept in the config); this "
                         "package runs its CUDA kernels on the card")
     p.add_argument("--mesh", default=None,
-                   help="data,model mesh shape: data = the number of "
-                        "processes (one a card), model = 1")
+                   help="data,model mesh shape: data * model = the number "
+                        "of processes (one a card); rank r holds the "
+                        "documents of data coordinate r // model")
     p.add_argument("--shard_vocab", action="store_true",
-                   help="shard lambda's vocabulary axis (not ported yet)")
+                   help="split lambda's vocabulary axis over the model "
+                        "axis (vb, svi)")
     p.add_argument("--shard_topics", action="store_true",
-                   help="shard lambda's topic axis (not ported yet)")
+                   help="split lambda's topic axis over the model axis "
+                        "(vb, svi)")
     p.add_argument("--coordinator_address", default=None,
                    help="multi-process: host:port of process 0's "
                         "rendezvous")
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
     p.add_argument("--process_sharded_input", action="store_true",
-                   help="each process parses only its own block of "
-                        "doc.dat")
+                   help="each process parses only the block of doc.dat "
+                        "of its data coordinate")
     p.add_argument("--streaming_input", action="store_true",
                    help="disk-backed SVI input: doc.dat read by line "
                         "offsets and a parsed-row sidecar beside it "
@@ -320,8 +324,16 @@ def join_processes(args) -> Optional[str]:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    config = config_from_args(args)
-    refuse_unported(args, _UNPORTED)
+    try:
+        config = config_from_args(args)
+    except ValueError as e:
+        raise SystemExit(f"invalid configuration: {e}") from e
+    if (config.mesh_shape is not None and config.mesh_shape[1] > 1
+            and config.inference_mode not in _MODEL_AXIS_MODES):
+        raise SystemExit(
+            f"--inference_mode={config.inference_mode} under a mesh with a "
+            f"model axis of {config.mesh_shape[1]} is not ported to "
+            f"pylda_tpu_torch yet (ROADMAP.md Queue 1 item 14)")
     if config.checkpoint_format == "orbax":
         raise SystemExit(
             "--checkpoint_format=orbax is JAX-only; this package writes npz "
@@ -346,8 +358,11 @@ def _train(args, config: LDAConfig, backend: Optional[str]) -> int:
             raise SystemExit(str(e)) from e
     rank, world = pmesh.world()
     if args.process_sharded_input:
+        # The block of the rank's data coordinate: a model group reads one.
+        index, count = ((mesh.data_index, mesh.data) if mesh is not None
+                        else (rank, world))
         train, test, vocab = load_input_directory(
-            args.input_directory, process_index=rank, process_count=world,
+            args.input_directory, process_index=index, process_count=count,
             streaming=args.streaming_input,
         )
     else:
@@ -363,7 +378,8 @@ def _train(args, config: LDAConfig, backend: Optional[str]) -> int:
     global_docs = train.global_num_docs
     global_tokens = train.num_tokens
     if getattr(train, "process_local", False):
-        global_tokens = int(sum(pmesh.allgather_numpy(train.num_tokens)))
+        global_tokens = int(sum(pmesh.allgather_numpy(train.num_tokens, mesh,
+                                                      "data")))
     metrics.log(
         event="start",
         corpus=args.input_directory,

@@ -68,6 +68,20 @@
 // floating-point value, so every call returns the same bits.  Plain f32
 // FMAs and IEEE division, no TF32: the CPU reference is plain f32.
 //
+// A topic range (pylda_dense_sstats_range, lambda split over topics: the
+// rank of a model group holding topics [k0, k1)).  phinorm, the ratio and
+// the score still need all K topics of the word, so everything up to the
+// ratio is the full kernel's, in the same build (keyed on the whole K), the
+// same grid and the same order; only the sums of topics k0..k1-1 are
+// accumulated, stored as split partials ([k1 - k0] rounded out to whole
+// float4s a column) and written, as rows 0..k1-k0-1 of a [k1 - k0, V]
+// output.  Each kept sum is the full kernel's chain of FMAs in row order,
+// its splits met in split order, so the range's rows are the full
+// kernel's rows bit for bit.  The grid stays the full K's: a build keyed
+// on k1 - k0 would place a column's phinorm dot on other lanes (another
+// summation order), and another split count would change the order the
+// splits meet in.  The full-range entry is the range [0, K).
+//
 // bf16 operands (built with -DPYLDA_BF16=1, ops/_build.py): the function
 // of estep_dense_sstats(compute_dtype="bfloat16") and of the Pallas
 // kernel's bf16 mode.  expEtheta (in phinorm and in the sums), expElogbeta
@@ -283,7 +297,7 @@ __device__ __forceinline__ void sstats_tile(
     const float* __restrict__ eeb, float* __restrict__ sstats,
     double* __restrict__ score_part, float* __restrict__ score_out,
     float* __restrict__ partial, int* __restrict__ counters, int D, int Vc,
-    int V, int K, float eps, int rows_per_split) {
+    int V, int K, int k0, int k1, float eps, int rows_per_split) {
   using L = Layout<N4, LPC>;
   constexpr int COLS = L::COLS;
   extern __shared__ __align__(16) float smem[];
@@ -312,6 +326,13 @@ __device__ __forceinline__ void sstats_tile(
       K % 4 == 0 && reinterpret_cast<uintptr_t>(et) % 16 == 0;
   auto cbuf = [cnt_s](int i) {
     return cnt_s + (i % L::CNT_BUFS) * kRows * cnt_ld<CT, COLS>();
+  };
+  // The float4s [q0, q1) of a column's sums hold the topic range; lane j's
+  // float4 i is q = j + LPC i.  QR float4s a column of split partials.
+  const int q0 = k0 / 4, q1 = (k1 + 3) / 4, QR = q1 - q0;
+  auto kept = [q0, q1, j](int i) {
+    const int q = j + LPC * i;
+    return q >= q0 && q < q1;
   };
 
   // The pipeline.  Chunk i uses counts buffer i % CNT_BUFS and et / mask
@@ -422,6 +443,7 @@ __device__ __forceinline__ void sstats_tile(
         if (j == 0) score += (double)(cv * logf(pn));
 #pragma unroll
         for (int i = 0; i < N4; ++i) {
+          if (!kept(i)) continue;
           const float4 e = operand4(
               L::STAGE_ET ? lds4(erow + 4 * LPC * i)
                           : et4(erow, 4 * (j + LPC * i), K, et_vec));
@@ -445,13 +467,15 @@ __device__ __forceinline__ void sstats_tile(
     for (int w = 0; w < kWarps; ++w) s += score_s[w];
     score_part[split * gridDim.x + tile] = s;
   }
-  // Partial sums: [tile][split][COLS columns][KP].
-  float* mine = partial +
-                ((size_t)(tile * splits + split) * COLS + c) * L::KP + 4 * j;
+  // Partial sums: [tile][split][COLS columns][4 QR]; lane j's float4 i at
+  // 4 (j + LPC i - q0) of its column's.
+  float* mine =
+      partial + ((size_t)(tile * splits + split) * COLS + c) * 4 * QR;
+  auto at = [q0, j](int i) { return 4 * (j + LPC * i - q0); };
   if (splits > 1) {
 #pragma unroll
     for (int i = 0; i < N4; ++i)
-      __stcg(reinterpret_cast<float4*>(mine + 4 * LPC * i), acc[i]);
+      if (kept(i)) __stcg(reinterpret_cast<float4*>(mine + at(i)), acc[i]);
   }
   // The last CTA of a tile to arrive sums its splits; the last CTA of the
   // grid sums the score parts.  Each resets its counter for the next call.
@@ -485,17 +509,19 @@ __device__ __forceinline__ void sstats_tile(
   if (!last_s) return;
   if (splits > 1) {  // split order 0, 1, ..: the same sum on every call
     __threadfence();
-    const float* base = mine - (size_t)split * COLS * L::KP;
+    const float* base = mine - (size_t)split * COLS * 4 * QR;
 #pragma unroll
     for (int i = 0; i < N4; ++i)
-      acc[i] = __ldcg(reinterpret_cast<const float4*>(base + 4 * LPC * i));
+      if (kept(i))
+        acc[i] = __ldcg(reinterpret_cast<const float4*>(base + at(i)));
 #pragma unroll 4
     for (int s = 1; s < splits; ++s) {
-      const float* ps = base + (size_t)s * COLS * L::KP;
+      const float* ps = base + (size_t)s * COLS * 4 * QR;
 #pragma unroll
       for (int i = 0; i < N4; ++i) {
+        if (!kept(i)) continue;
         const float4 q =
-            __ldcg(reinterpret_cast<const float4*>(ps + 4 * LPC * i));
+            __ldcg(reinterpret_cast<const float4*>(ps + at(i)));
         acc[i].x += q.x;
         acc[i].y += q.y;
         acc[i].z += q.z;
@@ -511,7 +537,8 @@ __device__ __forceinline__ void sstats_tile(
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int k = 4 * (j + LPC * i) + e;
-        if (k < K) sstats[(size_t)k * V + v] = bcol[4 * LPC * i + e] * a[e];
+        if (k >= k0 && k < k1)
+          sstats[(size_t)(k - k0) * V + v] = bcol[4 * LPC * i + e] * a[e];
       }
     }
   }
@@ -522,10 +549,10 @@ __device__ __forceinline__ void sstats_tile(
       const float *__restrict__ eeb, float *__restrict__ sstats,           \
       double *__restrict__ score_part, float *__restrict__ score_out,      \
       float *__restrict__ partial, int *__restrict__ counters, int D,      \
-      int Vc, int V, int K, float eps, int rows_per_split
+      int Vc, int V, int K, int k0, int k1, float eps, int rows_per_split
 #define PYLDA_SSTATS_ARGS                                                   \
   counts, et, eeb, sstats, score_part, score_out, partial, counters, D, Vc, \
-      V, K, eps, rows_per_split
+      V, K, k0, k1, eps, rows_per_split
 
 template <typename CT, int N4, int LPC>
 __global__ void __launch_bounds__(kThreads)
@@ -549,7 +576,7 @@ cudaError_t launch_kernel(Kernel kern, size_t smem, dim3 grid,
                           const void* et, const void* eeb, void* sstats,
                           void* score_part, void* score_out, void* partial,
                           void* counters, int D, int Vc, int V, int K,
-                          float eps, int rows_per_split) {
+                          int k0, int k1, float eps, int rows_per_split) {
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -558,7 +585,7 @@ cudaError_t launch_kernel(Kernel kern, size_t smem, dim3 grid,
       static_cast<const float*>(eeb), static_cast<float*>(sstats),
       static_cast<double*>(score_part), static_cast<float*>(score_out),
       static_cast<float*>(partial), static_cast<int*>(counters), D, Vc, V, K,
-      eps, rows_per_split);
+      k0, k1, eps, rows_per_split);
   return cudaGetLastError();
 }
 
@@ -566,7 +593,7 @@ template <typename CT, int N4, int LPC>
 cudaError_t launch(const void* counts, const void* et, const void* eeb,
                    void* sstats, void* score_part, void* score_out,
                    void* partial, void* counters, int D, int Vc, int V, int K,
-                   float eps, int splits, int rows_per_split,
+                   int k0, int k1, float eps, int splits, int rows_per_split,
                    cudaStream_t stream) {
   using L = Layout<N4, LPC>;
   const size_t smem =
@@ -579,12 +606,12 @@ cudaError_t launch(const void* counts, const void* et, const void* eeb,
     return launch_kernel<CT>(dense_sstats_kernel_two_blocks<CT, N4, LPC>,
                              smem, grid, stream, counts, et, eeb, sstats,
                              score_part, score_out, partial, counters, D, Vc,
-                             V, K, eps, rows_per_split);
+                             V, K, k0, k1, eps, rows_per_split);
   else
     return launch_kernel<CT>(dense_sstats_kernel<CT, N4, LPC>, smem, grid,
                              stream, counts, et, eeb, sstats, score_part,
-                             score_out, partial, counters, D, Vc, V, K, eps,
-                             rows_per_split);
+                             score_out, partial, counters, D, Vc, V, K, k0,
+                             k1, eps, rows_per_split);
 }
 
 // The kernel build whose columns have LANES lanes of 4 * N4 topics each:
@@ -593,13 +620,13 @@ template <typename CT>
 cudaError_t dispatch(int K, const void* counts, const void* et,
                      const void* eeb, void* sstats, void* score_part,
                      void* score_out, void* partial, void* counters, int D,
-                     int Vc, int V, float eps, int splits, int rows_per_split,
-                     cudaStream_t s) {
+                     int Vc, int V, int k0, int k1, float eps, int splits,
+                     int rows_per_split, cudaStream_t s) {
 #define PYLDA_BUILD(N, LANES)                                              \
   if (K <= 4 * LANES * N)                                                  \
     return launch<CT, N, LANES>(counts, et, eeb, sstats, score_part,       \
                                 score_out, partial, counters, D, Vc, V, K, \
-                                eps, splits, rows_per_split, s);
+                                k0, k1, eps, splits, rows_per_split, s);
   PYLDA_BUILD(1, 4)
   PYLDA_BUILD(2, 4)
   PYLDA_BUILD(4, 4)
@@ -619,32 +646,48 @@ cudaError_t dispatch(int K, const void* counts, const void* et,
 extern "C" {
 
 // counts: [D, Vc] bf16 (counts_bf16 != 0) or f32; et: [D, K] f32; eeb:
-// [K, V] f32, 1 <= K <= 4096; sstats: out [K, V] f32 (every entry
-// written); score_out: out [1] f32; score_part: scratch [splits * tiles]
+// [K, V] f32, 1 <= K <= 4096; 0 <= k0 < k1 <= K, the topic range; sstats:
+// out [k1 - k0, V] f32 (every entry written: rows k0..k1-1 of the full
+// result); score_out: out [1] f32; score_part: scratch [splits * tiles]
 // f64, tiles = ceil(Vc / COLS); partial: scratch [tiles * splits * COLS *
-// KP] f32 (unused when splits == 1); counters: [tiles + 1] int32, zero
-// before the first call and left zero by each call (so one buffer serves a
-// stream's calls in turn).  KP and COLS are the build's (dispatch); the
-// plan (ops/sstats.py::plan) gives them, splits and rows_per_split (a
-// multiple of 32, splits * rows_per_split >= D).  All row-major and
-// contiguous.  Returns the cudaError_t of the launch.
-int pylda_dense_sstats(const void* counts, int counts_bf16, const void* et,
-                       const void* eeb, void* sstats, void* score_part,
-                       void* score_out, void* partial, void* counters,
-                       int D, int Vc, int V, int K, float eps, int splits,
-                       int rows_per_split, void* stream) {
-  if (K < 1 || K > 4096 || splits < 1 || rows_per_split < kRows ||
-      rows_per_split % kRows != 0 || (long long)splits * rows_per_split < D)
+// 4 QR] f32, QR = ceil(k1 / 4) - floor(k0 / 4) (unused when splits == 1);
+// counters: [tiles + 1] int32, zero before the first call and left zero by
+// each call (so one buffer serves a stream's calls in turn).  COLS is the
+// build's (dispatch, keyed on K); the plan (ops/sstats.py::plan) gives it,
+// QR, splits and rows_per_split (a multiple of 32, splits *
+// rows_per_split >= D).  All row-major and contiguous.  Returns the
+// cudaError_t of the launch.
+int pylda_dense_sstats_range(const void* counts, int counts_bf16,
+                             const void* et, const void* eeb, void* sstats,
+                             void* score_part, void* score_out, void* partial,
+                             void* counters, int D, int Vc, int V, int K,
+                             int k0, int k1, float eps, int splits,
+                             int rows_per_split, void* stream) {
+  if (K < 1 || K > 4096 || k0 < 0 || k1 <= k0 || k1 > K || splits < 1 ||
+      rows_per_split < kRows || rows_per_split % kRows != 0 ||
+      (long long)splits * rows_per_split < D)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (counts_bf16)
     return (int)dispatch<__nv_bfloat16>(K, counts, et, eeb, sstats,
                                         score_part, score_out, partial,
-                                        counters, D, Vc, V, eps, splits,
-                                        rows_per_split, s);
+                                        counters, D, Vc, V, k0, k1, eps,
+                                        splits, rows_per_split, s);
   return (int)dispatch<float>(K, counts, et, eeb, sstats, score_part,
-                              score_out, partial, counters, D, Vc, V, eps,
-                              splits, rows_per_split, s);
+                              score_out, partial, counters, D, Vc, V, k0, k1,
+                              eps, splits, rows_per_split, s);
+}
+
+// The full range [0, K): the same arguments without k0 and k1.
+int pylda_dense_sstats(const void* counts, int counts_bf16, const void* et,
+                       const void* eeb, void* sstats, void* score_part,
+                       void* score_out, void* partial, void* counters,
+                       int D, int Vc, int V, int K, float eps, int splits,
+                       int rows_per_split, void* stream) {
+  return pylda_dense_sstats_range(counts, counts_bf16, et, eeb, sstats,
+                                  score_part, score_out, partial, counters, D,
+                                  Vc, V, K, 0, K, eps, splits, rows_per_split,
+                                  stream);
 }
 
 }  // extern "C"

@@ -10,11 +10,16 @@ Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without a card and without that argument they raise.
 
 Across processes (``initialize(..., mesh=...)``, ``parallel/mesh.py``)
-each rank trains on its block of documents (``_local_corpus``): a
-process-local corpus as it is, a corpus loaded whole cut to the block
-the process-local loader would give the rank.  State stays replicated;
-``save`` and ``export_beta`` write from rank 0 after every rank has
-called them (engines gather their per-rank chains into the file).
+each rank trains on the block of documents of its data coordinate
+(``_local_corpus``): a process-local corpus as it is, a corpus loaded
+whole cut to the block the process-local loader would give it.  State
+stays replicated, except lambda under ``shard_vocab`` / ``shard_topics``
+with a model axis above 1 (the VB family): then ``state.lam`` is this
+rank's block (``parallel/lam_shard.py``), the ``state`` setter takes the
+whole lambda and keeps the block, and ``gathered_lam`` returns the whole
+one.  ``save`` and ``export_beta`` write from rank 0 after every rank has
+called them (engines gather their per-rank chains and lambda blocks into
+the file: the one-process format).
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import torch
 
 from pylda_tpu_torch.corpus.corpus import Corpus
 from pylda_tpu_torch.corpus.vocabulary import Vocabulary
+from pylda_tpu_torch.parallel.lam_shard import LamShard, shard_of
 from pylda_tpu_torch.parallel.mesh import (
     Mesh,
     all_reduce_sum,
@@ -115,8 +121,15 @@ def bucket_tensors(
     return out
 
 
+# The ROADMAP item that ports Gibbs and hybrid under a model axis.
+MODEL_AXIS_ITEM = "ROADMAP.md Queue 1 item 14"
+
+
 class Inferencer:
     """Base class for the inference engines."""
+
+    # Whether the engine runs under a mesh with a model axis above 1.
+    _MODEL_AXIS = True
 
     def __init__(
         self,
@@ -131,6 +144,7 @@ class Inferencer:
         self._step_host = 0
         self._dtype = getattr(torch, config.dtype)
         self._mesh: Optional[Mesh] = None
+        self._shard: Optional[LamShard] = None
 
     # -- reference-parity accessors --------------------------------------------
 
@@ -157,14 +171,17 @@ class Inferencer:
     @state.setter
     def state(self, state: LDAState) -> None:
         """Adopt a state (e.g. ``state_from_numpy`` of a JAX engine's),
-        moved to this engine's device; the iteration counter follows it."""
+        moved to this engine's device; the iteration counter follows it.
+        ``state.lam`` is the whole [K, V] lambda; under a lambda shard
+        this rank keeps its block."""
         K, V = self._config.number_of_topics, self._number_of_types
         if tuple(state.lam.shape) != (K, V):
             raise ValueError(
                 f"state lam has shape {tuple(state.lam.shape)}, want {(K, V)}"
             )
+        lam = state.lam if self._shard is None else self._shard.take(state.lam)
         self._state = LDAState(
-            lam=state.lam.to(self._device, self._dtype),
+            lam=lam.to(self._device, self._dtype).contiguous(),
             alpha=state.alpha.to(self._device, self._dtype),
             eta=state.eta.to(self._device, self._dtype),
             step=state.step.to(self._device, torch.int32),
@@ -174,6 +191,12 @@ class Inferencer:
 
     def _state_changed(self) -> None:
         """Hook: engines drop what they derived from the old state."""
+
+    def gathered_lam(self) -> torch.Tensor:
+        """The whole [K, V] lambda: ``state.lam``, or under a lambda shard
+        the model group's blocks gathered (collective over it)."""
+        lam = self.state.lam
+        return lam if self._shard is None else self._shard.gather(lam)
 
     # -- lifecycle ----------------------------------------------------------------
 
@@ -189,12 +212,15 @@ class Inferencer:
         ``lam_init`` replaces the random lambda init, which is the
         reference's Gamma(100, 0.01) drawn from
         ``numpy.random.default_rng(config.seed)``.  ``mesh``
-        (``parallel.mesh.make_mesh``) splits the documents over its ranks;
-        every rank must pass the same ``lam_init`` and config."""
+        (``parallel.mesh.make_mesh``) splits the documents over its data
+        axis and, under ``shard_vocab`` / ``shard_topics``, lambda over
+        its model axis: each rank keeps its block of the whole [K, V]
+        init, so a sharded run starts from the one-process run's bits.
+        Every rank must pass the same ``lam_init`` and config."""
         cfg = self._config
-        self._set_mesh(mesh)
         self._corpus = corpus
         self._vocab = vocab if vocab is not None else corpus.vocab
+        self._set_mesh(mesh)
         K = cfg.number_of_topics
         V = len(self._vocab)
         dev, dt = self._device, self._dtype
@@ -208,7 +234,9 @@ class Inferencer:
                 )
         else:
             lam_np = np.random.default_rng(cfg.seed).gamma(100.0, 0.01, (K, V))
-        lam = torch.as_tensor(lam_np, device=dev).to(dt)
+        if self._shard is not None:
+            lam_np = self._shard.take(lam_np)
+        lam = torch.as_tensor(np.ascontiguousarray(lam_np), device=dev).to(dt)
         self._state = LDAState(
             lam=lam, alpha=alpha, eta=eta,
             step=torch.zeros((), dtype=torch.int32, device=dev),
@@ -220,10 +248,20 @@ class Inferencer:
     _initialize = initialize
 
     def _set_mesh(self, mesh: Optional[Mesh]) -> None:
-        if mesh is not None and self._config.doc_pad_multiple % mesh.data:
+        """Adopt ``mesh`` and this rank's lambda block (``_shard``; the
+        vocabulary must be set)."""
+        cfg = self._config
+        if mesh is not None and mesh.model > 1 and not self._MODEL_AXIS:
+            raise NotImplementedError(
+                f"{cfg.inference_mode} under a mesh with a model axis of "
+                f"{mesh.model} is not ported yet ({MODEL_AXIS_ITEM}); run "
+                f"it with --mesh {mesh.data * mesh.model},1")
+        if mesh is not None and cfg.doc_pad_multiple % mesh.data:
             raise ValueError(
                 "doc_pad_multiple must be divisible by the data-axis size")
         self._mesh = mesh
+        self._shard = shard_of(cfg.shard_vocab, cfg.shard_topics, mesh,
+                               cfg.number_of_topics, self._number_of_types)
 
     @property
     def _split(self) -> bool:
@@ -234,7 +272,8 @@ class Inferencer:
         """The documents this rank trains on: the corpus itself in one
         process, a process-local corpus's block as it is, and for a corpus
         loaded whole the block ``[lo, hi)`` of ``ceil(D / P)`` documents
-        the process-local loader would give the rank (``process_local``,
+        the process-local loader would give its data coordinate (every
+        rank of a model group the same block; ``process_local``,
         ``global_num_docs`` and ``global_doc_offset`` set).  Raises the JAX
         engine's ``ValueError`` for a process-local corpus across
         processes without a mesh."""
@@ -249,7 +288,7 @@ class Inferencer:
             return corpus
         if local:
             return corpus
-        lo, hi = block_bounds(corpus.num_docs, self._mesh.rank,
+        lo, hi = block_bounds(corpus.num_docs, self._mesh.data_index,
                               self._mesh.data)
         block = corpus.subset(range(lo, hi))
         block.process_local = True
@@ -280,28 +319,40 @@ class Inferencer:
         return {}
 
     def _gathered_rows(self, doc_ids: list, rows: list) -> Tuple[list, list]:
-        """Per-batch (doc ids, rows) of every rank, in rank order, when the
-        documents are split over ranks (collective); as given otherwise."""
+        """Per-batch (doc ids, rows) of every data coordinate, in order,
+        when the documents are split over the data axis (collective over
+        the data group: the ranks of a model group hold the same rows);
+        as given otherwise."""
         if not self._split:
             return doc_ids, rows
-        parts = allgather_object((doc_ids, rows), self._mesh)
+        parts = allgather_object((doc_ids, rows), self._mesh, "data")
         return ([i for p in parts for i in p[0]],
                 [r for p in parts for r in p[1]])
 
     def _allreduce_timing(self, tensor: torch.Tensor, repeats: int) -> dict:
-        """``allreduce_ms`` (``utils.timing``: one all-reduce of a copy of
-        ``tensor``, the step's largest, best of ``repeats``),
-        ``allreduce_bytes`` and ``allreduce_backend`` under a mesh with a
-        process group; {} otherwise.  Collective: every rank times."""
+        """``allreduce_ms`` (``utils.timing``: one all-reduce over the data
+        group of a copy of ``tensor``, the step's largest, best of
+        ``repeats``), ``allreduce_bytes`` and ``allreduce_backend`` under a
+        mesh with a process group, and under a lambda shard
+        ``allgather_ms`` and ``allgather_bytes`` (the E-step's gather of
+        expElogbeta over the model group: the bytes each rank receives);
+        {} otherwise.  Collective: every rank times."""
         mesh = self._mesh
         if mesh is None or not mesh.grouped:
             return {}
         buf = tensor.detach().clone().contiguous()
-        ms, _ = best_ms(lambda: all_reduce_sum(buf, mesh), self._device,
-                        repeats)
-        return {"allreduce_ms": round(ms, 6),
-                "allreduce_bytes": buf.numel() * buf.element_size(),
-                "allreduce_backend": mesh.backend}
+        ms, _ = best_ms(lambda: all_reduce_sum(buf, mesh, "data"),
+                        self._device, repeats)
+        out = {"allreduce_ms": round(ms, 6),
+               "allreduce_bytes": buf.numel() * buf.element_size(),
+               "allreduce_backend": mesh.backend}
+        if self._shard is not None:
+            block = self.state.lam.detach().clone()
+            ms, full = best_ms(lambda: self._shard.gather(block),
+                               self._device, repeats)
+            out.update(allgather_ms=round(ms, 6), allgather_bytes=(
+                full.numel() - block.numel()) * block.element_size())
+        return out
 
     def perplexity(self, test_corpus: Corpus) -> float:
         """Per-word held-out perplexity under the engine's native
@@ -314,8 +365,9 @@ class Inferencer:
         beta_hat with theta_hat from this engine's inference gamma and
         beta_hat the engine's topic-word point estimate (``_point_beta``:
         lambda / sum(lambda), or Gibbs's (n_kv + beta) / (n_k + sum beta)),
-        in float64 on the host.  Only the observed (doc, type) pairs are
-        scored, in document blocks of bounded size."""
+        in float64 on the host (under a lambda shard every rank calls it:
+        the point estimate gathers lambda).  Only the observed (doc, type)
+        pairs are scored, in document blocks of bounded size."""
         _ll, gamma = self.inference(test_corpus)
         theta = (gamma / gamma.sum(axis=1, keepdims=True)).astype(np.float64)
         beta = self._point_beta()
@@ -348,7 +400,7 @@ class Inferencer:
     def _point_beta(self) -> np.ndarray:
         """Topic-word point estimate [K, V] in float64: lambda / sum(lambda)
         for the VB family."""
-        lam = self.state.lam.cpu().numpy().astype(np.float64)
+        lam = self.gathered_lam().cpu().numpy().astype(np.float64)
         return lam / lam.sum(axis=1, keepdims=True)
 
     # -- topics --------------------------------------------------------------------
@@ -356,10 +408,11 @@ class Inferencer:
     def topic_word_distribution(self) -> np.ndarray:
         """Normalised topic-word matrix [K, V]: exp(E[log beta_k]) divided
         by its sum — the reference's exp_beta surface — from lambda in
-        float64 on the host."""
+        float64 on the host (the whole lambda: collective under a lambda
+        shard)."""
         from scipy.special import psi
 
-        lam = self.state.lam.cpu().numpy().astype(np.float64)
+        lam = self.gathered_lam().cpu().numpy().astype(np.float64)
         elog = psi(lam) - psi(lam.sum(axis=1, keepdims=True))
         elog -= elog.max(axis=1, keepdims=True)  # stable exp-normalise
         e = np.exp(elog)
@@ -418,7 +471,7 @@ class Inferencer:
             )
         st = self.state
         blobs = {
-            "lam": st.lam.cpu().numpy(),
+            "lam": self.gathered_lam().cpu().numpy(),
             "alpha": st.alpha.cpu().numpy(),
             "eta": st.eta.cpu().numpy(),
             "step": np.asarray(int(st.step), dtype=np.int32),
@@ -477,10 +530,12 @@ class Inferencer:
     ) -> "Inferencer":
         """Restore an engine from a ``model-<N>`` npz file written by this
         package or by ``pylda_tpu``, on ``device`` (the CUDA card by
-        default).  With ``corpus`` the engine is prepared for continued
-        training, split over ``mesh``'s ranks when one is given (elastic:
-        the state is replicated, so the saving run's world size does not
-        matter); otherwise inference and export are available."""
+        default).  With ``mesh`` the engine takes its place in it (a
+        lambda shard keeps this rank's block of the file's whole lambda:
+        elastic, the saving run's mesh does not matter, and a JAX model
+        file resumes sharded); with ``corpus`` it is prepared for
+        continued training, its documents split over the mesh's data
+        axis; otherwise inference and export are available."""
         from pylda_tpu_torch import models as _models
 
         if os.path.isdir(path):
@@ -521,6 +576,8 @@ class Inferencer:
         engine._vocab = Vocabulary(
             str(t) for t in blobs.pop("vocab").tolist()
         )
+        if mesh is not None:
+            engine._set_mesh(mesh)
         engine.state = LDAState(
             lam=torch.as_tensor(blobs["lam"]),
             alpha=torch.as_tensor(blobs["alpha"]),
@@ -531,7 +588,6 @@ class Inferencer:
                                   for k, v in blobs.items()
                                   if k.startswith("extra_")})
         if corpus is not None:
-            engine._set_mesh(mesh)
             engine._corpus = corpus
             engine._prepare(corpus)
         return engine

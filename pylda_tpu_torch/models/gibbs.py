@@ -115,7 +115,7 @@ def rank_tag(tag: int, mesh: Optional[Mesh]) -> int:
     documents are split over ranks (each rank draws its own noise)."""
     if mesh is None or mesh.data == 1:
         return tag
-    return tag | ((mesh.rank + 1) << 40)
+    return tag | ((mesh.data_index + 1) << 40)
 
 
 def gather_chains(tensors: Sequence[torch.Tensor], mesh: Optional[Mesh]
@@ -135,7 +135,8 @@ def local_chains(arrays: Sequence[np.ndarray], mesh: Optional[Mesh]
     out = []
     for a in arrays:
         rows = a.shape[0] // mesh.data
-        out.append(a[mesh.rank * rows:(mesh.rank + 1) * rows])
+        d = mesh.data_index
+        out.append(a[d * rows:(d + 1) * rows])
     return out
 
 
@@ -188,6 +189,9 @@ def _doc_side_ll(ndk, mask, alpha):
 
 class MonteCarlo(Inferencer):
     """Collapsed Gibbs with per-sweep table synchronisation."""
+
+    # A model axis above 1 is ROADMAP.md Queue 1 item 14 (``_set_mesh``).
+    _MODEL_AXIS = False
 
     def __init__(self, config, device=None):
         super().__init__(config, device)

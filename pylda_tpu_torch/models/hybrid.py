@@ -58,6 +58,9 @@ TAG_CHAIN, TAG_TRAIN, TAG_TEST = 0x2B1D, 0x4B1D, 0x7E57
 class Hybrid(VariationalBayes):
     """VB global step + within-document Gibbs local step."""
 
+    # A model axis above 1 is ROADMAP.md Queue 1 item 14 (``_set_mesh``).
+    _MODEL_AXIS = False
+
     _USES_GAMMA_INIT = False
 
     def _build_batches(self, corpus: Corpus) -> List[SeqBatch]:
@@ -68,7 +71,7 @@ class Hybrid(VariationalBayes):
         return local_sequence_batches(corpus, self._config, self._mesh,
                                       self._device, self._dtype)
 
-    def _plan_dense_sstats(self, corpus: Corpus):
+    def _plan_dense_sstats(self, corpus: Corpus, own: bool = True):
         return None  # sstats come from the sampled assignments
 
     def _prepare(self, corpus: Corpus) -> None:
@@ -141,10 +144,11 @@ class Hybrid(VariationalBayes):
             z_out.append(z_new)
         return gammas, sstats, token_score, theta_score, elog_sum, z_out
 
-    def _run_estep(self, batches, plan, lam, alpha, gamma0s):
+    def _run_estep(self, batches, plan, lam, alpha, gamma0s,
+                   sharded: bool = True):
         """Held-out inference and ``gamma``: cold chains.  ``plan`` is
-        always None and ``gamma0s`` unused (the sampled step initialises
-        assignments, not gamma).  Held-out inference draws the same
+        always None, and ``gamma0s`` and ``sharded`` unused (the sampled
+        step initialises assignments, not gamma; lambda is whole).  Held-out inference draws the same
         streams on every rank, so it runs replicated."""
         return self._sampled_estep(batches, lam, alpha,
                                    (TAG_TEST, self._counter),

@@ -69,6 +69,14 @@ same lambda step:
   negotiated across ranks (``negotiate_svi_ragged_geometry``).  The
   dense sufficient statistics run over the rank's own counts matrix,
   where the JAX engine takes the row scatter.
+
+With a model axis (mesh (D, M)) "rank" above reads "data coordinate":
+every rank of a model group runs the same minibatches of the same
+documents, and the sums run over the data group.  Under ``shard_vocab`` /
+``shard_topics`` the natural-gradient step updates this rank's block of
+lambda only: its sufficient statistics are the block's (the counts matrix
+holds this rank's columns under ``shard_vocab``), and the E-step, the
+bound and the Newton eta input follow batch VB's (``models/vb.py``).
 """
 
 from __future__ import annotations
@@ -89,10 +97,8 @@ from pylda_tpu_torch.models.vb import (
     VariationalBayes,
     _Bucket,
     _Dense,
-    _elog_lambda_sum,
     _SstatsPlan,
 )
-from pylda_tpu_torch.ops.dirichlet import beta_elbo
 from pylda_tpu_torch.ops.hyper import newton_dirichlet_mle
 from pylda_tpu_torch.parallel.mesh import (
     block_bounds,
@@ -112,6 +118,9 @@ class _MinibatchPlan:
     num_docs: int  # D
     b_cap: int  # the doc-selection length: batch_size padded
     chunk_sizes: List[int]  # b_cap split to sstats_dense_budget_mb
+    # The columns [v0, v1) the counts hold (this rank's under
+    # ``shard_vocab``); None: all of them.
+    vocab_range: Optional[Tuple[int, int]] = None
 
 
 @dataclasses.dataclass
@@ -226,12 +235,16 @@ class StochasticVariationalBayes(VariationalBayes):
         return nonempty, (torch.bfloat16 if maxc <= 256.0 else torch.float32)
 
     def _device_counts(self, corpus: Corpus, width: int,
-                       dtype: torch.dtype) -> torch.Tensor:
+                       dtype: torch.dtype,
+                       cols_range: Optional[Tuple[int, int]] = None
+                       ) -> torch.Tensor:
         """[D+1, width] counts of every document on the device (zero row
         D, zero columns past V), filled in blocks of documents so the host
-        never holds a dense block."""
+        never holds a dense block; with ``cols_range`` (v0, v1) columns
+        v0..v1-1 only, at 0..v1-v0-1."""
         D = corpus.num_docs
         dev = self._device
+        v0, v1 = cols_range or (0, corpus.num_types)
         out = torch.zeros((D + 1, width), dtype=dtype, device=dev)
         for start, uniq in self._unique_blocks(corpus):
             cols = np.concatenate([ids for ids, _ in uniq]).astype(np.int64)
@@ -240,6 +253,9 @@ class StochasticVariationalBayes(VariationalBayes):
             rows = np.repeat(np.arange(start, start + len(uniq)),
                              [ids.size for ids, _ in uniq])
             vals = np.concatenate([cts for _, cts in uniq])
+            if cols_range is not None:
+                keep = (cols >= v0) & (cols < v1)
+                rows, cols, vals = rows[keep], cols[keep] - v0, vals[keep]
             out.index_put_(
                 (torch.as_tensor(rows, device=dev),
                  torch.as_tensor(cols, device=dev)),
@@ -256,7 +272,9 @@ class StochasticVariationalBayes(VariationalBayes):
         the scatter E-step — where the JAX engine's plan is None:
         ``sstats_mode="scatter"``, no documents or minibatch, or a matrix
         over ``sstats_dense_total_budget_mb`` (tested in bf16 before the
-        corpus scan, then in its storage dtype)."""
+        corpus scan, then in its storage dtype; on the whole vocabulary,
+        so a lambda shard takes the one-process route).  Under
+        ``shard_vocab`` the matrix holds this rank's columns only."""
         cfg = self._config
         D = corpus.num_docs
         v_pad = round_up(corpus.num_types, 1024)
@@ -271,13 +289,17 @@ class StochasticVariationalBayes(VariationalBayes):
         b_cap = round_up(self._mb_docs(), pad)
         rows_budget = max(pad, int(cfg.sstats_dense_budget_mb * 1e6
                                    // (4 * v_pad)))
+        cols = self._own_columns(True)
+        if cols is not None:
+            v_pad = round_up(cols[1] - cols[0], 1024)
         return _MinibatchPlan(
-            counts=self._device_counts(corpus, v_pad, dtype),
+            counts=self._device_counts(corpus, v_pad, dtype, cols),
             nonempty=torch.as_tensor(nonempty, device=self._device).to(
                 self._dtype),
             num_docs=D,
             b_cap=b_cap,
             chunk_sizes=layouts._split_rows(b_cap, rows_budget, pad),
+            vocab_range=cols,
         )
 
     def _build_device_rows(self, corpus: Corpus) -> Optional[List[_Rows]]:
@@ -389,7 +411,8 @@ class StochasticVariationalBayes(VariationalBayes):
         gammas, sstats, token_score, theta_score, elog_sum = out
         sstats, token_score, theta_score, elog_sum = self._reduce_estep(
             sstats, token_score, theta_score, elog_sum)
-        lam = (1.0 - rho) * lam + rho * (eta[None, :] + scale * sstats)
+        lam = (1.0 - rho) * lam + rho * (self._eta_own(eta)[None, :]
+                                         + scale * sstats)
         return lam, scale * (token_score + theta_score), elog_sum, gammas
 
     def _local_plan(self, batches: List[_Bucket], doc_sel: torch.Tensor
@@ -421,7 +444,8 @@ class StochasticVariationalBayes(VariationalBayes):
         # Selected documents only and, as in batch VB, empty documents
         # outside the theta and E[log theta] sums.
         docs_mask = valid.to(self._dtype) * plan.nonempty[safe]
-        return buckets, _SstatsPlan(chunks, docs_mask, b_cap)
+        return buckets, _SstatsPlan(chunks, docs_mask, b_cap,
+                                    plan.vocab_range)
 
     # -- epochs of minibatches --------------------------------------------------
 
@@ -450,7 +474,7 @@ class StochasticVariationalBayes(VariationalBayes):
                                                      seed=epoch_seed)
         scales = [D / max(1, len(sel)) for sel in index_lists]
         if self._split:
-            P, r = self._mesh.data, self._mesh.rank
+            P, r = self._mesh.data, self._mesh.data_index
             index_lists = [sel[slice(*block_bounds(len(sel), r, P))]
                            for sel in index_lists]
         return index_lists, self._rhos(t, len(index_lists)), scales
@@ -462,7 +486,7 @@ class StochasticVariationalBayes(VariationalBayes):
         it a minibatch, ceil(block / b_local) minibatches; each scale is D
         over the global minibatch's documents, summed over every rank's
         block without communication."""
-        P, my = self._mesh.data, self._mesh.rank
+        P, my = self._mesh.data, self._mesh.data_index
         total = self._corpus.global_num_docs
         per = -(-total // P)
         b_local = self._mb_docs()
@@ -608,7 +632,7 @@ class StochasticVariationalBayes(VariationalBayes):
                     [sel[0]] if sel is not None
                     else [b.doc_ids for b in batches]))
         # The topic-side bound term once, at the epoch's final lambda.
-        ests = torch.stack(ests) + beta_elbo(lam, eta)
+        ests = torch.stack(ests) + self._beta_elbo(lam, eta)
         return lam, ests, elog_sum, gammas, doc_ids
 
     def _train_epoch(self, ep: _Epoch, keep_gammas: bool) -> torch.Tensor:
@@ -627,7 +651,8 @@ class StochasticVariationalBayes(VariationalBayes):
                 st.alpha, elog_sum, float(self._corpus.global_num_docs)
             )
             eta = newton_dirichlet_mle(
-                st.eta, _elog_lambda_sum(lam), float(cfg.number_of_topics)
+                st.eta, self._elog_lambda_sum(lam),
+                float(cfg.number_of_topics)
             )
         self._state = LDAState(lam=lam, alpha=alpha, eta=eta,
                                step=st.step + 1)

@@ -48,6 +48,20 @@ doc-level scalars in another (``_reduce_estep``), so lambda, alpha, eta
 and the ELBO are the same bits on every rank.  Held-out inference runs
 replicated: every rank holds the whole test corpus, runs its E-step alone
 and gets the same answer.  ``gamma`` gathers each rank's documents.
+
+With a model axis above 1 (mesh (D, M)) the ranks of a model group hold
+the same documents and the reductions above run over the data group.
+Under ``shard_vocab`` / ``shard_topics`` each rank holds its block of
+lambda (``parallel/lam_shard.py``): an E-step gathers the whole
+expElogbeta over the model group once, runs the same fixed points on
+every rank of the group, and computes the sufficient statistics of the
+rank's block only (the dense sstats kernel's topic range, the count
+chunks' own columns, the scatter's own words or topics), so the M-step
+is local.  The token score is a partial sum under ``shard_vocab`` (its
+columns' counts) and is summed over the model group too; the bound's
+topic side and the Newton eta input are summed over it (``LamShard``).
+Held-out inference runs on the gathered expElogbeta with the whole
+column range, so every rank gets the one-process numbers.
 """
 
 from __future__ import annotations
@@ -75,6 +89,7 @@ from pylda_tpu_torch.ops.hyper import newton_dirichlet_mle
 from pylda_tpu_torch.ops.ragged import gather_table, ragged_gamma
 from pylda_tpu_torch.ops.sampling import stream
 from pylda_tpu_torch.ops.sstats import dense_sstats
+from pylda_tpu_torch.parallel.lam_shard import VOCAB
 from pylda_tpu_torch.parallel.mesh import (
     all_reduce_sum,
     lift_process_local_batch,
@@ -128,6 +143,9 @@ class _SstatsPlan:
     chunks: List[Tuple[torch.Tensor, torch.Tensor]]  # (counts, doc index)
     docs_mask: torch.Tensor  # [num_docs] f32: 1 for non-empty docs
     num_docs: int
+    # The vocabulary columns [v0, v1) the counts hold (this rank's under
+    # ``shard_vocab``), padded; None: all of them.
+    vocab_range: Optional[Tuple[int, int]] = None
 
 
 # Purpose tags of the gamma-init streams: the JAX engine's fold_in
@@ -286,10 +304,20 @@ class VariationalBayes(Inferencer):
             ))
         return out
 
-    def _plan_dense_sstats(self, corpus: Corpus) -> Optional[_SstatsPlan]:
+    def _own_columns(self, own: bool) -> Optional[Tuple[int, int]]:
+        """The vocabulary columns this rank's sufficient statistics cover
+        under ``shard_vocab`` (for ``own``); None: all."""
+        if own and self._shard is not None:
+            return self._shard.vocab_range
+        return None
+
+    def _plan_dense_sstats(self, corpus: Corpus, own: bool = True
+                           ) -> Optional[_SstatsPlan]:
         """Corpus-static dense counts chunks of the large-vocab route
         (docs chunked to ``sstats_dense_budget_mb``), vocab-prepadded once
-        to a multiple of 1024.  None — each bucket's E-step computes its
+        to a multiple of 1024; under ``shard_vocab`` (and ``own``) only
+        this rank's columns, padded so.  The route is chosen on the whole
+        vocabulary, as in one process.  None — each bucket's E-step computes its
         own sstats — where the JAX engine's plan is None: on the dense
         route, for ``sstats_mode="scatter"``, for a corpus whose [D, V]
         float32 counts exceed ``sstats_dense_total_budget_mb``, and for a
@@ -307,7 +335,9 @@ class VariationalBayes(Inferencer):
                           // (4 * corpus.num_types))
         rows_budget = max(pad, (rows_budget // pad) * pad)
         num_docs = corpus.num_docs
-        v_pad = _round_up(corpus.num_types, 1024)
+        cols = self._own_columns(own)
+        v0, v1 = cols or (0, corpus.num_types)
+        v_pad = _round_up(v1 - v0, 1024)
         chunks = []
         for start in range(0, num_docs, rows_budget):
             stop = min(num_docs, start + rows_budget)
@@ -315,7 +345,7 @@ class VariationalBayes(Inferencer):
                 doc_indices=range(start, stop),
                 pad_docs_to=_round_up(stop - start, pad),
             )
-            counts = ch.counts
+            counts = ch.counts[:, v0:v1]
             if v_pad > counts.shape[1]:
                 counts = np.pad(counts, ((0, 0), (0, v_pad - counts.shape[1])))
             # Padding rows gather doc 0's expEtheta but carry all-zero
@@ -330,6 +360,7 @@ class VariationalBayes(Inferencer):
             chunks=chunks,
             docs_mask=torch.as_tensor(docs_mask, device=dev).to(self._dtype),
             num_docs=num_docs,
+            vocab_range=cols,
         )
 
     def _prepare(self, corpus: Corpus) -> None:
@@ -370,8 +401,43 @@ class VariationalBayes(Inferencer):
             compute_dtype=cfg.compute_dtype,
         )
 
+    # -- lambda blocks ---------------------------------------------------------
+
+    def _expectations(self, lam) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(the whole expElogbeta [K, V], this rank's block of it): the
+        block all-gathered over the model group under a lambda shard
+        (collective), else the one tensor twice."""
+        if self._shard is None:
+            eeb = exp_dirichlet_expectation_fast(lam)
+            return eeb, eeb
+        own = self._shard.exp_elog_beta(lam)
+        return self._shard.gather(own), own
+
+    def _ranges(self, sharded: bool) -> dict:
+        """``topic_range`` / ``vocab_range`` of this rank's sufficient
+        statistics (none for an E-step over all of lambda)."""
+        sh = self._shard if sharded else None
+        return {"topic_range": sh.topic_range if sh else None,
+                "vocab_range": sh.vocab_range if sh else None}
+
+    def _eta_own(self, eta) -> torch.Tensor:
+        """eta's entries of this rank's lambda columns."""
+        return eta if self._shard is None else self._shard.eta_cols(eta)
+
+    def _beta_elbo(self, lam, eta) -> torch.Tensor:
+        """The topic side of the bound of the whole lambda."""
+        if self._shard is None:
+            return beta_elbo(lam, eta)
+        return self._shard.beta_elbo(lam, eta)
+
+    def _elog_lambda_sum(self, lam) -> torch.Tensor:
+        """[V] E[log beta] summed over topics: the Newton eta input."""
+        if self._shard is None:
+            return _elog_lambda_sum(lam)
+        return self._shard.elog_lambda_sum(lam)
+
     def _run_estep_batches(self, batches: List[_Batch], lam, alpha,
-                           gamma0s):
+                           gamma0s, sharded: bool = True):
         """The whole E-step batch by batch (the JAX engine's
         ``_vb_dense_batch`` and ``_vb_ragged_batch``): a dense batch's in
         ``dense_estep``, a ragged bucket's in ``estep_ragged`` (the gamma
@@ -380,9 +446,10 @@ class VariationalBayes(Inferencer):
         adds one theta term a row, as in the JAX engine.  Returns (gammas,
         sstats, token_score, theta_score, elog_sum), one gamma per batch;
         the sweeps each batch took stay on the device in
-        ``last_sweeps``."""
-        eeb = exp_dirichlet_expectation_fast(lam)
-        kw = self._fixed_point_kw()
+        ``last_sweeps``.  Under a lambda shard the sufficient statistics
+        are this rank's block (``sharded``) or the whole [K, V]."""
+        eeb, _ = self._expectations(lam)
+        kw = dict(self._fixed_point_kw(), **self._ranges(sharded))
         # The gamma kernel gathers rows of expElogbeta^T, and so does the
         # scatter: one table for all buckets of this E-step.
         eeb_t = (gather_table(eeb, self._config.compute_dtype)
@@ -411,9 +478,9 @@ class VariationalBayes(Inferencer):
 
     def _ragged_fixed_points(self, batches: List[_Bucket], lam, alpha,
                              gamma0s: List[torch.Tensor]):
-        """(expElogbeta, each bucket's gamma rows, each bucket's sweeps):
-        the gamma fixed points alone."""
-        eeb = exp_dirichlet_expectation_fast(lam)
+        """(the whole expElogbeta, this rank's block of it, each bucket's
+        gamma rows, each bucket's sweeps): the gamma fixed points alone."""
+        eeb, eeb_own = self._expectations(lam)
         # The kernel gathers rows of expElogbeta^T: build the table once
         # for all buckets of this E-step (bf16 in the bf16 operand mode).
         eeb_t = (gather_table(eeb, self._config.compute_dtype) if eeb.is_cuda
@@ -425,19 +492,24 @@ class VariationalBayes(Inferencer):
                                 eeb_t=eeb_t, **kw)
             rows.append(g)
             sweeps.append(s)
-        return eeb, rows, sweeps
+        return eeb, eeb_own, rows, sweeps
 
     def _run_estep_hybrid(
         self, batches: List[_Bucket], plan: _SstatsPlan, lam, alpha,
-        gamma0s: List[torch.Tensor],
+        gamma0s: List[torch.Tensor], sharded: bool = True,
     ):
         """Ragged sweeps + scatter-free dense sufficient statistics.
         Returns ([gamma_docs], sstats, token_score, theta_score,
         elog_sum); the sweeps each bucket took stay on the device in
-        ``last_sweeps``."""
+        ``last_sweeps``.  The sufficient statistics cover the plan's
+        columns and, under ``shard_topics`` (``sharded``), this rank's
+        topics."""
         cfg = self._config
-        eeb, rows, sweeps = self._ragged_fixed_points(batches, lam, alpha,
-                                                      gamma0s)
+        eeb, eeb_own, rows, sweeps = self._ragged_fixed_points(
+            batches, lam, alpha, gamma0s)
+        if plan.vocab_range is not None:
+            eeb = eeb_own
+        topic_range = self._ranges(sharded)["topic_range"]
         self.last_sweeps = sweeps
         gamma_docs = _assemble_gamma_device(
             torch.cat(rows, dim=0),
@@ -449,7 +521,8 @@ class VariationalBayes(Inferencer):
         token_score = torch.zeros((), dtype=lam.dtype, device=lam.device)
         for counts, cidx in plan.chunks:
             ss, tok = dense_sstats(counts, et_docs[cidx], eeb, eps=cfg.eps,
-                                   compute_dtype=cfg.compute_dtype)
+                                   compute_dtype=cfg.compute_dtype,
+                                   topic_range=topic_range)
             sstats = ss if sstats is None else sstats + ss
             token_score = token_score + tok
         theta_score = theta_elbo(gamma_docs, alpha, plan.docs_mask)
@@ -458,12 +531,16 @@ class VariationalBayes(Inferencer):
         ).sum(dim=0)
         return [gamma_docs], sstats, token_score, theta_score, elog_sum
 
-    def _run_estep(self, batches, plan, lam, alpha, gamma0s):
+    def _run_estep(self, batches, plan, lam, alpha, gamma0s,
+                   sharded: bool = True):
         """The E-step of ``batches``: (gammas, sstats, token_score,
-        theta_score, elog_sum)."""
+        theta_score, elog_sum); ``sharded`` as for
+        ``_run_estep_batches``."""
         if plan is None:
-            return self._run_estep_batches(batches, lam, alpha, gamma0s)
-        return self._run_estep_hybrid(batches, plan, lam, alpha, gamma0s)
+            return self._run_estep_batches(batches, lam, alpha, gamma0s,
+                                           sharded)
+        return self._run_estep_hybrid(batches, plan, lam, alpha, gamma0s,
+                                      sharded)
 
     @staticmethod
     def _gamma_doc_ids_for(batches, plan, offset: int = 0
@@ -476,15 +553,24 @@ class VariationalBayes(Inferencer):
         return [b.doc_ids for b in batches]
 
     def _reduce_estep(self, sstats, token_score, theta_score, elog_sum):
-        """A rank's E-step summed over the mesh: the sufficient statistics
-        in one all-reduce, the token score, theta terms and E[log theta]
-        sums packed into another.  As they are without a process group."""
+        """A rank's E-step summed over the mesh's data group (its other
+        data coordinates' documents): the sufficient statistics in one
+        all-reduce, the token score, theta terms and E[log theta] sums
+        packed into another.  Under ``shard_vocab`` the token score, a
+        partial sum over this rank's columns, is first summed over the
+        model group (so over every rank); the doc-level terms, the same on
+        every rank of a model group, are not.  As they are without a
+        process group."""
         mesh = self._mesh
         if mesh is None or not mesh.grouped:
             return sstats, token_score, theta_score, elog_sum
-        sstats = all_reduce_sum(sstats.contiguous(), mesh)
+        sstats = all_reduce_sum(sstats.contiguous(), mesh, "data")
+        if self._shard is not None and self._shard.mode == VOCAB:
+            token_score = all_reduce_sum(token_score.reshape(1).clone(),
+                                         mesh, "model")[0]
         packed = all_reduce_sum(torch.cat([
-            token_score.reshape(1), theta_score.reshape(1), elog_sum]), mesh)
+            token_score.reshape(1), theta_score.reshape(1), elog_sum]), mesh,
+            "data")
         return sstats, packed[0], packed[1], packed[2:]
 
     # -- one full VB iteration ------------------------------------------------
@@ -499,15 +585,16 @@ class VariationalBayes(Inferencer):
         )
         sstats, token_score, theta_score, elog_sum = self._reduce_estep(
             sstats, token_score, theta_score, elog_sum)
-        elbo = token_score + theta_score + beta_elbo(st.lam, st.eta)
-        lam_new = st.eta[None, :] + sstats
+        elbo = token_score + theta_score + self._beta_elbo(st.lam, st.eta)
+        lam_new = self._eta_own(st.eta)[None, :] + sstats
         alpha_new, eta_new = st.alpha, st.eta
         if update_hypers:
             alpha_new = newton_dirichlet_mle(
                 st.alpha, elog_sum, float(self._corpus.global_num_docs)
             )
             eta_new = newton_dirichlet_mle(
-                st.eta, _elog_lambda_sum(lam_new), float(cfg.number_of_topics)
+                st.eta, self._elog_lambda_sum(lam_new),
+                float(cfg.number_of_topics)
             )
         new_state = LDAState(
             lam=lam_new, alpha=alpha_new, eta=eta_new, step=st.step + 1
@@ -567,7 +654,8 @@ class VariationalBayes(Inferencer):
         ``estep_total_ms``, ``mstep_ms``, ``bound_ms`` and
         ``hyper_newton_ms``; under a mesh with a process group also
         ``allreduce_ms`` (the sufficient statistics' all-reduce,
-        ``allreduce_bytes`` and ``allreduce_backend`` beside it; every
+        ``allreduce_bytes`` and ``allreduce_backend`` beside it, and under
+        a lambda shard ``allgather_ms`` and ``allgather_bytes``; every
         rank must call this).  Each phase runs alone (``utils.timing``:
         CUDA events on the card, the best of ``repeats`` after a warm
         call and a synchronize), so their sum leaves out the host work
@@ -612,12 +700,13 @@ class VariationalBayes(Inferencer):
                 sum(v for k, v in out.items() if k.startswith("estep_batch")),
                 6)
         self.last_sweeps = sweeps
-        lam_new = timed("mstep_ms", lambda: st.eta[None, :] + sstats)
-        timed("bound_ms", lambda: beta_elbo(st.lam, st.eta))
+        lam_new = timed("mstep_ms",
+                        lambda: self._eta_own(st.eta)[None, :] + sstats)
+        timed("bound_ms", lambda: self._beta_elbo(st.lam, st.eta))
         timed("hyper_newton_ms", lambda: (
             newton_dirichlet_mle(st.alpha, elog_sum,
                                  float(self._corpus.global_num_docs)),
-            newton_dirichlet_mle(st.eta, _elog_lambda_sum(lam_new),
+            newton_dirichlet_mle(st.eta, self._elog_lambda_sum(lam_new),
                                  float(cfg.number_of_topics)),
         ))
         out.update(self._allreduce_timing(sstats, repeats))
@@ -664,13 +753,16 @@ class VariationalBayes(Inferencer):
     def inference(self, test_corpus: Corpus) -> Tuple[float, np.ndarray]:
         """E-step on held-out docs with lambda frozen; returns (doc-side
         bound, gamma in corpus order).  Replicated under a mesh: each rank
-        runs the whole ``test_corpus`` alone (no collective)."""
+        runs the whole ``test_corpus`` alone (no collective; under a
+        lambda shard the one gather of expElogbeta over the model group,
+        then the whole column range)."""
         st = self.state
         batches = self._build_batches(test_corpus)
-        plan = self._plan_dense_sstats(test_corpus)
+        plan = self._plan_dense_sstats(test_corpus, own=False)
         gammas, _, token_score, theta_score, _ = self._run_estep(
             batches, plan, st.lam, st.alpha,
             self._gamma0s(batches, TAG_GAMMA_TEST, self._counter),
+            sharded=False,
         )
         gamma = layouts.assemble_gamma(
             self._gamma_doc_ids_for(batches, plan),

@@ -21,7 +21,10 @@ version, ``pylda_tpu_torch.ops.estep.estep_dense``.  A CUDA tensor the
 kernel does not take raises.  ``compute_dtype="bfloat16"`` launches both
 kernels' bf16 builds (a bf16 gather table; expEtheta, expElogbeta in
 phinorm and the ratio rounded as the reference rounds them), never the
-float32 builds.
+float32 builds.  Under lambda sharding the final pass takes the rank's
+``topic_range`` (the sstats kernel's topic-range launch) or
+``vocab_range`` (its own columns of counts and expElogbeta), while the
+fixed point reads the whole expElogbeta.
 """
 
 from __future__ import annotations
@@ -32,7 +35,11 @@ import torch
 
 from pylda_tpu_torch.ops import row_fixed_point
 from pylda_tpu_torch.ops.dirichlet import exp_dirichlet_expectation
-from pylda_tpu_torch.ops.estep import check_compute_dtype, estep_dense
+from pylda_tpu_torch.ops.estep import (
+    check_compute_dtype,
+    estep_dense,
+    vocab_block,
+)
 from pylda_tpu_torch.ops.row_fixed_point import MAX_TOPICS
 from pylda_tpu_torch.ops.sstats import dense_sstats
 
@@ -61,6 +68,8 @@ def dense_estep(
     row_exit_out: Optional[torch.Tensor] = None,
     geometry_out: Optional[dict] = None,
     compute_dtype: str = "float32",
+    topic_range: Optional[Tuple[int, int]] = None,
+    vocab_range: Optional[Tuple[int, int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """(gamma [D, K], sstats [K, V], token score 0-d, sweeps_used 0-d
     int32) — see ``estep_dense``.  Optional outputs, filled on CUDA
@@ -83,7 +92,8 @@ def dense_estep(
             inner_iterations=inner_iterations,
             convergence_threshold=convergence_threshold,
             eps=eps, stall_patience=stall_patience,
-            compute_dtype=compute_dtype,
+            compute_dtype=compute_dtype, topic_range=topic_range,
+            vocab_range=vocab_range,
         )
     D, Vc = counts.shape
     K, V = exp_elog_beta.shape
@@ -111,7 +121,10 @@ def dense_estep(
         if t.device != dev:
             raise ValueError("all inputs must be on one device")
     if D == 0:
-        return (gamma_init.clone(), exp_elog_beta.new_zeros((K, V)),
+        k0, k1 = topic_range or (0, K)
+        v0, v1 = vocab_range or (0, V)
+        return (gamma_init.clone(), exp_elog_beta.new_zeros((k1 - k0,
+                                                             v1 - v0)),
                 exp_elog_beta.new_zeros(()),
                 torch.zeros((), dtype=torch.int32, device=dev))
     counts = counts.contiguous()
@@ -127,8 +140,9 @@ def dense_estep(
     else:
         LAUNCHES += 1
     # The final pass at the EXACT expectation of the converged gamma.
+    c_own, eeb_own = vocab_block(counts, exp_elog_beta, vocab_range)
     sstats, token_score = dense_sstats(
-        counts, exp_dirichlet_expectation(gamma), exp_elog_beta, eps=eps,
-        compute_dtype=compute_dtype,
+        c_own, exp_dirichlet_expectation(gamma), eeb_own, eps=eps,
+        compute_dtype=compute_dtype, topic_range=topic_range,
     )
     return gamma, sstats, token_score, sweeps

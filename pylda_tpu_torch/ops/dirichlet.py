@@ -8,15 +8,23 @@ float64 inputs as the JAX functions do.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch.special import digamma, gammaln
 
 _HALF_LOG_2PI = 0.9189385332046727
 
 
-def dirichlet_expectation(x: torch.Tensor) -> torch.Tensor:
-    """E[log p] for p ~ Dir(x) along the last axis: psi(x) - psi(sum x)."""
-    return digamma(x) - digamma(x.sum(dim=-1, keepdim=True))
+def dirichlet_expectation(x: torch.Tensor,
+                          row_sum: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """E[log p] for p ~ Dir(x) along the last axis: psi(x) - psi(sum x).
+    ``row_sum`` ([..., 1]) passes sum x when x is a block of columns
+    (``parallel/lam_shard.py``)."""
+    if row_sum is None:
+        row_sum = x.sum(dim=-1, keepdim=True)
+    return digamma(x) - digamma(row_sum)
 
 
 def exp_dirichlet_expectation(x: torch.Tensor) -> torch.Tensor:
@@ -37,16 +45,20 @@ def _psi_parts(v: torch.Tensor):
     return y, t - 1.0 / v - 1.0 / (v + 1.0)
 
 
-def exp_dirichlet_expectation_fast(x: torch.Tensor) -> torch.Tensor:
+def exp_dirichlet_expectation_fast(x: torch.Tensor,
+                                   row_sum: Optional[torch.Tensor] = None
+                                   ) -> torch.Tensor:
     """exp(E[log p]) via the shifted asymptotic digamma (no reflection
     branch; x > 0 always holds in the E-step).  The ln(x+2) term cancels
     into the exp, so each element costs 3 divides, ~8 FMAs and one exp.
     Max |psi error| 1.2e-5 at x = 1e-3, smaller above; float64 inputs
-    take the exact form."""
+    take the exact form.  ``row_sum`` as for ``dirichlet_expectation``."""
+    if row_sum is None:
+        row_sum = x.sum(dim=-1, keepdim=True)
     if x.dtype == torch.float64:
-        return exp_dirichlet_expectation(x)
+        return torch.exp(dirichlet_expectation(x, row_sum))
     y, t = _psi_parts(x)
-    ys, ts = _psi_parts(x.sum(dim=-1, keepdim=True))
+    ys, ts = _psi_parts(row_sum)
     # exp(psi(x) - psi(s)) = (x+2) * exp(t - ln(s+2) - ts).
     return y * torch.exp(t - (torch.log(ys) + ts))
 

@@ -26,6 +26,14 @@ gamma' = alpha + expEtheta * (...), the token score and the outer
 multiply of the sufficient statistics by expElogbeta keep the unrounded
 values.  In float64 the same points give the "bf16 operands, exact sums"
 version the kernels' bf16 builds are held against.
+
+Under lambda sharding (``parallel/lam_shard.py``) the sufficient
+statistics take a ``topic_range`` (k0, k1): rows k0..k1-1 only, as a
+[k1 - k0, V] result, with phinorm and the token score over all K; and
+the scatter and the dense E-step a ``vocab_range`` (v0, v1): columns
+v0..v1-1 only, as [K, v1 - v0], and the token score of those columns'
+counts only (a partial sum over the model group).  The fixed point always
+reads the whole expElogbeta.
 """
 
 from __future__ import annotations
@@ -167,6 +175,8 @@ def estep_dense(
     eps: float = 1e-30,
     stall_patience: int = 0,
     compute_dtype: str = "float32",
+    topic_range: Optional[Tuple[int, int]] = None,
+    vocab_range: Optional[Tuple[int, int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Dense doc-term E-step — ``pylda_tpu``'s ``estep_dense`` in the input
     dtype (bf16 mode: expElogbeta, expEtheta in phinorm and the ratio
@@ -179,7 +189,9 @@ def estep_dense(
     and the token score at the EXACT expectation of the converged gamma
     (``estep_dense_sstats``).  ``counts`` may arrive vocab-prepadded and
     in bf16, as for ``estep_dense_sstats``.  Returns (gamma, sstats,
-    token_score, sweeps_used) with sweeps_used a 0-d int32 tensor."""
+    token_score, sweeps_used) with sweeps_used a 0-d int32 tensor; the
+    final pass takes ``topic_range`` or ``vocab_range`` (module
+    docstring)."""
     # Padding columns are all-zero counts: leave them out of the sweeps.
     c = counts[:, : exp_elog_beta.shape[1]].to(gamma_init.dtype)
     rnd = _rounder(compute_dtype)
@@ -193,9 +205,10 @@ def estep_dense(
 
     i, gamma = _fixed_point(sweep, gamma_init, inner_iterations,
                             convergence_threshold, stall_patience)
+    c_own, eeb_own = vocab_block(counts, exp_elog_beta, vocab_range)
     sstats, token_score = estep_dense_sstats(
-        counts, exp_dirichlet_expectation(gamma), exp_elog_beta, eps,
-        compute_dtype=compute_dtype,
+        c_own, exp_dirichlet_expectation(gamma), eeb_own, eps,
+        compute_dtype=compute_dtype, topic_range=topic_range,
     )
     return (gamma, sstats, token_score,
             torch.tensor(i, dtype=torch.int32, device=gamma.device))
@@ -225,12 +238,24 @@ def estep_ragged_gamma(
     return gamma, torch.tensor(i, dtype=torch.int32, device=gamma.device)
 
 
+def vocab_block(counts: torch.Tensor, exp_elog_beta: torch.Tensor,
+                vocab_range: Optional[Tuple[int, int]]):
+    """(counts, expElogbeta) of the final pass over columns
+    ``vocab_range`` (all of them for None)."""
+    if vocab_range is None:
+        return counts, exp_elog_beta
+    v0, v1 = vocab_range
+    return (counts[:, v0:v1].contiguous(),
+            exp_elog_beta[:, v0:v1].contiguous())
+
+
 def estep_dense_sstats(
     counts: torch.Tensor,  # [D, Vc] float or bf16 (0 pads), Vc >= V
     exp_etheta: torch.Tensor,  # [D, K] exp E[log theta] at converged gamma
     exp_elog_beta: torch.Tensor,  # [K, V]
     eps: float = 1e-30,
     compute_dtype: str = "float32",
+    topic_range: Optional[Tuple[int, int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Scatter-free sufficient statistics + token score from dense counts:
 
@@ -243,7 +268,10 @@ def estep_dense_sstats(
     dtype.  Padding columns see expElogbeta = 0 and are sliced away;
     all-zero rows contribute nothing.  bf16 mode rounds expEtheta (in
     both products), expElogbeta in phinorm and the ratio; phinorm, the
-    score and the outer multiply by expElogbeta stay unrounded."""
+    score and the outer multiply by expElogbeta stay unrounded.  A
+    ``topic_range`` (k0, k1) gives rows k0..k1-1 of sstats only (the
+    second product over those topics of expEtheta), phinorm and the score
+    as for all K."""
     dt = exp_etheta.dtype
     V = exp_elog_beta.shape[1]
     Vc = counts.shape[1]
@@ -256,7 +284,12 @@ def estep_dense_sstats(
     et_c = rnd(exp_etheta)
     phinorm = et_c @ rnd(eeb_w) + eps  # [D, Vc]
     ratio = c / phinorm
-    sstats = exp_elog_beta * (et_c.T @ rnd(ratio))[:, :V]
+    if topic_range is None:
+        sstats = exp_elog_beta * (et_c.T @ rnd(ratio))[:, :V]
+    else:
+        k0, k1 = topic_range
+        sstats = (exp_elog_beta[k0:k1]
+                  * (et_c[:, k0:k1].T @ rnd(ratio))[:, :V])
     token_score = (c * torch.log(phinorm)).sum()
     return sstats, token_score
 
@@ -269,6 +302,8 @@ def scatter_sstats(
     eeb_t: torch.Tensor,  # gather_table(exp_elog_beta, compute_dtype)
     eps: float = 1e-30,
     compute_dtype: str = "float32",
+    topic_range: Optional[Tuple[int, int]] = None,
+    vocab_range: Optional[Tuple[int, int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sufficient statistics + token score of one ragged block by the row
     scatter — what ``pylda_tpu``'s ``estep_ragged`` does after its loop:
@@ -288,7 +323,14 @@ def scatter_sstats(
     The sum is the same on every call: the flattened ids are sorted
     stably (slot order within a word) and ``sum_by_word`` sums each
     word's run in a fixed order with ``torch.segment_reduce`` — no
-    atomics."""
+    atomics.
+
+    A ``topic_range`` (k0, k1) scatters topics k0..k1-1 only ([k1 - k0,
+    V]); a ``vocab_range`` (v0, v1) the slots of words v0..v1-1 only
+    ([K, v1 - v0]; the others get the word past the last and sort after
+    every kept slot, where the sum leaves them out), and the token score
+    of those slots only.  A kept word's run is then the whole call's run,
+    so its sum is the whole call's bits."""
     D, T = ids.shape
     K, V = exp_elog_beta.shape
     rnd = _rounder(compute_dtype)
@@ -298,17 +340,29 @@ def scatter_sstats(
                            rnd(exp_etheta)) + eps
     del B
     ratio = cnts.to(exp_etheta.dtype) / phinorm
+    eeb, et, W = exp_elog_beta, exp_etheta, V
+    if vocab_range is not None:
+        v0, v1 = vocab_range
+        own = (flat >= v0) & (flat < v1)
+        W = v1 - v0
+        flat = torch.where(own, flat - v0, W)
+        cnts = torch.where(own.reshape(D, T), cnts, 0)
+        eeb = exp_elog_beta[:, v0:v1]
+    if topic_range is not None:
+        k0, k1 = topic_range
+        eeb, et = exp_elog_beta[k0:k1], exp_etheta[:, k0:k1]
     token_score = (cnts.to(phinorm.dtype) * torch.log(phinorm)).sum()
     words, perm = torch.sort(flat, stable=True)
-    U = (exp_etheta.index_select(0, torch.div(perm, T, rounding_mode="floor"))
+    U = (et.index_select(0, torch.div(perm, T, rounding_mode="floor"))
          * ratio.reshape(-1)[perm][:, None])
-    return exp_elog_beta * sum_by_word(words, U, V).T, token_score
+    return eeb * sum_by_word(words, U, W).T, token_score
 
 
 def sum_by_word(words: torch.Tensor, U: torch.Tensor, V: int,
                 run: int = SUM_RUN) -> torch.Tensor:
     """A [V, K]: the rows of U [N, K] summed by word, for ``words`` [N]
-    sorted (int64), in one fixed order on every device.
+    sorted (int64), in one fixed order on every device.  Slots of word V
+    (past the last) sort last and are left out.
 
     ``torch.segment_reduce`` sums each segment in sequence, and a frequent
     word's slots run to thousands, a chain of dependent adds.  So the sum
@@ -348,6 +402,8 @@ def estep_ragged(
     stall_patience: int = 0,
     compute_dtype: str = "float32",
     eeb_t: Optional[torch.Tensor] = None,
+    topic_range: Optional[Tuple[int, int]] = None,
+    vocab_range: Optional[Tuple[int, int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Ragged (ids, counts) E-step with scatter sufficient statistics —
     ``pylda_tpu``'s ``estep_ragged``.  Returns (gamma, sstats [K, V],
@@ -359,8 +415,8 @@ def estep_ragged(
     plain version for CPU tensors.  Then ``scatter_sstats`` at the EXACT
     expectation of the converged gamma, gathering from one table
     ``eeb_t`` (``gather_table(exp_elog_beta, compute_dtype)``, built here
-    when not passed).  The scatter runs in the profiler range
-    ``SCATTER_RANGE``."""
+    when not passed), over ``topic_range`` or ``vocab_range`` when given.
+    The scatter runs in the profiler range ``SCATTER_RANGE``."""
     # ops.ragged imports this module for its plain version.
     from pylda_tpu_torch.ops.ragged import gather_table, ragged_gamma
 
@@ -377,6 +433,7 @@ def estep_ragged(
         sstats, token_score = scatter_sstats(
             ids, cnts, exp_dirichlet_expectation(gamma), exp_elog_beta,
             eeb_t, eps, compute_dtype=compute_dtype,
+            topic_range=topic_range, vocab_range=vocab_range,
         )
     return gamma, sstats, token_score, sweeps
 

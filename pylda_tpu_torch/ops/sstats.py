@@ -24,6 +24,14 @@ and reused.  The kernel takes 1 <= K <= ``MAX_TOPICS``.
 ``compute_dtype="bfloat16"`` launches its bf16 build (``ops/_build.py``:
 expEtheta, expElogbeta in phinorm and the ratio rounded to bf16, the
 outer multiply by expElogbeta in float32), never the float32 build.
+
+``topic_range=(k0, k1)`` (lambda split over topics,
+``parallel/lam_shard.py``) returns rows k0..k1-1 only, as a [k1 - k0, V]
+result: phinorm and the score still run over all K, in the build and on
+the grid of the whole K, and only the range's sums are accumulated,
+stored and written, so its rows are the full call's rows bit for bit
+(``csrc/dense_sstats.cu``).  Such calls count in ``RANGE_LAUNCHES`` and
+``BF16_RANGE_LAUNCHES`` besides ``LAUNCHES`` and ``BF16_LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -31,7 +39,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -42,6 +50,9 @@ from pylda_tpu_torch.ops.estep import check_compute_dtype, estep_dense_sstats
 # the float32 build, and of the bf16 build.
 LAUNCHES = 0
 BF16_LAUNCHES = 0
+# Of those, the launches with a topic range narrower than [0, K).
+RANGE_LAUNCHES = 0
+BF16_RANGE_LAUNCHES = 0
 # Largest topic count the kernel takes (its largest build).
 MAX_TOPICS = 4096
 # Threads of a CTA; vocab columns a CTA owns at 4 lanes a column.
@@ -74,14 +85,17 @@ class Plan:
     """The kernel's grid for one call: ``tiles`` x ``splits`` CTAs, a tile
     ``cols`` vocab columns; split s owns rows [s * rows_per_split,
     (s + 1) * rows_per_split) in chunks of ``CHUNK_ROWS``; ``kp`` topics
-    (K padded to the kernel build's 4 * lanes * n4) are the length of a
-    column's partial sums."""
+    (K padded to the kernel build's 4 * lanes * n4) are a column's sums a
+    lane group holds, and ``qr`` float4s of them (the topic range's,
+    rounded out to whole float4s) the length of a column's split
+    partials."""
 
     tiles: int
     splits: int
     rows_per_split: int
     kp: int
     cols: int
+    qr: int = 0
 
     @property
     def blocks(self) -> int:
@@ -93,7 +107,7 @@ class Plan:
         """f32 scratch of the splits' partial sums (none for one split)."""
         if self.splits == 1:
             return 0
-        return self.blocks * self.cols * self.kp
+        return self.blocks * self.cols * 4 * self.qr
 
     @property
     def scratch_bytes(self) -> int:
@@ -109,13 +123,18 @@ def build_for(K: int) -> Tuple[int, int]:
     return next(b for b in BUILDS if 4 * b[0] * b[1] >= K)
 
 
-def plan(D: int, Vc: int, K: int, sms: int) -> Plan:
+def plan(D: int, Vc: int, K: int, sms: int,
+         topic_range: Optional[Tuple[int, int]] = None) -> Plan:
     """The grid for counts [D, Vc] at K topics on a card of ``sms`` SMs:
     the build's tile width, then the fewest row splits that give
     ``MIN_CTAS_PER_SM`` CTAs an SM and at most ``CHUNKS_PER_SPLIT`` (times
     kp / 256 above 256) 32-row chunks a split (both read at call time), no
-    more splits than chunks, and no empty split."""
+    more splits than chunks, and no empty split.  A ``topic_range``
+    (k0, k1) sizes the split partials only: the grid is the whole K's.
+    Without one a column's partials take kp floats, the length every
+    build of the kernel's source has used."""
     n4, lanes = build_for(K)
+    k0, k1 = check_topic_range(topic_range, K)
     kp, cols = 4 * lanes * n4, THREADS // lanes
     tiles = max(1, -(-Vc // cols))
     chunks = max(1, -(-D // CHUNK_ROWS))
@@ -125,17 +144,34 @@ def plan(D: int, Vc: int, K: int, sms: int) -> Plan:
     rows_per_split = -(-chunks // splits) * CHUNK_ROWS
     splits = max(1, -(-D // rows_per_split))
     return Plan(tiles=tiles, splits=splits, rows_per_split=rows_per_split,
-                kp=kp, cols=cols)
+                kp=kp, cols=cols, qr=(kp // 4 if topic_range is None
+                                      else -(-k1 // 4) - k0 // 4))
+
+
+def check_topic_range(topic_range: Optional[Tuple[int, int]], K: int
+                      ) -> Tuple[int, int]:
+    """(k0, k1) of ``topic_range``, (0, K) for None; raises ``ValueError``
+    unless 0 <= k0 < k1 <= K."""
+    k0, k1 = (0, K) if topic_range is None else map(int, topic_range)
+    if not 0 <= k0 < k1 <= K:
+        raise ValueError(f"topic range {topic_range} is not within [0, {K})")
+    return k0, k1
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Sets the argument types of ``pylda_dense_sstats`` on a library
+    """Sets the argument types of ``pylda_dense_sstats`` (and of
+    ``pylda_dense_sstats_range`` where the source has it) on a library
     built from ``csrc/dense_sstats.cu`` (or from a variant of it)."""
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.pylda_dense_sstats.argtypes = [
-        p, i, p, p, p, p, p, p, p, i, i, i, i, ctypes.c_float, i, i, p,
+        p, i, p, p, p, p, p, p, p, i, i, i, i, f, i, i, p,
     ]
     lib.pylda_dense_sstats.restype = i
+    if hasattr(lib, "pylda_dense_sstats_range"):
+        lib.pylda_dense_sstats_range.argtypes = [
+            p, i, p, p, p, p, p, p, p, i, i, i, i, i, i, f, i, i, p,
+        ]
+        lib.pylda_dense_sstats_range.restype = i
     return lib
 
 
@@ -180,13 +216,16 @@ def dense_sstats(
     exp_elog_beta: torch.Tensor,  # [K, V] f32
     eps: float = 1e-30,
     compute_dtype: str = "float32",
+    topic_range: Optional[Tuple[int, int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(sstats [K, V], token score 0-d) — see ``estep_dense_sstats``."""
-    global LAUNCHES, BF16_LAUNCHES
+    """(sstats [K, V], or [k1 - k0, V] for a ``topic_range`` (k0, k1),
+    token score 0-d) — see ``estep_dense_sstats``."""
+    global LAUNCHES, BF16_LAUNCHES, RANGE_LAUNCHES, BF16_RANGE_LAUNCHES
     check_compute_dtype(compute_dtype)
     if not counts.is_cuda:
         return estep_dense_sstats(counts, exp_etheta, exp_elog_beta, eps,
-                                  compute_dtype=compute_dtype)
+                                  compute_dtype=compute_dtype,
+                                  topic_range=topic_range)
     D, Vc = counts.shape
     K, V = exp_elog_beta.shape
     if counts.dtype not in (torch.bfloat16, torch.float32):
@@ -203,40 +242,50 @@ def dense_sstats(
             f"the dense sstats kernel takes K <= {MAX_TOPICS} (got {K}); "
             "see ROADMAP.md Queue 2 item 1"
         )
+    k0, k1 = check_topic_range(topic_range, K)
     dev = counts.device
     if exp_etheta.device != dev or exp_elog_beta.device != dev:
         raise ValueError("all inputs must be on one device")
     out = launch(_lib(compute_dtype), counts.contiguous(), exp_etheta.contiguous(),
-                 exp_elog_beta.contiguous(), eps)
+                 exp_elog_beta.contiguous(), eps, topic_range)
+    narrow = (k0, k1) != (0, K)
     if compute_dtype == "bfloat16":
         BF16_LAUNCHES += 1
+        BF16_RANGE_LAUNCHES += narrow
     else:
         LAUNCHES += 1
+        RANGE_LAUNCHES += narrow
     return out
 
 
 def launch(lib: ctypes.CDLL, counts: torch.Tensor, exp_etheta: torch.Tensor,
-           exp_elog_beta: torch.Tensor, eps: float
+           exp_elog_beta: torch.Tensor, eps: float,
+           topic_range: Optional[Tuple[int, int]] = None,
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One launch of ``lib``'s kernel on checked, contiguous CUDA inputs:
-    (sstats, score); raises if the launch fails."""
+    (sstats, score); raises if the launch fails.  Without a
+    ``topic_range`` it calls the full-range entry, which a library built
+    from an older source also has."""
     D, Vc = counts.shape
     K, V = exp_elog_beta.shape
+    k0, k1 = check_topic_range(topic_range, K)
     dev = counts.device
-    pl = plan(D, Vc, K, _sms(dev.index))
+    pl = plan(D, Vc, K, _sms(dev.index), topic_range)
     # The last CTA of each tile writes every entry of its columns.
-    sstats = torch.empty((K, V), dtype=torch.float32, device=dev)
+    sstats = torch.empty((k1 - k0, V), dtype=torch.float32, device=dev)
     score = torch.empty((), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         parts, partial, counters = _scratch(dev, stream, pl)
-        rc = lib.pylda_dense_sstats(
-            counts.data_ptr(), int(counts.dtype == torch.bfloat16),
-            exp_etheta.data_ptr(), exp_elog_beta.data_ptr(),
-            sstats.data_ptr(), parts.data_ptr(), score.data_ptr(),
-            partial.data_ptr(), counters.data_ptr(), D, Vc, V, K, float(eps),
-            pl.splits, pl.rows_per_split, stream,
-        )
+        args = (counts.data_ptr(), int(counts.dtype == torch.bfloat16),
+                exp_etheta.data_ptr(), exp_elog_beta.data_ptr(),
+                sstats.data_ptr(), parts.data_ptr(), score.data_ptr(),
+                partial.data_ptr(), counters.data_ptr(), D, Vc, V, K)
+        tail = (float(eps), pl.splits, pl.rows_per_split, stream)
+        if topic_range is None:
+            rc = lib.pylda_dense_sstats(*args, *tail)
+        else:
+            rc = lib.pylda_dense_sstats_range(*args, k0, k1, *tail)
     if rc != 0:
         raise RuntimeError(f"dense_sstats kernel launch failed: cudaError {rc}")
     return sstats, score

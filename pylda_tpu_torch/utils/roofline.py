@@ -341,16 +341,21 @@ def suite_mfu(eng, measured_seconds: float) -> float:
     return round(utilisation(measured_seconds * 1e3, bound), 6)
 
 
-def allreduce_row(engine, timings: dict) -> dict:
-    """The step's all-reduce (``phase_timings``' ``allreduce_ms``) beside
-    its bound where one holds: NCCL on one card, where the in-place
-    reduce of one rank need only read the tensor once, over the memory
-    rate.  Across ranks, or over gloo (staged through the host), the time
-    is printed with "no bound"."""
-    ms, nbytes = timings["allreduce_ms"], timings["allreduce_bytes"]
+def allreduce_row(engine, timings: dict, kind: str = "allreduce") -> dict:
+    """The step's all-reduce (``phase_timings``' ``allreduce_ms``), or
+    with ``kind`` "allgather" its gather of expElogbeta over the model
+    group under a lambda shard (``allgather_ms``, ``allgather_bytes``:
+    what a rank receives), beside its bound where one holds: NCCL over a
+    group of one card, where the collective need only read its bytes
+    once, over the memory rate (the all-reduce runs over the data group,
+    the gather over the model group).  Across ranks, or over gloo (staged
+    through the host), the time is printed with "no bound"."""
+    ms, nbytes = timings[f"{kind}_ms"], timings[f"{kind}_bytes"]
     backend = timings["allreduce_backend"]
     row = {"measured_ms": round(ms, 6), "bytes": nbytes, "backend": backend}
-    if backend == "nccl" and engine._mesh.data == 1:
+    mesh = engine._mesh
+    ranks = mesh.data if kind == "allreduce" else mesh.model
+    if backend == "nccl" and ranks == 1:
         bound = nbytes / H100.hbm_bytes * 1e3
         row.update(bound_ms=round(bound, 6),
                    utilisation=round(utilisation(ms, bound), 4))
@@ -373,7 +378,7 @@ def roofline_report(engine, repeats: int = 3,
     - Gibbs: ``sweep`` (sampling, rebuild, factor refresh) and
       ``joint_likelihood``;
     - under a mesh with a process group, also ``allreduce``
-      (``allreduce_row``)."""
+      (``allreduce_row``), and under a lambda shard ``allgather``."""
     if timings is None:
         timings = engine.phase_timings(repeats=repeats)
     rows: dict = {}
@@ -383,8 +388,9 @@ def roofline_report(engine, repeats: int = 3,
                       "bound_ms": round(bound, 6),
                       "utilisation": round(utilisation(measured, bound), 4)}
 
-    if "allreduce_ms" in timings:
-        rows["allreduce"] = allreduce_row(engine, timings)
+    for kind in ("allreduce", "allgather"):
+        if f"{kind}_ms" in timings:
+            rows[kind] = allreduce_row(engine, timings, kind)
     mode = engine.config.inference_mode
     if mode == "gibbs":
         ph = gibbs_learning_phase_bounds(engine)

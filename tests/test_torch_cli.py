@@ -177,20 +177,27 @@ def test_learning_many_matches_learning_loop(corpus_dir):
                                rtol=1e-6)
 
 
-@pytest.mark.parametrize(
-    "flag", ["--shard_vocab", "--shard_topics", "--checkpoint_format=orbax"],
-)
-def test_unported_train_flags_exit(corpus_dir, tmp_path, flag):
-    with pytest.raises(SystemExit, match="ROADMAP.md Queue 1 item"):
-        _train(corpus_dir, str(tmp_path / "o"), flag)
+@pytest.mark.parametrize("flags, match", [
+    # Both ways of splitting lambda at once: the config's error.
+    (["--shard_vocab", "--shard_topics"], "exclusive"),
+    # Gibbs and hybrid under a model axis: not ported yet.
+    (["--inference_mode=gibbs", "--mesh=1,2", "--shard_topics"],
+     "ROADMAP.md Queue 1 item 14"),
+    (["--inference_mode=hybrid", "--mesh=1,2", "--shard_vocab"],
+     "ROADMAP.md Queue 1 item 14"),
+    (["--checkpoint_format=orbax"], "ROADMAP.md Queue 1 item 6"),
+])
+def test_unported_train_flags_exit(corpus_dir, tmp_path, flags, match):
+    with pytest.raises(SystemExit, match=match):
+        _train(corpus_dir, str(tmp_path / "o"), *flags)
     assert not (tmp_path / "o").exists()
 
 
 @pytest.mark.parametrize("flags, match", [
     # One process a card: a data axis of 2 needs 2 processes.
     (["--mesh=2,1"], "launch 2 processes"),
-    # A model axis is lambda sharding, not ported yet.
-    (["--mesh=1,2"], "ROADMAP.md Queue 1 item 12"),
+    # A model axis of 2 is two ranks too.
+    (["--mesh=1,2"], "launch 2 processes"),
     # A coordinator without both process flags would wait forever.
     (["--coordinator_address=localhost:1"], "--num_processes"),
     (["--coordinator_address=localhost:1", "--num_processes=2"],

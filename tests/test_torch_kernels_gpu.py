@@ -213,6 +213,43 @@ def test_dense_sstats_kernel_wide_k(cuda, K, bf16):
     assert float(tok) == pytest.approx(float(tok_p), rel=1e-5)
 
 
+def _topic_ranges(K):
+    """Each half of [0, K), and a range off the float4 boundaries."""
+    half = K // 2 if K > 1 else 1
+    out = [(0, half), (half, K)] if half < K else [(0, K)]
+    if K >= 10:
+        out.append((3, K - 5))
+    return out
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("K", [1, 7, 100, 200, 257, 1000, 4096])
+def test_dense_sstats_kernel_topic_range(cuda, K, compute_dtype):
+    """The topic-range launch (lambda split over topics): its rows are the
+    full-range launch's rows bit for bit and its score the full score's
+    bits; against the plain version's range at the tolerances above
+    (float32) or its own bf16 mode; rows off every chunk, many splits."""
+    ct, et, eeb = _sparse_sstats_inputs(1000, 300, K, 20, 3, 0.03, True,
+                                        cuda, hot=True, full_row=True)
+    mode = dict(compute_dtype=compute_dtype)
+    ss, tok = sstats_mod.dense_sstats(ct, et, eeb, **mode)
+    counter = ("BF16_RANGE_LAUNCHES" if compute_dtype == "bfloat16"
+               else "RANGE_LAUNCHES")
+    for k0, k1 in _topic_ranges(K):
+        before = getattr(sstats_mod, counter)
+        ss_r, tok_r = sstats_mod.dense_sstats(ct, et, eeb,
+                                              topic_range=(k0, k1), **mode)
+        assert getattr(sstats_mod, counter) == before + ((k0, k1) != (0, K))
+        ss_p, _ = estep_dense_sstats(ct, et, eeb, topic_range=(k0, k1),
+                                     **mode)
+        torch.cuda.synchronize()
+        assert ss_r.shape == (k1 - k0, 300)
+        assert torch.equal(ss_r, ss[k0:k1]) and torch.equal(tok_r, tok)
+        if compute_dtype == "float32":
+            tol = 1e-4 * ss_p.abs() + 1e-6 * ss_p.abs().max()
+            assert bool(((ss_r - ss_p).abs() <= tol).all())
+
+
 def _ragged_inputs(D, T, K, V, dev, seed=0, lam_shape=1.0):
     rng = np.random.default_rng(seed)
     ids = rng.integers(0, V, (D, T)).astype(np.int32)

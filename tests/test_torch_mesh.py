@@ -134,8 +134,9 @@ def test_backend_choice(device, world, cards, want):
 
 def test_mesh_in_one_process():
     """Without a process group the mesh is (1, 1) with no groups, and
-    nothing is reduced or counted; a data axis other than the world size
-    says how to launch; a model axis names its ROADMAP item."""
+    nothing is reduced or counted; a mesh of more ranks than the world
+    size says how many processes to launch, a model axis too; a mesh
+    built by hand for more ranks is refused the same way."""
     mesh = pmesh.make_mesh(device="cpu")
     assert (mesh.data, mesh.model, mesh.rank, mesh.grouped) == (1, 1, 0, False)
     assert mesh.shape == {"data": 1, "model": 1}
@@ -149,9 +150,11 @@ def test_mesh_in_one_process():
     assert dict(pmesh.COLLECTIVES) == before
     with pytest.raises(ValueError, match="launch 2 processes"):
         pmesh.make_mesh((2, 1))
-    with pytest.raises(ValueError, match="Queue 1 item 12"):
+    with pytest.raises(ValueError, match="launch 2 processes"):
         pmesh.make_mesh((1, 2))
-    with pytest.raises(ValueError, match="Queue 1 item 12"):
+    with pytest.raises(ValueError, match="launch 4 processes"):
+        pmesh.make_mesh((2, 2))
+    with pytest.raises(ValueError, match="launch 2 processes"):
         pmesh.validate_process_aligned(dataclasses.replace(mesh, model=2))
 
 

@@ -36,7 +36,7 @@ def _corpora(spec, mesh):
     if "corpus_dir" in spec:
         return load_input_directory(
             spec["corpus_dir"],
-            process_index=mesh.rank if local else None,
+            process_index=mesh.data_index if local else None,
             process_count=mesh.data if local else None,
             streaming=spec.get("streaming", False),
         )
@@ -45,7 +45,8 @@ def _corpora(spec, mesh):
     if "test" in spec:
         test = synthetic_corpus(beta=beta, **spec["test"])[0]
     if local:
-        lo, hi = pmesh.block_bounds(train.num_docs, mesh.rank, mesh.data)
+        lo, hi = pmesh.block_bounds(train.num_docs, mesh.data_index,
+                                    mesh.data)
         block = train.subset(range(lo, hi))
         block.process_local = True
         block.global_num_docs = train.num_docs
@@ -182,8 +183,108 @@ def case_hang(spec, mesh):
     return {"error": err, "waited": time.monotonic() - t0}
 
 
+def _lam0(spec, K, V):
+    if spec.get("lam_seed") is None:
+        return None
+    return np.random.default_rng(spec["lam_seed"]).gamma(100.0, 0.01, (K, V))
+
+
+def case_shard(spec, mesh):
+    """Lambda split over the model axis: for each config of ``runs``,
+    initialize from ``lam_seed``, ``iterations`` learning() calls (each
+    lambda block checked bitwise across its data group and the blocks'
+    tiling of (K, V) after each), ``many`` in learning_many; the
+    objectives, the gathered lambda, alpha, eta, the block's shape and
+    bounds, gamma, the topic-word matrix, held-out perplexities and the
+    collectives each run made (prefixed ``r<i>_``).  ``save`` writes the
+    first run's model file; ``load`` resumes one on the mesh and scores
+    the held-out documents."""
+    from pylda_tpu_torch.models import Inferencer
+
+    train, test, vocab = _corpora(spec, mesh)
+    out = {}
+    if spec.get("load"):
+        eng = Inferencer.load(spec["load"], device="cpu", mesh=mesh)
+        out["load_lam_shape"] = np.asarray(eng.state.lam.shape)
+        out["load_perplexity"] = eng.perplexity(test)
+        out["load_point_perplexity"] = eng.point_estimate_perplexity(test)
+        out["load_lam"] = eng.gathered_lam().numpy()
+    for i, run in enumerate(spec.get("runs", [])):
+        cfg = LDAConfig(**run).validate()
+        K, V = cfg.number_of_topics, len(vocab)
+        pmesh.COLLECTIVES.clear()
+        eng = make_engine(cfg, device="cpu")
+        eng.initialize(train, vocab, lam_init=_lam0(spec, K, V), mesh=mesh)
+        objs = []
+        for _ in range(spec.get("iterations", 2)):
+            objs.append(eng.learning())
+            pmesh.assert_replicas_consistent(
+                eng.state, mesh, sharded=("lam",), full_shape=(K, V))
+        objs += eng.learning_many(spec.get("many", 0))
+        p = f"r{i}_"
+        out[p + "collectives"] = json.dumps(dict(pmesh.COLLECTIVES))
+        out[p + "objs"] = np.asarray(objs, np.float64)
+        out[p + "lam"] = eng.gathered_lam().numpy()
+        out[p + "block"] = np.asarray(eng.state.lam.shape)
+        out[p + "bounds"] = np.asarray(
+            eng._shard.bounds if eng._shard is not None else (-1, -1))
+        out[p + "alpha"] = eng.state.alpha.numpy()
+        out[p + "eta"] = eng.state.eta.numpy()
+        out[p + "gamma"] = eng.gamma
+        out[p + "twd"] = eng.topic_word_distribution()
+        if test is not None:
+            out[p + "perplexity"] = eng.perplexity(test)
+            out[p + "point_perplexity"] = eng.point_estimate_perplexity(test)
+        if spec.get("save") and i == 0:
+            eng.save(spec["save"])
+    return out
+
+
+def case_groups(spec, mesh):
+    """The mesh's coordinates and groups: the sum of the ranks over the
+    data group and over the model group, a [K, V] tensor's blocks
+    gathered over the model group along each axis, the tiling check on
+    those blocks and on a wrong shape, and the shard replica check
+    after ``bump_rank`` nudges its block by one ulp."""
+    import torch
+
+    r = torch.tensor([float(mesh.rank)])
+    data_sum = float(pmesh.all_reduce_sum(r.clone(), mesh, "data")[0])
+    model_sum = float(pmesh.all_reduce_sum(r.clone(), mesh, "model")[0])
+    K, V = spec["shape"]
+    full = torch.arange(K * V, dtype=torch.float32).reshape(K, V)
+    out = {"data_index": mesh.data_index, "model_index": mesh.model_index,
+           "data_sum": data_sum, "model_sum": model_sum}
+    for axis in (0, 1):
+        total = full.shape[axis]
+        lo, hi = pmesh.block_bounds(total, mesh.model_index, mesh.model)
+        block = full[lo:hi] if axis == 0 else full[:, lo:hi]
+        got = pmesh.all_gather_blocks(block.contiguous(), total, mesh, axis)
+        out[f"gather_ok_{axis}"] = bool(torch.equal(got, full))
+        pmesh.assert_shards_tile(block.shape, (K, V), mesh)
+        try:
+            pmesh.assert_shards_tile(block.shape, (K + 1, V + 1), mesh)
+            out[f"bad_tiling_caught_{axis}"] = False
+        except AssertionError:
+            out[f"bad_tiling_caught_{axis}"] = True
+    lo, hi = pmesh.block_bounds(V, mesh.model_index, mesh.model)
+    state = {"lam": full[:, lo:hi].clone(), "alpha": torch.ones(K)}
+    pmesh.assert_replicas_consistent(state, mesh, sharded=("lam",),
+                                     full_shape=(K, V))
+    if mesh.rank == spec["bump_rank"]:
+        state["lam"][0, 0] = torch.nextafter(state["lam"][0, 0],
+                                             torch.tensor(np.inf))
+    try:
+        pmesh.assert_replicas_consistent(state, mesh, sharded=("lam",))
+        out["diverged"] = False
+    except AssertionError:
+        out["diverged"] = True
+    return out
+
+
 CASES = {"engine": case_engine, "batches": case_batches, "hang": case_hang,
-         "replicas": case_replicas, "resume": case_resume}
+         "replicas": case_replicas, "resume": case_resume,
+         "shard": case_shard, "groups": case_groups}
 
 
 def main(argv):
@@ -195,7 +296,8 @@ def main(argv):
         init_method=f"file://{init_file}",
         timeout=datetime.timedelta(seconds=60),
     )
-    mesh = pmesh.make_mesh(device="cpu")
+    shape = spec.get("mesh_shape")
+    mesh = pmesh.make_mesh(tuple(shape) if shape else None, device="cpu")
     result = CASES[case](spec, mesh)
     result["collectives"] = json.dumps(dict(pmesh.COLLECTIVES))
     result["backend"] = mesh.backend
