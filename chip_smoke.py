@@ -136,6 +136,25 @@ Phases, in order (any failure exits non-zero):
    flagship's chunk and config 5's, each half of the topics: bitwise
    equal to the full launch's rows, against the plain version's range.
 
+9. Gibbs and hybrid under a model axis (each rank keeps its block of n_kv
+   and lambda, gathers the whole table once a step, counts into its
+   block; ranks share the card over gloo), at BASELINE config 3's full
+   width (K=100, V=30,000, 4,096 documents, 512 held-out), DIST_SWEEPS
+   sweeps or iterations with the slice sampler (Gibbs) or Newton and
+   persistent chains (hybrid) every step: ``shard_vocab_gibbs``,
+   ``shard_topics_gibbs``, ``shard_vocab_hybrid`` and
+   ``shard_topics_hybrid`` at mesh (1, 2), held to the one-process run on
+   the card (the whole table, the chains, the held-out perplexity, alpha
+   and eta bit for bit; Gibbs's likelihoods too, hybrid's ELBOs within
+   DIST_REL), and ``shard_vocab_gibbs_2x2`` (four processes) held so to
+   the (2, 1) run ``shard_vocab_gibbs_2x1``; the tables checked after
+   every step (blocks bitwise across their data group and tiling (K, V)),
+   counts conserved, each step's collectives against those it must make,
+   no kernel launched, ms a step, the gather's ms and bytes, peak memory
+   a rank; and ``cli_shard`` with ``--inference_mode`` gibbs and hybrid
+   (two processes a flag, ten at once with the one-process CLIs): each
+   model-6 bit for bit the one-process file.
+
 Beside those phases:
 
 - ``vb_gamma_init``: batch VB at each flagship from each random
@@ -173,6 +192,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import hashlib
 import itertools
 import json
 import pathlib
@@ -2301,8 +2321,8 @@ def dist_cfg(name: str):
 @functools.lru_cache(maxsize=None)
 def dist_corpus(name: str):
     """(training corpus, held-out corpus or None) of a distributed phase:
-    the ragged flagship, SVI config 5, or BASELINE config 3 (made once a
-    process)."""
+    the ragged flagship, SVI config 5, or BASELINE config 3 with its 512
+    held-out documents (made once a process)."""
     from pylda_tpu_torch.corpus.synthetic import synthetic_corpus
 
     if name == "vb":
@@ -2316,9 +2336,13 @@ def dist_corpus(name: str):
         test = synthetic_corpus(num_docs=SVI5["TEST_DOCS"],
                                 seed=SVI5["TEST_SEED"], beta=beta, **kw)[0]
         return corpus, test
-    return synthetic_corpus(num_docs=CFG3["D"], num_topics=CFG3["K"],
-                            num_types=CFG3["V"], mean_doc_length=CFG3["LEN"],
-                            seed=CFG3["SEED"])[0], None
+    kw = dict(num_topics=CFG3["K"], num_types=CFG3["V"],
+              mean_doc_length=CFG3["LEN"])
+    corpus, beta, _ = synthetic_corpus(num_docs=CFG3["D"], seed=CFG3["SEED"],
+                                       **kw)
+    test = synthetic_corpus(num_docs=CFG3["TEST_DOCS"],
+                            seed=CFG3["TEST_SEED"], beta=beta, **kw)[0]
+    return corpus, test
 
 
 def dist_lam0(cfg, V_):
@@ -2677,6 +2701,336 @@ def shard_svi5(label, mode, mesh, dev, mods) -> dict:
     return out
 
 
+# Gibbs and hybrid under a model axis (``--shard_vocab`` / ``--shard_topics``
+# with M > 1): BASELINE config 3 at full width, DIST_SWEEPS sweeps or
+# iterations with the slice sampler (Gibbs) or Newton and persistent chains
+# (hybrid) every step.  Each is held to its one-process run on the card at
+# (1, 2), and to the (2, 1) run at (2, 2): the tables, chains, likelihoods
+# and held-out perplexity bit for bit (the hybrid ELBOs within DIST_REL).
+SAMPLING_MODES = ("gibbs", "hybrid")
+
+
+def sampling_cfg(name: str, mode=None, shape=None):
+    """A sampling phase's config: ``dist_cfg(name)`` (config 3) with the
+    hyperparameters every step and, for hybrid, persistent chains; with
+    ``mode`` its flag and the mesh ``shape``."""
+    cfg = dataclasses.replace(dist_cfg(name),
+                              hyper_parameter_optimize_interval=1,
+                              hybrid_persistent_z=name == "hybrid")
+    if mode is None:
+        return cfg
+    return dataclasses.replace(cfg, mesh_shape=tuple(shape), **{
+        "shard_vocab" if mode == "vocab" else "shard_topics": True})
+
+
+def sampling_collectives(name: str, shard: bool, likelihoods) -> list:
+    """The collectives each step of a sampling run must make: Gibbs
+    all-reduces its block of n_kv and the doc side over the data group,
+    one more for each likelihood its slice sampler evaluated that step
+    (``likelihoods``), and gathers the blocks once under a shard; hybrid
+    all-reduces the sufficient statistics and the packed doc-level terms
+    over the data group, and gathers lambda once a step under a shard
+    (twice in the first: its Newton step gathers the new lambda, which
+    the next step reads)."""
+    if name == "gibbs":
+        return [{"all_reduce": 2 + n, "all_gather": int(shard)}
+                for n in likelihoods]
+    return [{"all_reduce": 2, "all_gather": int(shard) * (1 + (i == 0))}
+            for i in range(len(likelihoods))]
+
+
+def chain_digest(arrays) -> str:
+    """One sha256 of a list of chains (numpy arrays), in order."""
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(str(a.shape).encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def sampling_run(label, name, cfg, mesh, dev, mods):
+    """Gibbs or hybrid (``name``) at config 3 over ``mesh`` (None: one
+    process): initialize, DIST_SWEEPS learning() calls (the last
+    DIST_SWEEPS - 1 timed; each step's collectives and, for Gibbs, the
+    likelihoods its slice sampler evaluated; under a mesh the tables
+    checked after each: blocks bitwise across their data group and tiling
+    (K, V), the rest across every rank), counts conserved (n_kv, or the
+    last step's sampled sufficient statistics), the chains of
+    every data coordinate digested, held-out perplexity on config 3's 512
+    documents, no kernel launched (the counters zeroed just before
+    initialize and read after the perplexity), peak memory above what was
+    allocated before; then phase_timings (a sweep or an E-step alone, and
+    under a group the all-reduce and the all-gather).  Returns (numbers, the whole table: n_kv or
+    lambda)."""
+    import torch
+
+    from pylda_tpu_torch.models import make_engine
+    from pylda_tpu_torch.models.gibbs import gather_chains
+    from pylda_tpu_torch.parallel import mesh as pmesh
+
+    corpus, test = dist_corpus(name)
+    gibbs = name == "gibbs"
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    zero_launches(mods)
+    eng = make_engine(cfg, device=dev)
+    eng.initialize(corpus, mesh=mesh)
+    likelihoods = [0]
+    if gibbs:
+        plain = eng.compute_likelihood
+
+        def counted(*a):
+            likelihoods[0] += 1
+            return plain(*a)
+
+        eng.compute_likelihood = counted
+    sharded = ("lam", "n_kv") if eng._shard is not None else ()
+    objs, steps, evals, secs = [], [], [], 0.0
+    for i in range(DIST_SWEEPS):
+        eta_before = eng.state.eta.clone()
+        pmesh.COLLECTIVES.clear()
+        likelihoods[0] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        objs.append(eng.learning())
+        torch.cuda.synchronize()
+        if i:
+            secs += time.perf_counter() - t0
+        steps.append({k: pmesh.COLLECTIVES[k]
+                      for k in ("all_reduce", "all_gather")})
+        evals.append(likelihoods[0])
+        if mesh is not None:
+            tables = {"lam": eng.state.lam, "alpha": eng.state.alpha,
+                      "eta": eng.state.eta}
+            if gibbs:
+                tables["n_kv"] = eng._n_kv
+            pmesh.assert_replicas_consistent(
+                tables, mesh, sharded=sharded,
+                full_shape=(CFG3["K"], CFG3["V"]))
+    whole = eng._n_kv_whole if gibbs else eng.gathered_lam()
+    st = eng.state
+    # Hybrid: the last step's sufficient statistics (lambda less the eta
+    # it was made with; Newton has moved eta since).
+    counted_tokens = whole if gibbs else whole - eta_before[None, :]
+    total = float(counted_tokens.sum(dtype=torch.float64))
+    chains = ([*eng._z, *eng._ndk] if gibbs else list(eng._z_hyb))
+    digest = chain_digest(gather_chains(chains, mesh))
+    t0 = time.perf_counter()
+    pp = eng.perplexity(test)
+    pp_ms = (time.perf_counter() - t0) * 1e3
+    out = {"objs": objs, "ms_per_step": secs / (DIST_SWEEPS - 1) * 1e3,
+           "perplexity": pp, "perplexity_ms": pp_ms, "total": total,
+           "alpha": float(st.alpha[0]), "eta": float(st.eta[0]),
+           "chains": digest, "steps": steps,
+           "expected": sampling_collectives(name, eng._shard is not None,
+                                            evals),
+           "launches": read_launches(mods), "block": list(st.lam.shape),
+           "peak_above_base_mib": (torch.cuda.max_memory_allocated(dev)
+                                   - base) / 2**20}
+    if gibbs:
+        out["n_kv_block"] = list(eng._n_kv.shape)
+    t = eng.phase_timings(DIST_TIMING_REPEATS)
+    out["timed_step_ms"] = t.get("gibbs_sweep_ms", t.get("estep_total_ms"))
+    if mesh is not None and mesh.grouped:
+        out.update({k: t[k] for k in ("allreduce_ms", "allreduce_bytes",
+                                      "allgather_ms", "allgather_bytes")
+                    if k in t})
+    ok = (total == corpus.num_tokens if gibbs
+          else abs(total - corpus.num_tokens) <= 1e-5 * corpus.num_tokens)
+    unit = "sweeps" if gibbs else "iterations"
+    print(f"{label}: {DIST_SWEEPS} {unit}, the last {DIST_SWEEPS - 1} "
+          f"{out['ms_per_step']:.3f} ms each, objectives "
+          f"{[round(o, 1) for o in objs]}, blocks {out['block']}, counts "
+          f"{total:.1f} of {corpus.num_tokens} tokens "
+          f"{'ok' if ok else 'FAIL'}, held-out perplexity {pp:.4f} "
+          f"({pp_ms:.1f} ms), collectives a step {steps} (expected "
+          f"{out['expected']})"
+          + (f", all-gather of {out['allgather_bytes']} bytes "
+             f"{out['allgather_ms']:.3f} ms" if "allgather_ms" in out else "")
+          + (f", all-reduce of {out['allreduce_bytes']} bytes "
+             f"{out['allreduce_ms']:.3f} ms" if "allreduce_ms" in out
+             else "")
+          + f", timed step {out['timed_step_ms']:.3f} ms (phase_timings: "
+          f"{'the sweep' if gibbs else 'the E-step'} alone), peak "
+          f"{out['peak_above_base_mib']:.1f} MiB above the "
+          f"{base / 2**20:.1f} MiB allocated before")
+    if not ok:
+        raise AssertionError(f"{label}: counts not conserved")
+    return out, whole
+
+
+def shard_sampling(label, name, mode, mesh, dev, mods) -> dict:
+    """A rank's sampling phase over ``mesh`` (``sampling_run``); rank 0
+    saves the whole table."""
+    import torch
+
+    out, whole = sampling_run(label, name, sampling_cfg(
+        name, mode, (mesh.data, mesh.model)), mesh, dev, mods)
+    if mesh.rank == 0:
+        torch.save(whole.cpu(), DIST_DIR / f"{label.split()[0]}.pt")
+    return out
+
+
+def hold_sampling(label, ranks, phase, ref, ref_table, smi) -> dict:
+    """A sampling phase's ranks against its reference run (one process,
+    or the (2, 1) run): every rank's objectives, perplexity and chains
+    the same bits; the reference's chains, perplexity, alpha and eta bit
+    for bit, and its whole table (rank 0's, saved) bit for bit; Gibbs's
+    likelihoods bit for bit, hybrid's ELBOs within DIST_REL (bitwise
+    printed).  Each rank's collectives a step as it must make them and no
+    kernel launched.  Returns the numbers."""
+    import torch
+
+    rows = [r[phase] for r in ranks]
+    for r, row in enumerate(rows):
+        if row["steps"] != row["expected"]:
+            raise AssertionError(f"{label}: rank {r} made {row['steps']} "
+                                 f"collectives a step, not {row['expected']}")
+        check_launched(f"{label} rank {r}", row["launches"], ())
+        for k in ("objs", "perplexity", "chains", "alpha", "eta", "total"):
+            if row[k] != rows[0][k]:
+                raise AssertionError(f"{label}: ranks differ in {k}")
+    got = rows[0]
+    table = torch.load(DIST_DIR / f"{phase}.pt")
+    same = {k: got[k] == ref[k] for k in ("objs", "perplexity", "chains",
+                                          "alpha", "eta")}
+    same["table"] = bool(torch.equal(table, ref_table))
+    elbo = max(abs(a - b) / abs(b) for a, b in zip(got["objs"], ref["objs"]))
+    need = ["table", "perplexity", "chains", "alpha", "eta"]
+    if "gibbs" in phase:
+        need.append("objs")
+    ok = all(same[k] for k in need) and elbo <= DIST_REL
+    print(f"{label} on {smi}: against its reference: bit for bit {same}; "
+          f"objectives rel {elbo:.3e} (tolerance {DIST_REL}); "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: the run disagrees with its "
+                             f"reference")
+    return {"bitwise": same, "elbo_rel": elbo,
+            **{k: got[k] for k in ("ms_per_step", "perplexity",
+                                   "perplexity_ms", "block",
+                                   "peak_above_base_mib", "timed_step_ms",
+                                   "allreduce_ms",
+                                   "allreduce_bytes", "allgather_ms",
+                                   "allgather_bytes") if k in got}}
+
+
+def sampling_phases(ranks12, ranks22, gloo2, refs, by_path, coll, smi
+                    ) -> dict:
+    """The sampling phases under a model axis: ``shard_<flag>_<mode>`` at
+    (1, 2) held to one process, ``shard_vocab_gibbs_2x2`` held to the
+    (2, 1) run ``shard_vocab_gibbs_2x1``; each rank's launches and
+    collectives recorded."""
+    res = {}
+    for mode in SAMPLING_MODES:
+        for flag in ("vocab", "topics"):
+            phase = f"shard_{flag}_{mode}"
+            ref = refs[f"{mode}_one"]
+            res[phase] = hold_sampling(phase, ranks12, phase, ref,
+                                       ref["table"], smi)
+    import torch
+
+    ref = gloo2[0]["shard_vocab_gibbs_2x1"]
+    res["shard_vocab_gibbs_2x2"] = hold_sampling(
+        "shard_vocab_gibbs_2x2", ranks22, "shard_vocab_gibbs_2x2", ref,
+        torch.load(DIST_DIR / "shard_vocab_gibbs_2x1.pt"), smi)
+    res["shard_vocab_gibbs_2x1"] = {k: ref[k] for k in (
+        "ms_per_step", "perplexity", "peak_above_base_mib", "timed_step_ms",
+        "allreduce_ms", "allreduce_bytes") if k in ref}
+    for mode in SAMPLING_MODES:
+        ref = refs[f"{mode}_one"]
+        res[f"{mode}_one_process"] = {k: ref[k] for k in (
+            "ms_per_step", "perplexity", "peak_above_base_mib",
+            "timed_step_ms")}
+    for ranks, phase in ([(ranks12, f"shard_{f}_{m}") for m in SAMPLING_MODES
+                          for f in ("vocab", "topics")]
+                         + [(ranks22, "shard_vocab_gibbs_2x2"),
+                            (gloo2, "shard_vocab_gibbs_2x1")]):
+        for r, rank in enumerate(ranks):
+            row = rank[phase]
+            by_path[f"{phase}_rank{r}"] = row["launches"]
+            coll[f"{phase}_rank{r}"] = {"steps": row["steps"],
+                                        "expected": row["expected"]}
+    return res
+
+
+def cli_shard_sampling(smi: str) -> dict:
+    """The config-1 CLI with ``--inference_mode`` gibbs and hybrid
+    (``--hybrid_persistent_z``) in two processes with ``--mesh 1,2`` and
+    each flag (``--process_sharded_input``), beside the one-process CLI
+    of each mode, all ten at once on the card: every array of each
+    model-6 bit for bit the one-process file's.  Returns the wall time
+    and each process's launches (none may run)."""
+    import socket
+
+    import numpy as np
+
+    from pylda_tpu_torch.corpus.datasets import bundled_corpus_dir
+
+    out = DIST_DIR / "cli_shard_sampling"
+    shutil.rmtree(out, ignore_errors=True)
+
+    def train(dest, mode, *extra):
+        return subprocess.Popen(
+            [sys.executable, "-c", CLI_WITH_LAUNCHES,
+             f"--input_directory={bundled_corpus_dir()}",
+             f"--output_directory={out / dest}", "--number_of_topics=10",
+             "--training_iterations=6", "--snapshot_interval=6",
+             f"--inference_mode={mode}",
+             *(["--hybrid_persistent_z"] if mode == "hybrid" else []),
+             *extra],
+            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+
+    procs, t0 = {}, time.perf_counter()
+    for mode in SAMPLING_MODES:
+        procs[(mode, "one")] = [train(f"{mode}_one", mode)]
+        for flag in ("vocab", "topics"):
+            with socket.socket() as sock:
+                sock.bind(("127.0.0.1", 0))
+                port = sock.getsockname()[1]
+            procs[(mode, flag)] = [train(
+                f"{mode}_{flag}", mode,
+                f"--coordinator_address=127.0.0.1:{port}",
+                "--num_processes=2", f"--process_id={r}",
+                "--process_sharded_input", "--mesh=1,2", f"--shard_{flag}")
+                for r in range(2)]
+    outs = {k: wait_all(p) for k, p in procs.items()}
+    wall = time.perf_counter() - t0
+    res = {"wall_s": wall, "launches": {}}
+    for key, ps in procs.items():
+        for p, o in zip(ps, outs[key]):
+            if p.returncode != 0:
+                raise AssertionError(f"cli_shard {key}: a process exited "
+                                     f"{p.returncode}:\n{o[-3000:]}")
+        res["launches"][f"cli_shard_{key[0]}_{key[1]}"] = [
+            json.loads(o.rsplit("LAUNCHES ", 1)[1].splitlines()[0])
+            for o in outs[key]]
+
+    def model(dest):
+        (path,) = sorted((out / dest).glob("*/*/model-6"))
+        with np.load(path) as z:
+            return {k: z[k] for k in z.files if k != "meta_json"}
+
+    for mode in SAMPLING_MODES:
+        want = model(f"{mode}_one")
+        for flag in ("vocab", "topics"):
+            got = model(f"{mode}_{flag}")
+            differ = sorted(k for k in set(got) | set(want)
+                            if k not in got or k not in want
+                            or not np.array_equal(got[k], want[k]))
+            ok = not differ and any(k.startswith("extra_z") for k in got)
+            print(f"cli_shard {mode} {flag}: config-1 CLI, 2 processes on "
+                  f"{smi} (--mesh 1,2 --shard_{flag}): model-6 "
+                  f"{len(got)} arrays, bit for bit the one-process CLI's "
+                  f"{'ok' if ok else f'FAIL: {differ}'}")
+            if not ok:
+                raise AssertionError(f"cli_shard {mode} {flag}: the model "
+                                     f"file differs in {differ}")
+    print(f"cli_shard: the sampling CLIs' ten processes in {wall:.2f} s")
+    return res
+
+
 def dist_rank(argv) -> int:
     """One rank of the multi-process phases (``--dist-rank RANK WORLD
     RENDEZVOUS OUT PHASES MESH``): joins the group on the card (NCCL with
@@ -2714,9 +3068,12 @@ def dist_rank(argv) -> int:
             r = dist_svi5(label, mesh, dev, mods)
             del r["lam"]
         elif name.startswith("shard_"):
-            mode = name.split("_")[1]
-            fn = shard_svi5 if "svi5" in name else shard_vb
-            r = fn(label, mode, mesh, dev, mods)
+            mode, engine = name.split("_")[1:3]
+            if engine in SAMPLING_MODES:
+                r = shard_sampling(label, engine, mode, mesh, dev, mods)
+            else:
+                fn = shard_svi5 if engine == "svi5" else shard_vb
+                r = fn(label, mode, mesh, dev, mods)
         else:
             r = dist_sampling(label, name, mesh, dev, mods)
         results[name] = r
@@ -2993,7 +3350,8 @@ def one_process_refs(dev, mods) -> dict:
     iterations) and at default settings (SHARD_DEFAULT_ITERS learning()
     calls, in float32 and in bf16), config 5 SVI at pinned sweeps (two epochs) and in bf16 (one),
     each from dist_lam0; objectives, lambda and the first step's
-    sufficient statistics on the host."""
+    sufficient statistics on the host; and Gibbs and hybrid at config 3
+    (``sampling_run``: the numbers and the whole table)."""
     import torch
 
     from pylda_tpu_torch.models import (
@@ -3028,6 +3386,12 @@ def one_process_refs(dev, mods) -> dict:
         refs[name] = {"objs": objs, "lam": eng.state.lam.cpu()}
         del eng
         torch.cuda.empty_cache()
+    for name in SAMPLING_MODES:
+        r, whole = sampling_run(f"one process {name} config 3", name,
+                                sampling_cfg(name), None, dev, mods)
+        check_launched(f"one process {name} config 3", r["launches"], ())
+        refs[f"{name}_one"] = {**r, "table": whole.cpu()}
+        del whole
     print(f"one-process references: {json.dumps({k: v['objs'] for k, v in refs.items()})}")
     return refs
 
@@ -3105,20 +3469,26 @@ def hold_shard(label, got: dict, lam, ref: dict, elbo_rel: float,
     return out, ok
 
 
-def shard_phases(mods, by_path: dict, coll: dict, refs: dict) -> dict:
+def shard_phases(mods, by_path: dict, coll: dict, refs: dict, gloo2: list
+                 ) -> dict:
     """The lambda-sharding phases (module docstring): two ranks at mesh
     (1, 2) over gloo on the card (``shard_vocab_vb``, ``shard_topics_vb``,
-    ``shard_vocab_svi5``), four at (2, 2) (``shard_vocab_vb_2x2``), each
+    ``shard_vocab_svi5``, ``shard_{vocab,topics}_{gibbs,hybrid}``), four
+    at (2, 2) (``shard_vocab_vb_2x2``, ``shard_vocab_gibbs_2x2``), each
     run's launches and collectives checked and recorded, then each held to
-    its one-process run; and ``cli_shard``."""
+    its one-process run (the Gibbs 2x2 phase to ``gloo2``'s (2, 1) run);
+    and ``cli_shard``, with the sampling engines too."""
     import torch
 
     smi = nvidia_smi()
     res, failed = {}, []
+    sampling = ",".join(f"shard_{f}_{m}" for m in SAMPLING_MODES
+                        for f in ("vocab", "topics"))
     ranks12 = run_ranks(DIST_DIR / "shard",
-                        "shard_vocab_vb,shard_topics_vb,shard_vocab_svi5",
-                        (1, 2))
-    ranks22 = run_ranks(DIST_DIR / "shard_2x2", "shard_vocab_vb_2x2", (2, 2))
+                        "shard_vocab_vb,shard_topics_vb,shard_vocab_svi5,"
+                        + sampling, (1, 2))
+    ranks22 = run_ranks(DIST_DIR / "shard_2x2",
+                        "shard_vocab_vb_2x2,shard_vocab_gibbs_2x2", (2, 2))
     holds = {
         ("shard_vocab_vb", "pinned"): dict(ref=refs["vb_pinned_blocked"],
                                            also=refs["vb_pinned"],
@@ -3188,6 +3558,8 @@ def shard_phases(mods, by_path: dict, coll: dict, refs: dict) -> dict:
         print(f"shard: {json.dumps(res)}")
         raise AssertionError(f"shard runs disagree with one process: "
                              f"{failed}")
+    res.update(sampling_phases(ranks12, ranks22, gloo2, refs, by_path, coll,
+                               smi))
     res["cli_shard"] = cli_shard(smi)
     for mode in ("vocab", "topics"):
         needed = ("dense_gamma", "dense_sstats") + (
@@ -3197,6 +3569,11 @@ def shard_phases(mods, by_path: dict, coll: dict, refs: dict) -> dict:
                            absent=() if mode == "topics"
                            else ("dense_sstats_range",))
             by_path[f"cli_shard_{mode}_rank{r}"] = got
+    res["cli_shard_sampling"] = cli_shard_sampling(smi)
+    for path, per_proc in res["cli_shard_sampling"].pop("launches").items():
+        for r, got in enumerate(per_proc):
+            check_launched(f"{path} process {r}", got, ())
+            by_path[f"{path}_rank{r}"] = got
     print(f"shard: {json.dumps(res)}")
     return res
 
@@ -3257,7 +3634,7 @@ def dist_phases(mods, dev, by_path: dict) -> dict:
         pmesh.shutdown()
     # -- two ranks sharing the card over gloo ----------------------------------
     out_dir = DIST_DIR / "gloo2"
-    ranks = run_ranks(out_dir, "vb,svi5,gibbs,hybrid")
+    ranks = run_ranks(out_dir, "vb,svi5,gibbs,hybrid,shard_vocab_gibbs_2x1")
     want = {"vb": 2 * (DIST_ITERS + DIST_TIMED),
             "svi5": 4 * DIST_SVI5_MINIBATCHES,
             "gibbs": 1 + 2 * DIST_SWEEPS, "hybrid": 2 * DIST_SWEEPS}
@@ -3296,7 +3673,7 @@ def dist_phases(mods, dev, by_path: dict) -> dict:
     # -- lambda split over the model axis ---------------------------------------
     refs.update(one_process_refs(dev, mods))
     torch.cuda.empty_cache()
-    res.update(shard_phases(mods, by_path, coll, refs))
+    res.update(shard_phases(mods, by_path, coll, refs, ranks))
     del refs
     # -- NCCL across two cards, where there are two ---------------------------
     if torch.cuda.device_count() >= 2:

@@ -28,8 +28,9 @@ the D data coordinates (rank r at d = r // M), and
 ``--process_sharded_input`` makes each rank parse only the block of
 doc.dat of its data coordinate (streaming too; the M ranks of a model
 group read the same block).  With M > 1, ``--shard_vocab`` or
-``--shard_topics`` splits lambda over the model group's M ranks (batch
-VB and SVI; Gibbs and hybrid with M > 1 exit naming their ROADMAP item).
+``--shard_topics`` splits lambda (and Gibbs's count table) over the
+model group's M ranks, in every mode; with neither flag the M ranks of a
+model group are replicas.
 Rank 0 writes the run directory, the logs and the files, in the
 one-process format; every rank runs the snapshots, which are collective.
 A mesh whose D * M is not the number of processes exits saying how to
@@ -59,9 +60,6 @@ _MODE_ALIASES = {
     "3": "svi", "svi": "svi", "online": "svi", "stochastic": "svi",
 }
 
-# The engines that run under a model axis above 1 (ROADMAP.md Queue 1
-# item 14 ports the others).
-_MODEL_AXIS_MODES = ("vb", "svi")
 # The Chrome trace --profile_dir writes.
 PROFILE_TRACE = "train_trace.json"
 
@@ -169,11 +167,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "of processes (one a card); rank r holds the "
                         "documents of data coordinate r // model")
     p.add_argument("--shard_vocab", action="store_true",
-                   help="split lambda's vocabulary axis over the model "
-                        "axis (vb, svi)")
+                   help="split lambda's vocabulary axis (and Gibbs's "
+                        "count table's) over the model axis")
     p.add_argument("--shard_topics", action="store_true",
-                   help="split lambda's topic axis over the model axis "
-                        "(vb, svi)")
+                   help="split lambda's topic axis (and Gibbs's count "
+                        "table's) over the model axis")
     p.add_argument("--coordinator_address", default=None,
                    help="multi-process: host:port of process 0's "
                         "rendezvous")
@@ -328,12 +326,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         config = config_from_args(args)
     except ValueError as e:
         raise SystemExit(f"invalid configuration: {e}") from e
-    if (config.mesh_shape is not None and config.mesh_shape[1] > 1
-            and config.inference_mode not in _MODEL_AXIS_MODES):
-        raise SystemExit(
-            f"--inference_mode={config.inference_mode} under a mesh with a "
-            f"model axis of {config.mesh_shape[1]} is not ported to "
-            f"pylda_tpu_torch yet (ROADMAP.md Queue 1 item 14)")
     if config.checkpoint_format == "orbax":
         raise SystemExit(
             "--checkpoint_format=orbax is JAX-only; this package writes npz "

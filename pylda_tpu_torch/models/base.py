@@ -14,12 +14,14 @@ each rank trains on the block of documents of its data coordinate
 (``_local_corpus``): a process-local corpus as it is, a corpus loaded
 whole cut to the block the process-local loader would give it.  State
 stays replicated, except lambda under ``shard_vocab`` / ``shard_topics``
-with a model axis above 1 (the VB family): then ``state.lam`` is this
-rank's block (``parallel/lam_shard.py``), the ``state`` setter takes the
-whole lambda and keeps the block, and ``gathered_lam`` returns the whole
-one.  ``save`` and ``export_beta`` write from rank 0 after every rank has
-called them (engines gather their per-rank chains and lambda blocks into
-the file: the one-process format).
+with a model axis above 1 (every engine; Gibbs's count table n_kv too):
+then ``state.lam`` is this rank's block (``parallel/lam_shard.py``), the
+``state`` setter takes the whole lambda and keeps the block, and
+``gathered_lam`` returns the whole one.  With a model axis above 1 and
+neither flag, a model group is a set of replicas.  ``save`` and
+``export_beta`` write from rank 0 after every rank has called them
+(engines gather their per-rank chains and lambda blocks into the file:
+the one-process format).
 """
 
 from __future__ import annotations
@@ -121,15 +123,14 @@ def bucket_tensors(
     return out
 
 
-# The ROADMAP item that ports Gibbs and hybrid under a model axis.
-MODEL_AXIS_ITEM = "ROADMAP.md Queue 1 item 14"
-
-
 class Inferencer:
     """Base class for the inference engines."""
 
-    # Whether the engine runs under a mesh with a model axis above 1.
-    _MODEL_AXIS = True
+    # Whether a step gathers its table's blocks into a contiguous whole
+    # (the sampling engines, whose reductions over the table then run in
+    # the one-process order) rather than a view (``_allreduce_timing``
+    # times the step's form).
+    _CONTIGUOUS_GATHER = False
 
     def __init__(
         self,
@@ -251,17 +252,20 @@ class Inferencer:
         """Adopt ``mesh`` and this rank's lambda block (``_shard``; the
         vocabulary must be set)."""
         cfg = self._config
-        if mesh is not None and mesh.model > 1 and not self._MODEL_AXIS:
-            raise NotImplementedError(
-                f"{cfg.inference_mode} under a mesh with a model axis of "
-                f"{mesh.model} is not ported yet ({MODEL_AXIS_ITEM}); run "
-                f"it with --mesh {mesh.data * mesh.model},1")
         if mesh is not None and cfg.doc_pad_multiple % mesh.data:
             raise ValueError(
                 "doc_pad_multiple must be divisible by the data-axis size")
         self._mesh = mesh
         self._shard = shard_of(cfg.shard_vocab, cfg.shard_topics, mesh,
                                cfg.number_of_topics, self._number_of_types)
+
+    def _block_ranges(self, sharded: bool = True) -> dict:
+        """``topic_range`` / ``vocab_range`` of this rank's block of a
+        [K, V] table under a lambda shard (and ``sharded``); {} for the
+        whole table."""
+        if sharded and self._shard is not None:
+            return self._shard.ranges
+        return {}
 
     @property
     def _split(self) -> bool:
@@ -329,14 +333,17 @@ class Inferencer:
         return ([i for p in parts for i in p[0]],
                 [r for p in parts for r in p[1]])
 
-    def _allreduce_timing(self, tensor: torch.Tensor, repeats: int) -> dict:
+    def _allreduce_timing(self, tensor: torch.Tensor, repeats: int,
+                          block: Optional[torch.Tensor] = None) -> dict:
         """``allreduce_ms`` (``utils.timing``: one all-reduce over the data
         group of a copy of ``tensor``, the step's largest, best of
         ``repeats``), ``allreduce_bytes`` and ``allreduce_backend`` under a
         mesh with a process group, and under a lambda shard
-        ``allgather_ms`` and ``allgather_bytes`` (the E-step's gather of
-        expElogbeta over the model group: the bytes each rank receives);
-        {} otherwise.  Collective: every rank times."""
+        ``allgather_ms`` and ``allgather_bytes`` (the step's gather over
+        the model group of ``block``, by default this rank's block of
+        lambda: the VB family gathers expElogbeta's, hybrid lambda's,
+        Gibbs n_kv's; the bytes each rank receives); {} otherwise.
+        Collective: every rank times."""
         mesh = self._mesh
         if mesh is None or not mesh.grouped:
             return {}
@@ -347,9 +354,10 @@ class Inferencer:
                "allreduce_bytes": buf.numel() * buf.element_size(),
                "allreduce_backend": mesh.backend}
         if self._shard is not None:
-            block = self.state.lam.detach().clone()
-            ms, full = best_ms(lambda: self._shard.gather(block),
-                               self._device, repeats)
+            block = (self.state.lam if block is None else block
+                     ).detach().clone()
+            ms, full = best_ms(lambda: self._shard.gather(
+                block, self._CONTIGUOUS_GATHER), self._device, repeats)
             out.update(allgather_ms=round(ms, 6), allgather_bytes=(
                 full.numel() - block.numel()) * block.element_size())
         return out

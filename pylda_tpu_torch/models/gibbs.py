@@ -30,11 +30,23 @@ AD-LDA: each rank holds its block of documents (``_local_corpus``) as
 sequence buckets of the configured widths padded to the ranks' largest
 row counts (``local_sequence_batches``), its own z and n_dk, and draws
 from streams of its own (the rank in the purpose tag, ``_tag``); each
-sweep sums n_kv over the ranks in one all-reduce (exact: the counts are
-integers) and the doc side of the likelihood in another, so n_kv and the
-likelihood are the same bits on every rank.  ``gibbs_rebuild_interval``
+sweep sums n_kv over the data group in one all-reduce (exact: the counts
+are integers) and the doc side of the likelihood in another, so n_kv and
+the likelihood are the same bits on every rank.  ``gibbs_rebuild_interval``
 > 1 warns and runs the exact per-sweep rebuild there.  A model file
-carries every rank's chains, gathered bucket by bucket in rank order.
+carries every rank's chains, gathered bucket by bucket in data order.
+
+With a model axis above 1 (mesh (D, M)) the ranks of a model group hold
+the same documents, chains and streams (the purpose tags carry the data
+coordinate only, so a (1, M) run draws the one-process streams).  Under
+``shard_vocab`` / ``shard_topics`` each rank keeps its block of n_kv
+(``parallel/lam_shard.py``, lambda's bounds): the rebuild counts the
+rank's tokens into its block only and all-reduces it over the data
+group, then the blocks are gathered over the model group once a sweep
+(``_n_kv_whole``); the factor, the joint likelihood, the slice sampler,
+held-out inference and the model file read that whole table.  The counts
+are exact integers, so every table is the one-process (at (1, M)) or
+(D, 1) run's bits.  With neither flag each rank keeps n_kv whole.
 """
 
 from __future__ import annotations
@@ -111,8 +123,10 @@ def local_sequence_batches(corpus: Corpus, config, mesh: Mesh, device,
 
 
 def rank_tag(tag: int, mesh: Optional[Mesh]) -> int:
-    """A stream's purpose tag, with the rank in its bits above 40 when the
-    documents are split over ranks (each rank draws its own noise)."""
+    """A stream's purpose tag, with the data coordinate in its bits above
+    40 when the documents are split over ranks (each data coordinate
+    draws its own noise; the ranks of a model group share it, and a
+    (1, M) mesh draws the one-process streams)."""
     if mesh is None or mesh.data == 1:
         return tag
     return tag | ((mesh.data_index + 1) << 40)
@@ -121,15 +135,17 @@ def rank_tag(tag: int, mesh: Optional[Mesh]) -> int:
 def gather_chains(tensors: Sequence[torch.Tensor], mesh: Optional[Mesh]
                   ) -> List[np.ndarray]:
     """Per-bucket chains as numpy arrays: this rank's rows, or, with the
-    documents split over ranks, every rank's rows in rank order (the
-    layout of the JAX engine's global buckets).  Collective then."""
+    documents split over ranks, every data coordinate's rows in order
+    (the layout of the JAX engine's global buckets).  Collective over
+    the data group then."""
     return [host_gather(t, mesh) for t in tensors]
 
 
 def local_chains(arrays: Sequence[np.ndarray], mesh: Optional[Mesh]
                  ) -> List[np.ndarray]:
     """This rank's rows of chains ``gather_chains`` wrote under a mesh of
-    the same size (each array's rows split evenly over the ranks)."""
+    the same data axis (each array's rows split evenly over the data
+    coordinates)."""
     if mesh is None or mesh.data == 1:
         return list(arrays)
     out = []
@@ -190,15 +206,17 @@ def _doc_side_ll(ndk, mask, alpha):
 class MonteCarlo(Inferencer):
     """Collapsed Gibbs with per-sweep table synchronisation."""
 
-    # A model axis above 1 is ROADMAP.md Queue 1 item 14 (``_set_mesh``).
-    _MODEL_AXIS = False
+    _CONTIGUOUS_GATHER = True
 
     def __init__(self, config, device=None):
         super().__init__(config, device)
         self._buckets: Optional[List[SeqBatch]] = None
         self._z: List[torch.Tensor] = []
         self._ndk: List[torch.Tensor] = []
+        # This rank's block of n_kv (the whole table without a shard), and
+        # the whole table the sweep reads (the same tensor without one).
         self._n_kv: Optional[torch.Tensor] = None
+        self._n_kv_whole: Optional[torch.Tensor] = None
         self._restore: Optional[dict] = None
 
     # -- corpus preparation -------------------------------------------------
@@ -232,7 +250,7 @@ class MonteCarlo(Inferencer):
         ]
         self._ndk = [doc_topic_counts(z, b.token_mask, K)
                      for z, b in zip(self._z, self._buckets)]
-        self._n_kv = self._count_all(self._z)
+        self._set_counts(self._count_all(self._z))
 
     def _restore_chains(self) -> bool:
         """Adopt the chains of a loaded model file when its bucket layout
@@ -254,10 +272,11 @@ class MonteCarlo(Inferencer):
     def set_chains(self, n_kv, zs, ndks) -> None:
         """Place Gibbs chains given as numpy arrays (a JAX engine's state,
         or a model file's ``n_kv``, ``z_<i>`` and ``ndk_<i>`` blobs) on the
-        engine's device: the [K, V] table ``n_kv`` and, per sequence
-        bucket, the assignments ``zs`` [rows, width] and doc-topic counts
-        ``ndks`` [rows, K].  Raises ``ValueError`` unless every shape
-        matches this engine's buckets."""
+        engine's device: the whole [K, V] table ``n_kv`` (under a shard
+        this rank keeps its block, as the ``state`` setter does lambda's)
+        and, per sequence bucket, the assignments ``zs`` [rows, width] and
+        doc-topic counts ``ndks`` [rows, K].  Raises ``ValueError`` unless
+        every shape matches this engine's buckets."""
         K, dev = self._config.number_of_topics, self._device
         want = (K, self._number_of_types)
         if np.shape(n_kv) != want:
@@ -265,23 +284,47 @@ class MonteCarlo(Inferencer):
         z = bucket_tensors(zs, self._buckets, torch.int32, dev, "z")
         ndk = bucket_tensors(ndks, self._buckets, self._dtype, dev, "ndk",
                              width=K)
-        self._n_kv = torch.as_tensor(np.array(n_kv), device=dev).to(
-            self._dtype)
+        self._set_whole_counts(n_kv)
         self._z, self._ndk = z, ndk
 
+    def _set_whole_counts(self, n_kv) -> None:
+        """Adopt a whole [K, V] table given on the host (every rank the
+        same): this rank keeps its block, and the whole table stands as
+        the gathered one (no collective)."""
+        whole = torch.as_tensor(np.array(n_kv), device=self._device).to(
+            self._dtype)
+        self._n_kv_whole = whole
+        self._n_kv = (whole if self._shard is None
+                      else self._shard.take(whole).contiguous())
+
+    def _whole(self, block: torch.Tensor) -> torch.Tensor:
+        """The whole n_kv from the model group's blocks (one all-gather,
+        contiguous); ``block`` itself without a shard."""
+        if self._shard is None:
+            return block
+        return self._shard.gather(block, contiguous=True)
+
+    def _set_counts(self, block: torch.Tensor) -> None:
+        """Adopt a rebuilt block of n_kv and gather the whole table."""
+        self._n_kv, self._n_kv_whole = block, self._whole(block)
+
     def _count_all(self, zs) -> torch.Tensor:
+        """This rank's block of n_kv counted from the chains ``zs``, summed
+        over the data group."""
         K, V = self._config.number_of_topics, self._number_of_types
         n_kv = None
         for b, z in zip(self._buckets, zs):
-            t = count_table(b.tokens, b.token_mask, z, K, V)
+            t = count_table(b.tokens, b.token_mask, z, K, V,
+                            **self._block_ranges())
             n_kv = t if n_kv is None else n_kv + t
-        return all_reduce_sum(n_kv, self._mesh)
+        return all_reduce_sum(n_kv, self._mesh, "data")
 
     # -- sweeps -------------------------------------------------------------------
 
     def _sample_buckets(self, sweep: int, log_tw, accumulate: bool):
         """One sweep of every bucket against a fixed factor; sweep index
-        ``sweep`` seeds the streams.  Returns (z, ndk, n_kv or None)."""
+        ``sweep`` seeds the streams.  Returns (z, ndk, this rank's block of
+        the rebuilt n_kv summed over the data group, or None)."""
         cfg = self._config
         alpha = self.state.alpha
         z_out, ndk_out, n_kv = [], [], None
@@ -294,27 +337,32 @@ class MonteCarlo(Inferencer):
                 sampler=cfg.resolved_topic_sampler(),
                 block_positions=cfg.sampler_block_positions,
                 accumulate_counts=accumulate,
+                **self._block_ranges(),
             )
             z_out.append(z_new)
             ndk_out.append(ndk)
             if accumulate:
                 n_kv = counts if n_kv is None else n_kv + counts
         if accumulate:
-            n_kv = all_reduce_sum(n_kv, self._mesh)
+            n_kv = all_reduce_sum(n_kv, self._mesh, "data")
         return z_out, ndk_out, n_kv
 
     def _doc_ll(self, ndks, alpha) -> torch.Tensor:
+        """The doc side of the joint LL over every document: summed over
+        the data group (a model group's ranks hold the same documents)."""
         s = torch.zeros((), dtype=self._dtype, device=self._device)
         for b, ndk in zip(self._buckets, ndks):
             s = s + _doc_side_ll(ndk, b.mask, alpha)
-        return all_reduce_sum(s, self._mesh)
+        return all_reduce_sum(s, self._mesh, "data")
 
     def _sweep(self, sweep: int):
         """One AD-LDA sweep from the current chains, which it leaves as
         they are: sample against the table frozen at sweep start, rebuild
-        it from z.  Returns (z, ndk, n_kv)."""
-        log_tw = _log_phi_hat(self._n_kv, self.state.eta)
-        return self._sample_buckets(sweep, log_tw, accumulate=True)
+        it from z (this rank's block), gather the whole table.  Returns
+        (z, ndk, the block of n_kv, the whole n_kv)."""
+        log_tw = _log_phi_hat(self._n_kv_whole, self.state.eta)
+        z, ndk, block = self._sample_buckets(sweep, log_tw, accumulate=True)
+        return z, ndk, block, self._whole(block)
 
     def _joint_ll(self, n_kv, ndks) -> torch.Tensor:
         st = self.state
@@ -323,8 +371,8 @@ class MonteCarlo(Inferencer):
     def _exact_sweep(self, sweep: int) -> torch.Tensor:
         """One AD-LDA sweep, adopted; returns the joint LL (0-d, on the
         device)."""
-        self._z, self._ndk, self._n_kv = self._sweep(sweep)
-        return self._joint_ll(self._n_kv, self._ndk)
+        self._z, self._ndk, self._n_kv, self._n_kv_whole = self._sweep(sweep)
+        return self._joint_ll(self._n_kv_whole, self._ndk)
 
     def _interval_sweeps(self, n: int) -> List[torch.Tensor]:
         """n sweeps at ``gibbs_rebuild_interval`` R > 1: every sweep
@@ -337,19 +385,20 @@ class MonteCarlo(Inferencer):
         parity with its printed values: the latest rebuilt table's topic
         side plus that sweep's fresh doc side.  It mixes a stale topic
         side with a fresh doc side, so it is not the joint LL of any one
-        state; only the sweeps with a rebuild report one."""
+        state; only the sweeps with a rebuild report one.  One process
+        only (the table is whole)."""
         st = self.state
         R = self._config.gibbs_rebuild_interval
-        log_tw = _log_phi_hat(self._n_kv, st.eta)
-        ll_topic = _topic_side_ll(self._n_kv, st.eta)
+        log_tw = _log_phi_hat(self._n_kv_whole, st.eta)
+        ll_topic = _topic_side_ll(self._n_kv_whole, st.eta)
         lls = []
         for i in range(n):
             self._z, self._ndk, _ = self._sample_buckets(
                 self._counter + i, log_tw, accumulate=False)
             if (i + 1) % R == 0 or i == n - 1:
-                self._n_kv = self._count_all(self._z)
-                log_tw = _log_phi_hat(self._n_kv, st.eta)
-                ll_topic = _topic_side_ll(self._n_kv, st.eta)
+                self._set_counts(self._count_all(self._z))
+                log_tw = _log_phi_hat(self._n_kv_whole, st.eta)
+                ll_topic = _topic_side_ll(self._n_kv_whole, st.eta)
             lls.append(ll_topic + self._doc_ll(self._ndk, st.alpha))
         return lls
 
@@ -404,14 +453,15 @@ class MonteCarlo(Inferencer):
 
     def compute_likelihood(self, alpha_scalar: Optional[float] = None,
                            beta_scalar: Optional[float] = None) -> float:
-        """Griffiths-Steyvers joint log likelihood at the current counts,
-        optionally at scalar alpha / beta."""
+        """Griffiths-Steyvers joint log likelihood at the current counts
+        (the whole table), optionally at scalar alpha / beta.  Collective
+        under a mesh (the doc side's all-reduce)."""
         st = self.state
         alpha = (st.alpha if alpha_scalar is None
                  else torch.full_like(st.alpha, alpha_scalar))
         beta = (st.eta if beta_scalar is None
                 else torch.full_like(st.eta, beta_scalar))
-        return float(_topic_side_ll(self._n_kv, beta)
+        return float(_topic_side_ll(self._n_kv_whole, beta)
                      + self._doc_ll(self._ndk, alpha))
 
     def optimize_hyperparameters(self, samples: int = 5, step: float = 3.0
@@ -419,7 +469,8 @@ class MonteCarlo(Inferencer):
         """Slice sampling on (log alpha, log beta) scalars
         (``ops/hyper.slice_sample``): host-side control loop, likelihoods
         on the device.  Its uniforms come from a numpy generator seeded
-        from this engine's stream at the current step."""
+        from this engine's stream at the current step, the same on every
+        rank, so alpha and beta stay equal across the ranks."""
         st = self.state
         rng = np.random.default_rng(
             stream_seed(self._config.seed, TAG_SLICE, self._counter))
@@ -435,27 +486,31 @@ class MonteCarlo(Inferencer):
     def phase_timings(self, repeats: int = 3) -> dict:
         """Device times in ms (``utils.timing``, best of ``repeats`` after
         a warm call) of one sweep (``gibbs_sweep_ms``: the factor refresh,
-        every bucket's sampling and the n_kv rebuild) and of the joint
-        likelihood at the current tables (``joint_likelihood_ms``), the
-        keys of ``pylda_tpu.models.gibbs``; under a mesh with a process
-        group also ``allreduce_ms`` (n_kv's all-reduce; every rank must
-        call this).  The timed sweep's chains are
+        every bucket's sampling, the n_kv rebuild and, under a shard, its
+        gather) and of the joint likelihood at the current tables
+        (``joint_likelihood_ms``), the keys of ``pylda_tpu.models.gibbs``;
+        under a mesh with a process group also ``allreduce_ms`` (n_kv's
+        all-reduce over the data group: this rank's block), and under a
+        shard ``allgather_ms`` and ``allgather_bytes`` (the gather of the
+        blocks over the model group); every rank must call this.  The
+        timed sweep's chains are
         dropped: z, the count tables and the step stay as they were, and
         its streams are seeded afresh from the step, as every sweep's
         are, so the next ``learning()`` draws what it would have."""
         dev = self._device
         sweep_ms, _ = best_ms(lambda: self._sweep(self._counter), dev, repeats)
-        ll_ms, _ = best_ms(lambda: self._joint_ll(self._n_kv, self._ndk), dev,
-                           repeats)
+        ll_ms, _ = best_ms(lambda: self._joint_ll(self._n_kv_whole,
+                                                  self._ndk), dev, repeats)
         return {"gibbs_sweep_ms": round(sweep_ms, 6),
                 "joint_likelihood_ms": round(ll_ms, 6),
-                **self._allreduce_timing(self._n_kv, repeats)}
+                **self._allreduce_timing(self._n_kv, repeats,
+                                         block=self._n_kv)}
 
     # -- topics / held-out ----------------------------------------------------------
 
     def topic_word_distribution(self) -> np.ndarray:
         """(n_kv + beta) / (n_k + sum beta) point estimate, float64."""
-        n_kv = self._n_kv.cpu().numpy().astype(np.float64)
+        n_kv = self._n_kv_whole.cpu().numpy().astype(np.float64)
         beta = self.state.eta.cpu().numpy().astype(np.float64)
         return (n_kv + beta[None, :]) / (
             n_kv.sum(axis=1, keepdims=True) + beta.sum())
@@ -469,11 +524,12 @@ class MonteCarlo(Inferencer):
         sum_k theta_hat phi_hat.  Returns (log likelihood, gamma =
         alpha + mean kept n_dk in corpus order; chunk rows of one long
         document recombine additively).  Replicated under a mesh: each
-        rank samples the whole ``test_corpus`` from the same streams."""
+        rank samples the whole ``test_corpus`` from the same streams
+        against the whole table (no collective)."""
         st = self.state
         cfg = self._config
         K = cfg.number_of_topics
-        log_tw = _log_phi_hat(self._n_kv, st.eta)
+        log_tw = _log_phi_hat(self._n_kv_whole, st.eta)
         batches = sequence_batches(test_corpus, cfg, self._device,
                                    self._dtype)
         ll = torch.zeros((), dtype=self._dtype, device=self._device)
@@ -517,7 +573,9 @@ class MonteCarlo(Inferencer):
     # -- model files ----------------------------------------------------------------
 
     def _extra_state(self) -> dict:
-        d = {"n_kv": self._n_kv.cpu().numpy()}
+        """The one-process blobs: n_kv whole, the chains of every data
+        coordinate (gathered over the data group)."""
+        d = {"n_kv": self._n_kv_whole.cpu().numpy()}
         zs = gather_chains(self._z, self._mesh)
         ndks = gather_chains(self._ndk, self._mesh)
         for i, (z, ndk) in enumerate(zip(zs, ndks)):
@@ -527,6 +585,5 @@ class MonteCarlo(Inferencer):
 
     def _load_extra_state(self, blobs: dict) -> None:
         if "n_kv" in blobs:
-            self._n_kv = torch.as_tensor(blobs["n_kv"], device=self._device
-                                         ).to(self._dtype)
+            self._set_whole_counts(blobs["n_kv"])
             self._restore = blobs  # chains adopted in _prepare

@@ -21,8 +21,21 @@ iteration starts every chain from random z.
 
 Under a mesh each rank samples its block of documents
 (``_build_local_batches``: ``gibbs.local_sequence_batches``) from streams
-of its own (the rank in the purpose tag), and VB's ``_reduce_estep`` sums
-the sufficient statistics and doc-level terms over the ranks.
+of its own (its data coordinate in the purpose tag), and VB's
+``_reduce_estep`` sums the sufficient statistics and doc-level terms over
+the data group.
+
+Under ``shard_vocab`` / ``shard_topics`` with a model axis above 1 each
+rank keeps its block of lambda (``parallel/lam_shard.py``): a step
+gathers the whole lambda over the model group once (``_whole_lam``; kept
+for that block, so the bound, the next step's E-step and the Newton eta
+input of the new lambda read one gather), computes E[log beta] whole and
+samples as in one process, and counts the sufficient statistics into
+this rank's block only, so the M-step is local.  The token score is then
+whole on every rank (not summed over the model group), and the topic
+side of the bound and the Newton eta input are computed from the
+gathered lambda, so a (1, M) run gives the one-process bits and a (D, M)
+run the (D, 1) run's.
 """
 
 from __future__ import annotations
@@ -42,7 +55,11 @@ from pylda_tpu_torch.models.gibbs import (
     sequence_batches,
 )
 from pylda_tpu_torch.models.vb import VariationalBayes
-from pylda_tpu_torch.ops.dirichlet import dirichlet_expectation, theta_elbo
+from pylda_tpu_torch.ops.dirichlet import (
+    beta_elbo,
+    dirichlet_expectation,
+    theta_elbo,
+)
 from pylda_tpu_torch.ops.sampling import (
     random_assignments,
     sample_doc_topics,
@@ -58,10 +75,44 @@ TAG_CHAIN, TAG_TRAIN, TAG_TEST = 0x2B1D, 0x4B1D, 0x7E57
 class Hybrid(VariationalBayes):
     """VB global step + within-document Gibbs local step."""
 
-    # A model axis above 1 is ROADMAP.md Queue 1 item 14 (``_set_mesh``).
-    _MODEL_AXIS = False
-
     _USES_GAMMA_INIT = False
+    # The sampler reads the whole lambda: the token score covers every
+    # word on each rank.
+    _PARTIAL_TOKEN_SCORE = False
+    _CONTIGUOUS_GATHER = True
+
+    def __init__(self, config, device=None):
+        super().__init__(config, device)
+        # (lambda block, the whole lambda gathered from it) under a shard.
+        self._lam_whole = None
+
+    # -- the whole lambda under a shard ------------------------------------------
+
+    def _whole_lam(self, lam: torch.Tensor) -> torch.Tensor:
+        """The whole lambda of which ``lam`` is this rank's block: one
+        all-gather over the model group, contiguous, kept for that block
+        (collective on a block's first use); ``lam`` without a shard."""
+        if self._shard is None:
+            return lam
+        if self._lam_whole is None or self._lam_whole[0] is not lam:
+            self._lam_whole = (lam, self._shard.gather(lam, contiguous=True))
+        return self._lam_whole[1]
+
+    def gathered_lam(self) -> torch.Tensor:
+        return self._whole_lam(self.state.lam)
+
+    def _state_changed(self) -> None:
+        super()._state_changed()
+        self._lam_whole = None
+
+    def _beta_elbo(self, lam, eta) -> torch.Tensor:
+        """The topic side of the bound, from the whole lambda."""
+        return beta_elbo(self._whole_lam(lam), eta)
+
+    def _elog_lambda_sum(self, lam) -> torch.Tensor:
+        """The Newton eta input, from the whole lambda (its gather is the
+        next step's)."""
+        return dirichlet_expectation(self._whole_lam(lam)).sum(dim=0)
 
     def _build_batches(self, corpus: Corpus) -> List[SeqBatch]:
         return sequence_batches(corpus, self._config, self._device,
@@ -108,11 +159,14 @@ class Hybrid(VariationalBayes):
     # -- the sampled local step ------------------------------------------------
 
     def _sampled_estep(self, batches: List[SeqBatch], lam, alpha, tag,
-                       zs=None, replicated: bool = False):
-        """Sampled local step over every sequence bucket, from the chains
-        ``zs`` (None: random z a bucket).  ``tag`` (purpose, step) seeds
-        the streams, with the rank in the purpose unless ``replicated``.  Returns the VB E-step contract (gammas, sstats,
-        token_score, theta_score, elog_sum) plus the advanced z."""
+                       zs=None, replicated: bool = False, **ranges):
+        """Sampled local step over every sequence bucket against the whole
+        ``lam``, from the chains ``zs`` (None: random z a bucket).
+        ``tag`` (purpose, step) seeds the streams, with the data
+        coordinate in the purpose unless ``replicated``; ``ranges``
+        (``topic_range``, ``vocab_range``) makes sstats that block.
+        Returns the VB E-step contract (gammas, sstats, token_score,
+        theta_score, elog_sum) plus the advanced z."""
         cfg = self._config
         dev = self._device
         elog_beta = dirichlet_expectation(lam)  # frozen for the step
@@ -133,6 +187,7 @@ class Hybrid(VariationalBayes):
                 burn_in=cfg.burn_in_sweeps, num_samples=cfg.number_of_samples,
                 sampler=cfg.resolved_topic_sampler(),
                 block_positions=cfg.sampler_block_positions,
+                **ranges,
             )
             elog_theta = dirichlet_expectation(gamma_b)
             token_score = token_score + sequence_token_score(
@@ -146,20 +201,23 @@ class Hybrid(VariationalBayes):
 
     def _run_estep(self, batches, plan, lam, alpha, gamma0s,
                    sharded: bool = True):
-        """Held-out inference and ``gamma``: cold chains.  ``plan`` is
-        always None, and ``gamma0s`` and ``sharded`` unused (the sampled
-        step initialises assignments, not gamma; lambda is whole).  Held-out inference draws the same
-        streams on every rank, so it runs replicated."""
-        return self._sampled_estep(batches, lam, alpha,
+        """Held-out inference and ``gamma``: cold chains against the whole
+        lambda of the block ``lam``, sstats of this rank's block when
+        ``sharded``.  ``plan`` is always None and ``gamma0s`` unused (the
+        sampled step initialises assignments, not gamma).  Held-out
+        inference draws the same streams on every rank, so it runs
+        replicated."""
+        return self._sampled_estep(batches, self._whole_lam(lam), alpha,
                                    (TAG_TEST, self._counter),
-                                   replicated=True)[:5]
+                                   replicated=True,
+                                   **self._block_ranges(sharded))[:5]
 
     def _train_estep(self, gamma0s):
         """The training step: persistent chains advance in place."""
         st = self.state
         *out, z_new = self._sampled_estep(
-            self._batches, st.lam, st.alpha, (TAG_TRAIN, self._counter),
-            self._z_hyb)
+            self._batches, self._whole_lam(st.lam), st.alpha,
+            (TAG_TRAIN, self._counter), self._z_hyb, **self._block_ranges())
         if self._z_hyb is not None:
             self._z_hyb = z_new
         return tuple(out)
@@ -167,6 +225,8 @@ class Hybrid(VariationalBayes):
     # -- model files ------------------------------------------------------------
 
     def _extra_state(self) -> dict:
+        """The persistent chains of every data coordinate (gathered over
+        the data group), as ``zh_<i>``."""
         d = super()._extra_state()
         zs = gather_chains(getattr(self, "_z_hyb", None) or (), self._mesh)
         for i, z in enumerate(zs):

@@ -233,6 +233,9 @@ class VariationalBayes(Inferencer):
 
     # The E-step starts each row's fixed point from ``gamma_init``.
     _USES_GAMMA_INIT = True
+    # Under ``shard_vocab`` the E-step's token score covers this rank's
+    # columns only (its block of expElogbeta scores its counts).
+    _PARTIAL_TOKEN_SCORE = True
 
     def __init__(
         self,
@@ -413,13 +416,6 @@ class VariationalBayes(Inferencer):
         own = self._shard.exp_elog_beta(lam)
         return self._shard.gather(own), own
 
-    def _ranges(self, sharded: bool) -> dict:
-        """``topic_range`` / ``vocab_range`` of this rank's sufficient
-        statistics (none for an E-step over all of lambda)."""
-        sh = self._shard if sharded else None
-        return {"topic_range": sh.topic_range if sh else None,
-                "vocab_range": sh.vocab_range if sh else None}
-
     def _eta_own(self, eta) -> torch.Tensor:
         """eta's entries of this rank's lambda columns."""
         return eta if self._shard is None else self._shard.eta_cols(eta)
@@ -449,7 +445,7 @@ class VariationalBayes(Inferencer):
         ``last_sweeps``.  Under a lambda shard the sufficient statistics
         are this rank's block (``sharded``) or the whole [K, V]."""
         eeb, _ = self._expectations(lam)
-        kw = dict(self._fixed_point_kw(), **self._ranges(sharded))
+        kw = dict(self._fixed_point_kw(), **self._block_ranges(sharded))
         # The gamma kernel gathers rows of expElogbeta^T, and so does the
         # scatter: one table for all buckets of this E-step.
         eeb_t = (gather_table(eeb, self._config.compute_dtype)
@@ -509,7 +505,7 @@ class VariationalBayes(Inferencer):
             batches, lam, alpha, gamma0s)
         if plan.vocab_range is not None:
             eeb = eeb_own
-        topic_range = self._ranges(sharded)["topic_range"]
+        topic_range = self._block_ranges(sharded).get("topic_range")
         self.last_sweeps = sweeps
         gamma_docs = _assemble_gamma_device(
             torch.cat(rows, dim=0),
@@ -557,15 +553,16 @@ class VariationalBayes(Inferencer):
         data coordinates' documents): the sufficient statistics in one
         all-reduce, the token score, theta terms and E[log theta] sums
         packed into another.  Under ``shard_vocab`` the token score, a
-        partial sum over this rank's columns, is first summed over the
-        model group (so over every rank); the doc-level terms, the same on
-        every rank of a model group, are not.  As they are without a
-        process group."""
+        partial sum over this rank's columns (``_PARTIAL_TOKEN_SCORE``),
+        is first summed over the model group (so over every rank); the
+        doc-level terms, the same on every rank of a model group, are not.
+        As they are without a process group."""
         mesh = self._mesh
         if mesh is None or not mesh.grouped:
             return sstats, token_score, theta_score, elog_sum
         sstats = all_reduce_sum(sstats.contiguous(), mesh, "data")
-        if self._shard is not None and self._shard.mode == VOCAB:
+        if (self._shard is not None and self._shard.mode == VOCAB
+                and self._PARTIAL_TOKEN_SCORE):
             token_score = all_reduce_sum(token_score.reshape(1).clone(),
                                          mesh, "model")[0]
         packed = all_reduce_sum(torch.cat([

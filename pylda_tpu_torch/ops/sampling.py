@@ -64,7 +64,9 @@ def stream(device, *parts: int) -> torch.Generator:
     return g
 
 
-def count_table(tokens, token_mask, z, num_topics: int, num_types: int
+def count_table(tokens, token_mask, z, num_topics: int, num_types: int,
+                topic_range: Optional[Tuple[int, int]] = None,
+                vocab_range: Optional[Tuple[int, int]] = None
                 ) -> torch.Tensor:
     """[K, V] assignment-count table: entry (k, v) sums the mask over
     token slots with word v assigned topic k.  ``tokens``, ``token_mask``
@@ -75,13 +77,27 @@ def count_table(tokens, token_mask, z, num_topics: int, num_types: int
     (the JAX package's one-hot branch above its flat-table gate exists
     for its [V*K] temporary and int32 bins).  The values are exact small
     integers, so the table is the same bits as the JAX package's, in
-    either of its branches, whatever order the additions run in."""
+    either of its branches, whatever order the additions run in.
+
+    ``topic_range`` (k0, k1) and ``vocab_range`` (v0, v1) count only the
+    block [k0:k1, v0:v1] (a rank's block of a split table): slots outside
+    it add 0 to the block's first bin.  The block is the whole table's
+    entries bit for bit, and the full ranges give today's table."""
     K, V = num_topics, num_types
+    k0, k1 = topic_range or (0, K)
+    v0, v1 = vocab_range or (0, V)
     m = token_mask.reshape(-1)
-    flat = torch.zeros(K * V, dtype=m.dtype, device=m.device)
-    flat.index_add_(0, z.reshape(-1).long() * V + tokens.reshape(-1).long(),
-                    m)
-    return flat.view(K, V)
+    zf, wf = z.reshape(-1).long(), tokens.reshape(-1).long()
+    if (k0, k1, v0, v1) != (0, K, 0, V):
+        keep = (zf >= k0) & (zf < k1) & (wf >= v0) & (wf < v1)
+        m = torch.where(keep, m, torch.zeros((), dtype=m.dtype,
+                                             device=m.device))
+        zf = torch.where(keep, zf - k0, 0)
+        wf = torch.where(keep, wf - v0, 0)
+    Vb = v1 - v0
+    flat = torch.zeros((k1 - k0) * Vb, dtype=m.dtype, device=m.device)
+    flat.index_add_(0, zf * Vb + wf, m)
+    return flat.view(k1 - k0, Vb)
 
 
 def random_assignments(shape, num_topics: int, generator: torch.Generator
@@ -134,6 +150,8 @@ def sweep_doc_topics(
     sampler: str = "cdf",
     block_positions: int = 1,
     accumulate_counts: bool = True,
+    topic_range: Optional[Tuple[int, int]] = None,
+    vocab_range: Optional[Tuple[int, int]] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor, torch.Tensor]:
     """Run ``burn_in + num_samples`` sweeps; average over the kept ones.
 
@@ -143,7 +161,9 @@ def sweep_doc_topics(
     mean_kept(n_dk) and sstats[k, v] = mean_kept(#{slots w=v, z=k});
     ``accumulate_counts=False`` skips both averages (sstats is None,
     gamma_bar is alpha): Gibbs's rebuild interval counts the table itself.
-    Burn-in sweeps skip the [K, V] count.
+    Burn-in sweeps skip the [K, V] count.  ``topic_range`` and
+    ``vocab_range`` (``count_table``'s) make sstats that block of the
+    [K, V] statistics, bit for bit (a rank's block of a split table).
 
     Samplers (one distribution, three ways to draw it):
 
@@ -203,7 +223,9 @@ def sweep_doc_topics(
     ndk = torch.zeros((D, K), dtype=dtype, device=dev)
     ndk.scatter_add_(1, z_init.long(), token_mask.to(dtype))
     acc_ndk = torch.zeros((D, K), dtype=dtype, device=dev)
-    acc_kv = (torch.zeros((K, num_types), dtype=dtype, device=dev)
+    ranges = {"topic_range": topic_range, "vocab_range": vocab_range}
+    (k0, k1), (v0, v1) = topic_range or (0, K), vocab_range or (0, num_types)
+    acc_kv = (torch.zeros((k1 - k0, v1 - v0), dtype=dtype, device=dev)
               if accumulate_counts else None)
     alpha_row = alpha[None, :]
     for s in range(n_sweeps):
@@ -235,7 +257,7 @@ def sweep_doc_topics(
             ndk.scatter_add_(1, z_t.t(), mask_t[t])
         if accumulate_counts and s >= burn_in:
             acc_ndk += ndk
-            acc_kv += count_table(tok_c, mask_c, z_c, K, num_types)
+            acc_kv += count_table(tok_c, mask_c, z_c, K, num_types, **ranges)
     denom = float(max(1, num_samples))
     gamma_bar = alpha_row + acc_ndk / denom
     sstats = acc_kv / denom if accumulate_counts else None
@@ -252,6 +274,8 @@ def sample_doc_topics(
     sampler: str = "cdf",
     block_positions: int = 1,
     accumulate_counts: bool = True,
+    topic_range: Optional[Tuple[int, int]] = None,
+    vocab_range: Optional[Tuple[int, int]] = None,
 ):
     """``sweep_doc_topics`` with each sweep's noise drawn from
     ``generator`` (on the tensors' device) just before the sweep."""
@@ -263,7 +287,8 @@ def sample_doc_topics(
         lambda s: draw_noise(sampler, shape, generator, log_topic_word.dtype),
         num_types=num_types, burn_in=burn_in, num_samples=num_samples,
         sampler=sampler, block_positions=block_positions,
-        accumulate_counts=accumulate_counts,
+        accumulate_counts=accumulate_counts, topic_range=topic_range,
+        vocab_range=vocab_range,
     )
 
 

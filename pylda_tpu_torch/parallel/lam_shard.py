@@ -21,6 +21,14 @@ than its block:
 - the topic side of the bound and the Newton eta input sum over K or V:
   partial sums over the model group (``beta_elbo``, ``elog_lambda_sum``).
 
+The sampling engines keep their topic-word tables in the same blocks
+(Gibbs: lambda and the count table n_kv; hybrid: lambda).  A rebuild
+counts each rank's tokens into its block only (``ranges``, the
+``count_table`` form of ``ops/sampling.py``), and a step gathers the
+whole table once, contiguous (``gather(..., contiguous=True)``), before
+it samples: the sampler, the factor and every reduction over the table
+then see the one-process bits.
+
 alpha [K] and eta [V] stay whole on every rank, where the JAX package
 splits them over "model" too (ROADMAP.md Queue 3: a divergence kept on
 purpose, they are K and V floats).
@@ -82,8 +90,17 @@ class LamShard:
     def topic_range(self) -> Optional[Tuple[int, int]]:
         return self.bounds if self.mode == TOPICS else None
 
+    @property
+    def ranges(self) -> dict:
+        """``topic_range`` and ``vocab_range`` of this rank's block: the
+        keyword arguments of a count or sufficient-statistics call that
+        fills the block alone."""
+        return {"topic_range": self.topic_range,
+                "vocab_range": self.vocab_range}
+
     def take(self, full):
-        """This rank's block of a [K, V] array or tensor (a view)."""
+        """This rank's block of a [K, V] array or tensor (lambda, or a
+        count table n_kv; a view)."""
         lo, hi = self.bounds
         return full[:, lo:hi] if self.mode == VOCAB else full[lo:hi]
 
@@ -92,10 +109,13 @@ class LamShard:
         lo, hi = self.bounds
         return eta[lo:hi] if self.mode == VOCAB else eta
 
-    def gather(self, local: torch.Tensor) -> torch.Tensor:
+    def gather(self, local: torch.Tensor, contiguous: bool = False
+               ) -> torch.Tensor:
         """The whole [K, V] tensor from each rank's block (collective over
-        the model group; a transposed view under ``shard_vocab``)."""
-        return all_gather_blocks(local, self.total, self.mesh, self.axis)
+        the model group; a transposed view under ``shard_vocab`` unless
+        ``contiguous``)."""
+        return all_gather_blocks(local, self.total, self.mesh, self.axis,
+                                 contiguous)
 
     def row_sums(self, lam: torch.Tensor) -> torch.Tensor:
         """[K_block, 1]: each topic's sum over all V (all-reduced over the
@@ -139,7 +159,8 @@ def shard_of(shard_vocab: bool, shard_topics: bool, mesh: Optional[Mesh],
              K: int, V: int) -> Optional[LamShard]:
     """The rank's ``LamShard`` under a mesh with a model axis above 1 and
     one of the flags (``LDAConfig.validate`` refuses both); None
-    otherwise (lambda whole on every rank)."""
+    otherwise (lambda whole on every rank, and a model group of M > 1 a
+    set of replicas)."""
     if mesh is None or mesh.model == 1 or not (shard_vocab or shard_topics):
         return None
     return LamShard(VOCAB if shard_vocab else TOPICS, mesh, K, V)

@@ -16,10 +16,10 @@ one process (rank) a card, and makes its collectives by hand:
   Every rank of a model group holds the same documents.  A document's
   rows never straddle two data coordinates, so per-document gamma
   assembly and the dense sufficient statistics stay rank-local;
-- lambda is whole on every rank, or, with ``--shard_vocab`` /
-  ``--shard_topics`` and M > 1, split over the model group
-  (``parallel/lam_shard.py``: each rank holds its block of columns or
-  rows, gathered with ``all_gather_blocks``);
+- lambda (and Gibbs's n_kv) is whole on every rank, or, with
+  ``--shard_vocab`` / ``--shard_topics`` and M > 1, split over the model
+  group (``parallel/lam_shard.py``: each rank holds its block of columns
+  or rows, gathered with ``all_gather_blocks``);
 - one sum all-reduce of the sufficient statistics (n_kv for Gibbs) a
   step over the data group, and one of the doc-level scalars packed
   together, keep each lambda block the same bits across its data group
@@ -316,7 +316,8 @@ def all_reduce_sum(tensor: torch.Tensor, mesh: Optional[Mesh],
 
 
 def all_gather_blocks(local: torch.Tensor, total: int, mesh: Mesh,
-                      dim: int = 0) -> torch.Tensor:
+                      dim: int = 0, contiguous: bool = False
+                      ) -> torch.Tensor:
     """The whole tensor of which each rank of the model group holds the
     block ``block_bounds(total, m, M)`` along ``dim`` (in model order):
     one all-gather over the model group's device group, of the blocks
@@ -324,7 +325,9 @@ def all_gather_blocks(local: torch.Tensor, total: int, mesh: Mesh,
     buffer's M contiguous parts (``all_gather`` into views, which gloo
     takes for CUDA tensors too).
     Along dim 1 the result is a transposed view of the gathered [total,
-    rows] tensor.  Collective over the model group."""
+    rows] tensor, or with ``contiguous`` a copy in row-major order (the
+    layout of a tensor that was never split, so reductions over it run
+    in the one-process order).  Collective over the model group."""
     M = mesh.model
     per = -(-total // M)
     front = local if dim == 0 else local.movedim(dim, 0)
@@ -336,7 +339,9 @@ def all_gather_blocks(local: torch.Tensor, total: int, mesh: Mesh,
     # Every block before the last non-empty one is whole (ceil blocks), so
     # the padding sits past ``total``.
     out = out[:total]
-    return out if dim == 0 else out.movedim(0, dim)
+    if dim != 0:
+        out = out.movedim(0, dim)
+    return out.contiguous() if contiguous else out
 
 
 def _host_group(mesh: Optional[Mesh], group: str = "world"):

@@ -343,8 +343,9 @@ def suite_mfu(eng, measured_seconds: float) -> float:
 
 def allreduce_row(engine, timings: dict, kind: str = "allreduce") -> dict:
     """The step's all-reduce (``phase_timings``' ``allreduce_ms``), or
-    with ``kind`` "allgather" its gather of expElogbeta over the model
-    group under a lambda shard (``allgather_ms``, ``allgather_bytes``:
+    with ``kind`` "allgather" its gather over the model group under a
+    lambda shard (expElogbeta's blocks for the VB family, lambda's for
+    hybrid, n_kv's for Gibbs; ``allgather_ms``, ``allgather_bytes``:
     what a rank receives), beside its bound where one holds: NCCL over a
     group of one card, where the collective need only read its bytes
     once, over the memory rate (the all-reduce runs over the data group,

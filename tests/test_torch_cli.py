@@ -180,11 +180,6 @@ def test_learning_many_matches_learning_loop(corpus_dir):
 @pytest.mark.parametrize("flags, match", [
     # Both ways of splitting lambda at once: the config's error.
     (["--shard_vocab", "--shard_topics"], "exclusive"),
-    # Gibbs and hybrid under a model axis: not ported yet.
-    (["--inference_mode=gibbs", "--mesh=1,2", "--shard_topics"],
-     "ROADMAP.md Queue 1 item 14"),
-    (["--inference_mode=hybrid", "--mesh=1,2", "--shard_vocab"],
-     "ROADMAP.md Queue 1 item 14"),
     (["--checkpoint_format=orbax"], "ROADMAP.md Queue 1 item 6"),
 ])
 def test_unported_train_flags_exit(corpus_dir, tmp_path, flags, match):

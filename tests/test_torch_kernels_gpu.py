@@ -1023,6 +1023,22 @@ def test_count_table_card_bitwise_equals_cpu(cuda):
     assert torch.equal(card.cpu(), cpu)
 
 
+@pytest.mark.parametrize("topic_range, vocab_range", [
+    (None, (0, 2500)), (None, (2500, 5000)), ((0, 50), None),
+    ((50, 100), None)])
+def test_count_table_block_on_card(cuda, topic_range, vocab_range):
+    """A rank's block of n_kv counted on the card (a model group's split):
+    the whole table's block, bit for bit."""
+    from pylda_tpu_torch.ops import sampling
+
+    tokens, mask, _, _, z = _sampling_problem(3000, 50, 5000, 100, seed=1)
+    args = (tokens.to(cuda), mask.to(cuda), z.to(cuda), 100, 5000)
+    whole = sampling.count_table(*args)
+    (k0, k1), (v0, v1) = topic_range or (0, 100), vocab_range or (0, 5000)
+    block = sampling.count_table(*args, topic_range, vocab_range)
+    assert torch.equal(block, whole[k0:k1, v0:v1])
+
+
 @pytest.mark.parametrize("mode", ["gibbs", "hybrid"])
 def test_sampling_engines_on_card(cuda, mode):
     """make_engine places both engines on the card; counts are conserved

@@ -20,8 +20,9 @@ the ragged gamma with the row scatter), held
 
 Also: the plain sufficient statistics' topic and vocab ranges against
 the whole call's rows and JAX's, the mesh's groups and checks, the
-doc-level terms counted once at (2, 2), the all-gather's roofline row,
-and Gibbs and hybrid refusing a model axis.
+doc-level terms counted once at (2, 2) and the all-gather's roofline
+row.  Gibbs and hybrid under a model axis are held in
+tests/test_torch_sharding_sampling.py.
 """
 
 import dataclasses
@@ -306,19 +307,6 @@ def test_collective_rows(kind, backend, data, model, bounded):
                                                 rel=1e-5)
     else:
         assert row["bound_ms"] is None and row["bound"] == "no bound"
-
-
-@pytest.mark.parametrize("mode", ["gibbs", "hybrid"])
-def test_sampling_engines_refuse_a_model_axis(mode):
-    """Gibbs and hybrid under a model axis above 1 raise, naming ROADMAP
-    Queue 1 item 14, before any collective."""
-    mesh = pmesh.Mesh(data=1, model=2, rank=0, device=torch.device("cpu"),
-                      device_group=None, host_group=None, backend=None)
-    train = synthetic_corpus(**CORPUS)[0]
-    eng = make_engine(LDAConfig(**{**BASE, "inference_mode": mode,
-                                   "shard_topics": True}), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        eng.initialize(train, mesh=mesh)
 
 
 def test_lambda_block_setter_and_gather_without_a_group():

@@ -282,9 +282,117 @@ def case_groups(spec, mesh):
     return out
 
 
+def sampling_run(run, spec, train, test, vocab, mesh):
+    """One Gibbs or hybrid run of ``case_sampling`` (``mesh`` None: the
+    one-process reference the tests make in their own process): the
+    engine from ``run["load"]`` (a model file, resumed on ``train``) or
+    initialized; with ``run["chains"]`` (an npz of a JAX engine's state,
+    n_kv and chains, whole) adopted through the ``state`` setter and
+    ``set_chains``, and the joint likelihood there (Gibbs); then
+    ``iterations`` (the run's, else the spec's) learning() calls, each
+    step's collectives recorded (and
+    for Gibbs the likelihoods the slice sampler evaluated) and the tables
+    checked after each (blocks bitwise across their data groups and
+    tiling (K, V), the rest across every rank); ``many`` in
+    learning_many.  Returns the objectives, the whole tables, alpha, eta,
+    the blocks' shapes, the chains of every data coordinate, gamma, the
+    topic-word matrix, held-out perplexities and, with ``timings``,
+    phase_timings and the roofline report."""
+    from pylda_tpu_torch.models import Inferencer
+    from pylda_tpu_torch.models.base import state_from_numpy
+    from pylda_tpu_torch.models.gibbs import gather_chains, local_chains
+
+    if run.get("load"):
+        eng = Inferencer.load(run["load"], corpus=train, device="cpu",
+                              mesh=mesh)
+    else:
+        eng = make_engine(LDAConfig(**run["cfg"]).validate(), device="cpu")
+        eng.initialize(train, vocab, mesh=mesh)
+    cfg = eng.config
+    gibbs = cfg.inference_mode == "gibbs"
+    K, V = cfg.number_of_topics, len(vocab)
+    out = {}
+    if run.get("chains"):
+        with np.load(run["chains"]) as z:
+            blobs = {k: z[k] for k in z.files}
+        eng.state = state_from_numpy(blobs, "cpu")
+        chains = lambda p: local_chains(  # noqa: E731
+            [blobs[f"{p}_{i}"] for i in range(sum(
+                1 for k in blobs if k.startswith(p + "_")))], mesh)
+        if gibbs:
+            eng.set_chains(blobs["n_kv"], chains("z"), chains("ndk"))
+            out["ll0"] = eng.compute_likelihood()
+            out["ll0_scalars"] = eng.compute_likelihood(0.3, 0.02)
+        else:
+            eng.set_chains(chains("zh"))
+    likelihoods = [0]
+    if gibbs:
+        plain = eng.compute_likelihood
+
+        def counted(*a):
+            likelihoods[0] += 1
+            return plain(*a)
+
+        eng.compute_likelihood = counted
+    sharded = ("lam", "n_kv") if eng._shard is not None else ()
+    objs, steps = [], []
+    for _ in range(run.get("iterations", spec.get("iterations", 3))):
+        pmesh.COLLECTIVES.clear()
+        likelihoods[0] = 0
+        objs.append(eng.learning())
+        steps.append([pmesh.COLLECTIVES["all_reduce"],
+                      pmesh.COLLECTIVES["all_gather"], likelihoods[0]])
+        tables = {"lam": eng.state.lam, "alpha": eng.state.alpha,
+                  "eta": eng.state.eta}
+        if gibbs:
+            tables["n_kv"] = eng._n_kv
+        pmesh.assert_replicas_consistent(tables, mesh, sharded=sharded,
+                                         full_shape=(K, V))
+    objs += eng.learning_many(spec.get("many", 0))
+    out.update(objs=np.asarray(objs, np.float64), steps=np.asarray(steps),
+               lam=eng.gathered_lam().numpy(), block=np.asarray(
+                   eng.state.lam.shape),
+               alpha=eng.state.alpha.numpy(), eta=eng.state.eta.numpy(),
+               gamma=eng.gamma, twd=eng.topic_word_distribution(),
+               step=eng._counter)
+    if gibbs:
+        out["n_kv"] = eng._n_kv_whole.numpy()
+        out["n_kv_block"] = np.asarray(eng._n_kv.shape)
+        chains = {"z": eng._z, "ndk": eng._ndk}
+    else:
+        chains = {"zh": eng._z_hyb or []}
+    for name, ts in chains.items():
+        for i, a in enumerate(gather_chains(ts, mesh)):
+            out[f"{name}_{i}"] = a
+    if test is not None:
+        out["perplexity"] = eng.perplexity(test)
+        out["point_perplexity"] = eng.point_estimate_perplexity(test)
+    if run.get("save"):
+        eng.save(run["save"])
+    if run.get("timings"):
+        from pylda_tpu_torch.utils.roofline import roofline_report
+
+        times = eng.phase_timings(1)
+        out["timings"] = json.dumps(times)
+        out["roofline"] = json.dumps(roofline_report(eng, timings=times))
+    return out
+
+
+def case_sampling(spec, mesh):
+    """Gibbs and hybrid over the mesh, each flag or neither: every run of
+    ``runs`` (``sampling_run``), its results prefixed ``r<i>_``."""
+    train, test, vocab = _corpora(spec, mesh)
+    out = {}
+    for i, run in enumerate(spec["runs"]):
+        res = sampling_run(run, spec, train, test, vocab, mesh)
+        out.update({f"r{i}_{k}": v for k, v in res.items()})
+    return out
+
+
 CASES = {"engine": case_engine, "batches": case_batches, "hang": case_hang,
          "replicas": case_replicas, "resume": case_resume,
-         "shard": case_shard, "groups": case_groups}
+         "shard": case_shard, "groups": case_groups,
+         "sampling": case_sampling}
 
 
 def main(argv):
