@@ -85,7 +85,8 @@ Phases, in order (any failure exits non-zero):
 6. cross-check: at a small size, on each route (the scatter route
    among them), at K=16 and at K=300 (the kernels' wide range), in
    float32 and in bf16, each engine on the card (kernels) and on the CPU
-   (plain versions) give the same bounds.
+   (plain versions) give the same bounds; at K=5000 the same lambda
+   (``card_vs_cpu_checks``).
 
 7. across ranks (``parallel/mesh.py``; one card, so two ranks share it
    over gloo, and NCCL runs at world size 1):
@@ -154,6 +155,34 @@ Phases, in order (any failure exits non-zero):
    a rank; and ``cli_shard`` with ``--inference_mode`` gibbs and hybrid
    (two processes a flag, ten at once with the one-process CLIs): each
    model-6 bit for bit the one-process file.
+
+10. above K = 4096 (the gamma kernels' tiled kernel,
+   ``csrc/row_fixed_point_tiled.cuh``, and the sstats kernel's two passes;
+   every launch there counts in ``<kernel>_wide`` too):
+   - ``wide_k_kernels``: each kernel in both builds against its plain
+     version at K in WIDE_KS (4100, 5000, 8192, 16384) with the holds of
+     the K <= 4096 lines: the ragged gamma on a 256-row bucket of config
+     5's corpus, the dense E-step at D = 256, V = 4096, the sstats on
+     config 5's first [1216, 100352] chunk at K = 8192 (25,088 columns at
+     the other K), bitwise over two calls, and its topic range at K = 8192
+     over [0, 4096), [4096, 8192) and [1000, 5000), each bitwise the full
+     launch's rows;
+   - ``wide_k_vb`` (the ragged flagship at K = 8192) and ``wide_k_dense``
+     (the dense flagship at K = 5000): 2 warm and 5 timed iterations,
+     phase_timings and the roofline, float32 and bf16;
+   - ``wide_k_svi5``: SVI on config 5's corpus at K = 8192, float32 and
+     bf16: one warm and two timed epochs, one profiled (s an epoch,
+     docs/s, idle share, peak memory); the gate: held-out point-estimate
+     perplexity falls;
+   - ``shard_topics_vb_wide``: the ragged flagship at K = 8192 at mesh
+     (1, 2) with ``--shard_topics`` over gloo, WIDE_SHARD_ITERS iterations
+     at pinned sweeps: lambda bit for bit the one-process run (the topic
+     range entry above 4096 on a main path);
+   - ``cli_wide_k_vb`` and ``cli_wide_k_svi``: the three CLIs on
+     ``data/de-news-tiny`` at ``--number_of_topics 5000``;
+   - the card-vs-CPU cross-check at K = 5000 on a cut corpus (64
+     documents), on the ragged, scatter and dense routes in both modes:
+     lambda after one step at pinned sweeps (WIDE_F64_FACTOR).
 
 Beside those phases:
 
@@ -233,6 +262,23 @@ SSTATS_RTOL, SSTATS_ATOL_REL, SCORE_RTOL = 1e-4, 1e-6, 1e-5
 GAMMA_RTOL = 5e-4
 DENSE_SCORE_RTOL = 1e-4
 ELBO_RTOL = 1e-4  # card vs CPU engine, small cross-check
+# ... above K = 4096 on the cut corpus (64 documents, 3,840 tokens) the
+# bound is mostly the topic side over K V entries, which the kernels do
+# not compute, and at the exit rule float32 alone moves it by up to 4.3e-4
+# (the CPU plain version in float32 against float64, batch VB at K = 5000
+# on the ragged route).  There the card is held on what the E-step moves:
+# lambda after one step from one lambda at pinned sweeps (threshold 0,
+# PINNED_SWEEPS_WIDE a row), the largest entry's difference relative to
+# the largest entry.  With 5000 topics over 3,840 tokens every gamma entry
+# is small and float32 reassociation alone moves lambda by up to 1.5e-3
+# there (the CPU plain version against float64, batch VB on the ragged
+# route; 6.2e-5 card vs CPU on an H100), so card and CPU are each held
+# to the CPU run in float64 (in bf16 with the same rounding points): the
+# card's gap at most WIDE_F64_FACTOR times the CPU float32 run's, as the
+# bf16 kernel holds do (BF16_BOUND_FACTOR), or WIDE_LAM_REL (summation
+# order only, SCATTER_CARD_CPU_REL's measure).  A wrong topic tile or
+# entry moves lambda by its own size.  The ELBOs are printed beside.
+WIDE_LAM_REL, WIDE_F64_FACTOR = 1e-5, 2.0
 # Rows still updating at S* stall without converging, so their gamma
 # depends on rounding; each such document's share of the bound
 # (ops/estep.py::ragged_doc_bound) at the kernel's gamma is held to its
@@ -310,6 +356,12 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def wide_tag(K: int) -> str:
+    """"_wide" above K = 4096 (the kernels' tiled and two-pass range), the
+    suffix of its kernel lines and launch counts."""
+    return "_wide" if K > 4096 else ""
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -464,8 +516,9 @@ def sstats_check(label, counts, et, eeb, eps, sstats_mod, plain,
     k_ms = cuda_ms(lambda: sstats_mod.dense_sstats(counts, et, eeb, **mode), 20)
     p_ms = cuda_ms(lambda: plain(counts, et, eeb, **mode), 20)
     pl = sstats_mod.plan(D, Vc, K, torch.cuda.get_device_properties(
-        counts.device).multi_processor_count)
-    print(f"kernel dense_sstats{'' if compute_dtype == 'float32' else '_bf16'} "
+        counts.device).multi_processor_count, nnz=nnz)
+    print(f"kernel dense_sstats{'' if K <= 4096 else '_wide'}"
+          f"{'' if compute_dtype == 'float32' else '_bf16'} "
           f"{label} [{D}x{Vc} {str(counts.dtype)[6:]}, K={K}]: grid "
           f"{pl.tiles} tiles of {pl.cols} columns x {pl.splits} splits, "
           f"kp {pl.kp}, scratch {pl.scratch_bytes / 1e6:.1f} MB, "
@@ -489,9 +542,10 @@ def sstats_check(label, counts, et, eeb, eps, sstats_mod, plain,
 
 
 def sstats_range_check(label, counts, et, eeb, eps, sstats_mod, plain,
-                       compute_dtype="float32") -> list:
+                       compute_dtype="float32", ranges=None) -> list:
     """The dense sstats kernel's topic-range launch (lambda split over
-    topics) on one input, at each half of [0, K): its rows bitwise equal
+    topics) on one input, at each half of [0, K) (or at ``ranges``): its
+    rows bitwise equal
     to the full launch's rows and its score to the full score, two calls
     bitwise equal, and against the plain version's range at
     ``sstats_check``'s tolerances; times and bounds beside the full
@@ -505,9 +559,10 @@ def sstats_range_check(label, counts, et, eeb, eps, sstats_mod, plain,
     full_ms = cuda_ms(lambda: sstats_mod.dense_sstats(counts, et, eeb,
                                                       **mode), 20)
     nnz = int((counts != 0).sum())
-    suffix = "" if compute_dtype == "float32" else "_bf16"
+    suffix = ("" if K <= 4096 else "_wide") + (
+        "" if compute_dtype == "float32" else "_bf16")
     out = []
-    for k0, k1 in ((0, K // 2), (K // 2, K)):
+    for k0, k1 in ranges or ((0, K // 2), (K // 2, K)):
         rng = dict(mode, topic_range=(k0, k1))
         ss, tok = sstats_mod.dense_sstats(counts, et, eeb, **rng)
         ss2, tok2 = sstats_mod.dense_sstats(counts, et, eeb, **rng)
@@ -620,7 +675,9 @@ def ragged_checks(label, batches, eeb, eeb_t, alpha, kw, gamma_atol, dev,
         rows = int((live > 0).sum())
         nmax = geo["nmax"]
         streamed = live > nmax
-        windows = int(((live[streamed] + nmax - 1) // nmax).sum())
+        # The tiled kernel (nmax 0) reads each live row's list once a sweep.
+        windows = (int(((live[streamed] + nmax - 1) // nmax).sum()) if nmax
+                   else int(streamed.sum()))
         # Bytes: ids and counts, the table rows of the chunk's distinct
         # live ids, alpha and gamma0 read once; gamma written once.
         rows_needed = int(torch.unique(b.ids[b.cnts != 0]).numel())
@@ -630,7 +687,8 @@ def ragged_checks(label, batches, eeb, eeb_t, alpha, kw, gamma_atol, dev,
         k_ms = cuda_ms(lambda: ragged_mod.ragged_gamma(
             b.ids, b.cnts, g0, eeb, alpha, eeb_t=eeb_t, **kw), 20)
         p_ms = cuda_ms(lambda: plain(b.ids, b.cnts, g0, eeb, alpha, **kw), 3)
-        print(f"kernel ragged_gamma {label} bucket {i} [{Db}x{Tb}, K={K}]: "
+        print(f"kernel ragged_gamma{wide_tag(K)} {label} bucket {i} "
+              f"[{Db}x{Tb}, K={K}]: "
               f"sweeps plain f32 {int(s_p)}, {fp_text}, real slots processed "
               f"{int(slots)}, slot buffer {nmax} entries ({geo['smem_bytes']} "
               f"B a block, {geo['blocks_per_sm']} blocks an SM, grid "
@@ -653,7 +711,8 @@ def ragged_checks(label, batches, eeb, eeb_t, alpha, kw, gamma_atol, dev,
                   blocks_per_sm=geo["blocks_per_sm"])
         rows_plain.append(g_p)
     rg["bound_ms"], rg["bound_by"] = bound(rg["flops"], rg["nbytes"])
-    print(f"kernel ragged_gamma {label}: {rg['launches']} launches, "
+    print(f"kernel ragged_gamma{wide_tag(K)} {label}: {rg['launches']} "
+          f"launches, "
           f"{rg['ms']:.4f} ms (bound {rg['bound_ms']:.5f}, {rg['bound_by']}), "
           f"rows streamed past the slot buffer ({rg['nmax']} entries at "
           f"K={K}) {rg['streamed_rows']} of {rg['rows']}, {rg['windows']} "
@@ -753,7 +812,9 @@ def ragged_checks_bf16(label, batches, eeb, alpha, kw, dev, ragged_mod,
         live = (b.cnts != 0).sum(dim=1)
         nmax = geo["nmax"]
         streamed = live > nmax
-        windows = int(((live[streamed] + nmax - 1) // nmax).sum())
+        # The tiled kernel (nmax 0) reads each live row's list once a sweep.
+        windows = (int(((live[streamed] + nmax - 1) // nmax).sum()) if nmax
+                   else int(streamed.sum()))
         # Bytes: ids and counts, the bf16 table rows of the launch's
         # distinct live ids, alpha and gamma0 read once; gamma written.
         rows_needed = int(torch.unique(b.ids[b.cnts != 0]).numel())
@@ -763,7 +824,8 @@ def ragged_checks_bf16(label, batches, eeb, alpha, kw, dev, ragged_mod,
         b_ms, b_by = bound(flops, nbytes, BF16)
         k_ms = cuda_ms(lambda: run("kernel", kw), 20)
         p_ms = cuda_ms(lambda: run("plain", kw), 3)
-        print(f"kernel ragged_gamma_bf16 {label} bucket {i} [{Db}x{Tb}, "
+        print(f"kernel ragged_gamma{wide_tag(K)}_bf16 {label} bucket {i} "
+              f"[{Db}x{Tb}, "
               f"K={K}]: {text}, real slots processed {int(slots)}, slot "
               f"buffer {nmax} entries ({geo['smem_bytes']} B a block, "
               f"{geo['blocks_per_sm']} blocks an SM, grid {geo['grid']}), rows "
@@ -787,7 +849,8 @@ def ragged_checks_bf16(label, batches, eeb, alpha, kw, dev, ragged_mod,
                   blocks_per_sm=geo["blocks_per_sm"])
         rows_plain.append(g_p)
     rg["bound_ms"], rg["bound_by"] = bound(rg["flops"], rg["nbytes"], BF16)
-    print(f"kernel ragged_gamma_bf16 {label}: {rg['launches']} launches, "
+    print(f"kernel ragged_gamma{wide_tag(K)}_bf16 {label}: {rg['launches']} "
+          f"launches, "
           f"{rg['ms']:.4f} ms (bound {rg['bound_ms']:.5f}, {rg['bound_by']}), "
           f"slot buffer {rg['nmax']} entries, rows streamed past it "
           f"{rg['streamed_rows']} of {rg['rows']}, {rg['windows']} windows a "
@@ -797,13 +860,14 @@ def ragged_checks_bf16(label, batches, eeb, alpha, kw, dev, ragged_mod,
     return rg, rows_plain
 
 
-def dense_checks_bf16(label, corpus, beta, cfg, dev, f32_line):
+def dense_checks_bf16(label, corpus, beta, cfg, dev, f32_line, probe=None):
     """The dense E-step's bf16 builds (gamma kernel + final pass) on the
     one counts batch of ``corpus`` at a sharpened lambda
     (``bf16_gamma_check``; the final pass by ``sstats_check`` at the
     kernel's gamma), timed beside the float32 line of the same input
-    (``f32_line``, a ``dense_checks`` record).  Raises if it disagrees.
-    Returns (its record, the final pass's sstats record)."""
+    (``f32_line``, a ``dense_checks`` record; ``probe`` as there).
+    Raises if it disagrees.  Returns (its record, the final pass's
+    sstats record)."""
     import torch
 
     from pylda_tpu_torch.ops import dense_estep as dense_mod
@@ -819,7 +883,7 @@ def dense_checks_bf16(label, corpus, beta, cfg, dev, f32_line):
     kw = dict(inner_iterations=cfg.inner_iterations,
               convergence_threshold=cfg.convergence_threshold, eps=cfg.eps,
               stall_patience=cfg.estep_stall_patience)
-    alpha, eeb, dc, g0 = dense_probe(corpus, beta, cfg, dev)
+    alpha, eeb, dc, g0 = probe or dense_probe(corpus, beta, cfg, dev)
     Dd = dc.shape[0]
     row_nnz = (dc != 0).sum(dim=1)
     ids, cnts = dense_entries(dc, row_nnz)
@@ -855,7 +919,7 @@ def dense_checks_bf16(label, corpus, beta, cfg, dev, f32_line):
     k_ms = cuda_ms(lambda: run("kernel", kw), 5)
     p_ms = cuda_ms(lambda: run("plain", kw), 2)
     streamed = int((row_nnz > geo["nmax"]).sum())
-    print(f"kernel dense_gamma_bf16 {label} [{Dd}x{dc.shape[1]} "
+    print(f"kernel dense_gamma{wide_tag(K)}_bf16 {label} [{Dd}x{dc.shape[1]} "
           f"{str(dc.dtype)[6:]}, K={K}]: {text}, slot buffer {geo['nmax']} "
           f"entries ({geo['smem_bytes']} B a block, {geo['blocks_per_sm']} "
           f"blocks an SM), rows streamed past it {streamed}, kernel_ms "
@@ -876,15 +940,19 @@ def dense_checks_bf16(label, corpus, beta, cfg, dev, f32_line):
 def zero_launches(mods) -> None:
     for mod in mods.values():
         mod.LAUNCHES = mod.BF16_LAUNCHES = 0
+        mod.WIDE_LAUNCHES = mod.BF16_WIDE_LAUNCHES = 0
         if hasattr(mod, "RANGE_LAUNCHES"):
             mod.RANGE_LAUNCHES = mod.BF16_RANGE_LAUNCHES = 0
+            mod.RANGE_WIDE_LAUNCHES = mod.BF16_RANGE_WIDE_LAUNCHES = 0
 
 
 def read_launches(mods) -> dict:
     """Each kernel's launches of its float32 build (its name) and of its
     bf16 build (its name + "_bf16"); for the sstats kernel also its
     topic-range launches ("dense_sstats_range", "dense_sstats_range_bf16",
-    counted in its builds' launches too)."""
+    counted in its builds' launches too).  Of each, the launches above
+    K = 4096 (the tiled gamma kernel, the sstats kernel's two passes) as
+    "<name>_wide" and "<name>_wide_bf16", counted in the others too."""
     out = {}
     for name, mod in mods.items():
         out[name] = mod.LAUNCHES
@@ -892,6 +960,11 @@ def read_launches(mods) -> dict:
         if hasattr(mod, "RANGE_LAUNCHES"):
             out[f"{name}_range"] = mod.RANGE_LAUNCHES
             out[f"{name}_range_bf16"] = mod.BF16_RANGE_LAUNCHES
+        out[f"{name}_wide"] = mod.WIDE_LAUNCHES
+        out[f"{name}_wide_bf16"] = mod.BF16_WIDE_LAUNCHES
+        if hasattr(mod, "RANGE_LAUNCHES"):
+            out[f"{name}_range_wide"] = mod.RANGE_WIDE_LAUNCHES
+            out[f"{name}_range_wide_bf16"] = mod.BF16_RANGE_WIDE_LAUNCHES
     return out
 
 
@@ -945,14 +1018,16 @@ def dense_entries(dc, row_nnz):
     return order.to(torch.int32), dc.gather(1, order).float()
 
 
-def dense_checks(label, corpus, beta, cfg, dev, pinned=False):
+def dense_checks(label, corpus, beta, cfg, dev, pinned=False, probe=None):
     """The dense E-step (gamma kernel + final pass) on the one counts batch
     of ``corpus`` at a sharpened lambda, against its plain version in
     float64 (``exit_report``), the final pass at the kernel's gamma and
     the score; timed, with bounds from this run's nonzeros.  ``pinned``
     holds the rows still updating at S* by their share of the bound and
     every row at pinned sweeps, as ``ragged_checks`` does.  Raises if it
-    disagrees.  Returns (its record, the final pass's sstats record)."""
+    disagrees.  ``probe``: the inputs (``dense_probe``'s tuple) where the
+    caller made them.  Returns (its record, the final pass's sstats
+    record)."""
     import torch
 
     from pylda_tpu_torch.ops import dense_estep as dense_mod
@@ -969,7 +1044,7 @@ def dense_checks(label, corpus, beta, cfg, dev, pinned=False):
               convergence_threshold=cfg.convergence_threshold, eps=cfg.eps,
               stall_patience=cfg.estep_stall_patience)
     gamma_atol = 5e-4 + K * cfg.convergence_threshold
-    alpha, eeb, dc, g0 = dense_probe(corpus, beta, cfg, dev)
+    alpha, eeb, dc, g0 = probe or dense_probe(corpus, beta, cfg, dev)
     row_sweeps = torch.zeros((dc.shape[0],), dtype=torch.int32, device=dev)
     row_exit = torch.zeros_like(row_sweeps)
     extra = torch.zeros((1,), dtype=torch.int64, device=dev)
@@ -1035,7 +1110,7 @@ def dense_checks(label, corpus, beta, cfg, dev, pinned=False):
                        sstats_mod, estep_dense_sstats)
     dg_ok = dg_ok and dss_ok and dtok_rel <= DENSE_SCORE_RTOL
     streamed = int((row_nnz > geo["nmax"]).sum())
-    print(f"kernel dense_gamma {label} [{Dd}x{dc.shape[1]} "
+    print(f"kernel dense_gamma{wide_tag(K)} {label} [{Dd}x{dc.shape[1]} "
           f"{str(dc.dtype)[6:]}, K={K}]: sweeps plain f32 {int(s_p)}, "
           f"{fp_text}, row-sweeps needed {row_sweeps_total}, "
           f"nonzero counts {dg_nnz} ({dg_nnz / dc.numel():.4f} of the block), "
@@ -1139,11 +1214,13 @@ def svi_kernel_lines(label, corpus, beta, cfg, dev, bf16=False,
     return rg, ss, rg16, ss16
 
 
-def run_engine(label, cfg, corpus, test, dev, mods, needed) -> dict:
-    """The main path at one flagship: initialize, learning_many(2) warm,
-    learning_many(20) timed, inference and perplexity on held-out docs;
-    launch counters zeroed just before and read just after.  Returns the
-    launches ("launches"), the last ELBO and the held-out perplexity."""
+def run_engine(label, cfg, corpus, test, dev, mods, needed, n=20, warm=2,
+               lam_init=None) -> dict:
+    """The main path at one flagship: initialize (from ``lam_init`` when
+    given), learning_many(warm) warm, learning_many(n) timed, inference
+    and perplexity on held-out docs; launch counters zeroed just before
+    and read just after.  Returns the launches ("launches"), the last
+    ELBO and the held-out perplexity."""
     import numpy as np
     import torch
 
@@ -1153,14 +1230,13 @@ def run_engine(label, cfg, corpus, test, dev, mods, needed) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     eng = VariationalBayes(cfg, device=dev)
-    eng.initialize(corpus)
+    eng.initialize(corpus, lam_init=lam_init)
     torch.cuda.synchronize()
     shapes = [tuple((b.ids if hasattr(b, "ids") else b.counts).shape)
               for b in eng._batches]
     print(f"{label}: initialize {time.perf_counter() - t0:.2f} s, batches "
           f"{shapes}")
-    warm = eng.learning_many(2)
-    n = 20
+    warm = eng.learning_many(warm)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     elbos = eng.learning_many(n)
@@ -1211,15 +1287,19 @@ def hold_bf16(label, r32: dict, r16: dict) -> None:
         raise AssertionError(f"{label}: bf16 and float32 runs disagree")
 
 
-def run_svi(label, cfg, corpus, test, dev, mods, n) -> dict:
-    """SVI at one config: initialize, learning_many(1) warm,
+def run_svi(label, cfg, corpus, test, dev, mods, n, lam_init=None,
+            needed=()) -> dict:
+    """SVI at one config: initialize (from ``lam_init`` when given),
+    learning_many(1) warm,
     learning_many(n) timed, one more epoch under ``torch.profiler`` (the
     card's busy time, idle share and kernels by device time), then
     ``inference``, ``perplexity`` and ``point_estimate_perplexity`` on
     held-out docs; the point-estimate perplexity must fall below its
     value at init.  Launch counters zeroed just before and read just
-    after.  Returns the launches ("launches"), the last epoch's bound
-    estimate ("elbo") and the held-out perplexity."""
+    after; ``needed`` names builds the path must launch besides the
+    ragged gamma and dense sstats kernels.  Returns the launches
+    ("launches"), the last epoch's bound estimate ("elbo"), the held-out
+    perplexity, s an epoch, the idle share and the peak memory."""
     import numpy as np
     import torch
 
@@ -1229,7 +1309,7 @@ def run_svi(label, cfg, corpus, test, dev, mods, n) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     eng = StochasticVariationalBayes(cfg, device=dev)
-    eng.initialize(corpus)
+    eng.initialize(corpus, lam_init=lam_init)
     torch.cuda.synchronize()
     mat = eng._mb_sstats.counts
     print(f"{label}: initialize {time.perf_counter() - t0:.2f} s; geometry "
@@ -1274,14 +1354,17 @@ def run_svi(label, cfg, corpus, test, dev, mods, n) -> dict:
     if not pe < pe0:
         raise AssertionError(f"{label}: held-out point-estimate perplexity "
                              f"did not fall ({pe0:.2f} -> {pe:.2f})")
-    print(f"{label}: peak device memory "
-          f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**20
+    print(f"{label}: peak device memory {peak:.1f} MiB")
     counts = read_launches(mods)
     suffix = "_bf16" if cfg.compute_dtype == BF16 else ""
     check_launched(label, counts, (f"ragged_gamma{suffix}",
-                                   f"dense_sstats{suffix}"))
+                                   f"dense_sstats{suffix}", *needed))
     return {"launches": counts, "elbo": ests[-1], "perplexity": ppl,
-            "engine": eng}
+            "engine": eng, "s_per_epoch": dt,
+            "docs_per_s": corpus.num_docs / dt,
+            "idle_share": prof["idle_share"], "peak_mib": peak,
+            "point_perplexity": [pe0, pe]}
 
 
 def profile_window(fn) -> dict:
@@ -1488,13 +1571,14 @@ def sampling_card_vs_cpu(eng, dev) -> None:
 
 
 def run_cli(mods, mode: str, compute_dtype: str = "float32",
-            needed=None, streaming=False) -> dict:
+            needed=None, streaming=False, topics: int = 10) -> dict:
     """train -> test -> infer through the CLIs' main() on the card, with
-    ``--inference_mode=mode`` and ``--compute_dtype=compute_dtype`` (test
-    and infer read the mode from the model file); ``needed``: the kernel
-    builds the path must launch (default: the dense route's).
-    ``streaming`` trains with ``--streaming_input`` from a copy of the
-    bundled corpus (its row sidecar is written beside the copy)."""
+    ``--inference_mode=mode``, ``--compute_dtype=compute_dtype`` (test
+    and infer read the mode from the model file) and ``topics`` topics;
+    ``needed``: the kernel builds the path must launch (default: the
+    dense route's).  ``streaming`` trains with ``--streaming_input`` from
+    a copy of the bundled corpus (its row sidecar is written beside the
+    copy)."""
     import numpy as np
 
     from pylda_tpu_torch.cli import infer as cli_infer
@@ -1504,7 +1588,8 @@ def run_cli(mods, mode: str, compute_dtype: str = "float32",
 
     corpus_dir = bundled_corpus_dir()
     suffix = "_bf16" if compute_dtype == BF16 else ""
-    out = CLI_OUT / f"{mode}{suffix}{'_streaming' if streaming else ''}"
+    out = CLI_OUT / (f"{mode}{suffix}{'_streaming' if streaming else ''}"
+                     + ("" if topics == 10 else f"_k{topics}"))
     shutil.rmtree(out, ignore_errors=True)
     extra = []
     if streaming:
@@ -1515,7 +1600,7 @@ def run_cli(mods, mode: str, compute_dtype: str = "float32",
     t0 = time.perf_counter()
     rc = cli_train.main([
         f"--input_directory={corpus_dir}", f"--output_directory={out}",
-        "--number_of_topics=10", "--training_iterations=6",
+        f"--number_of_topics={topics}", "--training_iterations=6",
         "--snapshot_interval=3", "--dump_gamma", f"--inference_mode={mode}",
         f"--compute_dtype={compute_dtype}", *extra,
     ])
@@ -1527,7 +1612,8 @@ def run_cli(mods, mode: str, compute_dtype: str = "float32",
             "gamma-6", "metrics.jsonl"]
     missing = [f for f in want if not (run / f).exists()]
     lines = (run / "exp_beta-6").read_text().splitlines()
-    if missing or lines[0] != "==========\t0\t==========" or len(lines) != 510:
+    if (missing or lines[0] != "==========\t0\t=========="
+            or len(lines) != 51 * topics):
         raise AssertionError(f"cli train outputs: missing {missing}, "
                              f"exp_beta lines {len(lines)}")
     gamma_out = out / "gamma.test"
@@ -1535,7 +1621,7 @@ def run_cli(mods, mode: str, compute_dtype: str = "float32",
                         f"--input_directory={corpus_dir}",
                         f"--output_file={gamma_out}", "--point_estimate"])
     gamma = np.loadtxt(gamma_out)
-    if rc != 0 or gamma.shape != (100, 10) or not (gamma > 0).all():
+    if rc != 0 or gamma.shape != (100, topics) or not (gamma > 0).all():
         raise AssertionError(f"cli test: rc {rc}, gamma {gamma.shape}")
     docs = out / "docs.txt"
     docs.write_text("government election vote\nrain snow storm weather\n")
@@ -1543,7 +1629,7 @@ def run_cli(mods, mode: str, compute_dtype: str = "float32",
     rc = cli_infer.main([f"--model={run / 'model-6'}", f"--input={docs}",
                          f"--output={mix}", "--full"])
     theta = np.loadtxt(mix)
-    if rc != 0 or theta.shape != (2, 10) or not np.allclose(
+    if rc != 0 or theta.shape != (2, topics) or not np.allclose(
             theta.sum(axis=1), 1.0, rtol=1e-4):
         raise AssertionError(f"cli infer: rc {rc}, theta {theta.shape}")
     with open(run / "metrics.jsonl") as f:
@@ -1552,7 +1638,8 @@ def run_cli(mods, mode: str, compute_dtype: str = "float32",
     if meta["config"]["compute_dtype"] != compute_dtype:
         raise AssertionError(f"cli train: the model file says "
                              f"{meta['config']['compute_dtype']}")
-    label = f"cli {mode} {compute_dtype}{' streaming' if streaming else ''}"
+    label = (f"cli {mode} {compute_dtype}{' streaming' if streaming else ''}"
+             + ("" if topics == 10 else f" K={topics}"))
     if streaming and not list(pathlib.Path(corpus_dir).glob(
             "doc.dat.rowcache.v2.*/meta.json")):
         raise AssertionError(f"{label}: no row sidecar beside {corpus_dir}")
@@ -3072,7 +3159,8 @@ def dist_rank(argv) -> int:
             if engine in SAMPLING_MODES:
                 r = shard_sampling(label, engine, mode, mesh, dev, mods)
             else:
-                fn = shard_svi5 if engine == "svi5" else shard_vb
+                fn = {"svi5": shard_svi5, "vbwide": shard_vb_wide}.get(
+                    engine, shard_vb)
                 r = fn(label, mode, mesh, dev, mods)
         else:
             r = dist_sampling(label, name, mesh, dev, mods)
@@ -3164,8 +3252,12 @@ counts = {}
 for name, mod in mods.items():
     counts[name] = mod.LAUNCHES
     counts[name + "_bf16"] = mod.BF16_LAUNCHES
+    counts[name + "_wide"] = mod.WIDE_LAUNCHES
+    counts[name + "_wide_bf16"] = mod.BF16_WIDE_LAUNCHES
 counts["dense_sstats_range"] = sstats.RANGE_LAUNCHES
 counts["dense_sstats_range_bf16"] = sstats.BF16_RANGE_LAUNCHES
+counts["dense_sstats_range_wide"] = sstats.RANGE_WIDE_LAUNCHES
+counts["dense_sstats_range_wide_bf16"] = sstats.BF16_RANGE_WIDE_LAUNCHES
 print("LAUNCHES " + json.dumps(counts), flush=True)
 sys.exit(rc)
 """
@@ -3675,6 +3767,10 @@ def dist_phases(mods, dev, by_path: dict) -> dict:
     torch.cuda.empty_cache()
     res.update(shard_phases(mods, by_path, coll, refs, ranks))
     del refs
+    torch.cuda.empty_cache()
+    # -- the topic range above K = 4096 on a main path -------------------------
+    res["shard_topics_vb_wide"] = shard_topics_vb_wide(dev, mods, by_path,
+                                                       coll)
     # -- NCCL across two cards, where there are two ---------------------------
     if torch.cuda.device_count() >= 2:
         out_dir = DIST_DIR / "nccl2"
@@ -3699,12 +3795,453 @@ def dist_phases(mods, dev, by_path: dict) -> dict:
     return res
 
 
+# -- above K = 4096: the kernels' tiled and two-pass range --------------------
+
+# K of each kernel check: 4100 just past the row-resident range, 5000 not a
+# multiple of 128 (the gather table's padding), 8192 the configurations'
+# K (the largest power of two at which the TPU kernel's own planner still
+# fits its VMEM budget at config 5's chunk), 16384 no constant cap.
+WIDE_KS = (4100, 5000, 8192, 16384)
+WIDE_K, WIDE_DENSE_K = 8192, 5000
+# The sstats chunk at K = 8192: config 5's first documents at its padded
+# vocabulary ([1216, 100352]); at the other K its first WIDE_CUT_COLUMNS.
+WIDE_CHUNK_ROWS, WIDE_CHUNK_COLUMNS, WIDE_CUT_COLUMNS = 1216, 100352, 25088
+# Topic ranges of the range entry at K = 8192: each half and one across it.
+WIDE_RANGES = ((0, 4096), (4096, 8192), (1000, 5000))
+# shard_topics_vb_wide: learning() calls at pinned sweeps (threshold 0,
+# WIDE_SHARD_SWEEPS a row) at mesh (1, 2), held to one process bit for bit.
+WIDE_SHARD_ITERS, WIDE_SHARD_SWEEPS = 2, 10
+# The paths of the range above K = 4096 (the other paths' launches are
+# also summed apart from theirs).
+WIDE_PATH_PREFIXES = ("wide_k_", "cli_wide_k", "shard_topics_vb_wide")
+
+
+def wide_lam(beta, K: int, tokens: float, dev, seed: int):
+    """A sharpened lambda [K, V] on the card for K above the planted topics
+    of ``beta`` [Kp, V]: topic k is planted topic k mod Kp scaled to the
+    corpus's tokens a topic (as the flagships' lambda is), times a factor
+    in [0.5, 1.5) drawn from a seeded generator on the card."""
+    import torch
+
+    b = torch.as_tensor(beta, dtype=torch.float32, device=dev)
+    Kp, V = b.shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lam = torch.empty((K, V), dtype=torch.float32, device=dev)
+    for k0 in range(0, K, Kp):
+        k1 = min(K, k0 + Kp)
+        lam[k0:k1] = (1.0 / V + b[:k1 - k0] * (tokens / K)) * (
+            0.5 + torch.rand((k1 - k0, V), generator=gen, device=dev))
+    return lam
+
+
+def uniform_lam0(K: int, V: int, seed: int):
+    """The engines' random lambda init at K above 4096: the mean 1 and
+    spread 0.1 of their gamma(100, 0.01) draw, drawn as uniform float32 on
+    the host (819M gamma draws at config 5's K = 8192 take the host
+    ~40 s)."""
+    import numpy as np
+
+    lam = np.random.default_rng(seed).random((K, V), dtype=np.float32)
+    lam *= 0.35
+    lam += 0.825
+    return lam
+
+
+def wide_kernels(corpus5, beta5, dcorpus, dbeta, dev) -> dict:
+    """``wide_k_kernels``: each kernel in both builds against its plain
+    version on the card at each K of WIDE_KS, at the main paths' settings
+    (config 5's 30 inner sweeps for the ragged gamma, the flagships' 50
+    for the dense E-step), with the holds of the K <= 4096 lines:
+    - the ragged gamma on a 256-row bucket of config 5's corpus
+      (``ragged_checks`` pinned, ``ragged_checks_bf16``);
+    - the dense E-step on 256 documents of the dense flagship's
+      vocabulary (V = 4096; ``dense_checks`` pinned, ``dense_checks_bf16``)
+      with its final pass;
+    - the dense sstats on config 5's first [1216, 100352] chunk at
+      K = 8192, on its first 25,088 columns at the other K
+      (``sstats_check``: two calls bitwise), and the topic range at
+      K = 8192 over WIDE_RANGES, each range's rows bitwise the full
+      launch's (``sstats_range_check``).
+    Returns the records by kernel line name."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from pylda_tpu_torch.ops import ragged as ragged_mod
+    from pylda_tpu_torch.ops import sstats as sstats_mod
+    from pylda_tpu_torch.ops.dirichlet import (
+        exp_dirichlet_expectation,
+        exp_dirichlet_expectation_fast,
+    )
+    from pylda_tpu_torch.ops.estep import (
+        estep_dense_sstats,
+        estep_ragged_gamma,
+        ragged_doc_bound,
+    )
+    from pylda_tpu_torch.utils.config import LDAConfig
+
+    out = {n: [] for n in ("ragged_gamma_wide", "ragged_gamma_wide_bf16",
+                           "dense_gamma_wide", "dense_gamma_wide_bf16",
+                           "dense_sstats_wide", "dense_sstats_wide_bf16",
+                           "dense_sstats_range_wide",
+                           "dense_sstats_range_wide_bf16")}
+    (b,) = corpus5.to_ragged_buckets(bucket_sizes=(256,), doc_pad_multiple=64,
+                                     doc_indices=range(256))
+    bucket = types.SimpleNamespace(ids=torch.as_tensor(b.ids, device=dev),
+                                   cnts=torch.as_tensor(b.cnts, device=dev))
+    V5 = corpus5.num_types
+    dense = corpus5.to_dense(doc_indices=range(WIDE_CHUNK_ROWS)).counts
+    counts = torch.zeros((WIDE_CHUNK_ROWS, WIDE_CHUNK_COLUMNS),
+                         dtype=torch.bfloat16, device=dev)
+    counts[:, :V5] = torch.as_tensor(dense, device=dev)
+    del dense
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rng = np.random.default_rng(12)
+    print(f"wide_k_kernels: config 5 bucket {tuple(bucket.ids.shape)} "
+          f"({int((bucket.cnts != 0).sum())} live slots), sstats chunk "
+          f"{tuple(counts.shape)} ({int((counts != 0).sum())} nonzeros)")
+    for K in WIDE_KS:
+        cfg5 = LDAConfig(number_of_topics=K, inference_mode="svi",
+                         batch_size=SVI5["BATCH"], seed=0,
+                         inner_iterations=SVI5["INNER"])
+        kw = dict(inner_iterations=cfg5.inner_iterations,
+                  convergence_threshold=cfg5.convergence_threshold,
+                  eps=cfg5.eps, stall_patience=cfg5.estep_stall_patience)
+        alpha = torch.full((K,), cfg5.resolved_alpha(), device=dev)
+        eeb = exp_dirichlet_expectation_fast(
+            wide_lam(beta5, K, corpus5.num_tokens, dev, seed=K))
+        label = f"config 5 bucket K={K}"
+        rg, _ = ragged_checks(label, [bucket], eeb,
+                              ragged_mod.gather_table(eeb), alpha, kw,
+                              5e-4 + K * cfg5.convergence_threshold, dev,
+                              ragged_mod, estep_ragged_gamma,
+                              ragged_doc_bound, pinned=True)
+        rg16, _ = ragged_checks_bf16(label, [bucket], eeb, alpha, kw, dev,
+                                     ragged_mod, estep_ragged_gamma,
+                                     ragged_doc_bound, rg)
+        out["ragged_gamma_wide"].append({**rg, "K": K})
+        out["ragged_gamma_wide_bf16"].append({**rg16, "K": K})
+        # The sstats chunk: expEtheta of peaked random topic mixtures.
+        cols = WIDE_CHUNK_COLUMNS if K == WIDE_K else WIDE_CUT_COLUMNS
+        c = counts[:, :cols].contiguous()
+        e = eeb[:, :min(cols, V5)].contiguous()
+        w = (-torch.log(torch.rand((WIDE_CHUNK_ROWS, K), generator=gen,
+                                   device=dev))) ** 4
+        et = exp_dirichlet_expectation(
+            alpha + 150.0 * w / w.sum(dim=1, keepdim=True))
+        del w, eeb
+        for cd in ("float32", BF16):
+            name = f"dense_sstats_wide{'' if cd == 'float32' else '_bf16'}"
+            out[name].append(sstats_check(
+                f"config 5 chunk K={K}", c, et, e, cfg5.eps, sstats_mod,
+                estep_dense_sstats, compute_dtype=cd))
+            if K == WIDE_K:
+                out[name.replace("sstats", "sstats_range")] += \
+                    sstats_range_check(f"config 5 chunk K={K}", c, et, e,
+                                       cfg5.eps, sstats_mod,
+                                       estep_dense_sstats, compute_dtype=cd,
+                                       ranges=WIDE_RANGES)
+        del c, e, et
+        # The dense E-step on the dense flagship's vocabulary.
+        cfgd = LDAConfig(number_of_topics=K, inference_mode="vb",
+                         inner_iterations=50, convergence_threshold=1e-5,
+                         seed=0)
+        bw = dbeta[np.arange(K) % dbeta.shape[0]] * (
+            0.5 + rng.random((K, dbeta.shape[1]), dtype=np.float32))
+        probe = dense_probe(dcorpus, bw / bw.sum(axis=1, keepdims=True),
+                            cfgd, dev)
+        dg, fin = dense_checks(f"dense V=4096 K={K}", dcorpus, None, cfgd,
+                               dev, pinned=True, probe=probe)
+        dg16, fin16 = dense_checks_bf16(f"dense V=4096 K={K}", dcorpus, None,
+                                        cfgd, dev, dg, probe=probe)
+        out["dense_gamma_wide"].append(dg)
+        out["dense_gamma_wide_bf16"].append(dg16)
+        out["dense_sstats_wide"].append(fin)
+        out["dense_sstats_wide_bf16"].append(fin16)
+        del probe
+        torch.cuda.empty_cache()
+    return out
+
+
+def wide_engines(corpus, test, dcorpus, dtest, corpus5, test5, dev, mods,
+                 by_path: dict, roofline: dict) -> dict:
+    """``wide_k_vb``, ``wide_k_dense`` and ``wide_k_svi5`` (module
+    docstring): batch VB at the ragged flagship at K = 8192 (2 warm and 5
+    timed iterations, phase_timings and the roofline), at the dense
+    flagship at K = 5000 (the same), and SVI on config 5's corpus at
+    K = 8192 (one warm and two timed epochs, one profiled; the gate:
+    held-out point-estimate perplexity falls), each in float32 and bf16,
+    the kernels' wide launches required.  Adds each path's launches to
+    ``by_path`` and the roofline rows to ``roofline``; returns the
+    numbers."""
+    import torch
+
+    from pylda_tpu_torch.utils.config import LDAConfig
+
+    res = {}
+    for path, data, K, cfg in (
+            ("wide_k_vb", (corpus, test), WIDE_K,
+             LDAConfig(number_of_topics=WIDE_K, inference_mode="vb",
+                       inner_iterations=50, convergence_threshold=1e-5,
+                       seed=0)),
+            ("wide_k_dense", (dcorpus, dtest), WIDE_DENSE_K,
+             LDAConfig(number_of_topics=WIDE_DENSE_K, inference_mode="vb",
+                       inner_iterations=50, convergence_threshold=1e-5,
+                       seed=0))):
+        gamma = "ragged_gamma" if path == "wide_k_vb" else "dense_gamma"
+        lam0 = uniform_lam0(K, data[0].num_types, 0)
+        for cd in ("float32", BF16):
+            s = "" if cd == "float32" else "_bf16"
+            label = f"engine {path} K={K} {cd}"
+            r = run_engine(label, dataclasses.replace(cfg, compute_dtype=cd), *data,
+                           dev, mods, (f"{gamma}{s}", f"dense_sstats{s}",
+                                       f"{gamma}_wide{s}",
+                                       f"dense_sstats_wide{s}"),
+                           n=5, warm=2, lam_init=lam0)
+            rl = roofline_phase(label, r.pop("engine"), mods,
+                                iteration_ms=r["iteration_ms"])
+            roofline[f"{path}{s}"] = rl["rows"]
+            by_path[f"{path}{s}"] = r.pop("launches")
+            by_path[f"roofline_{path}{s}"] = rl["launches"]
+            res[f"{path}{s}"] = r
+            torch.cuda.empty_cache()
+        bf, f32 = res[f"{path}_bf16"], res[path]
+        print(f"engine {path}: bf16 against float32 at K={K}: ELBO rel "
+              f"{abs(bf['elbo'] - f32['elbo']) / abs(f32['elbo']):.3e}, "
+              f"held-out perplexity rel "
+              f"{abs(bf['perplexity'] - f32['perplexity']) / f32['perplexity']:.3e}"
+              f" (printed, not held to the K <= 4096 bars {BF16_ELBO_RTOL} "
+              f"and {BF16_PPL_RTOL}: seven iterations leave K = {K} topics "
+              f"far from trained, held-out perplexity above the "
+              f"vocabulary's size, and the bf16 rows limit-cycle to the "
+              f"sweep cap, so the two runs take different sweeps)")
+    cfg = LDAConfig(number_of_topics=WIDE_K, inference_mode="svi",
+                    batch_size=SVI5["BATCH"], tau0=64.0, kappa=0.7, seed=0,
+                    inner_iterations=SVI5["INNER"])
+    lam0 = uniform_lam0(WIDE_K, corpus5.num_types, 0)
+    for cd in ("float32", BF16):
+        s = "" if cd == "float32" else "_bf16"
+        label = f"engine wide_k_svi5 K={WIDE_K} {cd}"
+        r = run_svi(label, dataclasses.replace(cfg, compute_dtype=cd), corpus5, test5,
+                    dev, mods, 2, lam_init=lam0,
+                    needed=(f"ragged_gamma_wide{s}", f"dense_sstats_wide{s}"))
+        del r["engine"]
+        by_path[f"wide_k_svi5{s}"] = r.pop("launches")
+        res[f"wide_k_svi5{s}"] = r
+        print(f"{label}: {r['s_per_epoch']:.4f} s an epoch, "
+              f"{r['docs_per_s']:.1f} docs/s, idle share "
+              f"{r['idle_share']:.3f}, peak {r['peak_mib'] / 1024:.2f} GiB, "
+              f"held-out point-estimate perplexity {r['point_perplexity']}")
+        torch.cuda.empty_cache()
+    del lam0
+    return res
+
+
+def wide_shard_cfg(mode: str = None, shape=None):
+    """shard_topics_vb_wide's config: the ragged flagship at K = 8192,
+    WIDE_SHARD_SWEEPS pinned sweeps, with ``--shard_topics`` on the mesh
+    ``shape`` (none for the one-process reference)."""
+    cfg = dataclasses.replace(dist_cfg("vb"), number_of_topics=WIDE_K,
+                              inner_iterations=WIDE_SHARD_SWEEPS)
+    if mode is None:
+        return cfg
+    return dataclasses.replace(cfg, mesh_shape=tuple(shape),
+                               **{f"shard_{mode}": True})
+
+
+def shard_vb_wide(label, mode, mesh, dev, mods) -> dict:
+    """A rank of ``shard_topics_vb_wide``: WIDE_SHARD_ITERS learning()
+    calls, each lambda block checked across its data group and the
+    blocks' tiling after each; launches and collectives zeroed just before
+    and read just after; rank 0 saves the gathered lambda."""
+    import torch
+
+    from pylda_tpu_torch.models import VariationalBayes
+    from pylda_tpu_torch.parallel import mesh as pmesh
+
+    corpus, _ = dist_corpus("vb")
+    cfg = wide_shard_cfg(mode, (mesh.data, mesh.model))
+    eng = VariationalBayes(cfg, device=dev)
+    eng.initialize(corpus, lam_init=uniform_lam0(WIDE_K, V, 7), mesh=mesh)
+    zero_launches(mods)
+    pmesh.COLLECTIVES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    objs = []
+    for _ in range(WIDE_SHARD_ITERS):
+        objs.append(eng.learning())
+        pmesh.assert_replicas_consistent(eng.state, mesh, sharded=("lam",),
+                                         full_shape=(WIDE_K, V))
+    torch.cuda.synchronize()
+    r = {"objs": objs, "launches": read_launches(mods),
+         "collectives": dict(pmesh.COLLECTIVES),
+         "expected": shard_collectives(mode, WIDE_SHARD_ITERS,
+                                       WIDE_SHARD_ITERS, WIDE_SHARD_ITERS),
+         "block": list(eng.state.lam.shape),
+         "ms_per_iteration": (time.perf_counter() - t0) / WIDE_SHARD_ITERS
+         * 1e3}
+    lam = eng.gathered_lam()
+    if mesh.rank == 0:
+        torch.save(lam.cpu(), DIST_DIR / f"shard_{mode}_vbwide.pt")
+    print(f"{label}: {WIDE_SHARD_ITERS} iterations, block {r['block']}, "
+          f"ELBOs {objs}, collectives {r['collectives']} (expected "
+          f"{r['expected']}), {r['ms_per_iteration']:.1f} ms an iteration")
+    return r
+
+
+def shard_topics_vb_wide(dev, mods, by_path: dict, coll: dict) -> dict:
+    """``shard_topics_vb_wide``: the ragged flagship at K = 8192 at mesh
+    (1, 2) with ``--shard_topics`` over gloo (each rank's final pass the
+    sstats kernel's topic range above 4096) against the same run in one
+    process on the card: lambda bit for bit, the ELBOs within DIST_REL
+    (their bits printed), every rank's launches and collectives checked."""
+    import torch
+
+    from pylda_tpu_torch.models import VariationalBayes
+
+    DIST_DIR.mkdir(parents=True, exist_ok=True)
+    eng = VariationalBayes(wide_shard_cfg(), device=dev)
+    eng.initialize(dist_corpus("vb")[0], lam_init=uniform_lam0(WIDE_K, V, 7))
+    ref_objs = [eng.learning() for _ in range(WIDE_SHARD_ITERS)]
+    ref_lam = eng.state.lam.cpu()
+    del eng
+    torch.cuda.empty_cache()
+    ranks = run_ranks(DIST_DIR / "shard_wide", "shard_topics_vbwide", (1, 2))
+    rows = [{"shard_topics_vbwide": r["shard_topics_vbwide"]} for r in ranks]
+    hold_ranks("shard_topics_vb_wide", rows, "shard_topics_vbwide",
+               keys=("objs",))
+    needed = tuple(f"{k}{w}" for k in ("ragged_gamma", "dense_sstats",
+                                       "dense_sstats_range")
+                   for w in ("", "_wide"))
+    for r, row in enumerate(rows):
+        got = row["shard_topics_vbwide"]
+        if ranks[r]["backend"] != "gloo":
+            raise AssertionError(f"shard_topics_vb_wide: backend "
+                                 f"{ranks[r]['backend']}")
+        check_launched(f"shard_topics_vb_wide rank {r}", got["launches"],
+                       needed)
+        by_path[f"shard_topics_vb_wide_rank{r}"] = got["launches"]
+        coll[f"shard_topics_vb_wide_rank{r}"] = {**got["collectives"],
+                                                 "expected": got["expected"]}
+        if any(got["collectives"].get(k, 0) != n
+               for k, n in got["expected"].items()):
+            raise AssertionError(f"shard_topics_vb_wide rank {r} made "
+                                 f"{got['collectives']} collectives, not "
+                                 f"{got['expected']}")
+    got = rows[0]["shard_topics_vbwide"]
+    lam = torch.load(DIST_DIR / "shard_topics_vbwide.pt")
+    bitwise = bool(torch.equal(lam, ref_lam))
+    elbo = max(abs(a - b) / abs(b) for a, b in zip(got["objs"], ref_objs))
+    ok = bitwise and elbo <= DIST_REL
+    print(f"shard_topics_vb_wide on {nvidia_smi()}: K={WIDE_K} at mesh (1, 2), "
+          f"{WIDE_SHARD_ITERS} iterations of {WIDE_SHARD_SWEEPS} pinned "
+          f"sweeps: gathered lambda bitwise equal to one process {bitwise}, "
+          f"ELBOs rel {elbo:.3e} (tolerance {DIST_REL}; bitwise "
+          f"{got['objs'] == ref_objs}), {got['ms_per_iteration']:.1f} ms an "
+          f"iteration a rank {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("shard_topics_vb_wide: not the one-process run "
+                             "bit for bit")
+    return {"lam_bitwise": bitwise, "elbo_rel": elbo,
+            "elbo_bitwise": got["objs"] == ref_objs,
+            "ms_per_iteration": got["ms_per_iteration"]}
+
+
+def wide_card_vs_cpu(engine, cfg, corpus, lam0) -> tuple:
+    """Above K = 4096: one step of ``engine`` from ``lam0`` at pinned
+    sweeps on the card, on the CPU and on the CPU in float64, lambda held
+    as WIDE_F64_FACTOR says: (ok, text)."""
+    lams, elbos = {}, {}
+    for where, c in (("cuda", cfg), ("cpu", cfg),
+                     ("f64", dataclasses.replace(cfg, dtype="float64"))):
+        e = engine(c, device="cpu" if where == "f64" else where)
+        e.initialize(corpus, lam_init=lam0)
+        elbos[where] = e.learning()
+        lams[where] = e.state.lam.double().cpu()
+        del e
+
+    def rel(a, b):
+        return float((lams[a] - lams[b]).abs().max() / lams[b].abs().max())
+
+    card64, cpu64 = rel("cuda", "f64"), rel("cpu", "f64")
+    bar = max(WIDE_LAM_REL, WIDE_F64_FACTOR * cpu64)
+    text = (f"lambda after one step at {PINNED_SWEEPS_WIDE} pinned sweeps, "
+            f"max-entry rel: card vs CPU {rel('cuda', 'cpu'):.2e}; against "
+            f"the CPU run in float64: card {card64:.2e}, CPU {cpu64:.2e} "
+            f"(tolerance {bar:.2e}); ELBO card {elbos['cuda']:.2f} CPU "
+            f"{elbos['cpu']:.2f}, rel "
+            f"{abs(elbos['cuda'] - elbos['cpu']) / abs(elbos['cpu']):.2e} "
+            f"(printed)")
+    return card64 <= bar, text
+
+
+def card_vs_cpu_checks(ks=(16, 300, None)) -> list:
+    """The card-vs-CPU cross-check at a small size on each route (ragged,
+    scatter, dense), each K of ``ks`` (None: WIDE_DENSE_K) and mode, batch
+    VB and SVI from one lambda: at K <= 4096 the ELBOs within ELBO_RTOL,
+    above it ``wide_card_vs_cpu``.  Returns the cases that disagree."""
+    import numpy as np
+
+    from pylda_tpu_torch.corpus.synthetic import synthetic_corpus
+    from pylda_tpu_torch.models import (StochasticVariationalBayes,
+                                        VariationalBayes)
+    from pylda_tpu_torch.utils.config import LDAConfig
+
+    disagree = []
+    for (route, v_small), k_small, cd in itertools.product(
+            (("ragged", 3000), ("scatter", 3000), ("dense", 1000)),
+            [k or WIDE_DENSE_K for k in ks], ("float32", BF16)):
+        wide = k_small > 4096
+        # Above K = 4096 on a cut corpus: 64 documents.
+        small, _, _ = synthetic_corpus(num_docs=64 if wide else 256,
+                                       num_topics=k_small,
+                                       num_types=v_small, mean_doc_length=60.0,
+                                       seed=5)
+        scfg = LDAConfig(number_of_topics=k_small, dense_vocab_threshold=2048,
+                         doc_pad_multiple=16, compute_dtype=cd,
+                         hyper_parameter_optimize_interval=2, seed=0,
+                         sstats_mode="scatter" if route == "scatter"
+                         else "auto")
+        if wide:
+            scfg = dataclasses.replace(scfg, inner_iterations=PINNED_SWEEPS_WIDE,
+                                       convergence_threshold=0.0)
+        lam0 = np.random.default_rng(7).gamma(100.0, 0.01, (k_small, v_small))
+        for engine, n in ((VariationalBayes, 3), (StochasticVariationalBayes, 2)):
+            ecfg = dataclasses.replace(
+                scfg, inference_mode="svi", batch_size=64, tau0=16.0,
+            ) if engine is StochasticVariationalBayes else scfg
+            label = f"cross-check {engine.__name__} {route} K={k_small} {cd}"
+            if wide:
+                ok, text = wide_card_vs_cpu(engine, ecfg, small, lam0)
+                print(f"{label}: {text} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    disagree.append(label)
+                continue
+            runs = {}
+            for where in ("cuda", "cpu"):
+                e = engine(ecfg, device=where)
+                e.initialize(small, lam_init=lam0)
+                runs[where] = [e.learning() for _ in range(n)] + \
+                    e.learning_many(n)
+            rel = max(abs(a - b) / abs(b)
+                      for a, b in zip(runs["cuda"], runs["cpu"]))
+            ok = rel <= ELBO_RTOL
+            print(f"{label}: bounds card {[round(x, 2) for x in runs['cuda']]}"
+                  f" cpu {[round(x, 2) for x in runs['cpu']]}, max rel diff "
+                  f"{rel:.2e} (tolerance {ELBO_RTOL}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                disagree.append(label)
+    return disagree
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     import numpy as np
 
     from pylda_tpu_torch.corpus.synthetic import synthetic_corpus
@@ -3901,7 +4438,6 @@ def main() -> int:
     scatter["vb_ragged_flagship"] = vb_scatter_vs_dense(
         "engine ragged flagship", cfg, corpus, dev, mods)
     by_path["vb_scatter"] = scatter["vb_ragged_flagship"].pop("launches")
-    del corpus, test, dcorpus, dtest
     svi_test, _, _ = synthetic_corpus(
         num_docs=512, num_topics=SVI_K, num_types=SVI_V,
         mean_doc_length=SVI_LEN, seed=103, beta=svi_beta,
@@ -3937,6 +4473,23 @@ def main() -> int:
     del r16["engine"]
     hold_bf16("engine svi config 5", r32, r16)
     by_path["svi5"], by_path["svi5_bf16"] = r32["launches"], r16["launches"]
+    del r32, r16
+    torch.cuda.empty_cache()
+
+    # -- above K = 4096: the kernels' tiled and two-pass range ----------------
+    t_wide = time.perf_counter()
+    wdcorpus, wdbeta, _ = synthetic_corpus(
+        num_docs=256, num_topics=K, num_types=V_DENSE,
+        mean_doc_length=MEAN_LEN, seed=0,
+    )
+    wide = wide_kernels(svi5_corpus, svi5_beta, wdcorpus, wdbeta, dev)
+    del wdcorpus, wdbeta
+    torch.cuda.empty_cache()
+    wide_runs = wide_engines(corpus, test, dcorpus, dtest, svi5_corpus,
+                             svi5_test, dev, mods, by_path, roofline)
+    print(f"wide phases (kernels and engines): "
+          f"{time.perf_counter() - t_wide:.1f} s")
+    del corpus, test, dcorpus, dtest
     del svi5_corpus, svi5_test, svi5_beta
 
     # -- SVI at config 4's published 100,000 documents: the scatter route -----
@@ -4005,6 +4558,11 @@ def main() -> int:
         by_path[f"cli_{mode}"] = run_cli(mods, mode, needed=())
     by_path["cli_svi_streaming"] = run_cli(mods, "svi", streaming=True)
     by_path["cli_observability"] = cli_observability(mods)
+    for mode in ("vb", "svi"):
+        by_path[f"cli_wide_k_{mode}"] = run_cli(
+            mods, mode, topics=WIDE_DENSE_K,
+            needed=("dense_gamma", "dense_sstats", "dense_gamma_wide",
+                    "dense_sstats_wide"))
     # -- across ranks ----------------------------------------------------------
     dist = dist_phases(mods, dev, by_path)
     # Each kernel build's launches on each main path (each run zeroed just
@@ -4013,39 +4571,15 @@ def main() -> int:
              for name in read_launches(mods)}
     launches = {name: sum(per.values()) for name, per in paths.items()}
     print(f"main paths: kernel launches {paths}")
+    earlier = {name: sum(n for path, n in per.items()
+                         if not path.removeprefix("roofline_").startswith(
+                             WIDE_PATH_PREFIXES))
+               for name, per in paths.items()}
+    print(f"kernel launches on the paths this script drove before the wide "
+          f"range: {earlier}")
 
     # -- cross-check: card vs CPU at a small size, on each route -------------
-    disagree = []
-    for (route, v_small), k_small, cd in itertools.product(
-            (("ragged", 3000), ("scatter", 3000), ("dense", 1000)), (16, 300),
-            ("float32", BF16)):
-        small, _, _ = synthetic_corpus(num_docs=256, num_topics=k_small,
-                                       num_types=v_small, mean_doc_length=60.0,
-                                       seed=5)
-        scfg = LDAConfig(number_of_topics=k_small, dense_vocab_threshold=2048,
-                         doc_pad_multiple=16, compute_dtype=cd,
-                         hyper_parameter_optimize_interval=2, seed=0,
-                         sstats_mode="scatter" if route == "scatter"
-                         else "auto")
-        lam0 = np.random.default_rng(7).gamma(100.0, 0.01, (k_small, v_small))
-        for engine, n in ((VariationalBayes, 3), (StochasticVariationalBayes, 2)):
-            ecfg = dataclasses.replace(
-                scfg, inference_mode="svi", batch_size=64, tau0=16.0,
-            ) if engine is StochasticVariationalBayes else scfg
-            runs = {}
-            for where in ("cuda", "cpu"):
-                e = engine(ecfg, device=where)
-                e.initialize(small, lam_init=lam0)
-                runs[where] = [e.learning() for _ in range(n)] + \
-                    e.learning_many(n)
-            rel = max(abs(a - b) / abs(b)
-                      for a, b in zip(runs["cuda"], runs["cpu"]))
-            print(f"cross-check {engine.__name__} {route} K={k_small} {cd}: "
-                  f"bounds card {[round(x, 2) for x in runs['cuda']]} cpu "
-                  f"{[round(x, 2) for x in runs['cpu']]}, max rel diff "
-                  f"{rel:.2e} (tolerance {ELBO_RTOL})")
-            if not rel <= ELBO_RTOL:
-                disagree.append(f"{engine.__name__} {route} K={k_small} {cd}")
+    disagree = card_vs_cpu_checks()
     if disagree:
         raise AssertionError(f"card and CPU engines disagree: {disagree}")
 
@@ -4103,10 +4637,34 @@ def main() -> int:
             **{k: line[k] for k in ("max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by", "full_range_ms")},
             "library_ms": None, "shapes": range_lines[cd]})
+    # The range above K = 4096 (the tiled gamma kernel, the sstats kernel's
+    # two passes and their topic range): counted in the lines above too.
+    # Each line is the K = 8192 check's; "shapes" holds every K's.  The
+    # bf16 topic range above 4096 is on no main path (shard_topics_vb_wide
+    # runs in float32): its checks are the wide_k_kernels lines.
+    for name in wide:
+        if name == "dense_sstats_range_wide_bf16":
+            continue
+        base = name.replace("_wide", "").replace("_bf16", "")
+        f32 = next(k for k in record["kernels"]
+                   if k["name"] == base.replace("_range", ""))
+        line = next(r for r in wide[name] if r["K"] == WIDE_K)
+        record["kernels"].append({
+            **{k: f32[k] for k in ("route", "source", "replaces")},
+            "name": name,
+            **({"build": "-DPYLDA_BF16=1"} if name.endswith("_bf16") else {}),
+            **({"core": "pylda_tpu_torch/csrc/row_fixed_point_tiled.cuh"}
+               if "gamma" in name else {"entry": "pylda_dense_sstats_two_pass"}),
+            "launches": launches[name], "launches_by_path": paths[name],
+            **{k: line[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by")},
+            "library_ms": None, "shapes": wide[name]})
+    print(f"wide: {json.dumps(wide_runs)}")
     print(f"scatter: {json.dumps(scatter)}")
     print(f"roofline: {json.dumps(roofline)}")
     print(f"native: {json.dumps(native)}")
     print(f"dist: {json.dumps(dist)}")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(f"nvidia-smi: {nvidia_smi()}")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

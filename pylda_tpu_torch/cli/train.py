@@ -345,7 +345,7 @@ def _train(args, config: LDAConfig, backend: Optional[str]) -> int:
     mesh = None
     if config.mesh_shape is not None:
         try:
-            mesh = pmesh.make_mesh(config.mesh_shape)
+            mesh = pmesh.make_mesh(config.mesh_shape, device=args.device)
         except ValueError as e:
             raise SystemExit(str(e)) from e
     rank, world = pmesh.world()

@@ -41,22 +41,25 @@
 // nonzeros each sweep, gathering each window's B rows from L2: the L2
 // reads of such a row are its nonzeros x 4 ldb bytes a sweep.  At K > 256
 // the core's wide kernels run (a thread owns several topics; 25 slots of
-// 4 KB at K=1000, so rows of more nonzeros stream).
+// 4 KB at K=1000, so rows of more nonzeros stream); above K = 4096 the
+// tiled kernel of row_fixed_point_tiled.cuh (a row's state in device
+// memory, the topics in tiles of 4096).
 //
 // Built twice (ops/_build.py): as is, and with -DPYLDA_BF16=1, the sweeps
 // of estep_dense(compute_dtype="bfloat16"): a bf16 table, expEtheta and
 // the ratio rounded to bf16 where the reference rounds them, sums in f32
 // (row_fixed_point.cuh); its final pass is dense_sstats.cu's bf16 build.
 
-#include "row_fixed_point.cuh"
+#include "row_fixed_point_tiled.cuh"
 
 extern "C" {
 
 // params: a Params (row_fixed_point.cuh) with ids null, cnts the counts
 // [D, ld] (bf16 if cnts_bf16, else f32; the first L = V columns used) and
 // table [V, ldb] = expElogbeta^T (f32, or bf16 with table_bf16 set in a
-// build with -DPYLDA_BF16=1), 1 <= K <= 4096; the launch's nmax,
-// nhist and geometry are written back into it.  stream: a cudaStream_t.
+// build with -DPYLDA_BF16=1), K >= 1 (above 4096 the tiled kernel, with
+// lists and state set); the launch's nmax, nhist, geometry and tile are
+// written back into it.  stream: a cudaStream_t.
 // Returns the cudaError_t of the launch.
 int pylda_dense_gamma(void* params, void* stream) {
   Params& p = *static_cast<Params*>(params);
@@ -66,8 +69,8 @@ int pylda_dense_gamma(void* params, void* stream) {
   // shared-memory sweep of the same kernel.
   constexpr bool kBf16 = PYLDA_BF16 != 0;
   if (p.cnts_bf16)
-    return (int)launch_row_fixed_point<__nv_bfloat16, kBf16>(p, true, s);
-  return (int)launch_row_fixed_point<float, kBf16>(p, true, s);
+    return (int)launch_gamma<__nv_bfloat16, kBf16>(p, true, s);
+  return (int)launch_gamma<float, kBf16>(p, true, s);
 }
 
 }  // extern "C"

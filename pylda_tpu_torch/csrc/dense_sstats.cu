@@ -68,6 +68,10 @@
 // floating-point value, so every call returns the same bits.  Plain f32
 // FMAs and IEEE division, no TF32: the CPU reference is plain f32.
 //
+// Above K = 4096 the entries pylda_dense_sstats_two_pass_count and
+// pylda_dense_sstats_two_pass run two passes over a column list of the
+// nonzeros instead (their note is at the kernels, below).
+//
 // A topic range (pylda_dense_sstats_range, lambda split over topics: the
 // rank of a model group holding topics [k0, k1)).  phinorm, the ratio and
 // the score still need all K topics of the word, so everything up to the
@@ -641,6 +645,233 @@ cudaError_t dispatch(int K, const void* counts, const void* et,
   return cudaErrorInvalidValue;
 }
 
+// -- Two passes above K = 4096 ----------------------------------------------
+//
+// Above the largest build a column's sums fit no warp's registers.  The
+// nonzeros are listed by column first (CSC, a count pass, a scan and a fill;
+// each column's nonzeros in row order), and the work splits in two:
+//   pass 1  a CTA a tile of kTpCols columns over ALL K: phinorm of each of
+//           its nonzeros, by topic tiles of kTpTopics staged from
+//           expElogbeta's rows as a [kTpTopics][kTpCols] slice (coalesced
+//           128-byte reads), a warp a nonzero summing its lanes' dots in
+//           tile order; then ratio = C / (phinorm + eps) and the score term
+//           (f64, a fixed order) for each nonzero, the ratio written over
+//           the list's phinorm;
+//   pass 2  a CTA a (column tile, topic tile of [k0, k1)): thread k adds
+//           expEtheta[d, k] * ratio over each column's nonzeros in row
+//           order, the sums go through shared memory, and the tile is
+//           written as expElogbeta * raw, coalesced;
+//   a last one-CTA kernel sums the CTAs' score parts in order.
+// Each sum has one owner and one order, so two calls give the same bits,
+// and a topic range's rows are the full call's rows bit for bit (pass 1
+// and the CSC never depend on the range).  bf16 builds round where the
+// one-pass builds do.  The host reads the nonzero count between the count
+// pass and the rest (ops/sstats.py), to size the list: 12 bytes a nonzero.
+// What bounds it at SVI config 5's chunk ([1216, 100352] bf16, K = 8192,
+// 182k nonzeros): the bytes, 0.244 GB of counts, 3.28 GB of expElogbeta
+// read and 3.28 GB of sstats written (~2.0 ms at 3.35 TB/s), against ~6
+// GFLOP; this simple version reads expElogbeta twice and the counts three
+// times, and reads a nonzero's expEtheta row from L2 in both passes.
+
+constexpr int kTpCols = 32;     // columns a pass-1 / pass-2 CTA
+constexpr int kTpTopics = 256;  // topics a staged slice / a pass-2 CTA
+constexpr int kTpLd = kTpCols + 1;  // slice row stride: no bank conflicts
+constexpr int kScanThreads = 1024;
+
+// colptr[v + 1] = nonzeros of column v (thread a column, rows in order).
+template <typename CT>
+__global__ void __launch_bounds__(kThreads)
+tp_count(const CT* __restrict__ counts, int D, int Vc,
+         long long* __restrict__ colptr) {
+  const int v = blockIdx.x * kThreads + threadIdx.x;
+  if (v >= Vc) return;
+  int n = 0;
+#pragma unroll 8
+  for (int d = 0; d < D; ++d) n += to_float(counts[(size_t)d * Vc + v]) != 0.f;
+  colptr[v + 1] = n;
+}
+
+// colptr[v + 1] = the nonzeros of columns 0..v (the inclusive prefix sum
+// of the column counts), colptr[0] = 0: the CSC's column starts, and
+// colptr[Vc] the nonzero count.  One CTA; thread i a contiguous run.
+__global__ void __launch_bounds__(kScanThreads)
+tp_scan(long long* __restrict__ colptr, int Vc) {
+  __shared__ long long part[kScanThreads];
+  const int per = (Vc + kScanThreads - 1) / kScanThreads;
+  const int j0 = min((int)threadIdx.x * per, Vc);
+  const int j1 = min(j0 + per, Vc);
+  long long mine = 0;
+  for (int j = j0; j < j1; ++j) mine += colptr[j + 1];
+  part[threadIdx.x] = mine;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    long long run = 0;
+    for (int i = 0; i < kScanThreads; ++i) {
+      const long long x = part[i];
+      part[i] = run;
+      run += x;
+    }
+  }
+  __syncthreads();
+  long long run = part[threadIdx.x];
+  for (int j = j0; j < j1; ++j) {
+    run += colptr[j + 1];
+    colptr[j + 1] = run;
+  }
+  if (threadIdx.x == 0) colptr[0] = 0;
+}
+
+// The list: each column's nonzeros in row order from colptr[v] (rows, and
+// counts as f32).
+template <typename CT>
+__global__ void __launch_bounds__(kThreads)
+tp_fill(const CT* __restrict__ counts, int D, int Vc,
+        const long long* __restrict__ colptr, int* __restrict__ rows,
+        float* __restrict__ vals) {
+  const int v = blockIdx.x * kThreads + threadIdx.x;
+  if (v >= Vc) return;
+  long long pos = colptr[v];
+#pragma unroll 8
+  for (int d = 0; d < D; ++d) {
+    const float c = to_float(counts[(size_t)d * Vc + v]);
+    if (c != 0.f) {
+      rows[pos] = d;
+      vals[pos] = c;
+      ++pos;
+    }
+  }
+}
+
+// Pass 1 (see above): ratio[i] for every nonzero i of the CTA's columns,
+// and the CTA's score part.  phin, the running phinorm of a nonzero, is
+// kept in ratio[i] until its last tile.
+__global__ void __launch_bounds__(kThreads)
+tp_ratio(const long long* __restrict__ colptr, const int* __restrict__ rows,
+         const float* __restrict__ vals, const float* __restrict__ et,
+         const float* __restrict__ eeb, float* __restrict__ ratio,
+         double* __restrict__ score_part, int Vc, int V, int K, float eps) {
+  __shared__ float slice[kTpTopics * kTpLd];
+  __shared__ long long cs[kTpCols + 1];  // the columns' starts, and the end
+  __shared__ double score_s[kWarps];
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int v0 = blockIdx.x * kTpCols;
+  for (int c = tid; c <= kTpCols; c += kThreads) cs[c] = colptr[min(v0 + c, Vc)];
+  __syncthreads();
+  const long long lo = cs[0], hi = cs[kTpCols];
+  double score = 0.0;
+  if (hi > lo) {
+    for (int k0 = 0; k0 < K; k0 += kTpTopics) {
+      __syncthreads();  // the slice before is read
+      for (int i = tid; i < kTpTopics * kTpCols; i += kThreads) {
+        const int kk = i / kTpCols, c = i % kTpCols;
+        const int k = k0 + kk, v = v0 + c;
+        slice[kk * kTpLd + c] =
+            k < K && v < V ? __ldg(eeb + (size_t)k * V + v) : 0.f;
+      }
+      __syncthreads();
+      // A warp a nonzero (i = lo + warp, lo + warp + 8, ..); lane l the
+      // topics l, l + 32, .. of the slice.  c follows i: the column of i.
+      int c = 0;
+      for (long long i = lo + warp; i < hi; i += kWarps) {
+        while (cs[c + 1] <= i) ++c;
+        const float* erow = et + (size_t)rows[i] * K;
+        float a = 0.f;
+#pragma unroll
+        for (int m = 0; m < kTpTopics / 32; ++m) {
+          const int kk = lane + 32 * m;
+          const int k = k0 + kk;
+          const float e = k < K ? operand(__ldg(erow + k)) : 0.f;
+          a = fmaf(e, operand(slice[kk * kTpLd + c]), a);
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          a += __shfl_xor_sync(kFull, a, off);
+        if (lane == 0) {
+          const float ph = k0 == 0 ? a : ratio[i] + a;
+          if (k0 + kTpTopics < K) {
+            ratio[i] = ph;
+          } else {
+            const float cv = vals[i];
+            const float pn = ph + eps;
+            ratio[i] = operand(cv / pn);
+            score += (double)(cv * logf(pn));
+          }
+        }
+      }
+    }
+  }
+  // The CTA's score: each warp's lane 0 summed its nonzeros in order.
+  if (lane == 0) score_s[warp] = score;
+  __syncthreads();
+  if (tid == 0) {
+    double s = 0.0;
+    for (int w = 0; w < kWarps; ++w) s += score_s[w];
+    score_part[blockIdx.x] = s;
+  }
+}
+
+// Pass 2 (see above): rows [k0 + blockIdx.y * kTpTopics, ..) of the topic
+// range, columns [blockIdx.x * kTpCols, ..) of sstats [k1 - k0, V].
+__global__ void __launch_bounds__(kThreads)
+tp_sums(const long long* __restrict__ colptr, const int* __restrict__ rows,
+        const float* __restrict__ ratio, const float* __restrict__ et,
+        const float* __restrict__ eeb, float* __restrict__ sstats, int V,
+        int K, int k0, int k1) {
+  __shared__ float raw[kTpTopics * kTpLd];
+  const int tid = threadIdx.x;
+  const int v0 = blockIdx.x * kTpCols;
+  const int kt = k0 + blockIdx.y * kTpTopics;
+  const int k = kt + tid;
+  if (k < k1) {
+    for (int c = 0; c < kTpCols && v0 + c < V; ++c) {
+      const long long lo = colptr[v0 + c], hi = colptr[v0 + c + 1];
+      float acc = 0.f;
+      long long i = lo;
+      // Four nonzeros' loads in flight, their products added in order.
+      for (; i + 4 <= hi; i += 4) {
+        float e[4], r[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          e[u] = __ldg(et + (size_t)rows[i + u] * K + k);
+          r[u] = ratio[i + u];
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) acc = fmaf(operand(e[u]), r[u], acc);
+      }
+      for (; i < hi; ++i)
+        acc = fmaf(operand(__ldg(et + (size_t)rows[i] * K + k)), ratio[i],
+                   acc);
+      raw[tid * kTpLd + c] = acc;
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < kTpTopics * kTpCols; i += kThreads) {
+    const int kk = i / kTpCols, c = i % kTpCols;
+    const int kr = kt + kk, v = v0 + c;
+    if (kr < k1 && v < V)
+      sstats[(size_t)(kr - k0) * V + v] =
+          __ldg(eeb + (size_t)kr * V + v) * raw[kk * kTpLd + c];
+  }
+}
+
+// score_out = the sum of the n score parts in order (one CTA).
+__global__ void __launch_bounds__(kThreads)
+tp_score(const double* __restrict__ score_part, int n,
+         float* __restrict__ score_out) {
+  __shared__ double score_s[kWarps];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  double t = 0.0;  // thread i: parts i, i + 256, ..; then a fixed tree
+  for (int b = threadIdx.x; b < n; b += kThreads) t += score_part[b];
+  for (int off = 16; off > 0; off >>= 1) t += __shfl_down_sync(kFull, t, off);
+  if (lane == 0) score_s[warp] = t;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    double s = 0.0;
+    for (int w = 0; w < kWarps; ++w) s += score_s[w];
+    *score_out = (float)s;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -676,6 +907,67 @@ int pylda_dense_sstats_range(const void* counts, int counts_bf16,
   return (int)dispatch<float>(K, counts, et, eeb, sstats, score_part,
                               score_out, partial, counters, D, Vc, V, k0, k1,
                               eps, splits, rows_per_split, s);
+}
+
+// Two passes above K = 4096: the column counts and their prefix.  counts:
+// [D, Vc] bf16 (counts_bf16 != 0) or f32; colptr: out [Vc + 1] int64, the
+// CSC's column starts, colptr[Vc] the nonzero count.  Returns the
+// cudaError_t of the launches.
+int pylda_dense_sstats_two_pass_count(const void* counts, int counts_bf16,
+                                      int D, int Vc, void* colptr,
+                                      void* stream) {
+  if (D < 0 || Vc < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  long long* cp = static_cast<long long*>(colptr);
+  const int blocks = (Vc + kThreads - 1) / kThreads;
+  if (counts_bf16)
+    tp_count<<<blocks, kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(counts), D, Vc, cp);
+  else
+    tp_count<<<blocks, kThreads, 0, s>>>(static_cast<const float*>(counts),
+                                         D, Vc, cp);
+  tp_scan<<<1, kScanThreads, 0, s>>>(cp, Vc);
+  return (int)cudaGetLastError();
+}
+
+// The rest of the two passes, after pylda_dense_sstats_two_pass_count on
+// the same counts: et [D, K] f32, eeb [K, V] f32, K > 4096, 0 <= k0 < k1
+// <= K; sstats: out [k1 - k0, V] f32 (rows k0..k1-1 of the full result);
+// score_out: out [1] f32; colptr: [Vc + 1] int64 as the count left it;
+// rows, vals, ratio: scratch [nnz] int32, f32, f32 (nnz = colptr[Vc]);
+// score_part: scratch [ceil(Vc / 32)] f64.  Returns the cudaError_t of the
+// launches.
+int pylda_dense_sstats_two_pass(const void* counts, int counts_bf16,
+                                const void* et, const void* eeb,
+                                void* sstats, void* score_out, void* colptr,
+                                void* rows, void* vals, void* ratio,
+                                void* score_part, int D, int Vc, int V, int K,
+                                int k0, int k1, float eps, void* stream) {
+  if (K <= 4096 || D < 0 || Vc < V || V < 1 || k0 < 0 || k1 <= k0 || k1 > K)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  long long* cp = static_cast<long long*>(colptr);
+  int* rw = static_cast<int*>(rows);
+  float* vl = static_cast<float*>(vals);
+  float* rt = static_cast<float*>(ratio);
+  const float* e = static_cast<const float*>(et);
+  const float* b = static_cast<const float*>(eeb);
+  double* sp = static_cast<double*>(score_part);
+  const int blocks = (Vc + kThreads - 1) / kThreads;
+  if (counts_bf16)
+    tp_fill<<<blocks, kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(counts), D, Vc, cp, rw, vl);
+  else
+    tp_fill<<<blocks, kThreads, 0, s>>>(static_cast<const float*>(counts), D,
+                                        Vc, cp, rw, vl);
+  const int tiles = (Vc + kTpCols - 1) / kTpCols;
+  tp_ratio<<<tiles, kThreads, 0, s>>>(cp, rw, vl, e, b, rt, sp, Vc, V, K, eps);
+  const dim3 grid((V + kTpCols - 1) / kTpCols,
+                  (k1 - k0 + kTpTopics - 1) / kTpTopics);
+  tp_sums<<<grid, kThreads, 0, s>>>(cp, rw, rt, e, b,
+                                    static_cast<float*>(sstats), V, K, k0, k1);
+  tp_score<<<1, kThreads, 0, s>>>(sp, tiles, static_cast<float*>(score_out));
+  return (int)cudaGetLastError();
 }
 
 // The full range [0, K): the same arguments without k0 and k1.

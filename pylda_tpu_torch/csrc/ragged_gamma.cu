@@ -55,21 +55,28 @@
 // table (2 KB rows at K=1000, so half the bytes a re-gather and about
 // twice the slots a buffer), expEtheta and the ratio rounded to bf16 where
 // the reference rounds them, sums in f32 (row_fixed_point.cuh).
+//
+// Above K = 4096 (row_fixed_point_tiled.cuh) a row's expEtheta, gamma and
+// ratios live in the block's scratch in device memory, and each sweep
+// reads every live slot's B row twice (phinorm, then the topic tiles of
+// step B): at SVI config 5's corpus and K = 8192 a minibatch's ~307k live
+// slots move ~20 GB a sweep in f32 against 4*K FLOP a slot, bound by
+// bytes.
 
-#include "row_fixed_point.cuh"
+#include "row_fixed_point_tiled.cuh"
 
 extern "C" {
 
 // params: a Params (row_fixed_point.cuh) with ids and cnts [D, T] int32 and
 // f32 (cnts_bf16 0, ld = L = T), table [V, ldb] = expElogbeta^T (f32, or
 // bf16 with table_bf16 set in a build with -DPYLDA_BF16=1) and
-// 1 <= K <= 4096; the launch's nmax, nhist and geometry are written back
-// into it.  stream: a cudaStream_t.  Returns the cudaError_t of the launch.
+// K >= 1 (above 4096 the tiled kernel, with lists and state set); the
+// launch's nmax, nhist, geometry and tile are written back into it.  stream: a cudaStream_t.  Returns the cudaError_t of the launch.
 int pylda_ragged_gamma(void* params, void* stream) {
   Params& p = *static_cast<Params*>(params);
   if (!p.ids || p.cnts_bf16) return (int)cudaErrorInvalidValue;
   // Buckets whose rows all fit the register tile take it.
-  return (int)launch_row_fixed_point<float, PYLDA_BF16 != 0>(
+  return (int)launch_gamma<float, PYLDA_BF16 != 0>(
       p, p.L <= kWarps * kRegSlots, static_cast<cudaStream_t>(stream));
 }
 

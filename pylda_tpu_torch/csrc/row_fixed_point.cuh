@@ -62,7 +62,8 @@
 //      memory, and every thread keeps the row's best, age and done (the
 //      block sums are the same in every thread).
 //
-// Wide rows (K > 256, up to kMaxTopics = 4096: the kWide kernels).  A
+// Wide rows (K > 256, up to kMaxTopics = 4096: the kWide kernels; above
+// it, row_fixed_point_tiled.cuh keeps a row's state in device memory).  A
 // thread no longer owns one topic.  In step B, G = max(1, 256 / k4) slot
 // groups, and thread tid owns the float4s q = tid + 256 j (j < 4) of group
 // 0 when k4 > 256, so each thread keeps up to 4 float4 sums in registers.
@@ -127,7 +128,8 @@ namespace cg = cooperative_groups;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-// Largest K the kernels take; the wide kernels' step-B float4 sums a
+// Largest K of the row-resident kernels (above it the tiled kernel of
+// row_fixed_point_tiled.cuh runs); the wide kernels' step-B float4 sums a
 // thread (k4 <= kThreads * kWideQ).
 constexpr int kMaxTopics = 4096;
 constexpr int kWideQ = kMaxTopics / 4 / kThreads;
@@ -164,6 +166,8 @@ struct Params {
   unsigned long long* extra_out;  // [1] or null: += row-sweeps past S*
   int* lists;            // [list_blocks, 2, L] scratch: a block's streamed
                          // row as L ids, then L counts (f32 bits)
+  float* state;          // [list_blocks, tiled_state_floats(K, L)] scratch
+                         // of the tiled kernels (K > kMaxTopics), else null
   int D, ld, L, K, ldb;
   int cnts_bf16;
   int table_bf16;
@@ -175,6 +179,7 @@ struct Params {
   int patience;
   int use_stall;
   int smem_bytes, blocks_per_sm, grid;  // out: the launch's geometry
+  int tile;              // out: topics a tile of the sweep (K if untiled)
 };
 
 // Offsets (in floats, each a multiple of 4) into the dynamic shared memory.
@@ -701,23 +706,20 @@ __device__ __forceinline__ int next_row(int* queue, int* flags) {
   return row;
 }
 
-// kReg kernels keep rows of up to 128 live entries in registers (K <= 128)
-// and fit 2 blocks an SM; the kWide kernels (K > 256) 2; the others 3.
-template <typename CT, bool kBf16, bool kReg, bool kWide>
-__global__ void __launch_bounds__(kThreads, kReg || kWide ? 2 : 3)
-row_fixed_point_kernel(Params p) {
-  extern __shared__ __align__(16) float smem[];
-  const Layout L(p.K, p.nmax, p.nhist, kWide, kBf16);
-  int* hist_s = reinterpret_cast<int*>(smem + L.hist);
-  int* flags = reinterpret_cast<int*>(smem + L.flags);
+// The two phases of a cooperative launch (row_fixed_point_kernel and the
+// tiled kernel of row_fixed_point_tiled.cuh): phase 0 runs every row until
+// done or inner_iterations; phase 1 runs the rows that ran past S* again,
+// for exactly S* sweeps.  run(row, max_sweeps, count) runs one row and
+// returns its RowRun; one call site keeps the code small.  hist_s
+// (nhist ints) and flags (4 ints) are the block's shared memory.
+template <typename RunRow>
+__device__ __forceinline__ void row_phases(const Params& p, int* hist_s,
+                                           int* flags, RunRow run) {
   const int tid = threadIdx.x;
   for (int s = tid; s < p.nhist; s += kThreads) hist_s[s] = 0;
   __syncthreads();
   int S = p.inner_iterations;
   unsigned long long slots = 0, extra = 0;
-  // Phase 0 runs every row until done or inner_iterations; phase 1 runs
-  // the rows that ran past S* again, for exactly S* sweeps.  One call site
-  // of run_row keeps the code small.
   for (int phase = 0; phase < 2; ++phase) {
     if (phase == 1) {
       for (int s = tid; s < p.nhist; s += kThreads)
@@ -739,18 +741,17 @@ row_fixed_point_kernel(Params p) {
     for (int row; (row = next_row(&p.queues[phase], flags)) < p.D;) {
       int sweeps = p.inner_iterations;
       if (phase == 1) {
-        const int run = __ldcg(&p.row_run[row]);
+        const int run_len = __ldcg(&p.row_run[row]);
         if (tid == 0) {
-          const int needed = min(run, S);
+          const int needed = min(run_len, S);
           slots += (unsigned long long)__ldcg(&p.row_nnz[row]) * needed;
-          if (run > S) extra += run;
+          if (run_len > S) extra += run_len;
           if (p.row_sweeps) p.row_sweeps[row] += needed;
         }
-        if (run <= S) continue;
+        if (run_len <= S) continue;
         sweeps = S;
       }
-      const RowRun r = run_row<CT, kBf16, kReg, kWide>(p, L, smem, row,
-                                                       sweeps, phase == 0);
+      const RowRun r = run(row, sweeps, phase == 0);
       if (phase == 0 && tid == 0) {
         p.row_run[row] = r.sweeps;
         p.row_nnz[row] = r.nnz;
@@ -762,6 +763,21 @@ row_fixed_point_kernel(Params p) {
     if (p.slots_out && slots) atomicAdd(p.slots_out, slots);
     if (p.extra_out && extra) atomicAdd(p.extra_out, extra);
   }
+}
+
+// kReg kernels keep rows of up to 128 live entries in registers (K <= 128)
+// and fit 2 blocks an SM; the kWide kernels (K > 256) 2; the others 3.
+template <typename CT, bool kBf16, bool kReg, bool kWide>
+__global__ void __launch_bounds__(kThreads, kReg || kWide ? 2 : 3)
+row_fixed_point_kernel(Params p) {
+  extern __shared__ __align__(16) float smem[];
+  const Layout L(p.K, p.nmax, p.nhist, kWide, kBf16);
+  row_phases(p, reinterpret_cast<int*>(smem + L.hist),
+             reinterpret_cast<int*>(smem + L.flags),
+             [&](int row, int sweeps, bool count) {
+               return run_row<CT, kBf16, kReg, kWide>(p, L, smem, row, sweeps,
+                                                      count);
+             });
 }
 
 // Sizes the slot buffer and launches the kernel cooperatively: as many
@@ -828,6 +844,7 @@ cudaError_t launch_row_fixed_point(Params& p, bool registers,
   p.smem_bytes = (int)smem;
   p.blocks_per_sm = per_sm;
   p.grid = grid;
+  p.tile = p.K;
   void* args[] = {&p};
   err = cudaLaunchCooperativeKernel((const void*)kern, dim3(grid),
                                     dim3(kThreads), args, smem, stream);

@@ -36,11 +36,14 @@ def build_vb_batches(
     pad_docs_to: Optional[int] = None,
     memory_budget_mb: Optional[int] = None,
     bucket_capacities: Optional[dict] = None,
+    chunk_ragged: bool = True,
 ) -> List[VBBatch]:
     """Materialise the corpus (or a subset) as E-step ready batches.
 
     Rows per chunk are capped so each chunk's work arrays stay under
     ``memory_budget_mb`` (default ``config.estep_memory_budget_mb``).
+    ``chunk_ragged=False`` keeps each ragged bucket whole (where the
+    E-step makes no [rows, T, K] array: ``chunks_ragged_rows``).
     ``bucket_capacities`` (ragged layout only) requests the fixed bucket
     geometry of ``Corpus.to_ragged_buckets``.  May raise
     ``corpus.GeometryOverflow``."""
@@ -79,7 +82,7 @@ def build_vb_batches(
         T = b.ids.shape[1]
         budget_rows = max(pad, int(memory_budget_mb * 1e6 / (4 * T * K * 3)))
         rows = b.ids.shape[0]
-        if rows <= budget_rows:
+        if rows <= budget_rows or not chunk_ragged:
             out.append(b)
             continue
         # Chunk on pad-multiple boundaries so every chunk keeps the
@@ -97,6 +100,16 @@ def build_vb_batches(
             )
             s = e
     return out
+
+
+def chunks_ragged_rows(device_type: str, scatter: bool) -> bool:
+    """Whether ``estep_memory_budget_mb`` caps a ragged batch's rows: it
+    bounds the [rows, T, K] arrays that the plain versions (on the CPU)
+    and the row scatter (``ops/estep.scatter_sstats``) make.  The gamma
+    kernels keep a row's state in a block's scratch, not in such an
+    array, so on the card the route with dense sufficient statistics takes
+    each bucket in one launch at any K."""
+    return device_type != "cuda" or scatter
 
 
 def plan_bucket_sizes(

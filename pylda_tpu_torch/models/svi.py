@@ -48,8 +48,13 @@ after ``learning_many`` the ``gamma`` property recomputes them in one
 rho = 0 epoch.  Minibatch i of the epoch at step s draws its gamma inits
 (a random ``gamma_init``) from the streams (config seed, tag, s, i,
 batch), so ``learning_many(n)`` draws what n ``learning()`` calls draw.
-``phase_timings`` times one minibatch step.  On the card, K above the
-kernels' 4096 is refused by the kernel wrappers at the first E-step.
+``phase_timings`` times one minibatch step.  On the card every K runs:
+above 4096 the gamma kernels' tiled kernel and the sstats kernel's two
+passes.  ``estep_memory_budget_mb`` caps the rows a launch takes where
+[rows, T, K] arrays are made (on the CPU, as in the JAX engine, and on
+the scatter route); on the card the route with dense sufficient
+statistics takes each bucket's capacity in one launch
+(``models/layouts.chunks_ragged_rows``).
 
 Under a mesh (``parallel/mesh.py``) every minibatch's sufficient
 statistics and doc-level terms are summed over the ranks
@@ -306,7 +311,8 @@ class StochasticVariationalBayes(VariationalBayes):
         """The corpus's ragged rows in the geometry's widths, on the
         device once; None over ``svi_device_rows_budget_mb``.  Each width's
         capacity is chunked to ``estep_memory_budget_mb`` exactly as the
-        host packing (``build_vb_batches``) chunks it."""
+        host packing (``build_vb_batches``) chunks it (not at all on the
+        card with dense sufficient statistics: ``_chunk_ragged``)."""
         cfg = self._config
         caps = self._svi_geometry
         sizes = sorted(caps)
@@ -334,8 +340,9 @@ class StochasticVariationalBayes(VariationalBayes):
             # document's rows in order.
             start = np.zeros((D + 1,), np.int64)
             np.cumsum(np.bincount(doc_of_row, minlength=D), out=start[1:])
-            budget_rows = max(pad, int(cfg.estep_memory_budget_mb * 1e6
-                                       / (4 * s * K * 3)))
+            budget_rows = (max(pad, int(cfg.estep_memory_budget_mb * 1e6
+                                        / (4 * s * K * 3)))
+                           if self._chunk_ragged() else int(caps[s]))
             out.append(_Rows(
                 ids=torch.as_tensor(ids, device=dev),
                 cnts=torch.as_tensor(cnts, device=dev).to(self._dtype),
@@ -595,18 +602,28 @@ class StochasticVariationalBayes(VariationalBayes):
 
         return _Epoch(minibatches(), rhos, scales)
 
+    def _chunk_ragged(self) -> bool:
+        """Whether ``estep_memory_budget_mb`` caps a ragged minibatch's
+        launches (``layouts.chunks_ragged_rows``; the scatter route is
+        the one without a dense sstats plan)."""
+        return layouts.chunks_ragged_rows(self._device.type,
+                                          self._mb_sstats is None)
+
     def _ragged_minibatch(self, corpus, cfg, idx):
         """The fixed geometry when one is planned; per-batch shapes when
         it has none or this minibatch overflows it."""
+        chunk = self._chunk_ragged()
         if self._svi_geometry is not None:
             try:
                 return layouts.build_vb_batches(
                     corpus, cfg, doc_indices=idx,
                     bucket_capacities=self._svi_geometry,
+                    chunk_ragged=chunk,
                 )
             except GeometryOverflow:
                 pass
-        return layouts.build_vb_batches(corpus, cfg, doc_indices=idx)
+        return layouts.build_vb_batches(corpus, cfg, doc_indices=idx,
+                                        chunk_ragged=chunk)
 
     def _run_epoch(self, lam, alpha, eta, ep: _Epoch, keep_gammas: bool,
                    tag: tuple):

@@ -19,7 +19,13 @@ routes:
   scatter in plain PyTorch — and the bound terms per bucket row;
 
 then lambda = eta + sstats, the ELBO and, on schedule, the Newton
-alpha/eta updates.  ``compute_dtype="bfloat16"`` runs every kernel (or,
+alpha/eta updates.  Every K runs on the card (above 4096 the gamma
+kernels' tiled kernel and the sstats kernel's two passes).
+``estep_memory_budget_mb`` caps a batch's rows where [rows, T, K] arrays
+are made: on the CPU (as the JAX engine's batches) and on the scatter
+route; on the card the route with dense sufficient statistics takes each
+bucket in one gamma launch (``models/layouts.chunks_ragged_rows``).
+``compute_dtype="bfloat16"`` runs every kernel (or,
 on the CPU, every plain version) in the JAX engine's bf16 operand mode.
 ``export_beta``, ``save``/``load`` and the CLIs (``pylda_tpu_torch.cli``)
 sit on top (``models/base.py``).
@@ -257,8 +263,11 @@ class VariationalBayes(Inferencer):
         return corpus.num_types <= self._config.dense_vocab_threshold
 
     def _build_batches(self, corpus: Corpus) -> List[_Batch]:
-        return self._to_device(layouts.build_vb_batches(corpus, self._config),
-                               corpus.num_docs)
+        chunk = layouts.chunks_ragged_rows(self._device.type,
+                                           self._scatter_route(corpus))
+        return self._to_device(
+            layouts.build_vb_batches(corpus, self._config, chunk_ragged=chunk),
+            corpus.num_docs)
 
     def _build_local_batches(self, corpus: Corpus) -> List[_Batch]:
         """A rank's document block under a mesh, in a geometry uniform
@@ -314,6 +323,17 @@ class VariationalBayes(Inferencer):
             return self._shard.vocab_range
         return None
 
+    def _scatter_route(self, corpus: Corpus) -> bool:
+        """Whether a ragged layout's sufficient statistics come from the
+        row scatter: ``sstats_mode="scatter"``, a corpus whose [D, V]
+        float32 counts exceed ``sstats_dense_total_budget_mb``, or one
+        without documents in RAM (disk-backed)."""
+        cfg = self._config
+        return (cfg.sstats_mode == "scatter"
+                or getattr(corpus, "docs", None) is None
+                or (corpus.num_docs * corpus.num_types * 4 / 1e6
+                    > cfg.sstats_dense_total_budget_mb))
+
     def _plan_dense_sstats(self, corpus: Corpus, own: bool = True
                            ) -> Optional[_SstatsPlan]:
         """Corpus-static dense counts chunks of the large-vocab route
@@ -326,11 +346,7 @@ class VariationalBayes(Inferencer):
         float32 counts exceed ``sstats_dense_total_budget_mb``, and for a
         corpus without documents in RAM (disk-backed)."""
         cfg = self._config
-        if (self._dense_layout(corpus) or cfg.sstats_mode == "scatter"
-                or getattr(corpus, "docs", None) is None):
-            return None
-        if (corpus.num_docs * corpus.num_types * 4 / 1e6
-                > cfg.sstats_dense_total_budget_mb):
+        if self._dense_layout(corpus) or self._scatter_route(corpus):
             return None
         dev = self._device
         pad = cfg.doc_pad_multiple

@@ -24,7 +24,10 @@ phinorm and the ratio rounded as the reference rounds them), never the
 float32 builds.  Under lambda sharding the final pass takes the rank's
 ``topic_range`` (the sstats kernel's topic-range launch) or
 ``vocab_range`` (its own columns of counts and expElogbeta), while the
-fixed point reads the whole expElogbeta.
+fixed point reads the whole expElogbeta.  Above K = 4096 the fixed point
+is the tiled kernel (``csrc/row_fixed_point_tiled.cuh``, counted in
+``WIDE_LAUNCHES`` / ``BF16_WIDE_LAUNCHES`` too) and the final pass the
+sstats kernel's two passes.
 """
 
 from __future__ import annotations
@@ -40,7 +43,6 @@ from pylda_tpu_torch.ops.estep import (
     estep_dense,
     vocab_block,
 )
-from pylda_tpu_torch.ops.row_fixed_point import MAX_TOPICS
 from pylda_tpu_torch.ops.sstats import dense_sstats
 
 # Launches of the gamma kernel made by dense_estep (one per call on CUDA
@@ -48,6 +50,9 @@ from pylda_tpu_torch.ops.sstats import dense_sstats
 # of the bf16 build.
 LAUNCHES = 0
 BF16_LAUNCHES = 0
+# Of those, the launches of the tiled kernel (K > RESIDENT_TOPICS).
+WIDE_LAUNCHES = 0
+BF16_WIDE_LAUNCHES = 0
 
 
 def _kernel(compute_dtype: str):
@@ -84,7 +89,7 @@ def dense_estep(
       (1-based; 0 if it never was);
     - ``geometry_out`` (a dict) gets the gamma launch's
       ``row_fixed_point.GEOMETRY``."""
-    global LAUNCHES, BF16_LAUNCHES
+    global LAUNCHES, BF16_LAUNCHES, WIDE_LAUNCHES, BF16_WIDE_LAUNCHES
     check_compute_dtype(compute_dtype)
     if not counts.is_cuda:
         return estep_dense(
@@ -109,11 +114,6 @@ def dense_estep(
             f"{tuple(gamma_init.shape)}, expElogbeta "
             f"{tuple(exp_elog_beta.shape)}, alpha {tuple(alpha.shape)}"
         )
-    if K > MAX_TOPICS:
-        raise NotImplementedError(
-            f"the dense gamma kernel takes K <= {MAX_TOPICS} (got {K}); "
-            "see ROADMAP.md Queue 2 item 1"
-        )
     if inner_iterations < 1:
         raise ValueError("inner_iterations must be positive")
     dev = counts.device
@@ -135,10 +135,13 @@ def dense_estep(
         stall_patience, row_sweeps_out=row_sweeps_out,
         row_exit_out=row_exit_out, extra_sweeps_out=extra_sweeps_out,
         geometry_out=geometry_out)
+    wide = row_fixed_point.tiled(K)
     if compute_dtype == "bfloat16":
         BF16_LAUNCHES += 1
+        BF16_WIDE_LAUNCHES += wide
     else:
         LAUNCHES += 1
+        WIDE_LAUNCHES += wide
     # The final pass at the EXACT expectation of the converged gamma.
     c_own, eeb_own = vocab_block(counts, exp_elog_beta, vocab_range)
     sstats, token_score = dense_sstats(

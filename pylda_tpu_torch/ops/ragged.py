@@ -9,7 +9,9 @@ note in ``csrc/ragged_gamma.cu``, design in ``csrc/row_fixed_point.cuh``);
 for CPU tensors it runs the plain version,
 ``pylda_tpu_torch.ops.estep.estep_ragged_gamma``.  A CUDA tensor the
 kernel does not take raises.  The launch itself, shared with the dense
-kernel's wrapper, is ``ops/row_fixed_point.py``.  ``compute_dtype=
+kernel's wrapper, is ``ops/row_fixed_point.py``; above K = 4096 it runs
+the tiled kernel (``csrc/row_fixed_point_tiled.cuh``), counted in
+``WIDE_LAUNCHES`` / ``BF16_WIDE_LAUNCHES`` too.  ``compute_dtype=
 "bfloat16"`` launches the kernel's bf16 build on a bf16 gather table (or
 runs the plain version in that mode on the CPU); never the float32 build.
 """
@@ -22,16 +24,15 @@ import torch
 
 from pylda_tpu_torch.ops import row_fixed_point
 from pylda_tpu_torch.ops.estep import check_compute_dtype, estep_ragged_gamma
-from pylda_tpu_torch.ops.row_fixed_point import (
-    MAX_TOPICS,
-    gather_table,
-    table_width,
-)
+from pylda_tpu_torch.ops.row_fixed_point import gather_table, table_width
 
 # Kernel launches made by ragged_gamma (one per call on CUDA tensors): of
 # the float32 build, and of the bf16 build.
 LAUNCHES = 0
 BF16_LAUNCHES = 0
+# Of those, the launches of the tiled kernel (K > RESIDENT_TOPICS).
+WIDE_LAUNCHES = 0
+BF16_WIDE_LAUNCHES = 0
 
 
 def _kernel(compute_dtype: str):
@@ -75,7 +76,7 @@ def ragged_gamma(
     - ``geometry_out`` (a dict) gets the launch's
       ``row_fixed_point.GEOMETRY``: the slot buffer's live entries (a row
       with more streams), shared memory a block, blocks an SM, grid."""
-    global LAUNCHES, BF16_LAUNCHES
+    global LAUNCHES, BF16_LAUNCHES, WIDE_LAUNCHES, BF16_WIDE_LAUNCHES
     bf16 = check_compute_dtype(compute_dtype)
     if not ids.is_cuda:
         return estep_ragged_gamma(
@@ -95,11 +96,6 @@ def ragged_gamma(
             raise TypeError(f"the ragged kernel takes float32 {name}")
     if cnts.shape != (D, T) or gamma_init.shape != (D, K) or alpha.shape != (K,):
         raise ValueError("shape mismatch between ids, cnts, gamma_init, alpha")
-    if K > MAX_TOPICS:
-        raise NotImplementedError(
-            f"the ragged gamma kernel takes K <= {MAX_TOPICS} (got {K}); "
-            "see ROADMAP.md Queue 2 item 1"
-        )
     if inner_iterations < 1:
         raise ValueError("inner_iterations must be positive")
     dev = ids.device
@@ -122,8 +118,11 @@ def ragged_gamma(
         convergence_threshold, eps, stall_patience, row_exit_out=row_exit_out,
         row_sweeps_out=row_sweeps_out, slots_out=slots_out,
         extra_sweeps_out=extra_sweeps_out, geometry_out=geometry_out)
+    wide = row_fixed_point.tiled(K)
     if compute_dtype == "bfloat16":
         BF16_LAUNCHES += 1
+        BF16_WIDE_LAUNCHES += wide
     else:
         LAUNCHES += 1
+        WIDE_LAUNCHES += wide
     return gamma, sweeps

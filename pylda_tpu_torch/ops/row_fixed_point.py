@@ -11,10 +11,17 @@ Both C entries take the same two arguments, a pointer to the core's
 ``launch`` allocates the scratch the kernel needs, fills a ``Params``,
 makes the call and returns the output gamma and sweep count.  The
 launcher writes the geometry it chose back into the ``Params``
-(``GEOMETRY``).  Both kernels take 1 <= K <= ``MAX_TOPICS``.  Each is
-built in two modes (``ops/_build.py``): float32, and the bf16 operand
-mode, whose entry takes a bf16 gather table (``gather_table(..,
-"bfloat16")``) and rounds expEtheta and the ratio as the reference does.
+(``GEOMETRY``).  Both kernels take any K >= 1: up to ``RESIDENT_TOPICS``
+the row-resident kernels of ``csrc/row_fixed_point.cuh`` run, above it
+the tiled kernel of ``csrc/row_fixed_point_tiled.cuh``, which keeps a
+row's state in a block's scratch in device memory (``state``,
+``tiled_state_floats`` a block) and walks the topics in tiles of
+``TILE_TOPICS``.  Nothing caps K but the card's memory: an allocation the
+card cannot make raises PyTorch's out-of-memory error, which names the
+bytes.  Each is built in two modes (``ops/_build.py``): float32, and the
+bf16 operand mode, whose entry takes a bf16 gather table
+(``gather_table(.., "bfloat16")``) and rounds expEtheta and the ratio as
+the reference does.
 """
 
 from __future__ import annotations
@@ -32,13 +39,16 @@ from pylda_tpu_torch.ops.estep import check_compute_dtype
 # than the slot buffer implies a ~72 KB buffer, so 3 blocks an SM (at
 # K > 256, 2 or 1).
 LIST_BLOCKS_PER_SM = 3
-# Largest K the kernels take (kMaxTopics of the core: its wide kernels
-# keep up to 4 float4 sums a thread).
-MAX_TOPICS = 4096
+# Largest K of the row-resident kernels (kMaxTopics of the core: its wide
+# kernels keep up to 4 float4 sums a thread); above it the tiled kernel
+# runs, over topic tiles of TILE_TOPICS (kTileTopics).
+RESIDENT_TOPICS = 4096
+TILE_TOPICS = 4096
 # The launch geometry the launcher writes back: live entries the slot
-# buffer holds (a row with more streams), shared memory a block, blocks an
-# SM, and the grid.
-GEOMETRY = ("nmax", "smem_bytes", "blocks_per_sm", "grid")
+# buffer holds (a row with more streams; 0 in the tiled kernel, where
+# every row streams), shared memory a block, blocks an SM, the grid, and
+# the topics a tile of the sweep (K where it is not tiled).
+GEOMETRY = ("nmax", "smem_bytes", "blocks_per_sm", "grid", "tile")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -52,13 +62,14 @@ class Params(ctypes.Structure):
         ("gamma0", _P), ("et0", _P), ("gamma", _P), ("not_exitable", _P),
         ("queues", _P), ("row_run", _P), ("row_nnz", _P),
         ("sweeps_out", _P), ("row_sweeps", _P), ("row_exit", _P),
-        ("slots_out", _P), ("extra_out", _P), ("lists", _P),
+        ("slots_out", _P), ("extra_out", _P), ("lists", _P), ("state", _P),
         ("D", _I), ("ld", _I), ("L", _I), ("K", _I), ("ldb", _I),
         ("cnts_bf16", _I), ("table_bf16", _I), ("list_blocks", _I),
         ("nmax", _I), ("nhist", _I),
         ("inner_iterations", _I), ("threshold", _F), ("eps", _F),
         ("patience", _I), ("use_stall", _I),
         ("smem_bytes", _I), ("blocks_per_sm", _I), ("grid", _I),
+        ("tile", _I),
     ]
 
 
@@ -81,6 +92,20 @@ def entry(source: str, compute_dtype: str = "float32") -> Callable:
         fn = _ENTRIES[(source, compute_dtype)] = bind(
             _build.library(source, compute_dtype), f"pylda_{source}")
     return fn
+
+
+def tiled(K: int) -> bool:
+    """True where the tiled kernel runs (K > RESIDENT_TOPICS)."""
+    return K > RESIDENT_TOPICS
+
+
+def tiled_state_floats(K: int, L: int) -> int:
+    """Floats of one block's state in the tiled kernel
+    (``tiled_state_floats`` of the header): expEtheta, its bf16-rounded
+    copy and gamma at K rounded up to 8 each, then the ratios of L live
+    entries rounded up to 4."""
+    kp = -(-K // 8) * 8
+    return 3 * kp + -(-L // 4) * 4
 
 
 def table_width(K: int, compute_dtype: str = "float32") -> int:
@@ -141,10 +166,11 @@ def launch(
     extra_sweeps_out: Optional[torch.Tensor] = None,
     geometry_out: Optional[dict] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One launch of a row-resident kernel (``kernel``, a bound entry) on
-    checked CUDA inputs: (gamma [D, K], sweeps 0-d int32).  Checks the
-    optional outputs; ``geometry_out`` gets the ``GEOMETRY`` the launcher
-    chose.  Raises if the launch fails."""
+    """One launch of a gamma kernel (``kernel``, a bound entry; the tiled
+    kernel above ``RESIDENT_TOPICS``) on checked CUDA inputs: (gamma
+    [D, K], sweeps 0-d int32).  Checks the optional outputs;
+    ``geometry_out`` gets the ``GEOMETRY`` the launcher chose.  Raises if
+    the launch fails."""
     D, K = gamma_init.shape
     dev = gamma_init.device
     check_out(row_sweeps_out, torch.int32, (D,), dev, "row_sweeps_out")
@@ -167,6 +193,10 @@ def launch(
     list_blocks = min(D, LIST_BLOCKS_PER_SM * sms)
     lists = torch.empty((list_blocks, 2, max(length, 1)), dtype=torch.int32,
                         device=dev)
+    state = None
+    if tiled(K):
+        state = torch.empty((list_blocks, tiled_state_floats(K, length)),
+                            dtype=torch.float32, device=dev)
     p = Params(
         ids=_ptr(ids), cnts=cnts.data_ptr(), table=table.data_ptr(),
         alpha=alpha.data_ptr(), gamma0=gamma0.data_ptr(),
@@ -176,6 +206,7 @@ def launch(
         sweeps_out=sweeps.data_ptr(), row_sweeps=_ptr(row_sweeps_out),
         row_exit=_ptr(row_exit_out), slots_out=_ptr(slots_out),
         extra_out=_ptr(extra_sweeps_out), lists=lists.data_ptr(),
+        state=_ptr(state),
         D=D, ld=cnts.shape[1], L=length, K=K, ldb=table.shape[1],
         cnts_bf16=int(cnts.dtype == torch.bfloat16),
         table_bf16=int(table.dtype == torch.bfloat16), list_blocks=list_blocks,

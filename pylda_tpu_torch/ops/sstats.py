@@ -20,18 +20,27 @@ and row splits enough for ``MIN_CTAS_PER_SM`` CTAs on every SM; the
 splits' partial sums meet in split order, so two calls on the same inputs
 return the same bits.  The scratch (score and split partials, the tiles'
 counters, which each launch leaves zero) is kept per device and stream
-and reused.  The kernel takes 1 <= K <= ``MAX_TOPICS``.
-``compute_dtype="bfloat16"`` launches its bf16 build (``ops/_build.py``:
-expEtheta, expElogbeta in phinorm and the ratio rounded to bf16, the
-outer multiply by expElogbeta in float32), never the float32 build.
+and reused.  Above ``ONE_PASS_MAX_TOPICS`` (K = 4096, the largest build)
+the kernel runs two passes over a column list of the nonzeros (a count
+and a fill, then per nonzero phinorm, the ratio and the score over all
+K, then each (column tile, topic tile)'s sums): ``plan`` gives their grid
+and, from the nonzero count the count pass leaves on the card (read back
+to size the list: one host sync a call), their scratch; such calls count
+in ``WIDE_LAUNCHES`` / ``BF16_WIDE_LAUNCHES`` too.  Nothing caps K but
+the card's memory.  ``compute_dtype="bfloat16"`` launches its bf16 build
+(``ops/_build.py``: expEtheta, expElogbeta in phinorm and the ratio
+rounded to bf16, the outer multiply by expElogbeta in float32), never the
+float32 build.
 
 ``topic_range=(k0, k1)`` (lambda split over topics,
 ``parallel/lam_shard.py``) returns rows k0..k1-1 only, as a [k1 - k0, V]
 result: phinorm and the score still run over all K, in the build and on
 the grid of the whole K, and only the range's sums are accumulated,
 stored and written, so its rows are the full call's rows bit for bit
-(``csrc/dense_sstats.cu``).  Such calls count in ``RANGE_LAUNCHES`` and
-``BF16_RANGE_LAUNCHES`` besides ``LAUNCHES`` and ``BF16_LAUNCHES``.
+(``csrc/dense_sstats.cu``; above K = 4096 the range's topic tiles of the
+second pass).  Such calls count in ``RANGE_LAUNCHES`` and
+``BF16_RANGE_LAUNCHES`` besides ``LAUNCHES`` and ``BF16_LAUNCHES`` (and
+above K = 4096 in ``RANGE_WIDE_LAUNCHES`` / ``BF16_RANGE_WIDE_LAUNCHES``).
 """
 
 from __future__ import annotations
@@ -53,8 +62,17 @@ BF16_LAUNCHES = 0
 # Of those, the launches with a topic range narrower than [0, K).
 RANGE_LAUNCHES = 0
 BF16_RANGE_LAUNCHES = 0
-# Largest topic count the kernel takes (its largest build).
-MAX_TOPICS = 4096
+# Of each, the launches of the two passes (K > ONE_PASS_MAX_TOPICS).
+WIDE_LAUNCHES = 0
+BF16_WIDE_LAUNCHES = 0
+RANGE_WIDE_LAUNCHES = 0
+BF16_RANGE_WIDE_LAUNCHES = 0
+# Largest topic count of the one-pass kernel (its largest build); above
+# it the two passes run, a CTA TWO_PASS_COLS columns (kTpCols) and, in the
+# second pass, TWO_PASS_TOPICS topics (kTpTopics).
+ONE_PASS_MAX_TOPICS = 4096
+TWO_PASS_COLS = 32
+TWO_PASS_TOPICS = 256
 # Threads of a CTA; vocab columns a CTA owns at 4 lanes a column.
 THREADS = 256
 TILE_V = 64
@@ -88,7 +106,12 @@ class Plan:
     (K padded to the kernel build's 4 * lanes * n4) are a column's sums a
     lane group holds, and ``qr`` float4s of them (the topic range's,
     rounded out to whole float4s) the length of a column's split
-    partials."""
+    partials.
+
+    ``two_pass`` (K > ONE_PASS_MAX_TOPICS): ``tiles`` first-pass CTAs of
+    ``cols`` columns over the ``vc`` counts columns (and as many f64 score
+    partials), one split, ``kp`` K rounded up to the second pass's topic
+    tile, and a column list of ``nnz`` nonzeros."""
 
     tiles: int
     splits: int
@@ -96,10 +119,14 @@ class Plan:
     kp: int
     cols: int
     qr: int = 0
+    two_pass: bool = False
+    vc: int = 0
+    nnz: int = 0
 
     @property
     def blocks(self) -> int:
-        """CTAs, and entries of the f64 score partials."""
+        """CTAs (of the first pass), and entries of the f64 score
+        partials."""
         return self.tiles * self.splits
 
     @property
@@ -111,20 +138,26 @@ class Plan:
 
     @property
     def scratch_bytes(self) -> int:
-        """Device scratch of the call: f64 score partials, f32 split
-        partials and the int32 counters."""
+        """Device scratch of the call: f64 score partials, and f32 split
+        partials and the int32 counters (one pass), or the int64 column
+        starts and the list's rows, counts and ratios, 12 bytes a nonzero
+        (two passes)."""
+        if self.two_pass:
+            return 8 * self.blocks + 8 * (self.vc + 1) + 12 * self.nnz
         return 8 * self.blocks + 4 * self.partial_floats + 4 * (self.tiles + 1)
 
 
 def build_for(K: int) -> Tuple[int, int]:
-    """(n4, lanes) of the kernel build that runs at K topics."""
-    if not 1 <= K <= MAX_TOPICS:
-        raise ValueError(f"K must be in [1, {MAX_TOPICS}], got {K}")
+    """(n4, lanes) of the one-pass kernel build that runs at K topics."""
+    if not 1 <= K <= ONE_PASS_MAX_TOPICS:
+        raise ValueError(f"the one-pass builds take K in "
+                         f"[1, {ONE_PASS_MAX_TOPICS}], got {K}")
     return next(b for b in BUILDS if 4 * b[0] * b[1] >= K)
 
 
 def plan(D: int, Vc: int, K: int, sms: int,
-         topic_range: Optional[Tuple[int, int]] = None) -> Plan:
+         topic_range: Optional[Tuple[int, int]] = None,
+         nnz: int = 0) -> Plan:
     """The grid for counts [D, Vc] at K topics on a card of ``sms`` SMs:
     the build's tile width, then the fewest row splits that give
     ``MIN_CTAS_PER_SM`` CTAs an SM and at most ``CHUNKS_PER_SPLIT`` (times
@@ -132,9 +165,18 @@ def plan(D: int, Vc: int, K: int, sms: int,
     more splits than chunks, and no empty split.  A ``topic_range``
     (k0, k1) sizes the split partials only: the grid is the whole K's.
     Without one a column's partials take kp floats, the length every
-    build of the kernel's source has used."""
-    n4, lanes = build_for(K)
+    build of the kernel's source has used.  Above ONE_PASS_MAX_TOPICS the
+    two passes' grid, with a list of ``nnz`` nonzeros."""
+    if K < 1:
+        raise ValueError(f"K must be at least 1, got {K}")
     k0, k1 = check_topic_range(topic_range, K)
+    if K > ONE_PASS_MAX_TOPICS:
+        chunks = max(1, -(-D // CHUNK_ROWS))
+        return Plan(tiles=max(1, -(-Vc // TWO_PASS_COLS)), splits=1,
+                    rows_per_split=chunks * CHUNK_ROWS,
+                    kp=-(-K // TWO_PASS_TOPICS) * TWO_PASS_TOPICS,
+                    cols=TWO_PASS_COLS, two_pass=True, vc=Vc, nnz=nnz)
+    n4, lanes = build_for(K)
     kp, cols = 4 * lanes * n4, THREADS // lanes
     tiles = max(1, -(-Vc // cols))
     chunks = max(1, -(-D // CHUNK_ROWS))
@@ -167,6 +209,13 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         p, i, p, p, p, p, p, p, p, i, i, i, i, f, i, i, p,
     ]
     lib.pylda_dense_sstats.restype = i
+    if hasattr(lib, "pylda_dense_sstats_two_pass"):
+        lib.pylda_dense_sstats_two_pass_count.argtypes = [p, i, i, i, p, p]
+        lib.pylda_dense_sstats_two_pass_count.restype = i
+        lib.pylda_dense_sstats_two_pass.argtypes = [
+            p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, f, p,
+        ]
+        lib.pylda_dense_sstats_two_pass.restype = i
     if hasattr(lib, "pylda_dense_sstats_range"):
         lib.pylda_dense_sstats_range.argtypes = [
             p, i, p, p, p, p, p, p, p, i, i, i, i, i, i, f, i, i, p,
@@ -221,6 +270,8 @@ def dense_sstats(
     """(sstats [K, V], or [k1 - k0, V] for a ``topic_range`` (k0, k1),
     token score 0-d) — see ``estep_dense_sstats``."""
     global LAUNCHES, BF16_LAUNCHES, RANGE_LAUNCHES, BF16_RANGE_LAUNCHES
+    global WIDE_LAUNCHES, BF16_WIDE_LAUNCHES, RANGE_WIDE_LAUNCHES
+    global BF16_RANGE_WIDE_LAUNCHES
     check_compute_dtype(compute_dtype)
     if not counts.is_cuda:
         return estep_dense_sstats(counts, exp_etheta, exp_elog_beta, eps,
@@ -237,11 +288,6 @@ def dense_sstats(
             f"shape mismatch: counts {tuple(counts.shape)}, expEtheta "
             f"{tuple(exp_etheta.shape)}, expElogbeta {tuple(exp_elog_beta.shape)}"
         )
-    if K > MAX_TOPICS:
-        raise NotImplementedError(
-            f"the dense sstats kernel takes K <= {MAX_TOPICS} (got {K}); "
-            "see ROADMAP.md Queue 2 item 1"
-        )
     k0, k1 = check_topic_range(topic_range, K)
     dev = counts.device
     if exp_etheta.device != dev or exp_elog_beta.device != dev:
@@ -249,12 +295,17 @@ def dense_sstats(
     out = launch(_lib(compute_dtype), counts.contiguous(), exp_etheta.contiguous(),
                  exp_elog_beta.contiguous(), eps, topic_range)
     narrow = (k0, k1) != (0, K)
+    wide = K > ONE_PASS_MAX_TOPICS
     if compute_dtype == "bfloat16":
         BF16_LAUNCHES += 1
         BF16_RANGE_LAUNCHES += narrow
+        BF16_WIDE_LAUNCHES += wide
+        BF16_RANGE_WIDE_LAUNCHES += narrow and wide
     else:
         LAUNCHES += 1
         RANGE_LAUNCHES += narrow
+        WIDE_LAUNCHES += wide
+        RANGE_WIDE_LAUNCHES += narrow and wide
     return out
 
 
@@ -270,6 +321,9 @@ def launch(lib: ctypes.CDLL, counts: torch.Tensor, exp_etheta: torch.Tensor,
     K, V = exp_elog_beta.shape
     k0, k1 = check_topic_range(topic_range, K)
     dev = counts.device
+    if K > ONE_PASS_MAX_TOPICS:
+        return _launch_two_pass(lib, counts, exp_etheta, exp_elog_beta, eps,
+                                k0, k1)
     pl = plan(D, Vc, K, _sms(dev.index), topic_range)
     # The last CTA of each tile writes every entry of its columns.
     sstats = torch.empty((k1 - k0, V), dtype=torch.float32, device=dev)
@@ -288,4 +342,43 @@ def launch(lib: ctypes.CDLL, counts: torch.Tensor, exp_etheta: torch.Tensor,
             rc = lib.pylda_dense_sstats_range(*args, k0, k1, *tail)
     if rc != 0:
         raise RuntimeError(f"dense_sstats kernel launch failed: cudaError {rc}")
+    return sstats, score
+
+
+def _launch_two_pass(lib: ctypes.CDLL, counts: torch.Tensor,
+                     exp_etheta: torch.Tensor, exp_elog_beta: torch.Tensor,
+                     eps: float, k0: int, k1: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two passes above ONE_PASS_MAX_TOPICS: the count pass, the
+    nonzero count read back (one sync) to size the column list, then the
+    rest; (sstats [k1 - k0, V], score)."""
+    D, Vc = counts.shape
+    K, V = exp_elog_beta.shape
+    dev = counts.device
+    bf16 = int(counts.dtype == torch.bfloat16)
+    colptr = torch.empty((Vc + 1,), dtype=torch.int64, device=dev)
+    sstats = torch.empty((k1 - k0, V), dtype=torch.float32, device=dev)
+    score = torch.empty((), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.pylda_dense_sstats_two_pass_count(
+            counts.data_ptr(), bf16, D, Vc, colptr.data_ptr(), stream)
+        if rc != 0:
+            raise RuntimeError(f"dense_sstats count pass launch failed: "
+                               f"cudaError {rc}")
+        nnz = int(colptr[Vc])
+        pl = plan(D, Vc, K, _sms(dev.index), (k0, k1), nnz=nnz)
+        rows = torch.empty((max(nnz, 1),), dtype=torch.int32, device=dev)
+        vals = torch.empty((max(nnz, 1),), dtype=torch.float32, device=dev)
+        ratio = torch.empty_like(vals)
+        parts = torch.empty((pl.blocks,), dtype=torch.float64, device=dev)
+        rc = lib.pylda_dense_sstats_two_pass(
+            counts.data_ptr(), bf16, exp_etheta.data_ptr(),
+            exp_elog_beta.data_ptr(), sstats.data_ptr(), score.data_ptr(),
+            colptr.data_ptr(), rows.data_ptr(), vals.data_ptr(),
+            ratio.data_ptr(), parts.data_ptr(), D, Vc, V, K, k0, k1,
+            float(eps), stream)
+    if rc != 0:
+        raise RuntimeError(f"dense_sstats two-pass launch failed: "
+                           f"cudaError {rc}")
     return sstats, score

@@ -94,8 +94,8 @@ def init_distributed(
     ``init_method``, as the JAX package's is without a coordinator.
     Otherwise ``num_processes`` and ``process_id`` are required; the
     rendezvous is ``tcp://<coordinator_address>`` (or ``init_method``,
-    e.g. ``file://...``).  ``device`` is "cuda" or "cpu" (default: "cuda"
-    when a card is present): on CUDA the rank's card is
+    e.g. ``file://...``).  ``device`` is "cuda" (the default; raises
+    without a card) or "cpu": on CUDA the rank's card is
     ``rank % device_count``, made current before any engine is built.
     Every group gets ``timeout``, so a collective one rank never joins
     fails instead of hanging.  Returns the device group's backend."""
@@ -111,12 +111,13 @@ def init_distributed(
         raise ValueError(f"process id {process_id} is outside "
                          f"0..{num_processes - 1}")
     if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+        device = "cuda"
     count = 0
     if device == "cuda":
         if not torch.cuda.is_available():
-            raise RuntimeError("device 'cuda' requested but CUDA is "
-                               "unavailable")
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to join "
+                "the process group on the CPU")
         count = torch.cuda.device_count()
         torch.cuda.set_device(process_id % count)
     backend = choose_backend(device, num_processes, count)
@@ -257,8 +258,9 @@ def make_mesh(shape: Optional[Tuple[int, int]] = None,
     a card); else ``ValueError`` says how many processes to launch.  With
     a model axis above 1 the data and model groups are made here:
     collective, every rank calls it with the same shape.  ``device``
-    defaults to the rank's device under a group, else the current card
-    when one is present, else the CPU."""
+    defaults to the rank's device under a group, else the current card;
+    without a group and a card it must be given ("cpu"), as an engine's
+    (``models/base.py::resolve_device``)."""
     rank, size = world()
     if shape is None:
         shape = (size, 1)
@@ -273,9 +275,13 @@ def make_mesh(shape: Optional[Tuple[int, int]] = None,
         )
     groups = _GROUPS or (None, None, None, None)
     if device is None:
-        device = groups[3] or (
-            f"cuda:{torch.cuda.current_device()}"
-            if torch.cuda.is_available() else "cpu")
+        device = groups[3]
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to make a "
+                "mesh on the CPU")
+        device = f"cuda:{torch.cuda.current_device()}"
     sub = _make_subgroups(d, m) if m > 1 and _GROUPS is not None else None
     return Mesh(data=d, model=m, rank=rank, device=torch.device(device),
                 device_group=groups[0], host_group=groups[1],

@@ -42,6 +42,11 @@ counts differ, because the port's kernels do different work:
   an inclusive ``cumsum`` (K FLOP a slot), where the JAX sampler runs a
   [K, K] prefix-sum matmul (2 K^2).
 
+The counts hold for every K: above 4096 the tiled gamma kernel reads a
+live slot's B row twice a sweep and the sstats kernel's two passes read
+expElogbeta twice, but the bound counts what the function needs, not
+what a kernel re-reads.
+
 Sweep counts are the engines' own (``last_sweeps``); a phase's bound
 prices each batch's fixed point at the sweeps that batch ran.  The JAX
 report reads only the batch-VB family; this one also reports SVI (one

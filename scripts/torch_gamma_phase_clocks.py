@@ -85,7 +85,9 @@ def build() -> dict:
             sys.exit(f"not found once in row_fixed_point.cuh: {anchor!r}")
         src = src.replace(anchor, text + anchor)
     (OUT / "row_fixed_point.cuh").write_text(src)
-    (OUT / "exp_psi.cuh").write_text((_build.CSRC / "exp_psi.cuh").read_text())
+    for header in _build.CSRC.glob("*.cuh"):
+        if header.name != "row_fixed_point.cuh":
+            (OUT / header.name).write_text(header.read_text())
     libs = {}
     for name in ("ragged_gamma", "dense_gamma"):
         cu = OUT / f"{name}.cu"

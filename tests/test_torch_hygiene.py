@@ -7,7 +7,8 @@
   raise instead of running there.
 - Every CUDA source the build names exists.
 - The ctypes mirror of the gamma kernels' ``Params`` struct matches the
-  struct in ``csrc/row_fixed_point.cuh``, field for field.
+  struct in ``csrc/row_fixed_point.cuh``, field for field, and each
+  Python mirror of a kernel constant its ``constexpr``.
 """
 
 import ast
@@ -140,3 +141,31 @@ def test_params_mirror_matches_the_kernel_struct():
     got = [(n, t) for n, t in row_fixed_point.Params._fields_]
     assert got == want
     assert len(want) > 20
+
+
+# (module of pylda_tpu_torch.ops, its mirror, kernel source, constexpr)
+_CONSTANT_MIRRORS = [
+    ("row_fixed_point", "RESIDENT_TOPICS", "row_fixed_point.cuh", "kMaxTopics"),
+    ("row_fixed_point", "TILE_TOPICS", "row_fixed_point_tiled.cuh",
+     "kTileTopics"),
+    ("sstats", "THREADS", "dense_sstats.cu", "kThreads"),
+    ("sstats", "TILE_V", "dense_sstats.cu", "kTileV"),
+    ("sstats", "CHUNK_ROWS", "dense_sstats.cu", "kRows"),
+    ("sstats", "TWO_PASS_COLS", "dense_sstats.cu", "kTpCols"),
+    ("sstats", "TWO_PASS_TOPICS", "dense_sstats.cu", "kTpTopics"),
+]
+
+
+@pytest.mark.parametrize("module,name,source,const", _CONSTANT_MIRRORS,
+                         ids=[m[1] for m in _CONSTANT_MIRRORS])
+def test_constant_mirrors_match_the_kernels(module, name, source, const):
+    """The Python planners' and the CPU emulations' copies of the
+    kernels' constants equal the constants the kernels compile with."""
+    import importlib
+
+    from pylda_tpu_torch.ops import _build
+
+    mod = importlib.import_module(f"pylda_tpu_torch.ops.{module}")
+    src = (_build.CSRC / source).read_text()
+    found = re.findall(rf"constexpr int {const} = (\d+);", src)
+    assert found == [str(getattr(mod, name))], (name, found)

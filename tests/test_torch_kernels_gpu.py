@@ -26,7 +26,10 @@ their compacted entries in windows from a scratch list.  The wide range
 slot buffer holds ~25 entries at K=1000 and 4 at K=4096, and the sstats
 builds of 8, 16 and 32 lanes a column) is held the same way, with rows on
 both sides of the slot buffer, bf16 and f32 counts and two calls bitwise
-equal; above 4096 every kernel refuses.  On rows still updating at S*
+equal.  Above 4096 (the gamma kernels' tiled kernel, the sstats kernel's
+two passes) each kernel and build is held the same way at K in {4100,
+8192} (``LARGE_K``), the topic range bitwise, and SVI at K = 4097 trains
+on the card.  On rows still updating at S*
 (stalled, not done) gamma depends on rounding, so there each document's
 share of the bound (``ragged_doc_bound``) at the kernel's gamma is held
 to its share at the float64 plain version's gamma, to rel 1e-5.  The
@@ -39,6 +42,8 @@ random gamma inits drawn on the card are held by their statistics (mean
 one seed, and ``phase_timings`` on the card (CUDA events) leaves every
 engine's state bitwise as it was.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -58,6 +63,8 @@ from pylda_tpu_torch.ops.estep import (
 # The wide range: the core's wide kernels and the sstats builds of 8, 16
 # and 32 lanes a column, at each edge.
 WIDE_K = [257, 1000, 1024, 1025, 2048, 4096]
+# Above it: the tiled gamma kernel and the sstats kernel's two passes.
+LARGE_K = [4100, 8192]
 
 pytestmark = pytest.mark.gpu
 
@@ -185,12 +192,39 @@ def test_dense_sstats_kernel_sparsity_cases(cuda, D, V, K, v_pad, pad_rows,
         assert bool((ss == 0).all()) and float(tok) == 0.0
 
 
-def test_dense_sstats_kernel_refuses_large_k(cuda):
-    """Above its largest build (K = 4096) the kernel refuses, naming the
-    ROADMAP item."""
-    ct, et, eeb = _sstats_inputs(8, 100, 4097, 0, 0, False, cuda)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 1"):
-        sstats_mod.dense_sstats(ct, et, eeb)
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("K", LARGE_K)
+def test_dense_sstats_kernel_refuses_large_k(cuda, K, compute_dtype):
+    """Above its largest build (K = 4096) the kernel no longer refuses: its
+    two passes against the plain version (float32: the tolerances above;
+    bf16: its own mode, ``_hold_bf16_sstats``), a column every row uses
+    and a row with every column nonzero, two calls bitwise equal, each
+    topic range (across the 4096 boundary too) the full call's rows bit
+    for bit, every call counted as a wide launch."""
+    ct, et, eeb = _sparse_sstats_inputs(300, 700, K, 20, 3, 0.03, True,
+                                        cuda, hot=True, full_row=True)
+    mode = dict(compute_dtype=compute_dtype)
+    bf16 = compute_dtype == "bfloat16"
+    wide = "BF16_WIDE_LAUNCHES" if bf16 else "WIDE_LAUNCHES"
+    before = getattr(sstats_mod, wide)
+    ss, tok = sstats_mod.dense_sstats(ct, et, eeb, **mode)
+    ss2, tok2 = sstats_mod.dense_sstats(ct, et, eeb, **mode)
+    assert getattr(sstats_mod, wide) == before + 2
+    ss_p, tok_p = estep_dense_sstats(ct, et, eeb, **mode)
+    torch.cuda.synchronize()
+    assert ss.shape == (K, 700)
+    assert torch.equal(ss, ss2) and torch.equal(tok, tok2)
+    if bf16:
+        _hold_bf16_sstats(ss, ss_p)
+    else:
+        tol = 1e-4 * ss_p.abs() + 1e-6 * ss_p.abs().max()
+        assert bool(((ss - ss_p).abs() <= tol).all())
+    assert float(tok) == pytest.approx(float(tok_p), rel=1e-5)
+    for k0, k1 in _topic_ranges(K) + [(1000, 4098)]:
+        ss_r, tok_r = sstats_mod.dense_sstats(ct, et, eeb,
+                                              topic_range=(k0, k1), **mode)
+        torch.cuda.synchronize()
+        assert torch.equal(ss_r, ss[k0:k1]) and torch.equal(tok_r, tok)
 
 
 @pytest.mark.parametrize("bf16", [True, False])
@@ -400,14 +434,56 @@ def test_dense_estep_exit_rule_matches_plain(cuda, D, V, K, pad_rows, bf16,
     assert float(tok) == pytest.approx(float(tok_p), rel=1e-4)
 
 
-def test_dense_estep_refuses_large_k(cuda):
-    """Above K = 4096 the gamma kernels refuse, naming the ROADMAP item."""
-    ct, g0, eeb, alpha = _dense_inputs(8, 100, 4097, 0, False, cuda)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 1"):
-        dense_mod.dense_estep(ct, g0, eeb, alpha)
-    ids = torch.zeros((8, 4), dtype=torch.int32, device=cuda)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 1"):
-        ragged_mod.ragged_gamma(ids, ids.float(), g0[:8], eeb, alpha)
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("K", LARGE_K)
+def test_dense_estep_refuses_large_k(cuda, K, compute_dtype):
+    """Above K = 4096 the gamma kernels no longer refuse: the tiled kernel
+    of each (dense with its final pass, and ragged) against the plain
+    version, float32 at 12 pinned sweeps (rtol 1e-4) and at the exit rule
+    (the sweep count within 1, rtol 5e-4 + K * threshold), bf16 after one
+    pinned sweep (``_hold_bf16_gamma``); two calls bitwise equal; every
+    launch counted as a wide one, with the tile in the geometry."""
+    bf16 = compute_dtype == "bfloat16"
+    wide = "BF16_WIDE_LAUNCHES" if bf16 else "WIDE_LAUNCHES"
+    ct, g0, eeb, alpha = _dense_inputs(40, 300, K, 3, True, cuda, seed=2)
+    ids, cnts, rg0, reeb, ralpha = _wide_ragged_inputs(K, cuda)
+    pinned = dict(inner_iterations=1 if bf16 else 12,
+                  convergence_threshold=0.0, compute_dtype=compute_dtype)
+    before = (getattr(dense_mod, wide), getattr(ragged_mod, wide))
+    geo = {}
+    g, ss, tok, s = dense_mod.dense_estep(ct, g0, eeb, alpha,
+                                          geometry_out=geo, **pinned)
+    g2 = dense_mod.dense_estep(ct, g0, eeb, alpha, **pinned)[0]
+    r, rs = ragged_mod.ragged_gamma(ids, cnts, rg0, reeb, ralpha, **pinned)
+    r2, _ = ragged_mod.ragged_gamma(ids, cnts, rg0, reeb, ralpha, **pinned)
+    assert (getattr(dense_mod, wide), getattr(ragged_mod, wide)) == (
+        before[0] + 2, before[1] + 2)
+    assert geo["tile"] == 4096 and geo["nmax"] == 0
+    g_p, ss_p, tok_p, _ = estep_dense(ct, g0, eeb, alpha, **pinned)
+    r_p, _ = estep_ragged_gamma(ids, cnts, rg0, reeb, ralpha, **pinned)
+    torch.cuda.synchronize()
+    assert torch.equal(g, g2) and torch.equal(r, r2)
+    assert int(s) == int(rs) == pinned["inner_iterations"]
+    if bf16:
+        _hold_bf16_gamma(g, g_p, ct[:, :300] != 0)
+        _hold_bf16_gamma(r, r_p, cnts != 0)
+        return
+    torch.testing.assert_close(g, g_p, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(r, r_p, rtol=1e-4, atol=1e-4)
+    ss_at_g, _ = estep_dense_sstats(ct, exp_dirichlet_expectation(g), eeb)
+    tol = 1e-4 * ss_at_g.abs() + 1e-6 * ss_at_g.abs().max()
+    assert bool(((ss - ss_at_g).abs() <= tol).all())
+    assert float(tok) == pytest.approx(float(tok_p), rel=1e-4)
+    kw = dict(inner_iterations=50, convergence_threshold=1e-5,
+              stall_patience=6)
+    g, _, _, s = dense_mod.dense_estep(ct, g0, eeb, alpha, **kw)
+    g_p, _, _, s_p = estep_dense(ct, g0, eeb, alpha, **kw)
+    r, rs = ragged_mod.ragged_gamma(ids, cnts, rg0, reeb, ralpha, **kw)
+    r_p, rs_p = estep_ragged_gamma(ids, cnts, rg0, reeb, ralpha, **kw)
+    torch.cuda.synchronize()
+    assert abs(int(s) - int(s_p)) <= 1 and abs(int(rs) - int(rs_p)) <= 1
+    torch.testing.assert_close(g, g_p, rtol=5e-4, atol=5e-4 + K * 1e-5)
+    torch.testing.assert_close(r, r_p, rtol=5e-4, atol=5e-4 + K * 1e-5)
 
 
 def _wide_ragged_inputs(K, dev, seed=8):
@@ -729,18 +805,67 @@ def test_svi_engine_on_card_matches_cpu(cuda, layout):
 
 
 def test_svi_refuses_large_k_on_card(cuda):
-    """Above K = 4096 the kernels refuse at the first E-step."""
+    """Above K = 4096 the kernels no longer refuse: SVI at K = 4097 trains
+    on the card through the wide kernels (the dense route's tiled gamma
+    kernel and two-pass final pass), its estimates at pinned sweeps
+    within rel 1e-4 of the CPU run's from one lambda."""
     from pylda_tpu_torch.corpus.synthetic import synthetic_corpus
     from pylda_tpu_torch.models import StochasticVariationalBayes
     from pylda_tpu_torch.utils.config import LDAConfig
 
     corpus, _, _ = synthetic_corpus(num_docs=20, num_topics=4, num_types=300,
                                     mean_doc_length=10.0, seed=1)
-    eng = StochasticVariationalBayes(
-        LDAConfig(number_of_topics=4097, inference_mode="svi"), device=cuda)
-    eng.initialize(corpus)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 1"):
-        eng.learning()
+    cfg = LDAConfig(number_of_topics=4097, inference_mode="svi",
+                    batch_size=8, inner_iterations=10,
+                    convergence_threshold=0.0)
+    lam0 = np.random.default_rng(3).gamma(100.0, 0.01, (4097, 300))
+    ests = {}
+    for dev in (cuda, "cpu"):
+        eng = StochasticVariationalBayes(cfg, device=dev)
+        eng.initialize(corpus, lam_init=lam0)
+        before = (dense_mod.WIDE_LAUNCHES, sstats_mod.WIDE_LAUNCHES)
+        ests[str(dev)] = [eng.learning() for _ in range(2)]
+        if dev is cuda:
+            assert dense_mod.WIDE_LAUNCHES > before[0]
+            assert sstats_mod.WIDE_LAUNCHES > before[1]
+        assert np.isfinite(ests[str(dev)]).all()
+    np.testing.assert_allclose(ests[str(cuda)], ests["cpu"], rtol=1e-4)
+
+
+def test_engine_on_card_takes_each_bucket_whole(cuda):
+    """``estep_memory_budget_mb`` caps a ragged batch's rows where [rows,
+    T, K] arrays are made (the CPU, the scatter route): at a 1 MB budget
+    the CPU engine and the scatter route on the card chunk the buckets,
+    while on the card with dense sufficient statistics batch VB takes
+    each bucket in one launch and SVI each width's capacity."""
+    from pylda_tpu_torch.corpus.synthetic import synthetic_corpus
+    from pylda_tpu_torch.models import (StochasticVariationalBayes,
+                                        VariationalBayes)
+    from pylda_tpu_torch.utils.config import LDAConfig
+
+    corpus, _, _ = synthetic_corpus(num_docs=300, num_topics=8, num_types=600,
+                                    mean_doc_length=30.0, seed=2)
+    cfg = LDAConfig(number_of_topics=300, dense_vocab_threshold=256,
+                    doc_pad_multiple=8, estep_memory_budget_mb=1)
+
+    def widths(eng):
+        return [b.ids.shape[1] for b in eng._batches]
+
+    engs = {}
+    for name, dev, c in (("card", cuda, cfg), ("cpu", "cpu", cfg),
+                         ("scatter", cuda, dataclasses.replace(
+                             cfg, sstats_mode="scatter"))):
+        engs[name] = VariationalBayes(c, device=dev)
+        engs[name].initialize(corpus)
+    card = widths(engs["card"])
+    assert len(card) == len(set(card))
+    assert widths(engs["cpu"]) == widths(engs["scatter"])
+    assert len(widths(engs["cpu"])) > len(card)
+    svi = StochasticVariationalBayes(dataclasses.replace(
+        cfg, inference_mode="svi", batch_size=128), device=cuda)
+    svi.initialize(corpus)
+    assert svi._device_rows and all(r.chunk_sizes == [r.cap]
+                                    for r in svi._device_rows)
 
 
 # -- the bf16 builds (compute_dtype="bfloat16") ----------------------------------

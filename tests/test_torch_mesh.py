@@ -364,6 +364,41 @@ def test_init_distributed_backend_on_cards(monkeypatch, cards, world, want):
                                 else pmesh.dist.group.WORLD)
 
 
+def test_make_mesh_without_a_card_needs_the_cpu_named(monkeypatch):
+    """No card and no group: ``make_mesh()`` raises, as an engine's
+    ``resolve_device`` does, and names ``device='cpu'``; with it the mesh
+    is the CPU's."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(pmesh, "_GROUPS", None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pmesh.make_mesh()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pmesh.make_mesh((1, 1))
+    mesh = pmesh.make_mesh(device="cpu")
+    assert mesh.device == torch.device("cpu")
+    assert (mesh.data, mesh.model, mesh.grouped) == (1, 1, False)
+
+
+@pytest.mark.parametrize("device", [None, "cuda"])
+def test_init_distributed_without_a_card_needs_the_cpu_named(monkeypatch,
+                                                             device):
+    """No card: ``init_distributed`` with no device (or "cuda") raises
+    before it joins a group, naming ``device='cpu'``; with "cpu" it joins
+    over gloo and the group's device, which ``make_mesh`` takes, is the
+    CPU (the group itself faked)."""
+    calls = {}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(pmesh.dist, "init_process_group",
+                        lambda **kw: calls.update(kw))
+    monkeypatch.setattr(pmesh, "_GROUPS", None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pmesh.init_distributed("127.0.0.1:1", 2, 0, device=device)
+    assert calls == {} and pmesh._GROUPS is None
+    assert pmesh.init_distributed("127.0.0.1:1", 2, 1, device="cpu") == "gloo"
+    assert calls["backend"] == "gloo" and calls["rank"] == 1
+    assert pmesh._GROUPS[3] == "cpu"
+
+
 @pytest.mark.parametrize("backend, data, bounded", [("nccl", 1, True),
                                                     ("nccl", 2, False),
                                                     ("gloo", 1, False)])

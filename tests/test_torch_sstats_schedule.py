@@ -207,18 +207,23 @@ def test_plan_topic_padding_matches_the_kernel_builds():
         r"PYLDA_BUILD\((\d+), (\d+)\)\n", src))
     assert builds == sstats_mod.BUILDS
     kps = [4 * n * lanes for n, lanes in builds]
-    assert kps == sorted(kps) and kps[-1] == sstats_mod.MAX_TOPICS
+    assert kps == sorted(kps) and kps[-1] == sstats_mod.ONE_PASS_MAX_TOPICS
 
 
 def test_plan_refuses_what_the_kernel_does_not_take():
-    """The kernel's range: every K in 1..4096 has a build (the wide ones
-    above 256: 32, 16 or 8 columns a tile); 0 and 4097 raise."""
+    """The kernel's range: every K in 1..4096 has a one-pass build (the
+    wide ones above 256: 32, 16 or 8 columns a tile); above it the two
+    passes plan (32 columns a CTA, K rounded up to their 256-topic
+    tile), at 4097 and at 16384 alike; only K = 0 raises."""
     for K, cols in ((1, 64), (256, 64), (257, 32), (512, 32), (513, 16),
                     (1000, 16), (1024, 16), (1025, 8), (2048, 8), (2049, 8),
                     (4096, 8)):
         pl = sstats_mod.plan(10, 10, K, H100_SMS)
-        assert pl.cols == cols and pl.kp >= K, K
+        assert pl.cols == cols and pl.kp >= K and not pl.two_pass, K
+    for K, kp in ((4097, 4352), (16384, 16384)):
+        pl = sstats_mod.plan(10, 10, K, H100_SMS)
+        assert pl.two_pass and pl.cols == 32 and pl.kp == kp, K
     with pytest.raises(ValueError):
-        sstats_mod.plan(10, 10, 4097, H100_SMS)
+        sstats_mod.build_for(4097)
     with pytest.raises(ValueError):
         sstats_mod.plan(10, 10, 0, H100_SMS)

@@ -1,0 +1,654 @@
+"""The port above K = 4096 topics (the kernels' tiled and two-pass range),
+against pylda_tpu on the CPU.
+
+The CUDA kernels take any K: above 4096 the gamma fixed points run the
+tiled kernel (``csrc/row_fixed_point_tiled.cuh``) and the dense
+sufficient statistics two passes over a column list of the nonzeros
+(``csrc/dense_sstats.cu``).  Here, on the CPU, the wrappers take their
+plain versions, which have no cap; they are held at K = 4224 (and 8192)
+against:
+
+- each TPU kernel in interpret mode: ``pallas_estep_ragged_gamma`` on a
+  16 x 16 bucket and ``pallas_estep_dense`` at D = 16, V = 64 (f32: their
+  bf16 variant is a storage mode, not the bf16 operand mode; the port's
+  bf16 mode is held to the XLA function's below), rtol 5e-4 as at K =
+  300 (the kernels' in-kernel digamma series differs);
+  ``pallas_dense_sstats`` in f32 and bf16, rtol 2e-5 as at K = 300;
+- the XLA functions: f32 at pinned sweeps (rtol 1e-4: phinorm sums 4224
+  products in another order in each package) and at the exit rule (per
+  row 5e-4 + K * threshold, the sweep count within 1); bf16 at
+  tests/test_torch_bf16.py's bars (one sweep rel 1e-5, then each
+  document's share of the bound);
+- the kernels' arithmetic orders, emulated here: the tiled sweep (lane
+  strided phinorm dots, topic tiles of 4096, the block's sums) under the
+  row-major schedule, and the two passes of the sufficient statistics,
+  each against the batch function (float64: 1e-12; float32: 1e-5);
+- the engines: batch VB on the ragged and dense routes and SVI at pinned
+  sweeps against the JAX engines, at tests/test_torch_vb.py's bars, and
+  the CLI's train and test round trip.
+
+``ops/sstats.py::plan`` and the gamma kernels' scratch sizing above 4096
+are checked beside them.
+"""
+
+import glob
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pylda_tpu.corpus.synthetic import synthetic_corpus as jax_synthetic
+from pylda_tpu.models import StochasticVariationalBayes as JaxSVI
+from pylda_tpu.models import VariationalBayes as JaxVB
+from pylda_tpu.ops import dirichlet as jd
+from pylda_tpu.ops.estep import estep_dense as jax_dense
+from pylda_tpu.ops.estep import estep_dense_sstats as jax_dense_sstats
+from pylda_tpu.ops.estep import estep_ragged_gamma as jax_ragged_gamma
+from pylda_tpu.ops.pallas_estep import pallas_estep_dense
+from pylda_tpu.ops.pallas_ragged import pallas_estep_ragged_gamma
+from pylda_tpu.ops.pallas_sstats import pallas_dense_sstats
+from pylda_tpu.utils.config import LDAConfig as JaxConfig
+from pylda_tpu_torch.cli.test import main as cli_test_main
+from pylda_tpu_torch.cli.train import main as train_main
+from pylda_tpu_torch.corpus.datasets import bundled_corpus_dir
+from pylda_tpu_torch.corpus.synthetic import synthetic_corpus
+from pylda_tpu_torch.models import StochasticVariationalBayes, VariationalBayes
+from pylda_tpu_torch.ops import dense_estep as dense_mod
+from pylda_tpu_torch.ops import ragged as ragged_mod
+from pylda_tpu_torch.ops import row_fixed_point as rfp
+from pylda_tpu_torch.ops import sstats as sstats_mod
+from pylda_tpu_torch.ops.dirichlet import (
+    exp_dirichlet_expectation,
+    exp_dirichlet_expectation_fast,
+)
+from pylda_tpu_torch.ops.estep import (
+    _exit_update,
+    bf16_round,
+    estep_dense_sstats,
+    estep_ragged_gamma,
+    ragged_doc_bound,
+)
+from pylda_tpu_torch.utils.config import LDAConfig
+
+K = 4224  # above 4096, not a power of two: two tiles, the last of 128
+BF16 = "bfloat16"
+MODES = ["float32", BF16]
+# tests/test_torch_vb.py's bars.
+RTOL = 1e-4
+LAM_ATOL = 1e-4
+GAMMA_TOL = 5e-4
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _ragged_case(D=16, T=16, k=K, V=300, seed=7):
+    """A 16 x 16 bucket with padded slots and an all-padding row."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, V, (D, T)).astype(np.int32)
+    cnts = rng.integers(1, 4, (D, T)).astype(np.float32)
+    fill = rng.integers(4, T + 1, D)
+    pad = np.arange(T)[None, :] >= fill[:, None]
+    ids[pad], cnts[pad] = 0, 0.0
+    ids[-1], cnts[-1] = 0, 0.0
+    lam = rng.gamma(1.0, 1.0, (k, V)).astype(np.float32)
+    eeb = np.asarray(jd.exp_dirichlet_expectation(jnp.asarray(lam)))
+    alpha = np.full(k, 0.1, np.float32)
+    g0 = rng.gamma(100.0, 0.01, (D, k)).astype(np.float32)
+    return ids, cnts, g0, eeb, alpha
+
+
+def _dense_case(D=16, V=64, k=K, seed=3):
+    rng = np.random.default_rng(seed)
+    counts = ((rng.random((D, V)) < 0.3)
+              * rng.integers(1, 4, (D, V))).astype(np.float32)
+    counts[-1] = 0.0
+    lam = rng.gamma(1.0, 1.0, (k, V)).astype(np.float32)
+    eeb = np.asarray(jd.exp_dirichlet_expectation(jnp.asarray(lam)))
+    alpha = np.full(k, 0.1, np.float32)
+    g0 = rng.gamma(100.0, 0.01, (D, k)).astype(np.float32)
+    return counts, g0, eeb, alpha
+
+
+def _sstats_case(D=24, V=200, k=K, seed=5, v_pad=56):
+    rng = np.random.default_rng(seed)
+    counts = ((rng.random((D, V)) < 0.05)
+              * rng.integers(1, 4, (D, V))).astype(np.float32)
+    counts[3, :40] += 1.0  # a long row
+    counts[:, 7] += 1.0  # a column every row uses
+    counts = np.pad(counts, ((0, 0), (0, v_pad)))
+    gamma = rng.gamma(100.0, 0.01, (D, k)).astype(np.float32)
+    lam = rng.gamma(100.0, 0.01, (k, V)).astype(np.float32)
+    et = np.asarray(jd.exp_dirichlet_expectation(jnp.asarray(gamma)))
+    eeb = np.asarray(jd.exp_dirichlet_expectation(jnp.asarray(lam)))
+    return counts, et, eeb
+
+
+# -- the TPU kernels in interpret mode ------------------------------------------
+
+
+def test_ragged_gamma_wide_matches_pallas_interpret():
+    """The wrapper's CPU route against ``pallas_estep_ragged_gamma``
+    (interpret mode, f32 storage) at 10 pinned sweeps, rtol 5e-4."""
+    ids, cnts, g0, eeb, alpha = _ragged_case()
+    g, s = ragged_mod.ragged_gamma(_t(ids), _t(cnts), _t(g0), _t(eeb),
+                                   _t(alpha), inner_iterations=10,
+                                   convergence_threshold=0.0)
+    g_p, _ = pallas_estep_ragged_gamma(
+        jnp.asarray(ids), jnp.asarray(cnts), jnp.asarray(g0),
+        jnp.asarray(eeb), jnp.asarray(alpha), inner_iterations=10,
+        convergence_threshold=0.0, tile_d=16, tile_t=16,
+        storage_dtype="float32", interpret=True)
+    assert int(s) == 10
+    np.testing.assert_allclose(g.numpy(), np.asarray(g_p), rtol=5e-4,
+                               atol=5e-4)
+
+
+@pytest.mark.parametrize("k", [K, 8192])
+def test_dense_estep_wide_matches_pallas_interpret(k):
+    """The wrapper's CPU route against ``pallas_estep_dense`` (interpret
+    mode, f32 storage) at 10 pinned sweeps: gamma rtol 5e-4, sstats rtol
+    1e-4 (of the largest entry below it), the score rel 1e-4."""
+    counts, g0, eeb, alpha = _dense_case(k=k)
+    kw = dict(inner_iterations=10, convergence_threshold=0.0, eps=1e-30)
+    g, ss, tok, s = dense_mod.dense_estep(_t(counts), _t(g0), _t(eeb),
+                                          _t(alpha), **kw)
+    g_p, ss_p, tok_p = (np.asarray(x) for x in pallas_estep_dense(
+        jnp.asarray(counts), jnp.asarray(g0), jnp.asarray(eeb),
+        jnp.asarray(alpha), tile_d=16, storage_dtype="float32",
+        interpret=True, **kw))
+    assert int(s) == 10 and ss.shape == (k, 64)
+    np.testing.assert_allclose(g.numpy(), g_p, rtol=5e-4, atol=5e-4)
+    np.testing.assert_allclose(ss.numpy(), ss_p, rtol=1e-4,
+                               atol=1e-4 * np.abs(ss_p).max())
+    assert float(tok) == pytest.approx(float(tok_p), rel=1e-4)
+
+
+@pytest.mark.parametrize("compute_dtype", MODES)
+@pytest.mark.parametrize("k", [K, 8192])
+def test_dense_sstats_wide_matches_pallas_interpret(k, compute_dtype):
+    """The wrapper's CPU route against ``pallas_dense_sstats`` (interpret
+    mode) with bf16 counts, vocab padding, a long row and a column every
+    row uses: rtol 2e-5 (atol 1e-6 of the largest entry), the score rel
+    2e-5."""
+    counts, et, eeb = _sstats_case(k=k)
+    ct = _t(counts).to(torch.bfloat16)
+    ss, tok = sstats_mod.dense_sstats(ct, _t(et), _t(eeb),
+                                      compute_dtype=compute_dtype)
+    ss_p, tok_p = pallas_dense_sstats(
+        jnp.asarray(counts).astype(jnp.bfloat16), jnp.asarray(et),
+        jnp.asarray(eeb), compute_dtype=compute_dtype, interpret=True)
+    ss_p = np.asarray(ss_p)
+    assert ss.shape == (k, 200)
+    np.testing.assert_allclose(ss.numpy(), ss_p, rtol=2e-5,
+                               atol=1e-6 * np.abs(ss_p).max())
+    assert float(tok) == pytest.approx(float(tok_p), rel=2e-5)
+
+
+# -- the XLA functions ------------------------------------------------------------
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float((np.abs(a - b) / np.abs(b)).max())
+
+
+def _share_err(ids, cnts, gamma, gamma_ref, eeb, alpha):
+    """Max relative gap of the documents' shares of the bound (float64),
+    over the rows with a token (an all-padding row's share is 0)."""
+    live = cnts.sum(axis=1) > 0
+    ids, cnts, gamma, gamma_ref = ids[live], cnts[live], gamma[live], \
+        gamma_ref[live]
+    args = (_t(ids), _t(cnts).double())
+    e64, a64 = _t(eeb).double(), _t(alpha).double()
+    got = ragged_doc_bound(*args, _t(gamma).double(), e64, a64)
+    want = ragged_doc_bound(*args, _t(gamma_ref).double(), e64, a64)
+    return float(((got - want).abs() / want.abs()).max())
+
+
+def _ragged_both(case, compute_dtype, **kw):
+    ids, cnts, g0, eeb, alpha = case
+    g, s = estep_ragged_gamma(_t(ids), _t(cnts), _t(g0), _t(eeb), _t(alpha),
+                              compute_dtype=compute_dtype, **kw)
+    g_j, s_j = jax_ragged_gamma(
+        jnp.asarray(ids), jnp.asarray(cnts), jnp.asarray(g0),
+        jnp.asarray(eeb), jnp.asarray(alpha), compute_dtype=compute_dtype,
+        **kw)
+    return g.numpy(), int(s), np.asarray(g_j), int(s_j)
+
+
+def test_ragged_gamma_wide_matches_xla():
+    """float32: 12 pinned sweeps rtol 1e-4; the default exit rule
+    (threshold 1e-5, patience 6) per row 5e-4 + K * threshold, the sweep
+    count within 1."""
+    case = _ragged_case()
+    g, s, g_j, s_j = _ragged_both(case, "float32", inner_iterations=12,
+                                  convergence_threshold=0.0)
+    assert s == s_j == 12
+    np.testing.assert_allclose(g, g_j, rtol=RTOL, atol=1e-5)
+    g, s, g_j, s_j = _ragged_both(case, "float32", inner_iterations=50,
+                                  convergence_threshold=1e-5,
+                                  stall_patience=6)
+    assert abs(s - s_j) <= 1
+    np.testing.assert_allclose(g, g_j, rtol=GAMMA_TOL,
+                               atol=GAMMA_TOL + K * 1e-5)
+
+
+def test_ragged_gamma_wide_bf16_matches_xla():
+    """bf16 operands, tests/test_torch_bf16.py's bars: one pinned sweep
+    rel 1e-5; after 12 each document's share of the bound rel 2e-4 (a
+    ratio at a bf16 midpoint may round one ulp apart and be carried)."""
+    case = _ragged_case()
+    ids, cnts, _, eeb, alpha = case
+    g, s, g_j, s_j = _ragged_both(case, BF16, inner_iterations=1,
+                                  convergence_threshold=0.0)
+    assert s == s_j == 1 and _rel(g, g_j) <= 1e-5
+    g, s, g_j, s_j = _ragged_both(case, BF16, inner_iterations=12,
+                                  convergence_threshold=0.0)
+    assert s == s_j == 12
+    assert _share_err(ids, cnts, g, g_j, eeb, alpha) <= 2e-4
+
+
+@pytest.mark.parametrize("compute_dtype", MODES)
+def test_dense_estep_wide_matches_xla(compute_dtype):
+    """``estep_dense`` at pinned sweeps: float32 after 12, gamma rtol 5e-4
+    (the fixed point's per-row tolerance: 12 sweeps carry the
+    reassociation of 4224-term sums, up to 1.3e-4 here), sstats rtol 1e-4
+    of the largest entry, the score rel 1e-4; bf16 after one
+    (tests/test_torch_bf16.py: gamma and the score rel 1e-5)."""
+    counts, g0, eeb, alpha = _dense_case()
+    sweeps = 12 if compute_dtype == "float32" else 1
+    kw = dict(inner_iterations=sweeps, convergence_threshold=0.0,
+              compute_dtype=compute_dtype)
+    g, ss, tok, s = dense_mod.dense_estep(_t(counts), _t(g0), _t(eeb),
+                                          _t(alpha), **kw)
+    g_j, ss_j, tok_j, s_j = (np.asarray(x) for x in jax_dense(
+        jnp.asarray(counts), jnp.asarray(g0), jnp.asarray(eeb),
+        jnp.asarray(alpha), **kw))
+    assert int(s) == int(s_j) == sweeps
+    if compute_dtype == BF16:
+        assert _rel(g.numpy(), g_j) <= 1e-5
+        assert float(tok) == pytest.approx(float(tok_j), rel=1e-5)
+        return
+    np.testing.assert_allclose(g.numpy(), g_j, rtol=GAMMA_TOL, atol=1e-5)
+    np.testing.assert_allclose(ss.numpy(), ss_j, rtol=RTOL,
+                               atol=RTOL * np.abs(ss_j).max())
+    assert float(tok) == pytest.approx(float(tok_j), rel=RTOL)
+
+
+@pytest.mark.parametrize("compute_dtype", MODES)
+def test_dense_sstats_wide_matches_xla_topic_range(compute_dtype):
+    """The full call and a topic range across the 4096 boundary against
+    the XLA function's rows: rtol 2e-5; the range's rows are the full
+    call's rows and its score the full score."""
+    counts, et, eeb = _sstats_case()
+    ct = _t(counts).to(torch.bfloat16)
+    ss, tok = sstats_mod.dense_sstats(ct, _t(et), _t(eeb),
+                                      compute_dtype=compute_dtype)
+    part, tok_r = sstats_mod.dense_sstats(ct, _t(et), _t(eeb),
+                                          compute_dtype=compute_dtype,
+                                          topic_range=(1000, 4200))
+    ss_j, tok_j = jax_dense_sstats(jnp.asarray(counts), jnp.asarray(et),
+                                   jnp.asarray(eeb),
+                                   compute_dtype=compute_dtype)
+    ss_j = np.asarray(ss_j)
+    np.testing.assert_allclose(ss.numpy(), ss_j, rtol=2e-5,
+                               atol=1e-6 * np.abs(ss_j).max())
+    assert float(tok) == pytest.approx(float(tok_j), rel=2e-5)
+    assert part.shape == (3200, 200)
+    torch.testing.assert_close(part, ss[1000:4200], rtol=0, atol=0)
+    assert float(tok_r) == float(tok)
+
+
+# -- the kernels' arithmetic orders, emulated -------------------------------------
+
+LANES, THREADS, WARPS = 32, 256, 8
+
+
+def _butterfly(x):
+    """The xor butterfly over the last axis of 32 lanes (16, 8, .., 1):
+    every lane ends with the same sum."""
+    idx = torch.arange(LANES)
+    for off in (16, 8, 4, 2, 1):
+        x = x + x[..., idx ^ off]
+    return x[..., 0]
+
+
+def _tiled_sweep_row(ids, cnts, eeb, alpha, eps, compute_dtype):
+    """One row's sweep in the tiled kernel's order: phinorm a warp an
+    entry (lane l: 16-byte units l, l + 32, .. in four running sums, then
+    the butterfly), the ratio, step B by topic tiles of 4096 (each topic
+    summed over the entries in order), gamma', and |dgamma| and gamma'
+    summed a thread in (tile, unit, topic) order, then a warp's lanes by
+    the butterfly and the 8 warps in order."""
+    rnd = bf16_round if compute_dtype == BF16 else (lambda x: x)
+    k = eeb.shape[0]
+    unit = 8 if compute_dtype == BF16 else 4
+    ldb = -(-k // unit) * unit
+    units = ldb // unit
+    per_lane = -(-units // LANES)
+
+    def sweep_row(d, et, g):
+        live = cnts[d] != 0
+        B = torch.zeros((int(live.sum()), per_lane * LANES * unit),
+                        dtype=et.dtype)
+        B[:, :k] = rnd(eeb.T[ids[d][live]])
+        e = torch.zeros(per_lane * LANES * unit, dtype=et.dtype)
+        e[:k] = rnd(et[0])
+        prod = (B * e).reshape(-1, per_lane, LANES, unit)
+        # f32: four sums of one float4's lanes; bf16: a unit of 8 topics
+        # feeds the four sums twice.
+        parts = prod.reshape(-1, per_lane, LANES, unit // 4, 4)
+        a = torch.zeros(parts.shape[0], LANES, 4, dtype=et.dtype)
+        for j in range(per_lane):
+            for h in range(unit // 4):
+                a = a + parts[:, j, :, h, :]
+        ph = _butterfly((a[..., 0] + a[..., 1]) + (a[..., 2] + a[..., 3]))
+        ratio = rnd(cnts[d][live] / (ph + eps))
+        acc = torch.zeros(k, dtype=et.dtype)
+        Bf = B[:, :k] if compute_dtype == "float32" else eeb.T[ids[d][live]]
+        Bf = rnd(Bf)
+        for t0 in range(0, k, rfp.TILE_TOPICS):
+            t1 = min(k, t0 + rfp.TILE_TOPICS)
+            for t in range(Bf.shape[0]):
+                acc[t0:t1] = acc[t0:t1] + ratio[t] * Bf[t, t0:t1]
+        x = alpha + et[0] * acc
+        dx = (x - g[0]).abs()
+        # Thread tid owns the float4s q = tid + 256 m: topics 4q..4q+3.
+        k4 = -(-k // 4)
+        m_count = -(-k4 // THREADS)
+        pad = torch.zeros(m_count * THREADS * 4, dtype=et.dtype)
+        sums = []
+        for v in (dx, x):
+            p = pad.clone()
+            p[:k] = v
+            per = p.reshape(m_count, THREADS, 4)
+            tot = torch.zeros(THREADS, dtype=et.dtype)
+            for m in range(m_count):
+                for c in range(4):
+                    tot = tot + per[m, :, c]
+            w = _butterfly(tot.reshape(WARPS, LANES))
+            s = torch.zeros((), dtype=et.dtype)
+            for i in range(WARPS):
+                s = s + w[i]
+            sums.append(s)
+        return x[None], sums[0] / k
+
+    return sweep_row
+
+
+def _row_major_tiled(sweep_row, g0, inner, threshold, patience):
+    """The kernels' row-major schedule (tests/test_torch_row_schedule.py)
+    with the tiled sweep: (gamma, S*)."""
+    use_stall = patience > 0 and threshold > 0.0
+
+    def run(d, max_sweeps, count):
+        g = g0[d:d + 1]
+        et = exp_dirichlet_expectation(g)
+        best = torch.full((1,), float("inf"), dtype=g.dtype)
+        age = torch.zeros((1,), dtype=torch.int32)
+        done = torch.zeros((1,), dtype=torch.bool)
+        s = 0
+        while s < max_sweeps:
+            g_new, change = sweep_row(d, et, g)
+            best, age, done, exitable = _exit_update(
+                change[None], best, age, done, threshold, use_stall, patience)
+            if count is not None and not bool(exitable):
+                count[s] += 1
+            g, et = g_new, exp_dirichlet_expectation_fast(g_new)
+            s += 1
+            if bool(done):
+                break
+        return g[0], s
+
+    not_exitable = [0] * inner
+    first = [run(d, inner, not_exitable) for d in range(g0.shape[0])]
+    s_star = next((s + 1 for s, n in enumerate(not_exitable) if n == 0), inner)
+    gamma = torch.stack([g if s <= s_star else run(d, s_star, None)[0]
+                         for d, (g, s) in enumerate(first)])
+    return gamma, s_star
+
+
+@pytest.mark.parametrize("dtype,compute_dtype,threshold", [
+    (torch.float64, "float32", 1e-3), (torch.float64, BF16, 1e-3),
+    (torch.float32, "float32", 0.0), (torch.float32, BF16, 0.0)],
+    ids=["f64_exit", "f64_bf16_exit", "f32_pinned", "f32_bf16_pinned"])
+def test_tiled_sweep_order_matches_batch(dtype, compute_dtype, threshold):
+    """The tiled sweep under the row-major schedule against the batch
+    fixed point: in float64 at the exit rule (threshold 1e-3, patience 6)
+    the same S* and gamma to 1e-12; in float32 at 4 pinned sweeps, rtol
+    1e-5 (the orders differ by float32 reassociation only)."""
+    ids, cnts, g0, eeb, alpha = _ragged_case(D=6, T=12, V=200, seed=2)
+    ids, cnts = torch.tensor(ids), torch.tensor(cnts, dtype=dtype)
+    g0, alpha = torch.tensor(g0, dtype=dtype), torch.tensor(alpha, dtype=dtype)
+    eeb = torch.tensor(eeb, dtype=dtype)
+    inner = 30 if threshold else 4
+    patience = 6 if threshold else 0
+    want, sweeps = estep_ragged_gamma(
+        ids, cnts, g0, eeb, alpha, inner_iterations=inner,
+        convergence_threshold=threshold, stall_patience=patience,
+        compute_dtype=compute_dtype)
+    got, s_star = _row_major_tiled(
+        _tiled_sweep_row(ids, cnts, eeb, alpha, 1e-30, compute_dtype), g0,
+        inner, threshold, patience)
+    assert s_star == int(sweeps)
+    if threshold:
+        assert s_star < inner
+    rtol = 1e-12 if dtype == torch.float64 else 1e-5
+    torch.testing.assert_close(got, want, rtol=rtol, atol=0.0)
+
+
+def _two_pass_sstats(counts, et, eeb, eps, k0, k1, compute_dtype):
+    """The two passes' order: the nonzeros listed by column in row order;
+    pass 1 each nonzero's phinorm over topic tiles of 256 in order (a warp
+    a nonzero: a lane's running sum over its 8 topics of the tile, then
+    the butterfly), the ratio and the score; pass 2 topic k of column v
+    summed over its nonzeros in row order, times expElogbeta."""
+    rnd = bf16_round if compute_dtype == BF16 else (lambda x: x)
+    D, Vc = counts.shape
+    k, V = eeb.shape
+    c = counts.to(et.dtype)
+    eeb_w = torch.nn.functional.pad(eeb, (0, Vc - V))
+    tile = sstats_mod.TWO_PASS_TOPICS
+    cols, rows = torch.nonzero(c.T != 0, as_tuple=True)  # column-major
+    ph = torch.zeros(rows.shape[0], dtype=et.dtype)
+    for t0 in range(0, k, tile):
+        e = torch.zeros(rows.shape[0], tile, dtype=et.dtype)
+        b = torch.zeros_like(e)
+        t1 = min(k, t0 + tile)
+        e[:, :t1 - t0] = rnd(et[rows, t0:t1])
+        b[:, :t1 - t0] = rnd(eeb_w[t0:t1, cols].T)
+        lanes = torch.zeros(rows.shape[0], LANES, dtype=et.dtype)
+        for m in range(tile // LANES):
+            sl = slice(m * LANES, (m + 1) * LANES)
+            lanes = lanes + e[:, sl] * b[:, sl]
+        ph = ph + _butterfly(lanes) if t0 else _butterfly(lanes)
+    cv = c[rows, cols]
+    pn = ph + eps
+    ratio = rnd(cv / pn)
+    score = (cv * torch.log(pn)).sum()
+    raw = torch.zeros(k1 - k0, V, dtype=et.dtype)
+    for i in range(rows.shape[0]):
+        if cols[i] < V:
+            raw[:, cols[i]] += rnd(et[rows[i], k0:k1]) * ratio[i]
+    return eeb[k0:k1] * raw, score
+
+
+@pytest.mark.parametrize("compute_dtype", MODES)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_two_pass_sstats_order_matches_batch(dtype, compute_dtype):
+    """The two passes' order against ``estep_dense_sstats`` (float64:
+    rtol 1e-12; float32: 1e-5 and the score rel 1e-5), and a topic range
+    across a tile boundary equal to the full call's rows."""
+    counts, et, eeb = _sstats_case(D=10, V=40, seed=9, v_pad=8)
+    counts, et, eeb = (torch.tensor(x, dtype=dtype) for x in (counts, et, eeb))
+    want, score_w = estep_dense_sstats(counts, et, eeb,
+                                       compute_dtype=compute_dtype)
+    got, score = _two_pass_sstats(counts, et, eeb, 1e-30, 0, K, compute_dtype)
+    rtol = 1e-12 if dtype == torch.float64 else 1e-5
+    torch.testing.assert_close(got, want, rtol=rtol,
+                               atol=rtol * float(want.abs().max()))
+    assert float(score) == pytest.approx(float(score_w), rel=rtol)
+    part, _ = _two_pass_sstats(counts, et, eeb, 1e-30, 1000, 4200,
+                               compute_dtype)
+    torch.testing.assert_close(part, got[1000:4200], rtol=0, atol=0)
+
+
+# -- the plans and the scratch ------------------------------------------------------
+
+
+def test_sstats_plan_above_4096():
+    """The two passes' grid at config 5's first chunk ([1216, 100352]
+    bf16, 182,065 nonzeros) and K = 8192: 3,136 first-pass CTAs of 32
+    columns, one split, K rounded up to the second pass's topic tiles (a
+    range: the whole K's grid), and the scratch: the f64 score parts, the
+    int64 column starts and 12 bytes a nonzero."""
+    pl = sstats_mod.plan(1216, 100352, 8192, 132, nnz=182065)
+    assert pl.two_pass and (pl.tiles, pl.cols, pl.splits) == (3136, 32, 1)
+    assert pl.kp == 8192 and pl.blocks == 3136
+    assert pl.rows_per_split == 1216 and pl.partial_floats == 0
+    assert pl.scratch_bytes == 8 * 3136 + 8 * 100353 + 12 * 182065
+    rng = sstats_mod.plan(1216, 100352, 8192, 132, (4096, 8192), nnz=1)
+    assert (rng.tiles, rng.kp) == (pl.tiles, pl.kp)
+    for k, kp in ((4097, 4352), (5000, 5120), (16384, 16384)):
+        p = sstats_mod.plan(100, 1000, k, 132)
+        assert (p.kp, p.tiles) == (kp, 32), k
+    assert not sstats_mod.plan(100, 1000, 4096, 132).two_pass
+
+
+def test_gamma_scratch_above_4096():
+    """The tiled kernel's state a block (expEtheta, its rounded copy and
+    gamma at K rounded up to 8, then a ratio a live entry rounded up to
+    4: 99 KB at SVI config 5's widest rows and K = 8192), and the fields
+    the launcher writes back."""
+    assert rfp.RESIDENT_TOPICS == rfp.TILE_TOPICS == 4096
+    assert not rfp.tiled(4096) and rfp.tiled(4097)
+    assert rfp.tiled_state_floats(8192, 160) == 3 * 8192 + 160
+    assert rfp.tiled_state_floats(5000, 61) == 3 * 5000 + 64
+    assert rfp.tiled_state_floats(4097, 1) == 3 * 4104 + 4
+    fields = [f for f, _ in rfp.Params._fields_]
+    assert "state" in fields and fields[-1] == "tile"
+    assert rfp.GEOMETRY[-1] == "tile"
+
+
+# -- the engines and the CLI ------------------------------------------------------
+
+ENGINE = dict(number_of_topics=K, doc_pad_multiple=8, inner_iterations=6,
+              convergence_threshold=0.0, hyper_parameter_optimize_interval=2,
+              seed=0)
+ROUTES = {"ragged": dict(dense_vocab_threshold=16), "dense": {}}
+
+
+@pytest.fixture(scope="module")
+def data():
+    kw = dict(num_docs=40, num_topics=8, num_types=60, mean_doc_length=20.0,
+              seed=3)
+    return dict(corpus=synthetic_corpus(**kw)[0], corpus_j=jax_synthetic(**kw)[0],
+                lam0=np.random.default_rng(11).gamma(100.0, 0.01, (K, 60)))
+
+
+@pytest.mark.parametrize("scatter", [False, True],
+                         ids=["dense_sstats", "scatter"])
+def test_ragged_launch_rows_follow_the_device(data, scatter):
+    """``estep_memory_budget_mb`` caps a ragged batch's rows only where
+    [rows, T, K] arrays are made: on the CPU (the JAX engine's batches,
+    shape for shape) and on the scatter route; on the card with dense
+    sufficient statistics each bucket is one launch, the same rows."""
+    from pylda_tpu.models import layouts as jax_layouts
+
+    from pylda_tpu_torch.models import layouts
+
+    assert layouts.chunks_ragged_rows("cpu", scatter)
+    assert layouts.chunks_ragged_rows("cuda", scatter) == scatter
+    cfg = {**ENGINE, **ROUTES["ragged"], "estep_memory_budget_mb": 1,
+           "sstats_mode": "scatter" if scatter else "auto"}
+    eng = VariationalBayes(LDAConfig(**cfg), device="cpu")
+    eng.initialize(data["corpus"], lam_init=data["lam0"])
+    theirs = jax_layouts.build_vb_batches(data["corpus_j"], JaxConfig(**cfg))
+    assert [tuple(b.ids.shape) for b in eng._batches] == [
+        tuple(b.ids.shape) for b in theirs]
+    chunked = layouts.build_vb_batches(data["corpus"], LDAConfig(**cfg))
+    whole = layouts.build_vb_batches(data["corpus"], LDAConfig(**cfg),
+                                     chunk_ragged=False)
+    widths = [b.ids.shape[1] for b in whole]
+    assert len(widths) == len(set(widths)) < len(chunked)
+    for w in widths:
+        np.testing.assert_array_equal(
+            np.concatenate([b.ids for b in chunked if b.ids.shape[1] == w]),
+            next(b.ids for b in whole if b.ids.shape[1] == w))
+
+
+def _assert_state_close(ours, theirs):
+    for f in ("lam", "alpha", "eta"):
+        np.testing.assert_allclose(
+            getattr(ours.state, f).numpy(),
+            np.asarray(getattr(theirs.state, f)), rtol=RTOL,
+            atol=LAM_ATOL if f == "lam" else 0.0, err_msg=f)
+
+
+@pytest.mark.parametrize("route", ["ragged", "dense"])
+def test_vb_wide_matches_jax(data, route):
+    """Batch VB at K = 4224, 6 pinned sweeps, 2 iterations (a hyper
+    update at the second) from one lambda: ELBOs rel 1e-4, lambda rtol
+    1e-4 (atol 1e-4), alpha and eta rtol 1e-4, gamma 5e-4."""
+    cfg = {**ENGINE, **ROUTES[route]}
+    ours = VariationalBayes(LDAConfig(**cfg), device="cpu")
+    ours.initialize(data["corpus"], lam_init=data["lam0"])
+    theirs = JaxVB(JaxConfig(**cfg))
+    theirs.initialize(data["corpus_j"], lam_init=data["lam0"])
+    assert (ours._sstats_plan is not None) == (route == "ragged")
+    e = [ours.learning() for _ in range(2)]
+    e_j = [theirs.learning() for _ in range(2)]
+    np.testing.assert_allclose(e, e_j, rtol=RTOL)
+    _assert_state_close(ours, theirs)
+    np.testing.assert_allclose(ours.gamma, np.asarray(theirs.gamma),
+                               rtol=GAMMA_TOL, atol=GAMMA_TOL)
+
+
+def test_svi_wide_matches_jax(data):
+    """SVI at K = 4224 on the ragged route, minibatches of 16, 6 pinned
+    sweeps, one epoch from one lambda: the estimates rel 1e-4, lambda
+    rtol 1e-4 (atol 1e-4)."""
+    cfg = {**ENGINE, **ROUTES["ragged"], "inference_mode": "svi",
+           "batch_size": 16, "tau0": 16.0, "kappa": 0.7}
+    ours = StochasticVariationalBayes(LDAConfig(**cfg), device="cpu")
+    ours.initialize(data["corpus"], lam_init=data["lam0"])
+    theirs = JaxSVI(JaxConfig(**cfg))
+    theirs.initialize(data["corpus_j"], lam_init=data["lam0"])
+    np.testing.assert_allclose(ours.learning(), theirs.learning(), rtol=RTOL)
+    _assert_state_close(ours, theirs)
+
+
+def test_cli_train_then_test_wide(tmp_path):
+    """The CLI at K = 4224 on the bundled corpus: 2 iterations of 5
+    sweeps, then the test CLI on the model file: a finite perplexity."""
+    out = tmp_path / "out"
+    rc = train_main([
+        f"--input_directory={bundled_corpus_dir()}",
+        f"--output_directory={out}", f"--number_of_topics={K}",
+        "--training_iterations=2", "--snapshot_interval=2",
+        "--inner_iterations=5", "--seed=1", "--device=cpu"])
+    assert rc == 0
+    (run,) = glob.glob(os.path.join(out, "*", "*"))
+    model = os.path.join(run, "model-2")
+    assert os.path.exists(model) or glob.glob(model + "*")
+    result = tmp_path / "gamma.out"
+    rc = cli_test_main([f"--model={model}",
+                        f"--input_directory={bundled_corpus_dir()}",
+                        f"--output_file={result}", "--point_estimate",
+                        "--device=cpu"])
+    assert rc == 0
+    gamma = np.loadtxt(result)
+    assert gamma.shape[1] == K and np.isfinite(gamma).all()
