@@ -24,16 +24,21 @@ Phases, in order (any failure exits non-zero):
    - at SVI config 4 (K=200, V=50,000, 16,384 documents, minibatches of
      1024) and SVI config 5 (K=1000, V=100,000, 8,192 documents,
      minibatches of 2048, 30 inner sweeps): the ragged gamma fixed point on
-     each bucket chunk of one gathered minibatch (with the rows longer than
-     the slot buffer, their windows a sweep and the launch's geometry) and
-     the dense sufficient statistics on its first bf16 counts chunk
-     ([1024, 50176] and [1216, 100352]);
+     each bucket of one gathered minibatch, one launch a bucket (with the
+     rows longer than the slot buffer, their windows a sweep and the
+     launch's geometry; at config 5 each bucket's rows fall into segments,
+     the chunks the 512 MB estep_memory_budget_mb cuts it into, each
+     ending at its own S*: held per segment, and each bucket held against
+     the CPU's chunked run, ``segments_card_vs_cpu``) and the dense
+     sufficient statistics on its first bf16 counts chunk ([1024, 50176]
+     and [1216, 100352]);
    - at K=1000 on the dense flagship's vocabulary (V=4096, 4096
      documents): the dense E-step with its final pass;
    the dense sufficient statistics are also called twice on each input and
    must return the same bits;
    the two gamma fixed points are held against their plain version run in
-   float64, and their lines also give S* (the sweeps the batch took), the
+   float64 and must return the same bits over two calls, and their lines
+   also give S* (the sweeps the batch, or each segment, took), the
    row-sweeps the kernels' row-major order computed past S*, and a
    histogram of each row's first exitable sweep; at the SVI shapes each
    document's share of the bound on the rows still updating at S* is held
@@ -156,15 +161,17 @@ Phases, in order (any failure exits non-zero):
    (two processes a flag, ten at once with the one-process CLIs): each
    model-6 bit for bit the one-process file.
 
-10. above K = 4096 (the gamma kernels' tiled kernel,
+10. above K = 4096 (the gamma kernels' cluster kernel,
    ``csrc/row_fixed_point_tiled.cuh``, and the sstats kernel's two passes;
    every launch there counts in ``<kernel>_wide`` too):
    - ``wide_k_kernels``: each kernel in both builds against its plain
      version at K in WIDE_KS (4100, 5000, 8192, 16384) with the holds of
-     the K <= 4096 lines: the ragged gamma on a 256-row bucket of config
-     5's corpus, the dense E-step at D = 256, V = 4096, the sstats on
-     config 5's first [1216, 100352] chunk at K = 8192 (25,088 columns at
-     the other K), bitwise over two calls, and its topic range at K = 8192
+     the K <= 4096 lines, each bitwise over two calls: the ragged gamma on
+     a 256-row bucket of config 5's corpus, the dense E-step at D = 256,
+     V = 4096 (each gamma line with the cluster kernel's geometry), the
+     cluster kernel's direct plan (which takes K past 65,536) at K = 8192
+     on that bucket bitwise the default plan's, the sstats on config 5's first [1216, 100352] chunk at K = 8192
+     (25,088 columns at the other K), and its topic range at K = 8192
      over [0, 4096), [4096, 8192) and [1000, 5000), each bitwise the full
      launch's rows;
    - ``wide_k_vb`` (the ragged flagship at K = 8192) and ``wide_k_dense``
@@ -224,6 +231,7 @@ import functools
 import hashlib
 import itertools
 import json
+import os
 import pathlib
 import shutil
 import subprocess
@@ -359,9 +367,66 @@ def nvidia_smi() -> str:
 
 
 def wide_tag(K: int) -> str:
-    """"_wide" above K = 4096 (the kernels' tiled and two-pass range), the
-    suffix of its kernel lines and launch counts."""
+    """"_wide" above K = 4096 (the kernels' cluster and two-pass range),
+    the suffix of its kernel lines and launch counts."""
     return "_wide" if K > 4096 else ""
+
+
+def sweeps_list(s) -> list:
+    """A gamma call's sweep counts (one, or one a segment) as ints."""
+    return [int(x) for x in s.reshape(-1)]
+
+
+def sweeps_text(s) -> str:
+    """A gamma call's sweep count, or its segments' counts as a list."""
+    got = sweeps_list(s)
+    return str(got[0]) if s.dim() == 0 else str(got)
+
+
+def row_s_star(s, segments, rows: int):
+    """[rows] each row's exit sweep S*: its segment's, where the launch's
+    rows fall into segments."""
+    import torch
+
+    if segments is None:
+        return torch.full((rows,), int(s), dtype=torch.int64, device=s.device)
+    return s.long().repeat_interleave(torch.tensor(segments, device=s.device))
+
+
+def geometry_text(geo: dict) -> str:
+    """A gamma launch's geometry: the cluster kernel's plan above K = 4096,
+    else the slot buffer."""
+    if geo.get("cluster"):
+        return (f"cluster of {geo['cluster']} CTAs, slice {geo['tile']} "
+                f"topics, {geo['resident']} entries resident, windows of "
+                f"{geo['window']} ({geo['windows']} a sweep of the widest "
+                f"row), {geo['smem_bytes']} B a CTA, {geo['clusters']} "
+                f"clusters in flight, grid {geo['grid']}")
+    return (f"slot buffer {geo['nmax']} entries ({geo['smem_bytes']} B a "
+            f"block, {geo['blocks_per_sm']} blocks an SM, grid {geo['grid']})")
+
+
+def streamed_rows(geo: dict, live):
+    """(rows past the slot buffer or the cluster's resident entries, their
+    windows a sweep)."""
+    if geo.get("cluster"):
+        R, W = geo["resident"], max(1, geo["window"])
+        nr = live.clamp(max=R)
+        windows = int(((nr > 0).long() + (live - nr + W - 1) // W).sum())
+        return live > R, windows
+    nmax = geo["nmax"]
+    streamed = live > nmax
+    return streamed, int(((live[streamed] + nmax - 1) // nmax).sum())
+
+
+def sweep_floor_ms(geo: dict, live, row_sweeps, row_bytes: int,
+                   nbytes: float, compute_dtype: str = "float32") -> float:
+    """The cluster kernel's floor beside the bound: the inputs read once
+    and, for each row, the B rows of its entries past the resident ones
+    read once a sweep it needs (``row_bytes`` an entry)."""
+    past = (live.long() - geo["resident"]).clamp(min=0)
+    sweep_bytes = float((past * row_sweeps.long()).sum()) * row_bytes
+    return bound(0.0, nbytes + sweep_bytes, compute_dtype)[0]
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -392,21 +457,24 @@ def bound(flops: float, nbytes: float, compute_dtype: str = "float32"):
 
 
 def exit_report(g_k, g_64, g_32, s_k, s_64, row_exit, row_sweeps, extra,
-                gamma_atol, check_updating=True):
+                gamma_atol, check_updating=True, segments=None):
     """A gamma kernel against its plain version in float64 (and, printed
     only, in float32): (ok, max abs err, text).  The text also gives the
     errors of the rows that were done (frozen before S*) and of those
-    still updating at S*, S*, the row-sweeps the kernel computed past S*,
-    and a histogram of each row's first exitable sweep in 10-sweep bins
-    ("never": not within the sweeps it ran).  With ``check_updating``
-    False only the done rows are held to the tolerance: the rows still
-    updating at S* are printed (see ``ragged_checks``)."""
+    still updating at S*, S* (each segment's, where the rows fall into
+    ``segments``; each within 1 of the plain version's), the row-sweeps
+    the kernel computed past S*, and a histogram of each row's first
+    exitable sweep in 10-sweep bins ("never": not within the sweeps it
+    ran).  With ``check_updating`` False only the done rows are held to
+    the tolerance: the rows still updating at S* are printed (see
+    ``ragged_checks``)."""
     g_64 = g_64.float()
     diff = (g_k - g_64).abs()
-    done = row_sweeps < int(s_k)
+    done = row_sweeps < row_s_star(s_k, segments, g_k.shape[0])
     held = slice(None) if check_updating else done
     ok = bool((diff <= gamma_atol + GAMMA_RTOL * g_64.abs())[held].all())
-    ok = ok and abs(int(s_k) - int(s_64)) <= 1
+    ok = ok and all(abs(a - b) <= 1 for a, b in zip(sweeps_list(s_k),
+                                                    sweeps_list(s_64)))
     err, diff32 = float(diff.max()), (g_32 - g_64).abs()
     split = ", ".join(
         f"{name} {int(rows.sum())}: {float(diff[rows].max()):.3e} (f32 plain "
@@ -419,7 +487,8 @@ def exit_report(g_k, g_64, g_32, s_k, s_64, row_exit, row_sweeps, extra,
             int(((first > 10 * b) & (first <= 10 * b + 10)).sum())
             for b in range(n_bins)}
     hist["never"] = int((first == 0).sum())
-    text = (f"S* kernel {int(s_k)} plain f64 {int(s_64)}, row-sweeps past S* "
+    text = (f"S* kernel {sweeps_text(s_k)} plain f64 {sweeps_text(s_64)}, "
+            f"row-sweeps past S* "
             f"{int(extra)}, first exitable sweep {hist}, max_abs_err vs f64 "
             f"{err:.3e} (f32 plain vs f64 {float(diff32.max()):.3e}; "
             f"tolerance {gamma_atol:g} + {GAMMA_RTOL}*|gamma|; {split})")
@@ -615,10 +684,12 @@ def ragged_checks(label, batches, eeb, eeb_t, alpha, kw, gamma_atol, dev,
     updating are held by their share of the bound (``doc_bound``, to
     DOC_BOUND_RTOL), and every row is held to float64 at pinned sweeps
     (12 sweeps at threshold 0: no freezing, no exit), where the
-    trajectories compare exactly.  Each line gives the launch's geometry
-    (the slot buffer's live entries nmax, shared memory a block, blocks an
-    SM) and the rows that stream past the buffer with their windows a
-    sweep."""
+    trajectories compare exactly.  A bucket whose rows fall into segments
+    (``b.segments``: the chunks the CPU's layout makes; on the card one
+    launch) runs so in both, each segment held to its own S*.  Two calls
+    must give the same bits.  Each line gives the launch's geometry
+    (``geometry_text``) and the rows that stream past the buffer or the
+    cluster's resident entries with their windows a sweep."""
     import torch
 
     K, V = eeb.shape
@@ -628,6 +699,8 @@ def ragged_checks(label, batches, eeb, eeb_t, alpha, kw, gamma_atol, dev,
     rows_plain = []
     for i, b in enumerate(batches):
         Db, Tb = b.ids.shape
+        seg = getattr(b, "segments", None)
+        srows = getattr(b, "seg_rows", None)
         g0 = torch.ones((Db, K), dtype=torch.float32, device=dev)
         slots = torch.zeros((1,), dtype=torch.int64, device=dev)
         extra = torch.zeros((1,), dtype=torch.int64, device=dev)
@@ -639,17 +712,28 @@ def ragged_checks(label, batches, eeb, eeb_t, alpha, kw, gamma_atol, dev,
                                            extra_sweeps_out=extra,
                                            row_exit_out=row_exit,
                                            row_sweeps_out=row_sweeps,
-                                           geometry_out=geo, **kw)
-        g_p, s_p = plain(b.ids, b.cnts, g0, eeb, alpha, **kw)
+                                           geometry_out=geo, segments=seg,
+                                           seg_rows=srows, **kw)
+        g_k2, _ = ragged_mod.ragged_gamma(b.ids, b.cnts, g0, eeb, alpha,
+                                          eeb_t=eeb_t, segments=seg,
+                                          seg_rows=srows, **kw)
+        g_p, s_p = plain(b.ids, b.cnts, g0, eeb, alpha, segments=seg, **kw)
         g_64, s_64 = plain(b.ids, b.cnts.double(), g0.double(), eeb.double(),
-                           alpha.double(), **kw)
+                           alpha.double(), segments=seg, **kw)
         torch.cuda.synchronize()
         ok, err, fp_text = exit_report(g_k, g_64, g_p, s_k, s_64, row_exit,
                                        row_sweeps, extra, gamma_atol,
-                                       check_updating=not pinned)
+                                       check_updating=not pinned,
+                                       segments=seg)
+        bitwise = bool(torch.equal(g_k, g_k2))
+        ok = ok and bitwise
+        del g_k2
+        fp_text += f", two calls bitwise equal {bitwise}"
+        if seg is not None:
+            fp_text += f", segments {list(seg)}"
         live = (b.cnts != 0).sum(dim=1)
         if pinned:
-            updating = (row_sweeps >= int(s_k)) & (live > 0)
+            updating = (row_sweeps >= row_s_star(s_k, seg, Db)) & (live > 0)
             if updating.any():
                 ok_b, rel, text = bound_check(b.ids, b.cnts, updating, g_k,
                                               g_64, g_p, eeb, alpha,
@@ -674,27 +758,35 @@ def ragged_checks(label, batches, eeb, eeb_t, alpha, kw, gamma_atol, dev,
             ok = ok and ok0
         rows = int((live > 0).sum())
         nmax = geo["nmax"]
-        streamed = live > nmax
-        # The tiled kernel (nmax 0) reads each live row's list once a sweep.
-        windows = (int(((live[streamed] + nmax - 1) // nmax).sum()) if nmax
-                   else int(streamed.sum()))
+        streamed, windows = streamed_rows(geo, live)
         # Bytes: ids and counts, the table rows of the chunk's distinct
-        # live ids, alpha and gamma0 read once; gamma written once.
+        # live ids, alpha and gamma0 read once; gamma written once.  Above
+        # K = 4096 a row the cluster cannot keep resident reads its
+        # streamed entries' B rows once a sweep at least: that floor is
+        # printed beside.
         rows_needed = int(torch.unique(b.ids[b.cnts != 0]).numel())
         flops = 4.0 * K * int(slots)
         nbytes = Db * Tb * 8 + rows_needed * K * 4 + 2 * Db * K * 4 + K * 4
         b_ms, b_by = bound(flops, nbytes)
+        floor_text = ""
+        if geo.get("cluster"):
+            floor = sweep_floor_ms(geo, live, row_sweeps,
+                                   eeb_t.shape[1] * 4, nbytes)
+            rg["sweep_floor_ms"] = rg.get("sweep_floor_ms", 0.0) + floor
+            floor_text = (f"; one HBM read a sweep of the entries past the "
+                          f"resident ones {floor:.5f} ms")
         k_ms = cuda_ms(lambda: ragged_mod.ragged_gamma(
-            b.ids, b.cnts, g0, eeb, alpha, eeb_t=eeb_t, **kw), 20)
-        p_ms = cuda_ms(lambda: plain(b.ids, b.cnts, g0, eeb, alpha, **kw), 3)
+            b.ids, b.cnts, g0, eeb, alpha, eeb_t=eeb_t, segments=seg,
+            seg_rows=srows, **kw), 20)
+        p_ms = cuda_ms(lambda: plain(b.ids, b.cnts, g0, eeb, alpha,
+                                     segments=seg, **kw), 3)
         print(f"kernel ragged_gamma{wide_tag(K)} {label} bucket {i} "
               f"[{Db}x{Tb}, K={K}]: "
-              f"sweeps plain f32 {int(s_p)}, {fp_text}, real slots processed "
-              f"{int(slots)}, slot buffer {nmax} entries ({geo['smem_bytes']} "
-              f"B a block, {geo['blocks_per_sm']} blocks an SM, grid "
-              f"{geo['grid']}), rows streamed past it {int(streamed.sum())} of "
-              f"{rows} ({windows} windows a sweep), kernel_ms {k_ms:.4f} "
-              f"plain_ms {p_ms:.4f} bound_ms {b_ms:.5f} ({b_by}) "
+              f"sweeps plain f32 {sweeps_text(s_p)}, {fp_text}, real slots "
+              f"processed {int(slots)}, {geometry_text(geo)}, rows streamed "
+              f"past it {int(streamed.sum())} of {rows} ({windows} windows a "
+              f"sweep), kernel_ms {k_ms:.4f} "
+              f"plain_ms {p_ms:.4f} bound_ms {b_ms:.5f} ({b_by}{floor_text}) "
               f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"ragged_gamma {label} bucket {i} disagrees "
@@ -708,16 +800,100 @@ def ragged_checks(label, batches, eeb, eeb_t, alpha, kw, gamma_atol, dev,
         rg["streamed_rows"] += int(streamed.sum())
         rg["windows"] += windows
         rg.update(nmax=nmax, smem_bytes=geo["smem_bytes"],
-                  blocks_per_sm=geo["blocks_per_sm"])
+                  blocks_per_sm=geo["blocks_per_sm"],
+                  **{f: geo[f] for f in ("cluster", "tile", "resident",
+                                         "window", "clusters")
+                     if geo.get("cluster")})
         rows_plain.append(g_p)
     rg["bound_ms"], rg["bound_by"] = bound(rg["flops"], rg["nbytes"])
     print(f"kernel ragged_gamma{wide_tag(K)} {label}: {rg['launches']} "
           f"launches, "
           f"{rg['ms']:.4f} ms (bound {rg['bound_ms']:.5f}, {rg['bound_by']}), "
-          f"rows streamed past the slot buffer ({rg['nmax']} entries at "
-          f"K={K}) {rg['streamed_rows']} of {rg['rows']}, {rg['windows']} "
-          f"windows a sweep")
+          f"rows streamed past the slot buffer or the resident entries "
+          f"({rg['nmax'] or rg.get('resident')} entries at K={K}) "
+          f"{rg['streamed_rows']} of {rg['rows']}, {rg['windows']} windows a "
+          f"sweep")
     return rg, rows_plain
+
+
+def segments_card_vs_cpu(label, buckets, eeb, eeb_t, alpha, kw, gamma_atol,
+                         dev, ragged_mod, plain, doc_bound) -> dict:
+    """The card's whole buckets with segments against the CPU's chunked
+    run: each bucket whose rows fall into segments (the chunks
+    ``estep_memory_budget_mb`` cuts it into) runs in one kernel launch on
+    the card, and on the CPU as the CPU engine runs it, each chunk its own
+    call of the plain version in float32.  Each segment's S* within 1 of
+    its chunk's; the rows done by S* within ``gamma_atol`` + GAMMA_RTOL *
+    |gamma| of the CPU's; the rows still updating at S* by their share of
+    the bound against the float64 plain version's (DOC_BOUND_RTOL, the
+    CPU's printed beside), as ``ragged_checks`` holds them.  Raises if one
+    disagrees; returns the segments' S* on both sides and the errors."""
+    import torch
+
+    K = eeb.shape[0]
+    eeb_c, alpha_c = eeb.cpu(), alpha.cpu()
+    out = {"s_star_card": [], "s_star_cpu": [], "max_abs_err_done": 0.0,
+           "doc_bound_rel_err": 0.0, "cpu_s": 0.0}
+    threads = torch.get_num_threads()
+    torch.set_num_threads(os.cpu_count() or 1)
+    try:
+        for i, b in enumerate(buckets):
+            seg = getattr(b, "segments", None)
+            if seg is None:
+                continue
+            Db = b.ids.shape[0]
+            g0 = torch.ones((Db, K), dtype=torch.float32, device=dev)
+            row_sweeps = torch.zeros((Db,), dtype=torch.int32, device=dev)
+            g_k, s_k = ragged_mod.ragged_gamma(
+                b.ids, b.cnts, g0, eeb, alpha, eeb_t=eeb_t,
+                row_sweeps_out=row_sweeps, segments=seg,
+                seg_rows=b.seg_rows, **kw)
+            ids_c, cnts_c = b.ids.cpu(), b.cnts.cpu()
+            t0 = time.perf_counter()
+            chunks, r0 = [], 0
+            for n in seg:
+                chunks.append(plain(ids_c[r0:r0 + n], cnts_c[r0:r0 + n],
+                                    torch.ones((n, K)), eeb_c, alpha_c, **kw))
+                r0 += n
+            out["cpu_s"] += time.perf_counter() - t0
+            g_c = torch.cat([g for g, _ in chunks]).to(dev)
+            s_c = [int(sw) for _, sw in chunks]
+            g_64, _ = plain(b.ids, b.cnts.double(), g0.double(), eeb.double(),
+                            alpha.double(), segments=seg, **kw)
+            torch.cuda.synchronize()
+            s_card = sweeps_list(s_k)
+            ok = all(abs(a - c) <= 1 for a, c in zip(s_card, s_c))
+            live = (b.cnts != 0).sum(dim=1)
+            done = row_sweeps < row_s_star(s_k, seg, Db)
+            diff = (g_k - g_c).abs()
+            err = float(diff[done].max()) if done.any() else 0.0
+            ok = ok and bool((diff <= gamma_atol
+                              + GAMMA_RTOL * g_c.abs())[done].all())
+            updating = ~done & (live > 0)
+            text = ""
+            if updating.any():
+                ok_b, rel, text = bound_check(b.ids, b.cnts, updating, g_k,
+                                              g_64, g_c, eeb, alpha,
+                                              doc_bound)
+                ok = ok and ok_b
+                out["doc_bound_rel_err"] = max(out["doc_bound_rel_err"], rel)
+            out["s_star_card"].append(s_card)
+            out["s_star_cpu"].append(s_c)
+            out["max_abs_err_done"] = max(out["max_abs_err_done"], err)
+            print(f"segments {label} bucket {i} [{Db}x{b.ids.shape[1]}, "
+                  f"K={K}] on {nvidia_smi()}: one launch of {len(seg)} "
+                  f"segments {list(seg)} against the CPU's {len(seg)} chunk "
+                  f"calls: S* card {s_card} CPU {s_c}; rows done by S* "
+                  f"{int(done.sum())}: max abs err vs the CPU {err:.3e} "
+                  f"(tolerance {gamma_atol:g} + {GAMMA_RTOL}*|gamma|){text} "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"segments {label} bucket {i}: the "
+                                     f"card's whole bucket disagrees with "
+                                     f"the CPU's chunked run")
+    finally:
+        torch.set_num_threads(threads)
+    return out
 
 
 def bf16_gamma_check(run, ids, cnts, eeb, alpha, doc_bound, kw):
@@ -765,8 +941,9 @@ def bf16_gamma_check(run, ids, cnts, eeb, alpha, doc_bound, kw):
             f"{BF16_ONE_SWEEP_RTOL:g} {int(flipped.sum())} of {int(live.sum())}"
             f" (at most {BF16_FLIP_ROWS:g} of them, each within "
             f"{BF16_FLIP_RTOL:g}; float32 mode's plain version {rel32:.3e}); "
-            f"exit rule: S* kernel {int(s_k)} plain {int(s_p)} plain f64 "
-            f"{int(s_64)}, each row's share of the bound rel err vs f64 "
+            f"exit rule: S* kernel {sweeps_text(s_k)} plain "
+            f"{sweeps_text(s_p)} plain f64 {sweeps_text(s_64)}, each row's "
+            f"share of the bound rel err vs f64 "
             f"{eb:.3e} (plain {eb_p:.3e}; tolerance {bar:.3e}: "
             f"{DOC_BOUND_RTOL} or {BF16_BOUND_FACTOR:g} x the plain "
             f"version's)")
@@ -790,31 +967,38 @@ def ragged_checks_bf16(label, batches, eeb, alpha, kw, dev, ragged_mod,
     rows_plain = []
     for i, b in enumerate(batches):
         Db, Tb = b.ids.shape
+        seg = getattr(b, "segments", None)
+        srows = getattr(b, "seg_rows", None)
         g0 = torch.ones((Db, K), dtype=torch.float32, device=dev)
 
-        def run(kind, kw0, b=b, g0=g0):
+        def run(kind, kw0, b=b, g0=g0, seg=seg, srows=srows):
             if kind == "kernel":
                 return ragged_mod.ragged_gamma(b.ids, b.cnts, g0, eeb, alpha,
                                                eeb_t=eeb_t, compute_dtype=BF16,
+                                               segments=seg, seg_rows=srows,
                                                **kw0)
             dt = torch.float64 if kind == "f64" else torch.float32
             return plain(b.ids, b.cnts.to(dt), g0.to(dt), eeb.to(dt),
-                         alpha.to(dt), **kw0,
+                         alpha.to(dt), **kw0, segments=seg,
                          compute_dtype="float32" if kind == "f32" else BF16)
 
         ok, err, eb, text, g_p = bf16_gamma_check(run, b.ids, b.cnts, eeb,
                                                   alpha, doc_bound, kw)
         slots = torch.zeros((1,), dtype=torch.int64, device=dev)
+        row_sweeps = torch.zeros((Db,), dtype=torch.int32, device=dev)
         geo = {}
-        ragged_mod.ragged_gamma(b.ids, b.cnts, g0, eeb, alpha, eeb_t=eeb_t,
-                                compute_dtype=BF16, slots_out=slots,
-                                geometry_out=geo, **kw)
+        g_k, _ = ragged_mod.ragged_gamma(b.ids, b.cnts, g0, eeb, alpha,
+                                         eeb_t=eeb_t, compute_dtype=BF16,
+                                         slots_out=slots, geometry_out=geo,
+                                         row_sweeps_out=row_sweeps,
+                                         segments=seg, seg_rows=srows, **kw)
+        bitwise = bool(torch.equal(g_k, run("kernel", kw)[0]))
+        ok = ok and bitwise
+        text += f", two calls bitwise equal {bitwise}"
+        del g_k
         live = (b.cnts != 0).sum(dim=1)
         nmax = geo["nmax"]
-        streamed = live > nmax
-        # The tiled kernel (nmax 0) reads each live row's list once a sweep.
-        windows = (int(((live[streamed] + nmax - 1) // nmax).sum()) if nmax
-                   else int(streamed.sum()))
+        streamed, windows = streamed_rows(geo, live)
         # Bytes: ids and counts, the bf16 table rows of the launch's
         # distinct live ids, alpha and gamma0 read once; gamma written.
         rows_needed = int(torch.unique(b.ids[b.cnts != 0]).numel())
@@ -822,16 +1006,23 @@ def ragged_checks_bf16(label, batches, eeb, alpha, kw, dev, ragged_mod,
         nbytes = (Db * Tb * 8 + rows_needed * eeb_t.shape[1] * 2
                   + 2 * Db * K * 4 + K * 4)
         b_ms, b_by = bound(flops, nbytes, BF16)
+        floor_text = ""
+        if geo.get("cluster"):
+            floor = sweep_floor_ms(geo, live, row_sweeps,
+                                   eeb_t.shape[1] * 2, nbytes, BF16)
+            rg["sweep_floor_ms"] = rg.get("sweep_floor_ms", 0.0) + floor
+            floor_text = (f"; one HBM read a sweep of the entries past the "
+                          f"resident ones {floor:.5f} ms")
         k_ms = cuda_ms(lambda: run("kernel", kw), 20)
         p_ms = cuda_ms(lambda: run("plain", kw), 3)
         print(f"kernel ragged_gamma{wide_tag(K)}_bf16 {label} bucket {i} "
               f"[{Db}x{Tb}, "
-              f"K={K}]: {text}, real slots processed {int(slots)}, slot "
-              f"buffer {nmax} entries ({geo['smem_bytes']} B a block, "
-              f"{geo['blocks_per_sm']} blocks an SM, grid {geo['grid']}), rows "
+              f"K={K}]: {text}, real slots processed {int(slots)}, "
+              f"{geometry_text(geo)}, rows "
               f"streamed past it {int(streamed.sum())} of "
               f"{int((live > 0).sum())} ({windows} windows a sweep), kernel_ms "
-              f"{k_ms:.4f} plain_ms {p_ms:.4f} bound_ms {b_ms:.5f} ({b_by}) "
+              f"{k_ms:.4f} "
+              f"plain_ms {p_ms:.4f} bound_ms {b_ms:.5f} ({b_by}{floor_text}) "
               f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"ragged_gamma bf16 {label} bucket {i} "
@@ -846,7 +1037,10 @@ def ragged_checks_bf16(label, batches, eeb, alpha, kw, dev, ragged_mod,
         rg["streamed_rows"] += int(streamed.sum())
         rg["windows"] += windows
         rg.update(nmax=nmax, smem_bytes=geo["smem_bytes"],
-                  blocks_per_sm=geo["blocks_per_sm"])
+                  blocks_per_sm=geo["blocks_per_sm"],
+                  **{f: geo[f] for f in ("cluster", "tile", "resident",
+                                         "window", "clusters")
+                     if geo.get("cluster")})
         rows_plain.append(g_p)
     rg["bound_ms"], rg["bound_by"] = bound(rg["flops"], rg["nbytes"], BF16)
     print(f"kernel ragged_gamma{wide_tag(K)}_bf16 {label}: {rg['launches']} "
@@ -908,6 +1102,8 @@ def dense_checks_bf16(label, corpus, beta, cfg, dev, f32_line, probe=None):
     g_k = dense_mod.dense_estep(dc, g0, eeb, alpha, compute_dtype=BF16,
                                 row_sweeps_out=row_sweeps, geometry_out=geo,
                                 **kw)[0]
+    bitwise = bool(torch.equal(g_k, run("kernel", kw)[0]))
+    ok = ok and bitwise
     fin = sstats_check(f"{label} final pass", dc,
                        exp_dirichlet_expectation(g_k), eeb, cfg.eps,
                        sstats_mod, estep_dense_sstats, compute_dtype=BF16)
@@ -916,16 +1112,20 @@ def dense_checks_bf16(label, corpus, beta, cfg, dev, f32_line, probe=None):
     nbytes = (dc.numel() * dc.element_size() + 2 * K * Vd * 4
               + 2 * Dd * K * 4 + K * 4 + 4)
     b_ms, b_by = bound(4.0 * K * work, nbytes, BF16)
+    floor = (sweep_floor_ms(geo, row_nnz, row_sweeps, -(-K // 8) * 16,
+                            nbytes, BF16) if geo.get("cluster") else None)
     k_ms = cuda_ms(lambda: run("kernel", kw), 5)
     p_ms = cuda_ms(lambda: run("plain", kw), 2)
-    streamed = int((row_nnz > geo["nmax"]).sum())
+    streamed = int(streamed_rows(geo, row_nnz)[0].sum())
     print(f"kernel dense_gamma{wide_tag(K)}_bf16 {label} [{Dd}x{dc.shape[1]} "
-          f"{str(dc.dtype)[6:]}, K={K}]: {text}, slot buffer {geo['nmax']} "
-          f"entries ({geo['smem_bytes']} B a block, {geo['blocks_per_sm']} "
-          f"blocks an SM), rows streamed past it {streamed}, kernel_ms "
-          f"{k_ms:.4f} (of which final pass dense_sstats_bf16 "
+          f"{str(dc.dtype)[6:]}, K={K}]: {text}, two calls bitwise equal "
+          f"{bitwise}, {geometry_text(geo)}, rows streamed past it "
+          f"{streamed}, kernel_ms {k_ms:.4f} (of "
+          f"which final pass dense_sstats_bf16 "
           f"{fin['ms']:.4f}) plain_ms {p_ms:.4f} bound_ms {b_ms:.5f} "
-          f"({b_by}); the float32 line of this input: {f32_line['ms']:.4f} ms "
+          f"({b_by}"
+          f"{'' if floor is None else f'; one HBM read a sweep of the entries past the resident ones {floor:.5f} ms'}"
+          f"); the float32 line of this input: {f32_line['ms']:.4f} ms "
           f"(bound {f32_line['bound_ms']:.5f}), slot buffer "
           f"{f32_line['nmax']} entries {'ok' if ok else 'FAIL'}")
     if not ok:
@@ -934,7 +1134,8 @@ def dense_checks_bf16(label, corpus, beta, cfg, dev, f32_line, probe=None):
     return {"name": label, "shape": [Dd, dc.shape[1]], "K": K,
             "max_abs_err": err, "doc_bound_rel_err": eb, "ms": k_ms,
             "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "nmax": geo["nmax"], "streamed_rows": streamed}, fin
+            "nmax": geo["nmax"], "streamed_rows": streamed,
+            **({} if floor is None else {"sweep_floor_ms": floor})}, fin
 
 
 def zero_launches(mods) -> None:
@@ -951,7 +1152,7 @@ def read_launches(mods) -> dict:
     bf16 build (its name + "_bf16"); for the sstats kernel also its
     topic-range launches ("dense_sstats_range", "dense_sstats_range_bf16",
     counted in its builds' launches too).  Of each, the launches above
-    K = 4096 (the tiled gamma kernel, the sstats kernel's two passes) as
+    K = 4096 (the gamma cluster kernel, the sstats kernel's two passes) as
     "<name>_wide" and "<name>_wide_bf16", counted in the others too."""
     out = {}
     for name, mod in mods.items():
@@ -1054,6 +1255,8 @@ def dense_checks(label, corpus, beta, cfg, dev, pinned=False, probe=None):
                                                   extra_sweeps_out=extra,
                                                   row_exit_out=row_exit,
                                                   geometry_out=geo, **kw)
+    bitwise = bool(torch.equal(
+        g_k, dense_mod.dense_estep(dc, g0, eeb, alpha, **kw)[0]))
     g_p, _, tok_p, s_p = estep_dense(dc, g0, eeb, alpha, **kw)
     g_64, _, _, s_64 = estep_dense(dc.double(), g0.double(), eeb.double(),
                                    alpha.double(), **kw)
@@ -1102,23 +1305,27 @@ def dense_checks(label, corpus, beta, cfg, dev, pinned=False, probe=None):
     dg_bound, dg_by = bound(4.0 * K * dg_work, dg_bytes)
     dg_dense_bound, _ = bound(4.0 * K * Vd * (row_sweeps_total + Dd),
                               dg_bytes)
+    floor = (sweep_floor_ms(geo, row_nnz, row_sweeps, -(-K // 4) * 16,
+                            dg_bytes) if geo.get("cluster") else None)
     dg_ms = cuda_ms(lambda: dense_mod.dense_estep(dc, g0, eeb, alpha,
                                                   **kw), 5)
     dg_plain_ms = cuda_ms(lambda: estep_dense(dc, g0, eeb, alpha, **kw), 2)
     fin = sstats_check(f"{label} final pass", dc,
                        exp_dirichlet_expectation(g_k), eeb, cfg.eps,
                        sstats_mod, estep_dense_sstats)
-    dg_ok = dg_ok and dss_ok and dtok_rel <= DENSE_SCORE_RTOL
-    streamed = int((row_nnz > geo["nmax"]).sum())
+    dg_ok = dg_ok and dss_ok and dtok_rel <= DENSE_SCORE_RTOL and bitwise
+    streamed = int(streamed_rows(geo, row_nnz)[0].sum())
     print(f"kernel dense_gamma{wide_tag(K)} {label} [{Dd}x{dc.shape[1]} "
           f"{str(dc.dtype)[6:]}, K={K}]: sweeps plain f32 {int(s_p)}, "
-          f"{fp_text}, row-sweeps needed {row_sweeps_total}, "
+          f"{fp_text}, two calls bitwise equal {bitwise}, row-sweeps needed "
+          f"{row_sweeps_total}, "
           f"nonzero counts {dg_nnz} ({dg_nnz / dc.numel():.4f} of the block), "
-          f"slot buffer {geo['nmax']} entries ({geo['smem_bytes']} B a block, "
-          f"{geo['blocks_per_sm']} blocks an SM), rows streamed past it "
-          f"{streamed}, kernel_ms {dg_ms:.4f} (of which final pass "
+          f"{geometry_text(geo)}, rows streamed past it "
+          f"{streamed}, kernel_ms {dg_ms:.4f} (of which "
+          f"final pass "
           f"dense_sstats {fin['ms']:.4f}) plain_ms {dg_plain_ms:.4f} bound_ms "
-          f"{dg_bound:.5f} ({dg_by}; dense form {dg_dense_bound:.5f}), sstats "
+          f"{dg_bound:.5f} ({dg_by}; dense form {dg_dense_bound:.5f}"
+          f"{'' if floor is None else f'; one HBM read a sweep of the entries past the resident ones {floor:.5f} ms'}), sstats "
           f"at the kernel's gamma {'ok' if dss_ok else 'FAIL'} (tolerance "
           f"{SSTATS_RTOL}*|ref| + {SSTATS_ATOL_REL}*max|ref|), score rel err "
           f"{dtok_rel:.3e} (tolerance {DENSE_SCORE_RTOL}) "
@@ -1130,7 +1337,8 @@ def dense_checks(label, corpus, beta, cfg, dev, pinned=False, probe=None):
             "max_abs_err": dg_err, "ms": dg_ms, "plain_ms": dg_plain_ms,
             "bound_ms": dg_bound, "bound_by": dg_by,
             "dense_form_bound_ms": dg_dense_bound, "nmax": geo["nmax"],
-            "streamed_rows": streamed, "doc_bound_rel_err": bound_err}, fin
+            "streamed_rows": streamed, "doc_bound_rel_err": bound_err,
+            **({} if floor is None else {"sweep_floor_ms": floor})}, fin
 
 
 def svi_kernel_lines(label, corpus, beta, cfg, dev, bf16=False,
@@ -1177,6 +1385,11 @@ def svi_kernel_lines(label, corpus, beta, cfg, dev, bf16=False,
         label, buckets, eeb, eeb_t, st.alpha, kw,
         5e-4 + K * cfg.convergence_threshold, dev, ragged_mod,
         estep_ragged_gamma, ragged_doc_bound, pinned=True)
+    if any(getattr(b, "segments", None) for b in buckets):
+        rg["segments_card_vs_cpu"] = segments_card_vs_cpu(
+            label, buckets, eeb, eeb_t, st.alpha, kw,
+            5e-4 + K * cfg.convergence_threshold, dev, ragged_mod,
+            estep_ragged_gamma, ragged_doc_bound)
     gamma_docs = _assemble_gamma_device(
         torch.cat(rows_plain), torch.cat([b.row_index for b in buckets]),
         st.alpha, mb_plan.num_docs,
@@ -3861,7 +4074,9 @@ def wide_kernels(corpus5, beta5, dcorpus, dbeta, dev) -> dict:
       K = 8192, on its first 25,088 columns at the other K
       (``sstats_check``: two calls bitwise), and the topic range at
       K = 8192 over WIDE_RANGES, each range's rows bitwise the full
-      launch's (``sstats_range_check``).
+      launch's (``sstats_range_check``);
+    - at K = 8192 the cluster kernel's direct plan on the ragged bucket
+      (``direct_plan_check``).
     Returns the records by kernel line name."""
     import types
 
@@ -3922,6 +4137,8 @@ def wide_kernels(corpus5, beta5, dcorpus, dbeta, dev) -> dict:
                                      ragged_doc_bound, rg)
         out["ragged_gamma_wide"].append({**rg, "K": K})
         out["ragged_gamma_wide_bf16"].append({**rg16, "K": K})
+        if K == WIDE_K:
+            direct_plan_check(label, bucket, eeb, alpha, kw)
         # The sstats chunk: expEtheta of peaked random topic mixtures.
         cols = WIDE_CHUNK_COLUMNS if K == WIDE_K else WIDE_CUT_COLUMNS
         c = counts[:, :cols].contiguous()
@@ -3962,6 +4179,48 @@ def wide_kernels(corpus5, beta5, dcorpus, dbeta, dev) -> dict:
         del probe
         torch.cuda.empty_cache()
     return out
+
+
+def direct_plan_check(label: str, bucket, eeb, alpha, kw: dict) -> None:
+    """The cluster kernel's direct plan (the plan past K = 65,536: each
+    CTA's slice state in device memory, B read from the table, no entry
+    resident) at the default plan's cluster and slice, in both builds: at
+    K = 8192 the default plan's slice has one group sum too, so gamma and
+    the sweeps must be bitwise the default launch's.  Launches through
+    ``row_fixed_point.launch``, not the wrappers, so no count moves."""
+    import torch
+
+    from pylda_tpu_torch.ops import row_fixed_point as rfp
+
+    ids, cnts = bucket.ids, bucket.cnts
+    K = eeb.shape[0]
+    g0 = torch.ones((ids.shape[0], K), device=ids.device)
+    args = (kw["inner_iterations"], kw["convergence_threshold"], kw["eps"],
+            kw["stall_patience"])
+    for cd in ("float32", BF16):
+        table = rfp.gather_table(eeb, cd)
+        plan = rfp.cluster_plan(K, ids.shape[1], cd, kw["inner_iterations"])
+        direct = dataclasses.replace(plan, resident=0, direct=True,
+                                     window=rfp.DIRECT_WINDOW)
+
+        def call(pl):
+            return rfp.launch(rfp.entry("ragged_gamma", cd), ids, cnts,
+                              ids.shape[1], table, alpha, g0, *args, plan=pl)
+
+        (g1, s1), (g2, s2) = call(plan), call(direct)
+        same = bool(torch.equal(g1, g2) and torch.equal(s1, s2))
+        ms = cuda_ms(lambda: call(direct), 3)
+        ms_default = cuda_ms(lambda: call(plan), 3)
+        print(f"kernel ragged_gamma_wide{'' if cd == 'float32' else '_bf16'} "
+              f"direct plan {label}: cluster {plan.cluster}, slice "
+              f"{plan.slice}, windows of {rfp.DIRECT_WINDOW}, sweeps "
+              f"{int(s2)}, kernel_ms {ms:.4f} (default plan {ms_default:.4f}),"
+              f" gamma and sweeps bitwise the default plan's {same} "
+              f"{'ok' if same else 'FAIL'}")
+        if not same:
+            raise AssertionError(f"direct plan {label} {cd} differs from the "
+                                 "default plan")
+        del table
 
 
 def wide_engines(corpus, test, dcorpus, dtest, corpus5, test5, dev, mods,
@@ -4637,7 +4896,7 @@ def main() -> int:
             **{k: line[k] for k in ("max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by", "full_range_ms")},
             "library_ms": None, "shapes": range_lines[cd]})
-    # The range above K = 4096 (the tiled gamma kernel, the sstats kernel's
+    # The range above K = 4096 (the gamma cluster kernel, the sstats kernel's
     # two passes and their topic range): counted in the lines above too.
     # Each line is the K = 8192 check's; "shapes" holds every K's.  The
     # bf16 topic range above 4096 is on no main path (shard_topics_vb_wide

@@ -42,8 +42,11 @@
 // reads of such a row are its nonzeros x 4 ldb bytes a sweep.  At K > 256
 // the core's wide kernels run (a thread owns several topics; 25 slots of
 // 4 KB at K=1000, so rows of more nonzeros stream); above K = 4096 the
-// tiled kernel of row_fixed_point_tiled.cuh (a row's state in device
-// memory, the topics in tiles of 4096).
+// cluster kernel of row_fixed_point_tiled.cuh (a cluster of CTAs a row,
+// each a slice of the topics and of the row's B rows in shared memory;
+// past K = 65,536 the direct plan, each slice's state in device memory and
+// B read from the table).
+// A dense batch is one segment.
 //
 // Built twice (ops/_build.py): as is, and with -DPYLDA_BF16=1, the sweeps
 // of estep_dense(compute_dtype="bfloat16"): a bf16 table, expEtheta and
@@ -57,8 +60,8 @@ extern "C" {
 // params: a Params (row_fixed_point.cuh) with ids null, cnts the counts
 // [D, ld] (bf16 if cnts_bf16, else f32; the first L = V columns used) and
 // table [V, ldb] = expElogbeta^T (f32, or bf16 with table_bf16 set in a
-// build with -DPYLDA_BF16=1), K >= 1 (above 4096 the tiled kernel, with
-// lists and state set); the launch's nmax, nhist, geometry and tile are
+// build with -DPYLDA_BF16=1), K >= 1 (above 4096 the cluster kernel, with
+// lists and the plan set); the launch's nmax, nhist and geometry are
 // written back into it.  stream: a cudaStream_t.
 // Returns the cudaError_t of the launch.
 int pylda_dense_gamma(void* params, void* stream) {

@@ -56,12 +56,18 @@
 // twice the slots a buffer), expEtheta and the ratio rounded to bf16 where
 // the reference rounds them, sums in f32 (row_fixed_point.cuh).
 //
-// Above K = 4096 (row_fixed_point_tiled.cuh) a row's expEtheta, gamma and
-// ratios live in the block's scratch in device memory, and each sweep
-// reads every live slot's B row twice (phinorm, then the topic tiles of
-// step B): at SVI config 5's corpus and K = 8192 a minibatch's ~307k live
-// slots move ~20 GB a sweep in f32 against 4*K FLOP a slot, bound by
-// bytes.
+// Above K = 4096 (row_fixed_point_tiled.cuh) a cluster of CTAs sweeps a
+// row, each CTA a slice of its topics in shared memory: a live slot's B
+// row is read once a call where the row fits the cluster's shared memory
+// and once a sweep where it does not (the tiled kernel it replaced read it
+// twice a sweep): at SVI config 5's corpus and K = 8192 a minibatch's ~307k live
+// slots are 4*K FLOP a slot a sweep against 32 KB of B each (f32), bound
+// by bytes wherever they stream.  Past K = 65,536 a slice no longer fits a
+// CTA, and the direct plan keeps it in device memory and reads B from the
+// table twice a sweep.
+//
+// A bucket's rows may fall into segments (Params.seg: the chunks the JAX
+// engine's layout would run apart), each ending at its own S*.
 
 #include "row_fixed_point_tiled.cuh"
 
@@ -70,8 +76,10 @@ extern "C" {
 // params: a Params (row_fixed_point.cuh) with ids and cnts [D, T] int32 and
 // f32 (cnts_bf16 0, ld = L = T), table [V, ldb] = expElogbeta^T (f32, or
 // bf16 with table_bf16 set in a build with -DPYLDA_BF16=1) and
-// K >= 1 (above 4096 the tiled kernel, with lists and state set); the
-// launch's nmax, nhist, geometry and tile are written back into it.  stream: a cudaStream_t.  Returns the cudaError_t of the launch.
+// K >= 1 (above 4096 the cluster kernel, with lists and the plan set), and
+// optionally seg / nseg; the launch's nmax, nhist and geometry are written
+// back into it.  stream: a cudaStream_t.  Returns the cudaError_t of the
+// launch.
 int pylda_ragged_gamma(void* params, void* stream) {
   Params& p = *static_cast<Params*>(params);
   if (!p.ids || p.cnts_bf16) return (int)cudaErrorInvalidValue;

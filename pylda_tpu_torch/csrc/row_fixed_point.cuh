@@ -17,25 +17,34 @@
 // stall (age >= patience).  The batch loop ends at S*, the first sweep at
 // which every row is exitable, or at inner_iterations.
 //
+// Segments.  A launch may hold several batches of the reference back to
+// back: its rows fall into segments (seg[row], nondecreasing; null: one
+// segment), each a batch that the JAX engine's layout would run on its
+// own (models/layouts.ragged_chunks: the chunks estep_memory_budget_mb
+// cuts a bucket into).  Each segment ends at its own S*.
+//
 // Row-major order.  Until S* a row's trajectory depends on its own data
 // only, so the kernel runs ROW AFTER ROW, all of a row's sweeps at once,
 // instead of sweep after sweep over the batch:
 //
 //   phase 1  each row runs until it is done or at inner_iterations; each
-//            sweep s at which it is not exitable adds 1 to
-//            not_exitable[s] (summed in shared memory a block, one
-//            atomic a sweep a block at the end of the phase);
-//   grid.sync(); S* = the first s + 1 with not_exitable[s] == 0, else
-//            inner_iterations (every block reads the same counts);
-//   phase 2  a row that ran past S* (it was not done by S*) is run again
-//            from its initial gamma for exactly S* sweeps.
+//            sweep s at which it is not exitable adds 1 to its segment's
+//            not_exitable[seg, s] (summed in shared memory a block, one
+//            atomic a sweep a block when the block's rows move on to the
+//            next segment and at the end of the phase: rows leave the
+//            queue in order, so a block meets each segment once);
+//   grid.sync(); a segment's S* = the first s + 1 with
+//            not_exitable[seg, s] == 0, else inner_iterations (every
+//            block reads the same counts);
+//   phase 2  a row that ran past its segment's S* (it was not done by S*)
+//            is run again from its initial gamma for exactly S* sweeps.
 //
 // So each row's output is its gamma after min(S*, its done sweep) sweeps,
-// the same arithmetic as the sweep-major loop, in one cooperative launch
-// with no host sync.  The row-sweeps this order computes beyond the
-// sweep-major loop's (a re-run row's phase-1 sweeps) are reported in
-// extra_out; they are at most (rows not done at S*) x inner_iterations,
-// and zero when S* = inner_iterations.
+// the same arithmetic as the sweep-major loop of its segment, in one
+// cooperative launch with no host sync.  The row-sweeps this order
+// computes beyond the sweep-major loop's (a re-run row's phase-1 sweeps)
+// are reported in extra_out; they are at most (rows not done at S*) x
+// inner_iterations, and zero when S* = inner_iterations.
 //
 // Residency.  A block of 256 threads owns one row at a time (rows are
 // taken from a device queue, so rows of unequal run length balance).  It
@@ -63,7 +72,7 @@
 //      block sums are the same in every thread).
 //
 // Wide rows (K > 256, up to kMaxTopics = 4096: the kWide kernels; above
-// it, row_fixed_point_tiled.cuh keeps a row's state in device memory).  A
+// it, row_fixed_point_tiled.cuh splits a row's topics over a cluster).  A
 // thread no longer owns one topic.  In step B, G = max(1, 256 / k4) slot
 // groups, and thread tid owns the float4s q = tid + 256 j (j < 4) of group
 // 0 when k4 > 256, so each thread keeps up to 4 float4 sums in registers.
@@ -128,7 +137,7 @@ namespace cg = cooperative_groups;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-// Largest K of the row-resident kernels (above it the tiled kernel of
+// Largest K of the row-resident kernels (above it the cluster kernel of
 // row_fixed_point_tiled.cuh runs); the wide kernels' step-B float4 sums a
 // thread (k4 <= kThreads * kWideQ).
 constexpr int kMaxTopics = 4096;
@@ -155,19 +164,22 @@ struct Params {
   const float* gamma0;   // [D, K]
   const float* et0;      // [D, K] exact expEtheta(gamma0)
   float* gamma;          // [D, K] out
-  int* not_exitable;     // [inner_iterations] in: 0
+  int* not_exitable;     // [nseg, inner_iterations] in: 0
   int* queues;           // [2] in: 0 (row queues of the two phases)
   int* row_run;          // [D] scratch: phase-1 sweeps of each row
   int* row_nnz;          // [D] scratch: live entries of each row
-  int* sweeps_out;       // [1] S*
+  int* sweeps_out;       // [nseg] each segment's S*
   int* row_sweeps;       // [D] or null: += min(run, S*)
   int* row_exit;         // [D] or null: first exitable sweep (1-based) or 0
   unsigned long long* slots_out;  // [1] or null: += nnz x min(run, S*)
   unsigned long long* extra_out;  // [1] or null: += row-sweeps past S*
-  int* lists;            // [list_blocks, 2, L] scratch: a block's streamed
-                         // row as L ids, then L counts (f32 bits)
-  float* state;          // [list_blocks, tiled_state_floats(K, L)] scratch
-                         // of the tiled kernels (K > kMaxTopics), else null
+  int* lists;            // [list_blocks, 2, L] scratch: a block's (or a
+                         // cluster's) row as L ids, then L counts (f32 bits)
+  const int* seg;        // [D] each row's segment, nondecreasing, or null:
+                         // one segment
+  float* state;          // the cluster kernel's direct plan (K past what a
+                         // CTA's shared memory holds): [state_ctas] CTAs'
+                         // slice state scratch; else null
   int D, ld, L, K, ldb;
   int cnts_bf16;
   int table_bf16;
@@ -178,8 +190,16 @@ struct Params {
   float eps;
   int patience;
   int use_stall;
+  int nseg;              // segments (1 without seg)
+  // The cluster kernel's plan (K > kMaxTopics; ops/row_fixed_point.py
+  // ::cluster_plan): CTAs a cluster, topics a CTA's slice, entries of a
+  // row kept resident, entries a streamed window; CTAs the direct plan's
+  // state holds.
+  int cluster, slice, resident, window, state_ctas;
   int smem_bytes, blocks_per_sm, grid;  // out: the launch's geometry
-  int tile;              // out: topics a tile of the sweep (K if untiled)
+  int tile;              // out: topics a CTA's sweep covers (K, or the slice)
+  int windows, clusters;  // out (cluster kernel): windows a sweep of the
+                          // widest row, clusters in flight
 };
 
 // Offsets (in floats, each a multiple of 4) into the dynamic shared memory.
@@ -568,6 +588,21 @@ __device__ __forceinline__ void wide_expectation(const Params& p,
   }
 }
 
+// The segment of `row` (0 without segments).
+__device__ __forceinline__ int segment_of(const Params& p, int row) {
+  return p.seg ? __ldg(p.seg + row) : 0;
+}
+
+// Phase 1's count of a sweep s at which `row` was not exitable: into the
+// block's histogram (its rows' segment), past nhist into the device array.
+__device__ __forceinline__ void count_not_exitable(const Params& p,
+                                                   int* hist_s, int row,
+                                                   int s) {
+  if (s < p.nhist) ++hist_s[s];
+  else atomicAdd(&p.not_exitable[segment_of(p, row) * p.inner_iterations + s],
+                 1);
+}
+
 struct RowRun {
   int sweeps;      // sweeps run
   int first_exit;  // first exitable sweep (1-based), 0 if none
@@ -682,10 +717,7 @@ __device__ __forceinline__ RowRun run_row(const Params& p, const Layout& L,
     best = fminf(best, change);
     const bool done = freeze && best <= p.threshold;
     const bool exitable = done || (p.use_stall && age >= p.patience);
-    if (count && !exitable && tid == 0) {
-      if (s < p.nhist) ++hist_s[s];
-      else atomicAdd(&p.not_exitable[s], 1);
-    }
+    if (count && !exitable && tid == 0) count_not_exitable(p, hist_s, row, s);
     if (exitable && !first) first = s + 1;
     ++s;
     __syncthreads();  // et_s is visible to every thread
@@ -697,6 +729,28 @@ __device__ __forceinline__ RowRun run_row(const Params& p, const Layout& L,
   return {s, first, n};
 }
 
+// Adds the block's histogram to segment seg's counts and zeroes it (no-op
+// for seg < 0).  Called by the whole block.
+__device__ __forceinline__ void flush_hist(const Params& p, int* hist_s,
+                                           int seg) {
+  if (seg >= 0)
+    for (int s = threadIdx.x; s < p.nhist; s += kThreads)
+      if (const int h = hist_s[s]) {
+        atomicAdd(&p.not_exitable[seg * p.inner_iterations + s], h);
+        hist_s[s] = 0;
+      }
+  __syncthreads();
+}
+
+// Segment seg's S*: the first sweep at which none of its rows was left
+// not exitable (after the grid-wide sync of phase 1's counts).
+__device__ __forceinline__ int s_star(const Params& p, int seg) {
+  const int* ne = p.not_exitable + (size_t)seg * p.inner_iterations;
+  for (int s = 0; s < p.inner_iterations; ++s)
+    if (__ldcg(ne + s) == 0) return s + 1;
+  return p.inner_iterations;
+}
+
 // Next row of a device queue, broadcast to the block.
 __device__ __forceinline__ int next_row(int* queue, int* flags) {
   if (threadIdx.x == 0) flags[1] = atomicAdd(queue, 1);
@@ -706,39 +760,41 @@ __device__ __forceinline__ int next_row(int* queue, int* flags) {
   return row;
 }
 
-// The two phases of a cooperative launch (row_fixed_point_kernel and the
-// tiled kernel of row_fixed_point_tiled.cuh): phase 0 runs every row until
-// done or inner_iterations; phase 1 runs the rows that ran past S* again,
-// for exactly S* sweeps.  run(row, max_sweeps, count) runs one row and
-// returns its RowRun; one call site keeps the code small.  hist_s
-// (nhist ints) and flags (4 ints) are the block's shared memory.
+// The two phases of a cooperative launch (row_fixed_point_kernel): phase 0
+// runs every row until done or inner_iterations; phase 1 runs the rows
+// that ran past their segment's S* again, for exactly S* sweeps.
+// run(row, max_sweeps, count) runs one row and returns its RowRun; one
+// call site keeps the code small.  hist_s (nhist ints) and flags (4 ints)
+// are the block's shared memory.
 template <typename RunRow>
 __device__ __forceinline__ void row_phases(const Params& p, int* hist_s,
                                            int* flags, RunRow run) {
   const int tid = threadIdx.x;
   for (int s = tid; s < p.nhist; s += kThreads) hist_s[s] = 0;
   __syncthreads();
-  int S = p.inner_iterations;
+  int S = p.inner_iterations, cur = -1;  // the block's segment and its S*
   unsigned long long slots = 0, extra = 0;
   for (int phase = 0; phase < 2; ++phase) {
     if (phase == 1) {
-      for (int s = tid; s < p.nhist; s += kThreads)
-        if (hist_s[s]) atomicAdd(&p.not_exitable[s], hist_s[s]);
+      flush_hist(p, hist_s, cur);
       cg::this_grid().sync();
-      // S*: the first sweep at which no row was left not exitable.
-      if (tid == 0) {
-        for (int s = 0; s < p.inner_iterations; ++s)
-          if (__ldcg(&p.not_exitable[s]) == 0) {
-            S = s + 1;
-            break;
-          }
-        flags[2] = S;
-        if (blockIdx.x == 0) *p.sweeps_out = S;
-      }
-      __syncthreads();
-      S = flags[2];
+      if (blockIdx.x == 0)
+        for (int g = tid; g < p.nseg; g += kThreads)
+          p.sweeps_out[g] = s_star(p, g);
+      cur = -1;
     }
     for (int row; (row = next_row(&p.queues[phase], flags)) < p.D;) {
+      const int seg = segment_of(p, row);
+      if (seg != cur) {
+        if (phase == 0) {
+          flush_hist(p, hist_s, cur);
+        } else {
+          if (tid == 0) flags[2] = s_star(p, seg);
+          __syncthreads();
+          S = flags[2];
+        }
+        cur = seg;
+      }
       int sweeps = p.inner_iterations;
       if (phase == 1) {
         const int run_len = __ldcg(&p.row_run[row]);
@@ -793,7 +849,8 @@ cudaError_t launch_row_fixed_point(Params& p, bool registers,
   const int unit = kBf16 ? 8 : 4;  // topics a 16-byte copy of a table row
   if (p.D < 1 || p.K < 1 || p.K > kMaxTopics || p.inner_iterations < 1 ||
       p.L < 0 || p.L > p.ld || p.table_bf16 != (int)kBf16 ||
-      p.ldb != unit * ((p.K + unit - 1) / unit))
+      p.ldb != unit * ((p.K + unit - 1) / unit) || p.nseg < 1 ||
+      (!p.seg && p.nseg != 1))
     return cudaErrorInvalidValue;
   const bool wide = p.K > kThreads;
   int dev = 0, sms = 0, per_sm = 0, sm_bytes = 0, optin = 0;

@@ -29,6 +29,21 @@ def _split_rows(n_rows: int, chunk: int, pad_multiple: int) -> List[int]:
     return sizes
 
 
+def ragged_chunks(rows: int, width: int, num_topics: int, pad: int,
+                  memory_budget_mb: float) -> List[int]:
+    """Rows of each chunk ``estep_memory_budget_mb`` cuts a ragged block of
+    ``rows`` rows (a multiple of ``pad``) at width ``width`` into: its
+    [rows, T, K] work arrays stay under the budget, chunks on pad-multiple
+    boundaries.  ``build_vb_batches`` and SVI's device-resident rows cut by
+    it, and where a launch keeps the block whole (on the card) its chunks
+    are the launch's segments, each ending at its own exit sweep."""
+    budget_rows = max(pad, int(memory_budget_mb * 1e6
+                               / (4 * width * num_topics * 3)))
+    if rows <= budget_rows:
+        return [rows]
+    return _split_rows(rows, budget_rows, pad)
+
+
 def build_vb_batches(
     corpus: Corpus,
     config: LDAConfig,
@@ -79,16 +94,16 @@ def build_vb_batches(
         bucket_capacities=bucket_capacities,
     )
     for b in buckets:
-        T = b.ids.shape[1]
-        budget_rows = max(pad, int(memory_budget_mb * 1e6 / (4 * T * K * 3)))
+        sizes = ragged_chunks(b.ids.shape[0], b.ids.shape[1], K, pad,
+                              memory_budget_mb)
         rows = b.ids.shape[0]
-        if rows <= budget_rows or not chunk_ragged:
+        if len(sizes) == 1 or not chunk_ragged:
             out.append(b)
             continue
         # Chunk on pad-multiple boundaries so every chunk keeps the
         # doc_pad_multiple invariant.
         s = 0
-        for size in _split_rows(rows, budget_rows, pad):
+        for size in sizes:
             e = min(rows, s + size)
             out.append(
                 RaggedBucket(
@@ -106,9 +121,9 @@ def chunks_ragged_rows(device_type: str, scatter: bool) -> bool:
     """Whether ``estep_memory_budget_mb`` caps a ragged batch's rows: it
     bounds the [rows, T, K] arrays that the plain versions (on the CPU)
     and the row scatter (``ops/estep.scatter_sstats``) make.  The gamma
-    kernels keep a row's state in a block's scratch, not in such an
-    array, so on the card the route with dense sufficient statistics takes
-    each bucket in one launch at any K."""
+    kernels make no such array, so on the card the route with dense
+    sufficient statistics takes each bucket in one launch at any K, its
+    chunks (``ragged_chunks``) passed as the launch's segments."""
     return device_type != "cuda" or scatter
 
 

@@ -49,12 +49,13 @@ rho = 0 epoch.  Minibatch i of the epoch at step s draws its gamma inits
 (a random ``gamma_init``) from the streams (config seed, tag, s, i,
 batch), so ``learning_many(n)`` draws what n ``learning()`` calls draw.
 ``phase_timings`` times one minibatch step.  On the card every K runs:
-above 4096 the gamma kernels' tiled kernel and the sstats kernel's two
+above 4096 the gamma kernels' cluster kernel and the sstats kernel's two
 passes.  ``estep_memory_budget_mb`` caps the rows a launch takes where
 [rows, T, K] arrays are made (on the CPU, as in the JAX engine, and on
 the scatter route); on the card the route with dense sufficient
 statistics takes each bucket's capacity in one launch
-(``models/layouts.chunks_ragged_rows``).
+(``models/layouts.chunks_ragged_rows``) whose segments are those chunks,
+each ending at its own exit sweep.
 
 Under a mesh (``parallel/mesh.py``) every minibatch's sufficient
 statistics and doc-level terms are summed over the ranks
@@ -105,6 +106,7 @@ from pylda_tpu_torch.models.vb import (
     _SstatsPlan,
 )
 from pylda_tpu_torch.ops.hyper import newton_dirichlet_mle
+from pylda_tpu_torch.ops.row_fixed_point import segment_rows
 from pylda_tpu_torch.parallel.mesh import (
     block_bounds,
     negotiate_svi_ragged_geometry,
@@ -140,6 +142,10 @@ class _Rows:
     row_doc: torch.Tensor  # [R+1] int64: each row's document, D at the sentinel
     cap: int  # rows a minibatch
     chunk_sizes: List[int]  # cap split to estep_memory_budget_mb
+    # Where the card takes cap whole: those chunks as the launch's
+    # segments (layouts.ragged_chunks); else None.
+    segments: Optional[Tuple[int, ...]]
+    seg_rows: Optional[torch.Tensor]  # [cap] int32: each row's segment
     doc_of_row: np.ndarray  # [R]
     csr_start: np.ndarray  # [D+1]
     csr_rows: np.ndarray  # [R]
@@ -311,8 +317,9 @@ class StochasticVariationalBayes(VariationalBayes):
         """The corpus's ragged rows in the geometry's widths, on the
         device once; None over ``svi_device_rows_budget_mb``.  Each width's
         capacity is chunked to ``estep_memory_budget_mb`` exactly as the
-        host packing (``build_vb_batches``) chunks it (not at all on the
-        card with dense sufficient statistics: ``_chunk_ragged``)."""
+        host packing (``build_vb_batches``) chunks it (on the card with
+        dense sufficient statistics, ``_chunk_ragged``, one launch whose
+        segments are those chunks)."""
         cfg = self._config
         caps = self._svi_geometry
         sizes = sorted(caps)
@@ -340,16 +347,19 @@ class StochasticVariationalBayes(VariationalBayes):
             # document's rows in order.
             start = np.zeros((D + 1,), np.int64)
             np.cumsum(np.bincount(doc_of_row, minlength=D), out=start[1:])
-            budget_rows = (max(pad, int(cfg.estep_memory_budget_mb * 1e6
-                                        / (4 * s * K * 3)))
-                           if self._chunk_ragged() else int(caps[s]))
+            chunks = layouts.ragged_chunks(int(caps[s]), s, K, pad,
+                                           cfg.estep_memory_budget_mb)
+            whole = not self._chunk_ragged()
             out.append(_Rows(
                 ids=torch.as_tensor(ids, device=dev),
                 cnts=torch.as_tensor(cnts, device=dev).to(self._dtype),
                 counts=None,
                 row_doc=torch.as_tensor(np.append(doc_of_row, D), device=dev),
                 cap=int(caps[s]),
-                chunk_sizes=layouts._split_rows(int(caps[s]), budget_rows, pad),
+                chunk_sizes=[int(caps[s])] if whole else chunks,
+                segments=tuple(chunks) if whole and len(chunks) > 1 else None,
+                seg_rows=(segment_rows(chunks, dev)
+                          if whole and len(chunks) > 1 else None),
                 doc_of_row=doc_of_row,
                 csr_start=start,
                 csr_rows=np.argsort(doc_of_row, kind="stable"),
@@ -373,7 +383,8 @@ class StochasticVariationalBayes(VariationalBayes):
             ids=None, cnts=None,
             counts=self._device_counts(corpus, V, self._count_stats(corpus)[1]),
             row_doc=torch.arange(D + 1, device=self._device),
-            cap=cap, chunk_sizes=[cap], doc_of_row=rows,
+            cap=cap, chunk_sizes=[cap], segments=None, seg_rows=None,
+            doc_of_row=rows,
             csr_start=np.arange(D + 1, dtype=np.int64), csr_rows=rows,
         )]
 
@@ -572,6 +583,8 @@ class StochasticVariationalBayes(VariationalBayes):
                             row_index=row_doc,
                             mask=(row_doc < D).to(self._dtype),
                             doc_ids=gids[i][j],
+                            segments=rows.segments,
+                            seg_rows=rows.seg_rows,
                         ))
                     j += 1
             yield batches, (None if sels is None else (docsels[i], sels[i]))
@@ -598,7 +611,8 @@ class StochasticVariationalBayes(VariationalBayes):
                 if docsels is not None:
                     sel = (docsels[i], torch.as_tensor(docsels[i],
                                                        device=self._device))
-                yield self._to_device(bl, corpus.num_docs), sel
+                yield self._to_device(bl, corpus.num_docs,
+                                      segments=not self._chunk_ragged()), sel
 
         return _Epoch(minibatches(), rhos, scales)
 

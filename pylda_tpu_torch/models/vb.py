@@ -20,11 +20,14 @@ routes:
 
 then lambda = eta + sstats, the ELBO and, on schedule, the Newton
 alpha/eta updates.  Every K runs on the card (above 4096 the gamma
-kernels' tiled kernel and the sstats kernel's two passes).
+kernels' cluster kernel and the sstats kernel's two passes).
 ``estep_memory_budget_mb`` caps a batch's rows where [rows, T, K] arrays
 are made: on the CPU (as the JAX engine's batches) and on the scatter
 route; on the card the route with dense sufficient statistics takes each
-bucket in one gamma launch (``models/layouts.chunks_ragged_rows``).
+bucket in one gamma launch (``models/layouts.chunks_ragged_rows``) whose
+segments are those chunks (``layouts.ragged_chunks``), each ending at its
+own exit sweep as the JAX engine's batch does; ``last_sweeps`` then holds
+one count a segment.
 ``compute_dtype="bfloat16"`` runs every kernel (or,
 on the CPU, every plain version) in the JAX engine's bf16 operand mode.
 ``export_beta``, ``save``/``load`` and the CLIs (``pylda_tpu_torch.cli``)
@@ -93,6 +96,7 @@ from pylda_tpu_torch.ops.dirichlet import (
 from pylda_tpu_torch.ops.estep import estep_ragged
 from pylda_tpu_torch.ops.hyper import newton_dirichlet_mle
 from pylda_tpu_torch.ops.ragged import gather_table, ragged_gamma
+from pylda_tpu_torch.ops.row_fixed_point import segment_rows
 from pylda_tpu_torch.ops.sampling import stream
 from pylda_tpu_torch.ops.sstats import dense_sstats
 from pylda_tpu_torch.parallel.lam_shard import VOCAB
@@ -118,6 +122,12 @@ class _Bucket:
     row_index: torch.Tensor
     mask: torch.Tensor  # [D_b] f32: 1 for rows of a document
     doc_ids: np.ndarray  # [D_b] int32, -1 for padding rows
+    # Rows of each batch the JAX engine's layout makes of this bucket (the
+    # gamma launch's segments), where a launch takes it whole; None: one.
+    segments: Optional[Tuple[int, ...]] = None
+    # [D_b] int32 on the device: each row's segment
+    # (row_fixed_point.segment_rows), built once; None without segments.
+    seg_rows: Optional[torch.Tensor] = None
 
     @property
     def rows(self) -> int:
@@ -267,7 +277,7 @@ class VariationalBayes(Inferencer):
                                            self._scatter_route(corpus))
         return self._to_device(
             layouts.build_vb_batches(corpus, self._config, chunk_ragged=chunk),
-            corpus.num_docs)
+            corpus.num_docs, segments=not chunk)
 
     def _build_local_batches(self, corpus: Corpus) -> List[_Batch]:
         """A rank's document block under a mesh, in a geometry uniform
@@ -291,11 +301,15 @@ class VariationalBayes(Inferencer):
         return self._to_device(batches, corpus.num_docs, off)
 
     def _to_device(self, batches: List[layouts.VBBatch],
-                   num_docs: int, offset: int = 0) -> List[_Batch]:
+                   num_docs: int, offset: int = 0,
+                   segments: bool = False) -> List[_Batch]:
         """Layout batches on this engine's device; a ragged row's index is
         its global doc id less ``offset`` (the documents' first), and
-        ``num_docs`` for padding rows."""
+        ``num_docs`` for padding rows.  ``segments``: the ragged buckets
+        are whole, and each gets the chunks ``estep_memory_budget_mb``
+        cuts it into as its segments."""
         dev = self._device
+        cfg = self._config
         out: List[_Batch] = []
         for b in batches:
             if isinstance(b, DenseBatch):
@@ -306,6 +320,10 @@ class VariationalBayes(Inferencer):
                 ))
                 continue
             row_index = np.where(b.doc_ids >= 0, b.doc_ids - offset, num_docs)
+            segs = (layouts.ragged_chunks(
+                b.ids.shape[0], b.ids.shape[1], cfg.number_of_topics,
+                cfg.doc_pad_multiple, cfg.estep_memory_budget_mb)
+                if segments else [])
             out.append(_Bucket(
                 ids=torch.as_tensor(b.ids, device=dev),
                 cnts=torch.as_tensor(b.cnts, device=dev).to(self._dtype),
@@ -313,6 +331,9 @@ class VariationalBayes(Inferencer):
                                           device=dev),
                 mask=torch.as_tensor(b.mask, device=dev).to(self._dtype),
                 doc_ids=b.doc_ids,
+                segments=tuple(segs) if len(segs) > 1 else None,
+                seg_rows=(segment_rows(segs, dev) if len(segs) > 1
+                          else None),
             ))
         return out
 
@@ -476,7 +497,8 @@ class VariationalBayes(Inferencer):
                 g, ss, tok, s = dense_estep(b.counts, gamma0, eeb, alpha, **kw)
             else:
                 g, ss, tok, s = estep_ragged(b.ids, b.cnts, gamma0, eeb, alpha,
-                                             eeb_t=eeb_t, **kw)
+                                             eeb_t=eeb_t, segments=b.segments,
+                                             seg_rows=b.seg_rows, **kw)
             sstats = ss if sstats is None else sstats + ss
             token_score = token_score + tok
             theta_score = theta_score + theta_elbo(g, alpha, b.mask)
@@ -484,14 +506,15 @@ class VariationalBayes(Inferencer):
                 dirichlet_expectation(g) * b.mask[:, None]
             ).sum(dim=0)
             gammas.append(g)
-            sweeps.append(s)
+            sweeps.extend(s.reshape(-1).unbind())
         self.last_sweeps = sweeps
         return gammas, sstats, token_score, theta_score, elog_sum
 
     def _ragged_fixed_points(self, batches: List[_Bucket], lam, alpha,
                              gamma0s: List[torch.Tensor]):
         """(the whole expElogbeta, this rank's block of it, each bucket's
-        gamma rows, each bucket's sweeps): the gamma fixed points alone."""
+        gamma rows, the sweeps of each bucket's segments in order): the
+        gamma fixed points alone."""
         eeb, eeb_own = self._expectations(lam)
         # The kernel gathers rows of expElogbeta^T: build the table once
         # for all buckets of this E-step (bf16 in the bf16 operand mode).
@@ -501,9 +524,10 @@ class VariationalBayes(Inferencer):
         rows, sweeps = [], []
         for b, gamma0 in zip(batches, gamma0s):
             g, s = ragged_gamma(b.ids, b.cnts, gamma0, eeb, alpha,
-                                eeb_t=eeb_t, **kw)
+                                eeb_t=eeb_t, segments=b.segments,
+                                seg_rows=b.seg_rows, **kw)
             rows.append(g)
-            sweeps.append(s)
+            sweeps.extend(s.reshape(-1).unbind())
         return eeb, eeb_own, rows, sweeps
 
     def _run_estep_hybrid(
@@ -512,10 +536,10 @@ class VariationalBayes(Inferencer):
     ):
         """Ragged sweeps + scatter-free dense sufficient statistics.
         Returns ([gamma_docs], sstats, token_score, theta_score,
-        elog_sum); the sweeps each bucket took stay on the device in
-        ``last_sweeps``.  The sufficient statistics cover the plan's
-        columns and, under ``shard_topics`` (``sharded``), this rank's
-        topics."""
+        elog_sum); the sweeps each bucket (each segment) took stay on
+        the device in ``last_sweeps``.  The sufficient statistics cover
+        the plan's columns and, under ``shard_topics`` (``sharded``), this
+        rank's topics."""
         cfg = self._config
         eeb, eeb_own, rows, sweeps = self._ragged_fixed_points(
             batches, lam, alpha, gamma0s)

@@ -25,9 +25,10 @@ float32 builds.  Under lambda sharding the final pass takes the rank's
 ``topic_range`` (the sstats kernel's topic-range launch) or
 ``vocab_range`` (its own columns of counts and expElogbeta), while the
 fixed point reads the whole expElogbeta.  Above K = 4096 the fixed point
-is the tiled kernel (``csrc/row_fixed_point_tiled.cuh``, counted in
+is the cluster kernel (``csrc/row_fixed_point_tiled.cuh``, counted in
 ``WIDE_LAUNCHES`` / ``BF16_WIDE_LAUNCHES`` too) and the final pass the
-sstats kernel's two passes.
+sstats kernel's two passes.  A dense batch is one segment: the dense
+route already makes the JAX engine's batches.
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ from pylda_tpu_torch.ops.sstats import dense_sstats
 # of the bf16 build.
 LAUNCHES = 0
 BF16_LAUNCHES = 0
-# Of those, the launches of the tiled kernel (K > RESIDENT_TOPICS).
+# Of those, the launches of the cluster kernel (K > RESIDENT_TOPICS).
 WIDE_LAUNCHES = 0
 BF16_WIDE_LAUNCHES = 0
 

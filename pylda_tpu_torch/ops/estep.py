@@ -38,7 +38,7 @@ reads the whole expElogbeta.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -225,11 +225,30 @@ def estep_ragged_gamma(
     eps: float = 1e-30,
     stall_patience: int = 0,
     compute_dtype: str = "float32",
+    segments: Optional[Sequence[int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Ragged fixed point only — returns (gamma, sweeps_used) with
     sweeps_used a 0-d int32 tensor, as ``pylda_tpu``'s
     ``estep_ragged_gamma``.  Sufficient statistics come separately from
-    ``estep_dense_sstats``.  Exit rule: ``_exit_update``."""
+    ``estep_dense_sstats``.  Exit rule: ``_exit_update``.
+
+    ``segments`` (row counts summing to D) makes the rows consecutive
+    batches, each run as its own call (its own exit sweep): the layout of
+    the card's whole-bucket launches.  sweeps_used is then
+    [len(segments)] int32, each segment's."""
+    if segments is not None:
+        if sum(segments) != ids.shape[0] or min(segments, default=0) < 1:
+            raise ValueError(f"segments {list(segments)} do not split "
+                             f"{ids.shape[0]} rows")
+        runs, r0 = [], 0
+        for n in segments:
+            runs.append(estep_ragged_gamma(
+                ids[r0:r0 + n], cnts[r0:r0 + n], gamma_init[r0:r0 + n],
+                exp_elog_beta, alpha, inner_iterations,
+                convergence_threshold, eps, stall_patience, compute_dtype))
+            r0 += n
+        return (torch.cat([g for g, _ in runs]),
+                torch.stack([s for _, s in runs]))
     i, gamma = _ragged_sweep_loop(
         ids, cnts, gamma_init, exp_elog_beta, alpha,
         inner_iterations, convergence_threshold, eps,
@@ -404,10 +423,14 @@ def estep_ragged(
     eeb_t: Optional[torch.Tensor] = None,
     topic_range: Optional[Tuple[int, int]] = None,
     vocab_range: Optional[Tuple[int, int]] = None,
+    segments: Optional[Sequence[int]] = None,
+    seg_rows: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Ragged (ids, counts) E-step with scatter sufficient statistics —
     ``pylda_tpu``'s ``estep_ragged``.  Returns (gamma, sstats [K, V],
-    token_score, sweeps_used 0-d int32).
+    token_score, sweeps_used 0-d int32, or [len(segments)] with
+    ``segments``, as ``estep_ragged_gamma``; ``seg_rows`` as
+    ``ops.ragged.ragged_gamma``'s).
 
     Its loop is the loop of ``estep_ragged_gamma`` (the JAX function's
     trajectory is the same at pinned sweeps), so it runs
@@ -427,7 +450,7 @@ def estep_ragged(
         inner_iterations=inner_iterations,
         convergence_threshold=convergence_threshold, eps=eps,
         stall_patience=stall_patience, eeb_t=eeb_t,
-        compute_dtype=compute_dtype,
+        compute_dtype=compute_dtype, segments=segments, seg_rows=seg_rows,
     )
     with torch.profiler.record_function(SCATTER_RANGE):
         sstats, token_score = scatter_sstats(

@@ -10,15 +10,17 @@ for CPU tensors it runs the plain version,
 ``pylda_tpu_torch.ops.estep.estep_ragged_gamma``.  A CUDA tensor the
 kernel does not take raises.  The launch itself, shared with the dense
 kernel's wrapper, is ``ops/row_fixed_point.py``; above K = 4096 it runs
-the tiled kernel (``csrc/row_fixed_point_tiled.cuh``), counted in
-``WIDE_LAUNCHES`` / ``BF16_WIDE_LAUNCHES`` too.  ``compute_dtype=
+the cluster kernel (``csrc/row_fixed_point_tiled.cuh``), counted in
+``WIDE_LAUNCHES`` / ``BF16_WIDE_LAUNCHES`` too.  A bucket's rows may fall
+into ``segments``, the chunks the JAX engine's layout would run apart:
+one launch, each segment ending at its own exit sweep.  ``compute_dtype=
 "bfloat16"`` launches the kernel's bf16 build on a bf16 gather table (or
 runs the plain version in that mode on the CPU); never the float32 build.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -30,7 +32,7 @@ from pylda_tpu_torch.ops.row_fixed_point import gather_table, table_width
 # the float32 build, and of the bf16 build.
 LAUNCHES = 0
 BF16_LAUNCHES = 0
-# Of those, the launches of the tiled kernel (K > RESIDENT_TOPICS).
+# Of those, the launches of the cluster kernel (K > RESIDENT_TOPICS).
 WIDE_LAUNCHES = 0
 BF16_WIDE_LAUNCHES = 0
 
@@ -56,8 +58,14 @@ def ragged_gamma(
     row_sweeps_out: Optional[torch.Tensor] = None,
     geometry_out: Optional[dict] = None,
     compute_dtype: str = "float32",
+    segments: Optional[Sequence[int]] = None,
+    seg_rows: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(gamma [D, K], sweeps_used 0-d int32) — see ``estep_ragged_gamma``.
+    With ``segments`` (row counts summing to D) the rows are consecutive
+    batches, each ending at its own exit sweep, and sweeps_used is
+    [len(segments)] int32; ``seg_rows`` optionally passes their
+    ``row_fixed_point.segment_rows`` on the device.
 
     ``eeb_t`` optionally passes ``gather_table(exp_elog_beta,
     compute_dtype)``.  Optional outputs, filled on CUDA tensors only:
@@ -84,7 +92,7 @@ def ragged_gamma(
             inner_iterations=inner_iterations,
             convergence_threshold=convergence_threshold,
             eps=eps, stall_patience=stall_patience,
-            compute_dtype=compute_dtype,
+            compute_dtype=compute_dtype, segments=segments,
         )
     D, T = ids.shape
     K, V = exp_elog_beta.shape
@@ -110,14 +118,16 @@ def ragged_gamma(
         if t.device != dev:
             raise ValueError("all inputs must be on one device")
     if D == 0:
-        return gamma_init.clone(), torch.zeros((), dtype=torch.int32,
-                                               device=dev)
+        return gamma_init.clone(), torch.zeros(
+            () if segments is None else (len(segments),), dtype=torch.int32,
+            device=dev)
     gamma, sweeps = row_fixed_point.launch(
         _kernel(compute_dtype), ids, cnts, T,
         eeb_t, alpha, gamma_init, inner_iterations,
         convergence_threshold, eps, stall_patience, row_exit_out=row_exit_out,
         row_sweeps_out=row_sweeps_out, slots_out=slots_out,
-        extra_sweeps_out=extra_sweeps_out, geometry_out=geometry_out)
+        extra_sweeps_out=extra_sweeps_out, geometry_out=geometry_out,
+        segments=segments, seg_rows=seg_rows)
     wide = row_fixed_point.tiled(K)
     if compute_dtype == "bfloat16":
         BF16_LAUNCHES += 1

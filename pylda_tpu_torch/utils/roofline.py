@@ -42,10 +42,10 @@ counts differ, because the port's kernels do different work:
   an inclusive ``cumsum`` (K FLOP a slot), where the JAX sampler runs a
   [K, K] prefix-sum matmul (2 K^2).
 
-The counts hold for every K: above 4096 the tiled gamma kernel reads a
-live slot's B row twice a sweep and the sstats kernel's two passes read
-expElogbeta twice, but the bound counts what the function needs, not
-what a kernel re-reads.
+The counts hold for every K: above 4096 the gamma cluster kernel reads a
+streamed slot's B row once a sweep and the sstats kernel's two passes
+read expElogbeta twice, but the bound counts what the function needs,
+not what a kernel re-reads.
 
 Sweep counts are the engines' own (``last_sweeps``); a phase's bound
 prices each batch's fixed point at the sweeps that batch ran.  The JAX
@@ -215,9 +215,16 @@ def utilisation(measured_ms: float, bound_ms: float) -> float:
     return 0.0 if measured_ms <= 0 else min(1.0, bound_ms / measured_ms)
 
 
+def _segments(b) -> Optional[Tuple[int, ...]]:
+    """Rows of each segment of a whole-bucket launch (its chunks, in the
+    order its sweep counts come); None for a batch of one count."""
+    return getattr(b, "segments", None)
+
+
 def measured_sweep_counts(engine) -> List[float]:
-    """Sweeps each batch of the engine's timed E-step ran, from the
-    engine's own runs (``last_sweeps``: the last iteration, minibatch or
+    """Sweeps each batch (each segment of a whole-bucket launch) of the
+    engine's timed E-step ran, from the engine's own runs
+    (``last_sweeps``: the last iteration, minibatch or
     ``phase_timings``); only when those are not the timed batches' does
     this run ``phase_timings`` once to get them.  The sequence layout
     (hybrid) runs a fixed burn_in + num_samples sweeps."""
@@ -226,15 +233,27 @@ def measured_sweep_counts(engine) -> List[float]:
     if any(hasattr(b, "tokens") for b in batches):
         return [float(cfg.burn_in_sweeps + cfg.number_of_samples)
                 for _ in batches]
-    if len(engine.last_sweeps) != len(batches):
+    if len(engine.last_sweeps) != sum(len(_segments(b) or (0,))
+                                      for b in batches):
         engine.phase_timings(repeats=1)
     return [float(s) for s in engine.last_sweeps]
 
 
 def _sweeps_bound_ms(engine, batches, sweeps, peaks: ChipPeaks) -> float:
+    """Each batch's fixed point at the sweeps it ran.  A whole-bucket
+    launch's operations add up its segments' shares of the rows, each at
+    its own count, against the launch's bytes once."""
     cfg = engine.config
-    return sum(_batch_sweep_bound_ms(b, cfg, peaks, s)
-               for b, s in zip(batches, sweeps))
+    total, it = 0.0, iter(sweeps)
+    for b in batches:
+        segs = _segments(b)
+        if segs is None:
+            total += _batch_sweep_bound_ms(b, cfg, peaks, next(it))
+            continue
+        flops, nbytes = _sweep_cost(b, cfg)
+        ops = sum(flops * rows / b.rows * next(it) for rows in segs)
+        total += max(ops / peaks.f32_flops, nbytes / peaks.hbm_bytes) * 1e3
+    return total
 
 
 def gibbs_learning_phase_bounds(eng, peaks: ChipPeaks = H100

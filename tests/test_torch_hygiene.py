@@ -146,8 +146,12 @@ def test_params_mirror_matches_the_kernel_struct():
 # (module of pylda_tpu_torch.ops, its mirror, kernel source, constexpr)
 _CONSTANT_MIRRORS = [
     ("row_fixed_point", "RESIDENT_TOPICS", "row_fixed_point.cuh", "kMaxTopics"),
-    ("row_fixed_point", "TILE_TOPICS", "row_fixed_point_tiled.cuh",
-     "kTileTopics"),
+    ("row_fixed_point", "THREADS", "row_fixed_point.cuh", "kThreads"),
+    ("row_fixed_point", "MAX_HIST", "row_fixed_point.cuh", "kMaxHist"),
+    ("row_fixed_point", "CLUSTER_Q", "row_fixed_point_tiled.cuh",
+     "kClusterQ"),
+    ("row_fixed_point", "MAX_CLUSTER", "row_fixed_point_tiled.cuh",
+     "kMaxCluster"),
     ("sstats", "THREADS", "dense_sstats.cu", "kThreads"),
     ("sstats", "TILE_V", "dense_sstats.cu", "kTileV"),
     ("sstats", "CHUNK_ROWS", "dense_sstats.cu", "kRows"),

@@ -26,10 +26,14 @@ their compacted entries in windows from a scratch list.  The wide range
 slot buffer holds ~25 entries at K=1000 and 4 at K=4096, and the sstats
 builds of 8, 16 and 32 lanes a column) is held the same way, with rows on
 both sides of the slot buffer, bf16 and f32 counts and two calls bitwise
-equal.  Above 4096 (the gamma kernels' tiled kernel, the sstats kernel's
-two passes) each kernel and build is held the same way at K in {4100,
-8192} (``LARGE_K``), the topic range bitwise, and SVI at K = 4097 trains
-on the card.  On rows still updating at S*
+equal.  Above 4096 (the gamma kernels' cluster kernel, the sstats
+kernel's two passes) each kernel and build is held the same way at K in
+{4100, 8192} (``LARGE_K``), with rows all resident, partly resident and
+all streamed, the topic range bitwise, and SVI at K = 4097 trains on the
+card.  A whole bucket whose rows fall into segments (the chunks the
+CPU's layout makes) ends each at its own S*: held per segment against
+the plain version and, through the engine, against the CPU's chunked
+run.  On rows still updating at S*
 (stalled, not done) gamma depends on rounding, so there each document's
 share of the bound (``ragged_doc_bound``) at the kernel's gamma is held
 to its share at the float64 plain version's gamma, to rel 1e-5.  The
@@ -51,6 +55,7 @@ import torch
 
 from pylda_tpu_torch.ops import dense_estep as dense_mod
 from pylda_tpu_torch.ops import ragged as ragged_mod
+from pylda_tpu_torch.ops import row_fixed_point as rfp
 from pylda_tpu_torch.ops import sstats as sstats_mod
 from pylda_tpu_torch.ops.dirichlet import exp_dirichlet_expectation
 from pylda_tpu_torch.ops.estep import (
@@ -63,7 +68,7 @@ from pylda_tpu_torch.ops.estep import (
 # The wide range: the core's wide kernels and the sstats builds of 8, 16
 # and 32 lanes a column, at each edge.
 WIDE_K = [257, 1000, 1024, 1025, 2048, 4096]
-# Above it: the tiled gamma kernel and the sstats kernel's two passes.
+# Above it: the cluster gamma kernel and the sstats kernel's two passes.
 LARGE_K = [4100, 8192]
 
 pytestmark = pytest.mark.gpu
@@ -437,12 +442,14 @@ def test_dense_estep_exit_rule_matches_plain(cuda, D, V, K, pad_rows, bf16,
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("K", LARGE_K)
 def test_dense_estep_refuses_large_k(cuda, K, compute_dtype):
-    """Above K = 4096 the gamma kernels no longer refuse: the tiled kernel
-    of each (dense with its final pass, and ragged) against the plain
-    version, float32 at 12 pinned sweeps (rtol 1e-4) and at the exit rule
-    (the sweep count within 1, rtol 5e-4 + K * threshold), bf16 after one
-    pinned sweep (``_hold_bf16_gamma``); two calls bitwise equal; every
-    launch counted as a wide one, with the tile in the geometry."""
+    """Above K = 4096 the gamma kernels no longer refuse: the cluster
+    kernel of each (dense with its final pass, and ragged) against the
+    plain version, float32 at 12 pinned sweeps (rtol 1e-4) and at the exit
+    rule (the sweep count within 1, rtol 5e-4 + K * threshold), bf16 after
+    one pinned sweep (``_hold_bf16_gamma``); two calls bitwise equal; every
+    launch counted as a wide one, with the plan (``cluster_plan``: cluster
+    width, slice, resident entries, window, shared memory) in the
+    geometry."""
     bf16 = compute_dtype == "bfloat16"
     wide = "BF16_WIDE_LAUNCHES" if bf16 else "WIDE_LAUNCHES"
     ct, g0, eeb, alpha = _dense_inputs(40, 300, K, 3, True, cuda, seed=2)
@@ -458,7 +465,13 @@ def test_dense_estep_refuses_large_k(cuda, K, compute_dtype):
     r2, _ = ragged_mod.ragged_gamma(ids, cnts, rg0, reeb, ralpha, **pinned)
     assert (getattr(dense_mod, wide), getattr(ragged_mod, wide)) == (
         before[0] + 2, before[1] + 2)
-    assert geo["tile"] == 4096 and geo["nmax"] == 0
+    plan = rfp.cluster_plan(K, 300, compute_dtype,
+                            pinned["inner_iterations"])
+    assert geo["nmax"] == 0 and geo["tile"] == plan.slice
+    assert (geo["cluster"], geo["resident"], geo["window"], geo["windows"],
+            geo["smem_bytes"]) == (plan.cluster, plan.resident, plan.window,
+                                   plan.windows, plan.smem_bytes)
+    assert 1 <= geo["clusters"] and geo["grid"] == geo["clusters"] * plan.cluster
     g_p, ss_p, tok_p, _ = estep_dense(ct, g0, eeb, alpha, **pinned)
     r_p, _ = estep_ragged_gamma(ids, cnts, rg0, reeb, ralpha, **pinned)
     torch.cuda.synchronize()
@@ -532,6 +545,152 @@ def test_ragged_kernel_wide_k_matches_plain(cuda, K):
     torch.cuda.synchronize()
     assert abs(int(s) - int(s_p)) <= 1
     torch.testing.assert_close(g, g_p, rtol=5e-4, atol=5e-4 + K * 1e-5)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_cluster_kernel_resident_and_streamed_rows(cuda, compute_dtype):
+    """The cluster kernel at K = 8192 under three plans: the default
+    (float32: 8 CTAs a row, 14 entries resident and windows of 16, so
+    rows of 3 to 120 entries lie on both sides; bf16: 16 CTAs, every row
+    resident), some entries resident (float32 7, bf16 40; windows of 16)
+    and none (R = 0, every entry streamed):
+    each two calls bitwise equal and held to the plain version (float32:
+    12 pinned sweeps, rtol 1e-4; bf16: one pinned sweep,
+    ``_hold_bf16_gamma``), the launch's geometry the plan's.  With the
+    exit rule and three segments of 8 rows: each segment's S* within 1 of
+    the plain version's chunk call, gamma at rtol 5e-4 + K * threshold."""
+    K = 8192
+    bf16 = compute_dtype == "bfloat16"
+    ids, cnts, g0, eeb, alpha = _wide_ragged_inputs(K, cuda)
+    D, T = ids.shape
+    table = rfp.gather_table(eeb, compute_dtype)
+    entry = rfp.entry("ragged_gamma", compute_dtype)
+    pinned = dict(inner_iterations=1 if bf16 else 12,
+                  convergence_threshold=0.0, eps=1e-30, stall_patience=0)
+    default = rfp.cluster_plan(K, T, compute_dtype,
+                               pinned["inner_iterations"])
+    window = default.window or 16
+    some = default.resident // 2 if default.window else 40
+    plans = [default,
+             dataclasses.replace(default, resident=some, window=window),
+             dataclasses.replace(default, resident=0, window=window)]
+    live = (cnts != 0).sum(dim=1)
+    if not bf16:
+        assert int(live.min()) <= default.resident < int(live.max())
+    else:
+        assert default.resident == T and default.window == 0
+    g_p, _ = estep_ragged_gamma(ids, cnts, g0, eeb, alpha,
+                                compute_dtype=compute_dtype, **pinned)
+
+    def call(plan, kw, **extra):
+        return rfp.launch(entry, ids, cnts, T, table, alpha, g0,
+                          kw["inner_iterations"], kw["convergence_threshold"],
+                          kw["eps"], kw["stall_patience"], plan=plan,
+                          **extra)
+
+    for plan in plans:
+        geo = {}
+        g, s = call(plan, pinned, geometry_out=geo)
+        g2, _ = call(plan, pinned)
+        torch.cuda.synchronize()
+        assert torch.equal(g, g2), plan
+        assert int(s) == pinned["inner_iterations"]
+        assert (geo["resident"], geo["window"], geo["tile"]) == (
+            plan.resident, plan.window, plan.slice)
+        if bf16:
+            _hold_bf16_gamma(g, g_p, cnts != 0)
+        else:
+            torch.testing.assert_close(g, g_p, rtol=1e-4, atol=1e-4)
+    if bf16:
+        return
+    kw = dict(inner_iterations=50, convergence_threshold=1e-5, eps=1e-30,
+              stall_patience=6)
+    segments = (8, 8, 8)
+    for plan in plans:
+        g, s = call(plan, kw, segments=segments)
+        g_p, s_p = estep_ragged_gamma(ids, cnts, g0, eeb, alpha,
+                                      segments=segments, **kw)
+        torch.cuda.synchronize()
+        assert s.shape == (3,)
+        assert bool(((s - s_p).abs() <= 1).all()), (s, s_p)
+        torch.testing.assert_close(g, g_p, rtol=5e-4, atol=5e-4 + K * 1e-5)
+
+
+# K past 65,536, where the cluster kernel's plan is direct.
+DIRECT_K = [65540, 100000]
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_cluster_kernel_direct_plan(cuda, compute_dtype):
+    """The cluster kernel's direct plan (each CTA's slice state in device
+    memory, B read from the table, none resident): at K = 8192 and 8 CTAs
+    a row (slices of 1024 topics, one group sum in either plan) gamma and
+    each segment's S* bitwise the staged plan's with none resident, at
+    the exit rule with three segments of 8 rows.  Past K = 65,536
+    (DIRECT_K) the plan the wrappers take is direct, and the ragged
+    kernel and the dense E-step are each two calls bitwise equal, counted
+    as wide launches and held to the plain version (float32 at 12 pinned
+    sweeps, rtol 1e-4; bf16 after one pinned sweep,
+    ``_hold_bf16_gamma``)."""
+    bf16 = compute_dtype == "bfloat16"
+    ids, cnts, g0, eeb, alpha = _wide_ragged_inputs(8192, cuda)
+    D, T = ids.shape
+    table = rfp.gather_table(eeb, compute_dtype)
+    kw = dict(inner_iterations=50, convergence_threshold=1e-5, eps=1e-30,
+              stall_patience=6)
+    staged = rfp.cluster_plan(8192, T, compute_dtype, 50, cluster=8)
+    staged = dataclasses.replace(staged, resident=0, window=16)
+    direct = dataclasses.replace(staged, direct=True)
+    assert staged.slice == 1024
+    outs = [rfp.launch(rfp.entry("ragged_gamma", compute_dtype), ids, cnts,
+                       T, table, alpha, g0, kw["inner_iterations"],
+                       kw["convergence_threshold"], kw["eps"],
+                       kw["stall_patience"], plan=plan, segments=(8, 8, 8))
+            for plan in (staged, direct)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+    del table, eeb
+    wide = "BF16_WIDE_LAUNCHES" if bf16 else "WIDE_LAUNCHES"
+    pinned = dict(inner_iterations=1 if bf16 else 12,
+                  convergence_threshold=0.0, compute_dtype=compute_dtype)
+    for K in DIRECT_K:
+        rng = np.random.default_rng(K)
+        V = 300
+        rids = torch.tensor(rng.integers(0, V, (8, 40)).astype(np.int32),
+                            device=cuda)
+        rcnts = torch.tensor(rng.integers(0, 4, (8, 40)).astype(np.float32),
+                             device=cuda)
+        ct, dg0, eeb, alpha = _dense_inputs(8, V, K, 2, True, cuda, seed=3)
+        rg0 = dg0[:8]
+        plan = rfp.cluster_plan(K, 40, compute_dtype,
+                                pinned["inner_iterations"])
+        assert plan.direct and plan.cluster == rfp.MAX_CLUSTER
+        before = (getattr(ragged_mod, wide), getattr(dense_mod, wide))
+        geo = {}
+        r, rs = ragged_mod.ragged_gamma(rids, rcnts, rg0, eeb, alpha,
+                                        geometry_out=geo, **pinned)
+        r2, _ = ragged_mod.ragged_gamma(rids, rcnts, rg0, eeb, alpha,
+                                        **pinned)
+        g, _, _, s = dense_mod.dense_estep(ct, dg0, eeb, alpha, **pinned)
+        g2 = dense_mod.dense_estep(ct, dg0, eeb, alpha, **pinned)[0]
+        assert (getattr(ragged_mod, wide), getattr(dense_mod, wide)) == (
+            before[0] + 2, before[1] + 2)
+        r_p, _ = estep_ragged_gamma(rids, rcnts, rg0, eeb, alpha, **pinned)
+        g_p, _, _, _ = estep_dense(ct, dg0, eeb, alpha, **pinned)
+        torch.cuda.synchronize()
+        assert (geo["tile"], geo["resident"], geo["cluster"]) == (
+            plan.slice, 0, plan.cluster)
+        assert torch.equal(r, r2) and torch.equal(g, g2)
+        assert int(rs) == int(s) == pinned["inner_iterations"]
+        if bf16:
+            _hold_bf16_gamma(r, r_p, rcnts != 0)
+            _hold_bf16_gamma(g, g_p, ct[:, :V] != 0)
+        else:
+            torch.testing.assert_close(r, r_p, rtol=1e-4, atol=1e-4)
+            torch.testing.assert_close(g, g_p, rtol=1e-4, atol=1e-4)
+        del ct, eeb, r, r2, g, g2, r_p, g_p
+        torch.cuda.empty_cache()
 
 
 def test_ragged_kernel_stalled_rows_keep_their_bound(cuda):
@@ -806,7 +965,7 @@ def test_svi_engine_on_card_matches_cpu(cuda, layout):
 
 def test_svi_refuses_large_k_on_card(cuda):
     """Above K = 4096 the kernels no longer refuse: SVI at K = 4097 trains
-    on the card through the wide kernels (the dense route's tiled gamma
+    on the card through the wide kernels (the dense route's gamma cluster
     kernel and two-pass final pass), its estimates at pinned sweeps
     within rel 1e-4 of the CPU run's from one lambda."""
     from pylda_tpu_torch.corpus.synthetic import synthetic_corpus
@@ -861,11 +1020,53 @@ def test_engine_on_card_takes_each_bucket_whole(cuda):
     assert len(card) == len(set(card))
     assert widths(engs["cpu"]) == widths(engs["scatter"])
     assert len(widths(engs["cpu"])) > len(card)
+    # Each whole bucket's segments are the CPU's chunks of that width.
+    for b in engs["card"]._batches:
+        cpu = [c.rows for c in engs["cpu"]._batches
+               if c.ids.shape[1] == b.ids.shape[1]]
+        assert list(b.segments or (b.rows,)) == cpu
     svi = StochasticVariationalBayes(dataclasses.replace(
         cfg, inference_mode="svi", batch_size=128), device=cuda)
     svi.initialize(corpus)
     assert svi._device_rows and all(r.chunk_sizes == [r.cap]
                                     for r in svi._device_rows)
+    assert any(r.segments for r in svi._device_rows)
+
+
+def test_engine_whole_buckets_match_cpu_chunks(cuda):
+    """The shape where one S* a whole bucket diverged from the chunked
+    runs (``synthetic_corpus(1024, 20, 5000, mean_doc_length=120,
+    seed=0)``, K = 20, lambda0 ~ Gamma(100, 0.01) from seed 1, a 1 MB
+    budget, the engine's defaults: threshold 1e-5, stall patience 6):
+    batch VB on the card (whole buckets, their chunks as segments)
+    against the CPU (the chunks as batches) after one learning() from
+    lambda0: one sweep count a chunk, each within 1 of the CPU's; each
+    document's gamma at rtol 5e-4 + K * threshold; the ELBO rel 1e-4."""
+    from pylda_tpu_torch.corpus.synthetic import synthetic_corpus
+    from pylda_tpu_torch.models import VariationalBayes
+    from pylda_tpu_torch.utils.config import LDAConfig
+
+    corpus, _, _ = synthetic_corpus(num_docs=1024, num_topics=20,
+                                    num_types=5000, mean_doc_length=120.0,
+                                    seed=0)
+    lam0 = np.random.default_rng(1).gamma(100.0, 0.01, (20, 5000))
+    cfg = LDAConfig(number_of_topics=20, estep_memory_budget_mb=1, seed=0)
+    engs, elbos = {}, {}
+    for dev in (cuda, "cpu"):
+        eng = VariationalBayes(cfg, device=dev)
+        eng.initialize(corpus, lam_init=lam0)
+        elbos[str(dev)] = eng.learning()
+        engs[str(dev)] = eng
+    card, cpu = engs[str(cuda)], engs["cpu"]
+    assert len(card._batches) < len(cpu._batches)
+    s_card = [int(s) for s in card.last_sweeps]
+    s_cpu = [int(s) for s in cpu.last_sweeps]
+    assert len(s_card) == len(s_cpu) == len(cpu._batches)
+    assert all(abs(a - b) <= 1 for a, b in zip(s_card, s_cpu)), (s_card,
+                                                                  s_cpu)
+    np.testing.assert_allclose(card.gamma, cpu.gamma, rtol=5e-4,
+                               atol=5e-4 + 20 * 1e-5)
+    assert elbos[str(cuda)] == pytest.approx(elbos["cpu"], rel=1e-4)
 
 
 # -- the bf16 builds (compute_dtype="bfloat16") ----------------------------------

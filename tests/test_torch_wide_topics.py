@@ -1,10 +1,10 @@
-"""The port above K = 4096 topics (the kernels' tiled and two-pass range),
-against pylda_tpu on the CPU.
+"""The port above K = 4096 topics (the kernels' cluster and two-pass
+range), against pylda_tpu on the CPU.
 
-The CUDA kernels take any K: above 4096 the gamma fixed points run the
-tiled kernel (``csrc/row_fixed_point_tiled.cuh``) and the dense
-sufficient statistics two passes over a column list of the nonzeros
-(``csrc/dense_sstats.cu``).  Here, on the CPU, the wrappers take their
+The CUDA kernels take any K up to 65536: above 4096 the gamma fixed
+points run the cluster kernel (``csrc/row_fixed_point_tiled.cuh``) and
+the dense sufficient statistics two passes over a column list of the
+nonzeros (``csrc/dense_sstats.cu``).  Here, on the CPU, the wrappers take their
 plain versions, which have no cap; they are held at K = 4224 (and 8192)
 against:
 
@@ -19,16 +19,18 @@ against:
   row 5e-4 + K * threshold, the sweep count within 1); bf16 at
   tests/test_torch_bf16.py's bars (one sweep rel 1e-5, then each
   document's share of the bound);
-- the kernels' arithmetic orders, emulated here: the tiled sweep (lane
-  strided phinorm dots, topic tiles of 4096, the block's sums) under the
-  row-major schedule, and the two passes of the sufficient statistics,
-  each against the batch function (float64: 1e-12; float32: 1e-5);
+- the kernels' arithmetic orders, emulated here: the cluster kernel's
+  sweep (slice partials of phinorm, summed over the ranks in order,
+  resident and streamed windows, step B's group sums, the CTAs' and the
+  ranks' sums of |dgamma|) under the row-major schedule, and the two
+  passes of the sufficient statistics, each against the batch function
+  (float64: 1e-12; float32: 1e-5);
 - the engines: batch VB on the ragged and dense routes and SVI at pinned
   sweeps against the JAX engines, at tests/test_torch_vb.py's bars, and
   the CLI's train and test round trip.
 
-``ops/sstats.py::plan`` and the gamma kernels' scratch sizing above 4096
-are checked beside them.
+``ops/sstats.py::plan`` and the cluster kernel's plan
+(``ops/row_fixed_point.py::cluster_plan``) are checked beside them.
 """
 
 import glob
@@ -325,72 +327,106 @@ def _butterfly(x):
     return x[..., 0]
 
 
-def _tiled_sweep_row(ids, cnts, eeb, alpha, eps, compute_dtype):
-    """One row's sweep in the tiled kernel's order: phinorm a warp an
-    entry (lane l: 16-byte units l, l + 32, .. in four running sums, then
-    the butterfly), the ratio, step B by topic tiles of 4096 (each topic
-    summed over the entries in order), gamma', and |dgamma| and gamma'
-    summed a thread in (tile, unit, topic) order, then a warp's lanes by
-    the butterfly and the 8 warps in order."""
+def _group_dot(prod, unit, lanes):
+    """A lane group's phinorm dot of each entry over its slice, as the
+    cluster kernel sums it: prod [m, units16, unit] (a 16-byte unit's
+    products); lane g of ``lanes`` takes units g, g + lanes, .. into four
+    running sums (a bf16 unit of 8 topics feeds them twice), (a0 + a1) +
+    (a2 + a3), then the butterfly over the group."""
+    m, units, _ = prod.shape
+    per_lane = -(-units // lanes)
+    pad = torch.zeros((m, per_lane * lanes, unit), dtype=prod.dtype)
+    pad[:, :units] = prod
+    parts = pad.reshape(m, per_lane, lanes, unit // 4, 4)
+    a = torch.zeros((m, lanes, 4), dtype=prod.dtype)
+    for j in range(per_lane):
+        for h in range(unit // 4):
+            a = a + parts[:, j, :, h, :]
+    x = (a[..., 0] + a[..., 1]) + (a[..., 2] + a[..., 3])
+    idx = torch.arange(lanes)
+    off = lanes // 2
+    while off:
+        x = x + x[..., idx ^ off]
+        off //= 2
+    return x[..., 0]
+
+
+def _block_sum(v):
+    """The CTA's sum of v over its topics: thread tid's topics tid, tid +
+    256, .. in order, the butterfly over a warp's lanes, then the 8 warps
+    in order (block_sum2)."""
+    m_count = max(1, -(-v.numel() // THREADS))
+    pad = torch.zeros(m_count * THREADS, dtype=v.dtype)
+    pad[:v.numel()] = v
+    per = pad.reshape(m_count, THREADS)
+    tot = torch.zeros(THREADS, dtype=v.dtype)
+    for m in range(m_count):
+        tot = tot + per[m]
+    w = _butterfly(tot.reshape(WARPS, LANES))
+    s = torch.zeros((), dtype=v.dtype)
+    for i in range(WARPS):
+        s = s + w[i]
+    return s
+
+
+def _cluster_sweep_row(ids, cnts, eeb, alpha, eps, compute_dtype, cluster,
+                       resident, window, direct=False):
+    """One row's sweep in the cluster kernel's order (cluster CTAs of a
+    slice of ks topics each, the row's first ``resident`` live entries one
+    window, the rest in windows of ``window``): per window each CTA's
+    partial phinorm (``_group_dot`` over its slice, by
+    ``rfp.entry_lanes`` lanes), the partials summed in rank order, the
+    ratio, and step B into G = 256 / (ks / 4) group sums
+    (entry t of a window into group t mod G; one in a ``direct`` plan);
+    gamma' from the groups summed in order; |dgamma| summed a CTA
+    (``_block_sum``), then over the ranks in order."""
     rnd = bf16_round if compute_dtype == BF16 else (lambda x: x)
     k = eeb.shape[0]
     unit = 8 if compute_dtype == BF16 else 4
-    ldb = -(-k // unit) * unit
-    units = ldb // unit
-    per_lane = -(-units // LANES)
+    ks = -(-(-(-k // cluster)) // unit) * unit
+    nq = ks // 4
+    groups = THREADS // nq if nq < THREADS and not direct else 1
+    width = cluster * ks
+    lanes = rfp.entry_lanes(ks // unit)
 
     def sweep_row(d, et, g):
         live = cnts[d] != 0
-        B = torch.zeros((int(live.sum()), per_lane * LANES * unit),
-                        dtype=et.dtype)
+        c = cnts[d][live]
+        n = c.numel()
+        B = torch.zeros((n, width), dtype=et.dtype)
         B[:, :k] = rnd(eeb.T[ids[d][live]])
-        e = torch.zeros(per_lane * LANES * unit, dtype=et.dtype)
+        e = torch.zeros(width, dtype=et.dtype)
         e[:k] = rnd(et[0])
-        prod = (B * e).reshape(-1, per_lane, LANES, unit)
-        # f32: four sums of one float4's lanes; bf16: a unit of 8 topics
-        # feeds the four sums twice.
-        parts = prod.reshape(-1, per_lane, LANES, unit // 4, 4)
-        a = torch.zeros(parts.shape[0], LANES, 4, dtype=et.dtype)
-        for j in range(per_lane):
-            for h in range(unit // 4):
-                a = a + parts[:, j, :, h, :]
-        ph = _butterfly((a[..., 0] + a[..., 1]) + (a[..., 2] + a[..., 3]))
-        ratio = rnd(cnts[d][live] / (ph + eps))
-        acc = torch.zeros(k, dtype=et.dtype)
-        Bf = B[:, :k] if compute_dtype == "float32" else eeb.T[ids[d][live]]
-        Bf = rnd(Bf)
-        for t0 in range(0, k, rfp.TILE_TOPICS):
-            t1 = min(k, t0 + rfp.TILE_TOPICS)
-            for t in range(Bf.shape[0]):
-                acc[t0:t1] = acc[t0:t1] + ratio[t] * Bf[t, t0:t1]
-        x = alpha + et[0] * acc
+        nr = min(n, resident)
+        wins = ([(0, nr)] if nr else []) + [
+            (t0, min(window, n - t0)) for t0 in range(nr, n, window)]
+        acc = torch.zeros((groups, width), dtype=et.dtype)
+        for t0, m in wins:
+            Bw = B[t0:t0 + m]
+            ph = torch.zeros(m, dtype=et.dtype)
+            for r in range(cluster):
+                sl = slice(r * ks, (r + 1) * ks)
+                prod = (Bw[:, sl] * e[sl]).reshape(m, ks // unit, unit)
+                ph = ph + _group_dot(prod, unit, lanes)
+            ratio = rnd(c[t0:t0 + m] / (ph + eps))
+            for t in range(m):
+                acc[t % groups] = acc[t % groups] + ratio[t] * Bw[t]
+        a = torch.zeros(width, dtype=et.dtype)
+        for gg in range(groups):
+            a = a + acc[gg]
+        x = alpha + et[0] * a[:k]
         dx = (x - g[0]).abs()
-        # Thread tid owns the float4s q = tid + 256 m: topics 4q..4q+3.
-        k4 = -(-k // 4)
-        m_count = -(-k4 // THREADS)
-        pad = torch.zeros(m_count * THREADS * 4, dtype=et.dtype)
-        sums = []
-        for v in (dx, x):
-            p = pad.clone()
-            p[:k] = v
-            per = p.reshape(m_count, THREADS, 4)
-            tot = torch.zeros(THREADS, dtype=et.dtype)
-            for m in range(m_count):
-                for c in range(4):
-                    tot = tot + per[m, :, c]
-            w = _butterfly(tot.reshape(WARPS, LANES))
-            s = torch.zeros((), dtype=et.dtype)
-            for i in range(WARPS):
-                s = s + w[i]
-            sums.append(s)
-        return x[None], sums[0] / k
+        tot = torch.zeros((), dtype=et.dtype)
+        for r in range(cluster):
+            tot = tot + _block_sum(dx[r * ks:(r + 1) * ks])
+        return x[None], tot / k
 
     return sweep_row
 
 
-def _row_major_tiled(sweep_row, g0, inner, threshold, patience):
+def _row_major_cluster(sweep_row, g0, inner, threshold, patience):
     """The kernels' row-major schedule (tests/test_torch_row_schedule.py)
-    with the tiled sweep: (gamma, S*)."""
+    with the cluster kernel's sweep: (gamma, S*)."""
     use_stall = patience > 0 and threshold > 0.0
 
     def run(d, max_sweeps, count):
@@ -420,15 +456,26 @@ def _row_major_tiled(sweep_row, g0, inner, threshold, patience):
     return gamma, s_star
 
 
-@pytest.mark.parametrize("dtype,compute_dtype,threshold", [
-    (torch.float64, "float32", 1e-3), (torch.float64, BF16, 1e-3),
-    (torch.float32, "float32", 0.0), (torch.float32, BF16, 0.0)],
-    ids=["f64_exit", "f64_bf16_exit", "f32_pinned", "f32_bf16_pinned"])
-def test_tiled_sweep_order_matches_batch(dtype, compute_dtype, threshold):
-    """The tiled sweep under the row-major schedule against the batch
-    fixed point: in float64 at the exit rule (threshold 1e-3, patience 6)
-    the same S* and gamma to 1e-12; in float32 at 4 pinned sweeps, rtol
-    1e-5 (the orders differ by float32 reassociation only)."""
+@pytest.mark.parametrize("dtype,compute_dtype,threshold,cluster,direct", [
+    (torch.float64, "float32", 1e-3, rfp.CLUSTER, False),
+    (torch.float64, BF16, 1e-3, rfp.CLUSTER, False),
+    (torch.float32, "float32", 0.0, rfp.CLUSTER, False),
+    (torch.float32, BF16, 0.0, rfp.CLUSTER, False),
+    (torch.float64, "float32", 1e-3, rfp.MAX_CLUSTER, True),
+    (torch.float32, BF16, 0.0, rfp.MAX_CLUSTER, True)],
+    ids=["f64_exit", "f64_bf16_exit", "f32_pinned", "f32_bf16_pinned",
+         "f64_direct_exit", "f32_bf16_direct_pinned"])
+def test_cluster_sweep_order_matches_batch(dtype, compute_dtype, threshold,
+                                           cluster, direct):
+    """The cluster kernel's sweep under the row-major schedule against the
+    batch fixed point, at 8 CTAs a row with 5 resident entries and
+    windows of 3 (rows of 4 to 12 live entries: one resident window, or
+    it and 1 to 3 streamed ones), and as a direct plan at 16 CTAs (no
+    resident entries, one group sum: 16 CTAs of 264 topics would
+    otherwise take 3): in float64 at the exit rule (threshold 1e-3,
+    patience 6) the same S* and gamma to 1e-12; in float32 at 4 pinned
+    sweeps, rtol 1e-5 (the orders differ by float32 reassociation
+    only)."""
     ids, cnts, g0, eeb, alpha = _ragged_case(D=6, T=12, V=200, seed=2)
     ids, cnts = torch.tensor(ids), torch.tensor(cnts, dtype=dtype)
     g0, alpha = torch.tensor(g0, dtype=dtype), torch.tensor(alpha, dtype=dtype)
@@ -439,8 +486,9 @@ def test_tiled_sweep_order_matches_batch(dtype, compute_dtype, threshold):
         ids, cnts, g0, eeb, alpha, inner_iterations=inner,
         convergence_threshold=threshold, stall_patience=patience,
         compute_dtype=compute_dtype)
-    got, s_star = _row_major_tiled(
-        _tiled_sweep_row(ids, cnts, eeb, alpha, 1e-30, compute_dtype), g0,
+    got, s_star = _row_major_cluster(
+        _cluster_sweep_row(ids, cnts, eeb, alpha, 1e-30, compute_dtype,
+                           cluster, 0 if direct else 5, 3, direct), g0,
         inner, threshold, patience)
     assert s_star == int(sweeps)
     if threshold:
@@ -528,19 +576,110 @@ def test_sstats_plan_above_4096():
     assert not sstats_mod.plan(100, 1000, 4096, 132).two_pass
 
 
-def test_gamma_scratch_above_4096():
-    """The tiled kernel's state a block (expEtheta, its rounded copy and
-    gamma at K rounded up to 8, then a ratio a live entry rounded up to
-    4: 99 KB at SVI config 5's widest rows and K = 8192), and the fields
+# (K, compute_dtype) -> (cluster, slice, resident, window, windows a sweep,
+# bytes) at config 5's widest rows (the 256-wide bucket of chip_smoke.py's
+# wide_k_kernels) and its 30 inner sweeps.
+_CLUSTER_PLANS = {
+    (4100, "float32"): (8, 516, 32, 31, 9, 202848),
+    (4100, BF16): (16, 264, 256, 0, 1, 175888),
+    (5000, "float32"): (8, 628, 25, 26, 10, 203328),
+    (5000, BF16): (8, 632, 48, 51, 6, 203712),
+    (8192, "float32"): (8, 1024, 14, 16, 17, 202256),
+    (8192, BF16): (8, 1024, 26, 32, 9, 203344),
+    (16384, "float32"): (8, 2048, 5, 8, 33, 197616),
+    (16384, BF16): (8, 2048, 9, 16, 17, 202256),
+}
+
+
+@pytest.mark.parametrize("k,compute_dtype", list(_CLUSTER_PLANS),
+                         ids=[f"{k}-{c}" for k, c in _CLUSTER_PLANS])
+def test_cluster_plan_above_4096(k, compute_dtype):
+    """The cluster kernel's plan, worked by hand.  At K = 8192 float32 a
+    row of 256 entries does not stay resident at 16 CTAs (2 KB an entry),
+    so the plan takes 8: the slice is 8192 / 8 = 1024 topics (4096 bytes
+    an entry); its state is expEtheta, gamma and G = 256 / 256 = 1 group
+    sum, 4 x 1024 x 3 = 12288 bytes (bf16: the rounded copy too); the
+    histogram 4 x 32, the fixed parts 208 + 16 x 8 (the pair exchange); a
+    window is 65536 / 4096 = 16 entries, its ratios 4 bytes an entry and
+    the partial exchange 2 x 8 x 4 = 64, the ring 2 x 16 x 4096 = 131072,
+    so 144912 bytes without resident entries, and R the most that leave
+    the total within 204800: 14 (202256; 15 would need 206352).  A row of
+    256 entries then takes 1 + ceil(242 / 16) = 17 windows a sweep.  At
+    K = 4100 in bf16 a row stays resident at 16 CTAs (no ring, one window
+    a sweep, 528 bytes an entry), so the plan takes 16; at 4100 and 5000
+    the last slice is short (4100 - 7 x 516 = 488 topics)."""
+    (cluster, slice_, resident, window, windows,
+     nbytes) = _CLUSTER_PLANS[(k, compute_dtype)]
+    pl = rfp.cluster_plan(k, 256, compute_dtype, inner_iterations=30)
+    assert (pl.cluster, pl.slice, pl.resident, pl.window, pl.windows,
+            pl.smem_bytes) == (cluster, slice_, resident, window, windows,
+                               nbytes)
+    assert pl.smem_bytes <= rfp.CLUSTER_SMEM_BUDGET
+    bf16 = compute_dtype == BF16
+    assert pl.slice % (8 if bf16 else 4) == 0
+    assert (pl.cluster - 1) * pl.slice < k <= pl.cluster * pl.slice
+    if pl.window:
+        over = rfp.cluster_smem_bytes(pl.slice, pl.resident + 1, pl.window,
+                                      30, bf16, pl.cluster)
+        assert over > rfp.CLUSTER_SMEM_BUDGET
+        assert rfp.cluster_plan(k, 256, compute_dtype, 30,
+                                cluster=rfp.MAX_CLUSTER).window > 0
+
+
+def test_cluster_plan_limits():
+    """16 CTAs a row (a slice of 512 topics at K = 8192) keep more
+    entries resident than 8; above 8 x 4096 topics the plan takes 16; a
+    CTA keeps at most 4096 topics in shared memory, so past K = 65536 the
+    plan is direct (``test_cluster_plan_direct``); the lanes an entry's
+    partial phinorm takes (about eight 16-byte units a lane); the fields
     the launcher writes back."""
-    assert rfp.RESIDENT_TOPICS == rfp.TILE_TOPICS == 4096
     assert not rfp.tiled(4096) and rfp.tiled(4097)
-    assert rfp.tiled_state_floats(8192, 160) == 3 * 8192 + 160
-    assert rfp.tiled_state_floats(5000, 61) == 3 * 5000 + 64
-    assert rfp.tiled_state_floats(4097, 1) == 3 * 4104 + 4
+    assert [rfp.entry_lanes(u) for u in (1, 8, 9, 33, 64, 65, 128, 129,
+                                         256, 1024)] == [
+        1, 1, 2, 8, 8, 16, 16, 32, 32, 32]
+    pl = rfp.cluster_plan(8192, 256, "float32", 30, cluster=16)
+    assert (pl.slice, pl.window) == (512, 32)
+    assert pl.resident > rfp.cluster_plan(8192, 256, "float32", 30).resident
+    assert rfp.cluster_plan(40000, 256).cluster == rfp.MAX_CLUSTER
+    top = rfp.cluster_plan(rfp.MAX_TOPICS, 16)
+    assert top.slice == rfp.SLICE_TOPICS and not top.direct
+    assert rfp.cluster_plan(rfp.MAX_TOPICS + 1, 16).direct
+    with pytest.raises(ValueError):
+        rfp.cluster_plan(8192, 16, cluster=rfp.MAX_CLUSTER + 1)
     fields = [f for f, _ in rfp.Params._fields_]
-    assert "state" in fields and fields[-1] == "tile"
-    assert rfp.GEOMETRY[-1] == "tile"
+    assert {"state", "state_ctas", "seg", "nseg"} <= set(fields)
+    assert set(rfp.GEOMETRY) <= set(fields)
+    assert rfp.GEOMETRY[-5:] == ("cluster", "resident", "window", "windows",
+                                 "clusters")
+
+
+# K -> (slice, windows a sweep, state bytes a CTA) in float32 and bf16.
+_DIRECT_PLANS = {
+    65537: ((4100, 4, 49200), (4104, 4, 65664)),
+    100000: ((6252, 4, 75024), (6256, 4, 100096)),
+    1000000: ((62500, 4, 750000), (62504, 4, 1000064)),
+}
+
+
+@pytest.mark.parametrize("k", list(_DIRECT_PLANS))
+def test_cluster_plan_direct(k):
+    """Past K = 65536 the plan is direct, worked by hand at config 5's
+    widest rows (256 entries) and 30 inner sweeps: 16 CTAs; the slice K /
+    16 rounded up to 4 (bf16: 8) topics, past the 4096 a CTA keeps in
+    shared memory; no entry resident and windows of 64, so 4 a sweep; in
+    shared memory only the ratios (4 x 64), the partial exchange (2 x 16 x
+    64 x 4 = 8192), the pair exchange (16 x 16), the histogram (4 x 32) and
+    208 fixed bytes, 9040 in all; in the device scratch a CTA's state,
+    expEtheta, gamma and one group sum (bf16: the rounded copy too), 4
+    bytes a topic each."""
+    for cd, (slice_, windows, state) in zip(MODES, _DIRECT_PLANS[k]):
+        pl = rfp.cluster_plan(k, 256, cd, inner_iterations=30)
+        assert pl.direct and (pl.cluster, pl.slice, pl.resident, pl.window,
+                              pl.windows, pl.smem_bytes) == (
+            rfp.MAX_CLUSTER, slice_, 0, rfp.DIRECT_WINDOW, windows, 9040), cd
+        assert rfp.cluster_state_bytes(pl.slice, cd == BF16, True) == state
+        assert (pl.cluster - 1) * pl.slice < k <= pl.cluster * pl.slice
+    assert rfp.cluster_plan(k, 10).windows == 1
 
 
 # -- the engines and the CLI ------------------------------------------------------
