@@ -191,6 +191,18 @@ Phases, in order (any failure exits non-zero):
      documents), on the ragged, scatter and dense routes in both modes:
      lambda after one step at pinned sweeps (WIDE_F64_FACTOR).
 
+The entry kernel (K <= 4096, a launch whose widest row is past one
+block's slot buffer, ``csrc/row_fixed_point_entries.cuh``; its launches
+count in ``<kernel>_cluster`` and ``<kernel>_cluster_bf16`` too) runs in
+the kernel lines of configs 4 and 5, which print its geometry (cluster
+width, entries a CTA, clusters in flight, rows still streamed) and are
+held as before (the dense line at K = 1000, given the batch's largest row
+nnz as the engine gives it, streams: its table fits half the L2, and the
+line prints that route's geometry); ``svi4_full`` prints each gamma launch's
+route and geometry at its first minibatch; the SVI paths of configs 4 and
+5 (and ``svi4_full``) must launch it, the flagship paths must not; the
+kernels' record lists it as ``ragged_gamma_cluster`` (and ``_bf16``).
+
 Beside those phases:
 
 - ``vb_gamma_init``: batch VB at each flagship from each random
@@ -394,8 +406,15 @@ def row_s_star(s, segments, rows: int):
 
 
 def geometry_text(geo: dict) -> str:
-    """A gamma launch's geometry: the cluster kernel's plan above K = 4096,
-    else the slot buffer."""
+    """A gamma launch's geometry: the entry kernel's (a cluster a row, the
+    row's entries split across its CTAs), the cluster kernel's plan above
+    K = 4096, else the slot buffer."""
+    if geo["route"] == "entries":
+        row = geo["cluster"] * geo["resident"]
+        return (f"entry kernel: cluster of {geo['cluster']} CTAs a row, "
+                f"{geo['resident']} entries a CTA ({row} a row resident), "
+                f"{geo['smem_bytes']} B a CTA, {geo['clusters']} clusters "
+                f"in flight, grid {geo['grid']}")
     if geo.get("cluster"):
         return (f"cluster of {geo['cluster']} CTAs, slice {geo['tile']} "
                 f"topics, {geo['resident']} entries resident, windows of "
@@ -408,7 +427,9 @@ def geometry_text(geo: dict) -> str:
 
 def streamed_rows(geo: dict, live):
     """(rows past the slot buffer or the cluster's resident entries, their
-    windows a sweep)."""
+    windows a sweep; the entry kernel holds every row)."""
+    if geo["route"] == "entries":
+        return live < 0, int((live > 0).sum())
     if geo.get("cluster"):
         R, W = geo["resident"], max(1, geo["window"])
         nr = live.clamp(max=R)
@@ -769,7 +790,7 @@ def ragged_checks(label, batches, eeb, eeb_t, alpha, kw, gamma_atol, dev,
         nbytes = Db * Tb * 8 + rows_needed * K * 4 + 2 * Db * K * 4 + K * 4
         b_ms, b_by = bound(flops, nbytes)
         floor_text = ""
-        if geo.get("cluster"):
+        if geo["route"] == "cluster":
             floor = sweep_floor_ms(geo, live, row_sweeps,
                                    eeb_t.shape[1] * 4, nbytes)
             rg["sweep_floor_ms"] = rg.get("sweep_floor_ms", 0.0) + floor
@@ -801,6 +822,7 @@ def ragged_checks(label, batches, eeb, eeb_t, alpha, kw, gamma_atol, dev,
         rg["windows"] += windows
         rg.update(nmax=nmax, smem_bytes=geo["smem_bytes"],
                   blocks_per_sm=geo["blocks_per_sm"],
+                  routes=rg.get("routes", []) + [geo["route"]],
                   **{f: geo[f] for f in ("cluster", "tile", "resident",
                                          "window", "clusters")
                      if geo.get("cluster")})
@@ -809,6 +831,7 @@ def ragged_checks(label, batches, eeb, eeb_t, alpha, kw, gamma_atol, dev,
     print(f"kernel ragged_gamma{wide_tag(K)} {label}: {rg['launches']} "
           f"launches, "
           f"{rg['ms']:.4f} ms (bound {rg['bound_ms']:.5f}, {rg['bound_by']}), "
+          f"routes {rg['routes']}, "
           f"rows streamed past the slot buffer or the resident entries "
           f"({rg['nmax'] or rg.get('resident')} entries at K={K}) "
           f"{rg['streamed_rows']} of {rg['rows']}, {rg['windows']} windows a "
@@ -1007,7 +1030,7 @@ def ragged_checks_bf16(label, batches, eeb, alpha, kw, dev, ragged_mod,
                   + 2 * Db * K * 4 + K * 4)
         b_ms, b_by = bound(flops, nbytes, BF16)
         floor_text = ""
-        if geo.get("cluster"):
+        if geo["route"] == "cluster":
             floor = sweep_floor_ms(geo, live, row_sweeps,
                                    eeb_t.shape[1] * 2, nbytes, BF16)
             rg["sweep_floor_ms"] = rg.get("sweep_floor_ms", 0.0) + floor
@@ -1038,6 +1061,7 @@ def ragged_checks_bf16(label, batches, eeb, alpha, kw, dev, ragged_mod,
         rg["windows"] += windows
         rg.update(nmax=nmax, smem_bytes=geo["smem_bytes"],
                   blocks_per_sm=geo["blocks_per_sm"],
+                  routes=rg.get("routes", []) + [geo["route"]],
                   **{f: geo[f] for f in ("cluster", "tile", "resident",
                                          "window", "clusters")
                      if geo.get("cluster")})
@@ -1046,7 +1070,8 @@ def ragged_checks_bf16(label, batches, eeb, alpha, kw, dev, ragged_mod,
     print(f"kernel ragged_gamma{wide_tag(K)}_bf16 {label}: {rg['launches']} "
           f"launches, "
           f"{rg['ms']:.4f} ms (bound {rg['bound_ms']:.5f}, {rg['bound_by']}), "
-          f"slot buffer {rg['nmax']} entries, rows streamed past it "
+          f"routes {rg['routes']}, slot buffer {rg['nmax']} entries, rows "
+          f"streamed past it or the cluster "
           f"{rg['streamed_rows']} of {rg['rows']}, {rg['windows']} windows a "
           f"sweep; the float32 line of this input: {f32_line['ms']:.4f} ms "
           f"(bound {f32_line['bound_ms']:.5f}), slot buffer "
@@ -1085,7 +1110,7 @@ def dense_checks_bf16(label, corpus, beta, cfg, dev, f32_line, probe=None):
     def run(kind, kw0):
         if kind == "kernel":
             out = dense_mod.dense_estep(dc, g0, eeb, alpha, compute_dtype=BF16,
-                                        **kw0)
+                                        max_nnz=int(row_nnz.max()), **kw0)
         else:
             dt = torch.float64 if kind == "f64" else torch.float32
             out = estep_dense(dc if dt == torch.float32 else dc.double(),
@@ -1101,7 +1126,7 @@ def dense_checks_bf16(label, corpus, beta, cfg, dev, f32_line, probe=None):
     geo = {}
     g_k = dense_mod.dense_estep(dc, g0, eeb, alpha, compute_dtype=BF16,
                                 row_sweeps_out=row_sweeps, geometry_out=geo,
-                                **kw)[0]
+                                max_nnz=int(row_nnz.max()), **kw)[0]
     bitwise = bool(torch.equal(g_k, run("kernel", kw)[0]))
     ok = ok and bitwise
     fin = sstats_check(f"{label} final pass", dc,
@@ -1113,7 +1138,8 @@ def dense_checks_bf16(label, corpus, beta, cfg, dev, f32_line, probe=None):
               + 2 * Dd * K * 4 + K * 4 + 4)
     b_ms, b_by = bound(4.0 * K * work, nbytes, BF16)
     floor = (sweep_floor_ms(geo, row_nnz, row_sweeps, -(-K // 8) * 16,
-                            nbytes, BF16) if geo.get("cluster") else None)
+                            nbytes, BF16)
+             if geo["route"] == "cluster" else None)
     k_ms = cuda_ms(lambda: run("kernel", kw), 5)
     p_ms = cuda_ms(lambda: run("plain", kw), 2)
     streamed = int(streamed_rows(geo, row_nnz)[0].sum())
@@ -1142,6 +1168,8 @@ def zero_launches(mods) -> None:
     for mod in mods.values():
         mod.LAUNCHES = mod.BF16_LAUNCHES = 0
         mod.WIDE_LAUNCHES = mod.BF16_WIDE_LAUNCHES = 0
+        if hasattr(mod, "CLUSTER_LAUNCHES"):
+            mod.CLUSTER_LAUNCHES = mod.BF16_CLUSTER_LAUNCHES = 0
         if hasattr(mod, "RANGE_LAUNCHES"):
             mod.RANGE_LAUNCHES = mod.BF16_RANGE_LAUNCHES = 0
             mod.RANGE_WIDE_LAUNCHES = mod.BF16_RANGE_WIDE_LAUNCHES = 0
@@ -1153,11 +1181,17 @@ def read_launches(mods) -> dict:
     topic-range launches ("dense_sstats_range", "dense_sstats_range_bf16",
     counted in its builds' launches too).  Of each, the launches above
     K = 4096 (the gamma cluster kernel, the sstats kernel's two passes) as
-    "<name>_wide" and "<name>_wide_bf16", counted in the others too."""
+    "<name>_wide" and "<name>_wide_bf16", and of the gamma kernels the
+    launches of the entry kernel (K <= 4096, rows past one block's slot
+    buffer) as "<name>_cluster" and "<name>_cluster_bf16", counted in the
+    others too."""
     out = {}
     for name, mod in mods.items():
         out[name] = mod.LAUNCHES
         out[f"{name}_bf16"] = mod.BF16_LAUNCHES
+        if hasattr(mod, "CLUSTER_LAUNCHES"):
+            out[f"{name}_cluster"] = mod.CLUSTER_LAUNCHES
+            out[f"{name}_cluster_bf16"] = mod.BF16_CLUSTER_LAUNCHES
         if hasattr(mod, "RANGE_LAUNCHES"):
             out[f"{name}_range"] = mod.RANGE_LAUNCHES
             out[f"{name}_range_bf16"] = mod.BF16_RANGE_LAUNCHES
@@ -1250,13 +1284,16 @@ def dense_checks(label, corpus, beta, cfg, dev, pinned=False, probe=None):
     row_exit = torch.zeros_like(row_sweeps)
     extra = torch.zeros((1,), dtype=torch.int64, device=dev)
     geo = {}
+    # The batch's largest row nnz, as the engine passes it (counted on the
+    # host when the batch is built).
+    kmw = dict(kw, max_nnz=int((dc != 0).sum(dim=1).max()))
     g_k, ss_k, tok_k, s_k = dense_mod.dense_estep(dc, g0, eeb, alpha,
                                                   row_sweeps_out=row_sweeps,
                                                   extra_sweeps_out=extra,
                                                   row_exit_out=row_exit,
-                                                  geometry_out=geo, **kw)
+                                                  geometry_out=geo, **kmw)
     bitwise = bool(torch.equal(
-        g_k, dense_mod.dense_estep(dc, g0, eeb, alpha, **kw)[0]))
+        g_k, dense_mod.dense_estep(dc, g0, eeb, alpha, **kmw)[0]))
     g_p, _, tok_p, s_p = estep_dense(dc, g0, eeb, alpha, **kw)
     g_64, _, _, s_64 = estep_dense(dc.double(), g0.double(), eeb.double(),
                                    alpha.double(), **kw)
@@ -1277,10 +1314,13 @@ def dense_checks(label, corpus, beta, cfg, dev, pinned=False, probe=None):
             fp_text += text
             dg_ok = dg_ok and ok_b
         def run(kind, kw0):
-            fn = dense_mod.dense_estep if kind == "kernel" else estep_dense
             dt = torch.float64 if kind == "f64" else torch.float32
-            out = fn(dc if dt == torch.float32 else dc.double(), g0.to(dt),
-                     eeb.to(dt), alpha.to(dt), **dict(kw, **kw0))
+            args = (dc if dt == torch.float32 else dc.double(), g0.to(dt),
+                    eeb.to(dt), alpha.to(dt))
+            if kind == "kernel":
+                out = dense_mod.dense_estep(*args, **dict(kmw, **kw0))
+            else:
+                out = estep_dense(*args, **dict(kw, **kw0))
             return out[0], out[3]
 
         ok0, text = pinned_check(run, K)
@@ -1306,9 +1346,9 @@ def dense_checks(label, corpus, beta, cfg, dev, pinned=False, probe=None):
     dg_dense_bound, _ = bound(4.0 * K * Vd * (row_sweeps_total + Dd),
                               dg_bytes)
     floor = (sweep_floor_ms(geo, row_nnz, row_sweeps, -(-K // 4) * 16,
-                            dg_bytes) if geo.get("cluster") else None)
+                            dg_bytes) if geo["route"] == "cluster" else None)
     dg_ms = cuda_ms(lambda: dense_mod.dense_estep(dc, g0, eeb, alpha,
-                                                  **kw), 5)
+                                                  **kmw), 5)
     dg_plain_ms = cuda_ms(lambda: estep_dense(dc, g0, eeb, alpha, **kw), 2)
     fin = sstats_check(f"{label} final pass", dc,
                        exp_dirichlet_expectation(g_k), eeb, cfg.eps,
@@ -1338,6 +1378,9 @@ def dense_checks(label, corpus, beta, cfg, dev, pinned=False, probe=None):
             "bound_ms": dg_bound, "bound_by": dg_by,
             "dense_form_bound_ms": dg_dense_bound, "nmax": geo["nmax"],
             "streamed_rows": streamed, "doc_bound_rel_err": bound_err,
+            "route": geo["route"],
+            **{f: geo[f] for f in ("cluster", "resident", "clusters")
+               if geo["route"] == "entries"},
             **({} if floor is None else {"sweep_floor_ms": floor})}, fin
 
 
@@ -1428,7 +1471,7 @@ def svi_kernel_lines(label, corpus, beta, cfg, dev, bf16=False,
 
 
 def run_engine(label, cfg, corpus, test, dev, mods, needed, n=20, warm=2,
-               lam_init=None) -> dict:
+               lam_init=None, absent=()) -> dict:
     """The main path at one flagship: initialize (from ``lam_init`` when
     given), learning_many(warm) warm, learning_many(n) timed, inference
     and perplexity on held-out docs; launch counters zeroed just before
@@ -1479,7 +1522,7 @@ def run_engine(label, cfg, corpus, test, dev, mods, needed, n=20, warm=2,
     print(f"{label}: peak device memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
     counts = read_launches(mods)
-    check_launched(label, counts, needed)
+    check_launched(label, counts, needed, absent)
     return {"launches": counts, "elbo": allq[-1], "perplexity": ppl,
             "engine": eng, "iteration_ms": dt * 1e3}
 
@@ -2165,6 +2208,48 @@ def svi_streaming_vs_memory(label, cfg, corpus, dev, mods) -> dict:
     return {"launches": counts, "index_s": t_index, "init_s": ti_s}
 
 
+def svi_gamma_geometry(label, eng, cfg, dev) -> list:
+    """Each gamma launch of an SVI engine's first minibatch at its
+    lambda, one call a bucket (with its segments): the route, the
+    geometry (``geometry_text``), the rows still streamed and the ms; a
+    line and a record each."""
+    import torch
+
+    from pylda_tpu_torch.ops import ragged as ragged_mod
+    from pylda_tpu_torch.ops.dirichlet import exp_dirichlet_expectation_fast
+    from pylda_tpu_torch.ops.row_fixed_point import GEOMETRY
+
+    eeb = exp_dirichlet_expectation_fast(eng.state.lam)
+    eeb_t = ragged_mod.gather_table(eeb, cfg.compute_dtype)
+    kw = dict(inner_iterations=cfg.inner_iterations,
+              convergence_threshold=cfg.convergence_threshold, eps=cfg.eps,
+              stall_patience=cfg.estep_stall_patience, eeb_t=eeb_t,
+              compute_dtype=cfg.compute_dtype)
+    batches, _ = next(eng._epoch(cfg.seed, 0).minibatches)
+    out = []
+    for i, b in enumerate(batches):
+        g0 = torch.ones((b.ids.shape[0], cfg.number_of_topics), device=dev)
+        geo = {}
+
+        def call(geo=None, b=b, g0=g0):
+            return ragged_mod.ragged_gamma(
+                b.ids, b.cnts, g0, eeb, eng.state.alpha, geometry_out=geo,
+                segments=b.segments, seg_rows=b.seg_rows, **kw)
+
+        call(geo)
+        ms = cuda_ms(call, 5)
+        live = (b.cnts != 0).sum(dim=1)
+        streamed = int(streamed_rows(geo, live)[0].sum())
+        print(f"{label} gamma launch {i} [{b.ids.shape[0]}x{b.ids.shape[1]}, "
+              f"K={cfg.number_of_topics}]: route {geo['route']}, "
+              f"{geometry_text(geo)}, rows streamed {streamed} of "
+              f"{int((live > 0).sum())}, kernel_ms {ms:.4f}")
+        out.append({"shape": list(b.ids.shape), "route": geo["route"],
+                    "streamed_rows": streamed, "ms": ms,
+                    **{f: geo[f] for f in GEOMETRY}})
+    return out
+
+
 def run_svi4_full(label, cfg, corpus, test, dev, mods) -> dict:
     """SVI at BASELINE config 4's published size (SVI4_FULL_D documents):
     the corpus and its held-out documents made from their seeds;
@@ -2204,6 +2289,7 @@ def run_svi4_full(label, cfg, corpus, test, dev, mods) -> dict:
           f"{[tuple(r.ids.shape) for r in eng._device_rows]} ({rows_mb:.1f} "
           f"MB)")
     pe0 = eng.point_estimate_perplexity(test)
+    gamma_launches = svi_gamma_geometry(label, eng, cfg, dev)
     zero_launches(mods)
     eng.learning_many(1)
     torch.cuda.synchronize()
@@ -2226,7 +2312,7 @@ def run_svi4_full(label, cfg, corpus, test, dev, mods) -> dict:
         print(f"  {dev_us / 1e3:.3f} ms an epoch, {count} launches: "
               f"{key[:90]}")
     split = {"gamma_ms": sum(us for _, us, key in prof["ops"]
-                             if "row_fixed_point_kernel" in key) / 1e3,
+                             if "row_fixed_point" in key) / 1e3,
              "scatter_ms": prof["ranges"].get(SCATTER_RANGE, 0.0) / 1e3}
     split["rest_ms"] = (prof["busy_ms"] - split["gamma_ms"]
                         - split["scatter_ms"])
@@ -2239,7 +2325,8 @@ def run_svi4_full(label, cfg, corpus, test, dev, mods) -> dict:
         raise AssertionError(f"{label}: the profile holds no gamma kernel or "
                              f"no scatter range")
     counts = read_launches(mods)
-    check_launched(label, counts, ("ragged_gamma",), absent=("dense_sstats",))
+    check_launched(label, counts, ("ragged_gamma", "ragged_gamma_cluster"),
+                   absent=("dense_sstats",))
     zero_launches(mods)
     t0 = time.perf_counter()
     ll, gamma = eng.inference(test)
@@ -2267,7 +2354,8 @@ def run_svi4_full(label, cfg, corpus, test, dev, mods) -> dict:
             "busy_ms": prof["busy_ms"], "idle_share": prof["idle_share"],
             "wall_ms": prof["wall_ms"], "peak_mib": peak / 2**20,
             "perplexity": ppl, "point_perplexity": pe,
-            "point_perplexity_init": pe0, **split}
+            "point_perplexity_init": pe0, "gamma_launches": gamma_launches,
+            **split}
 
 
 # The roofline: a phase's bound over its measured time may not pass this
@@ -2282,7 +2370,7 @@ GAMMA0_TEST_DOCS = 512  # held-out documents of the card-vs-CPU check
 NATIVE_DIR = REPO / "build" / "chip_smoke_native"
 OBS_OUT = REPO / "build" / "chip_smoke_cli" / "observability"
 # The port's CUDA kernels by the names a profiler trace gives them.
-KERNEL_NAMES = ("row_fixed_point_kernel", "dense_sstats_kernel")
+KERNEL_NAMES = ("row_fixed_point", "dense_sstats_kernel")
 
 
 def state_of(eng) -> list:
@@ -3467,6 +3555,9 @@ for name, mod in mods.items():
     counts[name + "_bf16"] = mod.BF16_LAUNCHES
     counts[name + "_wide"] = mod.WIDE_LAUNCHES
     counts[name + "_wide_bf16"] = mod.BF16_WIDE_LAUNCHES
+    if hasattr(mod, "CLUSTER_LAUNCHES"):
+        counts[name + "_cluster"] = mod.CLUSTER_LAUNCHES
+        counts[name + "_cluster_bf16"] = mod.BF16_CLUSTER_LAUNCHES
 counts["dense_sstats_range"] = sstats.RANGE_LAUNCHES
 counts["dense_sstats_range_bf16"] = sstats.BF16_RANGE_LAUNCHES
 counts["dense_sstats_range_wide"] = sstats.RANGE_WIDE_LAUNCHES
@@ -4673,14 +4764,18 @@ def main() -> int:
     for route, data in (("ragged", (corpus, test)), ("dense", (dcorpus, dtest))):
         label = f"engine {route} flagship"
         gamma = "ragged_gamma" if route == "ragged" else "dense_gamma"
+        # Every flagship row fits one block's slot buffer: the entry
+        # kernel (the gamma kernels' "_cluster" counts) stays off the path.
+        off = [f"{name}_cluster{m}" for name in ("ragged_gamma", "dense_gamma")
+               for m in ("", "_bf16")]
         r32 = run_engine(label, cfg, *data, dev, mods,
-                         (gamma, "dense_sstats"))
+                         (gamma, "dense_sstats"), absent=off)
         rl = roofline_phase(label, r32.pop("engine"), mods,
                             iteration_ms=r32["iteration_ms"])
         roofline[route] = rl["rows"]
         by_path[f"roofline_{route}"] = rl["launches"]
         r16 = run_engine(f"{label} bf16", cfg16, *data, dev, mods,
-                         (f"{gamma}_bf16", "dense_sstats_bf16"))
+                         (f"{gamma}_bf16", "dense_sstats_bf16"), absent=off)
         del r16["engine"]
         hold_bf16(label, r32, r16)
         by_path[route] = r32["launches"]
@@ -4701,8 +4796,10 @@ def main() -> int:
         num_docs=512, num_topics=SVI_K, num_types=SVI_V,
         mean_doc_length=SVI_LEN, seed=103, beta=svi_beta,
     )
+    # Every row of configs 4 and 5 is past one block's slot buffer: the
+    # launches take the entry kernel.
     r = run_svi("engine svi config 4", svi_cfg, svi_corpus, svi_test, dev,
-                mods, 4)
+                mods, 4, needed=("ragged_gamma_cluster",))
     by_path["svi"] = r["launches"]
     rl = roofline_phase("engine svi config 4", r.pop("engine"), mods)
     roofline["svi4"], by_path["roofline_svi4"] = rl["rows"], rl["launches"]
@@ -4723,12 +4820,13 @@ def main() -> int:
         seed=SVI5["TEST_SEED"], beta=svi5_beta,
     )
     r32 = run_svi("engine svi config 5", svi5_cfg, svi5_corpus, svi5_test,
-                  dev, mods, 2)
+                  dev, mods, 2, needed=("ragged_gamma_cluster",))
     rl = roofline_phase("engine svi config 5", r32.pop("engine"), mods)
     roofline["svi5"], by_path["roofline_svi5"] = rl["rows"], rl["launches"]
     r16 = run_svi("engine svi config 5 bf16",
                   dataclasses.replace(svi5_cfg, compute_dtype=BF16),
-                  svi5_corpus, svi5_test, dev, mods, 2)
+                  svi5_corpus, svi5_test, dev, mods, 2,
+                  needed=("ragged_gamma_cluster_bf16",))
     del r16["engine"]
     hold_bf16("engine svi config 5", r32, r16)
     by_path["svi5"], by_path["svi5_bf16"] = r32["launches"], r16["launches"]
@@ -4882,6 +4980,23 @@ def main() -> int:
             **{k: line[k] for k in ("max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by")},
             "library_ms": None, "shapes": shapes})
+    # The gamma kernels' entry kernel (K <= 4096, rows past one block's
+    # slot buffer), counted in the ragged gamma builds' launches above too:
+    # its lines are SVI config 5's minibatch (every launch on it).
+    for name, line in (("ragged_gamma_cluster", svi5_rg),
+                       ("ragged_gamma_cluster_bf16", svi5_rg16)):
+        f32 = next(k for k in record["kernels"] if k["name"] == "ragged_gamma")
+        record["kernels"].append({
+            **{k: f32[k] for k in ("route", "source", "replaces")},
+            "name": name,
+            **({"build": "-DPYLDA_BF16=1"} if name.endswith("_bf16") else {}),
+            "core": "pylda_tpu_torch/csrc/row_fixed_point_entries.cuh",
+            "launches": launches[name], "launches_by_path": paths[name],
+            **{k: line[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by")},
+            "library_ms": None,
+            "shapes": [r for r in (rg_shapes + rg16_shapes + dg_shapes)
+                       if "entries" in r.get("routes", [r.get("route")])]})
     # The sstats kernel's topic-range launches (lambda split over topics):
     # counted in its builds' launches above too.
     f32 = record["kernels"][0]

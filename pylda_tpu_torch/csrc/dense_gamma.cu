@@ -41,7 +41,12 @@
 // nonzeros each sweep, gathering each window's B rows from L2: the L2
 // reads of such a row are its nonzeros x 4 ldb bytes a sweep.  At K > 256
 // the core's wide kernels run (a thread owns several topics; 25 slots of
-// 4 KB at K=1000, so rows of more nonzeros stream); above K = 4096 the
+// 4 KB at K=1000).  A batch whose largest row (Params.L bounds it; the
+// wrapper's plan takes the batch's largest row nnz, counted when the batch
+// is built) is past the slot buffer takes the entry kernel
+// (row_fixed_point_entries.cuh: a cluster a row, the row's nonzeros split
+// across its CTAs and resident for all sweeps), unless 16 CTAs cannot hold
+// it, and then its long rows stream; above K = 4096 the
 // cluster kernel of row_fixed_point_tiled.cuh (a cluster of CTAs a row,
 // each a slice of the topics and of the row's B rows in shared memory;
 // past K = 65,536 the direct plan, each slice's state in device memory and
@@ -53,7 +58,7 @@
 // the ratio rounded to bf16 where the reference rounds them, sums in f32
 // (row_fixed_point.cuh); its final pass is dense_sstats.cu's bf16 build.
 
-#include "row_fixed_point_tiled.cuh"
+#include "row_fixed_point_entries.cuh"
 
 extern "C" {
 

@@ -48,7 +48,13 @@
 // slot a sweep (0.54 ms for the 30 sweeps of a minibatch at 67 TFLOP/s).
 // Measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md): 16.2 ms for a
 // minibatch's 12 launches at a trained lambda, ~2.2 TB/s of 4 KB gathers:
-// the re-gathering, not the arithmetic, sets the time.
+// the re-gathering, not the arithmetic, sets the time.  So a launch whose
+// bucket width (its widest row) is past one block's slot buffer takes the
+// entry kernel (row_fixed_point_entries.cuh): a cluster of C CTAs a row,
+// each holding a share of the row's entries for all its sweeps (config 5:
+// C = 4 or 8, bf16 2 or 4), the partial sums meeting in a reduce-scatter
+// and an all-gather through distributed shared memory a sweep.  Only rows past
+// 16 CTAs' buffers (K = 4096) still stream.
 //
 // Built twice (ops/_build.py): as is, and with -DPYLDA_BF16=1, the bf16
 // operand mode of estep_ragged_gamma(compute_dtype="bfloat16"): a bf16
@@ -69,7 +75,7 @@
 // A bucket's rows may fall into segments (Params.seg: the chunks the JAX
 // engine's layout would run apart), each ending at its own S*.
 
-#include "row_fixed_point_tiled.cuh"
+#include "row_fixed_point_entries.cuh"
 
 extern "C" {
 

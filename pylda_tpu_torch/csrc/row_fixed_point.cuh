@@ -448,17 +448,43 @@ __device__ __forceinline__ float slot_dot(const Layout& L, const float* smem,
   return (a0 + a1) + (a2 + a3);
 }
 
-// Steps A and B of a sweep over the n slots in the buffer: adds to acc[j]
-// this thread's share of sum_t ratio[t] * B[t, 4q..4q+3] for its float4s
-// q (kQ = 1: q = tid % k4 in group tid / k4).  The loops are kept rolled:
-// the kernel's code must stay small for the instruction cache.
+// Step B of a sweep over the n slots in the buffer: adds to acc[j] this
+// thread's share of sum_t ratio[t] * B[t, 4q..4q+3] for its float4s q
+// (kQ = 1: q = tid % k4 in group tid / k4).  The loops are kept rolled
+// (kUnroll slots at a time): the kernel's code must stay small for the
+// instruction cache.
+template <int kQ, bool kBf16, int kUnroll = 2>
+__device__ __forceinline__ void slot_sums(const Layout& L, const float* smem,
+                                          int n, float4 (&acc)[kQ]) {
+  const float* ratio_s = smem + L.ratio;
+  const int tid = threadIdx.x, k4 = L.k4;
+  // acc += ratio[t] * B[t, 4q..4q+3] for slots t = g, g + G, ...
+#pragma unroll
+  for (int j = 0; j < kQ; ++j) {
+    const int idx = tid + kThreads * j;
+    const int q = idx % k4, g = idx / k4;
+    if (g < L.groups) {
+#pragma unroll (kUnroll)
+      for (int t = g; t < n; t += L.groups) {
+        const float r = ratio_s[t];
+        const float4 b = slot4<kBf16>(smem + L.b, L, t, q);
+        acc[j].x = fmaf(b.x, r, acc[j].x);
+        acc[j].y = fmaf(b.y, r, acc[j].y);
+        acc[j].z = fmaf(b.z, r, acc[j].z);
+        acc[j].w = fmaf(b.w, r, acc[j].w);
+      }
+    }
+  }
+}
+
+// Steps A and B of a sweep over the n slots in the buffer.
 template <int kQ, bool kBf16>
 __device__ __forceinline__ void sweep_slots(const Params& p, const Layout& L,
                                             float* smem, int n,
                                             float4 (&acc)[kQ]) {
   float* ratio_s = smem + L.ratio;
   const float* cnt_s = smem + L.cnt;
-  const int tid = threadIdx.x, k4 = L.k4;
+  const int tid = threadIdx.x;
   // A. phinorm and ratio: slot t0 + tid / 2, half h (slot_dot).  bf16:
   // the ratio is rounded where it is stored.
   const int h = tid & 1;
@@ -472,23 +498,8 @@ __device__ __forceinline__ void sweep_slots(const Params& p, const Layout& L,
     }
   }
   __syncthreads();
-  // B. acc += ratio[t] * B[t, 4q..4q+3] for slots t = g, g + G, ...
-#pragma unroll
-  for (int j = 0; j < kQ; ++j) {
-    const int idx = tid + kThreads * j;
-    const int q = idx % k4, g = idx / k4;
-    if (g < L.groups) {
-#pragma unroll 2
-      for (int t = g; t < n; t += L.groups) {
-        const float r = ratio_s[t];
-        const float4 b = slot4<kBf16>(smem + L.b, L, t, q);
-        acc[j].x = fmaf(b.x, r, acc[j].x);
-        acc[j].y = fmaf(b.y, r, acc[j].y);
-        acc[j].z = fmaf(b.z, r, acc[j].z);
-        acc[j].w = fmaf(b.w, r, acc[j].w);
-      }
-    }
-  }
+  // B.
+  slot_sums<kQ, kBf16>(L, smem, n, acc);
 }
 
 // Slots a warp keeps in registers: rows of up to kWarps * kRegSlots = 128

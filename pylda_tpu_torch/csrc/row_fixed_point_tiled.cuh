@@ -139,7 +139,7 @@ __device__ __forceinline__ uint32_t mapa(uint32_t addr, int rank) {
   return out;
 }
 
-// Stores v (one or two floats) into another CTA's shared memory at the
+// Stores v (one, two or four floats) into another CTA's shared memory at the
 // cluster address addr, completing as transaction bytes on its mbarrier
 // bar (a cluster address too).
 __device__ __forceinline__ void st_async(uint32_t addr, float v,
@@ -156,6 +156,15 @@ __device__ __forceinline__ void st_async(uint32_t addr, float2 v,
       "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], "
       "{%1, %2}, [%3];" ::"r"(addr),
       "f"(v.x), "f"(v.y), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void st_async(uint32_t addr, float4 v,
+                                         uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
+      "{%1, %2, %3, %4}, [%5];" ::"r"(addr),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
       : "memory");
 }
 
@@ -670,42 +679,27 @@ __device__ __forceinline__ RowRun run_row_cluster(
   return {s, first, n};
 }
 
-// The two phases, a cluster a row.  The rank-0 CTA walks the queues: in
-// phase 0 every row (flushing its histogram when the rows move on to the
-// next segment); in phase 1 the rows that ran past their segment's S*
-// (doing the bookkeeping of the others itself).  It compacts the row into
-// the cluster's list and writes (row, live entries, sweeps) into a slot of
-// its shared memory; after a cluster barrier every CTA reads the slot.
-// kDirect: the direct plan (p.state), an instance of its own, so that the
-// staged plan's code is the same as without it.
-template <typename CT, bool kBf16, bool kDirect>
-__global__ void __launch_bounds__(kThreads, 1)
-row_fixed_point_cluster_kernel(Params p) {
-  extern __shared__ __align__(16) unsigned char cluster_smem[];
-  unsigned char* smem = cluster_smem;
-  const ClusterLayout CL(p.slice, p.resident, p.window, p.nhist, kBf16,
-                         p.cluster, kDirect);
-  unsigned char* st = kDirect ? reinterpret_cast<unsigned char*>(p.state) +
-                                    (size_t)blockIdx.x * CL.state
-                              : smem;
+// The two phases, a cluster a row (both cluster kernels: this one, and
+// the entry kernel of row_fixed_point_entries.cuh).  The rank-0 CTA walks
+// the queues: in phase 0 every row (flushing its histogram when the rows
+// move on to the next segment); in phase 1 the rows that ran past their
+// segment's S* (doing the bookkeeping of the others itself).  It compacts
+// the row into the cluster's list (ids_g) and writes (row, live entries,
+// sweeps) into a slot of its shared memory (two slots, so one cluster
+// barrier a row suffices); after a cluster barrier every CTA reads the
+// slot.  run(row, n, sweeps, count) runs one row in every CTA of the
+// cluster and returns its RowRun.  hist_s (nhist ints), flags (4 ints),
+// slots (8 ints) and scan_s (kWarps ints) are the CTA's shared memory.
+template <typename CT, typename RunRow>
+__device__ __forceinline__ void cluster_phases(const Params& p, int rank,
+                                               int* ids_g, int* hist_s,
+                                               int* flags, int* slots,
+                                               int* scan_s, RunRow run) {
   cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x;
-  const int rank = (int)cluster.block_rank();
-  const Slice S(p, rank, kBf16);
-  const int cid = blockIdx.x / p.cluster;
-  int* ids_g = p.lists + (size_t)cid * 2 * p.L;
-  int* hist_s = reinterpret_cast<int*>(smem + CL.hist);
-  int* flags = reinterpret_cast<int*>(smem + CL.flags);
-  int* slots = reinterpret_cast<int*>(smem + CL.slots);
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + CL.bars);
   for (int s = tid; s < p.nhist; s += kThreads) hist_s[s] = 0;
-  if (tid == 0) {
-    for (int b = 0; b < 7; ++b) mbar_init(&bars[b], 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
   __syncthreads();
-  Pipe pipe = {0u, {0u, 0u}, 0u, 0u};
-  int buf = 0, takes = 0;
+  int takes = 0;
   int cur = -1, S_cur = p.inner_iterations;  // rank 0: segment, its S*
   unsigned long long slots_n = 0, extra = 0;
   for (int phase = 0; phase < 2; ++phase) {
@@ -758,8 +752,7 @@ row_fixed_point_cluster_kernel(Params p) {
               cur = seg;
             }
           }
-          n = compact_to_list<CT>(p, reinterpret_cast<int*>(smem + CL.scan),
-                                  row, ids_g);
+          n = compact_to_list<CT>(p, scan_s, row, ids_g);
         }
         if (tid == 0) {
           slot[0] = row;
@@ -772,8 +765,7 @@ row_fixed_point_cluster_kernel(Params p) {
       const int row = s0[0], n = s0[1], sweeps = s0[2];
       ++takes;
       if (row >= p.D) break;
-      const RowRun r = run_row_cluster<kBf16, kDirect>(
-          p, S, CL, smem, st, pipe, buf, ids_g, row, n, sweeps, phase == 0);
+      const RowRun r = run(row, n, sweeps, phase == 0);
       if (phase == 0 && rank == 0 && tid == 0) {
         p.row_run[row] = r.sweeps;
         p.row_nnz[row] = r.nnz;
@@ -786,6 +778,88 @@ row_fixed_point_cluster_kernel(Params p) {
     if (p.extra_out && extra) atomicAdd(p.extra_out, extra);
   }
   cluster.sync();  // no CTA leaves while another may read its memory
+}
+
+// The cluster kernel above kMaxTopics: cluster_phases with a row run by
+// run_row_cluster.  kDirect: the direct plan (p.state), an instance of its
+// own, so that the staged plan's code is the same as without it.
+template <typename CT, bool kBf16, bool kDirect>
+__global__ void __launch_bounds__(kThreads, 1)
+row_fixed_point_cluster_kernel(Params p) {
+  extern __shared__ __align__(16) unsigned char cluster_smem[];
+  unsigned char* smem = cluster_smem;
+  const ClusterLayout CL(p.slice, p.resident, p.window, p.nhist, kBf16,
+                         p.cluster, kDirect);
+  unsigned char* st = kDirect ? reinterpret_cast<unsigned char*>(p.state) +
+                                    (size_t)blockIdx.x * CL.state
+                              : smem;
+  const int rank = (int)cg::this_cluster().block_rank();
+  const Slice S(p, rank, kBf16);
+  int* ids_g = p.lists + (size_t)(blockIdx.x / p.cluster) * 2 * p.L;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + CL.bars);
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 7; ++b) mbar_init(&bars[b], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  Pipe pipe = {0u, {0u, 0u}, 0u, 0u};
+  int buf = 0;
+  cluster_phases<CT>(
+      p, rank, ids_g, reinterpret_cast<int*>(smem + CL.hist),
+      reinterpret_cast<int*>(smem + CL.flags),
+      reinterpret_cast<int*>(smem + CL.slots),
+      reinterpret_cast<int*>(smem + CL.scan),
+      [&](int row, int n, int sweeps, bool count) {
+        return run_row_cluster<kBf16, kDirect>(p, S, CL, smem, st, pipe, buf,
+                                               ids_g, row, n, sweeps, count);
+      });
+}
+
+// Launches kern cooperatively in clusters of p.cluster CTAs with smem
+// bytes of dynamic shared memory a CTA (cudaLaunchKernelEx with the
+// cooperative and cluster-dimension attributes): as many clusters as fit
+// on the card at once, at most one a row and at most cap.  Writes back
+// clusters, smem_bytes, blocks_per_sm and grid.
+template <typename Kernel>
+cudaError_t launch_clusters(Kernel kern, Params& p, size_t smem, int cap,
+                            cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attrs[2];
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = p.cluster;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  attrs[1].id = cudaLaunchAttributeCooperative;
+  attrs[1].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.cluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attrs;
+  cfg.numAttrs = 1;
+  int clusters = 0, per_sm = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)kern, &cfg);
+  if (err != cudaSuccess) return err;
+  if (clusters < 1) return cudaErrorCooperativeLaunchTooLarge;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads,
+                                                      smem);
+  if (err != cudaSuccess) return err;
+  if (p.D < clusters) clusters = p.D;
+  if (cap < clusters) clusters = cap;
+  p.clusters = clusters;
+  p.smem_bytes = (int)smem;
+  p.blocks_per_sm = per_sm;
+  p.grid = clusters * p.cluster;
+  cfg.gridDim = dim3(p.grid);
+  cfg.numAttrs = 2;
+  err = cudaLaunchKernelEx(&cfg, kern, p);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 // Launches the cluster kernel cooperatively for K > kMaxTopics with the
@@ -816,59 +890,14 @@ cudaError_t launch_row_fixed_point_cluster(Params& p, cudaStream_t stream) {
           .total;
   auto kern = direct ? row_fixed_point_cluster_kernel<CT, kBf16, true>
                      : row_fixed_point_cluster_kernel<CT, kBf16, false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err != cudaSuccess) return err;
-  cudaLaunchAttribute attrs[2];
-  attrs[0].id = cudaLaunchAttributeClusterDimension;
-  attrs[0].val.clusterDim.x = p.cluster;
-  attrs[0].val.clusterDim.y = 1;
-  attrs[0].val.clusterDim.z = 1;
-  attrs[1].id = cudaLaunchAttributeCooperative;
-  attrs[1].val.cooperative = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(p.cluster);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = attrs;
-  cfg.numAttrs = 1;
-  int clusters = 0, per_sm = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)kern, &cfg);
-  if (err != cudaSuccess) return err;
-  if (clusters < 1) return cudaErrorCooperativeLaunchTooLarge;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads,
-                                                      smem);
-  if (err != cudaSuccess) return err;
-  if (p.D < clusters) clusters = p.D;
-  if (p.list_blocks < clusters) clusters = p.list_blocks;
-  if (direct && p.state_ctas / p.cluster < clusters)
-    clusters = p.state_ctas / p.cluster;
   const int R = p.resident, W = p.window;
   const int nr = min(p.L, R);
   p.windows = (nr > 0) + (p.L > nr ? (p.L - nr + W - 1) / W : 0);
-  p.clusters = clusters;
-  p.smem_bytes = (int)smem;
-  p.blocks_per_sm = per_sm;
-  p.grid = clusters * p.cluster;
   p.tile = p.slice;
-  cfg.gridDim = dim3(p.grid);
-  cfg.numAttrs = 2;
-  err = cudaLaunchKernelEx(&cfg, kern, p);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
-}
-
-// The launch for any K: the row-resident kernels up to kMaxTopics, the
-// cluster kernel above.
-template <typename CT, bool kBf16>
-cudaError_t launch_gamma(Params& p, bool registers, cudaStream_t stream) {
-  if (p.K > kMaxTopics)
-    return launch_row_fixed_point_cluster<CT, kBf16>(p, stream);
-  return launch_row_fixed_point<CT, kBf16>(p, registers, stream);
+  return launch_clusters(
+      kern, p, smem,
+      direct ? min(p.list_blocks, p.state_ctas / p.cluster) : p.list_blocks,
+      stream);
 }
 
 }  // namespace

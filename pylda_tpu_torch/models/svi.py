@@ -149,6 +149,9 @@ class _Rows:
     doc_of_row: np.ndarray  # [R]
     csr_start: np.ndarray  # [D+1]
     csr_rows: np.ndarray  # [R]
+    # Dense layout: the largest nonzero count of a document's row (the
+    # gamma launch's max_nnz); None on the ragged layout.
+    max_nnz: Optional[int] = None
 
     @property
     def sentinel(self) -> int:
@@ -386,6 +389,8 @@ class StochasticVariationalBayes(VariationalBayes):
             cap=cap, chunk_sizes=[cap], segments=None, seg_rows=None,
             doc_of_row=rows,
             csr_start=np.arange(D + 1, dtype=np.int64), csr_rows=rows,
+            max_nnz=max(ids.size for _, uniq in self._unique_blocks(corpus)
+                        for ids, _ in uniq),
         )]
 
     def _doc_sel_arrays(self, index_lists) -> Optional[List[np.ndarray]]:
@@ -575,6 +580,7 @@ class StochasticVariationalBayes(VariationalBayes):
                             counts=rows.counts.index_select(0, r),
                             mask=(row_doc < D).to(self._dtype),
                             doc_ids=gids[i][j],
+                            max_nnz=rows.max_nnz,
                         ))
                     else:
                         batches.append(_Bucket(

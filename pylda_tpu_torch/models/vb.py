@@ -141,6 +141,9 @@ class _Dense:
     counts: torch.Tensor  # [D_b, V] bf16 (counts <= 256) or f32
     mask: torch.Tensor  # [D_b] f32: 1 for real documents
     doc_ids: np.ndarray  # [D_b] int32, -1 for padding rows
+    # The largest nonzero count of a row, counted on the host when the
+    # batch is built: it sizes the gamma launch (dense_estep's max_nnz).
+    max_nnz: Optional[int] = None
 
     @property
     def rows(self) -> int:
@@ -317,6 +320,7 @@ class VariationalBayes(Inferencer):
                     counts=_compact_counts(b.counts, dev, self._dtype),
                     mask=torch.as_tensor(b.mask, device=dev).to(self._dtype),
                     doc_ids=b.doc_ids,
+                    max_nnz=int((b.counts != 0).sum(axis=1).max(initial=0)),
                 ))
                 continue
             row_index = np.where(b.doc_ids >= 0, b.doc_ids - offset, num_docs)
@@ -494,7 +498,8 @@ class VariationalBayes(Inferencer):
         gammas, sweeps = [], []
         for b, gamma0 in zip(batches, gamma0s):
             if isinstance(b, _Dense):
-                g, ss, tok, s = dense_estep(b.counts, gamma0, eeb, alpha, **kw)
+                g, ss, tok, s = dense_estep(b.counts, gamma0, eeb, alpha,
+                                            max_nnz=b.max_nnz, **kw)
             else:
                 g, ss, tok, s = estep_ragged(b.ids, b.cnts, gamma0, eeb, alpha,
                                              eeb_t=eeb_t, segments=b.segments,

@@ -27,8 +27,13 @@ float32 builds.  Under lambda sharding the final pass takes the rank's
 fixed point reads the whole expElogbeta.  Above K = 4096 the fixed point
 is the cluster kernel (``csrc/row_fixed_point_tiled.cuh``, counted in
 ``WIDE_LAUNCHES`` / ``BF16_WIDE_LAUNCHES`` too) and the final pass the
-sstats kernel's two passes.  A dense batch is one segment: the dense
-route already makes the JAX engine's batches.
+sstats kernel's two passes.  Up to K = 4096 a batch whose largest row nnz
+(``max_nnz``, counted when the batch is built; by default the column
+count) is past one block's slot buffer runs the entry kernel
+(``csrc/row_fixed_point_entries.cuh``, ``row_fixed_point.gamma_plan``),
+counted in ``CLUSTER_LAUNCHES`` / ``BF16_CLUSTER_LAUNCHES`` too.  A dense
+batch is one segment: the dense route already makes the JAX engine's
+batches.
 """
 
 from __future__ import annotations
@@ -54,6 +59,10 @@ BF16_LAUNCHES = 0
 # Of those, the launches of the cluster kernel (K > RESIDENT_TOPICS).
 WIDE_LAUNCHES = 0
 BF16_WIDE_LAUNCHES = 0
+# ... and of the entry kernel (K <= RESIDENT_TOPICS, rows past one block's
+# slot buffer: the plan's route "entries").
+CLUSTER_LAUNCHES = 0
+BF16_CLUSTER_LAUNCHES = 0
 
 
 def _kernel(compute_dtype: str):
@@ -76,6 +85,7 @@ def dense_estep(
     compute_dtype: str = "float32",
     topic_range: Optional[Tuple[int, int]] = None,
     vocab_range: Optional[Tuple[int, int]] = None,
+    max_nnz: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """(gamma [D, K], sstats [K, V], token score 0-d, sweeps_used 0-d
     int32) — see ``estep_dense``.  Optional outputs, filled on CUDA
@@ -89,8 +99,14 @@ def dense_estep(
     - ``row_exit_out`` ([D] int32) gets each row's first exitable sweep
       (1-based; 0 if it never was);
     - ``geometry_out`` (a dict) gets the gamma launch's
-      ``row_fixed_point.GEOMETRY``."""
+      ``row_fixed_point.GEOMETRY`` and the plan's ``route``.
+
+    ``max_nnz``: the largest number of nonzero counts in a row, which
+    sizes the gamma launch's plan (``row_fixed_point.gamma_plan``); it
+    must bound every row (the entry kernel traps on a longer one).
+    Default: the column count V."""
     global LAUNCHES, BF16_LAUNCHES, WIDE_LAUNCHES, BF16_WIDE_LAUNCHES
+    global CLUSTER_LAUNCHES, BF16_CLUSTER_LAUNCHES
     check_compute_dtype(compute_dtype)
     if not counts.is_cuda:
         return estep_dense(
@@ -129,20 +145,23 @@ def dense_estep(
                 exp_elog_beta.new_zeros(()),
                 torch.zeros((), dtype=torch.int32, device=dev))
     counts = counts.contiguous()
+    geo = {} if geometry_out is None else geometry_out
     gamma, sweeps = row_fixed_point.launch(
         _kernel(compute_dtype), None, counts, V,
         row_fixed_point.gather_table(exp_elog_beta, compute_dtype),
         alpha, gamma_init, inner_iterations, convergence_threshold, eps,
         stall_patience, row_sweeps_out=row_sweeps_out,
         row_exit_out=row_exit_out, extra_sweeps_out=extra_sweeps_out,
-        geometry_out=geometry_out)
-    wide = row_fixed_point.tiled(K)
+        geometry_out=geo, widest=max_nnz)
+    wide, cluster = geo["route"] == "cluster", geo["route"] == "entries"
     if compute_dtype == "bfloat16":
         BF16_LAUNCHES += 1
         BF16_WIDE_LAUNCHES += wide
+        BF16_CLUSTER_LAUNCHES += cluster
     else:
         LAUNCHES += 1
         WIDE_LAUNCHES += wide
+        CLUSTER_LAUNCHES += cluster
     # The final pass at the EXACT expectation of the converged gamma.
     c_own, eeb_own = vocab_block(counts, exp_elog_beta, vocab_range)
     sstats, token_score = dense_sstats(

@@ -11,7 +11,11 @@ for CPU tensors it runs the plain version,
 kernel does not take raises.  The launch itself, shared with the dense
 kernel's wrapper, is ``ops/row_fixed_point.py``; above K = 4096 it runs
 the cluster kernel (``csrc/row_fixed_point_tiled.cuh``), counted in
-``WIDE_LAUNCHES`` / ``BF16_WIDE_LAUNCHES`` too.  A bucket's rows may fall
+``WIDE_LAUNCHES`` / ``BF16_WIDE_LAUNCHES`` too.  Up to K = 4096 a bucket
+whose width is past one block's slot buffer runs the entry kernel
+(``csrc/row_fixed_point_entries.cuh``, ``row_fixed_point.gamma_plan``),
+counted in ``CLUSTER_LAUNCHES`` / ``BF16_CLUSTER_LAUNCHES`` too.  A
+bucket's rows may fall
 into ``segments``, the chunks the JAX engine's layout would run apart:
 one launch, each segment ending at its own exit sweep.  ``compute_dtype=
 "bfloat16"`` launches the kernel's bf16 build on a bf16 gather table (or
@@ -35,6 +39,10 @@ BF16_LAUNCHES = 0
 # Of those, the launches of the cluster kernel (K > RESIDENT_TOPICS).
 WIDE_LAUNCHES = 0
 BF16_WIDE_LAUNCHES = 0
+# ... and of the entry kernel (K <= RESIDENT_TOPICS, rows past one block's
+# slot buffer: the plan's route "entries").
+CLUSTER_LAUNCHES = 0
+BF16_CLUSTER_LAUNCHES = 0
 
 
 def _kernel(compute_dtype: str):
@@ -83,8 +91,10 @@ def ragged_gamma(
       only for a row that was done and froze);
     - ``geometry_out`` (a dict) gets the launch's
       ``row_fixed_point.GEOMETRY``: the slot buffer's live entries (a row
-      with more streams), shared memory a block, blocks an SM, grid."""
+      with more streams), shared memory a block, blocks an SM, grid, the
+      cluster kernels' fields, and the plan's ``route``."""
     global LAUNCHES, BF16_LAUNCHES, WIDE_LAUNCHES, BF16_WIDE_LAUNCHES
+    global CLUSTER_LAUNCHES, BF16_CLUSTER_LAUNCHES
     bf16 = check_compute_dtype(compute_dtype)
     if not ids.is_cuda:
         return estep_ragged_gamma(
@@ -121,18 +131,21 @@ def ragged_gamma(
         return gamma_init.clone(), torch.zeros(
             () if segments is None else (len(segments),), dtype=torch.int32,
             device=dev)
+    geo = {} if geometry_out is None else geometry_out
     gamma, sweeps = row_fixed_point.launch(
         _kernel(compute_dtype), ids, cnts, T,
         eeb_t, alpha, gamma_init, inner_iterations,
         convergence_threshold, eps, stall_patience, row_exit_out=row_exit_out,
         row_sweeps_out=row_sweeps_out, slots_out=slots_out,
-        extra_sweeps_out=extra_sweeps_out, geometry_out=geometry_out,
+        extra_sweeps_out=extra_sweeps_out, geometry_out=geo,
         segments=segments, seg_rows=seg_rows)
-    wide = row_fixed_point.tiled(K)
+    wide, cluster = geo["route"] == "cluster", geo["route"] == "entries"
     if compute_dtype == "bfloat16":
         BF16_LAUNCHES += 1
         BF16_WIDE_LAUNCHES += wide
+        BF16_CLUSTER_LAUNCHES += cluster
     else:
         LAUNCHES += 1
         WIDE_LAUNCHES += wide
+        CLUSTER_LAUNCHES += cluster
     return gamma, sweeps

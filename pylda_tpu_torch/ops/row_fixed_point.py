@@ -11,9 +11,17 @@ Both C entries take the same two arguments, a pointer to the core's
 ``launch`` allocates the scratch the kernel needs, fills a ``Params``,
 makes the call and returns the output gamma and sweep counts.  The
 launcher writes the geometry it chose back into the ``Params``
-(``GEOMETRY``).  Both kernels take any K: up to ``RESIDENT_TOPICS`` the
-row-resident kernels of ``csrc/row_fixed_point.cuh`` run, above it the
-cluster kernel of ``csrc/row_fixed_point_tiled.cuh``, which sweeps a row
+(``GEOMETRY``).  Both kernels take any K.  Up to ``RESIDENT_TOPICS``
+``gamma_plan`` picks per launch, from the launch's widest row (a ragged
+bucket's width, a dense batch's largest row nnz): the row-resident kernels
+of ``csrc/row_fixed_point.cuh`` where it fits one block's slot buffer
+(``slot_buffer``, the launcher's sizing), else the entry kernel of
+``csrc/row_fixed_point_entries.cuh`` (a cluster of CTAs a row, each
+holding a share of the row's entries for all sweeps), else (16 CTAs cannot
+hold it, or the gather table fits half the L2) the row-resident kernels
+with its long rows streamed.
+Above ``RESIDENT_TOPICS`` the cluster kernel of
+``csrc/row_fixed_point_tiled.cuh`` runs, which sweeps a row
 with a cluster of CTAs that split its topics, each keeping its slice of
 the row's state in shared memory and its slice of the row's B rows
 resident or streamed through a ring; ``cluster_plan`` sizes it (cluster
@@ -31,7 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -69,12 +77,29 @@ CLUSTER = 8
 # (fewer, larger windows: each costs an exchange across the cluster).
 CLUSTER_SMEM_BUDGET = 200 * 1024
 WINDOW_BYTES = 64 * 1024
+# The row-resident launcher's slot buffer (launch_row_fixed_point): at
+# K <= THREADS ~BLOCK_SMEM_TARGET bytes a block (at least 16 entries); above
+# it half an SM's shared memory less the BLOCK_SMEM_RESERVED bytes the card
+# keeps a block, or where a slot does not fit that, all a block may opt
+# into.  An H100's shared memory an SM and a block's opt-in limit (what the
+# launcher reads from the device), the defaults of the CPU's plans.
+BLOCK_SMEM_TARGET = 72 * 1024
+BLOCK_SMEM_RESERVED = 1024
+H100_SMEM_PER_SM = 233472
+H100_SMEM_OPTIN = 232448
+# An H100's L2 (bytes).  A launch whose gather table fits half of it keeps
+# the row-resident kernels: their streamed windows re-gather from the L2,
+# which beat the entry kernel there (PERF.md).
+H100_L2_BYTES = 50 * 1024 * 1024
+# Slots a batch of the entry kernel's step A sums at once (kDotSlots).
+DOT_SLOTS = 128
 # The launch geometry the launcher writes back: live entries the slot
-# buffer holds (a row with more streams; 0 in the cluster kernel), shared
+# buffer holds (a row with more streams; 0 in the cluster kernels), shared
 # memory a block, blocks an SM, the grid, the topics a CTA's sweep covers
-# (K, or the cluster kernel's slice), and in the cluster kernel the
-# cluster width, resident entries, window, windows a sweep of the widest
-# row and clusters in flight.
+# (K, or the cluster kernel's slice), and in the cluster kernels the
+# cluster width, resident entries (the entry kernel: entries a CTA holds),
+# window, windows a sweep of the widest row and clusters in flight.
+# ``launch`` adds the route its plan took (``GammaPlan.route``).
 GEOMETRY = ("nmax", "smem_bytes", "blocks_per_sm", "grid", "tile",
             "cluster", "resident", "window", "windows", "clusters")
 
@@ -245,6 +270,119 @@ def cluster_plan(K: int, L: int, compute_dtype: str = "float32",
                        size(resident, window))
 
 
+def _trunc_div(a: int, b: int) -> int:
+    """a / b rounded toward zero, as C's integer division."""
+    return -((-a) // b) if a < 0 else a // b
+
+
+def layout_floats(K: int, nmax: int, nhist: int, wide: bool,
+                  bf16: bool) -> Tuple[int, int]:
+    """(floats a slot, floats of a block's shared memory) of the core's
+    ``Layout`` (``csrc/row_fixed_point.cuh``) for a buffer of nmax slots."""
+    k4, k8 = -(-K // 4), -(-K // 8)
+    s4, s8 = k4 | 1, k8 | 1
+    slot = s8 * 4 if bf16 else s4 * 4
+    groups = THREADS // k4 if k4 < THREADS else 1
+    n4 = _up(nmax, 4)
+    part = (nmax * slot + s4 * 4 + (k8 * 8 if bf16 else 0)
+            + (s4 * 4 if wide else 0))
+    hist = part + groups * k4 * 4 + 3 * n4
+    warps = THREADS // 32
+    return slot, hist + _up(nhist, 4) + warps + 2 * warps + 4
+
+
+def slot_buffer(K: int, compute_dtype: str = "float32",
+                inner_iterations: int = 50,
+                sm_bytes: int = H100_SMEM_PER_SM,
+                optin: int = H100_SMEM_OPTIN) -> int:
+    """The live entries one block's slot buffer holds in the row-resident
+    kernels (the launcher's nmax before it is cut to the launch's row
+    width): a row with more streams."""
+    bf16 = check_compute_dtype(compute_dtype)
+    wide = K > THREADS
+    nhist = min(inner_iterations, MAX_HIST)
+    slot, fixed = layout_floats(K, 0, nhist, wide, bf16)
+    per_slot = 4 * (slot + 3)
+    fixed_bytes = 4 * (fixed + 12)
+    if not wide:
+        return max(16, _trunc_div(BLOCK_SMEM_TARGET - fixed_bytes, per_slot))
+    nmax = _trunc_div(sm_bytes // 2 - BLOCK_SMEM_RESERVED - fixed_bytes,
+                      per_slot)
+    if nmax < 1:
+        nmax = _trunc_div(optin - fixed_bytes, per_slot)
+    if nmax < 1:
+        raise ValueError(f"K = {K}: no slot fits a block")
+    return nmax
+
+
+def entry_smem_bytes(K: int, share: int, slice_: int, cluster: int,
+                     nhist: int, bf16: bool) -> int:
+    """Shared memory of a CTA of the entry kernel (``EntryLayout`` of
+    ``csrc/row_fixed_point_entries.cuh``): the wide ``Layout`` with a buffer
+    of ``share`` slots, then the partials of the rank's slice from each
+    rank, the ranks' (|dgamma|, gamma') pairs, step A's chunk sums
+    ([warps][DOT_SLOTS]), the row slots and four mbarriers."""
+    _, base = layout_floats(K, share, nhist, True, bf16)
+    return 4 * (base + cluster * slice_ + _up(2 * cluster, 4)
+                + THREADS // 32 * DOT_SLOTS + 16)
+
+
+@dataclasses.dataclass(frozen=True)
+class GammaPlan:
+    """A launch's plan at K <= RESIDENT_TOPICS for rows of up to
+    ``widest`` live entries: the row-resident kernels with every row in
+    one block's slot buffer ("rows"), the entry kernel ("entries"), or
+    the row-resident kernels with the longer rows streamed ("stream").
+    ``launch`` reports the route, or "cluster" above RESIDENT_TOPICS."""
+
+    route: str  # "rows", "entries" or "stream"
+    nmax: int  # entries one block's slot buffer holds (slot_buffer)
+    cluster: int = 0  # the entry kernel: CTAs a row
+    share: int = 0  # entries a CTA holds (its slot buffer)
+    slice: int = 0  # topics a rank owns in the exchange (a multiple of 4)
+    smem_bytes: int = 0  # shared memory a CTA
+
+
+def gamma_plan(K: int, widest: int, compute_dtype: str = "float32",
+               inner_iterations: int = 50,
+               sm_bytes: int = H100_SMEM_PER_SM,
+               optin: int = H100_SMEM_OPTIN,
+               cluster: Optional[int] = None, table_bytes: int = 0,
+               l2_bytes: int = H100_L2_BYTES) -> GammaPlan:
+    """The plan of a launch at K <= RESIDENT_TOPICS whose rows have at most
+    ``widest`` live entries (a host-known bound: a ragged bucket's width,
+    a dense batch's largest row nnz): "rows" where that fits one block's
+    slot buffer; "stream" where the gather table (``table_bytes``) fits
+    half the L2 (``l2_bytes``), whose re-gathers the row-resident kernels'
+    streamed windows then read; else "entries", the smallest cluster of a
+    power of two CTAs, at most MAX_CLUSTER (or ``cluster``), whose CTAs
+    hold it in ``CLUSTER_SMEM_BUDGET`` bytes each, the row's entries split
+    into shares of ceil(widest / C) and the topics into slices of 4
+    ceil(K / 4C); else "stream".  (Clusters of 2, 4 or 8 CTAs fill a
+    GPC's SMs, 3, 5 or 7 leave some idle: PERF.md.)"""
+    if tiled(K):
+        raise ValueError(f"K = {K}: above {RESIDENT_TOPICS} the cluster "
+                         "kernel's plan applies (cluster_plan)")
+    bf16 = check_compute_dtype(compute_dtype)
+    nmax = slot_buffer(K, compute_dtype, inner_iterations, sm_bytes, optin)
+    if widest <= nmax and cluster is None:
+        return GammaPlan("rows", nmax)
+    if cluster is None and 0 < table_bytes <= l2_bytes // 2:
+        return GammaPlan("stream", nmax)
+    nhist = min(inner_iterations, MAX_HIST)
+    k4 = -(-K // 4)
+    widths = [1 << i for i in range(MAX_CLUSTER.bit_length())]
+    for C in widths if cluster is None else (cluster,):
+        if not 1 <= C <= MAX_CLUSTER:
+            raise ValueError(f"cluster must be 1..{MAX_CLUSTER}, got {C}")
+        share = max(1, -(-widest // C))
+        slice_ = 4 * -(-k4 // C)
+        smem = entry_smem_bytes(K, share, slice_, C, nhist, bf16)
+        if smem <= CLUSTER_SMEM_BUDGET or cluster is not None:
+            return GammaPlan("entries", nmax, C, share, slice_, smem)
+    return GammaPlan("stream", nmax)
+
+
 def segment_rows(segments: Sequence[int], dev) -> torch.Tensor:
     """[sum(segments)] int32 on dev: each row's segment, rows in order.
     The engines build it once a bucket and pass it to ``launch``."""
@@ -314,18 +452,21 @@ def launch(
     extra_sweeps_out: Optional[torch.Tensor] = None,
     geometry_out: Optional[dict] = None,
     segments: Optional[Sequence[int]] = None,
-    plan: Optional[ClusterPlan] = None,
+    plan: Optional[Union[ClusterPlan, GammaPlan]] = None,
     seg_rows: Optional[torch.Tensor] = None,
+    widest: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One launch of a gamma kernel (``kernel``, a bound entry; the
-    cluster kernel above ``RESIDENT_TOPICS``, with ``plan`` or else
-    ``cluster_plan``'s for rows of ``length`` entries) on checked CUDA
-    inputs: (gamma [D, K],
+    """One launch of a gamma kernel (``kernel``, a bound entry) on checked
+    CUDA inputs, by ``plan``, else by ``gamma_plan``'s for rows of at most
+    ``widest`` live entries (default ``length``) or, above
+    ``RESIDENT_TOPICS``, ``cluster_plan``'s for rows of ``length``:
+    (gamma [D, K],
     sweeps: 0-d int32, or [len(segments)] int32, each segment's own, when
     ``segments`` splits the rows into consecutive segments; ``seg_rows``,
     their ``segment_rows`` on the device, is built here when not passed).
     Checks the optional outputs; ``geometry_out`` gets the ``GEOMETRY``
-    the launcher chose.  Raises if the launch fails."""
+    the launcher chose and the plan's route ("route").  Raises if the
+    launch fails."""
     D, K = gamma_init.shape
     dev = gamma_init.device
     seg = None
@@ -355,14 +496,24 @@ def launch(
     lists = torch.empty((list_blocks, 2, max(length, 1)), dtype=torch.int32,
                         device=dev)
     bf16 = table.dtype == torch.bfloat16
-    if tiled(K) and plan is None:
-        plan = cluster_plan(K, length, "bfloat16" if bf16 else "float32",
-                            inner_iterations)
+    mode = "bfloat16" if bf16 else "float32"
+    if plan is None and tiled(K):
+        plan = cluster_plan(K, length, mode, inner_iterations)
+    elif plan is None:
+        props = torch.cuda.get_device_properties(dev)
+        plan = gamma_plan(K, length if widest is None else min(length, widest),
+                          mode, inner_iterations,
+                          props.shared_memory_per_multiprocessor,
+                          getattr(props, "shared_memory_per_block_optin",
+                                  H100_SMEM_OPTIN),
+                          table_bytes=table.numel() * table.element_size(),
+                          l2_bytes=props.L2_cache_size)
+    route = plan.route if isinstance(plan, GammaPlan) else "cluster"
     # A direct plan's slice states in device memory: room for a CTA an SM
     # (the launcher runs at most state_ctas CTAs).
     state = (torch.empty((sms * cluster_state_bytes(plan.slice, bf16, True)
                           // 4,), dtype=torch.float32, device=dev)
-             if tiled(K) and plan.direct else None)
+             if route == "cluster" and plan.direct else None)
     p = Params(
         ids=_ptr(ids), cnts=cnts.data_ptr(), table=table.data_ptr(),
         alpha=alpha.data_ptr(), gamma0=gamma0.data_ptr(),
@@ -382,10 +533,12 @@ def launch(
         use_stall=int(stall_patience > 0 and convergence_threshold > 0.0),
         nseg=nseg,
     )
-    if tiled(K):
+    if route == "cluster":
         p.cluster, p.slice = plan.cluster, plan.slice
         p.resident, p.window = plan.resident, plan.window
         p.state_ctas = 0 if state is None else sms
+    elif route == "entries":
+        p.cluster, p.slice, p.resident = plan.cluster, plan.slice, plan.share
     # The scratch tensors may be freed once the launch is enqueued: the
     # caching allocator hands their memory out again only in stream order.
     with torch.cuda.device(dev):
@@ -393,5 +546,6 @@ def launch(
     if rc != 0:
         raise RuntimeError(f"{kernel.__name__} launch failed: cudaError {rc}")
     if geometry_out is not None:
-        geometry_out.update({f: getattr(p, f) for f in GEOMETRY})
+        geometry_out.update({f: getattr(p, f) for f in GEOMETRY},
+                            route=route)
     return gamma, sweeps if segments is not None else sweeps.reshape(())

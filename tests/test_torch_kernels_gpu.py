@@ -499,6 +499,19 @@ def test_dense_estep_refuses_large_k(cuda, K, compute_dtype):
     torch.testing.assert_close(r, r_p, rtol=5e-4, atol=5e-4 + K * 1e-5)
 
 
+def _hold_route(geo, live):
+    """A launch whose rows lie on both sides of one block's slot buffer:
+    on the entry kernel's route the cluster holds every row (no slot
+    buffer of nmax); on the row-resident kernels' the buffer holds the
+    shortest rows and the longest stream."""
+    if geo["route"] == "entries":
+        assert geo["nmax"] == 0
+        assert geo["cluster"] * geo["resident"] >= int(live.max())
+    else:
+        assert geo["route"] == "stream"
+        assert int(live.min()) <= geo["nmax"] < int(live.max())
+
+
 def _wide_ragged_inputs(K, dev, seed=8):
     """24 rows of 20 to 120 live slots: at K >= 1000 rows on both sides of
     the slot buffer (25 entries at K = 1000, 4 at K = 4096), at K = 257
@@ -523,8 +536,9 @@ def _wide_ragged_inputs(K, dev, seed=8):
 def test_ragged_kernel_wide_k_matches_plain(cuda, K):
     """At pinned sweeps (12, threshold 0) rtol 1e-4 with every row held;
     with the exit rule, rtol 5e-4 (atol 5e-4 + K * threshold) and the sweep
-    count within +-1; rows resident and streamed; two calls bitwise
-    equal."""
+    count within +-1; rows on both sides of one block's slot buffer (the
+    launch takes the entry kernel, whose cluster holds every row, or
+    streams the longer rows); two calls bitwise equal."""
     ids, cnts, g0, eeb, alpha = _wide_ragged_inputs(K, cuda)
     live = (cnts != 0).sum(dim=1)
     geo = {}
@@ -534,7 +548,7 @@ def test_ragged_kernel_wide_k_matches_plain(cuda, K):
     g2, _ = ragged_mod.ragged_gamma(ids, cnts, g0, eeb, alpha, **kw)
     g_p, s_p = estep_ragged_gamma(ids, cnts, g0, eeb, alpha, **kw)
     torch.cuda.synchronize()
-    assert 1 <= geo["nmax"] < int(live.max()) and int(live.min()) <= geo["nmax"]
+    _hold_route(geo, live)
     assert torch.equal(g, g2)
     assert int(s) == int(s_p) == 12
     torch.testing.assert_close(g, g_p, rtol=1e-4, atol=1e-4)
@@ -699,8 +713,25 @@ def test_ragged_kernel_stalled_rows_keep_their_bound(cuda):
     document's share of the bound at the kernel's gamma agrees with its
     share at the float64 plain version's gamma to rel 1e-5 — their gamma
     may drift by rounding, their bound may not."""
-    K, V, D, T = 1000, 5000, 64, 160
-    rng = np.random.default_rng(9)
+    _stalled_rows_keep_their_bound(cuda, 160, 9, 5000)
+
+
+def test_entry_kernel_stalled_rows_keep_their_bound(cuda):
+    """The same at config 5's widest bucket (width 208) over V = 8000 (a
+    32 MB gather table, past half the L2): the launch takes the entry
+    kernel, 8 CTAs a row, 26 entries each."""
+    geo = _stalled_rows_keep_their_bound(cuda, 208, 19, 8000)
+    assert (geo["route"], geo["cluster"], geo["resident"]) == (
+        "entries", 8, 26)
+
+
+def _stalled_rows_keep_their_bound(cuda, T, seed, V):
+    """The kernel's and the float64 plain version's shares of the bound on
+    the rows still updating at S*, rel 1e-5, at K = 1000 on rows of ~150
+    tokens in a bucket of width T over V types; returns the launch's
+    geometry."""
+    K, D = 1000, 64
+    rng = np.random.default_rng(seed)
     beta = rng.dirichlet(np.full(V, 0.02), size=K)
     theta = rng.dirichlet(np.full(K, 0.05), size=D)
     ids = np.zeros((D, T), np.int32)
@@ -718,8 +749,10 @@ def test_ragged_kernel_stalled_rows_keep_their_bound(cuda):
     kw = dict(inner_iterations=30, convergence_threshold=1e-5,
               stall_patience=6)
     rows = torch.zeros((D,), dtype=torch.int32, device=cuda)
+    geo = {}
     g, s = ragged_mod.ragged_gamma(ids, cnts, g0, eeb, alpha,
-                                   row_sweeps_out=rows, **kw)
+                                   row_sweeps_out=rows, geometry_out=geo,
+                                   **kw)
     g_64, s_64 = estep_ragged_gamma(ids, cnts.double(), g0.double(),
                                     eeb.double(), alpha.double(), **kw)
     torch.cuda.synchronize()
@@ -731,6 +764,195 @@ def test_ragged_kernel_stalled_rows_keep_their_bound(cuda):
     b_64 = ragged_doc_bound(ids, cnts, g_64, eeb.double(), alpha.double())
     rel = ((b_k - b_64).abs() / b_64.abs())[updating]
     assert float(rel.max()) <= 1e-5, float(rel.max())
+    return geo
+
+
+# The entry kernel: (K, T) with rows of 1 to T live entries, the widest
+# past one block's slot buffer (at K = 200 two CTAs of 150 entries, 257
+# two, 1000 eight of 26, 2048 eight of 13, 4096 eight of 8 in float32).
+_ENTRY_K = [(200, 300), (257, 300), (1000, 208), (2048, 100), (4096, 60)]
+
+
+def _entry_inputs(K, T, dev, seed=13):
+    """24 rows of distinct ids, of 1 to T live entries (row 0 full, row 1
+    of 2), at a sharp lambda, over a vocabulary whose bf16 gather table
+    passes half the card's L2 (so the launch takes the entry kernel, not
+    the streamed windows that re-gather from the L2): as a ragged bucket
+    (ids, cnts [24, T]) and as dense counts [24, V] of the same
+    entries."""
+    rng = np.random.default_rng(seed)
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    D, V = 24, max(3000, int(0.6 * l2) // (2 * rfp.table_width(K, BF16)))
+    ids = np.zeros((D, T), np.int32)
+    cnts = np.zeros((D, T), np.float32)
+    counts = np.zeros((D, V), np.float32)
+    lens = rng.integers(1, T + 1, D)
+    lens[0], lens[1] = T, 2
+    for d, n in enumerate(lens):
+        ids[d, :n] = rng.choice(V, n, replace=False)
+        cnts[d, :n] = rng.integers(1, 4, n)
+        counts[d, ids[d, :n]] = cnts[d, :n]
+    lam = rng.gamma(0.1, 1.0, (K, V)) * 100.0 + 0.01
+    eeb = exp_dirichlet_expectation(torch.tensor(lam, device=dev).float())
+    g0 = torch.ones((D, K), dtype=torch.float32, device=dev)
+    alpha = torch.full((K,), 1.0 / K, dtype=torch.float32, device=dev)
+    return (torch.tensor(ids, device=dev), torch.tensor(cnts, device=dev),
+            torch.tensor(counts, device=dev), g0, eeb, alpha)
+
+
+def _entry_run(layout, inputs, kw, plain=False, dtype=torch.float32,
+               **extra):
+    """(gamma, sweeps) of the kernel, or of the plain version in dtype, on
+    the ragged bucket or on the dense counts (the kernel given the
+    batch's largest row nnz)."""
+    ids, cnts, counts, g0, eeb, alpha = inputs
+    args = [t.to(dtype) for t in (g0, eeb, alpha)]
+    if layout == "ragged":
+        fn = estep_ragged_gamma if plain else ragged_mod.ragged_gamma
+        return fn(ids, cnts.to(dtype), *args, **kw, **extra)
+    nnz = int((counts != 0).sum(dim=1).max())
+    if plain:
+        g, _, _, s = estep_dense(counts.to(dtype), *args, **kw, **extra)
+    else:
+        g, _, _, s = dense_mod.dense_estep(counts, *args, max_nnz=nnz, **kw,
+                                           **extra)
+    return g, s
+
+
+@pytest.mark.parametrize("layout", ["ragged", "dense"])
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("K,T", _ENTRY_K)
+def test_entry_kernel_matches_plain(cuda, K, T, compute_dtype, layout):
+    """The entry kernel against the plain version: float32 at pinned
+    sweeps, rtol 1e-4 (12 sweeps at K <= 256, 3 above: there float32
+    reassociation alone carries the plain version past that bar within 12
+    sweeps, as ``chip_smoke.py``'s PINNED_SWEEPS_WIDE says), bf16 after
+    one (``_hold_bf16_gamma``); two calls
+    bitwise equal; each launch counted in CLUSTER_LAUNCHES (bf16:
+    BF16_CLUSTER_LAUNCHES); the geometry the launcher writes back the
+    plan's (``gamma_plan``: cluster width, entries a CTA, shared memory).
+    With the exit rule, the ragged bucket in three segments of 8 rows:
+    each segment's S* within 1 of the plain version's chunk call; float32
+    gamma of the rows done by S* at rtol 5e-4 + K * threshold and the rows
+    still updating at S* by their share of the bound, as
+    ``chip_smoke.py`` holds them (their gamma drifts by rounding for any
+    float32 code): each share within 1e-5, or twice the float32 plain
+    version's gap, of the float64 plain version's; bf16 each document's
+    share (``_hold_bf16_shares``)."""
+    bf16 = compute_dtype == "bfloat16"
+    mod = ragged_mod if layout == "ragged" else dense_mod
+    counter = "BF16_CLUSTER_LAUNCHES" if bf16 else "CLUSTER_LAUNCHES"
+    inputs = _entry_inputs(K, T, cuda)
+    ids, cnts = inputs[:2]
+    pinned = dict(inner_iterations=1 if bf16 else 12 if K <= 256 else 3,
+                  convergence_threshold=0.0, compute_dtype=compute_dtype)
+    props = torch.cuda.get_device_properties(cuda)
+    plan = rfp.gamma_plan(K, T, compute_dtype, pinned["inner_iterations"],
+                          props.shared_memory_per_multiprocessor,
+                          props.shared_memory_per_block_optin)
+    assert plan.route == "entries" and plan.cluster * plan.share >= T
+    before = getattr(mod, counter)
+    geo = {}
+    g, s = _entry_run(layout, inputs, pinned, geometry_out=geo)
+    g2, _ = _entry_run(layout, inputs, pinned)
+    g_p, _ = _entry_run(layout, inputs, pinned, plain=True)
+    torch.cuda.synchronize()
+    assert getattr(mod, counter) == before + 2
+    assert geo["route"] == "entries"
+    assert (geo["cluster"], geo["resident"], geo["smem_bytes"], geo["tile"],
+            geo["nmax"], geo["window"], geo["windows"]) == (
+        plan.cluster, plan.share, plan.smem_bytes, K, 0, 0, 1)
+    assert 1 <= geo["clusters"]
+    assert geo["grid"] == geo["clusters"] * plan.cluster
+    assert torch.equal(g, g2)
+    assert int(s) == pinned["inner_iterations"]
+    if bf16:
+        _hold_bf16_gamma(g, g_p, cnts != 0)
+    else:
+        torch.testing.assert_close(g, g_p, rtol=1e-4, atol=1e-4)
+    kw = dict(inner_iterations=50, convergence_threshold=1e-5,
+              stall_patience=6, compute_dtype=compute_dtype)
+    seg = {"segments": (8, 8, 8)} if layout == "ragged" else {}
+    rows = torch.zeros((ids.shape[0],), dtype=torch.int32, device=cuda)
+    g, s = _entry_run(layout, inputs, kw, row_sweeps_out=rows, **seg)
+    g_p, s_p = _entry_run(layout, inputs, kw, plain=True, **seg)
+    g_64, _ = _entry_run(layout, inputs, kw, plain=True, dtype=torch.float64,
+                         **seg)
+    torch.cuda.synchronize()
+    assert s.shape == s_p.shape
+    assert bool(((s - s_p).abs() <= 1).all()), (s, s_p)
+    if bf16:
+        _hold_bf16_shares(ids, cnts, g, g_p, g_64, inputs[4], inputs[5])
+        return
+    s_row = s.reshape(-1).repeat_interleave(
+        torch.tensor(seg.get("segments", (ids.shape[0],)), device=cuda))
+    updating = rows >= s_row
+    done = ~updating
+    torch.testing.assert_close(g[done], g_p[done], rtol=5e-4,
+                               atol=5e-4 + K * 1e-5)
+    live = updating & (cnts != 0).any(dim=1)
+    if live.any():
+        err = _shares_err(ids[live], cnts[live], g[live], g_64[live],
+                          inputs[4], inputs[5])
+        bar = max(1e-5, 2.0 * _shares_err(ids[live], cnts[live], g_p[live],
+                                          g_64[live], inputs[4], inputs[5]))
+        assert err <= bar, (err, bar)
+
+
+@pytest.mark.parametrize("layout", ["ragged", "dense"])
+def test_rows_past_the_cluster_stream(cuda, layout):
+    """At K = 4096 in float32 16 CTAs hold 128 entries of a row: a launch
+    whose widest row has 200 takes the row-resident kernels with its long
+    rows streamed (4 entries a block), not the entry kernel; held at 12
+    pinned sweeps (rtol 1e-4)."""
+    K, T = 4096, 200
+    inputs = _entry_inputs(K, T, cuda, seed=14)
+    pinned = dict(inner_iterations=12, convergence_threshold=0.0)
+    assert rfp.gamma_plan(K, T, "float32", 12).route == "stream"
+    before = (ragged_mod.CLUSTER_LAUNCHES, dense_mod.CLUSTER_LAUNCHES)
+    geo = {}
+    g, s = _entry_run(layout, inputs, pinned, geometry_out=geo)
+    g_p, _ = _entry_run(layout, inputs, pinned, plain=True)
+    torch.cuda.synchronize()
+    assert (ragged_mod.CLUSTER_LAUNCHES, dense_mod.CLUSTER_LAUNCHES) == before
+    assert (geo["route"], geo["nmax"], geo["cluster"]) == ("stream", 4, 0)
+    assert int(s) == 12
+    torch.testing.assert_close(g, g_p, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_flagship_bucket_stays_on_the_row_resident_kernels(cuda,
+                                                           compute_dtype):
+    """The ragged flagship's widest bucket (K = 100, width 160: one block
+    holds 167 entries) takes the row-resident kernels: the launch counts
+    in LAUNCHES (or BF16_LAUNCHES), not in the cluster counters, and its
+    slot buffer is the plan's; held to the plain version (float32: 12
+    pinned sweeps, rtol 1e-4; bf16: one, ``_hold_bf16_gamma``)."""
+    bf16 = compute_dtype == "bfloat16"
+    ids, cnts, g0, eeb, alpha, _ = _ragged_inputs(64, 160, 100, 10000, cuda)
+    kw = dict(inner_iterations=1 if bf16 else 12, convergence_threshold=0.0,
+              compute_dtype=compute_dtype)
+    props = torch.cuda.get_device_properties(cuda)
+    plan = rfp.gamma_plan(100, 160, compute_dtype, kw["inner_iterations"],
+                          props.shared_memory_per_multiprocessor,
+                          props.shared_memory_per_block_optin)
+    counters = ("LAUNCHES", "BF16_LAUNCHES", "CLUSTER_LAUNCHES",
+                "BF16_CLUSTER_LAUNCHES")
+    before = [getattr(ragged_mod, c) for c in counters]
+    geo = {}
+    g, _ = ragged_mod.ragged_gamma(ids, cnts, g0, eeb, alpha,
+                                   geometry_out=geo, **kw)
+    g_p, _ = estep_ragged_gamma(ids, cnts, g0, eeb, alpha, **kw)
+    torch.cuda.synchronize()
+    after = [getattr(ragged_mod, c) for c in counters]
+    assert after == [before[0] + (not bf16), before[1] + bf16, before[2],
+                     before[3]]
+    assert (geo["route"], geo["cluster"]) == ("rows", 0)
+    assert plan.route == "rows" and geo["nmax"] == min(plan.nmax, 160)
+    if bf16:
+        _hold_bf16_gamma(g, g_p, cnts != 0)
+    else:
+        torch.testing.assert_close(g, g_p, rtol=1e-4, atol=1e-4)
 
 
 def _gamma_call(layout, inputs, kw, **outs):
@@ -832,8 +1054,7 @@ def test_dense_estep_wide_k_matches_plain(cuda, K, bf16):
     g2, ss2, tok2, _ = dense_mod.dense_estep(ct, g0, eeb, alpha, **kw)
     g_p, _, tok_p, s_p = estep_dense(ct, g0, eeb, alpha, **kw)
     torch.cuda.synchronize()
-    nnz = (counts != 0).sum(axis=1)
-    assert nnz.min() <= geo["nmax"] < nnz.max()
+    _hold_route(geo, (ct != 0).sum(dim=1))
     assert torch.equal(g, g2) and torch.equal(ss, ss2) and torch.equal(tok, tok2)
     assert int(s) == int(s_p) == 12
     torch.testing.assert_close(g, g_p, rtol=1e-4, atol=1e-4)
@@ -1186,9 +1407,7 @@ def test_ragged_bf16_build_matches_plain(cuda, K, T):
     g_32, _ = ragged_mod.ragged_gamma(ids, cnts, g0, eeb, alpha, **one)
     torch.cuda.synchronize()
     if K > 128 or T > 128:  # else every row takes the register tile
-        assert int(live.min()) <= geo["nmax"]
-    if T > 300 or K >= 1000:
-        assert int(live.max()) > geo["nmax"]  # rows that stream
+        _hold_route(geo, live)
     assert int(s) == 1 and torch.equal(g, g2)
     _hold_bf16_gamma(g, g_p, cnts != 0)
     assert float(((g_32 - g_p).abs() / g_p.abs()).max()) > 1e-3
@@ -1260,7 +1479,7 @@ def test_dense_estep_bf16_build_matches_plain(cuda, D, V, K, bf16, dmax):
                                     compute_dtype=BF16)
     torch.cuda.synchronize()
     nnz = (ct != 0).sum(dim=1)
-    assert int(nnz.max()) > geo["nmax"] >= int(nnz.min())
+    _hold_route(geo, nnz)
     _hold_bf16_gamma(g, g_p, ct != 0)
     _hold_bf16_sstats(ss, ss_at_k)
     assert float(tok) == pytest.approx(float(tok_p), rel=1e-4)
