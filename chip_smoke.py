@@ -162,7 +162,7 @@ Phases, in order (any failure exits non-zero):
    model-6 bit for bit the one-process file.
 
 10. above K = 4096 (the gamma kernels' cluster kernel,
-   ``csrc/row_fixed_point_tiled.cuh``, and the sstats kernel's two passes;
+   ``csrc/row_fixed_point_tiled.cuh``, and the sstats cluster kernel;
    every launch there counts in ``<kernel>_wide`` too):
    - ``wide_k_kernels``: each kernel in both builds against its plain
      version at K in WIDE_KS (4100, 5000, 8192, 16384) with the holds of
@@ -606,12 +606,30 @@ def sstats_check(label, counts, et, eeb, eps, sstats_mod, plain,
     k_ms = cuda_ms(lambda: sstats_mod.dense_sstats(counts, et, eeb, **mode), 20)
     p_ms = cuda_ms(lambda: plain(counts, et, eeb, **mode), 20)
     pl = sstats_mod.plan(D, Vc, K, torch.cuda.get_device_properties(
-        counts.device).multi_processor_count, nnz=nnz)
+        counts.device).multi_processor_count,
+        count_bytes=counts.element_size())
+    grid = (f"{pl.tiles} tiles of {pl.cols} columns x {pl.splits} splits, "
+            f"kp {pl.kp}")
+    extra = {}
+    if pl.wide:
+        geo = {}
+        sstats_mod.launch(sstats_mod._lib(compute_dtype), counts, et, eeb,
+                          eps, geometry_out=geo)
+        extra = {"cluster": pl.cluster, "slice": pl.slice,
+                 "batch_capacity": pl.batch,
+                 "batches": sstats_mod.wide_batches(counts, pl),
+                 "clusters_in_flight": geo["clusters"],
+                 "smem_bytes": geo["smem_bytes"], "direct": pl.direct}
+        grid = (f"{pl.tiles} tiles of {pl.cols} columns, clusters of "
+                f"{pl.cluster} CTAs ({geo['clusters']} in flight) of "
+                f"{pl.slice} topics each, batches of up to {pl.batch} "
+                f"nonzeros ({extra['batches']} batches), "
+                f"{geo['smem_bytes']} bytes of shared memory a CTA"
+                f"{', direct' if pl.direct else ''}")
     print(f"kernel dense_sstats{'' if K <= 4096 else '_wide'}"
           f"{'' if compute_dtype == 'float32' else '_bf16'} "
           f"{label} [{D}x{Vc} {str(counts.dtype)[6:]}, K={K}]: grid "
-          f"{pl.tiles} tiles of {pl.cols} columns x {pl.splits} splits, "
-          f"kp {pl.kp}, scratch {pl.scratch_bytes / 1e6:.1f} MB, "
+          f"{grid}, scratch {pl.scratch_bytes / 1e6:.1f} MB, "
           f"nonzero counts {nnz}, kernel_ms {k_ms:.4f} plain_ms "
           f"{p_ms:.4f} bound_ms {b_ms:.5f} ({b_by}; dense form "
           f"{dense_ms:.5f}), max_abs_err {err:.3e} (tolerance {SSTATS_RTOL}"
@@ -628,7 +646,7 @@ def sstats_check(label, counts, et, eeb, eps, sstats_mod, plain,
             "max_abs_err": err, "score_rel_err": tok_rel, "ms": k_ms,
             "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
             "dense_form_bound_ms": dense_ms, "columns_a_tile": pl.cols,
-            "splits": pl.splits, "scratch_bytes": pl.scratch_bytes}
+            "splits": pl.splits, "scratch_bytes": pl.scratch_bytes, **extra}
 
 
 def sstats_range_check(label, counts, et, eeb, eps, sstats_mod, plain,
@@ -1180,7 +1198,7 @@ def read_launches(mods) -> dict:
     bf16 build (its name + "_bf16"); for the sstats kernel also its
     topic-range launches ("dense_sstats_range", "dense_sstats_range_bf16",
     counted in its builds' launches too).  Of each, the launches above
-    K = 4096 (the gamma cluster kernel, the sstats kernel's two passes) as
+    K = 4096 (the gamma and the sstats cluster kernels) as
     "<name>_wide" and "<name>_wide_bf16", and of the gamma kernels the
     launches of the entry kernel (K <= 4096, rows past one block's slot
     buffer) as "<name>_cluster" and "<name>_cluster_bf16", counted in the
@@ -4110,6 +4128,9 @@ WIDE_K, WIDE_DENSE_K = 8192, 5000
 # The sstats chunk at K = 8192: config 5's first documents at its padded
 # vocabulary ([1216, 100352]); at the other K its first WIDE_CUT_COLUMNS.
 WIDE_CHUNK_ROWS, WIDE_CHUNK_COLUMNS, WIDE_CUT_COLUMNS = 1216, 100352, 25088
+# The sstats kernel on every count nonzero (many batches a tile): the
+# dense E-step's final pass shape, [256 documents, V_DENSE].
+WIDE_DENSE_ROWS = 256
 # Topic ranges of the range entry at K = 8192: each half and one across it.
 WIDE_RANGES = ((0, 4096), (4096, 8192), (1000, 5000))
 # shard_topics_vb_wide: learning() calls at pinned sweeps (threshold 0,
@@ -4163,9 +4184,13 @@ def wide_kernels(corpus5, beta5, dcorpus, dbeta, dev) -> dict:
       with its final pass;
     - the dense sstats on config 5's first [1216, 100352] chunk at
       K = 8192, on its first 25,088 columns at the other K
-      (``sstats_check``: two calls bitwise), and the topic range at
-      K = 8192 over WIDE_RANGES, each range's rows bitwise the full
-      launch's (``sstats_range_check``);
+      (``sstats_check``: two calls bitwise; the cluster kernel's plan), and
+      the topic range at K = 8192 over WIDE_RANGES, each range's rows
+      bitwise the full launch's (``sstats_range_check``); at K = 8192 its
+      direct plan bitwise the default plan (``sstats_direct_plan_check``),
+      calls under ``set_sync_debug_mode("error")``
+      (``sstats_sync_free_check``) and every count nonzero at
+      [256 x 4096] (many batches a tile);
     - at K = 8192 the cluster kernel's direct plan on the ragged bucket
       (``direct_plan_check``).
     Returns the records by kernel line name."""
@@ -4250,6 +4275,21 @@ def wide_kernels(corpus5, beta5, dcorpus, dbeta, dev) -> dict:
                                        cfg5.eps, sstats_mod,
                                        estep_dense_sstats, compute_dtype=cd,
                                        ranges=WIDE_RANGES)
+        if K == WIDE_K:
+            cut = c[:, :WIDE_CUT_COLUMNS].contiguous()
+            sstats_direct_plan_check(
+                f"config 5 chunk K={K} [{WIDE_CHUNK_ROWS}x{WIDE_CUT_COLUMNS}]",
+                cut, et, e[:, :WIDE_CUT_COLUMNS].contiguous(), cfg5.eps)
+            sstats_sync_free_check(f"config 5 chunk K={K}", c, et, e,
+                                   cfg5.eps)
+            # Every count nonzero: 8,192 a tile, many batches a tile.
+            dc = torch.randint(1, 5, (WIDE_DENSE_ROWS, V_DENSE),
+                               generator=gen, device=dev).to(torch.bfloat16)
+            out["dense_sstats_wide"].append(sstats_check(
+                f"dense counts K={K}", dc, et[:WIDE_DENSE_ROWS].contiguous(),
+                e[:, :V_DENSE].contiguous(), cfg5.eps, sstats_mod,
+                estep_dense_sstats))
+            del cut, dc
         del c, e, et
         # The dense E-step on the dense flagship's vocabulary.
         cfgd = LDAConfig(number_of_topics=K, inference_mode="vb",
@@ -4270,6 +4310,83 @@ def wide_kernels(corpus5, beta5, dcorpus, dbeta, dev) -> dict:
         del probe
         torch.cuda.empty_cache()
     return out
+
+
+def sstats_direct_plan_check(label: str, counts, et, eeb, eps) -> None:
+    """The sstats cluster kernel's direct plan (the plan past K = 16384:
+    expElogbeta and expEtheta read from device memory, raw summed in the
+    output) at the default plan's cluster and slice, in both builds, the
+    full call and a topic range: sstats and score must be bitwise the
+    default plan's.  Launches through ``sstats.launch``, not the wrapper,
+    so no count moves."""
+    import torch
+
+    from pylda_tpu_torch.ops import sstats as sstats_mod
+
+    D, Vc = counts.shape
+    K = eeb.shape[0]
+    pl = sstats_mod.plan(D, Vc, K, torch.cuda.get_device_properties(
+        counts.device).multi_processor_count,
+        count_bytes=counts.element_size())
+    direct = dataclasses.replace(pl, direct=True)
+    for cd in ("float32", BF16):
+        lib = sstats_mod._lib(cd)
+        same = True
+        for rng in (None, WIDE_RANGES[2]):
+            a = sstats_mod.launch(lib, counts, et, eeb, eps, rng, plan_=pl)
+            b = sstats_mod.launch(lib, counts, et, eeb, eps, rng,
+                                  plan_=direct)
+            torch.cuda.synchronize()
+            same = same and bool(torch.equal(a[0], b[0])
+                                 and torch.equal(a[1], b[1]))
+        ms = cuda_ms(lambda: sstats_mod.launch(lib, counts, et, eeb, eps,
+                                               plan_=direct), 3)
+        ms_default = cuda_ms(lambda: sstats_mod.launch(lib, counts, et, eeb,
+                                                       eps, plan_=pl), 3)
+        print(f"kernel dense_sstats_wide{'' if cd == 'float32' else '_bf16'} "
+              f"direct plan {label}: cluster {pl.cluster}, slice {pl.slice}, "
+              f"batches of {direct.batch}, kernel_ms {ms:.4f} (default plan "
+              f"{ms_default:.4f}), sstats and score (full, topics "
+              f"{WIDE_RANGES[2][0]}..{WIDE_RANGES[2][1] - 1}) bitwise the "
+              f"default plan's {same} {'ok' if same else 'FAIL'}")
+        if not same:
+            raise AssertionError(f"sstats direct plan {label} {cd} differs "
+                                 "from the default plan")
+
+
+def sstats_sync_free_check(label: str, counts, et, eeb, eps) -> None:
+    """One call of the sstats cluster kernel in each build, and one over a
+    topic range, under ``torch.cuda.set_sync_debug_mode("error")``: a call
+    that synchronised with the host (a read back) would raise.  The
+    results are held bitwise to a call made outside the mode."""
+    import torch
+
+    from pylda_tpu_torch.ops import sstats as sstats_mod
+
+    for cd in ("float32", BF16):
+        mode = dict(eps=eps, compute_dtype=cd)
+        ref = sstats_mod.dense_sstats(counts, et, eeb, **mode)
+        ref_r = sstats_mod.dense_sstats(counts, et, eeb, topic_range=(0, 4096),
+                                        **mode)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = sstats_mod.dense_sstats(counts, et, eeb, **mode)
+            got_r = sstats_mod.dense_sstats(counts, et, eeb,
+                                            topic_range=(0, 4096), **mode)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(got + got_r,
+                                                       ref + ref_r))
+        print(f"kernel dense_sstats_wide{'' if cd == 'float32' else '_bf16'} "
+              f"{label}: two calls (full, topics 0..4095) under "
+              f"set_sync_debug_mode('error') completed with no host sync, "
+              f"bitwise the calls outside it {same} "
+              f"{'ok' if same else 'FAIL'}")
+        if not same:
+            raise AssertionError(f"sstats sync-free call {label} {cd} "
+                                 "differs")
 
 
 def direct_plan_check(label: str, bucket, eeb, alpha, kw: dict) -> None:
@@ -5011,8 +5128,8 @@ def main() -> int:
             **{k: line[k] for k in ("max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by", "full_range_ms")},
             "library_ms": None, "shapes": range_lines[cd]})
-    # The range above K = 4096 (the gamma cluster kernel, the sstats kernel's
-    # two passes and their topic range): counted in the lines above too.
+    # The range above K = 4096 (the gamma and the sstats cluster kernels and
+    # the sstats topic range): counted in the lines above too.
     # Each line is the K = 8192 check's; "shapes" holds every K's.  The
     # bf16 topic range above 4096 is on no main path (shard_topics_vb_wide
     # runs in float32): its checks are the wide_k_kernels lines.
@@ -5028,7 +5145,7 @@ def main() -> int:
             "name": name,
             **({"build": "-DPYLDA_BF16=1"} if name.endswith("_bf16") else {}),
             **({"core": "pylda_tpu_torch/csrc/row_fixed_point_tiled.cuh"}
-               if "gamma" in name else {"entry": "pylda_dense_sstats_two_pass"}),
+               if "gamma" in name else {"entry": "pylda_dense_sstats_wide"}),
             "launches": launches[name], "launches_by_path": paths[name],
             **{k: line[k] for k in ("max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by")},

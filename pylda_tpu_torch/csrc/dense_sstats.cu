@@ -68,9 +68,9 @@
 // floating-point value, so every call returns the same bits.  Plain f32
 // FMAs and IEEE division, no TF32: the CPU reference is plain f32.
 //
-// Above K = 4096 the entries pylda_dense_sstats_two_pass_count and
-// pylda_dense_sstats_two_pass run two passes over a column list of the
-// nonzeros instead (their note is at the kernels, below).
+// Above K = 4096 the entry pylda_dense_sstats_wide launches a cluster
+// kernel instead: the topics split over a thread-block cluster, one
+// launch, nothing read back (its note is at the kernel, below).
 //
 // A topic range (pylda_dense_sstats_range, lambda split over topics: the
 // rank of a model group holding topics [k0, k1)).  phinorm, the ratio and
@@ -95,11 +95,16 @@
 // f32 values: the tile is staged in f32 and rounded only when phinorm
 // reads it.
 
+#include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstring>
+
+#include "cluster_ptx.cuh"
 
 // The build's operand mode: 0 float32, 1 bf16 operands (-DPYLDA_BF16=1).
 #ifndef PYLDA_BF16
@@ -107,6 +112,8 @@
 #endif
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr bool kBf16 = PYLDA_BF16 != 0;
 
@@ -645,231 +652,1026 @@ cudaError_t dispatch(int K, const void* counts, const void* et,
   return cudaErrorInvalidValue;
 }
 
-// -- Two passes above K = 4096 ----------------------------------------------
+// -- Above K = 4096: the cluster kernel --------------------------------------
 //
-// Above the largest build a column's sums fit no warp's registers.  The
-// nonzeros are listed by column first (CSC, a count pass, a scan and a fill;
-// each column's nonzeros in row order), and the work splits in two:
-//   pass 1  a CTA a tile of kTpCols columns over ALL K: phinorm of each of
-//           its nonzeros, by topic tiles of kTpTopics staged from
-//           expElogbeta's rows as a [kTpTopics][kTpCols] slice (coalesced
-//           128-byte reads), a warp a nonzero summing its lanes' dots in
-//           tile order; then ratio = C / (phinorm + eps) and the score term
-//           (f64, a fixed order) for each nonzero, the ratio written over
-//           the list's phinorm;
-//   pass 2  a CTA a (column tile, topic tile of [k0, k1)): thread k adds
-//           expEtheta[d, k] * ratio over each column's nonzeros in row
-//           order, the sums go through shared memory, and the tile is
-//           written as expElogbeta * raw, coalesced;
-//   a last one-CTA kernel sums the CTAs' score parts in order.
-// Each sum has one owner and one order, so two calls give the same bits,
-// and a topic range's rows are the full call's rows bit for bit (pass 1
-// and the CSC never depend on the range).  bf16 builds round where the
-// one-pass builds do.  The host reads the nonzero count between the count
-// pass and the rest (ops/sstats.py), to size the list: 12 bytes a nonzero.
-// What bounds it at SVI config 5's chunk ([1216, 100352] bf16, K = 8192,
-// 182k nonzeros): the bytes, 0.244 GB of counts, 3.28 GB of expElogbeta
-// read and 3.28 GB of sstats written (~2.0 ms at 3.35 TB/s), against ~6
-// GFLOP; this simple version reads expElogbeta twice and the counts three
-// times, and reads a nonzero's expEtheta row from L2 in both passes.
+// Above the largest build a column's sums fit no warp's registers, and an
+// expElogbeta tile of all K topics fits no CTA: at K = 8192 a column is
+// 32 KB.  So the topics split over a thread-block cluster.
+//
+// What bounds it.  At SVI config 5's chunk ([1216, 100352] bf16 counts,
+// K = 8192, 182,065 nonzeros, 0.15%) the call must read the 0.244 GB of
+// counts and the 3.28 GB of expElogbeta once and write the 3.28 GB of
+// sstats once: 6.80 GB, 2.041 ms at 3.35 TB/s, against 4 K FLOP a
+// nonzero (~6 GFLOP, 0.09 ms at 67 TFLOP/s): bytes.  The two passes this
+// kernel replaced read the counts three times and expElogbeta twice, and
+// read the nonzero count back to the host between them.  Rows of
+// expElogbeta and sstats are read and written in pieces of a tile's
+// width: on an H100 64-byte pieces held the stream to about half the
+// rate of 128-byte ones (PERF.md), so a tile is 32 columns, 128 bytes,
+// wherever a lane's registers hold the slice.
+//
+// Design: one launch, persistent clusters walking column tiles.
+//   - A cluster of C = 16 CTAs (p.cluster; ops/sstats.py::plan) takes the
+//     column tiles q, q + Q, .. (q its index, Q the clusters in flight:
+//     cudaOccupancyMaxActiveClusters, one CTA an SM) of the counts' Vc,
+//     COLS = 32 columns a tile (16 past slices of 512 topics).  CTA r
+//     owns the topic slice [r S, (r + 1) S), S = p.slice whole boxes of
+//     kWideBox rows.  Warp w owns the tile's columns [w CPW, (w + 1) CPW)
+//     (CPW = COLS / 8) and lane l the slice rows l, l + 32, ..: RPL =
+//     64 / CPW rows, so a lane holds kWideLaneFloats values of each.
+//   - expElogbeta.  Each CTA copies its [S x COLS] slice of the tile by
+//     TMA (a 2-D tensor map over [K, V], boxes of the tile's width and of
+//     the most rows of 256, 128, 64 and 32 that divide S, the swizzle of
+//     that width, rows past K and columns past V
+//     zero-filled, an L2 evict-first hint: it is streamed once) into one
+//     buffer on an mbarrier; each lane takes its values into registers
+//     (conflict-free under the swizzle), the batches then use the buffer
+//     for expEtheta rows, and the next tile's copy starts into it as the
+//     last batch ends, in flight through the next tile's walk and this
+//     tile's epilogue.  The registers serve phinorm and the epilogue:
+//     expElogbeta is read from device memory once a call.  (V not a
+//     multiple of 4: plain loads into the same layout, the same bits.)
+//   - The counts.  CTA r walks its share of every tile's rows (D / C
+//     rows: 76 at config 5's chunk), [128 x COLS] chunks by 16-byte
+//     cp.async, two chunks ahead across tiles, two threads a row: their
+//     nonzero masks, a block scan, and the nonzeros compacted in
+//     row-major order (row and column, count).  It pushes its count and
+//     up to kWidePushCap nonzeros into every rank's push area for it
+//     (st.async on that rank's mbarriers), so the counts are read from
+//     device memory once.  One area serves every tile: a rank pushes the
+//     next tile after the last exchange of this one, which waits for
+//     every rank's partials, each sent after that rank read its list.
+//     The list is the ranks' pushes in rank order: row-major, each
+//     column's nonzeros in row order, the same in every CTA.  The cap
+//     holds a share of the ragged flagship's chunk (~94 nonzeros, at
+//     most 151 of 256 rows x 32 columns at 1.2%); a tile where a rank has
+//     more (denser counts) is walked whole by every CTA from device
+//     memory instead (16-byte loads), in the same order.  The next tile's
+//     walk and push run before this tile's epilogue, whose stores hide
+//     the push.  No list, no count and no sync leaves the card.
+//   - Batches of up to p.batch nonzeros (the plan fills the shared
+//     memory: 76 at config 5's chunk, whose tiles hold ~58, 1% more than
+//     76).  A tile of more runs batches of half as many, alternating
+//     between the two halves of the slots: the next batch's list and
+//     expEtheta copies are issued before this one runs (the ragged
+//     flagship's tiles: ~1,500 nonzeros, 40 batches of 38).
+//       1. as a nonzero joins the batch, its expEtheta row's slice (S x 4
+//          bytes, one cp.async.bulk) is copied into shared memory;
+//       2. the warp owning the nonzero's column forms the CTA's partial
+//          phinorm: each lane its rows in order in two f32 chains (even
+//          and odd rows), their sum, then the xor butterfly in f64 (two
+//          nonzeros at a time: the first step splits them between the
+//          half-warps); lane r sends it to rank r by st.async on that
+//          rank's mbarrier (row_fixed_point_entries.cuh's exchange; two
+//          exchange arrays alternating a batch, so no cluster barrier is
+//          needed: a rank stores into an array again only after every
+//          rank sent it the next batch's partials, which each sends after
+//          reading the array);
+//       3. every rank sums the C partials in rank order 0..C-1 and adds
+//          eps, in f64, and rounds phinorm to f32 once, so every rank
+//          holds the same phinorm bits and forms the same ratio (bf16:
+//          rounded where formed); rank 0 adds the score terms, in nonzero
+//          order, in f64;
+//       4. raw: (topic, column) has one owner, the lane holding the
+//          topic's row in the column's warp, which adds the column's
+//          nonzeros in row order in a register (expEtheta from the staged
+//          rows: L2 read once).
+//     The bf16 build rounds the staged expEtheta and the slice values as
+//     it reads them, two at a time (one packed conversion a pair).
+//   - The epilogue: sstats = expElogbeta x raw from the registers, staged
+//     through shared memory (the batch area past the tile, the same
+//     swizzle) and written in whole rows of the tile, coalesced, rows of
+//     the topic range only.
+//   - The score: rank 0 writes each tile's f64 sum; the last cluster to
+//     finish (a counter behind __threadfence, left zero for the next
+//     call) sums the tiles' parts in a fixed tree, as the one-pass kernel
+//     does.
+// Determinism: every sum has one owner and a fixed order (a lane's rows,
+// the butterfly, the ranks; raw in row order; the score in nonzero order,
+// then a fixed tree over tiles), no float atomics: two calls give the
+// same bits.  The batches change no order (a sum runs over its terms in
+// order whichever batch holds them), nor does the tile assignment, nor
+// how the list was gathered.
+//
+// A topic range (k0, k1) runs the whole K's plan: every rank still forms
+// its phinorm partials, and only the rows in [k0, k1) are summed and
+// written (rows 0..k1-k0-1 of the output), so its rows are the full
+// call's bit for bit.
+//
+// No cap on K.  Past slices of 1024 topics (K = 16 x 1024) a slice no
+// longer fits a lane's registers, and the plan is direct (p.direct, a
+// kernel instance of its own, 32 columns): expElogbeta and expEtheta are
+// read from device memory at phinorm and raw is summed in the output
+// itself (the same owner, row order), which the epilogue multiplies by
+// expElogbeta read again.  The sums and their orders are the default
+// plan's, so at the default plan's C, slice and columns it gives the
+// same bits (chip_smoke.py's check at K = 8192).
+//
+// What holds it back (PERF.md): each tile's steps run one after another
+// at 8 warps an SM, about 2.5 times the stream alone at config 5's chunk:
+// the batch's partials the largest (with the wait for its expEtheta
+// copies), then the exchange's wait and the sums; a warp's work is its
+// columns' nonzeros, so the busiest warp sets the pace.  Each nonzero's
+// expEtheta slice comes from L2 (182k x 32 KB, ~6 GB of L2 reads beside
+// the 6.8 GB from device memory; 483k x 32 KB, ~16 GB, at the ragged
+// flagship's chunk, where the batches set the time).  At 16 columns
+// (K > 8192) rows move in 64-byte pieces: the slice's copy, the counts'
+// walk and the epilogue each take about twice their 32-column time for
+// the same bytes, and the kernel is slower than the two passes it
+// replaced there.  A wider tile needs a slice's values and sums beyond a
+// CTA's registers, and at 4 KB an expEtheta slice the batch then left in
+// shared memory would be too small for a tile's nonzeros.
 
-constexpr int kTpCols = 32;     // columns a pass-1 / pass-2 CTA
-constexpr int kTpTopics = 256;  // topics a staged slice / a pass-2 CTA
-constexpr int kTpLd = kTpCols + 1;  // slice row stride: no bank conflicts
-constexpr int kScanThreads = 1024;
+constexpr int kWideCols = 32;        // columns a tile: 128 bytes of a row
+constexpr int kWideNarrowCols = 16;  // past slices of 512 topics: 64 bytes
+constexpr int kWideLaneFloats = 64;  // slice values a lane holds (and sums)
+constexpr int kWideBox = 32;         // a slice is whole boxes of these rows
+constexpr int kWideCountRows = 128;  // counts rows a chunk: two threads a row
+constexpr int kWideCountBufs = 3;    // the chunk ring: two chunks in flight
+constexpr int kWidePushCap = 160;    // nonzeros a CTA pushes a tile, at most
+constexpr int kWideMaxCluster = 16;
+constexpr int kWideMaxBatch = 256;   // a thread a nonzero where they meet
 
-// colptr[v + 1] = nonzeros of column v (thread a column, rows in order).
-template <typename CT>
-__global__ void __launch_bounds__(kThreads)
-tp_count(const CT* __restrict__ counts, int D, int Vc,
-         long long* __restrict__ colptr) {
-  const int v = blockIdx.x * kThreads + threadIdx.x;
-  if (v >= Vc) return;
-  int n = 0;
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) n += to_float(counts[(size_t)d * Vc + v]) != 0.f;
-  colptr[v + 1] = n;
+// A CTA's dynamic shared memory (bytes, each offset a multiple of 16 from a
+// 1024-aligned base): the expElogbeta slice tile [S rows x cols x 4 bytes] and
+// after it the rest of the batch's expEtheta rows [batch][S] f32, the first
+// cols of them in the tile (free between taking the slice into registers and
+// the next slice's copy), the others where the epilogue also stages the tile's
+// sstats (none in the direct plan), the counts ring (kWideCountBufs chunks of
+// [128 x cols]), this CTA's compacted nonzeros (kWidePushCap of (row and
+// column, count)), the push area [C][1 + kWidePushCap] (a header with the
+// sender's count, then its nonzeros), the batch list (rows, columns, counts:
+// a slot a nonzero, as the expEtheta rows), ratios, score terms, the two f64
+// exchange arrays [2][C][batch], the block scan and eight mbarriers.
+// ops/sstats.py::wide_smem_bytes mirrors it.
+struct WideLayout {
+  int tile, et, cnt, out, push, rows, cols, vals, ratio, term, recv, scan,
+      bars, total;
+  __host__ __device__ WideLayout(int slice, int batch, int cluster, int celem,
+                                 int ncols, bool direct) {
+    int o = 0;
+    tile = o;
+    o += direct ? 0 : slice * ncols * 4;
+    et = o;
+    o += direct ? 0 : (batch - ncols) * slice * 4;
+    cnt = o;
+    o += kWideCountBufs * kWideCountRows * ncols * celem;
+    out = o;
+    o += 8 * kWidePushCap;
+    push = o;
+    o += 8 * cluster * (1 + kWidePushCap);
+    rows = o;
+    o += 4 * batch;
+    cols = o;
+    o += 4 * batch;
+    vals = o;
+    o += 4 * batch;
+    ratio = o;
+    o += 4 * batch;
+    term = o;
+    o += 8 * batch;
+    recv = o;
+    o += 8 * 2 * cluster * batch;
+    scan = o;
+    o += 8 * kWarps + 16;
+    bars = o;
+    o += 64;
+    total = o;
+  }
+};
+
+struct WideParams {
+  const void* counts;
+  const float* et;
+  const float* eeb;
+  float* sstats;
+  double* score_part;
+  float* score_out;
+  int* counter;
+  int D, Vc, V, K, k0, k1;
+  float eps;
+  int cluster, slice, batch, tiles;
+  int eeb_tma, et_bulk, counts_vec, out_vec;
+};
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
-// colptr[v + 1] = the nonzeros of columns 0..v (the inclusive prefix sum
-// of the column counts), colptr[0] = 0: the CSC's column starts, and
-// colptr[Vc] the nonzero count.  One CTA; thread i a contiguous run.
-__global__ void __launch_bounds__(kScanThreads)
-tp_scan(long long* __restrict__ colptr, int Vc) {
-  __shared__ long long part[kScanThreads];
-  const int per = (Vc + kScanThreads - 1) / kScanThreads;
-  const int j0 = min((int)threadIdx.x * per, Vc);
-  const int j1 = min(j0 + per, Vc);
-  long long mine = 0;
-  for (int j = j0; j < j1; ++j) mine += colptr[j + 1];
-  part[threadIdx.x] = mine;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    long long run = 0;
-    for (int i = 0; i < kScanThreads; ++i) {
-      const long long x = part[i];
-      part[i] = run;
-      run += x;
+__device__ __forceinline__ uint64_t evict_first_policy() {
+  uint64_t pol;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
+               : "=l"(pol));
+  return pol;
+}
+
+// One box of the 2-D tensor map at (column x, row y) into this CTA's
+// shared memory, completing on bar.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            int x, int y, uint64_t* bar,
+                                            uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.L2::cache_hint [%0], [%1, {%2, %3}], [%4], %5;" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y),
+      "r"(smem_u32(bar)), "l"(policy)
+      : "memory");
+}
+
+// Byte offset of (row r, 16-byte chunk j) in a tile of COLS-float rows
+// under the TMA swizzle of the row's width (128 or 64 bytes: chunk bits
+// 4.. ^= address bits 7..).
+template <int COLS>
+__device__ __forceinline__ int swz(int r, int j) {
+  constexpr int RB = COLS * 4;
+  return r * RB + ((j ^ (((r * RB) >> 7) & (RB / 16 - 1))) << 4);
+}
+
+// Rows of a TMA box of the slice: the largest of 256, 128, 64 and 32 that
+// divides it.
+__host__ __device__ __forceinline__ int wide_box_rows(int slice) {
+  return slice % 256 == 0 ? 256 : slice % 128 == 0 ? 128
+         : slice % 64 == 0 ? 64 : kWideBox;
+}
+
+// Issues the copy of the expElogbeta slice of the tile at column v0 into
+// tile: TMA boxes on bar (thread 0), or plain loads by every thread.
+template <int COLS>
+__device__ __forceinline__ void wide_load_slice(const WideParams& p,
+                                                const CUtensorMap* map,
+                                                unsigned char* tile, int kb,
+                                                int v0, uint64_t* bar,
+                                                uint64_t policy) {
+  if (p.eeb_tma) {
+    if (threadIdx.x == 0) {
+      fence_proxy_async();
+      mbar_expect_tx(bar, (uint32_t)(p.slice * COLS * 4));
+      const int bh = wide_box_rows(p.slice);
+      for (int b = 0; b < p.slice / bh; ++b)
+        tma_load_2d(tile + b * bh * COLS * 4, map, v0, kb + b * bh, bar,
+                    policy);
+    }
+  } else {
+    for (int i = threadIdx.x; i < p.slice * COLS; i += kThreads) {
+      const int r = i / COLS, c = i % COLS;
+      const int k = kb + r, v = v0 + c;
+      *reinterpret_cast<float*>(tile + swz<COLS>(r, c / 4) + 4 * (c % 4)) =
+          k < p.K && v < p.V ? __ldg(p.eeb + (size_t)k * p.V + v) : 0.f;
     }
   }
-  __syncthreads();
-  long long run = part[threadIdx.x];
-  for (int j = j0; j < j1; ++j) {
-    run += colptr[j + 1];
-    colptr[j + 1] = run;
-  }
-  if (threadIdx.x == 0) colptr[0] = 0;
 }
 
-// The list: each column's nonzeros in row order from colptr[v] (rows, and
-// counts as f32).
-template <typename CT>
-__global__ void __launch_bounds__(kThreads)
-tp_fill(const CT* __restrict__ counts, int D, int Vc,
-        const long long* __restrict__ colptr, int* __restrict__ rows,
-        float* __restrict__ vals) {
-  const int v = blockIdx.x * kThreads + threadIdx.x;
-  if (v >= Vc) return;
-  long long pos = colptr[v];
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    const float c = to_float(counts[(size_t)d * Vc + v]);
-    if (c != 0.f) {
-      rows[pos] = d;
-      vals[pos] = c;
-      ++pos;
-    }
-  }
-}
-
-// Pass 1 (see above): ratio[i] for every nonzero i of the CTA's columns,
-// and the CTA's score part.  phin, the running phinorm of a nonzero, is
-// kept in ratio[i] until its last tile.
-__global__ void __launch_bounds__(kThreads)
-tp_ratio(const long long* __restrict__ colptr, const int* __restrict__ rows,
-         const float* __restrict__ vals, const float* __restrict__ et,
-         const float* __restrict__ eeb, float* __restrict__ ratio,
-         double* __restrict__ score_part, int Vc, int V, int K, float eps) {
-  __shared__ float slice[kTpTopics * kTpLd];
-  __shared__ long long cs[kTpCols + 1];  // the columns' starts, and the end
-  __shared__ double score_s[kWarps];
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int v0 = blockIdx.x * kTpCols;
-  for (int c = tid; c <= kTpCols; c += kThreads) cs[c] = colptr[min(v0 + c, Vc)];
-  __syncthreads();
-  const long long lo = cs[0], hi = cs[kTpCols];
-  double score = 0.0;
-  if (hi > lo) {
-    for (int k0 = 0; k0 < K; k0 += kTpTopics) {
-      __syncthreads();  // the slice before is read
-      for (int i = tid; i < kTpTopics * kTpCols; i += kThreads) {
-        const int kk = i / kTpCols, c = i % kTpCols;
-        const int k = k0 + kk, v = v0 + c;
-        slice[kk * kTpLd + c] =
-            k < K && v < V ? __ldg(eeb + (size_t)k * V + v) : 0.f;
-      }
-      __syncthreads();
-      // A warp a nonzero (i = lo + warp, lo + warp + 8, ..); lane l the
-      // topics l, l + 32, .. of the slice.  c follows i: the column of i.
-      int c = 0;
-      for (long long i = lo + warp; i < hi; i += kWarps) {
-        while (cs[c + 1] <= i) ++c;
-        const float* erow = et + (size_t)rows[i] * K;
-        float a = 0.f;
+// Issues the copies of counts rows [d0, min(d0 + 128, d1)) x columns
+// [v0, v0 + COLS) into dst and commits them as one group; rows past d1 and
+// columns past Vc read as zero.
+template <typename CT, int COLS>
+__device__ __forceinline__ void wide_load_counts(const WideParams& p,
+                                                 unsigned char* dst, int d0,
+                                                 int d1, int v0) {
+  constexpr int E = 16 / sizeof(CT);
+  constexpr int SEGS = COLS / E;
+  const CT* counts = static_cast<const CT*>(p.counts);
+  for (int i = threadIdx.x; i < kWideCountRows * SEGS; i += kThreads) {
+    const int r = i / SEGS, c = (i % SEGS) * E;
+    const int d = d0 + r, v = v0 + c;
+    CT* s = reinterpret_cast<CT*>(dst) + r * COLS + c;
+    if (p.counts_vec) {
+      if (d < d1 && v < p.Vc)
+        __pipeline_memcpy_async(s, counts + (size_t)d * p.Vc + v, 16);
+      else
+        *reinterpret_cast<uint4*>(s) = make_uint4(0u, 0u, 0u, 0u);
+    } else {
 #pragma unroll
-        for (int m = 0; m < kTpTopics / 32; ++m) {
-          const int kk = lane + 32 * m;
-          const int k = k0 + kk;
-          const float e = k < K ? operand(__ldg(erow + k)) : 0.f;
-          a = fmaf(e, operand(slice[kk * kTpLd + c]), a);
+      for (int e = 0; e < E; ++e)
+        s[e] = (d < d1 && v + e < p.Vc) ? counts[(size_t)d * p.Vc + v + e]
+                                        : CT(0.f);
+    }
+  }
+  __pipeline_commit();
+}
+
+// The nonzero mask of the N (8 or 16) counts of row d at columns
+// [v, v + N), read from device memory by 16-byte loads where the row is
+// aligned (v a multiple of 8) and whole, else one count at a time
+// (columns past Vc and rows past D are zero).
+template <typename CT, int N>
+__device__ __forceinline__ unsigned wide_row_mask(const WideParams& p, int d,
+                                                  int v) {
+  if (d >= p.D) return 0u;
+  const CT* row = static_cast<const CT*>(p.counts) + (size_t)d * p.Vc;
+  if (p.counts_vec && v + N <= p.Vc) {
+    unsigned mask = 0u;
+#pragma unroll
+    for (int g = 0; g < N / 8; ++g) mask |= nonzero8(row + v + 8 * g) << (8 * g);
+    return mask;
+  }
+  unsigned mask = 0u;
+#pragma unroll
+  for (int e = 0; e < N; ++e)
+    mask |= (unsigned)(v + e < p.Vc && to_float(row[v + e]) != 0.f) << e;
+  return mask;
+}
+
+// The block's exclusive prefix of x in thread order; *total the sum.
+__device__ __forceinline__ int wide_scan(int x, int* scan_s, int* total) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  int inc = x;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(kFull, inc, off);
+    if (lane >= off) inc += y;
+  }
+  if (lane == 31) scan_s[warp] = inc;
+  __syncthreads();
+  int before = 0, all = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const int s = scan_s[w];
+    before += w < warp ? s : 0;
+    all += s;
+  }
+  *total = all;
+  return before + inc - x;
+}
+
+// raw[.][cc] += x * r over the lane's kept rows (bit j of kept).
+template <int RPL, int CPW>
+__device__ __forceinline__ void wide_add(float (&raw)[RPL][CPW], int cc,
+                                         const float (&x)[RPL], float r,
+                                         unsigned kept) {
+#define PYLDA_WIDE_ADD(cc_)                                           \
+  _Pragma("unroll") for (int j = 0; j < RPL; ++j) if ((kept >> j) & 1u) \
+      raw[j][cc_] = fmaf(x[j], r, raw[j][cc_]);
+  switch (cc) {
+    case 0:
+      PYLDA_WIDE_ADD(0)
+      break;
+    case 1:
+      PYLDA_WIDE_ADD(CPW > 1 ? 1 : 0)
+      break;
+    case 2:
+      PYLDA_WIDE_ADD(CPW > 2 ? 2 : 0)
+      break;
+    default:
+      PYLDA_WIDE_ADD(CPW > 3 ? 3 : 0)
+      break;
+  }
+#undef PYLDA_WIDE_ADD
+}
+
+// operand() of the RPL values of x, two at a time (one packed
+// conversion a pair: the same bits).
+template <int RPL>
+__device__ __forceinline__ void wide_operands(float (&x)[RPL]) {
+  if constexpr (kBf16) {
+#pragma unroll
+    for (int j = 0; j + 1 < RPL; j += 2) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(x[j], x[j + 1]);
+      x[j] = __low2float(h);
+      x[j + 1] = __high2float(h);
+    }
+    if (RPL % 2) x[RPL - 1] = operand(x[RPL - 1]);
+  }
+}
+
+// Column cc (< CPW) of a lane's slice values v[RPL][CPW] into b[RPL], by
+// selects (no branch, so two nonzeros' work can interleave).
+template <int RPL, int CPW>
+__device__ __forceinline__ void wide_pick(const float (&v)[RPL][CPW], int cc,
+                                          float (&b)[RPL]) {
+#pragma unroll
+  for (int j = 0; j < RPL; ++j) {
+    if constexpr (CPW == 4)
+      b[j] = cc & 2 ? (cc & 1 ? v[j][3 % CPW] : v[j][2 % CPW])
+                    : (cc & 1 ? v[j][1] : v[j][0]);
+    else
+      b[j] = cc & 1 ? v[j][1 % CPW] : v[j][0];
+  }
+}
+
+// x's bits as a float2 (an 8-byte st.async).
+__device__ __forceinline__ float2 as_float2(double x) {
+  return make_float2(__int_as_float(__double2loint(x)),
+                     __int_as_float(__double2hiint(x)));
+}
+
+// The cluster kernel above K = 4096 (see above): COLS columns a tile;
+// kDirect the direct plan.
+template <typename CT, int COLS, bool kDirect>
+__global__ void __launch_bounds__(kThreads, 1)
+dense_sstats_wide_kernel(const WideParams p,
+                         const __grid_constant__ CUtensorMap eeb_map) {
+  constexpr int CPW = COLS / kWarps;          // columns a warp owns
+  constexpr int RPL = kWideLaneFloats / CPW;  // slice rows a lane holds
+  constexpr int CAP = kWidePushCap;
+  extern __shared__ __align__(16) unsigned char wide_smem_raw[];
+  // A 1024-byte aligned base (the swizzled tile); the same in every CTA.
+  unsigned char* smem =
+      wide_smem_raw + ((1024 - (smem_u32(wide_smem_raw) & 1023)) & 1023);
+  const WideLayout L(p.slice, p.batch, p.cluster, (int)sizeof(CT), COLS,
+                     kDirect);
+  unsigned char* tile_s = smem + L.tile;
+  // A batch's expEtheta rows: from the tile on.
+  float* et_s = reinterpret_cast<float*>(smem + L.tile);
+  float2* out_s = reinterpret_cast<float2*>(smem + L.out);
+  float2* push_s = reinterpret_cast<float2*>(smem + L.push);
+  int* rows_s = reinterpret_cast<int*>(smem + L.rows);
+  int* cols_s = reinterpret_cast<int*>(smem + L.cols);
+  float* vals_s = reinterpret_cast<float*>(smem + L.vals);
+  float* ratio_s = reinterpret_cast<float*>(smem + L.ratio);
+  double* term_s = reinterpret_cast<double*>(smem + L.term);
+  double* recv_s = reinterpret_cast<double*>(smem + L.recv);
+  int* scan_s = reinterpret_cast<int*>(smem + L.scan);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bars);
+  // bars: 0 the slice tile; 1 the push headers; 2 the pushed nonzeros; 3,
+  // 4 the partials (a buffer a batch, alternating); 5, 6 the batches'
+  // expEtheta rows (the two halves of the slots, where a tile's batches
+  // alternate between them).
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int C = p.cluster, rank = (int)cluster.block_rank();
+  const int kb = rank * p.slice;  // the slice's first topic
+  const int own = max(0, min(p.K, kb + p.slice) - kb);
+  const int q = blockIdx.x / C, nq = gridDim.x / C;
+  const int nt = q < p.tiles ? (p.tiles - q + nq - 1) / nq : 0;
+  // This CTA's share of every tile's rows: [d0, d1), in chunks of 128.
+  const int share = (p.D + C - 1) / C;
+  const int d0 = min(p.D, rank * share), d1 = min(p.D, d0 + share);
+  const int nch = max(1, (d1 - d0 + kWideCountRows - 1) / kWideCountRows);
+  const uint64_t policy = evict_first_policy();
+  // Lane l's rows of the slice: l + 32 j; bit j set where the row is a
+  // topic (below own), and where it is in the topic range.
+  unsigned valid = 0u, kept = 0u;
+#pragma unroll
+  for (int j = 0; j < RPL; ++j) {
+    const int r = lane + 32 * j;
+    valid |= (unsigned)(r < own) << j;
+    kept |= (unsigned)(r < own && kb + r >= p.k0 && kb + r < p.k1) << j;
+  }
+  const int drows = (own + 31) / 32;  // the direct plan's rows a lane
+
+  if (tid == 0) {
+    for (int b = 0; b < 8; ++b) mbar_init(&bars[b], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  cluster.sync();  // every rank's mbarriers exist before any st.async
+
+  auto cbuf = [&](int s) {
+    return smem + L.cnt +
+           (s % kWideCountBufs) * kWideCountRows * COLS * (int)sizeof(CT);
+  };
+  auto stream_load = [&](int s) {  // chunk s of this CTA's share stream
+    if (s < nt * nch)
+      wide_load_counts<CT, COLS>(p, cbuf(s), d0 + (s % nch) * kWideCountRows,
+                                 d1, (q + (s / nch) * nq) * COLS);
+    else
+      __pipeline_commit();
+  };
+  if (nt > 0) {
+    if constexpr (!kDirect)
+      wide_load_slice<COLS>(p, &eeb_map, tile_s, kb, q * COLS, &bars[0],
+                            policy);
+    for (int s = 0; s + 1 < kWideCountBufs; ++s) stream_load(s);
+  }
+
+  float E[RPL][CPW], raw[RPL][CPW];
+  uint32_t tile_par = 0, push_par = 0, xch_par = 0, et_par = 0;
+  int buf = 0;
+  double tile_score = 0.0;
+
+  // 1. This CTA's share of tile ti's rows: each row's nonzeros (two
+  // threads a row, a half of the columns each) compacted in row-major
+  // order into out_s, the first kWidePushCap of them; 2. the push: this
+  // CTA's count, and its nonzeros if they fit, into every rank's push area
+  // of this rank, by st.async on that rank's header and nonzero mbarriers.
+  // A rank pushes tile ti after its batches of tile ti - 1, whose last
+  // exchange waits for every rank's partials, which each rank sends after
+  // reading that tile's list from its push area: no area is rewritten
+  // before it is read.
+  auto walk_push = [&](int ti) {
+    int n_mine = 0;
+    for (int j = 0; j < nch; ++j) {
+      const int s = ti * nch + j;
+      __pipeline_wait_prior(kWideCountBufs - 2);  // chunk s is in
+      __syncthreads();  // and every thread is done with chunk s - 1
+      stream_load(s + kWideCountBufs - 1);
+      const int half = tid % 2, r = tid / 2;
+      const CT* row = reinterpret_cast<const CT*>(cbuf(s)) + r * COLS +
+                      half * (COLS / 2);
+      unsigned mask = 0u;
+#pragma unroll
+      for (int g = 0; g < COLS / 16; ++g)
+        mask |= nonzero8(row + 8 * g) << (8 * g);
+      int total;
+      int at = n_mine + wide_scan(__popc(mask), scan_s, &total);
+      for (unsigned mm = mask; mm && at < CAP; mm &= mm - 1, ++at) {
+        const int c = __ffs(mm) - 1;
+        out_s[at] = make_float2(
+            __int_as_float((d0 + j * kWideCountRows + r) * 32 +
+                           half * (COLS / 2) + c),
+            to_float(row[c]));
+      }
+      n_mine += total;
+    }
+    __syncthreads();  // out_s is written
+    const int sent = n_mine <= CAP ? n_mine : 0;
+    float2* area = push_s + rank * (1 + CAP);
+    for (int i = tid; i < C * (1 + sent); i += kThreads) {
+      const int to = i % C, e = i / C;
+      const float2 v =
+          e == 0 ? make_float2(__int_as_float(n_mine), 0.f) : out_s[e - 1];
+      st_async(mapa(smem_u32(area + e), to), v,
+               mapa(smem_u32(&bars[e == 0 ? 1 : 2]), to));
+    }
+  };
+  if (nt > 0) walk_push(0);
+
+  for (int ti = 0; ti < nt; ++ti) {
+    const int tile = q + ti * nq, v0 = tile * COLS;
+    if constexpr (!kDirect) {
+      if (p.eeb_tma) {
+        mbar_wait(&bars[0], tile_par);
+        tile_par ^= 1;
+      }
+      __syncthreads();  // the slice tile is in
+      // Lane l: rows l + 32 j, the warp's CPW columns (one 16-byte chunk,
+      // or half of one at 16 columns).
+#pragma unroll
+      for (int j = 0; j < RPL; ++j) {
+        const int r = lane + 32 * j;
+        if constexpr (CPW == 4) {
+          const float4 b =
+              r < p.slice
+                  ? *reinterpret_cast<const float4*>(tile_s +
+                                                     swz<COLS>(r, warp))
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+          E[j][0] = b.x;
+          E[j][1] = b.y;
+          E[j][2 % CPW] = b.z;
+          E[j][3 % CPW] = b.w;
+        } else {
+          const float2 b =
+              r < p.slice ? *reinterpret_cast<const float2*>(
+                                tile_s + swz<COLS>(r, warp / 2) +
+                                8 * (warp % 2))
+                          : make_float2(0.f, 0.f);
+          E[j][0] = b.x;
+          E[j][1 % CPW] = b.y;
         }
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          a += __shfl_xor_sync(kFull, a, off);
-        if (lane == 0) {
-          const float ph = k0 == 0 ? a : ratio[i] + a;
-          if (k0 + kTpTopics < K) {
-            ratio[i] = ph;
+        for (int c = 0; c < CPW; ++c) raw[j][c] = 0.f;
+      }
+      __syncthreads();  // the tile is read: the batches' rows may land there
+    } else {  // raw is summed in the output: zero the lane's kept rows
+      for (int c = warp * CPW; c < warp * CPW + CPW && v0 + c < p.V; ++c)
+        for (int j = 0; j < drows; ++j) {
+          const int k = kb + lane + 32 * j;
+          if (lane + 32 * j < own && k >= p.k0 && k < p.k1)
+            p.sstats[(size_t)(k - p.k0) * p.V + v0 + c] = 0.f;
+        }
+    }
+
+    // The ranks' pushes of this tile (the next tile's are made before this
+    // tile's epilogue, so their stores hide the wait).
+    if (tid == 0) mbar_expect_tx(&bars[1], (uint32_t)(C * 8));
+    mbar_wait(&bars[1], push_par);
+    // Every rank's count: the nonzeros to wait for, and whether all fit.
+    int total_n = 0, pushed = 0;
+    bool all_fit = true;
+    for (int r = 0; r < C; ++r) {
+      const int n = __float_as_int(push_s[r * (1 + CAP)].x);
+      total_n += n;
+      pushed += n <= CAP ? n : 0;
+      all_fit = all_fit && n <= CAP;
+    }
+    if (tid == 0) mbar_expect_tx(&bars[2], (uint32_t)(pushed * 8));
+    mbar_wait(&bars[2], push_par);
+    push_par ^= 1u;
+
+    // Calls f(n, cc) for each nonzero n < m of a batch (its columns cols)
+    // whose column belongs to this warp (cc its column among the warp's),
+    // in list order, two at a time where a lane's rows leave the registers
+    // for it (f2(na, cca, nb, ccb)).
+    auto for_mine = [&](const int* cols, int m, auto f, auto f2) {
+      for (int n0 = 0; n0 < m; n0 += 32) {
+        const int n = n0 + lane;
+        unsigned bits =
+            __ballot_sync(kFull, n < m && cols[min(n, m - 1)] / CPW == warp);
+        while (bits) {
+          const int na = n0 + __ffs(bits) - 1;
+          bits &= bits - 1;
+          if (RPL <= 16 && bits) {
+            const int nb = n0 + __ffs(bits) - 1;
+            bits &= bits - 1;
+            f2(na, cols[na] % CPW, nb, cols[nb] % CPW);
           } else {
-            const float cv = vals[i];
-            const float pn = ph + eps;
-            ratio[i] = operand(cv / pn);
-            score += (double)(cv * logf(pn));
+            f(na, cols[na] % CPW);
           }
         }
       }
-    }
-  }
-  // The CTA's score: each warp's lane 0 summed its nonzeros in order.
-  if (lane == 0) score_s[warp] = score;
-  __syncthreads();
-  if (tid == 0) {
-    double s = 0.0;
-    for (int w = 0; w < kWarps; ++w) s += score_s[w];
-    score_part[blockIdx.x] = s;
-  }
-}
+    };
 
-// Pass 2 (see above): rows [k0 + blockIdx.y * kTpTopics, ..) of the topic
-// range, columns [blockIdx.x * kTpCols, ..) of sstats [k1 - k0, V].
-__global__ void __launch_bounds__(kThreads)
-tp_sums(const long long* __restrict__ colptr, const int* __restrict__ rows,
-        const float* __restrict__ ratio, const float* __restrict__ et,
-        const float* __restrict__ eeb, float* __restrict__ sstats, int V,
-        int K, int k0, int k1) {
-  __shared__ float raw[kTpTopics * kTpLd];
-  const int tid = threadIdx.x;
-  const int v0 = blockIdx.x * kTpCols;
-  const int kt = k0 + blockIdx.y * kTpTopics;
-  const int k = kt + tid;
-  if (k < k1) {
-    for (int c = 0; c < kTpCols && v0 + c < V; ++c) {
-      const long long lo = colptr[v0 + c], hi = colptr[v0 + c + 1];
-      float acc = 0.f;
-      long long i = lo;
-      // Four nonzeros' loads in flight, their products added in order.
-      for (; i + 4 <= hi; i += 4) {
-        float e[4], r[4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          e[u] = __ldg(et + (size_t)rows[i + u] * K + k);
-          r[u] = ratio[i + u];
+    // One batch of m nonzeros of the list, in slots [base, base + m) (their
+    // expEtheta rows on bars[5 + half]): phinorm, the exchange, the ratios,
+    // the score terms, the sums.  m = 0 exchanges one zero (every tile
+    // exchanges at least once: a rank pushes the next tile after every
+    // rank has sent it the partials of this tile's last batch, so after
+    // every rank has read its push area).
+    auto run_batch = [&](int m, int base, int half) {
+      __syncthreads();  // the list is written
+      const int* rows = rows_s + base;
+      const int* cols = cols_s + base;
+      const float* ets = et_s + (size_t)base * p.slice;
+      double* recv = recv_s + buf * C * p.batch;
+      uint64_t* xbar = &bars[3 + buf];
+      if (tid == 0) mbar_expect_tx(xbar, (uint32_t)(C * max(m, 1) * 8));
+      if constexpr (!kDirect) {
+        if (p.et_bulk) {  // the copies were issued as the list filled
+          if (tid == 0)
+            mbar_expect_tx(&bars[5 + half], (uint32_t)(m * own * 4));
+          mbar_wait(&bars[5 + half], (et_par >> half) & 1u);
+          et_par ^= 1u << half;
+        } else {
+          for (int i = tid; i < m * own; i += kThreads) {
+            const int n = i / own, r = i - n * own;
+            et_s[(size_t)(base + n) * p.slice + r] =
+                __ldg(p.et + (size_t)rows[n] * p.K + kb + r);
+          }
+          __syncthreads();
         }
-#pragma unroll
-        for (int u = 0; u < 4; ++u) acc = fmaf(operand(e[u]), r[u], acc);
       }
-      for (; i < hi; ++i)
-        acc = fmaf(operand(__ldg(et + (size_t)rows[i] * K + k)), ratio[i],
-                   acc);
-      raw[tid * kTpLd + c] = acc;
+      // The CTA's partial phinorm of each nonzero, by the warp owning its
+      // column: a lane's rows in order in two f32 chains (even and odd
+      // rows) and their sum, then in f64 the xor butterfly (two nonzeros:
+      // the first step splits them between the half-warps, each half then
+      // ends with the same sums the whole warp's butterfly gives); lane r
+      // of a half sends its nonzero's partial to rank r.
+      // A lane's share of nonzero n's partial (default plan): its rows'
+      // products in two chains (even and odd rows), in f64.
+      auto lane_dot = [&](int n, int cc) {
+        float b[RPL], x[RPL];
+        wide_pick<RPL, CPW>(E, cc, b);
+        const float* e = ets + (size_t)n * p.slice + lane;
+#pragma unroll
+        for (int j = 0; j < RPL; ++j) x[j] = e[32 * j];
+        wide_operands<RPL>(b);
+        wide_operands<RPL>(x);
+        float a[2] = {0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < RPL; ++j)
+          if ((valid >> j) & 1u) a[j % 2] = fmaf(x[j], b[j], a[j % 2]);
+        return (double)(a[0] + a[1]);
+      };
+      auto dot = [&](int n, int cc) {
+        if constexpr (!kDirect) {
+          return lane_dot(n, cc);
+        } else {
+          float a[2] = {0.f, 0.f};
+          const float* e = p.et + (size_t)rows[n] * p.K + kb + lane;
+          const int v = v0 + warp * CPW + cc;
+          for (int j = 0; j < drows; ++j)
+            if (lane + 32 * j < own) {
+              const float bv =
+                  v < p.V ? __ldg(p.eeb + (size_t)(kb + lane + 32 * j) * p.V +
+                                  v)
+                          : 0.f;
+              a[j % 2] = fmaf(operand(__ldg(e + 32 * j)), operand(bv),
+                              a[j % 2]);
+            }
+          return (double)(a[0] + a[1]);
+        }
+      };
+      auto send = [&](int n, double a, int to) {
+        if (to < C)
+          st_async(mapa(smem_u32(recv + rank * p.batch + n), to),
+                   as_float2(a), mapa(smem_u32(xbar), to));
+      };
+      if (m == 0) {
+        if (warp == 0) send(0, 0.0, lane);
+      } else {
+        for_mine(
+            cols, m,
+            [&](int n, int cc) {
+              double a = dot(n, cc);
+#pragma unroll
+              for (int off = 16; off > 0; off >>= 1)
+                a += __shfl_xor_sync(kFull, a, off);
+              send(n, a, lane);
+            },
+            [&](int na, int cca, int nb, int ccb) {
+              const double a = dot(na, cca), b = dot(nb, ccb);
+              const bool lo = lane < 16;
+              double x = lo ? a : b;
+              x += __shfl_xor_sync(kFull, lo ? b : a, 16);
+#pragma unroll
+              for (int off = 8; off > 0; off >>= 1)
+                x += __shfl_xor_sync(kFull, x, off);
+              send(lo ? na : nb, x, lane % 16);
+            });
+      }
+      mbar_wait(xbar, (xch_par >> buf) & 1u);
+      xch_par ^= 1u << buf;
+      buf ^= 1;
+      if (m == 0) return;
+      // The ranks' partials in rank order, in f64, + eps, rounded to f32
+      // once: every rank the same bits.
+      if (tid < m) {
+        double ph = 0.0;
+        for (int r = 0; r < C; ++r) ph += recv[r * p.batch + tid];
+        const float cv = vals_s[base + tid];
+        const float pn = (float)(ph + (double)p.eps);
+        ratio_s[base + tid] = operand(cv / pn);
+        term_s[base + tid] = (double)(cv * logf(pn));
+      }
+      __syncthreads();
+      if (rank == 0 && tid == 0)
+        for (int n = 0; n < m; ++n) tile_score += term_s[base + n];
+      // raw: each (topic, column) by the lane holding it, the column's
+      // nonzeros in list (row) order.
+      auto sum = [&](int n, int cc) {
+        const float rt = ratio_s[base + n];
+        if constexpr (!kDirect) {
+          const float* e = ets + (size_t)n * p.slice + lane;
+          float x[RPL];
+#pragma unroll
+          for (int j = 0; j < RPL; ++j) x[j] = e[32 * j];
+          wide_operands<RPL>(x);
+          wide_add<RPL, CPW>(raw, cc, x, rt, kept);
+        } else {
+          const float* e = p.et + (size_t)rows[n] * p.K + kb + lane;
+          const int v = v0 + warp * CPW + cc;
+          if (v < p.V)
+            for (int j = 0; j < drows; ++j) {
+              const int k = kb + lane + 32 * j;
+              if (lane + 32 * j < own && k >= p.k0 && k < p.k1) {
+                float* o = p.sstats + (size_t)(k - p.k0) * p.V + v;
+                *o = fmaf(operand(__ldg(e + 32 * j)), rt, *o);
+              }
+            }
+        }
+      };
+      for_mine(cols, m, sum, [&](int na, int cca, int nb, int ccb) {
+        sum(na, cca);
+        sum(nb, ccb);
+      });
+      fence_proxy_async();  // these reads before the slots' next copies
+      __syncthreads();      // the slots may be rewritten
+    };
+
+    // The copy of row d's expEtheta slice into slot `slot` (issued as the
+    // list fills, so a batch's copies are in flight together), on
+    // bars[5 + half].
+    auto stage_et = [&](int slot, int d, int half) {
+      if (!kDirect && p.et_bulk && own > 0)
+        bulk_load(et_s + (size_t)slot * p.slice, p.et + (size_t)d * p.K + kb,
+                  (uint32_t)(own * 4), &bars[5 + half]);
+    };
+
+    // 3. The batches.  Where every rank's nonzeros fit its push, the list
+    // is the ranks' pushes in rank order (row-major: the ranks' shares are
+    // consecutive rows).  A tile of more than p.batch nonzeros runs
+    // batches of half as many, the next one's list written and its
+    // expEtheta rows copied into the other half of the slots while this
+    // one runs.  Else (a rank's share past its push) every CTA walks the
+    // whole tile's counts from device memory, in the same order.
+    if (all_fit) {
+      const int H = total_n > p.batch ? p.batch / 2 : p.batch;
+      const int nb = max(1, (total_n + H - 1) / H);
+      auto fill_list = [&](int b) {  // batch b's list into its slots
+        const int b0 = b * H, m = min(H, total_n - b0);
+        const int base = (b & 1) * H;
+        if (tid < m) {
+          int g = b0 + tid, r = 0;
+          for (;; ++r) {
+            const int n = __float_as_int(push_s[r * (1 + CAP)].x);
+            if (g < n) break;
+            g -= n;
+          }
+          const float2 v = push_s[r * (1 + CAP) + 1 + g];
+          const int key = __float_as_int(v.x);
+          rows_s[base + tid] = key >> 5;
+          cols_s[base + tid] = key & 31;
+          vals_s[base + tid] = v.y;
+          stage_et(base + tid, key >> 5, b & 1);
+        }
+      };
+      fill_list(0);
+      for (int b = 0; b < nb; ++b) {
+        if (b + 1 < nb) fill_list(b + 1);
+        run_batch(min(H, total_n - b * H), (b & 1) * H, b & 1);
+      }
+    } else {
+      int fill = 0, runs = 0;
+      const int nrows = max(1, (p.D + kWideCountRows - 1) / kWideCountRows);
+      for (int j = 0; j < nrows; ++j) {
+        const int half = tid % 2, d = j * kWideCountRows + tid / 2;
+        const int v = v0 + half * (COLS / 2);
+        const unsigned mask = wide_row_mask<CT, COLS / 2>(p, d, v);
+        int total;
+        const int pos = wide_scan(__popc(mask), scan_s, &total);
+        for (int done = 0; done < total;) {
+          const int take = min(p.batch - fill, total - done);
+          unsigned mm = mask;
+          for (int at = pos; mm && at < done + take; ++at) {
+            const int c = __ffs(mm) - 1;
+            mm &= mm - 1;
+            if (at >= done) {
+              const int slot = fill + at - done;
+              rows_s[slot] = d;
+              cols_s[slot] = half * (COLS / 2) + c;
+              vals_s[slot] = to_float(static_cast<const CT*>(
+                  p.counts)[(size_t)d * p.Vc + v + c]);
+              stage_et(slot, d, 0);
+            }
+          }
+          fill += take;
+          done += take;
+          if (fill == p.batch) {
+            run_batch(fill, 0, 0);
+            fill = 0;
+            ++runs;
+          }
+        }
+        __syncthreads();  // the scan's words are read
+      }
+      if (fill > 0 || runs == 0) run_batch(fill, 0, 0);
+    }
+    if (rank == 0 && tid == 0) {
+      p.score_part[tile] = tile_score;
+      tile_score = 0.0;
+    }
+    // The batches are done with the tile's buffer: the next slice's copy.
+    if (!kDirect && ti + 1 < nt)
+      wide_load_slice<COLS>(p, &eeb_map, tile_s, kb, v0 + nq * COLS,
+                            &bars[0], policy);
+    if (ti + 1 < nt) walk_push(ti + 1);
+
+    // The epilogue: sstats = expElogbeta x raw, staged through the batch
+    // area (the tile's swizzle) and written in whole rows of the tile,
+    // rows of the range only.
+    if constexpr (!kDirect) {
+      unsigned char* stage = smem + L.et;
+#pragma unroll
+      for (int j = 0; j < RPL; ++j) {
+        const int r = lane + 32 * j;
+        if (r < p.slice) {
+          if constexpr (CPW == 4)
+            *reinterpret_cast<float4*>(stage + swz<COLS>(r, warp)) =
+                make_float4(E[j][0] * raw[j][0], E[j][1] * raw[j][1],
+                            E[j][2 % CPW] * raw[j][2 % CPW],
+                            E[j][3 % CPW] * raw[j][3 % CPW]);
+          else
+            *reinterpret_cast<float2*>(stage + swz<COLS>(r, warp / 2) +
+                                       8 * (warp % 2)) =
+                make_float2(E[j][0] * raw[j][0],
+                            E[j][1 % CPW] * raw[j][1 % CPW]);
+        }
+      }
+      __syncthreads();
+      constexpr int CH = COLS / 4;  // 16-byte chunks a row
+      for (int i = tid; i < own * CH; i += kThreads) {
+        const int r = i / CH, j = i % CH, k = kb + r, v = v0 + 4 * j;
+        if (k < p.k0 || k >= p.k1 || v >= p.V) continue;
+        const float4 o =
+            *reinterpret_cast<const float4*>(stage + swz<COLS>(r, j));
+        float* dst = p.sstats + (size_t)(k - p.k0) * p.V + v;
+        if (p.out_vec) {
+          __stcs(reinterpret_cast<float4*>(dst), o);
+        } else {
+          const float a[4] = {o.x, o.y, o.z, o.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (v + e < p.V) __stcs(dst + e, a[e]);
+        }
+      }
+      // The stage is the batch area, where the next tile's expEtheta
+      // copies land: order these accesses before them.
+      fence_proxy_async();
+    } else {
+      for (int c = warp * CPW; c < warp * CPW + CPW && v0 + c < p.V; ++c)
+        for (int j = 0; j < drows; ++j) {
+          const int k = kb + lane + 32 * j;
+          if (lane + 32 * j < own && k >= p.k0 && k < p.k1) {
+            float* o = p.sstats + (size_t)(k - p.k0) * p.V + v0 + c;
+            *o = __ldg(p.eeb + (size_t)k * p.V + v0 + c) * *o;
+          }
+        }
     }
   }
-  __syncthreads();
-  for (int i = tid; i < kTpTopics * kTpCols; i += kThreads) {
-    const int kk = i / kTpCols, c = i % kTpCols;
-    const int kr = kt + kk, v = v0 + c;
-    if (kr < k1 && v < V)
-      sstats[(size_t)(kr - k0) * V + v] =
-          __ldg(eeb + (size_t)kr * V + v) * raw[kk * kTpLd + c];
+
+  // The last cluster to finish sums the tiles' score parts in a fixed
+  // tree, and leaves the counter zero for the next call.
+  if (rank == 0) {
+    int* last_s = scan_s;
+    double* red_s = reinterpret_cast<double*>(scan_s + 4);
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) {
+      const int last = atomicAdd(p.counter, 1) == nq - 1;
+      if (last) *p.counter = 0;
+      *last_s = last;
+    }
+    __syncthreads();
+    if (*last_s) {
+      __threadfence();
+      double t = 0.0;  // thread i: parts i, i + 256, ..; then a fixed tree
+      for (int b = tid; b < p.tiles; b += kThreads)
+        t += __ldcg(p.score_part + b);
+      for (int off = 16; off > 0; off >>= 1)
+        t += __shfl_down_sync(kFull, t, off);
+      if (lane == 0) red_s[warp] = t;
+      __syncthreads();
+      if (tid == 0) {
+        double s = 0.0;
+        for (int w = 0; w < kWarps; ++w) s += red_s[w];
+        *p.score_out = (float)s;
+      }
+    }
   }
+  cluster.sync();  // no CTA leaves while another may store into it
 }
 
-// score_out = the sum of the n score parts in order (one CTA).
-__global__ void __launch_bounds__(kThreads)
-tp_score(const double* __restrict__ score_part, int n,
-         float* __restrict__ score_out) {
-  __shared__ double score_s[kWarps];
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  double t = 0.0;  // thread i: parts i, i + 256, ..; then a fixed tree
-  for (int b = threadIdx.x; b < n; b += kThreads) t += score_part[b];
-  for (int off = 16; off > 0; off >>= 1) t += __shfl_down_sync(kFull, t, off);
-  if (lane == 0) score_s[warp] = t;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    double s = 0.0;
-    for (int w = 0; w < kWarps; ++w) s += score_s[w];
-    *score_out = (float)s;
+// Sets the kernel's attributes and launches it in clusters of p.cluster
+// CTAs: as many clusters as fit on the card at once, at most one a tile.
+// Writes back the clusters, the shared memory a CTA and the grid.
+template <typename Kernel>
+cudaError_t launch_wide(Kernel kern, const WideParams& p,
+                        const CUtensorMap& map, size_t smem, int* geometry,
+                        cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kern,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = p.cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.cluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)kern, &cfg);
+  if (err != cudaSuccess) return err;
+  if (clusters < 1) return cudaErrorInvalidConfiguration;
+  if (clusters > p.tiles) clusters = p.tiles;
+  geometry[0] = clusters;
+  geometry[1] = (int)smem;
+  geometry[2] = clusters * p.cluster;
+  cfg.gridDim = dim3(clusters * p.cluster);
+  err = cudaLaunchKernelEx(&cfg, kern, p, map);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The kernel instance of (counts type, columns a tile, direct plan).
+template <typename CT>
+cudaError_t dispatch_wide(const WideParams& p, const CUtensorMap& map,
+                          int cols, bool direct, size_t smem, int* geometry,
+                          cudaStream_t s) {
+  if (direct)
+    return launch_wide(dense_sstats_wide_kernel<CT, kWideCols, true>, p, map,
+                       smem, geometry, s);
+  if (cols == kWideCols)
+    return launch_wide(dense_sstats_wide_kernel<CT, kWideCols, false>, p,
+                       map, smem, geometry, s);
+  return launch_wide(dense_sstats_wide_kernel<CT, kWideNarrowCols, false>, p,
+                     map, smem, geometry, s);
+}
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (nothing is
+// linked against the driver library); null if the driver has none.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
   }
+  return fn;
 }
 
 }  // namespace
@@ -909,65 +1711,94 @@ int pylda_dense_sstats_range(const void* counts, int counts_bf16,
                               eps, splits, rows_per_split, s);
 }
 
-// Two passes above K = 4096: the column counts and their prefix.  counts:
-// [D, Vc] bf16 (counts_bf16 != 0) or f32; colptr: out [Vc + 1] int64, the
-// CSC's column starts, colptr[Vc] the nonzero count.  Returns the
-// cudaError_t of the launches.
-int pylda_dense_sstats_two_pass_count(const void* counts, int counts_bf16,
-                                      int D, int Vc, void* colptr,
-                                      void* stream) {
-  if (D < 0 || Vc < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  long long* cp = static_cast<long long*>(colptr);
-  const int blocks = (Vc + kThreads - 1) / kThreads;
-  if (counts_bf16)
-    tp_count<<<blocks, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(counts), D, Vc, cp);
-  else
-    tp_count<<<blocks, kThreads, 0, s>>>(static_cast<const float*>(counts),
-                                         D, Vc, cp);
-  tp_scan<<<1, kScanThreads, 0, s>>>(cp, Vc);
-  return (int)cudaGetLastError();
-}
-
-// The rest of the two passes, after pylda_dense_sstats_two_pass_count on
-// the same counts: et [D, K] f32, eeb [K, V] f32, K > 4096, 0 <= k0 < k1
-// <= K; sstats: out [k1 - k0, V] f32 (rows k0..k1-1 of the full result);
-// score_out: out [1] f32; colptr: [Vc + 1] int64 as the count left it;
-// rows, vals, ratio: scratch [nnz] int32, f32, f32 (nnz = colptr[Vc]);
-// score_part: scratch [ceil(Vc / 32)] f64.  Returns the cudaError_t of the
-// launches.
-int pylda_dense_sstats_two_pass(const void* counts, int counts_bf16,
-                                const void* et, const void* eeb,
-                                void* sstats, void* score_out, void* colptr,
-                                void* rows, void* vals, void* ratio,
-                                void* score_part, int D, int Vc, int V, int K,
-                                int k0, int k1, float eps, void* stream) {
-  if (K <= 4096 || D < 0 || Vc < V || V < 1 || k0 < 0 || k1 <= k0 || k1 > K)
+// Above K = 4096, the cluster kernel (one launch).  counts: [D, Vc] bf16
+// (counts_bf16 != 0) or f32, Vc >= V; et: [D, K] f32; eeb: [K, V] f32,
+// K > 4096; 0 <= k0 < k1 <= K, the topic range; sstats: out [k1 - k0, V]
+// f32 (every entry written: rows k0..k1-1 of the full result);
+// score_out: out [1] f32; score_part: scratch [tiles] f64, tiles =
+// ceil(Vc / cols); counter: [1] int32, zero before the first call and left
+// zero by each call.  The plan (ops/sstats.py::plan): cluster (a power of
+// two <= 16), slice (cluster * slice >= K), cols (32, or 16 in the default
+// plan past slices of 512 topics), batch (the nonzeros a batch, a multiple
+// of 4 up to 256), direct.  The default plan's slice is a multiple of 32
+// of at most 64 * 256 / cols topics, its batch at least 2 cols (the
+// first cols expEtheta rows in the tile, then the epilogue's stage), and
+// its shared memory within the card's; the direct plan takes 32 columns.
+// geometry: out [3] int32 on the host (clusters, shared memory a CTA,
+// grid).  All row-major and contiguous.  Returns the cudaError_t of the
+// launch.
+int pylda_dense_sstats_wide(const void* counts, int counts_bf16,
+                            const void* et, const void* eeb, void* sstats,
+                            void* score_part, void* score_out, void* counter,
+                            int D, int Vc, int V, int K, int k0, int k1,
+                            float eps, int cluster, int slice, int cols,
+                            int batch, int direct, int* geometry,
+                            void* stream) {
+  if (K <= 4096 || D < 0 || V < 1 || Vc < V || k0 < 0 || k1 <= k0 ||
+      k1 > K || cluster < 1 || cluster > kWideMaxCluster ||
+      (cluster & (cluster - 1)) || slice < 1 ||
+      (long long)slice * cluster < K || batch < 1 || batch > kWideMaxBatch ||
+      batch % 4 || !geometry ||
+      (cols != kWideCols && (direct || cols != kWideNarrowCols)))
     return (int)cudaErrorInvalidValue;
+  if (!direct && (slice % kWideBox || slice * cols > 32 * 8 * kWideLaneFloats ||
+                  batch < 2 * cols))
+    return (int)cudaErrorInvalidValue;
+  WideParams p;
+  p.counts = counts;
+  p.et = static_cast<const float*>(et);
+  p.eeb = static_cast<const float*>(eeb);
+  p.sstats = static_cast<float*>(sstats);
+  p.score_part = static_cast<double*>(score_part);
+  p.score_out = static_cast<float*>(score_out);
+  p.counter = static_cast<int*>(counter);
+  p.D = D;
+  p.Vc = Vc;
+  p.V = V;
+  p.K = K;
+  p.k0 = k0;
+  p.k1 = k1;
+  p.eps = eps;
+  p.cluster = cluster;
+  p.slice = slice;
+  p.batch = batch;
+  p.tiles = (Vc + cols - 1) / cols;
+  const int celem = counts_bf16 ? 2 : 4;
+  auto aligned = [](const void* ptr) {
+    return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+  };
+  p.eeb_tma = !direct && V % 4 == 0 && aligned(eeb);
+  p.et_bulk = K % 4 == 0 && aligned(et);
+  p.counts_vec = ((long long)Vc * celem) % 16 == 0 && aligned(counts);
+  p.out_vec = V % 4 == 0 && aligned(sstats);
+  CUtensorMap map;
+  memset(&map, 0, sizeof(map));
+  if (p.eeb_tma) {
+    const EncodeTiled encode = encode_tiled();
+    if (!encode) return (int)cudaErrorNotSupported;
+    const cuuint64_t dims[2] = {(cuuint64_t)V, (cuuint64_t)K};
+    const cuuint64_t strides[1] = {(cuuint64_t)V * 4};
+    const cuuint32_t box[2] = {(cuuint32_t)cols,
+                               (cuuint32_t)wide_box_rows(slice)};
+    const cuuint32_t steps[2] = {1, 1};
+    if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(eeb),
+               dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+               cols == kWideCols ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : CU_TENSOR_MAP_SWIZZLE_64B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem =
+      (size_t)WideLayout(slice, batch, cluster, celem, cols, direct != 0)
+          .total +
+      1024;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  long long* cp = static_cast<long long*>(colptr);
-  int* rw = static_cast<int*>(rows);
-  float* vl = static_cast<float*>(vals);
-  float* rt = static_cast<float*>(ratio);
-  const float* e = static_cast<const float*>(et);
-  const float* b = static_cast<const float*>(eeb);
-  double* sp = static_cast<double*>(score_part);
-  const int blocks = (Vc + kThreads - 1) / kThreads;
   if (counts_bf16)
-    tp_fill<<<blocks, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(counts), D, Vc, cp, rw, vl);
-  else
-    tp_fill<<<blocks, kThreads, 0, s>>>(static_cast<const float*>(counts), D,
-                                        Vc, cp, rw, vl);
-  const int tiles = (Vc + kTpCols - 1) / kTpCols;
-  tp_ratio<<<tiles, kThreads, 0, s>>>(cp, rw, vl, e, b, rt, sp, Vc, V, K, eps);
-  const dim3 grid((V + kTpCols - 1) / kTpCols,
-                  (k1 - k0 + kTpTopics - 1) / kTpTopics);
-  tp_sums<<<grid, kThreads, 0, s>>>(cp, rw, rt, e, b,
-                                    static_cast<float*>(sstats), V, K, k0, k1);
-  tp_score<<<1, kThreads, 0, s>>>(sp, tiles, static_cast<float*>(score_out));
-  return (int)cudaGetLastError();
+    return (int)dispatch_wide<__nv_bfloat16>(p, map, cols, direct != 0, smem,
+                                             geometry, s);
+  return (int)dispatch_wide<float>(p, map, cols, direct != 0, smem, geometry,
+                                   s);
 }
 
 // The full range [0, K): the same arguments without k0 and k1.

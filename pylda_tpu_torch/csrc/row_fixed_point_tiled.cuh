@@ -87,6 +87,7 @@
 
 #include <cstdint>
 
+#include "cluster_ptx.cuh"
 #include "row_fixed_point.cuh"
 
 namespace {
@@ -95,88 +96,6 @@ namespace {
 constexpr int kMaxCluster = 16;
 // Float4 step-B sums a thread: slices of up to kThreads * 4 * 4 topics.
 constexpr int kClusterQ = 4;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int arrivals) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(arrivals)
-               : "memory");
-}
-
-// Arrives on bar and adds `bytes` to the transactions its phase awaits.
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// Waits until the phase of bar with this parity has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
-// The address of the same shared-memory location in CTA `rank` of the
-// cluster.
-__device__ __forceinline__ uint32_t mapa(uint32_t addr, int rank) {
-  uint32_t out;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
-               : "=r"(out)
-               : "r"(addr), "r"(rank));
-  return out;
-}
-
-// Stores v (one, two or four floats) into another CTA's shared memory at the
-// cluster address addr, completing as transaction bytes on its mbarrier
-// bar (a cluster address too).
-__device__ __forceinline__ void st_async(uint32_t addr, float v,
-                                         uint32_t bar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
-      "[%2];" ::"r"(addr),
-      "r"(__float_as_uint(v)), "r"(bar)
-      : "memory");
-}
-__device__ __forceinline__ void st_async(uint32_t addr, float2 v,
-                                         uint32_t bar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], "
-      "{%1, %2}, [%3];" ::"r"(addr),
-      "f"(v.x), "f"(v.y), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void st_async(uint32_t addr, float4 v,
-                                         uint32_t bar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
-      "{%1, %2, %3, %4}, [%5];" ::"r"(addr),
-      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
-      : "memory");
-}
-
-// One bulk copy global -> this CTA's shared memory, completing on bar.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
 
 // Lanes that sum one entry's partial phinorm, for a slice of units16
 // 16-byte units: the power of two that gives each lane about eight units

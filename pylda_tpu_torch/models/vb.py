@@ -20,7 +20,7 @@ routes:
 
 then lambda = eta + sstats, the ELBO and, on schedule, the Newton
 alpha/eta updates.  Every K runs on the card (above 4096 the gamma
-kernels' cluster kernel and the sstats kernel's two passes).
+kernels' and the sstats kernel's cluster kernels).
 ``estep_memory_budget_mb`` caps a batch's rows where [rows, T, K] arrays
 are made: on the CPU (as the JAX engine's batches) and on the scatter
 route; on the card the route with dense sufficient statistics takes each

@@ -27,7 +27,7 @@ float32 builds.  Under lambda sharding the final pass takes the rank's
 fixed point reads the whole expElogbeta.  Above K = 4096 the fixed point
 is the cluster kernel (``csrc/row_fixed_point_tiled.cuh``, counted in
 ``WIDE_LAUNCHES`` / ``BF16_WIDE_LAUNCHES`` too) and the final pass the
-sstats kernel's two passes.  Up to K = 4096 a batch whose largest row nnz
+sstats cluster kernel.  Up to K = 4096 a batch whose largest row nnz
 (``max_nnz``, counted when the batch is built; by default the column
 count) is past one block's slot buffer runs the entry kernel
 (``csrc/row_fixed_point_entries.cuh``, ``row_fixed_point.gamma_plan``),

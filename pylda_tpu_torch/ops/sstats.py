@@ -21,13 +21,19 @@ splits' partial sums meet in split order, so two calls on the same inputs
 return the same bits.  The scratch (score and split partials, the tiles'
 counters, which each launch leaves zero) is kept per device and stream
 and reused.  Above ``ONE_PASS_MAX_TOPICS`` (K = 4096, the largest build)
-the kernel runs two passes over a column list of the nonzeros (a count
-and a fill, then per nonzero phinorm, the ratio and the score over all
-K, then each (column tile, topic tile)'s sums): ``plan`` gives their grid
-and, from the nonzero count the count pass leaves on the card (read back
-to size the list: one host sync a call), their scratch; such calls count
-in ``WIDE_LAUNCHES`` / ``BF16_WIDE_LAUNCHES`` too.  Nothing caps K but
-the card's memory.  ``compute_dtype="bfloat16"`` launches its bf16 build
+one launch of a cluster kernel runs instead: the topics split over a
+thread-block cluster of ``Plan.cluster`` CTAs, each holding a slice of
+``Plan.slice`` topics of a ``Plan.cols``-column tile of expElogbeta, read
+from device memory once; each CTA walks its share of the tile's count
+rows and pushes their nonzeros to the whole cluster, which works through
+them in row order in batches of up to ``Plan.batch``; the CTAs' partial
+phinorms meet in rank order (``csrc/dense_sstats.cu``).
+``plan`` sizes everything from the shapes (nothing is read back from the
+card), and such calls count in ``WIDE_LAUNCHES`` / ``BF16_WIDE_LAUNCHES``
+too.  Past K = 16 * 1024 a slice no longer fits a CTA's registers and
+the plan is direct (``Plan.direct``: the same sums, read from device
+memory); nothing caps K but the card's memory.
+``compute_dtype="bfloat16"`` launches its bf16 build
 (``ops/_build.py``: expEtheta, expElogbeta in phinorm and the ratio
 rounded to bf16, the outer multiply by expElogbeta in float32), never the
 float32 build.
@@ -37,10 +43,11 @@ float32 build.
 result: phinorm and the score still run over all K, in the build and on
 the grid of the whole K, and only the range's sums are accumulated,
 stored and written, so its rows are the full call's rows bit for bit
-(``csrc/dense_sstats.cu``; above K = 4096 the range's topic tiles of the
-second pass).  Such calls count in ``RANGE_LAUNCHES`` and
-``BF16_RANGE_LAUNCHES`` besides ``LAUNCHES`` and ``BF16_LAUNCHES`` (and
-above K = 4096 in ``RANGE_WIDE_LAUNCHES`` / ``BF16_RANGE_WIDE_LAUNCHES``).
+(``csrc/dense_sstats.cu``; above K = 4096 the whole K's cluster plan,
+rows outside the range summed nowhere and not written).  Such calls
+count in ``RANGE_LAUNCHES`` and ``BF16_RANGE_LAUNCHES`` besides
+``LAUNCHES`` and ``BF16_LAUNCHES`` (and above K = 4096 in
+``RANGE_WIDE_LAUNCHES`` / ``BF16_RANGE_WIDE_LAUNCHES``).
 """
 
 from __future__ import annotations
@@ -62,17 +69,35 @@ BF16_LAUNCHES = 0
 # Of those, the launches with a topic range narrower than [0, K).
 RANGE_LAUNCHES = 0
 BF16_RANGE_LAUNCHES = 0
-# Of each, the launches of the two passes (K > ONE_PASS_MAX_TOPICS).
+# Of each, the launches of the cluster kernel (K > ONE_PASS_MAX_TOPICS).
 WIDE_LAUNCHES = 0
 BF16_WIDE_LAUNCHES = 0
 RANGE_WIDE_LAUNCHES = 0
 BF16_RANGE_WIDE_LAUNCHES = 0
-# Largest topic count of the one-pass kernel (its largest build); above
-# it the two passes run, a CTA TWO_PASS_COLS columns (kTpCols) and, in the
-# second pass, TWO_PASS_TOPICS topics (kTpTopics).
+# Largest topic count of the one-pass kernel (its largest build).
 ONE_PASS_MAX_TOPICS = 4096
-TWO_PASS_COLS = 32
-TWO_PASS_TOPICS = 256
+# The cluster kernel above it (``csrc/dense_sstats.cu``'s constants):
+# WIDE_COLS columns a tile (kWideCols; WIDE_NARROW_COLS, kWideNarrowCols,
+# past slices of 512 topics), WIDE_LANE_FLOATS slice values a lane holds
+# (kWideLaneFloats: a slice of at most 32 * WIDE_LANE_FLOATS * 8 / cols
+# topics), a slice whole TMA boxes of WIDE_BOX rows (kWideBox), counts
+# chunks of WIDE_COUNT_ROWS rows (kWideCountRows) in a ring of
+# WIDE_COUNT_BUFS (kWideCountBufs), at most WIDE_PUSH_CAP nonzeros a CTA
+# pushes to its cluster a tile (kWidePushCap), at most WIDE_MAX_CLUSTER
+# CTAs a cluster (kWideMaxCluster) and WIDE_MAX_BATCH nonzeros a batch
+# (kWideMaxBatch).
+WIDE_COLS = 32
+WIDE_NARROW_COLS = 16
+WIDE_LANE_FLOATS = 64
+WIDE_BOX = 32
+WIDE_COUNT_ROWS = 128
+WIDE_COUNT_BUFS = 3
+WIDE_PUSH_CAP = 160
+WIDE_MAX_CLUSTER = 16
+WIDE_MAX_BATCH = 256
+# The shared memory a CTA may take on an H100 (227 KB), which bounds the
+# batch.
+SMEM_LIMIT = 232448
 # Threads of a CTA; vocab columns a CTA owns at 4 lanes a column.
 THREADS = 256
 TILE_V = 64
@@ -108,10 +133,12 @@ class Plan:
     rounded out to whole float4s) the length of a column's split
     partials.
 
-    ``two_pass`` (K > ONE_PASS_MAX_TOPICS): ``tiles`` first-pass CTAs of
-    ``cols`` columns over the ``vc`` counts columns (and as many f64 score
-    partials), one split, ``kp`` K rounded up to the second pass's topic
-    tile, and a column list of ``nnz`` nonzeros."""
+    Above ONE_PASS_MAX_TOPICS (``cluster`` > 0) the cluster kernel's
+    plan: ``tiles`` column tiles of ``cols`` columns (WIDE_COLS, or
+    WIDE_NARROW_COLS past slices of 512 topics) over the counts' Vc,
+    clusters of ``cluster`` CTAs each holding ``slice``
+    topics (``kp`` = cluster * slice), batches of up to ``batch``
+    nonzeros, ``direct`` past the slices a CTA holds; one split."""
 
     tiles: int
     splits: int
@@ -119,14 +146,21 @@ class Plan:
     kp: int
     cols: int
     qr: int = 0
-    two_pass: bool = False
-    vc: int = 0
-    nnz: int = 0
+    cluster: int = 0
+    slice: int = 0
+    batch: int = 0
+    direct: bool = False
+    smem_bytes: int = 0
+
+    @property
+    def wide(self) -> bool:
+        """The cluster kernel's plan (K > ONE_PASS_MAX_TOPICS)."""
+        return self.cluster > 0
 
     @property
     def blocks(self) -> int:
-        """CTAs (of the first pass), and entries of the f64 score
-        partials."""
+        """CTAs of the one-pass grid, and entries of the f64 score
+        partials (the cluster kernel: one a tile)."""
         return self.tiles * self.splits
 
     @property
@@ -139,12 +173,54 @@ class Plan:
     @property
     def scratch_bytes(self) -> int:
         """Device scratch of the call: f64 score partials, and f32 split
-        partials and the int32 counters (one pass), or the int64 column
-        starts and the list's rows, counts and ratios, 12 bytes a nonzero
-        (two passes)."""
-        if self.two_pass:
-            return 8 * self.blocks + 8 * (self.vc + 1) + 12 * self.nnz
+        partials and the int32 counters (one pass), or one int32 counter
+        (the cluster kernel)."""
+        if self.wide:
+            return 8 * self.blocks + 4
         return 8 * self.blocks + 4 * self.partial_floats + 4 * (self.tiles + 1)
+
+
+def wide_smem_bytes(slice_: int, batch: int, cluster: int, count_bytes: int,
+                    cols: int = WIDE_COLS, direct: bool = False) -> int:
+    """The cluster kernel's dynamic shared memory a CTA: ``WideLayout`` of
+    ``csrc/dense_sstats.cu`` and 1024 bytes to align its base."""
+    total = 0 if direct else slice_ * cols * 4 + (batch - cols) * slice_ * 4
+    total += WIDE_COUNT_BUFS * WIDE_COUNT_ROWS * cols * count_bytes
+    total += 8 * WIDE_PUSH_CAP + 8 * cluster * (1 + WIDE_PUSH_CAP)
+    total += batch * (4 + 4 + 4 + 4 + 8 + 8 * 2 * cluster)
+    total += 8 * (THREADS // 32) + 16 + 64
+    return total + 1024
+
+
+def wide_plan(K: int, count_bytes: int = 2
+              ) -> Tuple[int, int, int, int, bool]:
+    """(cluster, slice, cols, batch, direct) of the cluster kernel at
+    K > 4096: ``cluster`` CTAs (16), each a slice of K / cluster topics
+    rounded up to whole WIDE_BOX-row boxes, at WIDE_COLS columns a tile
+    while the slice holds at most 512 topics (a lane's WIDE_LANE_FLOATS
+    values), else WIDE_NARROW_COLS up to 1024 topics; the largest batch
+    (a multiple of 4, at most WIDE_MAX_BATCH) whose shared memory fits
+    SMEM_LIMIT (its first expEtheta rows fill the slice tile's buffer,
+    then at least as many past it, where the epilogue stages the tile).
+    Past
+    that the direct plan (WIDE_COLS columns, the slice rounded up to 4
+    topics, no rows staged)."""
+    cluster = WIDE_MAX_CLUSTER
+    per = -(-K // cluster)
+    direct = per * WIDE_NARROW_COLS > 32 * 8 * WIDE_LANE_FLOATS
+    if direct:
+        cols, slice_ = WIDE_COLS, -(-per // 4) * 4
+    else:
+        cols = (WIDE_COLS if per * WIDE_COLS <= 32 * 8 * WIDE_LANE_FLOATS
+                else WIDE_NARROW_COLS)
+        slice_ = -(-per // WIDE_BOX) * WIDE_BOX
+    batch = WIDE_MAX_BATCH
+    while wide_smem_bytes(slice_, batch, cluster, count_bytes, cols,
+                          direct) > SMEM_LIMIT:
+        batch -= 4
+    if not direct and batch < 2 * cols:
+        raise ValueError(f"no batch of {cols} nonzeros fits at K = {K}")
+    return cluster, slice_, cols, batch, direct
 
 
 def build_for(K: int) -> Tuple[int, int]:
@@ -157,7 +233,7 @@ def build_for(K: int) -> Tuple[int, int]:
 
 def plan(D: int, Vc: int, K: int, sms: int,
          topic_range: Optional[Tuple[int, int]] = None,
-         nnz: int = 0) -> Plan:
+         count_bytes: int = 2) -> Plan:
     """The grid for counts [D, Vc] at K topics on a card of ``sms`` SMs:
     the build's tile width, then the fewest row splits that give
     ``MIN_CTAS_PER_SM`` CTAs an SM and at most ``CHUNKS_PER_SPLIT`` (times
@@ -166,16 +242,20 @@ def plan(D: int, Vc: int, K: int, sms: int,
     (k0, k1) sizes the split partials only: the grid is the whole K's.
     Without one a column's partials take kp floats, the length every
     build of the kernel's source has used.  Above ONE_PASS_MAX_TOPICS the
-    two passes' grid, with a list of ``nnz`` nonzeros."""
+    cluster kernel's plan (``wide_plan``; its batch depends on the counts'
+    ``count_bytes``, 2 for bf16, 4 for f32), the same for any range."""
     if K < 1:
         raise ValueError(f"K must be at least 1, got {K}")
     k0, k1 = check_topic_range(topic_range, K)
     if K > ONE_PASS_MAX_TOPICS:
-        chunks = max(1, -(-D // CHUNK_ROWS))
-        return Plan(tiles=max(1, -(-Vc // TWO_PASS_COLS)), splits=1,
-                    rows_per_split=chunks * CHUNK_ROWS,
-                    kp=-(-K // TWO_PASS_TOPICS) * TWO_PASS_TOPICS,
-                    cols=TWO_PASS_COLS, two_pass=True, vc=Vc, nnz=nnz)
+        cluster, slice_, cols, batch, direct = wide_plan(K, count_bytes)
+        return Plan(tiles=max(1, -(-Vc // cols)), splits=1,
+                    rows_per_split=max(1, -(-D // WIDE_COUNT_ROWS))
+                    * WIDE_COUNT_ROWS,
+                    kp=cluster * slice_, cols=cols, cluster=cluster,
+                    slice=slice_, batch=batch, direct=direct,
+                    smem_bytes=wide_smem_bytes(slice_, batch, cluster,
+                                               count_bytes, cols, direct))
     n4, lanes = build_for(K)
     kp, cols = 4 * lanes * n4, THREADS // lanes
     tiles = max(1, -(-Vc // cols))
@@ -209,13 +289,11 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         p, i, p, p, p, p, p, p, p, i, i, i, i, f, i, i, p,
     ]
     lib.pylda_dense_sstats.restype = i
-    if hasattr(lib, "pylda_dense_sstats_two_pass"):
-        lib.pylda_dense_sstats_two_pass_count.argtypes = [p, i, i, i, p, p]
-        lib.pylda_dense_sstats_two_pass_count.restype = i
-        lib.pylda_dense_sstats_two_pass.argtypes = [
-            p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, f, p,
+    if hasattr(lib, "pylda_dense_sstats_wide"):
+        lib.pylda_dense_sstats_wide.argtypes = [
+            p, i, p, p, p, p, p, p, i, i, i, i, i, i, f, i, i, i, i, i, p, p,
         ]
-        lib.pylda_dense_sstats_two_pass.restype = i
+        lib.pylda_dense_sstats_wide.restype = i
     if hasattr(lib, "pylda_dense_sstats_range"):
         lib.pylda_dense_sstats_range.argtypes = [
             p, i, p, p, p, p, p, p, p, i, i, i, i, i, i, f, i, i, p,
@@ -246,7 +324,8 @@ _SCRATCH: Dict[Tuple[int, int], list] = {}
 
 def _scratch(dev: torch.device, stream: int, pl: Plan) -> list:
     key = (dev.index, stream)
-    need = (pl.blocks, max(pl.partial_floats, 1), pl.tiles + 1)
+    need = (pl.blocks, max(pl.partial_floats, 1),
+            1 if pl.wide else pl.tiles + 1)
     have = _SCRATCH.get(key)
     if have is None or any(t.numel() < n for t, n in zip(have, need)):
         if have is not None:
@@ -312,73 +391,72 @@ def dense_sstats(
 def launch(lib: ctypes.CDLL, counts: torch.Tensor, exp_etheta: torch.Tensor,
            exp_elog_beta: torch.Tensor, eps: float,
            topic_range: Optional[Tuple[int, int]] = None,
+           plan_: Optional[Plan] = None,
+           geometry_out: Optional[dict] = None,
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One launch of ``lib``'s kernel on checked, contiguous CUDA inputs:
     (sstats, score); raises if the launch fails.  Without a
     ``topic_range`` it calls the full-range entry, which a library built
-    from an older source also has."""
+    from an older source also has.  Above ONE_PASS_MAX_TOPICS: the
+    cluster kernel at ``plan_`` (default: ``plan``'s; a direct plan at
+    another K's cluster and slice is the check of its bits), with its
+    geometry (clusters, shared memory a CTA, grid) in ``geometry_out``."""
     D, Vc = counts.shape
     K, V = exp_elog_beta.shape
     k0, k1 = check_topic_range(topic_range, K)
     dev = counts.device
-    if K > ONE_PASS_MAX_TOPICS:
-        return _launch_two_pass(lib, counts, exp_etheta, exp_elog_beta, eps,
-                                k0, k1)
-    pl = plan(D, Vc, K, _sms(dev.index), topic_range)
-    # The last CTA of each tile writes every entry of its columns.
+    pl = plan_ or plan(D, Vc, K, _sms(dev.index), topic_range,
+                       counts.element_size())
+    # The last CTA of each tile (one pass), or each CTA for its slice (the
+    # cluster kernel), writes every entry of its columns.
     sstats = torch.empty((k1 - k0, V), dtype=torch.float32, device=dev)
     score = torch.empty((), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         parts, partial, counters = _scratch(dev, stream, pl)
-        args = (counts.data_ptr(), int(counts.dtype == torch.bfloat16),
-                exp_etheta.data_ptr(), exp_elog_beta.data_ptr(),
-                sstats.data_ptr(), parts.data_ptr(), score.data_ptr(),
-                partial.data_ptr(), counters.data_ptr(), D, Vc, V, K)
-        tail = (float(eps), pl.splits, pl.rows_per_split, stream)
-        if topic_range is None:
-            rc = lib.pylda_dense_sstats(*args, *tail)
+        bf16 = int(counts.dtype == torch.bfloat16)
+        if K > ONE_PASS_MAX_TOPICS:
+            geo = (ctypes.c_int * 3)()
+            rc = lib.pylda_dense_sstats_wide(
+                counts.data_ptr(), bf16, exp_etheta.data_ptr(),
+                exp_elog_beta.data_ptr(), sstats.data_ptr(), parts.data_ptr(),
+                score.data_ptr(), counters.data_ptr(), D, Vc, V, K, k0, k1,
+                float(eps), pl.cluster, pl.slice, pl.cols, pl.batch,
+                int(pl.direct), geo, stream)
+            if geometry_out is not None:
+                geometry_out.update(clusters=geo[0], smem_bytes=geo[1],
+                                    grid=geo[2], cluster=pl.cluster,
+                                    slice=pl.slice, cols=pl.cols,
+                                    batch=pl.batch, direct=pl.direct)
         else:
-            rc = lib.pylda_dense_sstats_range(*args, k0, k1, *tail)
+            args = (counts.data_ptr(), bf16, exp_etheta.data_ptr(),
+                    exp_elog_beta.data_ptr(), sstats.data_ptr(),
+                    parts.data_ptr(), score.data_ptr(), partial.data_ptr(),
+                    counters.data_ptr(), D, Vc, V, K)
+            tail = (float(eps), pl.splits, pl.rows_per_split, stream)
+            if topic_range is None:
+                rc = lib.pylda_dense_sstats(*args, *tail)
+            else:
+                rc = lib.pylda_dense_sstats_range(*args, k0, k1, *tail)
     if rc != 0:
         raise RuntimeError(f"dense_sstats kernel launch failed: cudaError {rc}")
     return sstats, score
 
 
-def _launch_two_pass(lib: ctypes.CDLL, counts: torch.Tensor,
-                     exp_etheta: torch.Tensor, exp_elog_beta: torch.Tensor,
-                     eps: float, k0: int, k1: int
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The two passes above ONE_PASS_MAX_TOPICS: the count pass, the
-    nonzero count read back (one sync) to size the column list, then the
-    rest; (sstats [k1 - k0, V], score)."""
+def wide_batches(counts: torch.Tensor, pl: Plan) -> int:
+    """The batches the cluster kernel runs on ``counts`` at ``pl``: a
+    tile's nonzeros in one batch where they fit ``pl.batch``, else in
+    batches of half as many, or of ``pl.batch`` where a CTA's share of
+    the tile's rows holds more than WIDE_PUSH_CAP (every CTA then walks
+    the tile); none for a tile without nonzeros.  Reads the counts (a
+    report, not the launch's plan)."""
     D, Vc = counts.shape
-    K, V = exp_elog_beta.shape
-    dev = counts.device
-    bf16 = int(counts.dtype == torch.bfloat16)
-    colptr = torch.empty((Vc + 1,), dtype=torch.int64, device=dev)
-    sstats = torch.empty((k1 - k0, V), dtype=torch.float32, device=dev)
-    score = torch.empty((), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.pylda_dense_sstats_two_pass_count(
-            counts.data_ptr(), bf16, D, Vc, colptr.data_ptr(), stream)
-        if rc != 0:
-            raise RuntimeError(f"dense_sstats count pass launch failed: "
-                               f"cudaError {rc}")
-        nnz = int(colptr[Vc])
-        pl = plan(D, Vc, K, _sms(dev.index), (k0, k1), nnz=nnz)
-        rows = torch.empty((max(nnz, 1),), dtype=torch.int32, device=dev)
-        vals = torch.empty((max(nnz, 1),), dtype=torch.float32, device=dev)
-        ratio = torch.empty_like(vals)
-        parts = torch.empty((pl.blocks,), dtype=torch.float64, device=dev)
-        rc = lib.pylda_dense_sstats_two_pass(
-            counts.data_ptr(), bf16, exp_etheta.data_ptr(),
-            exp_elog_beta.data_ptr(), sstats.data_ptr(), score.data_ptr(),
-            colptr.data_ptr(), rows.data_ptr(), vals.data_ptr(),
-            ratio.data_ptr(), parts.data_ptr(), D, Vc, V, K, k0, k1,
-            float(eps), stream)
-    if rc != 0:
-        raise RuntimeError(f"dense_sstats two-pass launch failed: "
-                           f"cudaError {rc}")
-    return sstats, score
+    rows = -(-D // pl.cluster) * pl.cluster
+    nz = torch.nn.functional.pad((counts != 0).to(torch.uint8),
+                                 (0, pl.tiles * pl.cols - Vc, 0, rows - D))
+    share = nz.reshape(pl.cluster, rows // pl.cluster, pl.tiles,
+                       pl.cols).sum(dim=(1, 3))
+    per_tile = share.sum(dim=0)
+    size = torch.where((share > WIDE_PUSH_CAP).any(dim=0)
+                       | (per_tile <= pl.batch), pl.batch, pl.batch // 2)
+    return int(((per_tile + size - 1) // size).sum())

@@ -43,8 +43,8 @@ counts differ, because the port's kernels do different work:
   [K, K] prefix-sum matmul (2 K^2).
 
 The counts hold for every K: above 4096 the gamma cluster kernel reads a
-streamed slot's B row once a sweep and the sstats kernel's two passes
-read expElogbeta twice, but the bound counts what the function needs,
+streamed slot's B row once a sweep and the sstats cluster kernel's direct
+plan reads expElogbeta twice, but the bound counts what the function needs,
 not what a kernel re-reads.
 
 Sweep counts are the engines' own (``last_sweeps``); a phase's bound

@@ -155,8 +155,15 @@ _CONSTANT_MIRRORS = [
     ("sstats", "THREADS", "dense_sstats.cu", "kThreads"),
     ("sstats", "TILE_V", "dense_sstats.cu", "kTileV"),
     ("sstats", "CHUNK_ROWS", "dense_sstats.cu", "kRows"),
-    ("sstats", "TWO_PASS_COLS", "dense_sstats.cu", "kTpCols"),
-    ("sstats", "TWO_PASS_TOPICS", "dense_sstats.cu", "kTpTopics"),
+    ("sstats", "WIDE_COLS", "dense_sstats.cu", "kWideCols"),
+    ("sstats", "WIDE_NARROW_COLS", "dense_sstats.cu", "kWideNarrowCols"),
+    ("sstats", "WIDE_LANE_FLOATS", "dense_sstats.cu", "kWideLaneFloats"),
+    ("sstats", "WIDE_BOX", "dense_sstats.cu", "kWideBox"),
+    ("sstats", "WIDE_COUNT_ROWS", "dense_sstats.cu", "kWideCountRows"),
+    ("sstats", "WIDE_COUNT_BUFS", "dense_sstats.cu", "kWideCountBufs"),
+    ("sstats", "WIDE_PUSH_CAP", "dense_sstats.cu", "kWidePushCap"),
+    ("sstats", "WIDE_MAX_CLUSTER", "dense_sstats.cu", "kWideMaxCluster"),
+    ("sstats", "WIDE_MAX_BATCH", "dense_sstats.cu", "kWideMaxBatch"),
 ]
 
 

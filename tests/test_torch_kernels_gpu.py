@@ -27,13 +27,15 @@ slot buffer holds ~25 entries at K=1000 and 4 at K=4096, and the sstats
 builds of 8, 16 and 32 lanes a column) is held the same way, with rows on
 both sides of the slot buffer, bf16 and f32 counts and two calls bitwise
 equal.  Above 4096 (the gamma kernels' cluster kernel, the sstats
-kernel's two passes) each kernel and build is held the same way at K in
-{4100, 8192} (``LARGE_K``), with rows all resident, partly resident and
-all streamed, the topic range bitwise, and SVI at K = 4097 trains on the
-card.  A whole bucket whose rows fall into segments (the chunks the
-CPU's layout makes) ends each at its own S*: held per segment against
-the plain version and, through the engine, against the CPU's chunked
-run.  On rows still updating at S*
+kernel's cluster kernel, also at K = 16384 and at K off a multiple of
+4 or past 16384 (its direct plan), on dense counts, in its direct plan
+bitwise and with no host sync) each kernel and build is held
+the same way at K in {4100, 8192} (``LARGE_K``), with rows all resident,
+partly resident and all streamed, the topic range bitwise, and SVI at
+K = 4097 trains on the card.  A whole bucket whose rows fall into
+segments (the chunks the CPU's layout makes) ends each at its own S*:
+held per segment against the plain version and, through the engine,
+against the CPU's chunked run.  On rows still updating at S*
 (stalled, not done) gamma depends on rounding, so there each document's
 share of the bound (``ragged_doc_bound``) at the kernel's gamma is held
 to its share at the float64 plain version's gamma, to rel 1e-5.  The
@@ -68,7 +70,7 @@ from pylda_tpu_torch.ops.estep import (
 # The wide range: the core's wide kernels and the sstats builds of 8, 16
 # and 32 lanes a column, at each edge.
 WIDE_K = [257, 1000, 1024, 1025, 2048, 4096]
-# Above it: the cluster gamma kernel and the sstats kernel's two passes.
+# Above it: the cluster gamma kernel and the sstats kernel's cluster kernel.
 LARGE_K = [4100, 8192]
 
 pytestmark = pytest.mark.gpu
@@ -201,7 +203,7 @@ def test_dense_sstats_kernel_sparsity_cases(cuda, D, V, K, v_pad, pad_rows,
 @pytest.mark.parametrize("K", LARGE_K)
 def test_dense_sstats_kernel_refuses_large_k(cuda, K, compute_dtype):
     """Above its largest build (K = 4096) the kernel no longer refuses: its
-    two passes against the plain version (float32: the tolerances above;
+    cluster kernel against the plain version (float32: the tolerances above;
     bf16: its own mode, ``_hold_bf16_sstats``), a column every row uses
     and a row with every column nonzero, two calls bitwise equal, each
     topic range (across the 4096 boundary too) the full call's rows bit
@@ -230,6 +232,161 @@ def test_dense_sstats_kernel_refuses_large_k(cuda, K, compute_dtype):
                                               topic_range=(k0, k1), **mode)
         torch.cuda.synchronize()
         assert torch.equal(ss_r, ss[k0:k1]) and torch.equal(tok_r, tok)
+
+
+# The cluster kernel of the sufficient statistics above K = 4096: 16 CTAs a
+# cluster, slices of 288, 512 and 1024 topics (32-column tiles, 16 at
+# 16384).
+CLUSTER_SSTATS_K = [4100, 8192, 16384]
+# K off a multiple of 4 (4097: each expEtheta slice by plain loads, no bulk
+# copy) and past slices of 1024 topics (16385, 65540: the direct plan, its
+# slices rounded up to 4 topics, the last rank's short, more than 32 rows a
+# lane).
+ODD_SSTATS_K = [4097, 16385, 65540]
+
+
+def _hold_sstats(ss, ss_p, compute_dtype):
+    if compute_dtype == "bfloat16":
+        _hold_bf16_sstats(ss, ss_p)
+    else:
+        tol = 1e-4 * ss_p.abs() + 1e-6 * ss_p.abs().max()
+        assert bool(((ss - ss_p).abs() <= tol).all()), float(
+            (ss - ss_p).abs().max())
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("K", CLUSTER_SSTATS_K)
+def test_dense_sstats_cluster_kernel(cuda, K, compute_dtype):
+    """The cluster kernel against the plain version (float32: the
+    tolerances above; bf16: ``_hold_bf16_sstats``), the score rel 1e-5,
+    two calls bitwise, one launch counted a call, on 600 rows (three
+    counts chunks, the last short) and a vocabulary off the 16-column
+    tile, f32 counts; and at V = 333 (rows of expElogbeta off 16 bytes:
+    plain loads of the slice, element stores)."""
+    mode = dict(compute_dtype=compute_dtype)
+    wide = ("BF16_WIDE_LAUNCHES" if compute_dtype == "bfloat16"
+            else "WIDE_LAUNCHES")
+    for D, V, v_pad, bf16 in ((600, 700, 20, False), (130, 333, 3, True)):
+        ct, et, eeb = _sparse_sstats_inputs(D, V, K, v_pad, 0, 0.03, bf16,
+                                            cuda, hot=True)
+        before = getattr(sstats_mod, wide)
+        ss, tok = sstats_mod.dense_sstats(ct, et, eeb, **mode)
+        ss2, tok2 = sstats_mod.dense_sstats(ct, et, eeb, **mode)
+        assert getattr(sstats_mod, wide) == before + 2
+        ss_p, tok_p = estep_dense_sstats(ct, et, eeb, **mode)
+        torch.cuda.synchronize()
+        assert ss.shape == (K, V)
+        assert torch.equal(ss, ss2) and torch.equal(tok, tok2)
+        _hold_sstats(ss, ss_p, compute_dtype)
+        assert float(tok) == pytest.approx(float(tok_p), rel=1e-5)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("K", ODD_SSTATS_K)
+def test_dense_sstats_cluster_kernel_odd_k(cuda, K, compute_dtype):
+    """At ODD_SSTATS_K the plan the wrapper takes (direct past K = 16384)
+    against the plain version (float32: the tolerances above; bf16:
+    ``_hold_bf16_sstats_f64``), the score rel 1e-5, two calls bitwise
+    equal and one launch counted a call, and a topic range across two
+    slice boundaries bitwise the full call's rows."""
+    mode = dict(compute_dtype=compute_dtype)
+    wide = ("BF16_WIDE_LAUNCHES" if compute_dtype == "bfloat16"
+            else "WIDE_LAUNCHES")
+    ct, et, eeb = _sparse_sstats_inputs(300, 700, K, 20, 3, 0.03, True,
+                                        cuda, hot=True, full_row=True)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    pl = sstats_mod.plan(*ct.shape, K, sms, count_bytes=2)
+    assert pl.direct == (K > 16384) and pl.kp >= K
+    before = getattr(sstats_mod, wide)
+    ss, tok = sstats_mod.dense_sstats(ct, et, eeb, **mode)
+    ss2, tok2 = sstats_mod.dense_sstats(ct, et, eeb, **mode)
+    assert getattr(sstats_mod, wide) == before + 2
+    ss_p, tok_p = estep_dense_sstats(ct, et, eeb, **mode)
+    torch.cuda.synchronize()
+    assert ss.shape == (K, 700)
+    assert torch.equal(ss, ss2) and torch.equal(tok, tok2)
+    if compute_dtype == "bfloat16":
+        _hold_bf16_sstats_f64(ss, ss_p, ct, et, eeb)
+    else:
+        _hold_sstats(ss, ss_p, compute_dtype)
+    assert float(tok) == pytest.approx(float(tok_p), rel=1e-5)
+    del ss_p
+    k0, k1 = pl.slice - 3, min(K, 2 * pl.slice + 5)
+    ss_r, tok_r = sstats_mod.dense_sstats(ct, et, eeb, topic_range=(k0, k1),
+                                          **mode)
+    torch.cuda.synchronize()
+    assert torch.equal(ss_r, ss[k0:k1]) and torch.equal(tok_r, tok)
+
+
+@pytest.mark.parametrize("bf16", [True, False], ids=["bf16", "f32"])
+def test_dense_sstats_cluster_kernel_dense_counts(cuda, bf16):
+    """Every count nonzero at D = 256, K = 8192: each tile holds 256
+    nonzeros a column, more than a CTA pushes (each walks 16 rows: 512),
+    so every CTA walks the whole tile's counts and runs many batches (80
+    nonzeros each with bf16 counts, 68 with f32); against the plain
+    version at the float32 tolerances and two calls bitwise."""
+    ct, et, eeb = _sparse_sstats_inputs(256, 300, 8192, 20, 0, 1.0, bf16,
+                                        cuda)
+    pl = sstats_mod.plan(256, 320, 8192, torch.cuda.get_device_properties(
+        cuda).multi_processor_count, count_bytes=ct.element_size())
+    assert sstats_mod.wide_batches(ct, pl) >= 20 * pl.tiles
+    assert 256 // 16 * 32 > sstats_mod.WIDE_PUSH_CAP
+    ss, tok = sstats_mod.dense_sstats(ct, et, eeb)
+    ss2, tok2 = sstats_mod.dense_sstats(ct, et, eeb)
+    ss_p, tok_p = estep_dense_sstats(ct, et, eeb)
+    torch.cuda.synchronize()
+    assert torch.equal(ss, ss2) and torch.equal(tok, tok2)
+    _hold_sstats(ss, ss_p, "float32")
+    assert float(tok) == pytest.approx(float(tok_p), rel=1e-5)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_dense_sstats_cluster_kernel_direct_plan(cuda, compute_dtype):
+    """The direct plan (the plan past K = 16384: expElogbeta and
+    expEtheta read from device memory, raw summed in the output) at the
+    default plan's cluster and slice at K = 8192: sstats and score bitwise
+    the default plan's, the full call and a topic range; launched through
+    ``sstats_mod.launch``, so no count moves."""
+    from pylda_tpu_torch.ops import _build
+
+    ct, et, eeb = _sparse_sstats_inputs(300, 700, 8192, 20, 3, 0.03, True,
+                                        cuda, hot=True, full_row=True)
+    lib = sstats_mod._lib(compute_dtype)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    pl = sstats_mod.plan(*ct.shape, 8192, sms, count_bytes=2)
+    direct = dataclasses.replace(pl, direct=True)
+    before = (sstats_mod.WIDE_LAUNCHES, sstats_mod.BF16_WIDE_LAUNCHES)
+    for rng in (None, (1000, 5000)):
+        geo = {}
+        a = sstats_mod.launch(lib, ct, et, eeb, 1e-30, rng, plan_=pl)
+        b = sstats_mod.launch(lib, ct, et, eeb, 1e-30, rng, plan_=direct,
+                              geometry_out=geo)
+        torch.cuda.synchronize()
+        assert geo["direct"] and geo["clusters"] >= 1
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert (sstats_mod.WIDE_LAUNCHES, sstats_mod.BF16_WIDE_LAUNCHES) == before
+    assert _build.library("dense_sstats", compute_dtype) is lib
+
+
+def test_dense_sstats_cluster_kernel_makes_no_host_sync(cuda):
+    """A call above K = 4096 under ``set_sync_debug_mode("error")``: the
+    wrapper sizes everything from shapes and reads nothing back, so no
+    synchronizing operation raises; the result is then checked."""
+    ct, et, eeb = _sparse_sstats_inputs(300, 700, 8192, 20, 3, 0.03, True,
+                                        cuda, hot=True)
+    sstats_mod.dense_sstats(ct, et, eeb)  # builds, binds and sizes scratch
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ss, tok = sstats_mod.dense_sstats(ct, et, eeb)
+        ss_r, tok_r = sstats_mod.dense_sstats(ct, et, eeb,
+                                              topic_range=(0, 4096))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    ss_p, tok_p = estep_dense_sstats(ct, et, eeb)
+    _hold_sstats(ss, ss_p, "float32")
+    assert torch.equal(ss_r, ss[:4096]) and torch.equal(tok_r, tok)
 
 
 @pytest.mark.parametrize("bf16", [True, False])
@@ -1325,6 +1482,29 @@ def _hold_bf16_sstats(ss, ss_p):
     off = diff > 1e-4 * ss_p.abs() + atol
     assert float(off.float().mean()) <= 1e-3, int(off.sum())
     assert bool((diff <= 2.0 ** -7 * ss_p.abs() + atol).all())
+
+
+def _hold_bf16_sstats_f64(ss, ss_p, ct, et, eeb):
+    """bf16 sstats against the plain version run in float64 (the bf16
+    mode's rounding points, float64 sums): the share of entries off it by
+    more than 1e-4 rel + 1e-6 max|ref| at most 1e-3 or twice the float32
+    plain version's (``ss_p``) share, and every entry within 2^-7 rel +
+    1e-6 max|ref|.  Past K = 16384 a bf16 ratio flips where the two
+    float32 phinorm sums (the plain version's and the kernel's, in other
+    orders) straddle a rounding boundary, so the float32 plain version is
+    no reference there for the kernel's rounding."""
+    ref, _ = estep_dense_sstats(ct.double(), et.double(), eeb.double(),
+                                compute_dtype="bfloat16")
+    atol = 1e-6 * float(ref.abs().max())
+
+    def share(x):
+        diff = (x.double() - ref).abs()
+        return float((diff > 1e-4 * ref.abs() + atol).double().mean())
+
+    assert share(ss) <= max(1e-3, 2.0 * share(ss_p)), (share(ss),
+                                                        share(ss_p))
+    assert bool(((ss.double() - ref).abs()
+                 <= 2.0 ** -7 * ref.abs() + atol).all())
 
 
 def _shares_err(ids, cnts, g, g_ref, eeb, alpha):

@@ -212,17 +212,23 @@ def test_plan_topic_padding_matches_the_kernel_builds():
 
 def test_plan_refuses_what_the_kernel_does_not_take():
     """The kernel's range: every K in 1..4096 has a one-pass build (the
-    wide ones above 256: 32, 16 or 8 columns a tile); above it the two
-    passes plan (32 columns a CTA, K rounded up to their 256-topic
-    tile), at 4097 and at 16384 alike; only K = 0 raises."""
+    wide ones above 256: 32, 16 or 8 columns a tile); above it the
+    cluster kernel plans (clusters of 16 CTAs, slices of whole 32-row
+    boxes, 32 columns a tile up to slices of 512 topics, 16 up to 1024,
+    then the direct plan), at 4097 and at 16384 alike; only K = 0
+    raises."""
     for K, cols in ((1, 64), (256, 64), (257, 32), (512, 32), (513, 16),
                     (1000, 16), (1024, 16), (1025, 8), (2048, 8), (2049, 8),
                     (4096, 8)):
         pl = sstats_mod.plan(10, 10, K, H100_SMS)
-        assert pl.cols == cols and pl.kp >= K and not pl.two_pass, K
-    for K, kp in ((4097, 4352), (16384, 16384)):
+        assert pl.cols == cols and pl.kp >= K and not pl.wide, K
+    for K, slice_, cols, direct in ((4097, 288, 32, False),
+                                    (16384, 1024, 16, False),
+                                    (16385, 1028, 32, True)):
         pl = sstats_mod.plan(10, 10, K, H100_SMS)
-        assert pl.two_pass and pl.cols == 32 and pl.kp == kp, K
+        assert pl.wide and pl.kp == 16 * slice_ >= K, K
+        assert (pl.cluster, pl.slice, pl.cols, pl.direct) == (
+            16, slice_, cols, direct), K
     with pytest.raises(ValueError):
         sstats_mod.build_for(4097)
     with pytest.raises(ValueError):

@@ -1,12 +1,12 @@
-"""The port above K = 4096 topics (the kernels' cluster and two-pass
-range), against pylda_tpu on the CPU.
+"""The port above K = 4096 topics (the kernels' cluster range), against
+pylda_tpu on the CPU.
 
-The CUDA kernels take any K up to 65536: above 4096 the gamma fixed
-points run the cluster kernel (``csrc/row_fixed_point_tiled.cuh``) and
-the dense sufficient statistics two passes over a column list of the
-nonzeros (``csrc/dense_sstats.cu``).  Here, on the CPU, the wrappers take their
-plain versions, which have no cap; they are held at K = 4224 (and 8192)
-against:
+The CUDA kernels take any K: above 4096 the gamma fixed points run the
+cluster kernel (``csrc/row_fixed_point_tiled.cuh``) and the dense
+sufficient statistics theirs (``csrc/dense_sstats.cu``: the topics split
+over a cluster, column tiles, batches of nonzeros).  Here, on the CPU,
+the wrappers take their plain versions, which have no cap; they are held
+at K = 4224 (and 8192) against:
 
 - each TPU kernel in interpret mode: ``pallas_estep_ragged_gamma`` on a
   16 x 16 bucket and ``pallas_estep_dense`` at D = 16, V = 64 (f32: their
@@ -22,9 +22,11 @@ against:
 - the kernels' arithmetic orders, emulated here: the cluster kernel's
   sweep (slice partials of phinorm, summed over the ranks in order,
   resident and streamed windows, step B's group sums, the CTAs' and the
-  ranks' sums of |dgamma|) under the row-major schedule, and the two
-  passes of the sufficient statistics, each against the batch function
-  (float64: 1e-12; float32: 1e-5);
+  ranks' sums of |dgamma|) under the row-major schedule, and the
+  sufficient statistics' cluster kernel (rank slices, a thread's rows,
+  the butterfly, the warps and the ranks in order, raw in row order,
+  batches), each against the batch function (float64: 1e-12; float32:
+  1e-5);
 - the engines: batch VB on the ragged and dense routes and SVI at pinned
   sweeps against the JAX engines, at tests/test_torch_vb.py's bars, and
   the CLI's train and test round trip.
@@ -497,83 +499,210 @@ def test_cluster_sweep_order_matches_batch(dtype, compute_dtype, threshold,
     torch.testing.assert_close(got, want, rtol=rtol, atol=0.0)
 
 
-def _two_pass_sstats(counts, et, eeb, eps, k0, k1, compute_dtype):
-    """The two passes' order: the nonzeros listed by column in row order;
-    pass 1 each nonzero's phinorm over topic tiles of 256 in order (a warp
-    a nonzero: a lane's running sum over its 8 topics of the tile, then
-    the butterfly), the ratio and the score; pass 2 topic k of column v
-    summed over its nonzeros in row order, times expElogbeta."""
+def _wide_entries(counts, tile, cols):
+    """The nonzeros of one column tile in the cluster kernel's list order,
+    row-major (each column's in row order): (rows, columns)."""
+    block = counts[:, tile * cols:(tile + 1) * cols]
+    rows, cc = torch.nonzero(block != 0, as_tuple=True)  # row-major
+    return rows, tile * cols + cc
+
+
+def _wide_sstats(counts, et, eeb, eps, k0, k1, compute_dtype, pl,
+                 batch=None):
+    """The cluster kernel's order at plan ``pl``: column tiles of
+    ``pl.cols``; CTA r of the cluster owns topics [r S, r S + S), S =
+    ``pl.slice``; each tile's nonzeros in row-major order in batches of
+    ``batch`` (default ``pl.batch``).  A nonzero's partial phinorm on a
+    CTA, by the warp owning its column: lane l's rows l, l + 32, .. in
+    two chains (even and odd rows, in order) and their sum, then in
+    float64 the xor butterfly over the 32 lanes; the ranks' partials in
+    rank order, + eps, rounded once to the inputs' dtype; the ratio
+    (bf16: rounded);
+    the score terms in
+    nonzero order, f64, a tile a part, the parts in the final tree; raw
+    of (topic, column) by the lane holding it over the column's nonzeros
+    in row order, times expElogbeta."""
     rnd = bf16_round if compute_dtype == BF16 else (lambda x: x)
     D, Vc = counts.shape
     k, V = eeb.shape
-    c = counts.to(et.dtype)
+    dt = et.dtype
+    c = counts.to(dt)
     eeb_w = torch.nn.functional.pad(eeb, (0, Vc - V))
-    tile = sstats_mod.TWO_PASS_TOPICS
-    cols, rows = torch.nonzero(c.T != 0, as_tuple=True)  # column-major
-    ph = torch.zeros(rows.shape[0], dtype=et.dtype)
-    for t0 in range(0, k, tile):
-        e = torch.zeros(rows.shape[0], tile, dtype=et.dtype)
-        b = torch.zeros_like(e)
-        t1 = min(k, t0 + tile)
-        e[:, :t1 - t0] = rnd(et[rows, t0:t1])
-        b[:, :t1 - t0] = rnd(eeb_w[t0:t1, cols].T)
-        lanes = torch.zeros(rows.shape[0], LANES, dtype=et.dtype)
-        for m in range(tile // LANES):
-            sl = slice(m * LANES, (m + 1) * LANES)
-            lanes = lanes + e[:, sl] * b[:, sl]
-        ph = ph + _butterfly(lanes) if t0 else _butterfly(lanes)
-    cv = c[rows, cols]
-    pn = ph + eps
-    ratio = rnd(cv / pn)
-    score = (cv * torch.log(pn)).sum()
-    raw = torch.zeros(k1 - k0, V, dtype=et.dtype)
-    for i in range(rows.shape[0]):
-        if cols[i] < V:
-            raw[:, cols[i]] += rnd(et[rows[i], k0:k1]) * ratio[i]
+    batch = batch or pl.batch
+    S = pl.slice
+    per = -(-S // LANES) * LANES  # rows of a slice, whole lanes' rows
+    f64 = torch.float64
+    raw = torch.zeros(k1 - k0, V, dtype=dt)
+    parts = []
+    for tile in range(pl.tiles):
+        rows, cols = _wide_entries(c, tile, pl.cols)
+        part = torch.zeros((), dtype=f64)
+        for n0 in range(0, rows.shape[0], batch):
+            d, v = rows[n0:n0 + batch], cols[n0:n0 + batch]
+            m = d.shape[0]
+            ph = torch.zeros(m, dtype=f64)
+            for r in range(pl.cluster):
+                kb = r * S
+                own = max(0, min(k, kb + S) - kb)
+                prod = torch.zeros(m, per, dtype=dt)
+                prod[:, :own] = (rnd(et[d, kb:kb + own])
+                                 * rnd(eeb_w[kb:kb + own, v].T))
+                prod = prod.reshape(m, per // LANES, LANES)
+                chains = torch.zeros(2, m, LANES, dtype=dt)
+                for j in range(per // LANES):
+                    chains[j % 2] = chains[j % 2] + prod[:, j]
+                ph = ph + _butterfly((chains[0] + chains[1]).to(f64))
+            cv = c[d, v]
+            pn = (ph + eps).to(dt)
+            ratio = rnd(cv / pn)
+            for term in (cv * torch.log(pn)).to(torch.float64):
+                part = part + term
+            for n in range(m):
+                if v[n] < V:
+                    raw[:, v[n]] += rnd(et[d[n], k0:k1]) * ratio[n]
+        parts.append(part)
+    # The final tree: thread i sums parts i, i + 256, .., then a warp's
+    # lanes by halves (16, 8, .., 1) and the warps in order.
+    t = torch.zeros(THREADS, dtype=torch.float64)
+    for i0 in range(0, len(parts), THREADS):
+        chunk = torch.stack(parts[i0:i0 + THREADS])
+        t[:chunk.shape[0]] += chunk
+    t = t.reshape(WARPS, LANES)
+    while t.shape[1] > 1:
+        t = t[:, :t.shape[1] // 2] + t[:, t.shape[1] // 2:]
+    score = torch.zeros((), dtype=torch.float64)
+    for w in range(WARPS):
+        score = score + t[w, 0]
     return eeb[k0:k1] * raw, score
 
 
-@pytest.mark.parametrize("compute_dtype", MODES)
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
-                         ids=["f64", "f32"])
-def test_two_pass_sstats_order_matches_batch(dtype, compute_dtype):
-    """The two passes' order against ``estep_dense_sstats`` (float64:
-    rtol 1e-12; float32: 1e-5 and the score rel 1e-5), and a topic range
-    across a tile boundary equal to the full call's rows."""
-    counts, et, eeb = _sstats_case(D=10, V=40, seed=9, v_pad=8)
+def _dense_tile_case(D=24, V=40, seed=4):
+    """Counts dense enough that a tile holds several batches of 8."""
+    rng = np.random.default_rng(seed)
+    counts = ((rng.random((D, V)) < 0.6)
+              * rng.integers(1, 4, (D, V))).astype(np.float32)
+    counts = np.pad(counts, ((0, 0), (0, 8)))
+    gamma = rng.gamma(100.0, 0.01, (D, K)).astype(np.float32)
+    lam = rng.gamma(100.0, 0.01, (K, V)).astype(np.float32)
+    et = np.asarray(jd.exp_dirichlet_expectation(jnp.asarray(gamma)))
+    eeb = np.asarray(jd.exp_dirichlet_expectation(jnp.asarray(lam)))
+    return counts, et, eeb
+
+
+@pytest.mark.parametrize("dtype,compute_dtype,batch", [
+    (torch.float64, "float32", None), (torch.float64, BF16, None),
+    (torch.float32, "float32", None), (torch.float32, BF16, None),
+    (torch.float64, "float32", 8), (torch.float32, BF16, 8)],
+    ids=["f64-float32", "f64-bfloat16", "f32-float32", "f32-bfloat16",
+         "f64-float32-batches", "f32-bfloat16-batches"])
+def test_wide_sstats_order_matches_batch(dtype, compute_dtype, batch):
+    """The cluster kernel's order at its plan for K = 4224 (16 CTAs of 288
+    topics: the 15th holds 192, the 16th none; 32 columns a tile) against
+    ``estep_dense_sstats`` (float64: rtol 1e-12; float32: 1e-5 with atol
+    1e-5 max|ref|; the score rel 1e-5), and a topic range across slice
+    boundaries bitwise the full call's rows.  With ``batch`` 8, counts
+    dense enough that every tile runs several batches, which change no
+    bit."""
+    if batch:
+        counts, et, eeb = _dense_tile_case()
+    else:
+        counts, et, eeb = _sstats_case(D=10, V=40, seed=9, v_pad=8)
     counts, et, eeb = (torch.tensor(x, dtype=dtype) for x in (counts, et, eeb))
+    pl = sstats_mod.plan(*counts.shape, K, 132)
+    assert (pl.cluster, pl.slice, pl.cols) == (16, 288, 32) and not pl.direct
     want, score_w = estep_dense_sstats(counts, et, eeb,
                                        compute_dtype=compute_dtype)
-    got, score = _two_pass_sstats(counts, et, eeb, 1e-30, 0, K, compute_dtype)
+    got, score = _wide_sstats(counts, et, eeb, 1e-30, 0, K, compute_dtype,
+                              pl, batch)
     rtol = 1e-12 if dtype == torch.float64 else 1e-5
     torch.testing.assert_close(got, want, rtol=rtol,
                                atol=rtol * float(want.abs().max()))
     assert float(score) == pytest.approx(float(score_w), rel=rtol)
-    part, _ = _two_pass_sstats(counts, et, eeb, 1e-30, 1000, 4200,
-                               compute_dtype)
+    part, _ = _wide_sstats(counts, et, eeb, 1e-30, 1000, 4200, compute_dtype,
+                           pl, batch)
     torch.testing.assert_close(part, got[1000:4200], rtol=0, atol=0)
+    if batch:
+        tiles = [_wide_entries(counts, t, pl.cols)[0].shape[0]
+                 for t in range(pl.tiles)]
+        assert min(tiles) > 2 * batch
+        one, score_one = _wide_sstats(counts, et, eeb, 1e-30, 0, K,
+                                      compute_dtype, pl, max(tiles))
+        torch.testing.assert_close(one, got, rtol=0, atol=0)
+        assert float(score_one) == float(score)
 
 
 # -- the plans and the scratch ------------------------------------------------------
 
 
-def test_sstats_plan_above_4096():
-    """The two passes' grid at config 5's first chunk ([1216, 100352]
-    bf16, 182,065 nonzeros) and K = 8192: 3,136 first-pass CTAs of 32
-    columns, one split, K rounded up to the second pass's topic tiles (a
-    range: the whole K's grid), and the scratch: the f64 score parts, the
-    int64 column starts and 12 bytes a nonzero."""
-    pl = sstats_mod.plan(1216, 100352, 8192, 132, nnz=182065)
-    assert pl.two_pass and (pl.tiles, pl.cols, pl.splits) == (3136, 32, 1)
-    assert pl.kp == 8192 and pl.blocks == 3136
-    assert pl.rows_per_split == 1216 and pl.partial_floats == 0
-    assert pl.scratch_bytes == 8 * 3136 + 8 * 100353 + 12 * 182065
-    rng = sstats_mod.plan(1216, 100352, 8192, 132, (4096, 8192), nnz=1)
-    assert (rng.tiles, rng.kp) == (pl.tiles, pl.kp)
-    for k, kp in ((4097, 4352), (5000, 5120), (16384, 16384)):
-        p = sstats_mod.plan(100, 1000, k, 132)
-        assert (p.kp, p.tiles) == (kp, 32), k
-    assert not sstats_mod.plan(100, 1000, 4096, 132).two_pass
+# (K, counts bytes) -> (slice, columns a tile, batch, shared memory a CTA,
+# direct), every plan at 16 CTAs a cluster.
+_WIDE_PLANS = {
+    (4100, 2): (288, 32, 128, 230928, False),
+    (5000, 2): (320, 32, 116, 228592, False),
+    (8192, 2): (512, 32, 76, 224560, False),
+    (8192, 4): (512, 32, 68, 230512, False),
+    (16384, 2): (1024, 16, 44, 227888, False),
+    (16385, 2): (1028, 32, 256, 119312, True),
+}
+
+
+@pytest.mark.parametrize("k,count_bytes", list(_WIDE_PLANS),
+                         ids=[f"{k}-{b}" for k, b in _WIDE_PLANS])
+def test_sstats_plan_above_4096(k, count_bytes):
+    """The cluster kernel's plan at config 5's first chunk ([1216, 100352]
+    counts, 182,065 nonzeros), worked by hand at K = 8192 with bf16
+    counts: 16 CTAs a cluster, slice 8192 / 16 = 512 topics (16 whole
+    32-row boxes, a lane's 16 rows x 4 columns), 32 columns a tile (128
+    bytes of a row), 3,136 tiles.  A CTA's shared memory: the slice tile
+    512 x 32 x 4 = 65,536 bytes (expElogbeta resident for the tile), the
+    counts ring 3 x 128 x 32 x 2 = 24,576 (a CTA walks 1216 / 16 = 76
+    rows of a tile: one chunk), its pushed nonzeros 8 x 160 = 1,280, the
+    push area 8 x 16 x 161 = 20,608, 144 fixed, 1,024 to align, and a
+    nonzero of the batch 512 x 4 = 2,048 (its expEtheta slice) + 4 x 4 +
+    8 + 2 x 16 x 8 = 2,328, the first 32 slices in the tile's buffer:
+    (232,448 - 113,168 + 65,536) / 2,328 = 79.4, so 76 (a multiple of
+    4), 224,560 bytes; the tile's ~58 nonzeros at this density (182,065
+    / 3,136) take one batch (a tile past 76 runs batches of 38).  f32
+    counts (a 49,152-byte ring): 68.
+    Slices past 512 topics take 16 columns (K = 16384: 1,024 topics),
+    past 1,024 the direct plan (32 columns, the slice rounded up to 4
+    topics, batches of 256, nothing staged).  The scratch: a f64 score
+    part a tile and one counter.  A topic range plans the same."""
+    slice_, cols, batch, smem, direct = _WIDE_PLANS[(k, count_bytes)]
+    pl = sstats_mod.plan(1216, 100352, k, 132, count_bytes=count_bytes)
+    assert pl.wide and (pl.cluster, pl.splits) == (16, 1)
+    assert (pl.slice, pl.cols, pl.batch, pl.smem_bytes, pl.direct) == (
+        slice_, cols, batch, smem, direct)
+    assert pl.tiles == 100352 // cols and pl.kp == 16 * slice_ >= k
+    assert pl.smem_bytes <= sstats_mod.SMEM_LIMIT
+    assert pl.scratch_bytes == 8 * pl.tiles + 4
+    if not direct:
+        assert slice_ % sstats_mod.WIDE_BOX == 0 and batch >= 2 * cols
+        assert slice_ * cols <= 32 * 8 * sstats_mod.WIDE_LANE_FLOATS
+        assert sstats_mod.wide_smem_bytes(slice_, batch + 4, 16, count_bytes,
+                                          cols) > sstats_mod.SMEM_LIMIT
+    if (k, count_bytes) == (8192, 2):
+        assert 182065 / pl.tiles < batch
+    rng = sstats_mod.plan(1216, 100352, k, 132, (k // 2, k),
+                          count_bytes=count_bytes)
+    assert rng == pl
+    assert not sstats_mod.plan(100, 1000, 4096, 132).wide
+
+
+def test_wide_batches_counts_the_kernels_batches():
+    """``wide_batches`` at K = 8192 (batches of 76, 16 CTAs sharing D =
+    320 rows, 20 each): a tile of 76 nonzeros runs one batch, of 77 three
+    of 38 (half as many, the slots' two halves in turn), a tile where a
+    CTA's share holds 640 nonzeros (more than WIDE_PUSH_CAP = 160: every
+    CTA walks the tile) nine of 76, an empty tile none."""
+    pl = sstats_mod.plan(320, 128, 8192, 132)
+    assert (pl.cluster, pl.cols, pl.batch, pl.tiles) == (16, 32, 76, 4)
+    c = torch.zeros(320, 128)
+    c[:76, 0] = 1
+    c[:77, 32] = 1
+    c[:20, 64:96] = 1
+    assert sstats_mod.WIDE_PUSH_CAP < 640
+    assert sstats_mod.wide_batches(c, pl) == 1 + 3 + 9
 
 
 # (K, compute_dtype) -> (cluster, slice, resident, window, windows a sweep,
