@@ -33,7 +33,13 @@ Phases, in order (any failure exits non-zero):
      sufficient statistics on its first bf16 counts chunk ([1024, 50176]
      and [1216, 100352]);
    - at K=1000 on the dense flagship's vocabulary (V=4096, 4096
-     documents): the dense E-step with its final pass;
+     documents): the dense E-step with its final pass, and the final
+     pass's inputs again in the bf16 build (the paths ``dense_k1000`` and
+     ``dense_k1000_bf16``, each a window of the launch counters, must
+     launch the sstats cluster kernel); at K = 1000 (config 5's chunk and
+     this final pass) the sstats calls take the cluster kernel, whose
+     lines print its plan, and config 5's chunk is also called with no
+     host sync (``sstats_sync_free_check``);
    the dense sufficient statistics are also called twice on each input and
    must return the same bits;
    the two gamma fixed points are held against their plain version run in
@@ -229,8 +235,10 @@ lines hold those phases' numbers (``shard:`` the lambda-sharding
 phases').
 
 The line before the last is the kernels' JSON record (the bf16 builds
-as ``<kernel>_bf16``; ``launches_by_path`` names each main path); the
-last line is
+as ``<kernel>_bf16``; ``launches_by_path`` names each main path; the
+sstats cluster kernel at 256 < K <= 4096 as ``dense_sstats_cluster``,
+its launches those of the paths before the range above 4096, which
+``dense_sstats_wide`` counts at every K); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
 exits non-zero and prints no result.
 """
@@ -626,7 +634,7 @@ def sstats_check(label, counts, et, eeb, eps, sstats_mod, plain,
                 f"nonzeros ({extra['batches']} batches), "
                 f"{geo['smem_bytes']} bytes of shared memory a CTA"
                 f"{', direct' if pl.direct else ''}")
-    print(f"kernel dense_sstats{'' if K <= 4096 else '_wide'}"
+    print(f"kernel dense_sstats{'_wide' if pl.wide else ''}"
           f"{'' if compute_dtype == 'float32' else '_bf16'} "
           f"{label} [{D}x{Vc} {str(counts.dtype)[6:]}, K={K}]: grid "
           f"{grid}, scratch {pl.scratch_bytes / 1e6:.1f} MB, "
@@ -667,7 +675,10 @@ def sstats_range_check(label, counts, et, eeb, eps, sstats_mod, plain,
     full_ms = cuda_ms(lambda: sstats_mod.dense_sstats(counts, et, eeb,
                                                       **mode), 20)
     nnz = int((counts != 0).sum())
-    suffix = ("" if K <= 4096 else "_wide") + (
+    wide = sstats_mod.plan(D, Vc, K, torch.cuda.get_device_properties(
+        counts.device).multi_processor_count,
+        count_bytes=counts.element_size()).wide
+    suffix = ("_wide" if wide else "") + (
         "" if compute_dtype == "float32" else "_bf16")
     out = []
     for k0, k1 in ranges or ((0, K // 2), (K // 2, K)):
@@ -1197,12 +1208,12 @@ def read_launches(mods) -> dict:
     """Each kernel's launches of its float32 build (its name) and of its
     bf16 build (its name + "_bf16"); for the sstats kernel also its
     topic-range launches ("dense_sstats_range", "dense_sstats_range_bf16",
-    counted in its builds' launches too).  Of each, the launches above
-    K = 4096 (the gamma and the sstats cluster kernels) as
-    "<name>_wide" and "<name>_wide_bf16", and of the gamma kernels the
-    launches of the entry kernel (K <= 4096, rows past one block's slot
-    buffer) as "<name>_cluster" and "<name>_cluster_bf16", counted in the
-    others too."""
+    counted in its builds' launches too).  Of each, the launches of the
+    cluster kernels (the gamma one above K = 4096, the sstats one at every
+    K above 256) as "<name>_wide" and "<name>_wide_bf16", and of the gamma
+    kernels the launches of the entry kernel (K <= 4096, rows past one
+    block's slot buffer) as "<name>_cluster" and "<name>_cluster_bf16",
+    counted in the others too."""
     out = {}
     for name, mod in mods.items():
         out[name] = mod.LAUNCHES
@@ -1271,7 +1282,8 @@ def dense_entries(dc, row_nnz):
     return order.to(torch.int32), dc.gather(1, order).float()
 
 
-def dense_checks(label, corpus, beta, cfg, dev, pinned=False, probe=None):
+def dense_checks(label, corpus, beta, cfg, dev, pinned=False, probe=None,
+                 final_inputs=None):
     """The dense E-step (gamma kernel + final pass) on the one counts batch
     of ``corpus`` at a sharpened lambda, against its plain version in
     float64 (``exit_report``), the final pass at the kernel's gamma and
@@ -1279,8 +1291,9 @@ def dense_checks(label, corpus, beta, cfg, dev, pinned=False, probe=None):
     holds the rows still updating at S* by their share of the bound and
     every row at pinned sweeps, as ``ragged_checks`` does.  Raises if it
     disagrees.  ``probe``: the inputs (``dense_probe``'s tuple) where the
-    caller made them.  Returns (its record, the final pass's sstats
-    record)."""
+    caller made them.  ``final_inputs`` (a dict) gets the final pass's
+    counts, expEtheta and expElogbeta.  Returns (its record, the final
+    pass's sstats record)."""
     import torch
 
     from pylda_tpu_torch.ops import dense_estep as dense_mod
@@ -1371,6 +1384,9 @@ def dense_checks(label, corpus, beta, cfg, dev, pinned=False, probe=None):
     fin = sstats_check(f"{label} final pass", dc,
                        exp_dirichlet_expectation(g_k), eeb, cfg.eps,
                        sstats_mod, estep_dense_sstats)
+    if final_inputs is not None:
+        final_inputs.update(counts=dc, et=exp_dirichlet_expectation(g_k),
+                            eeb=eeb)
     dg_ok = dg_ok and dss_ok and dtok_rel <= DENSE_SCORE_RTOL and bitwise
     streamed = int(streamed_rows(geo, row_nnz)[0].sum())
     print(f"kernel dense_gamma{wide_tag(K)} {label} [{Dd}x{dc.shape[1]} "
@@ -1461,6 +1477,10 @@ def svi_kernel_lines(label, corpus, beta, cfg, dev, bf16=False,
     ss = sstats_check(f"{label} minibatch", counts,
                       exp_dirichlet_expectation(gamma_docs)[cidx], eeb,
                       cfg.eps, sstats_mod, estep_dense_sstats)
+    if "cluster" in ss:  # the cluster kernel: no host sync either
+        sstats_sync_free_check(f"{label} minibatch", counts,
+                               exp_dirichlet_expectation(gamma_docs)[cidx],
+                               eeb, cfg.eps)
     if range_lines is not None:
         range_lines["float32"] += sstats_range_check(
             f"{label} minibatch", counts,
@@ -3940,9 +3960,12 @@ def shard_phases(mods, by_path: dict, coll: dict, refs: dict, gloo2: list
         hold_ranks(label, rows, phase)
         topics = "topics" in phase
         suffix = "_bf16" if run == "bf16" else ""
+        # Config 5 (K = 1000) takes the sstats cluster kernel.
+        svi5 = "svi5" in phase
         needed = tuple(f"{k}{suffix}" for k in (
             "ragged_gamma", "dense_sstats")
-            + (("dense_sstats_range",) if topics else ()))
+            + (("dense_sstats_range",) if topics else ())
+            + (("dense_sstats_wide",) if svi5 else ()))
         for r, row in enumerate(rows):
             got = row[phase]
             check_launched(f"{label} rank {r}", got["launches"], needed,
@@ -4031,7 +4054,8 @@ def dist_phases(mods, dev, by_path: dict) -> dict:
             if not same or grouped["all_reduce"] != want:
                 raise AssertionError(f"{label}: a reduce of one rank is not "
                                      f"exact, or the collectives are off")
-            needed = ("ragged_gamma", "dense_sstats")
+            needed = ("ragged_gamma", "dense_sstats") + (
+                ("dense_sstats_wide",) if name == "svi5" else ())
             check_launched(label, grouped["launches"], needed)
             by_path[f"dist_nccl1_{name}"] = grouped["launches"]
             res[f"dist_nccl1_{name}"] = {
@@ -4058,6 +4082,7 @@ def dist_phases(mods, dev, by_path: dict) -> dict:
             raise AssertionError(f"{label}: backend {ranks[0]['backend']}")
         hold_ranks(label, ranks, name)
         needed = (("ragged_gamma", "dense_sstats")
+                  + (("dense_sstats_wide",) if name == "svi5" else ())
                   if name in ("vb", "svi5") else ())
         for r in range(2):
             check_launched(f"{label} rank {r}", ranks[r][name]["launches"],
@@ -4355,32 +4380,34 @@ def sstats_direct_plan_check(label: str, counts, et, eeb, eps) -> None:
 
 
 def sstats_sync_free_check(label: str, counts, et, eeb, eps) -> None:
-    """One call of the sstats cluster kernel in each build, and one over a
-    topic range, under ``torch.cuda.set_sync_debug_mode("error")``: a call
-    that synchronised with the host (a read back) would raise.  The
-    results are held bitwise to a call made outside the mode."""
+    """One call of the sstats cluster kernel in each build, and one over
+    the first half of the topics, under
+    ``torch.cuda.set_sync_debug_mode("error")``: a call that synchronised
+    with the host (a read back) would raise.  The results are held
+    bitwise to a call made outside the mode."""
     import torch
 
     from pylda_tpu_torch.ops import sstats as sstats_mod
 
+    half = (0, eeb.shape[0] // 2)
     for cd in ("float32", BF16):
         mode = dict(eps=eps, compute_dtype=cd)
         ref = sstats_mod.dense_sstats(counts, et, eeb, **mode)
-        ref_r = sstats_mod.dense_sstats(counts, et, eeb, topic_range=(0, 4096),
+        ref_r = sstats_mod.dense_sstats(counts, et, eeb, topic_range=half,
                                         **mode)
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
             got = sstats_mod.dense_sstats(counts, et, eeb, **mode)
             got_r = sstats_mod.dense_sstats(counts, et, eeb,
-                                            topic_range=(0, 4096), **mode)
+                                            topic_range=half, **mode)
         finally:
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
         same = all(torch.equal(x, y) for x, y in zip(got + got_r,
                                                        ref + ref_r))
         print(f"kernel dense_sstats_wide{'' if cd == 'float32' else '_bf16'} "
-              f"{label}: two calls (full, topics 0..4095) under "
+              f"{label}: two calls (full, topics 0..{half[1] - 1}) under "
               f"set_sync_debug_mode('error') completed with no host sync, "
               f"bitwise the calls outside it {same} "
               f"{'ok' if same else 'FAIL'}")
@@ -4827,16 +4854,36 @@ def main() -> int:
                                     dg)
     ss16_shapes.append(fin16)
     # ... and at K=1000 on its vocabulary: the core's wide kernels and the
-    # 16-lane sstats build.
+    # sstats cluster kernel.
     wcorpus, wbeta, _ = synthetic_corpus(
         num_docs=D, num_topics=DENSE_WIDE_K, num_types=V_DENSE,
         mean_doc_length=MEAN_LEN, seed=0,
     )
+    # Its final pass takes the sstats cluster kernel (2 CTAs of 512 topics):
+    # its launches, in each build, as the paths "dense_k1000" and
+    # "dense_k1000_bf16" (the float32 check, then the final pass's inputs
+    # in the bf16 build).
+    final = {}
+    zero_launches(mods)
     dg_wide, fin_wide = dense_checks(
         f"dense K={DENSE_WIDE_K}", wcorpus, wbeta,
         dataclasses.replace(cfg, number_of_topics=DENSE_WIDE_K), dev,
-        pinned=True)
+        pinned=True, final_inputs=final)
+    dense_k1000 = read_launches(mods)
+    check_launched(f"dense K={DENSE_WIDE_K}", dense_k1000,
+                   ("dense_gamma", "dense_sstats", "dense_sstats_wide"))
     ss_shapes.append(fin_wide)
+    zero_launches(mods)
+    fin_wide16 = sstats_check(
+        f"dense K={DENSE_WIDE_K} final pass", final["counts"], final["et"],
+        final["eeb"], cfg.eps, sstats_mod, estep_dense_sstats,
+        compute_dtype=BF16)
+    ss16_shapes.append(fin_wide16)
+    dense_k1000_bf16 = read_launches(mods)
+    check_launched(f"dense K={DENSE_WIDE_K} final pass bf16",
+                   dense_k1000_bf16, ("dense_sstats_bf16",
+                                      "dense_sstats_wide_bf16"))
+    del final
     dg_shapes = [dg, dg_wide]
     del wcorpus, wbeta
 
@@ -4867,7 +4914,8 @@ def main() -> int:
     ss16_shapes.append(svi5_ss16)
 
     # -- engines: the main paths ---------------------------------------------
-    by_path = {}
+    by_path = {"dense_k1000": dense_k1000,
+               "dense_k1000_bf16": dense_k1000_bf16}
     test, _, _ = synthetic_corpus(
         num_docs=1024, num_topics=K, num_types=V, mean_doc_length=MEAN_LEN,
         seed=1, beta=beta,
@@ -4936,14 +4984,17 @@ def main() -> int:
         num_types=SVI5["V"], mean_doc_length=SVI5["LEN"],
         seed=SVI5["TEST_SEED"], beta=svi5_beta,
     )
+    # ... and its sstats chunks (K = 1000) the sstats cluster kernel.
     r32 = run_svi("engine svi config 5", svi5_cfg, svi5_corpus, svi5_test,
-                  dev, mods, 2, needed=("ragged_gamma_cluster",))
+                  dev, mods, 2, needed=("ragged_gamma_cluster",
+                                        "dense_sstats_wide"))
     rl = roofline_phase("engine svi config 5", r32.pop("engine"), mods)
     roofline["svi5"], by_path["roofline_svi5"] = rl["rows"], rl["launches"]
     r16 = run_svi("engine svi config 5 bf16",
                   dataclasses.replace(svi5_cfg, compute_dtype=BF16),
                   svi5_corpus, svi5_test, dev, mods, 2,
-                  needed=("ragged_gamma_cluster_bf16",))
+                  needed=("ragged_gamma_cluster_bf16",
+                          "dense_sstats_wide_bf16"))
     del r16["engine"]
     hold_bf16("engine svi config 5", r32, r16)
     by_path["svi5"], by_path["svi5_bf16"] = r32["launches"], r16["launches"]
@@ -5128,8 +5179,32 @@ def main() -> int:
             **{k: line[k] for k in ("max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by", "full_range_ms")},
             "library_ms": None, "shapes": range_lines[cd]})
+    # The sstats cluster kernel at 256 < K <= 4096 (SVI config 5's K = 1000
+    # chunk, the dense K = 1000 final pass): counted in "dense_sstats" and
+    # "dense_sstats_wide" too (every cluster launch at any K); its launches
+    # are the cluster kernel's on the paths before the range above 4096.
+    for name, line, shapes in (
+            ("dense_sstats_cluster", svi5_ss, [svi5_ss, fin_wide]),
+            ("dense_sstats_cluster_bf16", svi5_ss16, [svi5_ss16, fin_wide16])):
+        counter = name.replace("cluster", "wide")
+        f32 = record["kernels"][0]
+        record["kernels"].append({
+            **{k: f32[k] for k in ("route", "source", "replaces")},
+            "name": name,
+            **({"build": "-DPYLDA_BF16=1"} if name.endswith("_bf16") else {}),
+            "entry": "pylda_dense_sstats_wide",
+            "launches": earlier[counter],
+            "launches_by_path": {
+                path: n for path, n in paths[counter].items()
+                if n and not path.removeprefix("roofline_").startswith(
+                    WIDE_PATH_PREFIXES)},
+            **{k: line[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by")},
+            "library_ms": None, "shapes": shapes})
     # The range above K = 4096 (the gamma and the sstats cluster kernels and
-    # the sstats topic range): counted in the lines above too.
+    # the sstats topic range): counted in the lines above too; its launches
+    # are those on the paths of that range (the sstats cluster kernel's on
+    # the others are the rows above).
     # Each line is the K = 8192 check's; "shapes" holds every K's.  The
     # bf16 topic range above 4096 is on no main path (shard_topics_vb_wide
     # runs in float32): its checks are the wide_k_kernels lines.
@@ -5146,7 +5221,11 @@ def main() -> int:
             **({"build": "-DPYLDA_BF16=1"} if name.endswith("_bf16") else {}),
             **({"core": "pylda_tpu_torch/csrc/row_fixed_point_tiled.cuh"}
                if "gamma" in name else {"entry": "pylda_dense_sstats_wide"}),
-            "launches": launches[name], "launches_by_path": paths[name],
+            "launches": launches[name] - earlier[name],
+            "launches_by_path": {
+                path: n for path, n in paths[name].items()
+                if path.removeprefix("roofline_").startswith(
+                    WIDE_PATH_PREFIXES)},
             **{k: line[k] for k in ("max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by")},
             "library_ms": None, "shapes": wide[name]})

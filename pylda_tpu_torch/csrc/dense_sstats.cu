@@ -40,24 +40,24 @@
 // lanes a column at the flagships' densities) and the grid's fixed cost
 // (each split stages the expElogbeta tile and writes a partial).
 //
-// Wide K (K > 256, up to 4096).  A column's sums no longer fit 4 lanes'
-// registers, so the lanes a column (LPC) grow with K: 8 at KP = 512, 16
-// at 1024, 32 (a warp) at 2048 and 4096, each lane holding 16 float4s of
-// sums (32 at 4096), and a CTA owns 256 / LPC columns (32, 16 or 8).  The
-// expElogbeta tile stays <= 66 KB (131 KB at 4096), phinorm is a butterfly
-// over the column's lanes, and the counts are still read once, chunk by
-// chunk, with a ballot-built row mask a column.  expEtheta is not staged
-// (32 rows of KP floats would not fit twice): a nonzero's lanes read its
-// expEtheta row from global memory (L2: [1216, 1000] f32 is 4.9 MB at SVI
-// config 5) for phinorm and again for the sums.  Counts chunks are issued
-// 4 ahead and the 16-float4 builds run 2 CTAs an SM.  Bound at SVI config
-// 5's first minibatch chunk ([1216, 100352] bf16, K=1000, 182,065
-// nonzeros, 0.15%): the 244 MB of counts plus expElogbeta read and sstats
-// written once, 0.313 ms at 3.35 TB/s, against 0.73 GFLOP of arithmetic:
-// bytes.  Measured 3.62 ms there on an NVIDIA H100 80GB HBM3 at 700 W
-// (PERF.md): each CTA walks its 38 chunks one after another, almost
-// empty at this density, so each chunk's latency (barrier, counts,
-// expEtheta loads of its few nonzeros) sets the time, not the bytes.
+// Wide K (K > 256).  A column's sums no longer fit 4 lanes' registers
+// (builds of 8 to 32 lanes a column, each CTA walking its near-empty row
+// chunks in turn, took 3.62 ms at the chunk below), so above K = 256 the
+// cluster kernel below runs, its cluster the smallest power of two whose
+// slices hold at most 512 topics (1 CTA at K <= 512, 2 at <= 1024, 4 at
+// <= 2048, 8 at <= 4096, 16 above).  At SVI config 5's first minibatch
+// chunk ([1216, 100352] bf16 counts, K = 1000, 182,065 nonzeros, 0.15%;
+// 2 CTAs of 512 topics, 66 clusters in flight, ~48 tiles each) the bound
+// is bytes: the 244 MB of counts, expElogbeta read and sstats written
+// once, 0.313 ms at 3.35 TB/s, against 0.73 GFLOP.
+// Measured there on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md,
+// scripts/torch_sstats_wide_ab.py): 0.69 ms float32, 0.73 ms bf16, ~14 us
+// a tile, each tile's steps in turn as above K = 4096 (other clusters, two
+// CTAs an SM and a deeper counts ring were no faster).  The dense E-step's
+// final pass at K = 1000 ([4096, 4096], 2.8% nonzero: 128 tiles, each
+// CTA's share of a tile past the push cap, so every CTA walks every tile
+// from device memory) 1.00 ms against the one pass's 2.33 and its plain
+// version's 1.69.
 //
 // Determinism.  Each sum has one owner that adds in row order.  With more
 // than one row split, each CTA writes its partial sums to scratch and the
@@ -68,7 +68,7 @@
 // floating-point value, so every call returns the same bits.  Plain f32
 // FMAs and IEEE division, no TF32: the CPU reference is plain f32.
 //
-// Above K = 4096 the entry pylda_dense_sstats_wide launches a cluster
+// Above K = 256 the entry pylda_dense_sstats_wide launches a cluster
 // kernel instead: the topics split over a thread-block cluster, one
 // launch, nothing read back (its note is at the kernel, below).
 //
@@ -123,36 +123,27 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kTileV = 64;    // vocab columns a CTA owns at 4 lanes a column
 constexpr int kRows = 32;     // rows a chunk: a column's row mask is a word
 
-// KP = 4 * LPC * N4 topics (LPC lanes x N4 float4s) and COLS columns a
-// CTA.  With 4 lanes a column (K <= 256) LD, the row stride of the staged
-// expEtheta rows and expElogbeta columns, puts the float4s that a quarter
-// warp's two adjacent 4-lane groups read into 8 distinct bank quads; with
-// more, a quarter warp reads 128 contiguous bytes of one column.
-//
-// Counts chunks are issued AHEAD chunks ahead of their use into CNT_BUFS
-// buffers: 2 (3 buffers) with 4 lanes a column, whose expEtheta loads
-// take their own pipeline groups; 4 (5 buffers) with more, whose chunks
-// are 32 x COLS <= 1 KB of bf16 and whose walks are short at low density,
-// so a chunk's latency is spread over 3 iterations.
-template <int N4, int LPC>
+constexpr int kLanes = 4;     // lanes that own a column's sums (LPC)
+
+// KP = 4 * kLanes * N4 topics (kLanes lanes x N4 float4s).  LD, the row
+// stride of the staged expEtheta rows and expElogbeta columns, puts the
+// float4s that a quarter warp's two adjacent 4-lane groups read into 8
+// distinct bank quads.  Counts chunks are issued AHEAD = 2 chunks ahead of
+// their use into CNT_BUFS = 3 buffers (the expEtheta loads take their own
+// pipeline groups).
+template <int N4>
 struct Layout {
-  static constexpr int KP = 4 * LPC * N4;
-  static constexpr int COLS = kThreads / LPC;
-  static constexpr bool STAGE_ET = LPC == 4;
-  static constexpr int LD =
-      STAGE_ET ? KP + ((KP / 4) % 8 == 4 ? 0 : 16) : KP + 4;
-  static constexpr int AHEAD = STAGE_ET ? 2 : 4;
+  static constexpr int KP = 4 * kLanes * N4;
+  static constexpr int LD = KP + ((KP / 4) % 8 == 4 ? 0 : 16);
+  static constexpr int AHEAD = 2;
   static constexpr int CNT_BUFS = AHEAD + 1;
-  // The wide builds of 16 float4s a lane ask for 2 blocks an SM (at most
-  // 128 registers); the others leave registers to the compiler.
-  static constexpr bool TWO_BLOCKS = !STAGE_ET && N4 <= 16;
 };
 
 // Row stride (elements) of a staged counts chunk: the columns and 16
 // bytes, so the 8 lanes of a quarter warp reading 8 rows hit 8 bank quads.
-template <typename CT, int COLS = kTileV>
+template <typename CT>
 __host__ __device__ constexpr int cnt_ld() {
-  return COLS + 16 / (int)sizeof(CT);
+  return kTileV + 16 / (int)sizeof(CT);
 }
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -194,19 +185,19 @@ __device__ __forceinline__ float4 operand4(float4 v) {
 }
 
 // Issues the copies of counts rows [d0, d0 + kRows) x columns
-// [v0, v0 + COLS) into dst ([kRows][cnt_ld]) and commits them as one
+// [v0, v0 + kTileV) into dst ([kRows][cnt_ld]) and commits them as one
 // group; rows past d_hi and columns past Vc read as zero.  vec: 16-byte
 // copies (rows 16-byte aligned); else element loads.
-template <typename CT, int COLS>
+template <typename CT>
 __device__ __forceinline__ void load_chunk(CT* dst, const CT* counts, int d0,
                                            int d_hi, int v0, int Vc,
                                            bool vec) {
   constexpr int E = 16 / sizeof(CT);  // elements a 16-byte copy
-  constexpr int SEGS = kRows * COLS / E;
+  constexpr int SEGS = kRows * kTileV / E;
   for (int i = threadIdx.x; i < SEGS; i += kThreads) {
-    const int r = i / (COLS / E), c = (i % (COLS / E)) * E;
+    const int r = i / (kTileV / E), c = (i % (kTileV / E)) * E;
     const int d = d0 + r, v = v0 + c;
-    CT* s = dst + r * cnt_ld<CT, COLS>() + c;
+    CT* s = dst + r * cnt_ld<CT>() + c;
     if (vec) {
       // Vc * sizeof(CT) is a multiple of 16: a copy is all in or all out.
       if (d < d_hi && v < Vc)
@@ -244,32 +235,6 @@ __device__ __forceinline__ void compact(const CT* cnt, unsigned* cmask,
   if (lane == 0) rmask[warp] = any;
 }
 
-// Compaction of a staged chunk of COLS < 64 columns: warp w takes columns
-// w, w + 8, .., lane r reads row r, and one ballot a column gives its row
-// mask (cmask[c]).
-template <typename CT, int COLS>
-__device__ __forceinline__ void compact_cols(const CT* cnt, unsigned* cmask) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  for (int c = warp; c < COLS; c += kWarps) {
-    const unsigned m = __ballot_sync(
-        kFull, to_float(cnt[lane * cnt_ld<CT, COLS>() + c]) != 0.f);
-    if (lane == 0) cmask[c] = m;
-  }
-}
-
-// The float4 of topics k..k+3 of an expEtheta row in global memory, zero
-// past K (vec: K % 4 == 0 and 16-byte aligned rows).
-__device__ __forceinline__ float4 et4(const float* row, int k, int K,
-                                      bool vec) {
-  if (vec)
-    return k < K ? __ldg(reinterpret_cast<const float4*>(row + k))
-                 : make_float4(0.f, 0.f, 0.f, 0.f);
-  return make_float4(k < K ? __ldg(row + k) : 0.f,
-                     k + 1 < K ? __ldg(row + k + 1) : 0.f,
-                     k + 2 < K ? __ldg(row + k + 2) : 0.f,
-                     k + 3 < K ? __ldg(row + k + 3) : 0.f);
-}
-
 // Issues the copies of expEtheta rows d0 + r, r a touched row, into
 // dst ([kRows][ld]) and commits them as one group.
 __device__ __forceinline__ void load_et(float* dst, int ld, const float* et,
@@ -301,24 +266,24 @@ __device__ __forceinline__ unsigned touched_rows(const unsigned* rmask) {
   return t;
 }
 
-// One CTA's tile and row split (the kernels below are its two entries).
-template <typename CT, int N4, int LPC>
-__device__ __forceinline__ void sstats_tile(
+// One CTA's tile and row split.
+template <typename CT, int N4>
+__global__ void __launch_bounds__(kThreads) dense_sstats_kernel(
     const CT* __restrict__ counts, const float* __restrict__ et,
     const float* __restrict__ eeb, float* __restrict__ sstats,
     double* __restrict__ score_part, float* __restrict__ score_out,
     float* __restrict__ partial, int* __restrict__ counters, int D, int Vc,
     int V, int K, int k0, int k1, float eps, int rows_per_split) {
-  using L = Layout<N4, LPC>;
-  constexpr int COLS = L::COLS;
+  using L = Layout<N4>;
+  constexpr int LPC = kLanes;
   extern __shared__ __align__(16) float smem[];
-  float* eeb_s = smem;                        // [COLS][LD] expElogbeta^T tile
-  float* et_s = eeb_s + COLS * L::LD;         // [2][kRows][LD] touched rows
+  float* eeb_s = smem;                        // [kTileV][LD] expElogbeta^T
+  float* et_s = eeb_s + kTileV * L::LD;       // [2][kRows][LD] touched rows
   // [CNT_BUFS][kRows][cnt_ld]
-  CT* cnt_s = reinterpret_cast<CT*>(et_s + (L::STAGE_ET ? 2 * kRows * L::LD : 0));
+  CT* cnt_s = reinterpret_cast<CT*>(et_s + 2 * kRows * L::LD);
   unsigned* cmask_s = reinterpret_cast<unsigned*>(
-      cnt_s + L::CNT_BUFS * kRows * cnt_ld<CT, COLS>());  // [2][COLS] masks
-  unsigned* rmask_s = cmask_s + 2 * COLS;              // [2][8] row masks
+      cnt_s + L::CNT_BUFS * kRows * cnt_ld<CT>());  // [2][kTileV] masks
+  unsigned* rmask_s = cmask_s + 2 * kTileV;         // [2][8] row masks
   __shared__ double score_s[kWarps];
   __shared__ int last_s, last_grid_s;
 
@@ -327,7 +292,7 @@ __device__ __forceinline__ void sstats_tile(
   // float4s j, j + LPC, .. of its topics.
   const int c = tid / LPC, j = tid % LPC;
   const int tile = blockIdx.x, split = blockIdx.y, splits = gridDim.y;
-  const int v0 = tile * COLS;
+  const int v0 = tile * kTileV;
   const int d_lo = split * rows_per_split;
   const int d_hi = min(D, d_lo + rows_per_split);
   const int chunks = d_hi > d_lo ? (d_hi - d_lo + kRows - 1) / kRows : 0;
@@ -336,7 +301,7 @@ __device__ __forceinline__ void sstats_tile(
   const bool et_vec =
       K % 4 == 0 && reinterpret_cast<uintptr_t>(et) % 16 == 0;
   auto cbuf = [cnt_s](int i) {
-    return cnt_s + (i % L::CNT_BUFS) * kRows * cnt_ld<CT, COLS>();
+    return cnt_s + (i % L::CNT_BUFS) * kRows * cnt_ld<CT>();
   };
   // The float4s [q0, q1) of a column's sums hold the topic range; lane j's
   // float4 i is q = j + LPC i.  QR float4s a column of split partials.
@@ -349,21 +314,14 @@ __device__ __forceinline__ void sstats_tile(
   // The pipeline.  Chunk i uses counts buffer i % CNT_BUFS and et / mask
   // buffer i % 2.  In iteration i (after its first barrier every thread is
   // done with chunk i-1): issue chunk i+AHEAD's counts, compact chunk i+1,
-  // issue chunk i+1's expEtheta rows (4 lanes a column only), then compute
-  // chunk i.
+  // issue chunk i+1's expEtheta rows, then compute chunk i.
   for (int i = 0; i < L::AHEAD && i < chunks; ++i)
-    load_chunk<CT, COLS>(cbuf(i), counts, d_lo + i * kRows, d_hi, v0, Vc,
-                         vec);
-  // The expElogbeta tile, transposed.  4 lanes a column: a warp copies 16
-  // topics of 2 columns (LD = 16 mod 32: its 32 stores hit 32 banks);
-  // more: a warp copies whole rows of the tile's columns (coalesced reads).
-  for (int i = tid; i < COLS * L::LD; i += kThreads) {
-    int cc = i % COLS, k = i / COLS;
-    if (L::STAGE_ET) {
-      const int rest = i / 16;
-      cc = rest % kTileV;
-      k = (rest / kTileV) * 16 + i % 16;
-    }
+    load_chunk<CT>(cbuf(i), counts, d_lo + i * kRows, d_hi, v0, Vc, vec);
+  // The expElogbeta tile, transposed: a warp copies 16 topics of 2 columns
+  // (LD = 16 mod 32: its 32 stores hit 32 banks).
+  for (int i = tid; i < kTileV * L::LD; i += kThreads) {
+    const int rest = i / 16;
+    const int cc = rest % kTileV, k = (rest / kTileV) * 16 + i % 16;
     float* dst = eeb_s + cc * L::LD + k;
     if (k < K && v0 + cc < V)
       __pipeline_memcpy_async(dst, eeb + (size_t)k * V + v0 + cc, 4);
@@ -371,18 +329,13 @@ __device__ __forceinline__ void sstats_tile(
       *dst = 0.f;
   }
   __pipeline_commit();
-  if constexpr (L::STAGE_ET)
-    for (int i = tid; i < 2 * kRows * L::LD; i += kThreads) et_s[i] = 0.f;
+  for (int i = tid; i < 2 * kRows * L::LD; i += kThreads) et_s[i] = 0.f;
   __pipeline_wait_prior(0);
   __syncthreads();
   if (chunks > 0) {
-    if constexpr (L::STAGE_ET) {
-      compact(cbuf(0), cmask_s, rmask_s);
-      __syncthreads();
-      load_et(et_s, L::LD, et, d_lo, touched_rows(rmask_s), K, et_vec);
-    } else {
-      compact_cols<CT, COLS>(cbuf(0), cmask_s);
-    }
+    compact(cbuf(0), cmask_s, rmask_s);
+    __syncthreads();
+    load_et(et_s, L::LD, et, d_lo, touched_rows(rmask_s), K, et_vec);
   }
 
   float4 acc[N4];
@@ -394,47 +347,35 @@ __device__ __forceinline__ void sstats_tile(
   for (int ci = 0; ci < chunks; ++ci) {
     const int d0 = d_lo + ci * kRows;
     const int cur = ci & 1, nxt = cur ^ 1;
-    // Chunk ci's expEtheta and chunk ci+1's counts are in: with 4 lanes a
-    // column every group, else all but the AHEAD - 2 latest (each
-    // iteration commits one group, empty past the last chunk).
-    __pipeline_wait_prior(L::STAGE_ET ? 0 : L::AHEAD - 2);
+    // Chunk ci's expEtheta and chunk ci+1's counts are in.
+    __pipeline_wait_prior(0);
     __syncthreads();
     if (ci + L::AHEAD < chunks)
-      load_chunk<CT, COLS>(cbuf(ci + L::AHEAD), counts,
-                           d0 + L::AHEAD * kRows, d_hi, v0, Vc, vec);
-    else if (!L::STAGE_ET)
-      __pipeline_commit();
-    if constexpr (L::STAGE_ET) {
-      if (ci + 1 < chunks)
-        compact(cbuf(ci + 1), cmask_s + nxt * kTileV, rmask_s + nxt * kWarps);
-      __syncthreads();  // chunk ci+1's masks
-      if (ci + 1 < chunks)
-        load_et(et_s + nxt * kRows * L::LD, L::LD, et, d0 + kRows,
-                touched_rows(rmask_s + nxt * kWarps), K, et_vec);
-    } else if (ci + 1 < chunks) {
-      compact_cols<CT, COLS>(cbuf(ci + 1), cmask_s + nxt * COLS);
-    }
+      load_chunk<CT>(cbuf(ci + L::AHEAD), counts, d0 + L::AHEAD * kRows,
+                     d_hi, v0, Vc, vec);
+    if (ci + 1 < chunks)
+      compact(cbuf(ci + 1), cmask_s + nxt * kTileV, rmask_s + nxt * kWarps);
+    __syncthreads();  // chunk ci+1's masks
+    if (ci + 1 < chunks)
+      load_et(et_s + nxt * kRows * L::LD, L::LD, et, d0 + kRows,
+              touched_rows(rmask_s + nxt * kWarps), K, et_vec);
 
     // Column c's nonzeros in row order, by its LPC lanes.
     const CT* cnt = cbuf(ci);
-    const float* ets = et_s + cur * kRows * L::LD;
-    unsigned m = cmask_s[cur * COLS + c];
+    const float* erow = et_s + cur * kRows * L::LD + 4 * j;
+    unsigned m = cmask_s[cur * kTileV + c];
     const int n = __popc(m);
     const int steps = __reduce_max_sync(kFull, n);
     for (int t = 0; t < steps; ++t) {
       const bool on = t < n;
       const int r = on ? __ffs(m) - 1 : 0;
       m &= m - 1;
-      // The row's expEtheta: staged (4 lanes a column), else in global.
-      const float* erow = L::STAGE_ET ? ets + r * L::LD + 4 * j
-                                      : et + (size_t)(d0 + r) * K;
+      const float* e_r = erow + r * L::LD;
       float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
       if (on) {  // lanes without a nonzero read nothing
 #pragma unroll
         for (int i = 0; i < N4; ++i) {
-          const float4 e = operand4(
-              L::STAGE_ET ? lds4(erow + 4 * LPC * i)
-                          : et4(erow, 4 * (j + LPC * i), K, et_vec));
+          const float4 e = operand4(lds4(e_r + 4 * LPC * i));
           const float4 b = operand4(lds4(bcol + 4 * LPC * i));
           q.x = fmaf(e.x, b.x, q.x);
           q.y = fmaf(e.y, b.y, q.y);
@@ -448,16 +389,14 @@ __device__ __forceinline__ void sstats_tile(
       for (int off = 1; off < LPC; off <<= 1)
         p += __shfl_xor_sync(kFull, p, off);
       if (on) {
-        const float cv = to_float(cnt[r * cnt_ld<CT, COLS>() + c]);
+        const float cv = to_float(cnt[r * cnt_ld<CT>() + c]);
         const float pn = p + eps;
         const float ratio = operand(cv / pn);
         if (j == 0) score += (double)(cv * logf(pn));
 #pragma unroll
         for (int i = 0; i < N4; ++i) {
           if (!kept(i)) continue;
-          const float4 e = operand4(
-              L::STAGE_ET ? lds4(erow + 4 * LPC * i)
-                          : et4(erow, 4 * (j + LPC * i), K, et_vec));
+          const float4 e = operand4(lds4(e_r + 4 * LPC * i));
           acc[i].x = fmaf(e.x, ratio, acc[i].x);
           acc[i].y = fmaf(e.y, ratio, acc[i].y);
           acc[i].z = fmaf(e.z, ratio, acc[i].z);
@@ -478,10 +417,10 @@ __device__ __forceinline__ void sstats_tile(
     for (int w = 0; w < kWarps; ++w) s += score_s[w];
     score_part[split * gridDim.x + tile] = s;
   }
-  // Partial sums: [tile][split][COLS columns][4 QR]; lane j's float4 i at
+  // Partial sums: [tile][split][kTileV columns][4 QR]; lane j's float4 i at
   // 4 (j + LPC i - q0) of its column's.
   float* mine =
-      partial + ((size_t)(tile * splits + split) * COLS + c) * 4 * QR;
+      partial + ((size_t)(tile * splits + split) * kTileV + c) * 4 * QR;
   auto at = [q0, j](int i) { return 4 * (j + LPC * i - q0); };
   if (splits > 1) {
 #pragma unroll
@@ -520,14 +459,14 @@ __device__ __forceinline__ void sstats_tile(
   if (!last_s) return;
   if (splits > 1) {  // split order 0, 1, ..: the same sum on every call
     __threadfence();
-    const float* base = mine - (size_t)split * COLS * 4 * QR;
+    const float* base = mine - (size_t)split * kTileV * 4 * QR;
 #pragma unroll
     for (int i = 0; i < N4; ++i)
       if (kept(i))
         acc[i] = __ldcg(reinterpret_cast<const float4*>(base + at(i)));
 #pragma unroll 4
     for (int s = 1; s < splits; ++s) {
-      const float* ps = base + (size_t)s * COLS * 4 * QR;
+      const float* ps = base + (size_t)s * kTileV * 4 * QR;
 #pragma unroll
       for (int i = 0; i < N4; ++i) {
         if (!kept(i)) continue;
@@ -555,42 +494,23 @@ __device__ __forceinline__ void sstats_tile(
   }
 }
 
-#define PYLDA_SSTATS_PARAMS                                                 \
-  const CT *__restrict__ counts, const float *__restrict__ et,             \
-      const float *__restrict__ eeb, float *__restrict__ sstats,           \
-      double *__restrict__ score_part, float *__restrict__ score_out,      \
-      float *__restrict__ partial, int *__restrict__ counters, int D,      \
-      int Vc, int V, int K, int k0, int k1, float eps, int rows_per_split
-#define PYLDA_SSTATS_ARGS                                                   \
-  counts, et, eeb, sstats, score_part, score_out, partial, counters, D, Vc, \
-      V, K, k0, k1, eps, rows_per_split
-
-template <typename CT, int N4, int LPC>
-__global__ void __launch_bounds__(kThreads)
-dense_sstats_kernel(PYLDA_SSTATS_PARAMS) {
-  sstats_tile<CT, N4, LPC>(PYLDA_SSTATS_ARGS);
-}
-
-template <typename CT, int N4, int LPC>
-__global__ void __launch_bounds__(kThreads, 2)
-dense_sstats_kernel_two_blocks(PYLDA_SSTATS_PARAMS) {
-  sstats_tile<CT, N4, LPC>(PYLDA_SSTATS_ARGS);
-}
-
-#undef PYLDA_SSTATS_PARAMS
-#undef PYLDA_SSTATS_ARGS
-
 // Sets the kernel's shared memory and launches it.
-template <typename CT, typename Kernel>
-cudaError_t launch_kernel(Kernel kern, size_t smem, dim3 grid,
-                          cudaStream_t stream, const void* counts,
-                          const void* et, const void* eeb, void* sstats,
-                          void* score_part, void* score_out, void* partial,
-                          void* counters, int D, int Vc, int V, int K,
-                          int k0, int k1, float eps, int rows_per_split) {
+template <typename CT, int N4>
+cudaError_t launch(const void* counts, const void* et, const void* eeb,
+                   void* sstats, void* score_part, void* score_out,
+                   void* partial, void* counters, int D, int Vc, int V, int K,
+                   int k0, int k1, float eps, int splits, int rows_per_split,
+                   cudaStream_t stream) {
+  using L = Layout<N4>;
+  const size_t smem =
+      sizeof(float) * (size_t)(kTileV + 2 * kRows) * L::LD +
+      L::CNT_BUFS * sizeof(CT) * kRows * cnt_ld<CT>() +
+      sizeof(unsigned) * 2 * (kTileV + kWarps);
+  const auto kern = dense_sstats_kernel<CT, N4>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
+  const dim3 grid((Vc + kTileV - 1) / kTileV, splits);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const CT*>(counts), static_cast<const float*>(et),
       static_cast<const float*>(eeb), static_cast<float*>(sstats),
@@ -600,33 +520,8 @@ cudaError_t launch_kernel(Kernel kern, size_t smem, dim3 grid,
   return cudaGetLastError();
 }
 
-template <typename CT, int N4, int LPC>
-cudaError_t launch(const void* counts, const void* et, const void* eeb,
-                   void* sstats, void* score_part, void* score_out,
-                   void* partial, void* counters, int D, int Vc, int V, int K,
-                   int k0, int k1, float eps, int splits, int rows_per_split,
-                   cudaStream_t stream) {
-  using L = Layout<N4, LPC>;
-  const size_t smem =
-      sizeof(float) * (size_t)(L::COLS + (L::STAGE_ET ? 2 * kRows : 0)) *
-          L::LD +
-      L::CNT_BUFS * sizeof(CT) * kRows * cnt_ld<CT, L::COLS>() +
-      sizeof(unsigned) * 2 * (L::COLS + kWarps);
-  const dim3 grid((Vc + L::COLS - 1) / L::COLS, splits);
-  if constexpr (L::TWO_BLOCKS)
-    return launch_kernel<CT>(dense_sstats_kernel_two_blocks<CT, N4, LPC>,
-                             smem, grid, stream, counts, et, eeb, sstats,
-                             score_part, score_out, partial, counters, D, Vc,
-                             V, K, k0, k1, eps, rows_per_split);
-  else
-    return launch_kernel<CT>(dense_sstats_kernel<CT, N4, LPC>, smem, grid,
-                             stream, counts, et, eeb, sstats, score_part,
-                             score_out, partial, counters, D, Vc, V, K, k0,
-                             k1, eps, rows_per_split);
-}
-
-// The kernel build whose columns have LANES lanes of 4 * N4 topics each:
-// the first with K <= 4 * LANES * N4 (ops/sstats.py::BUILDS mirrors it).
+// The kernel build whose columns have 4 lanes of 4 * N4 topics each: the
+// first with K <= 16 * N4 (ops/sstats.py::BUILDS mirrors it).
 template <typename CT>
 cudaError_t dispatch(int K, const void* counts, const void* et,
                      const void* eeb, void* sstats, void* score_part,
@@ -635,28 +530,26 @@ cudaError_t dispatch(int K, const void* counts, const void* et,
                      int rows_per_split, cudaStream_t s) {
 #define PYLDA_BUILD(N, LANES)                                              \
   if (K <= 4 * LANES * N)                                                  \
-    return launch<CT, N, LANES>(counts, et, eeb, sstats, score_part,       \
-                                score_out, partial, counters, D, Vc, V, K, \
-                                k0, k1, eps, splits, rows_per_split, s);
+    return launch<CT, N>(counts, et, eeb, sstats, score_part, score_out,   \
+                         partial, counters, D, Vc, V, K, k0, k1, eps,      \
+                         splits, rows_per_split, s);
   PYLDA_BUILD(1, 4)
   PYLDA_BUILD(2, 4)
   PYLDA_BUILD(4, 4)
   PYLDA_BUILD(7, 4)
   PYLDA_BUILD(8, 4)
   PYLDA_BUILD(16, 4)
-  PYLDA_BUILD(16, 8)
-  PYLDA_BUILD(16, 16)
-  PYLDA_BUILD(16, 32)
-  PYLDA_BUILD(32, 32)
 #undef PYLDA_BUILD
   return cudaErrorInvalidValue;
 }
 
-// -- Above K = 4096: the cluster kernel --------------------------------------
+// -- Above K = 256: the cluster kernel ---------------------------------------
 //
-// Above the largest build a column's sums fit no warp's registers, and an
-// expElogbeta tile of all K topics fits no CTA: at K = 8192 a column is
-// 32 KB.  So the topics split over a thread-block cluster.
+// Above the one-pass builds a column's sums fit no 4 lanes' registers, and
+// above K = 4096 an expElogbeta tile of all K topics fits no CTA: at
+// K = 8192 a column is 32 KB.  So the topics split over a thread-block
+// cluster (at K <= 512 a cluster of one CTA, whose exchange is a store to
+// itself).
 //
 // What bounds it.  At SVI config 5's chunk ([1216, 100352] bf16 counts,
 // K = 8192, 182,065 nonzeros, 0.15%) the call must read the 0.244 GB of
@@ -671,7 +564,9 @@ cudaError_t dispatch(int K, const void* counts, const void* et,
 // wherever a lane's registers hold the slice.
 //
 // Design: one launch, persistent clusters walking column tiles.
-//   - A cluster of C = 16 CTAs (p.cluster; ops/sstats.py::plan) takes the
+//   - A cluster of C CTAs (p.cluster, 16 above K = 4096 and the smallest
+//     power of two with slices of at most 512 topics below it;
+//     ops/sstats.py::plan, fixed by the sweep in PERF.md) takes the
 //     column tiles q, q + Q, .. (q its index, Q the clusters in flight:
 //     cudaOccupancyMaxActiveClusters, one CTA an SM) of the counts' Vc,
 //     COLS = 32 columns a tile (16 past slices of 512 topics).  CTA r
@@ -1056,8 +951,8 @@ __device__ __forceinline__ float2 as_float2(double x) {
                      __int_as_float(__double2hiint(x)));
 }
 
-// The cluster kernel above K = 4096 (see above): COLS columns a tile;
-// kDirect the direct plan.
+// The cluster kernel (see above): COLS columns a tile; kDirect the direct
+// plan.
 template <typename CT, int COLS, bool kDirect>
 __global__ void __launch_bounds__(kThreads, 1)
 dense_sstats_wide_kernel(const WideParams p,
@@ -1679,15 +1574,15 @@ EncodeTiled encode_tiled() {
 extern "C" {
 
 // counts: [D, Vc] bf16 (counts_bf16 != 0) or f32; et: [D, K] f32; eeb:
-// [K, V] f32, 1 <= K <= 4096; 0 <= k0 < k1 <= K, the topic range; sstats:
+// [K, V] f32, 1 <= K <= 256; 0 <= k0 < k1 <= K, the topic range; sstats:
 // out [k1 - k0, V] f32 (every entry written: rows k0..k1-1 of the full
 // result); score_out: out [1] f32; score_part: scratch [splits * tiles]
 // f64, tiles = ceil(Vc / COLS); partial: scratch [tiles * splits * COLS *
 // 4 QR] f32, QR = ceil(k1 / 4) - floor(k0 / 4) (unused when splits == 1);
 // counters: [tiles + 1] int32, zero before the first call and left zero by
-// each call (so one buffer serves a stream's calls in turn).  COLS is the
-// build's (dispatch, keyed on K); the plan (ops/sstats.py::plan) gives it,
-// QR, splits and rows_per_split (a multiple of 32, splits *
+// each call (so one buffer serves a stream's calls in turn).  COLS =
+// kTileV (64); the plan (ops/sstats.py::plan) gives it, the build (keyed
+// on K), QR, splits and rows_per_split (a multiple of 32, splits *
 // rows_per_split >= D).  All row-major and contiguous.  Returns the
 // cudaError_t of the launch.
 int pylda_dense_sstats_range(const void* counts, int counts_bf16,
@@ -1696,7 +1591,7 @@ int pylda_dense_sstats_range(const void* counts, int counts_bf16,
                              void* counters, int D, int Vc, int V, int K,
                              int k0, int k1, float eps, int splits,
                              int rows_per_split, void* stream) {
-  if (K < 1 || K > 4096 || k0 < 0 || k1 <= k0 || k1 > K || splits < 1 ||
+  if (K < 1 || K > 256 || k0 < 0 || k1 <= k0 || k1 > K || splits < 1 ||
       rows_per_split < kRows || rows_per_split % kRows != 0 ||
       (long long)splits * rows_per_split < D)
     return (int)cudaErrorInvalidValue;
@@ -1711,9 +1606,9 @@ int pylda_dense_sstats_range(const void* counts, int counts_bf16,
                               eps, splits, rows_per_split, s);
 }
 
-// Above K = 4096, the cluster kernel (one launch).  counts: [D, Vc] bf16
+// Above K = 256, the cluster kernel (one launch).  counts: [D, Vc] bf16
 // (counts_bf16 != 0) or f32, Vc >= V; et: [D, K] f32; eeb: [K, V] f32,
-// K > 4096; 0 <= k0 < k1 <= K, the topic range; sstats: out [k1 - k0, V]
+// K > 256; 0 <= k0 < k1 <= K, the topic range; sstats: out [k1 - k0, V]
 // f32 (every entry written: rows k0..k1-1 of the full result);
 // score_out: out [1] f32; score_part: scratch [tiles] f64, tiles =
 // ceil(Vc / cols); counter: [1] int32, zero before the first call and left
@@ -1734,7 +1629,7 @@ int pylda_dense_sstats_wide(const void* counts, int counts_bf16,
                             float eps, int cluster, int slice, int cols,
                             int batch, int direct, int* geometry,
                             void* stream) {
-  if (K <= 4096 || D < 0 || V < 1 || Vc < V || k0 < 0 || k1 <= k0 ||
+  if (K <= 256 || D < 0 || V < 1 || Vc < V || k0 < 0 || k1 <= k0 ||
       k1 > K || cluster < 1 || cluster > kWideMaxCluster ||
       (cluster & (cluster - 1)) || slice < 1 ||
       (long long)slice * cluster < K || batch < 1 || batch > kWideMaxBatch ||

@@ -14,20 +14,22 @@ against ~3 us of arithmetic for its 1.2% nonzeros); what holds it back
 from the bound is each row chunk's latency and the grid's fixed cost
 (``PERF.md``).  Design and determinism: the source note of
 ``csrc/dense_sstats.cu``.  The grid is planned here (``plan``), so the
-CPU tests reach it: vocab tiles of ``Plan.cols`` columns (64 at K <= 256;
-32, 16 or 8 above, where more lanes hold a column's sums), 32-row chunks,
-and row splits enough for ``MIN_CTAS_PER_SM`` CTAs on every SM; the
-splits' partial sums meet in split order, so two calls on the same inputs
-return the same bits.  The scratch (score and split partials, the tiles'
+CPU tests reach it: at K <= ``ONE_PASS_MAX_TOPICS`` (256, the one-pass
+kernel's largest build) vocab tiles of 64 columns, 32-row chunks, and row
+splits enough for ``MIN_CTAS_PER_SM`` CTAs on every SM; the splits'
+partial sums meet in split order, so two calls on the same inputs return
+the same bits.  The scratch (score and split partials, the tiles'
 counters, which each launch leaves zero) is kept per device and stream
-and reused.  Above ``ONE_PASS_MAX_TOPICS`` (K = 4096, the largest build)
-one launch of a cluster kernel runs instead: the topics split over a
-thread-block cluster of ``Plan.cluster`` CTAs, each holding a slice of
-``Plan.slice`` topics of a ``Plan.cols``-column tile of expElogbeta, read
-from device memory once; each CTA walks its share of the tile's count
-rows and pushes their nonzeros to the whole cluster, which works through
-them in row order in batches of up to ``Plan.batch``; the CTAs' partial
-phinorms meet in rank order (``csrc/dense_sstats.cu``).
+and reused.  Above it one launch of a cluster kernel runs instead: the
+topics split over a thread-block cluster of ``Plan.cluster`` CTAs (the
+smallest power of two whose slices hold at most 512 topics: 1 at
+K <= 512, 2 at config 5's K = 1000, 8 at 4096, 16 above 4096), each
+holding a slice of ``Plan.slice`` topics of a ``Plan.cols``-column tile
+of expElogbeta, read from device memory once; each CTA walks its share
+of the tile's count rows and pushes their nonzeros to the whole cluster,
+which works through them in row order in batches of up to
+``Plan.batch``; the CTAs' partial phinorms meet in rank order
+(``csrc/dense_sstats.cu``).
 ``plan`` sizes everything from the shapes (nothing is read back from the
 card), and such calls count in ``WIDE_LAUNCHES`` / ``BF16_WIDE_LAUNCHES``
 too.  Past K = 16 * 1024 a slice no longer fits a CTA's registers and
@@ -43,10 +45,10 @@ float32 build.
 result: phinorm and the score still run over all K, in the build and on
 the grid of the whole K, and only the range's sums are accumulated,
 stored and written, so its rows are the full call's rows bit for bit
-(``csrc/dense_sstats.cu``; above K = 4096 the whole K's cluster plan,
+(``csrc/dense_sstats.cu``; above K = 256 the whole K's cluster plan,
 rows outside the range summed nowhere and not written).  Such calls
 count in ``RANGE_LAUNCHES`` and ``BF16_RANGE_LAUNCHES`` besides
-``LAUNCHES`` and ``BF16_LAUNCHES`` (and above K = 4096 in
+``LAUNCHES`` and ``BF16_LAUNCHES`` (and above K = 256 in
 ``RANGE_WIDE_LAUNCHES`` / ``BF16_RANGE_WIDE_LAUNCHES``).
 """
 
@@ -69,13 +71,15 @@ BF16_LAUNCHES = 0
 # Of those, the launches with a topic range narrower than [0, K).
 RANGE_LAUNCHES = 0
 BF16_RANGE_LAUNCHES = 0
-# Of each, the launches of the cluster kernel (K > ONE_PASS_MAX_TOPICS).
+# Of each, the launches of the cluster kernel, at any K (every call above
+# ONE_PASS_MAX_TOPICS that ``plan`` sends to it).
 WIDE_LAUNCHES = 0
 BF16_WIDE_LAUNCHES = 0
 RANGE_WIDE_LAUNCHES = 0
 BF16_RANGE_WIDE_LAUNCHES = 0
-# Largest topic count of the one-pass kernel (its largest build).
-ONE_PASS_MAX_TOPICS = 4096
+# Largest topic count of the one-pass kernel (its largest build); above it
+# the cluster kernel.
+ONE_PASS_MAX_TOPICS = 256
 # The cluster kernel above it (``csrc/dense_sstats.cu``'s constants):
 # WIDE_COLS columns a tile (kWideCols; WIDE_NARROW_COLS, kWideNarrowCols,
 # past slices of 512 topics), WIDE_LANE_FLOATS slice values a lane holds
@@ -98,25 +102,25 @@ WIDE_MAX_BATCH = 256
 # The shared memory a CTA may take on an H100 (227 KB), which bounds the
 # batch.
 SMEM_LIMIT = 232448
+# The slice the plan gives a CTA at most (a lane's WIDE_LANE_FLOATS values
+# of a WIDE_COLS-column tile): the cluster is the smallest power of two
+# whose slices hold at most this many topics (at most WIDE_MAX_CLUSTER).
+WIDE_SLICE = 32 * 8 * WIDE_LANE_FLOATS // WIDE_COLS
 # Threads of a CTA; vocab columns a CTA owns at 4 lanes a column.
 THREADS = 256
 TILE_V = 64
 # Rows a chunk: the kernel's kRows (a column's row mask is a 32-bit word).
 CHUNK_ROWS = 32
-# The kernel's builds, (n4, lanes) of ``PYLDA_BUILD`` in
-# ``csrc/dense_sstats.cu``: a column's sums are held by ``lanes`` lanes of
-# n4 float4s each, so K <= 4 * lanes * n4 topics (kp), and a CTA owns
+# The one-pass kernel's builds, (n4, lanes) of ``PYLDA_BUILD`` in
+# ``csrc/dense_sstats.cu``: a column's sums are held by ``lanes`` (4) lanes
+# of n4 float4s each, so K <= 4 * lanes * n4 topics (kp), and a CTA owns
 # THREADS / lanes columns.  The first build that takes K runs.
-BUILDS = ((1, 4), (2, 4), (4, 4), (7, 4), (8, 4), (16, 4),
-          (16, 8), (16, 16), (16, 32), (32, 32))
+BUILDS = ((1, 4), (2, 4), (4, 4), (7, 4), (8, 4), (16, 4))
 # The grid has at least this many CTAs an SM, and a split at most
-# CHUNKS_PER_SPLIT chunks (times kp / 256 above kp = 256): the fewest
-# splits that meet both.  (Measured on an H100 at kp <= 256, PERF.md:
-# fewer rows a split add CTAs whose fixed cost, the expElogbeta tile and
-# the partial sums, is paid again; more rows leave too few CTAs to hide
-# each chunk's latency.  Above kp = 256 that fixed cost, [cols, kp] floats
-# twice, grows with kp while a lane's work a nonzero does not: the rows a
-# split grow with it, a choice not measured.)
+# CHUNKS_PER_SPLIT chunks: the fewest splits that meet both.  (Measured on
+# an H100, PERF.md: fewer rows a split add CTAs whose fixed cost, the
+# expElogbeta tile and the partial sums, is paid again; more rows leave
+# too few CTAs to hide each chunk's latency.)
 MIN_CTAS_PER_SM = 2
 CHUNKS_PER_SPLIT = 26
 
@@ -192,20 +196,29 @@ def wide_smem_bytes(slice_: int, batch: int, cluster: int, count_bytes: int,
     return total + 1024
 
 
+def wide_cluster(K: int) -> int:
+    """The cluster kernel's CTAs a cluster at K topics: the smallest power
+    of two whose slices hold at most WIDE_SLICE topics (1 at K <= 512, 2
+    at <= 1024, 4 at <= 2048, 8 at <= 4096), at most WIDE_MAX_CLUSTER."""
+    cluster = 1
+    while -(-K // cluster) > WIDE_SLICE and cluster < WIDE_MAX_CLUSTER:
+        cluster *= 2
+    return cluster
+
+
 def wide_plan(K: int, count_bytes: int = 2
               ) -> Tuple[int, int, int, int, bool]:
     """(cluster, slice, cols, batch, direct) of the cluster kernel at
-    K > 4096: ``cluster`` CTAs (16), each a slice of K / cluster topics
-    rounded up to whole WIDE_BOX-row boxes, at WIDE_COLS columns a tile
-    while the slice holds at most 512 topics (a lane's WIDE_LANE_FLOATS
-    values), else WIDE_NARROW_COLS up to 1024 topics; the largest batch
-    (a multiple of 4, at most WIDE_MAX_BATCH) whose shared memory fits
-    SMEM_LIMIT (its first expEtheta rows fill the slice tile's buffer,
-    then at least as many past it, where the epilogue stages the tile).
-    Past
-    that the direct plan (WIDE_COLS columns, the slice rounded up to 4
-    topics, no rows staged)."""
-    cluster = WIDE_MAX_CLUSTER
+    K > ONE_PASS_MAX_TOPICS: ``wide_cluster(K)`` CTAs, each a slice of
+    K / cluster topics rounded up to whole WIDE_BOX-row boxes, at
+    WIDE_COLS columns a tile while the slice holds at most 512 topics (a
+    lane's WIDE_LANE_FLOATS values), else WIDE_NARROW_COLS up to 1024
+    topics; the largest batch (a multiple of 4, at most WIDE_MAX_BATCH)
+    whose shared memory fits SMEM_LIMIT (its first expEtheta rows fill the
+    slice tile's buffer, then at least as many past it, where the epilogue
+    stages the tile).  Past that the direct plan (WIDE_COLS columns, the
+    slice rounded up to 4 topics, no rows staged)."""
+    cluster = wide_cluster(K)
     per = -(-K // cluster)
     direct = per * WIDE_NARROW_COLS > 32 * 8 * WIDE_LANE_FLOATS
     if direct:
@@ -236,9 +249,9 @@ def plan(D: int, Vc: int, K: int, sms: int,
          count_bytes: int = 2) -> Plan:
     """The grid for counts [D, Vc] at K topics on a card of ``sms`` SMs:
     the build's tile width, then the fewest row splits that give
-    ``MIN_CTAS_PER_SM`` CTAs an SM and at most ``CHUNKS_PER_SPLIT`` (times
-    kp / 256 above 256) 32-row chunks a split (both read at call time), no
-    more splits than chunks, and no empty split.  A ``topic_range``
+    ``MIN_CTAS_PER_SM`` CTAs an SM and at most ``CHUNKS_PER_SPLIT`` 32-row
+    chunks a split (both read at call time), no more splits than chunks,
+    and no empty split.  A ``topic_range``
     (k0, k1) sizes the split partials only: the grid is the whole K's.
     Without one a column's partials take kp floats, the length every
     build of the kernel's source has used.  Above ONE_PASS_MAX_TOPICS the
@@ -260,8 +273,8 @@ def plan(D: int, Vc: int, K: int, sms: int,
     kp, cols = 4 * lanes * n4, THREADS // lanes
     tiles = max(1, -(-Vc // cols))
     chunks = max(1, -(-D // CHUNK_ROWS))
-    per_split = CHUNKS_PER_SPLIT * max(1, kp // 256)
-    want = max(-(-MIN_CTAS_PER_SM * sms // tiles), -(-chunks // per_split))
+    want = max(-(-MIN_CTAS_PER_SM * sms // tiles),
+               -(-chunks // CHUNKS_PER_SPLIT))
     splits = min(chunks, max(1, want))
     rows_per_split = -(-chunks // splits) * CHUNK_ROWS
     splits = max(1, -(-D // rows_per_split))
@@ -371,10 +384,11 @@ def dense_sstats(
     dev = counts.device
     if exp_etheta.device != dev or exp_elog_beta.device != dev:
         raise ValueError("all inputs must be on one device")
+    pl = plan(D, Vc, K, _sms(dev.index), topic_range, counts.element_size())
     out = launch(_lib(compute_dtype), counts.contiguous(), exp_etheta.contiguous(),
-                 exp_elog_beta.contiguous(), eps, topic_range)
+                 exp_elog_beta.contiguous(), eps, topic_range, pl)
     narrow = (k0, k1) != (0, K)
-    wide = K > ONE_PASS_MAX_TOPICS
+    wide = pl.wide
     if compute_dtype == "bfloat16":
         BF16_LAUNCHES += 1
         BF16_RANGE_LAUNCHES += narrow
@@ -397,10 +411,10 @@ def launch(lib: ctypes.CDLL, counts: torch.Tensor, exp_etheta: torch.Tensor,
     """One launch of ``lib``'s kernel on checked, contiguous CUDA inputs:
     (sstats, score); raises if the launch fails.  Without a
     ``topic_range`` it calls the full-range entry, which a library built
-    from an older source also has.  Above ONE_PASS_MAX_TOPICS: the
-    cluster kernel at ``plan_`` (default: ``plan``'s; a direct plan at
-    another K's cluster and slice is the check of its bits), with its
-    geometry (clusters, shared memory a CTA, grid) in ``geometry_out``."""
+    from an older source also has.  A wide plan (``plan_``, default
+    ``plan``'s): the cluster kernel (a direct plan at another K's cluster
+    and slice is the check of its bits), with its geometry (clusters,
+    shared memory a CTA, grid) in ``geometry_out``."""
     D, Vc = counts.shape
     K, V = exp_elog_beta.shape
     k0, k1 = check_topic_range(topic_range, K)
@@ -415,7 +429,7 @@ def launch(lib: ctypes.CDLL, counts: torch.Tensor, exp_etheta: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         parts, partial, counters = _scratch(dev, stream, pl)
         bf16 = int(counts.dtype == torch.bfloat16)
-        if K > ONE_PASS_MAX_TOPICS:
+        if pl.wide:
             geo = (ctypes.c_int * 3)()
             rc = lib.pylda_dense_sstats_wide(
                 counts.data_ptr(), bf16, exp_etheta.data_ptr(),

@@ -67,8 +67,8 @@ from pylda_tpu_torch.ops.estep import (
     ragged_doc_bound,
 )
 
-# The wide range: the core's wide kernels and the sstats builds of 8, 16
-# and 32 lanes a column, at each edge.
+# The wide range: the core's wide kernels and the sstats cluster kernel's
+# clusters of 1, 2, 4 and 8 CTAs, at each edge.
 WIDE_K = [257, 1000, 1024, 1025, 2048, 4096]
 # Above it: the cluster gamma kernel and the sstats kernel's cluster kernel.
 LARGE_K = [4100, 8192]
@@ -368,44 +368,90 @@ def test_dense_sstats_cluster_kernel_direct_plan(cuda, compute_dtype):
     assert _build.library("dense_sstats", compute_dtype) is lib
 
 
-def test_dense_sstats_cluster_kernel_makes_no_host_sync(cuda):
-    """A call above K = 4096 under ``set_sync_debug_mode("error")``: the
-    wrapper sizes everything from shapes and reads nothing back, so no
-    synchronizing operation raises; the result is then checked."""
-    ct, et, eeb = _sparse_sstats_inputs(300, 700, 8192, 20, 3, 0.03, True,
+@pytest.mark.parametrize("K", [1000, 8192])
+def test_dense_sstats_cluster_kernel_makes_no_host_sync(cuda, K):
+    """A call of the cluster kernel (at config 5's K = 1000, and above
+    K = 4096) under ``set_sync_debug_mode("error")``: the wrapper sizes
+    everything from shapes and reads nothing back, so no synchronizing
+    operation raises; the result is then checked."""
+    ct, et, eeb = _sparse_sstats_inputs(300, 700, K, 20, 3, 0.03, True,
                                         cuda, hot=True)
     sstats_mod.dense_sstats(ct, et, eeb)  # builds, binds and sizes scratch
     torch.cuda.synchronize()
+    before = sstats_mod.WIDE_LAUNCHES
     torch.cuda.set_sync_debug_mode("error")
     try:
         ss, tok = sstats_mod.dense_sstats(ct, et, eeb)
         ss_r, tok_r = sstats_mod.dense_sstats(ct, et, eeb,
-                                              topic_range=(0, 4096))
+                                              topic_range=(0, K // 2))
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
+    assert sstats_mod.WIDE_LAUNCHES == before + 2
     ss_p, tok_p = estep_dense_sstats(ct, et, eeb)
     _hold_sstats(ss, ss_p, "float32")
-    assert torch.equal(ss_r, ss[:4096]) and torch.equal(tok_r, tok)
+    assert torch.equal(ss_r, ss[:K // 2]) and torch.equal(tok_r, tok)
 
 
-@pytest.mark.parametrize("bf16", [True, False])
-@pytest.mark.parametrize("K", WIDE_K)
-def test_dense_sstats_kernel_wide_k(cuda, K, bf16):
-    """The wide builds against the plain version at the tolerances above,
-    a column every row uses and a row with every column nonzero, rows off
-    every chunk, two calls bitwise equal."""
-    ct, et, eeb = _sparse_sstats_inputs(70, 300, K, 20, 3, 0.03, bf16, cuda,
-                                        hot=True, full_row=True)
-    before = sstats_mod.LAUNCHES
-    ss, tok = sstats_mod.dense_sstats(ct, et, eeb)
-    ss2, tok2 = sstats_mod.dense_sstats(ct, et, eeb)
-    assert sstats_mod.LAUNCHES == before + 2
-    ss_p, tok_p = estep_dense_sstats(ct, et, eeb)
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_dense_sstats_cluster_kernel_dense_batch(cuda, compute_dtype):
+    """The dense flagship's density (~3% nonzero) at K = 1000 on 1,024
+    rows: a CTA's share of a tile (512 rows x 32 columns, ~490 nonzeros)
+    is past the push cap, so every CTA of the 2-CTA clusters walks the
+    whole tile from device memory, in many batches; against the plain
+    version (float32: the tolerances above; bf16: its own mode), two
+    calls bitwise equal, one cluster launch a call, a topic range the
+    full call's rows."""
+    ct, et, eeb = _sparse_sstats_inputs(1024, 700, 1000, 20, 0, 0.03, True,
+                                        cuda, hot=True, full_row=True)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    pl = sstats_mod.plan(*ct.shape, 1000, sms, count_bytes=2)
+    assert (pl.cluster, pl.slice) == (2, 512)
+    share = (ct[:512, :704] != 0).reshape(512, 22, 32).sum(dim=(0, 2))
+    assert int(share.max()) > sstats_mod.WIDE_PUSH_CAP
+    mode = dict(compute_dtype=compute_dtype)
+    wide = ("BF16_WIDE_LAUNCHES" if compute_dtype == "bfloat16"
+            else "WIDE_LAUNCHES")
+    before = getattr(sstats_mod, wide)
+    ss, tok = sstats_mod.dense_sstats(ct, et, eeb, **mode)
+    ss2, tok2 = sstats_mod.dense_sstats(ct, et, eeb, **mode)
+    assert getattr(sstats_mod, wide) == before + 2
+    ss_p, tok_p = estep_dense_sstats(ct, et, eeb, **mode)
     torch.cuda.synchronize()
     assert torch.equal(ss, ss2) and torch.equal(tok, tok2)
-    tol = 1e-4 * ss_p.abs() + 1e-6 * ss_p.abs().max()
-    assert bool(((ss - ss_p).abs() <= tol).all()), float((ss - ss_p).abs().max())
+    _hold_sstats(ss, ss_p, compute_dtype)
+    assert float(tok) == pytest.approx(float(tok_p), rel=1e-5)
+    ss_r, tok_r = sstats_mod.dense_sstats(ct, et, eeb, topic_range=(300, 700),
+                                          **mode)
+    torch.cuda.synchronize()
+    assert torch.equal(ss_r, ss[300:700]) and torch.equal(tok_r, tok)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("K", WIDE_K)
+def test_dense_sstats_kernel_wide_k(cuda, K, bf16, compute_dtype):
+    """The cluster kernel at 256 < K <= 4096 (clusters of 1 to 8 CTAs, the
+    plan's) in both builds against the plain version (float32: the
+    tolerances above; bf16: its own mode), a column every row uses and a
+    row with every column nonzero, rows off every chunk, two calls bitwise
+    equal, each call one launch of the cluster kernel."""
+    ct, et, eeb = _sparse_sstats_inputs(70, 300, K, 20, 3, 0.03, bf16, cuda,
+                                        hot=True, full_row=True)
+    mode = dict(compute_dtype=compute_dtype)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    pl = sstats_mod.plan(*ct.shape, K, sms, count_bytes=ct.element_size())
+    assert pl.wide and pl.cluster == sstats_mod.wide_cluster(K)
+    wide = ("BF16_WIDE_LAUNCHES" if compute_dtype == "bfloat16"
+            else "WIDE_LAUNCHES")
+    before = getattr(sstats_mod, wide)
+    ss, tok = sstats_mod.dense_sstats(ct, et, eeb, **mode)
+    ss2, tok2 = sstats_mod.dense_sstats(ct, et, eeb, **mode)
+    assert getattr(sstats_mod, wide) == before + 2
+    ss_p, tok_p = estep_dense_sstats(ct, et, eeb, **mode)
+    torch.cuda.synchronize()
+    assert torch.equal(ss, ss2) and torch.equal(tok, tok2)
+    _hold_sstats(ss, ss_p, compute_dtype)
     assert float(tok) == pytest.approx(float(tok_p), rel=1e-5)
 
 
@@ -419,7 +465,7 @@ def _topic_ranges(K):
 
 
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("K", [1, 7, 100, 200, 257, 1000, 4096])
+@pytest.mark.parametrize("K", [1, 7, 100, 200, 257, 1000, 1025, 4096])
 def test_dense_sstats_kernel_topic_range(cuda, K, compute_dtype):
     """The topic-range launch (lambda split over topics): its rows are the
     full-range launch's rows bit for bit and its score the full score's

@@ -1,8 +1,8 @@
 """The schedule of the dense sufficient-statistics kernel, on the CPU.
 
 ``csrc/dense_sstats.cu`` computes the function of ``estep_dense_sstats``
-over the nonzero counts only, in its own order: vocab tiles of the plan's
-width (64 columns at K <= 256, 32 / 16 / 8 at wider K); row splits from
+over the nonzero counts only, in its own order.  At K <= 256 (the
+one-pass kernel): vocab tiles of 64 columns; row splits from
 ``ops/sstats.py::plan``; in each split, chunks of rows whose nonzeros are
 compacted into one row mask a column; the owners of a column walk its
 mask in row order (step t takes each column's t-th nonzero), adding
@@ -10,11 +10,14 @@ expEtheta[d] * C / phinorm into the column's sums; the splits' partial
 sums meet in split order and are scaled by expElogbeta.  Here that
 schedule runs in PyTorch from the same plan and must give the plain
 version's result: to 1e-12 in float64, and, in float32, JAX's
-``estep_dense_sstats`` to rtol 2e-5, at K up to 256 and at K in {257,
-300, 1000, 1025} (the wide builds).  The plan's own tests: >= 2 CTAs an
-SM at both flagship shapes on 132 SMs, splits that cover every row,
-scratch that covers every split, the builds read from the source, and
-the K range 1..4096.
+``estep_dense_sstats`` to rtol 2e-5.  Above K = 256 the cluster kernel's
+order (``torch_sstats_model.cluster_sstats``) is held the same way at
+K in {257, 300, 512, 513, 1000, 1025, 2048, 2049, 4096}, at the plan's
+cluster (1, 2, 4 or 8 CTAs), with a topic range bitwise the full call's
+rows.  The plan's own tests:
+>= 2 CTAs an SM at both flagship shapes on 132 SMs, splits that cover
+every row, scratch that covers every split, the builds read from the
+source, and which K each kernel takes.
 """
 
 import itertools
@@ -30,6 +33,7 @@ from pylda_tpu_torch.ops import _build
 from pylda_tpu_torch.ops import sstats as sstats_mod
 from pylda_tpu_torch.ops.dirichlet import exp_dirichlet_expectation
 from pylda_tpu_torch.ops.estep import estep_dense_sstats
+from torch_sstats_model import cluster_sstats
 
 H100_SMS = 132
 
@@ -109,18 +113,19 @@ _CASES = [
     (97, 64, 100, 64, 31, 0.03, 2),
     (40, 90, 3, 6, 0, 1.0, 3),  # every count nonzero
 ]
-# The wide builds (K > 256): 32, 16 and 8 columns a tile.
+# The cluster kernel's range (K > 256), (D, V, K, v_pad, pad_rows,
+# density): the shapes the one-pass wide builds were held at, and K = 4096.
 _WIDE_CASES = [
-    (45, 70, 257, 6, 3, 0.04, 2),
-    (70, 90, 300, 0, 5, 0.03, 3),
-    (40, 50, 1000, 14, 0, 0.05, 2),
-    (33, 40, 1025, 0, 2, 0.05, 1),
+    (45, 70, 257, 6, 3, 0.04),
+    (70, 90, 300, 0, 5, 0.03),
+    (40, 50, 1000, 14, 0, 0.05),
+    (33, 40, 1025, 0, 2, 0.05),
+    (20, 36, 4096, 4, 1, 0.1),
 ]
 
 
 @pytest.mark.parametrize("per_split", [1, 26])
-@pytest.mark.parametrize("D,V,K,v_pad,pad_rows,density,sms",
-                         _CASES + _WIDE_CASES)
+@pytest.mark.parametrize("D,V,K,v_pad,pad_rows,density,sms", _CASES)
 def test_schedule_matches_plain_f64(D, V, K, v_pad, pad_rows, density, sms,
                                     per_split, monkeypatch):
     counts, et, eeb = _case(D, V, K, v_pad, pad_rows, density, seed=D + V,
@@ -133,8 +138,7 @@ def test_schedule_matches_plain_f64(D, V, K, v_pad, pad_rows, density, sms,
     assert float(tok) == pytest.approx(float(tok_p), rel=1e-12)
 
 
-@pytest.mark.parametrize("D,V,K,v_pad,pad_rows,density,sms",
-                         _CASES[:3] + _WIDE_CASES)
+@pytest.mark.parametrize("D,V,K,v_pad,pad_rows,density,sms", _CASES[:3])
 def test_schedule_f32_matches_jax(D, V, K, v_pad, pad_rows, density, sms):
     counts, et, eeb = _case(D, V, K, v_pad, pad_rows, density, seed=D + K,
                             dtype=torch.float32)
@@ -146,6 +150,55 @@ def test_schedule_f32_matches_jax(D, V, K, v_pad, pad_rows, density, sms):
     np.testing.assert_allclose(ss.numpy(), np.asarray(ss_j), rtol=2e-5,
                                atol=1e-6)
     assert float(tok) == pytest.approx(float(tok_j), rel=2e-5)
+
+
+# The shapes above and each side of the plan's steps from one cluster
+# size to the next (K = 512 / 513, 2048 / 2049), so that clusters of 1, 2,
+# 4 and 8 CTAs all run at the plan's own cluster.
+_CLUSTER_CASES = _WIDE_CASES + [
+    (50, 64, 512, 2, 4, 0.04),
+    (36, 70, 513, 5, 1, 0.05),
+    (30, 33, 2048, 3, 0, 0.06),
+    (24, 40, 2049, 0, 3, 0.08),
+]
+
+
+@pytest.mark.parametrize("D,V,K,v_pad,pad_rows,density", _CLUSTER_CASES,
+                         ids=[f"K{c[2]}" for c in _CLUSTER_CASES])
+def test_cluster_order_matches_plain_f64(D, V, K, v_pad, pad_rows, density):
+    """The cluster kernel's order at the plan's cluster against the plain
+    version in float64: sstats to 1e-12, the score rel 1e-12."""
+    counts, et, eeb = _case(D, V, K, v_pad, pad_rows, density, seed=D + V,
+                            dtype=torch.float64)
+    pl = sstats_mod.plan(D + pad_rows, V + v_pad, K, H100_SMS)
+    assert pl.wide and pl.cluster == sstats_mod.wide_cluster(K)
+    assert not pl.direct
+    assert pl.cols == sstats_mod.WIDE_COLS and pl.kp >= K
+    ss, tok = cluster_sstats(counts, et, eeb, 1e-30, 0, K, "float32", pl)
+    ss_p, tok_p = estep_dense_sstats(counts, et, eeb, 1e-30)
+    torch.testing.assert_close(ss, ss_p, rtol=1e-12, atol=1e-300)
+    assert float(tok) == pytest.approx(float(tok_p), rel=1e-12)
+
+
+@pytest.mark.parametrize("D,V,K,v_pad,pad_rows,density", _WIDE_CASES)
+def test_cluster_order_f32_matches_jax(D, V, K, v_pad, pad_rows, density):
+    """The cluster kernel's order at the plan's cluster in float32 against
+    JAX's ``estep_dense_sstats`` (rtol 2e-5), and a topic range across
+    slice boundaries bitwise the full call's rows."""
+    counts, et, eeb = _case(D, V, K, v_pad, pad_rows, density, seed=D + K,
+                            dtype=torch.float32)
+    pl = sstats_mod.plan(D + pad_rows, V + v_pad, K, H100_SMS)
+    assert pl.wide and pl.cluster == sstats_mod.wide_cluster(K)
+    ss, tok = cluster_sstats(counts, et, eeb, 1e-30, 0, K, "float32", pl)
+    ss_j, tok_j = jax_dense_sstats(jnp.asarray(counts.numpy()),
+                                   jnp.asarray(et.numpy()),
+                                   jnp.asarray(eeb.numpy()))
+    np.testing.assert_allclose(ss.numpy(), np.asarray(ss_j), rtol=2e-5,
+                               atol=1e-6)
+    assert float(tok) == pytest.approx(float(tok_j), rel=2e-5)
+    k0, k1 = 3, K - 5
+    part, _ = cluster_sstats(counts, et, eeb, 1e-30, k0, k1, "float32", pl)
+    assert torch.equal(part, ss[k0:k1])
 
 
 def test_schedule_all_zero_counts():
@@ -175,6 +228,23 @@ def test_plan_covers_rows_and_scratch(D, monkeypatch):
             [1, 64, 65, 4096], [1, 4, 26, 1000]):
         monkeypatch.setattr(sstats_mod, "CHUNKS_PER_SPLIT", per_split)
         pl = sstats_mod.plan(D, Vc, K, H100_SMS)
+        if K > sstats_mod.ONE_PASS_MAX_TOPICS:
+            # The cluster kernel: one split of whole 128-row chunks, its
+            # slices of at most 512 topics, a score part a tile and one
+            # counter.
+            assert pl.wide and pl.splits == 1
+            assert pl.cluster == sstats_mod.wide_cluster(K)
+            assert pl.slice <= sstats_mod.WIDE_SLICE
+            assert pl.cols == sstats_mod.WIDE_COLS and pl.kp >= K
+            assert pl.tiles * pl.cols >= Vc > (pl.tiles - 1) * pl.cols
+            assert pl.rows_per_split >= D
+            assert pl.rows_per_split % sstats_mod.WIDE_COUNT_ROWS == 0
+            assert pl.smem_bytes <= sstats_mod.SMEM_LIMIT
+            assert pl.smem_bytes == sstats_mod.wide_smem_bytes(
+                pl.slice, pl.batch, pl.cluster, 2, pl.cols)
+            assert pl.partial_floats == 0
+            assert pl.scratch_bytes == 8 * pl.tiles + 4
+            continue
         n4, lanes = sstats_mod.build_for(K)
         assert (n4, lanes) in sstats_mod.BUILDS
         assert pl.kp == 4 * n4 * lanes >= K
@@ -182,8 +252,7 @@ def test_plan_covers_rows_and_scratch(D, monkeypatch):
         # The smallest build that takes K.
         assert all(4 * n * ln < K for n, ln in sstats_mod.BUILDS
                    if 4 * n * ln < pl.kp)
-        assert pl.rows_per_split <= (per_split * max(1, pl.kp // 256)
-                                     * sstats_mod.CHUNK_ROWS)
+        assert pl.rows_per_split <= per_split * sstats_mod.CHUNK_ROWS
         assert pl.rows_per_split % sstats_mod.CHUNK_ROWS == 0
         # Every row in one split, no split empty.
         assert pl.splits * pl.rows_per_split >= D
@@ -211,25 +280,29 @@ def test_plan_topic_padding_matches_the_kernel_builds():
 
 
 def test_plan_refuses_what_the_kernel_does_not_take():
-    """The kernel's range: every K in 1..4096 has a one-pass build (the
-    wide ones above 256: 32, 16 or 8 columns a tile); above it the
-    cluster kernel plans (clusters of 16 CTAs, slices of whole 32-row
-    boxes, 32 columns a tile up to slices of 512 topics, 16 up to 1024,
-    then the direct plan), at 4097 and at 16384 alike; only K = 0
-    raises."""
-    for K, cols in ((1, 64), (256, 64), (257, 32), (512, 32), (513, 16),
-                    (1000, 16), (1024, 16), (1025, 8), (2048, 8), (2049, 8),
-                    (4096, 8)):
+    """The kernels' ranges: every K in 1..256 has a one-pass build (64
+    columns a tile); above it the cluster kernel plans: clusters of the
+    smallest power of two whose slices (whole 32-row boxes) hold at most
+    512 topics, 32 columns a tile, up to K = 4096 (8 CTAs); above it
+    clusters of 16, 32 columns a tile up to slices of 512 topics, 16 up
+    to 1024, then the direct plan.  Only K = 0 raises."""
+    for K in (1, 7, 17, 100, 113, 200, 256):
         pl = sstats_mod.plan(10, 10, K, H100_SMS)
-        assert pl.cols == cols and pl.kp >= K and not pl.wide, K
-    for K, slice_, cols, direct in ((4097, 288, 32, False),
-                                    (16384, 1024, 16, False),
-                                    (16385, 1028, 32, True)):
+        assert pl.cols == 64 and pl.kp >= K and not pl.wide, K
+    for K, cluster, slice_, cols, direct in (
+            (257, 1, 288, 32, False), (300, 1, 320, 32, False),
+            (512, 1, 512, 32, False), (513, 2, 288, 32, False),
+            (1000, 2, 512, 32, False), (1024, 2, 512, 32, False),
+            (1025, 4, 288, 32, False), (2048, 4, 512, 32, False),
+            (2049, 8, 288, 32, False), (4096, 8, 512, 32, False),
+            (4097, 16, 288, 32, False), (16384, 16, 1024, 16, False),
+            (16385, 16, 1028, 32, True)):
         pl = sstats_mod.plan(10, 10, K, H100_SMS)
-        assert pl.wide and pl.kp == 16 * slice_ >= K, K
+        assert pl.wide and pl.kp == cluster * slice_ >= K, K
         assert (pl.cluster, pl.slice, pl.cols, pl.direct) == (
-            16, slice_, cols, direct), K
+            cluster, slice_, cols, direct), K
+        assert sstats_mod.wide_cluster(K) == cluster
     with pytest.raises(ValueError):
-        sstats_mod.build_for(4097)
+        sstats_mod.build_for(257)
     with pytest.raises(ValueError):
         sstats_mod.plan(10, 10, 0, H100_SMS)

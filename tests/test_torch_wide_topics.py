@@ -75,6 +75,10 @@ from pylda_tpu_torch.ops.estep import (
     ragged_doc_bound,
 )
 from pylda_tpu_torch.utils.config import LDAConfig
+from torch_sstats_model import LANES, THREADS, WARPS
+from torch_sstats_model import butterfly as _butterfly
+from torch_sstats_model import cluster_entries as _wide_entries
+from torch_sstats_model import cluster_sstats as _wide_sstats
 
 K = 4224  # above 4096, not a power of two: two tiles, the last of 128
 BF16 = "bfloat16"
@@ -317,18 +321,6 @@ def test_dense_sstats_wide_matches_xla_topic_range(compute_dtype):
 
 # -- the kernels' arithmetic orders, emulated -------------------------------------
 
-LANES, THREADS, WARPS = 32, 256, 8
-
-
-def _butterfly(x):
-    """The xor butterfly over the last axis of 32 lanes (16, 8, .., 1):
-    every lane ends with the same sum."""
-    idx = torch.arange(LANES)
-    for off in (16, 8, 4, 2, 1):
-        x = x + x[..., idx ^ off]
-    return x[..., 0]
-
-
 def _group_dot(prod, unit, lanes):
     """A lane group's phinorm dot of each entry over its slice, as the
     cluster kernel sums it: prod [m, units16, unit] (a 16-byte unit's
@@ -499,83 +491,6 @@ def test_cluster_sweep_order_matches_batch(dtype, compute_dtype, threshold,
     torch.testing.assert_close(got, want, rtol=rtol, atol=0.0)
 
 
-def _wide_entries(counts, tile, cols):
-    """The nonzeros of one column tile in the cluster kernel's list order,
-    row-major (each column's in row order): (rows, columns)."""
-    block = counts[:, tile * cols:(tile + 1) * cols]
-    rows, cc = torch.nonzero(block != 0, as_tuple=True)  # row-major
-    return rows, tile * cols + cc
-
-
-def _wide_sstats(counts, et, eeb, eps, k0, k1, compute_dtype, pl,
-                 batch=None):
-    """The cluster kernel's order at plan ``pl``: column tiles of
-    ``pl.cols``; CTA r of the cluster owns topics [r S, r S + S), S =
-    ``pl.slice``; each tile's nonzeros in row-major order in batches of
-    ``batch`` (default ``pl.batch``).  A nonzero's partial phinorm on a
-    CTA, by the warp owning its column: lane l's rows l, l + 32, .. in
-    two chains (even and odd rows, in order) and their sum, then in
-    float64 the xor butterfly over the 32 lanes; the ranks' partials in
-    rank order, + eps, rounded once to the inputs' dtype; the ratio
-    (bf16: rounded);
-    the score terms in
-    nonzero order, f64, a tile a part, the parts in the final tree; raw
-    of (topic, column) by the lane holding it over the column's nonzeros
-    in row order, times expElogbeta."""
-    rnd = bf16_round if compute_dtype == BF16 else (lambda x: x)
-    D, Vc = counts.shape
-    k, V = eeb.shape
-    dt = et.dtype
-    c = counts.to(dt)
-    eeb_w = torch.nn.functional.pad(eeb, (0, Vc - V))
-    batch = batch or pl.batch
-    S = pl.slice
-    per = -(-S // LANES) * LANES  # rows of a slice, whole lanes' rows
-    f64 = torch.float64
-    raw = torch.zeros(k1 - k0, V, dtype=dt)
-    parts = []
-    for tile in range(pl.tiles):
-        rows, cols = _wide_entries(c, tile, pl.cols)
-        part = torch.zeros((), dtype=f64)
-        for n0 in range(0, rows.shape[0], batch):
-            d, v = rows[n0:n0 + batch], cols[n0:n0 + batch]
-            m = d.shape[0]
-            ph = torch.zeros(m, dtype=f64)
-            for r in range(pl.cluster):
-                kb = r * S
-                own = max(0, min(k, kb + S) - kb)
-                prod = torch.zeros(m, per, dtype=dt)
-                prod[:, :own] = (rnd(et[d, kb:kb + own])
-                                 * rnd(eeb_w[kb:kb + own, v].T))
-                prod = prod.reshape(m, per // LANES, LANES)
-                chains = torch.zeros(2, m, LANES, dtype=dt)
-                for j in range(per // LANES):
-                    chains[j % 2] = chains[j % 2] + prod[:, j]
-                ph = ph + _butterfly((chains[0] + chains[1]).to(f64))
-            cv = c[d, v]
-            pn = (ph + eps).to(dt)
-            ratio = rnd(cv / pn)
-            for term in (cv * torch.log(pn)).to(torch.float64):
-                part = part + term
-            for n in range(m):
-                if v[n] < V:
-                    raw[:, v[n]] += rnd(et[d[n], k0:k1]) * ratio[n]
-        parts.append(part)
-    # The final tree: thread i sums parts i, i + 256, .., then a warp's
-    # lanes by halves (16, 8, .., 1) and the warps in order.
-    t = torch.zeros(THREADS, dtype=torch.float64)
-    for i0 in range(0, len(parts), THREADS):
-        chunk = torch.stack(parts[i0:i0 + THREADS])
-        t[:chunk.shape[0]] += chunk
-    t = t.reshape(WARPS, LANES)
-    while t.shape[1] > 1:
-        t = t[:, :t.shape[1] // 2] + t[:, t.shape[1] // 2:]
-    score = torch.zeros((), dtype=torch.float64)
-    for w in range(WARPS):
-        score = score + t[w, 0]
-    return eeb[k0:k1] * raw, score
-
-
 def _dense_tile_case(D=24, V=40, seed=4):
     """Counts dense enough that a tile holds several batches of 8."""
     rng = np.random.default_rng(seed)
@@ -686,7 +601,7 @@ def test_sstats_plan_above_4096(k, count_bytes):
     rng = sstats_mod.plan(1216, 100352, k, 132, (k // 2, k),
                           count_bytes=count_bytes)
     assert rng == pl
-    assert not sstats_mod.plan(100, 1000, 4096, 132).wide
+    assert not sstats_mod.plan(100, 1000, 256, 132).wide
 
 
 def test_wide_batches_counts_the_kernels_batches():
