@@ -209,6 +209,16 @@ route and geometry at its first minibatch; the SVI paths of configs 4 and
 5 (and ``svi4_full``) must launch it, the flagship paths must not; the
 kernels' record lists it as ``ragged_gamma_cluster`` (and ``_bf16``).
 
+The bf16 warp-group kernel (K <= 256, a bf16 launch whose widest row fits
+a warp group's slots, ``csrc/row_fixed_point_groups.cuh``; its launches
+count in ``<kernel>_group_bf16`` too) runs every bf16 launch of both
+flagships: their bf16 kernel lines (``ragged_checks_bf16``,
+``dense_checks_bf16``) hold it against the plain version and print its
+geometry (entries a group, shared memory a CTA of two groups, CTAs an
+SM), the flagships' bf16 engine paths must launch it, and the kernels'
+record lists it as ``ragged_gamma_group_bf16`` and
+``dense_gamma_group_bf16``.
+
 Beside those phases:
 
 - ``vb_gamma_init``: batch VB at each flagship from each random
@@ -414,9 +424,14 @@ def row_s_star(s, segments, rows: int):
 
 
 def geometry_text(geo: dict) -> str:
-    """A gamma launch's geometry: the entry kernel's (a cluster a row, the
-    row's entries split across its CTAs), the cluster kernel's plan above
-    K = 4096, else the slot buffer."""
+    """A gamma launch's geometry: the bf16 warp-group kernel's (a group of
+    warps a row), the entry kernel's (a cluster a row, the row's entries
+    split across its CTAs), the cluster kernel's plan above K = 4096, else
+    the slot buffer."""
+    if geo["route"] == "groups":
+        return (f"warp-group kernel: {geo['nmax']} entries a group, "
+                f"{geo['smem_bytes']} B a CTA of 2 groups, "
+                f"{geo['blocks_per_sm']} CTAs an SM, grid {geo['grid']}")
     if geo["route"] == "entries":
         row = geo["cluster"] * geo["resident"]
         return (f"entry kernel: cluster of {geo['cluster']} CTAs a row, "
@@ -435,8 +450,9 @@ def geometry_text(geo: dict) -> str:
 
 def streamed_rows(geo: dict, live):
     """(rows past the slot buffer or the cluster's resident entries, their
-    windows a sweep; the entry kernel holds every row)."""
-    if geo["route"] == "entries":
+    windows a sweep; the entry kernel and the warp-group kernel hold every
+    row)."""
+    if geo["route"] in ("entries", "groups"):
         return live < 0, int((live > 0).sum())
     if geo.get("cluster"):
         R, W = geo["resident"], max(1, geo["window"])
@@ -1135,11 +1151,14 @@ def dense_checks_bf16(label, corpus, beta, cfg, dev, f32_line, probe=None):
     Dd = dc.shape[0]
     row_nnz = (dc != 0).sum(dim=1)
     ids, cnts = dense_entries(dc, row_nnz)
+    # Read once: a read of the card's count in each timed call would sync
+    # the host with the card there (the float32 line reads it once too).
+    max_nnz = int(row_nnz.max())
 
     def run(kind, kw0):
         if kind == "kernel":
             out = dense_mod.dense_estep(dc, g0, eeb, alpha, compute_dtype=BF16,
-                                        max_nnz=int(row_nnz.max()), **kw0)
+                                        max_nnz=max_nnz, **kw0)
         else:
             dt = torch.float64 if kind == "f64" else torch.float32
             out = estep_dense(dc if dt == torch.float32 else dc.double(),
@@ -1155,7 +1174,7 @@ def dense_checks_bf16(label, corpus, beta, cfg, dev, f32_line, probe=None):
     geo = {}
     g_k = dense_mod.dense_estep(dc, g0, eeb, alpha, compute_dtype=BF16,
                                 row_sweeps_out=row_sweeps, geometry_out=geo,
-                                max_nnz=int(row_nnz.max()), **kw)[0]
+                                max_nnz=max_nnz, **kw)[0]
     bitwise = bool(torch.equal(g_k, run("kernel", kw)[0]))
     ok = ok and bitwise
     fin = sstats_check(f"{label} final pass", dc,
@@ -1187,6 +1206,7 @@ def dense_checks_bf16(label, corpus, beta, cfg, dev, f32_line, probe=None):
         raise AssertionError(f"dense_estep bf16 disagrees with its plain "
                              f"version ({label})")
     return {"name": label, "shape": [Dd, dc.shape[1]], "K": K,
+            "route": geo["route"],
             "max_abs_err": err, "doc_bound_rel_err": eb, "ms": k_ms,
             "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
             "nmax": geo["nmax"], "streamed_rows": streamed,
@@ -1199,6 +1219,8 @@ def zero_launches(mods) -> None:
         mod.WIDE_LAUNCHES = mod.BF16_WIDE_LAUNCHES = 0
         if hasattr(mod, "CLUSTER_LAUNCHES"):
             mod.CLUSTER_LAUNCHES = mod.BF16_CLUSTER_LAUNCHES = 0
+        if hasattr(mod, "BF16_GROUP_LAUNCHES"):
+            mod.BF16_GROUP_LAUNCHES = 0
         if hasattr(mod, "RANGE_LAUNCHES"):
             mod.RANGE_LAUNCHES = mod.BF16_RANGE_LAUNCHES = 0
             mod.RANGE_WIDE_LAUNCHES = mod.BF16_RANGE_WIDE_LAUNCHES = 0
@@ -1213,7 +1235,9 @@ def read_launches(mods) -> dict:
     K above 256) as "<name>_wide" and "<name>_wide_bf16", and of the gamma
     kernels the launches of the entry kernel (K <= 4096, rows past one
     block's slot buffer) as "<name>_cluster" and "<name>_cluster_bf16",
-    counted in the others too."""
+    and of their bf16 builds the launches of the warp-group kernel (K <=
+    256, rows that fit a group's slots) as "<name>_group_bf16", counted in
+    the others too."""
     out = {}
     for name, mod in mods.items():
         out[name] = mod.LAUNCHES
@@ -1221,6 +1245,8 @@ def read_launches(mods) -> dict:
         if hasattr(mod, "CLUSTER_LAUNCHES"):
             out[f"{name}_cluster"] = mod.CLUSTER_LAUNCHES
             out[f"{name}_cluster_bf16"] = mod.BF16_CLUSTER_LAUNCHES
+        if hasattr(mod, "BF16_GROUP_LAUNCHES"):
+            out[f"{name}_group_bf16"] = mod.BF16_GROUP_LAUNCHES
         if hasattr(mod, "RANGE_LAUNCHES"):
             out[f"{name}_range"] = mod.RANGE_LAUNCHES
             out[f"{name}_range_bf16"] = mod.BF16_RANGE_LAUNCHES
@@ -3596,6 +3622,8 @@ for name, mod in mods.items():
     if hasattr(mod, "CLUSTER_LAUNCHES"):
         counts[name + "_cluster"] = mod.CLUSTER_LAUNCHES
         counts[name + "_cluster_bf16"] = mod.BF16_CLUSTER_LAUNCHES
+    if hasattr(mod, "BF16_GROUP_LAUNCHES"):
+        counts[name + "_group_bf16"] = mod.BF16_GROUP_LAUNCHES
 counts["dense_sstats_range"] = sstats.RANGE_LAUNCHES
 counts["dense_sstats_range_bf16"] = sstats.BF16_RANGE_LAUNCHES
 counts["dense_sstats_range_wide"] = sstats.RANGE_WIDE_LAUNCHES
@@ -4852,6 +4880,10 @@ def main() -> int:
     ss_shapes.append(fin)
     dg16, fin16 = dense_checks_bf16("dense flagship", dcorpus, dbeta, cfg, dev,
                                     dg)
+    # Both flagships' bf16 kernel lines are the warp-group kernel's.
+    if set(rg16["routes"]) != {"groups"} or dg16["route"] != "groups":
+        raise AssertionError(f"bf16 flagship lines off the warp-group "
+                             f"kernel: {rg16['routes']}, {dg16['route']}")
     ss16_shapes.append(fin16)
     # ... and at K=1000 on its vocabulary: the core's wide kernels and the
     # sstats cluster kernel.
@@ -4939,8 +4971,10 @@ def main() -> int:
                             iteration_ms=r32["iteration_ms"])
         roofline[route] = rl["rows"]
         by_path[f"roofline_{route}"] = rl["launches"]
+        # In bf16 every flagship launch takes the warp-group kernel.
         r16 = run_engine(f"{label} bf16", cfg16, *data, dev, mods,
-                         (f"{gamma}_bf16", "dense_sstats_bf16"), absent=off)
+                         (f"{gamma}_bf16", f"{gamma}_group_bf16",
+                          "dense_sstats_bf16"), absent=off)
         del r16["engine"]
         hold_bf16(label, r32, r16)
         by_path[route] = r32["launches"]
@@ -5165,6 +5199,23 @@ def main() -> int:
             "library_ms": None,
             "shapes": [r for r in (rg_shapes + rg16_shapes + dg_shapes)
                        if "entries" in r.get("routes", [r.get("route")])]})
+    # The bf16 warp-group kernel (K <= 256, rows that fit a group's slots),
+    # counted in the gamma kernels' bf16 launches above too: its lines are
+    # the flagships' (every launch there on it).
+    for name, line in (("ragged_gamma_group_bf16", rg16),
+                       ("dense_gamma_group_bf16", dg16)):
+        f32 = next(k for k in record["kernels"]
+                   if k["name"] == name.replace("_group_bf16", ""))
+        record["kernels"].append({
+            **{k: f32[k] for k in ("route", "source", "replaces")},
+            "name": name, "build": "-DPYLDA_BF16=1",
+            "core": "pylda_tpu_torch/csrc/row_fixed_point_groups.cuh",
+            "launches": launches[name], "launches_by_path": paths[name],
+            **{k: line[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by")},
+            "library_ms": None, "shapes": [line]})
+        if not launches[name]:
+            raise AssertionError(f"{name}: no launch on the main paths")
     # The sstats kernel's topic-range launches (lambda split over topics):
     # counted in its builds' launches above too.
     f32 = record["kernels"][0]

@@ -57,6 +57,9 @@
 // of estep_dense(compute_dtype="bfloat16"): a bf16 table, expEtheta and
 // the ratio rounded to bf16 where the reference rounds them, sums in f32
 // (row_fixed_point.cuh); its final pass is dense_sstats.cu's bf16 build.
+// At K <= 256 a batch whose largest row nnz fits a warp group's slots (192
+// at K <= 128) runs the warp-group kernel of row_fixed_point_groups.cuh
+// (a row a group of 4 warps, both products on mma.sync).
 
 #include "row_fixed_point_entries.cuh"
 

@@ -60,7 +60,12 @@
 // operand mode of estep_ragged_gamma(compute_dtype="bfloat16"): a bf16
 // table (2 KB rows at K=1000, so half the bytes a re-gather and about
 // twice the slots a buffer), expEtheta and the ratio rounded to bf16 where
-// the reference rounds them, sums in f32 (row_fixed_point.cuh).
+// the reference rounds them, sums in f32 (row_fixed_point.cuh).  At
+// K <= 256 a bucket whose width fits a warp group's slots (192 entries at
+// K <= 128) runs the warp-group kernel of row_fixed_point_groups.cuh: a
+// row a group of 4 warps, 2 groups a CTA, the bucket's bf16 B rows in
+// shared memory read by ldmatrix, both products of a sweep on mma.sync
+// (bf16 operands, f32 sums); its times are in PERF.md.
 //
 // Above K = 4096 (row_fixed_point_tiled.cuh) a cluster of CTAs sweeps a
 // row, each CTA a slice of its topics in shared memory: a live slot's B

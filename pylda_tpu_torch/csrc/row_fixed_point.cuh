@@ -104,7 +104,10 @@
 // written wherever et is), and the ratio is rounded where it is formed;
 // step C keeps the f32 expEtheta for gamma' = alpha + expEtheta * acc.  A
 // slot is half the bytes (2 KB at K=1000), so the buffer holds about twice
-// the entries.  The float32 builds (kBf16 false) are the code above.
+// the entries.  The float32 builds (kBf16 false) are the code above.  At
+// K <= 256 the host sends a bf16 launch whose rows fit a warp group's
+// slots to the warp-group kernel of row_fixed_point_groups.cuh instead
+// (both products on mma.sync); these bf16 kernels keep wider rows.
 //
 // Register tile.  At K <= 128 a row of up to 128 live entries moves its B
 // from shared memory into registers once (warp w holds slots w, w + 8, ..,
@@ -196,6 +199,9 @@ struct Params {
   // row kept resident, entries a streamed window; CTAs the direct plan's
   // state holds.
   int cluster, slice, resident, window, state_ctas;
+  // The bf16 warp-group kernel (row_fixed_point_groups.cuh; K <= 256):
+  // live entries a group holds, a multiple of 16; 0: not that kernel.
+  int group_slots;
   int smem_bytes, blocks_per_sm, grid;  // out: the launch's geometry
   int tile;              // out: topics a CTA's sweep covers (K, or the slice)
   int windows, clusters;  // out (cluster kernel): windows a sweep of the

@@ -71,6 +71,7 @@
 
 #pragma once
 
+#include "row_fixed_point_groups.cuh"
 #include "row_fixed_point_tiled.cuh"
 
 namespace {
@@ -517,12 +518,18 @@ cudaError_t launch_row_fixed_point_entries(Params& p, cudaStream_t stream) {
                          p.list_blocks, stream);
 }
 
-// The launch for any K: above kMaxTopics the cluster kernel; up to it the
-// entry kernel where the host's plan set a cluster width (the launch's
-// widest row is past one block's slot buffer), else the row-resident
-// kernels (a row past the slot buffer streams).
+// The launch for any K: in the bf16 builds the warp-group kernel where the
+// host's plan set a group's slots (K <= 256, the launch's widest row fits
+// them); above kMaxTopics the cluster kernel; up to it the entry kernel
+// where the host's plan set a cluster width (the launch's widest row is
+// past one block's slot buffer), else the row-resident kernels (a row past
+// the slot buffer streams).
 template <typename CT, bool kBf16>
 cudaError_t launch_gamma(Params& p, bool registers, cudaStream_t stream) {
+  if (p.group_slots > 0) {
+    if constexpr (kBf16) return launch_row_fixed_point_groups<CT>(p, stream);
+    return cudaErrorInvalidValue;
+  }
   if (p.K > kMaxTopics)
     return launch_row_fixed_point_cluster<CT, kBf16>(p, stream);
   if (p.cluster > 0)

@@ -31,7 +31,10 @@ sstats cluster kernel.  Up to K = 4096 a batch whose largest row nnz
 (``max_nnz``, counted when the batch is built; by default the column
 count) is past one block's slot buffer runs the entry kernel
 (``csrc/row_fixed_point_entries.cuh``, ``row_fixed_point.gamma_plan``),
-counted in ``CLUSTER_LAUNCHES`` / ``BF16_CLUSTER_LAUNCHES`` too.  A dense
+counted in ``CLUSTER_LAUNCHES`` / ``BF16_CLUSTER_LAUNCHES`` too.  In the bf16
+mode at K <= 256 a launch whose widest row fits a warp group's slots runs
+the warp-group kernel (``csrc/row_fixed_point_groups.cuh``, the plan's
+route "groups"), counted in ``BF16_GROUP_LAUNCHES`` too.  A dense
 batch is one segment: the dense route already makes the JAX engine's
 batches.
 """
@@ -63,6 +66,9 @@ BF16_WIDE_LAUNCHES = 0
 # slot buffer: the plan's route "entries").
 CLUSTER_LAUNCHES = 0
 BF16_CLUSTER_LAUNCHES = 0
+# ... and of the bf16 warp-group kernel (K <= 256, the plan's route
+# "groups"; the bf16 build only).
+BF16_GROUP_LAUNCHES = 0
 
 
 def _kernel(compute_dtype: str):
@@ -106,7 +112,7 @@ def dense_estep(
     must bound every row (the entry kernel traps on a longer one).
     Default: the column count V."""
     global LAUNCHES, BF16_LAUNCHES, WIDE_LAUNCHES, BF16_WIDE_LAUNCHES
-    global CLUSTER_LAUNCHES, BF16_CLUSTER_LAUNCHES
+    global CLUSTER_LAUNCHES, BF16_CLUSTER_LAUNCHES, BF16_GROUP_LAUNCHES
     check_compute_dtype(compute_dtype)
     if not counts.is_cuda:
         return estep_dense(
@@ -158,6 +164,7 @@ def dense_estep(
         BF16_LAUNCHES += 1
         BF16_WIDE_LAUNCHES += wide
         BF16_CLUSTER_LAUNCHES += cluster
+        BF16_GROUP_LAUNCHES += geo["route"] == "groups"
     else:
         LAUNCHES += 1
         WIDE_LAUNCHES += wide

@@ -14,7 +14,10 @@ the cluster kernel (``csrc/row_fixed_point_tiled.cuh``), counted in
 ``WIDE_LAUNCHES`` / ``BF16_WIDE_LAUNCHES`` too.  Up to K = 4096 a bucket
 whose width is past one block's slot buffer runs the entry kernel
 (``csrc/row_fixed_point_entries.cuh``, ``row_fixed_point.gamma_plan``),
-counted in ``CLUSTER_LAUNCHES`` / ``BF16_CLUSTER_LAUNCHES`` too.  A
+counted in ``CLUSTER_LAUNCHES`` / ``BF16_CLUSTER_LAUNCHES`` too.  In the bf16
+mode at K <= 256 a launch whose widest row fits a warp group's slots runs
+the warp-group kernel (``csrc/row_fixed_point_groups.cuh``, the plan's
+route "groups"), counted in ``BF16_GROUP_LAUNCHES`` too.  A
 bucket's rows may fall
 into ``segments``, the chunks the JAX engine's layout would run apart:
 one launch, each segment ending at its own exit sweep.  ``compute_dtype=
@@ -43,6 +46,9 @@ BF16_WIDE_LAUNCHES = 0
 # slot buffer: the plan's route "entries").
 CLUSTER_LAUNCHES = 0
 BF16_CLUSTER_LAUNCHES = 0
+# ... and of the bf16 warp-group kernel (K <= 256, the plan's route
+# "groups"; the bf16 build only).
+BF16_GROUP_LAUNCHES = 0
 
 
 def _kernel(compute_dtype: str):
@@ -94,7 +100,7 @@ def ragged_gamma(
       with more streams), shared memory a block, blocks an SM, grid, the
       cluster kernels' fields, and the plan's ``route``."""
     global LAUNCHES, BF16_LAUNCHES, WIDE_LAUNCHES, BF16_WIDE_LAUNCHES
-    global CLUSTER_LAUNCHES, BF16_CLUSTER_LAUNCHES
+    global CLUSTER_LAUNCHES, BF16_CLUSTER_LAUNCHES, BF16_GROUP_LAUNCHES
     bf16 = check_compute_dtype(compute_dtype)
     if not ids.is_cuda:
         return estep_ragged_gamma(
@@ -144,6 +150,7 @@ def ragged_gamma(
         BF16_LAUNCHES += 1
         BF16_WIDE_LAUNCHES += wide
         BF16_CLUSTER_LAUNCHES += cluster
+        BF16_GROUP_LAUNCHES += geo["route"] == "groups"
     else:
         LAUNCHES += 1
         WIDE_LAUNCHES += wide

@@ -19,7 +19,11 @@ of ``csrc/row_fixed_point.cuh`` where it fits one block's slot buffer
 ``csrc/row_fixed_point_entries.cuh`` (a cluster of CTAs a row, each
 holding a share of the row's entries for all sweeps), else (16 CTAs cannot
 hold it, or the gather table fits half the L2) the row-resident kernels
-with its long rows streamed.
+with its long rows streamed.  In the bf16 operand mode at K <=
+``GROUP_MAX_TOPICS`` a launch whose widest row fits a warp group's slots
+(``group_capacity``) takes the warp-group kernel of
+``csrc/row_fixed_point_groups.cuh`` instead (two groups of four warps a
+CTA, a row a group, both products of a sweep on ``mma.sync``).
 Above ``RESIDENT_TOPICS`` the cluster kernel of
 ``csrc/row_fixed_point_tiled.cuh`` runs, which sweeps a row
 with a cluster of CTAs that split its topics, each keeping its slice of
@@ -93,6 +97,14 @@ H100_SMEM_OPTIN = 232448
 H100_L2_BYTES = 50 * 1024 * 1024
 # Slots a batch of the entry kernel's step A sums at once (kDotSlots).
 DOT_SLOTS = 128
+# The bf16 warp-group kernel (``csrc/row_fixed_point_groups.cuh``): warps
+# a group (a row, kGroupWarps), groups a CTA (kGroups), its largest K
+# (kGroupMaxTopics) and most live entries a group (kGroupMaxSlots), in
+# tiles of 16.
+GROUP_WARPS = 4
+GROUPS = 2
+GROUP_MAX_TOPICS = 256
+GROUP_MAX_SLOTS = 192
 # The launch geometry the launcher writes back: live entries the slot
 # buffer holds (a row with more streams; 0 in the cluster kernels), shared
 # memory a block, blocks an SM, the grid, the topics a CTA's sweep covers
@@ -123,7 +135,7 @@ class Params(ctypes.Structure):
         ("inner_iterations", _I), ("threshold", _F), ("eps", _F),
         ("patience", _I), ("use_stall", _I), ("nseg", _I),
         ("cluster", _I), ("slice", _I), ("resident", _I), ("window", _I),
-        ("state_ctas", _I),
+        ("state_ctas", _I), ("group_slots", _I),
         ("smem_bytes", _I), ("blocks_per_sm", _I), ("grid", _I),
         ("tile", _I), ("windows", _I), ("clusters", _I),
     ]
@@ -327,20 +339,54 @@ def entry_smem_bytes(K: int, share: int, slice_: int, cluster: int,
                 + THREADS // 32 * DOT_SLOTS + 16)
 
 
+def group_layout_bytes(K: int, slots: int) -> int:
+    """Shared memory of one warp group (``GroupLayout`` of
+    ``csrc/row_fixed_point_groups.cuh``) at K topics and ``slots`` entries:
+    a slot is 16 kt bf16 topics (kt = K / 16 rounded up) and one 16-byte
+    pad; then the rounded expEtheta (16 kt bf16), the four warps' step-B
+    partials (16 kt f32 each), the counts and ids, and 64 bytes of scan,
+    sums and the row slot."""
+    kt = -(-K // 16)
+    return (slots * (2 * kt + 1) * 16 + kt * 32 + GROUP_WARPS * kt * 64
+            + slots * 8 + GROUP_WARPS * 12 + 16)
+
+
+def group_smem_bytes(K: int, slots: int) -> int:
+    """Shared memory of a CTA of the warp-group kernel (GROUPS groups)."""
+    return GROUPS * group_layout_bytes(K, slots)
+
+
+def group_capacity(K: int, sm_bytes: int = H100_SMEM_PER_SM) -> int:
+    """The most live entries a row of the warp-group kernel may have at K
+    (0 above GROUP_MAX_TOPICS): the largest multiple of 16, at most
+    GROUP_MAX_SLOTS, whose CTA takes at most half an SM's shared memory
+    less the BLOCK_SMEM_RESERVED bytes the card keeps a block (two CTAs,
+    four rows, an SM).  192 at K = 100 and 128, 112 at 200, 96 at 256."""
+    if K > GROUP_MAX_TOPICS:
+        return 0
+    budget = sm_bytes // 2 - BLOCK_SMEM_RESERVED
+    slots = GROUP_MAX_SLOTS
+    while slots > 0 and group_smem_bytes(K, slots) > budget:
+        slots -= 16
+    return slots
+
+
 @dataclasses.dataclass(frozen=True)
 class GammaPlan:
     """A launch's plan at K <= RESIDENT_TOPICS for rows of up to
-    ``widest`` live entries: the row-resident kernels with every row in
-    one block's slot buffer ("rows"), the entry kernel ("entries"), or
-    the row-resident kernels with the longer rows streamed ("stream").
-    ``launch`` reports the route, or "cluster" above RESIDENT_TOPICS."""
+    ``widest`` live entries: the bf16 warp-group kernel ("groups"), the
+    row-resident kernels with every row in one block's slot buffer
+    ("rows"), the entry kernel ("entries"), or the row-resident kernels
+    with the longer rows streamed ("stream").  ``launch`` reports the
+    route, or "cluster" above RESIDENT_TOPICS."""
 
-    route: str  # "rows", "entries" or "stream"
+    route: str  # "groups", "rows", "entries" or "stream"
     nmax: int  # entries one block's slot buffer holds (slot_buffer)
     cluster: int = 0  # the entry kernel: CTAs a row
     share: int = 0  # entries a CTA holds (its slot buffer)
     slice: int = 0  # topics a rank owns in the exchange (a multiple of 4)
     smem_bytes: int = 0  # shared memory a CTA
+    slots: int = 0  # the warp-group kernel: entries a group holds
 
 
 def gamma_plan(K: int, widest: int, compute_dtype: str = "float32",
@@ -351,7 +397,9 @@ def gamma_plan(K: int, widest: int, compute_dtype: str = "float32",
                l2_bytes: int = H100_L2_BYTES) -> GammaPlan:
     """The plan of a launch at K <= RESIDENT_TOPICS whose rows have at most
     ``widest`` live entries (a host-known bound: a ragged bucket's width,
-    a dense batch's largest row nnz): "rows" where that fits one block's
+    a dense batch's largest row nnz): in the bf16 mode at K <=
+    GROUP_MAX_TOPICS "groups" where ``widest`` rounded up to 16 fits
+    ``group_capacity`` (a group's slots); "rows" where it fits one block's
     slot buffer; "stream" where the gather table (``table_bytes``) fits
     half the L2 (``l2_bytes``), whose re-gathers the row-resident kernels'
     streamed windows then read; else "entries", the smallest cluster of a
@@ -365,6 +413,10 @@ def gamma_plan(K: int, widest: int, compute_dtype: str = "float32",
                          "kernel's plan applies (cluster_plan)")
     bf16 = check_compute_dtype(compute_dtype)
     nmax = slot_buffer(K, compute_dtype, inner_iterations, sm_bytes, optin)
+    slots = _up(max(widest, 1), 16)
+    if bf16 and cluster is None and slots <= group_capacity(K, sm_bytes):
+        return GammaPlan("groups", nmax, slots=slots,
+                         smem_bytes=group_smem_bytes(K, slots))
     if widest <= nmax and cluster is None:
         return GammaPlan("rows", nmax)
     if cluster is None and 0 < table_bytes <= l2_bytes // 2:
@@ -539,6 +591,8 @@ def launch(
         p.state_ctas = 0 if state is None else sms
     elif route == "entries":
         p.cluster, p.slice, p.resident = plan.cluster, plan.slice, plan.share
+    elif route == "groups":
+        p.group_slots = plan.slots
     # The scratch tensors may be freed once the launch is enqueued: the
     # caching allocator hands their memory out again only in stream order.
     with torch.cuda.device(dev):

@@ -1,11 +1,15 @@
 """The plan of the gamma kernels at K <= 4096, and the plain gamma fixed
 points at SVI config 5's row width, on the CPU.
 
-A gamma launch at K <= 4096 takes one of three routes
+A gamma launch at K <= 4096 takes one of four routes
 (``ops/row_fixed_point.py::gamma_plan``), chosen on the host from the
 launch's widest row (a ragged bucket's width, a dense batch's largest row
 nnz):
 
+- "groups": in the bf16 mode at K <= 256 only, every row fits a warp
+  group's slots (the warp-group kernel of
+  ``csrc/row_fixed_point_groups.cuh``; ``group_capacity`` and
+  ``group_smem_bytes`` mirror its ``GroupLayout`` and launcher);
 - "rows": every row fits one block's slot buffer (the row-resident
   kernels of ``csrc/row_fixed_point.cuh``; ``slot_buffer`` mirrors the
   launcher's sizing);
@@ -58,6 +62,20 @@ def _header(name: str) -> str:
 
 # (K, widest, mode, inner sweeps) -> (route, C, entries a CTA, slice).
 _PLANS = [
+    # bf16 at K <= 256: the warp-group kernel up to a group's capacity
+    # (192 entries at K <= 128, 112 at 200, 96 at 256), the bf16
+    # row-resident kernels one entry past it, and never above K = 256.
+    *[((100, w, "bfloat16", 50), ("groups", 0, 0, 0)) for w in (112, 128,
+                                                               144, 160)],
+    ((1, 1, "bfloat16", 50), ("groups", 0, 0, 0)),
+    ((16, 192, "bfloat16", 50), ("groups", 0, 0, 0)),
+    ((128, 192, "bfloat16", 50), ("groups", 0, 0, 0)),
+    ((128, 193, "bfloat16", 50), ("rows", 0, 0, 0)),
+    ((200, 112, "bfloat16", 30), ("groups", 0, 0, 0)),
+    ((200, 113, "bfloat16", 30), ("rows", 0, 0, 0)),
+    ((256, 96, "bfloat16", 50), ("groups", 0, 0, 0)),
+    ((256, 97, "bfloat16", 50), ("rows", 0, 0, 0)),
+    ((257, 16, "bfloat16", 50), ("rows", 0, 0, 0)),
     # The ragged flagship's buckets at K = 100: 167 entries a block.
     *[((100, w, "float32", 50), ("rows", 0, 0, 0)) for w in (112, 128, 144,
                                                             160)],
@@ -93,6 +111,12 @@ def test_gamma_plan_routes(args, want):
     assert (plan.route, plan.cluster, plan.share, plan.slice) == want
     K, widest, mode, inner = args
     assert plan.nmax == rfp.slot_buffer(K, mode, inner)
+    if plan.route == "groups":
+        assert mode == "bfloat16" and K <= rfp.GROUP_MAX_TOPICS
+        assert plan.slots == -(-widest // 16) * 16 <= rfp.group_capacity(K)
+        assert plan.smem_bytes == rfp.group_smem_bytes(K, plan.slots)
+        return
+    assert mode == "float32" or widest > rfp.group_capacity(K)
     if plan.route == "rows":
         assert widest <= plan.nmax
         return
@@ -207,6 +231,44 @@ def test_slot_buffer_mirrors_the_launcher():
     # One slot of the wide Layout is K rounded to an odd float4 count.
     assert rfp.layout_floats(1000, 1, 50, True, False)[0] == 1004
     assert rfp.layout_floats(1000, 1, 50, True, True)[0] == 500
+
+
+def test_group_layout_mirrors_the_launcher():
+    """The host's copy of the warp-group kernel's ``GroupLayout`` and of
+    its launcher's shared memory read the constants the header compiles
+    with; the capacity of a group is the most entries (a multiple of 16,
+    at most GROUP_MAX_SLOTS) whose CTA of GROUPS groups takes half an
+    H100 SM's shared memory less the 1 KB the card keeps a block; and the
+    CTA sizes are those the launcher reported on an H100 for the ragged
+    flagship's buckets (59,712 to 83,520 B at widths 112 to 160, K =
+    100).  Float32 never takes the route."""
+    src = _header("row_fixed_point_groups.cuh")
+    consts = dict(re.findall(r"constexpr int (kGroup\w+) = (\d+);", src))
+    assert {k: int(v) for k, v in consts.items()} == {
+        "kGroupWarps": rfp.GROUP_WARPS, "kGroups": rfp.GROUPS,
+        "kGroupMaxTopics": rfp.GROUP_MAX_TOPICS,
+        "kGroupMaxSlots": rfp.GROUP_MAX_SLOTS}
+    for line in ("kt = (K + 15) / 16;", "row16 = 2 * kt + 1;",
+                 "etr = b + slots * row16 * 16;", "part = etr + kt * 32;",
+                 "cnt = part + kGroupWarps * kt * 64;",
+                 "ids = cnt + slots * 4;", "scan = ids + slots * 4;",
+                 "red = scan + kGroupWarps * 4;",
+                 "flags = red + kGroupWarps * 8;", "total = flags + 16;",
+                 "const size_t smem = (size_t)kGroups * "
+                 "GroupLayout(p.K, slots).total;",
+                 "slots % 16 != 0"):
+        assert line in src, line
+    assert [rfp.group_smem_bytes(100, w) for w in (112, 128, 144, 160)] == [
+        59712, 67648, 75584, 83520]
+    assert {K: rfp.group_capacity(K) for K in (1, 100, 128, 200, 256, 257)} \
+        == {1: 192, 100: 192, 128: 192, 200: 112, 256: 96, 257: 0}
+    budget = rfp.H100_SMEM_PER_SM // 2 - rfp.BLOCK_SMEM_RESERVED
+    for K in (1, 7, 16, 100, 128, 200, 256):
+        cap = rfp.group_capacity(K)
+        assert cap % 16 == 0 and rfp.group_smem_bytes(K, cap) <= budget
+        assert (cap == rfp.GROUP_MAX_SLOTS
+                or rfp.group_smem_bytes(K, cap + 16) > budget)
+        assert rfp.gamma_plan(K, cap, "float32").route != "groups"
 
 
 def test_dense_batches_carry_their_largest_row():

@@ -150,6 +150,13 @@ _CONSTANT_MIRRORS = [
     ("row_fixed_point", "MAX_HIST", "row_fixed_point.cuh", "kMaxHist"),
     ("row_fixed_point", "CLUSTER_Q", "row_fixed_point_tiled.cuh",
      "kClusterQ"),
+    ("row_fixed_point", "GROUP_WARPS", "row_fixed_point_groups.cuh",
+     "kGroupWarps"),
+    ("row_fixed_point", "GROUPS", "row_fixed_point_groups.cuh", "kGroups"),
+    ("row_fixed_point", "GROUP_MAX_TOPICS", "row_fixed_point_groups.cuh",
+     "kGroupMaxTopics"),
+    ("row_fixed_point", "GROUP_MAX_SLOTS", "row_fixed_point_groups.cuh",
+     "kGroupMaxSlots"),
     ("row_fixed_point", "MAX_CLUSTER", "row_fixed_point_tiled.cuh",
      "kMaxCluster"),
     ("sstats", "THREADS", "dense_sstats.cu", "kThreads"),

@@ -39,6 +39,10 @@ against the CPU's chunked run.  On rows still updating at S*
 (stalled, not done) gamma depends on rounding, so there each document's
 share of the bound (``ragged_doc_bound``) at the kernel's gamma is held
 to its share at the float64 plain version's gamma, to rel 1e-5.  The
+bf16 warp-group kernel (K <= 256, ``csrc/row_fixed_point_groups.cuh``)
+is held at K in ``GROUP_K`` on rows up to a group's capacity and one
+past it, its exit records against the plain loop's rule on its own
+trajectory.  The
 sampling engines (plain PyTorch, no kernel) are held here too: each
 sampler's sweep on the card against the CPU from the same noise (z equal
 but on at most 0.1% of the documents), count tables bitwise, and both
@@ -1127,10 +1131,13 @@ def test_rows_past_the_cluster_stream(cuda, layout):
 def test_flagship_bucket_stays_on_the_row_resident_kernels(cuda,
                                                            compute_dtype):
     """The ragged flagship's widest bucket (K = 100, width 160: one block
-    holds 167 entries) takes the row-resident kernels: the launch counts
-    in LAUNCHES (or BF16_LAUNCHES), not in the cluster counters, and its
-    slot buffer is the plan's; held to the plain version (float32: 12
-    pinned sweeps, rtol 1e-4; bf16: one, ``_hold_bf16_gamma``)."""
+    holds 167 entries) takes the row-resident kernels in float32 and, in
+    bf16, the warp-group kernel (a group holds 224 entries at K = 100):
+    the launch counts in LAUNCHES (or BF16_LAUNCHES and
+    BF16_GROUP_LAUNCHES), not in the cluster counters, and its slot buffer
+    (bf16: a group's slots, 160) is the plan's; held to the plain version
+    (float32: 12 pinned sweeps, rtol 1e-4; bf16: one,
+    ``_hold_bf16_gamma``)."""
     bf16 = compute_dtype == "bfloat16"
     ids, cnts, g0, eeb, alpha, _ = _ragged_inputs(64, 160, 100, 10000, cuda)
     kw = dict(inner_iterations=1 if bf16 else 12, convergence_threshold=0.0,
@@ -1140,7 +1147,7 @@ def test_flagship_bucket_stays_on_the_row_resident_kernels(cuda,
                           props.shared_memory_per_multiprocessor,
                           props.shared_memory_per_block_optin)
     counters = ("LAUNCHES", "BF16_LAUNCHES", "CLUSTER_LAUNCHES",
-                "BF16_CLUSTER_LAUNCHES")
+                "BF16_CLUSTER_LAUNCHES", "BF16_GROUP_LAUNCHES")
     before = [getattr(ragged_mod, c) for c in counters]
     geo = {}
     g, _ = ragged_mod.ragged_gamma(ids, cnts, g0, eeb, alpha,
@@ -1149,9 +1156,11 @@ def test_flagship_bucket_stays_on_the_row_resident_kernels(cuda,
     torch.cuda.synchronize()
     after = [getattr(ragged_mod, c) for c in counters]
     assert after == [before[0] + (not bf16), before[1] + bf16, before[2],
-                     before[3]]
-    assert (geo["route"], geo["cluster"]) == ("rows", 0)
-    assert plan.route == "rows" and geo["nmax"] == min(plan.nmax, 160)
+                     before[3], before[4] + bf16]
+    route = "groups" if bf16 else "rows"
+    assert (geo["route"], geo["cluster"]) == (route, 0)
+    assert plan.route == route
+    assert geo["nmax"] == (plan.slots if bf16 else min(plan.nmax, 160))
     if bf16:
         _hold_bf16_gamma(g, g_p, cnts != 0)
     else:
@@ -1733,6 +1742,233 @@ def test_bf16_table_is_checked(cuda):
     with pytest.raises(ValueError, match="gather_table"):
         ragged_mod.ragged_gamma(ids, cnts, g0, eeb, alpha,
                                 eeb_t=ragged_mod.gather_table(eeb, BF16))
+
+
+# -- the bf16 warp-group kernel (K <= 256, rows that fit a group) --------------
+#
+# ``csrc/row_fixed_point_groups.cuh``: steps A and B on mma.sync.  Held as
+# the bf16 builds are above (one pinned sweep by ``_hold_bf16_gamma``, the
+# exit rule by each row's share of the bound, ``_hold_bf16_shares``),
+# with S*, each row's sweeps and its first exitable sweep equal to those
+# the plain version's loop takes on the kernel's own trajectory
+# (``_exit_record``), two calls bitwise equal,
+# and the launch on the route of its widest row: a group's capacity
+# (``row_fixed_point.group_capacity``) takes the new kernel, one entry
+# more the bf16 kernels it replaces.
+
+GROUP_K = [1, 7, 16, 100, 128, 200, 256]
+# Live entries of the rows besides the capacity (and capacity + 1).
+GROUP_LIVE = (0, 1, 15, 16, 17, 31, 32, 33)
+
+
+def _group_rows(K, past, seed=13):
+    """(ids [D, T], cnts [D, T], the rows' live counts): three rows of each
+    of GROUP_LIVE and of the group capacity at K (``past``: and of one
+    entry more) in a shuffled order, distinct ids scattered over the
+    row's slots, counts 1 to 3."""
+    rng = np.random.default_rng(seed + K)
+    cap = rfp.group_capacity(K)
+    live = [n for n in (*GROUP_LIVE, cap, *([cap + 1] if past else ()))
+            for _ in range(3)]
+    rng.shuffle(live)
+    D, T, V = len(live), max(live), 3000
+    ids = np.zeros((D, T), np.int32)
+    cnts = np.zeros((D, T), np.float32)
+    for d, n in enumerate(live):
+        at = np.sort(rng.choice(T, n, replace=False))
+        ids[d, at] = rng.choice(V, n, replace=False)
+        cnts[d, at] = rng.integers(1, 4, n)
+    return ids, cnts, np.array(live), V
+
+
+def _group_inputs(K, past, dev, layout):
+    """The rows of ``_group_rows`` as the layout takes them (ragged: ids
+    and counts; dense: [D, V] counts, bf16 at even K, f32 at odd), a sharp
+    lambda's expElogbeta, gamma inits drawn with numpy, alpha 1 / K."""
+    ids, cnts, live, V = _group_rows(K, past)
+    rng = np.random.default_rng(K)
+    lam = rng.gamma(0.1, 1.0, (K, V)) * 100.0 + 0.01
+    eeb = exp_dirichlet_expectation(torch.tensor(lam, device=dev).float())
+    g0 = torch.tensor(rng.gamma(100.0, 0.01, (ids.shape[0], K)),
+                      dtype=torch.float32, device=dev)
+    alpha = torch.full((K,), 1.0 / K, dtype=torch.float32, device=dev)
+    if layout == "ragged":
+        rows = (torch.tensor(ids, device=dev), torch.tensor(cnts, device=dev))
+    else:
+        counts = np.zeros((ids.shape[0], V), np.float32)
+        for d in range(ids.shape[0]):
+            on = cnts[d] != 0
+            counts[d, ids[d, on]] = cnts[d, on]
+        ct = torch.tensor(counts, device=dev)
+        rows = (ct.to(torch.bfloat16) if K % 2 == 0 else ct,)
+    return rows, g0, eeb, alpha, live
+
+
+def _exit_record(traj, kw):
+    """The plain version's loop (``ops/estep.py::_fixed_point``) on a given
+    trajectory ``traj`` (gamma after s unfrozen sweeps, s = 0, 1, ..), with
+    each row's record kept: (gamma, S*, each row's sweeps to min(its done
+    sweep, S*), each row's first exitable sweep or 0)."""
+    from pylda_tpu_torch.ops.estep import _exit_update
+
+    thresh, patience = kw["convergence_threshold"], kw["stall_patience"]
+    use_stall = patience > 0 and thresh > 0.0
+    gamma = traj[0]
+    D = gamma.shape[0]
+    best = torch.full((D,), float("inf"), dtype=gamma.dtype,
+                      device=gamma.device)
+    age = torch.zeros((D,), dtype=torch.int32, device=gamma.device)
+    done = torch.zeros((D,), dtype=torch.bool, device=gamma.device)
+    sweeps = torch.zeros((D,), dtype=torch.int32, device=gamma.device)
+    first = torch.zeros((D,), dtype=torch.int32, device=gamma.device)
+    i = 0
+    while i < kw["inner_iterations"]:
+        new = torch.where(done[:, None], gamma, traj[i + 1])
+        change = (new - gamma).abs().mean(dim=-1)
+        sweeps += (~done).int()
+        best, age, done, exitable = _exit_update(
+            change, best, age, done, thresh, use_stall, patience)
+        i += 1
+        first = torch.where(exitable & (first == 0), i, first)
+        gamma = new
+        if bool(exitable.all()):
+            break
+    return gamma, i, sweeps, first
+
+
+def _group_call(layout, rows, g0, eeb, alpha, live, kw, segments=None,
+                **outs):
+    if layout == "ragged":
+        return ragged_mod.ragged_gamma(*rows, g0, eeb, alpha, **kw,
+                                       compute_dtype=BF16, segments=segments,
+                                       **outs)
+    g, _, _, s = dense_mod.dense_estep(rows[0], g0, eeb, alpha, **kw,
+                                       compute_dtype=BF16,
+                                       max_nnz=int(live.max()), **outs)
+    return g, s
+
+
+def _plain_call(layout, rows, g0, eeb, alpha, kw, segments=None):
+    if layout == "ragged":
+        return estep_ragged_gamma(*rows, g0, eeb, alpha, **kw,
+                                  compute_dtype=BF16, segments=segments)
+    g, _, _, s = estep_dense(rows[0], g0, eeb, alpha, **kw,
+                             compute_dtype=BF16)
+    return g, s
+
+
+def _entries(layout, rows):
+    """(ids, counts) of each row's live entries, for the bound's shares."""
+    if layout == "ragged":
+        return rows
+    ct = rows[0]
+    width = int((ct != 0).sum(dim=1).max())
+    order = torch.sort((ct != 0).to(torch.uint8), dim=1, descending=True,
+                       stable=True).indices[:, :width]
+    return order.to(torch.int32), ct.gather(1, order).float()
+
+
+@pytest.mark.parametrize("past", [False, True], ids=["capacity", "past"])
+@pytest.mark.parametrize("K", GROUP_K)
+@pytest.mark.parametrize("layout", ["ragged", "dense"])
+def test_group_kernel_matches_plain(cuda, layout, K, past):
+    """Rows of 0 to capacity live entries (``past``: and capacity + 1,
+    which sends the launch to the bf16 kernels the group kernel replaced)
+    at K off and on multiples of 16; the ragged rows in two segments."""
+    rows, g0, eeb, alpha, live = _group_inputs(K, past, cuda, layout)
+    D = g0.shape[0]
+    seg = (D // 3, D - D // 3) if layout == "ragged" else None
+    mod = ragged_mod if layout == "ragged" else dense_mod
+    one = dict(inner_iterations=1, convergence_threshold=0.0)
+    counters = ("LAUNCHES", "BF16_LAUNCHES", "BF16_GROUP_LAUNCHES")
+    before = [getattr(mod, c) for c in counters]
+    geo = {}
+    g, s = _group_call(layout, rows, g0, eeb, alpha, live, one, seg,
+                       geometry_out=geo)
+    g2, _ = _group_call(layout, rows, g0, eeb, alpha, live, one, seg)
+    assert [getattr(mod, c) for c in counters] == [
+        before[0], before[1] + 2, before[2] + 2 * (not past)]
+    cap = rfp.group_capacity(K)
+    if past:
+        assert geo["route"] != "groups"
+    else:
+        assert (geo["route"], geo["nmax"], geo["resident"]) == (
+            "groups", cap, cap)
+    g_p, s_p = _plain_call(layout, rows, g0, eeb, alpha, one, seg)
+    torch.cuda.synchronize()
+    assert torch.equal(g, g2) and torch.equal(s, s_p)
+    nonzero = (rows[0] if layout == "dense" else rows[1]) != 0
+    _hold_bf16_gamma(g, g_p, nonzero)
+    # The exit rule: S*, each row's sweeps and first exitable sweep, and
+    # its share of the bound.
+    kw = dict(inner_iterations=50, convergence_threshold=1e-5,
+              stall_patience=6)
+    row_sweeps = torch.zeros((D,), dtype=torch.int32, device=cuda)
+    row_exit = torch.zeros((D,), dtype=torch.int32, device=cuda)
+    g, s = _group_call(layout, rows, g0, eeb, alpha, live, kw, seg,
+                       row_sweeps_out=row_sweeps, row_exit_out=row_exit)
+    g2, _ = _group_call(layout, rows, g0, eeb, alpha, live, kw, seg)
+    rows_64 = rows[:-1] + (rows[-1].double(),)  # the counts in float64
+    g_64, _ = _plain_call(layout, rows_64, g0.double(), eeb.double(),
+                          alpha.double(), kw, seg)
+    torch.cuda.synchronize()
+    assert torch.equal(g, g2)
+    # The exit rule of the plain version's loop on each one's own
+    # trajectory (gamma after n pinned sweeps): on the plain version's it
+    # gives the plain version's gamma and S*, on the kernel's the kernel's
+    # gamma, S*, row sweeps and first exitable sweeps, bit for bit.  (The
+    # two trajectories part where a ratio's rounding flips, and the bf16
+    # map limit-cycles there, so the two S* may differ: the bf16 build
+    # before this kernel gave S* 50 against the plain version's 31 at
+    # K = 7.)
+    pin = dict(convergence_threshold=0.0)
+    traj = [g0] + [_group_call(layout, rows, g0, eeb, alpha, live,
+                               dict(pin, inner_iterations=n), seg)[0]
+                   for n in range(1, kw["inner_iterations"] + 1)]
+    traj_p = [g0] + [_plain_call(layout, rows, g0, eeb, alpha,
+                                 dict(pin, inner_iterations=n), seg)[0]
+                     for n in range(1, kw["inner_iterations"] + 1)]
+    g_p, s_p = _plain_call(layout, rows, g0, eeb, alpha, kw, seg)
+    torch.cuda.synchronize()
+    r0 = 0
+    for i, n in enumerate(seg or (D,)):
+        part = slice(r0, r0 + n)
+        g_t, s_t, _, _ = _exit_record([t[part] for t in traj_p], kw)
+        assert torch.equal(g_t, g_p[part])
+        assert int(s_p.reshape(-1)[i]) == s_t
+        g_t, s_t, sweeps_t, first_t = _exit_record([t[part] for t in traj],
+                                                   kw)
+        assert torch.equal(g[part], g_t)
+        assert int(s.reshape(-1)[i]) == s_t
+        assert torch.equal(row_sweeps[part], sweeps_t)
+        assert torch.equal(row_exit[part], first_t)
+        r0 += n
+    ids, cnts = _entries(layout, rows)
+    _hold_bf16_shares(ids, cnts, g, g_p, g_64, eeb, alpha)
+
+
+def test_group_kernel_stalled_rows_keep_their_bound(cuda):
+    """``test_ragged_bf16_stalled_rows_keep_their_bound`` on the warp-group
+    kernel: K = 100, rows of 1 to 160 live entries (the ragged flagship's
+    widest bucket), 30 sweeps, threshold 1e-5, patience 6, a sharp lambda:
+    the rows still updating at S* keep their share of the bound
+    (``_hold_bf16_shares``)."""
+    ids, cnts, g0, eeb, alpha = _bf16_ragged_inputs(100, 160, cuda, seed=12)
+    kw = dict(inner_iterations=30, convergence_threshold=1e-5,
+              stall_patience=6, compute_dtype=BF16)
+    rows = torch.zeros((ids.shape[0],), dtype=torch.int32, device=cuda)
+    geo = {}
+    g, s = ragged_mod.ragged_gamma(ids, cnts, g0, eeb, alpha,
+                                   row_sweeps_out=rows, geometry_out=geo,
+                                   **kw)
+    g_p, _ = estep_ragged_gamma(ids, cnts, g0, eeb, alpha, **kw)
+    g_64, _ = estep_ragged_gamma(ids, cnts.double(), g0.double(),
+                                 eeb.double(), alpha.double(), **kw)
+    torch.cuda.synchronize()
+    assert geo["route"] == "groups"
+    m = (rows == int(s)) & (cnts != 0).any(dim=1)
+    assert bool(m.any())
+    _hold_bf16_shares(ids[m], cnts[m], g[m], g_p[m], g_64[m], eeb, alpha)
 
 
 # -- the sampling engines on the card (plain PyTorch, no kernel) ---------------
