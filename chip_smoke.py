@@ -219,6 +219,18 @@ SM), the flagships' bf16 engine paths must launch it, and the kernels'
 record lists it as ``ragged_gamma_group_bf16`` and
 ``dense_gamma_group_bf16``.
 
+The bf16 build's tensor-core sstats kernel (K <= 256: every bf16 sstats
+launch there, ``csrc/dense_sstats_mma.cuh``; its launches count in
+``dense_sstats_mma_bf16`` and, for a topic range,
+``dense_sstats_range_mma_bf16`` too) runs the bf16 sstats lines of both
+flagships and the ragged chunk's topic halves: each prints the route,
+the plan (tiles, splits, rows a split, kp, topic tiles a warp, shared
+memory a CTA), the kernel's registers (ptxas) and the dense form's bound
+beside the nonzeros'; both flagships' bf16 engine paths,
+``shard_topics_vb``'s bf16 run and the bf16 CLIs must launch it, and the
+kernels' record lists it as ``dense_sstats_mma_bf16`` and
+``dense_sstats_range_mma_bf16``.
+
 Beside those phases:
 
 - ``vb_gamma_init``: batch VB at each flagship from each random
@@ -263,6 +275,7 @@ import itertools
 import json
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -597,6 +610,29 @@ def sstats_agree(ss, ss_p, compute_dtype):
     return ok, float(diff.max()), off
 
 
+def mma_registers() -> dict:
+    """Registers a thread of each instance of the bf16 build's tensor-core
+    sstats kernel ("<counts type>/<topic tiles a warp>"), from ptxas -v
+    in this process's build log (empty if it was not built here)."""
+    from pylda_tpu_torch.ops import _build
+
+    out, name = {}, None
+    for line in _build.BUILD_LOGS.get("dense_sstats/bfloat16",
+                                      "").splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        k = name and re.search(r"dense_sstats_mma_kernel\w*?I(13__nv_bfloat16"
+                               r"|f)Li(\d+)E", name)
+        if m and k:
+            ct = "bf16" if k.group(1) != "f" else "f32"
+            out[f"{ct}/{k.group(2)}"] = int(m.group(1))
+            name = None
+    return out
+
+
 def sstats_check(label, counts, et, eeb, eps, sstats_mod, plain,
                  compute_dtype="float32") -> dict:
     """The dense sstats kernel (the build of ``compute_dtype``) against its
@@ -631,10 +667,25 @@ def sstats_check(label, counts, et, eeb, eps, sstats_mod, plain,
     p_ms = cuda_ms(lambda: plain(counts, et, eeb, **mode), 20)
     pl = sstats_mod.plan(D, Vc, K, torch.cuda.get_device_properties(
         counts.device).multi_processor_count,
-        count_bytes=counts.element_size())
+        count_bytes=counts.element_size(), compute_dtype=compute_dtype)
     grid = (f"{pl.tiles} tiles of {pl.cols} columns x {pl.splits} splits, "
             f"kp {pl.kp}")
     extra = {}
+    if pl.mma:
+        # The tensor-core kernel, after one launch rounding expEtheta to
+        # bf16 ([D, kp]: D K 4 bytes read, D kp 2 written).
+        regs = mma_registers()
+        extra = {"route": "mma", "rows_per_split": pl.rows_per_split,
+                 "topic_tiles_a_warp": pl.mma_tiles,
+                 "smem_bytes": pl.smem_bytes, "registers": regs,
+                 "launches_a_call": 2,
+                 "rounding_bytes": D * K * 4 + D * pl.kp * 2}
+        grid = (f"route mma (tensor cores): {pl.tiles} tiles of {pl.cols} "
+                f"columns x {pl.splits} splits of {pl.rows_per_split} rows, "
+                f"kp {pl.kp}, {pl.mma_tiles} topic tiles a warp, "
+                f"{pl.smem_bytes} bytes of shared memory a CTA, registers "
+                f"{regs}; expEtheta rounded to bf16 by a launch of its own "
+                f"({extra['rounding_bytes'] / 1e6:.2f} MB)")
     if pl.wide:
         geo = {}
         sstats_mod.launch(sstats_mod._lib(compute_dtype), counts, et, eeb,
@@ -650,7 +701,8 @@ def sstats_check(label, counts, et, eeb, eps, sstats_mod, plain,
                 f"nonzeros ({extra['batches']} batches), "
                 f"{geo['smem_bytes']} bytes of shared memory a CTA"
                 f"{', direct' if pl.direct else ''}")
-    print(f"kernel dense_sstats{'_wide' if pl.wide else ''}"
+    route = "_wide" if pl.wide else "_mma" if pl.mma else ""
+    print(f"kernel dense_sstats{route}"
           f"{'' if compute_dtype == 'float32' else '_bf16'} "
           f"{label} [{D}x{Vc} {str(counts.dtype)[6:]}, K={K}]: grid "
           f"{grid}, scratch {pl.scratch_bytes / 1e6:.1f} MB, "
@@ -691,10 +743,10 @@ def sstats_range_check(label, counts, et, eeb, eps, sstats_mod, plain,
     full_ms = cuda_ms(lambda: sstats_mod.dense_sstats(counts, et, eeb,
                                                       **mode), 20)
     nnz = int((counts != 0).sum())
-    wide = sstats_mod.plan(D, Vc, K, torch.cuda.get_device_properties(
+    pl = sstats_mod.plan(D, Vc, K, torch.cuda.get_device_properties(
         counts.device).multi_processor_count,
-        count_bytes=counts.element_size()).wide
-    suffix = ("_wide" if wide else "") + (
+        count_bytes=counts.element_size(), compute_dtype=compute_dtype)
+    suffix = ("_wide" if pl.wide else "_mma" if pl.mma else "") + (
         "" if compute_dtype == "float32" else "_bf16")
     out = []
     for k0, k1 in ranges or ((0, K // 2), (K // 2, K)):
@@ -728,6 +780,8 @@ def sstats_range_check(label, counts, et, eeb, eps, sstats_mod, plain,
             raise AssertionError(f"dense_sstats topic range {k0}..{k1} "
                                  f"({label}) disagrees")
         out.append({"name": label, "shape": [D, Vc], "K": K,
+                    "route": ("wide" if pl.wide else "mma" if pl.mma
+                              else "one_pass"),
                     "topic_range": [k0, k1], "max_abs_err": err, "ms": k_ms,
                     "full_range_ms": full_ms, "plain_ms": p_ms,
                     "bound_ms": b_ms, "bound_by": b_by,
@@ -1221,6 +1275,8 @@ def zero_launches(mods) -> None:
             mod.CLUSTER_LAUNCHES = mod.BF16_CLUSTER_LAUNCHES = 0
         if hasattr(mod, "BF16_GROUP_LAUNCHES"):
             mod.BF16_GROUP_LAUNCHES = 0
+        if hasattr(mod, "BF16_MMA_LAUNCHES"):
+            mod.BF16_MMA_LAUNCHES = mod.BF16_RANGE_MMA_LAUNCHES = 0
         if hasattr(mod, "RANGE_LAUNCHES"):
             mod.RANGE_LAUNCHES = mod.BF16_RANGE_LAUNCHES = 0
             mod.RANGE_WIDE_LAUNCHES = mod.BF16_RANGE_WIDE_LAUNCHES = 0
@@ -1236,8 +1292,10 @@ def read_launches(mods) -> dict:
     kernels the launches of the entry kernel (K <= 4096, rows past one
     block's slot buffer) as "<name>_cluster" and "<name>_cluster_bf16",
     and of their bf16 builds the launches of the warp-group kernel (K <=
-    256, rows that fit a group's slots) as "<name>_group_bf16", counted in
-    the others too."""
+    256, rows that fit a group's slots) as "<name>_group_bf16", and of the
+    sstats kernel's bf16 build the launches of its tensor-core kernel (K <=
+    256) as "dense_sstats_mma_bf16" and "dense_sstats_range_mma_bf16",
+    counted in the others too."""
     out = {}
     for name, mod in mods.items():
         out[name] = mod.LAUNCHES
@@ -1247,6 +1305,9 @@ def read_launches(mods) -> dict:
             out[f"{name}_cluster_bf16"] = mod.BF16_CLUSTER_LAUNCHES
         if hasattr(mod, "BF16_GROUP_LAUNCHES"):
             out[f"{name}_group_bf16"] = mod.BF16_GROUP_LAUNCHES
+        if hasattr(mod, "BF16_MMA_LAUNCHES"):
+            out[f"{name}_mma_bf16"] = mod.BF16_MMA_LAUNCHES
+            out[f"{name}_range_mma_bf16"] = mod.BF16_RANGE_MMA_LAUNCHES
         if hasattr(mod, "RANGE_LAUNCHES"):
             out[f"{name}_range"] = mod.RANGE_LAUNCHES
             out[f"{name}_range_bf16"] = mod.BF16_RANGE_LAUNCHES
@@ -1968,7 +2029,8 @@ def run_cli(mods, mode: str, compute_dtype: str = "float32",
           f"{run.name}; final held-out perplexity {ppl:.4f}")
     counts = read_launches(mods)
     if needed is None:
-        needed = (f"dense_gamma{suffix}", f"dense_sstats{suffix}")
+        needed = (f"dense_gamma{suffix}", f"dense_sstats{suffix}") + (
+            ("dense_sstats_mma_bf16",) if suffix else ())
     check_launched(label, counts, needed)
     return counts
 
@@ -3628,6 +3690,8 @@ counts["dense_sstats_range"] = sstats.RANGE_LAUNCHES
 counts["dense_sstats_range_bf16"] = sstats.BF16_RANGE_LAUNCHES
 counts["dense_sstats_range_wide"] = sstats.RANGE_WIDE_LAUNCHES
 counts["dense_sstats_range_wide_bf16"] = sstats.BF16_RANGE_WIDE_LAUNCHES
+counts["dense_sstats_mma_bf16"] = sstats.BF16_MMA_LAUNCHES
+counts["dense_sstats_range_mma_bf16"] = sstats.BF16_RANGE_MMA_LAUNCHES
 print("LAUNCHES " + json.dumps(counts), flush=True)
 sys.exit(rc)
 """
@@ -3993,7 +4057,10 @@ def shard_phases(mods, by_path: dict, coll: dict, refs: dict, gloo2: list
         needed = tuple(f"{k}{suffix}" for k in (
             "ragged_gamma", "dense_sstats")
             + (("dense_sstats_range",) if topics else ())
-            + (("dense_sstats_wide",) if svi5 else ()))
+            + (("dense_sstats_wide",) if svi5 else ())
+            # bf16 at K <= 256: the sstats tensor-core kernel.
+            + (("dense_sstats_mma",) if suffix and not svi5 else ())
+            + (("dense_sstats_range_mma",) if suffix and topics else ()))
         for r, row in enumerate(rows):
             got = row[phase]
             check_launched(f"{label} rank {r}", got["launches"], needed,
@@ -4971,10 +5038,12 @@ def main() -> int:
                             iteration_ms=r32["iteration_ms"])
         roofline[route] = rl["rows"]
         by_path[f"roofline_{route}"] = rl["launches"]
-        # In bf16 every flagship launch takes the warp-group kernel.
+        # In bf16 every flagship launch takes the warp-group kernel, and
+        # every sstats launch the tensor-core kernel.
         r16 = run_engine(f"{label} bf16", cfg16, *data, dev, mods,
                          (f"{gamma}_bf16", f"{gamma}_group_bf16",
-                          "dense_sstats_bf16"), absent=off)
+                          "dense_sstats_bf16", "dense_sstats_mma_bf16"),
+                         absent=off)
         del r16["engine"]
         hold_bf16(label, r32, r16)
         by_path[route] = r32["launches"]
@@ -5230,6 +5299,28 @@ def main() -> int:
             **{k: line[k] for k in ("max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by", "full_range_ms")},
             "library_ms": None, "shapes": range_lines[cd]})
+    # The bf16 build's tensor-core kernel (K <= 256: every bf16 sstats
+    # launch of the flagships, the bf16 CLIs and shard_topics_vb's bf16
+    # run), counted in "dense_sstats_bf16" (and its range launches in
+    # "dense_sstats_range_bf16") too: its lines are the ragged flagship
+    # chunk's and the dense final pass's, and the chunk's topic halves.
+    for name, line, shapes in (
+            ("dense_sstats_mma_bf16", ss16_shapes[0],
+             [r for r in ss16_shapes if r.get("route") == "mma"]),
+            ("dense_sstats_range_mma_bf16", range_lines[BF16][0],
+             [r for r in range_lines[BF16] if r.get("route") == "mma"])):
+        f32 = record["kernels"][0]
+        record["kernels"].append({
+            **{k: f32[k] for k in ("route", "source", "replaces")},
+            "name": name, "build": "-DPYLDA_BF16=1",
+            "core": "pylda_tpu_torch/csrc/dense_sstats_mma.cuh",
+            "entry": "pylda_dense_sstats_range",
+            "launches": launches[name], "launches_by_path": paths[name],
+            **{k: line[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by")},
+            "library_ms": None, "shapes": shapes})
+        if not launches[name] or not shapes:
+            raise AssertionError(f"{name}: no launch on the main paths")
     # The sstats cluster kernel at 256 < K <= 4096 (SVI config 5's K = 1000
     # chunk, the dense K = 1000 final pass): counted in "dense_sstats" and
     # "dense_sstats_wide" too (every cluster launch at any K); its launches

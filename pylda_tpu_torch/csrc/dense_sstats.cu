@@ -89,11 +89,12 @@
 // bf16 operands (built with -DPYLDA_BF16=1, ops/_build.py): the function
 // of estep_dense_sstats(compute_dtype="bfloat16") and of the Pallas
 // kernel's bf16 mode.  expEtheta (in phinorm and in the sums), expElogbeta
-// as phinorm reads it, and the ratio are rounded to bf16 (nearest even)
-// where the walk reads or forms them; the sums stay f32.  phinorm, hence
-// the score, and the epilogue's multiply by expElogbeta use the staged
-// f32 values: the tile is staged in f32 and rounded only when phinorm
-// reads it.
+// as phinorm reads it, and the ratio are rounded to bf16 (nearest even);
+// the sums stay f32; the score and the epilogue's multiply by expElogbeta
+// use f32 values.  At K <= 256 the bf16 build runs the tensor-core kernel
+// of dense_sstats_mma.cuh (both products on mma.sync over the dense
+// tile) in place of the walk, which only the float32 build keeps; above
+// 256 the cluster kernel rounds its operands where it reads them.
 
 #include <cooperative_groups.h>
 #include <cuda.h>
@@ -179,9 +180,6 @@ __device__ __forceinline__ float4 lds4(const float* p) {
 // (nearest even) and widened back.
 __device__ __forceinline__ float operand(float x) {
   return kBf16 ? __bfloat162float(__float2bfloat16_rn(x)) : x;
-}
-__device__ __forceinline__ float4 operand4(float4 v) {
-  return make_float4(operand(v.x), operand(v.y), operand(v.z), operand(v.w));
 }
 
 // Issues the copies of counts rows [d0, d0 + kRows) x columns
@@ -375,8 +373,8 @@ __global__ void __launch_bounds__(kThreads) dense_sstats_kernel(
       if (on) {  // lanes without a nonzero read nothing
 #pragma unroll
         for (int i = 0; i < N4; ++i) {
-          const float4 e = operand4(lds4(e_r + 4 * LPC * i));
-          const float4 b = operand4(lds4(bcol + 4 * LPC * i));
+          const float4 e = lds4(e_r + 4 * LPC * i);
+          const float4 b = lds4(bcol + 4 * LPC * i);
           q.x = fmaf(e.x, b.x, q.x);
           q.y = fmaf(e.y, b.y, q.y);
           q.z = fmaf(e.z, b.z, q.z);
@@ -391,12 +389,12 @@ __global__ void __launch_bounds__(kThreads) dense_sstats_kernel(
       if (on) {
         const float cv = to_float(cnt[r * cnt_ld<CT>() + c]);
         const float pn = p + eps;
-        const float ratio = operand(cv / pn);
+        const float ratio = cv / pn;
         if (j == 0) score += (double)(cv * logf(pn));
 #pragma unroll
         for (int i = 0; i < N4; ++i) {
           if (!kept(i)) continue;
-          const float4 e = operand4(lds4(e_r + 4 * LPC * i));
+          const float4 e = lds4(e_r + 4 * LPC * i);
           acc[i].x = fmaf(e.x, ratio, acc[i].x);
           acc[i].y = fmaf(e.y, ratio, acc[i].y);
           acc[i].z = fmaf(e.z, ratio, acc[i].z);
@@ -1569,6 +1567,10 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
+#if PYLDA_BF16
+#include "dense_sstats_mma.cuh"
+#endif
+
 }  // namespace
 
 extern "C" {
@@ -1584,7 +1586,14 @@ extern "C" {
 // kTileV (64); the plan (ops/sstats.py::plan) gives it, the build (keyed
 // on K), QR, splits and rows_per_split (a multiple of 32, splits *
 // rows_per_split >= D).  All row-major and contiguous.  Returns the
-// cudaError_t of the launch.
+// cudaError_t of the launch.  The bf16 build runs the tensor-core kernel
+// of dense_sstats_mma.cuh instead, at every K here and for both count
+// types (ops/sstats.py::mma_plan): COLS = kMmaTileV (64), rows_per_split a
+// multiple of kMmaRows (64), and partial holds expEtheta rounded to bf16
+// ([D, Kp] bf16, Kp = K rounded up to 16: D Kp / 2 floats), then, when
+// splits > 1, the split partials [tiles * splits * 2048 * MT2] f32 (MT2 =
+// mma_tiles_a_warp(Kp / 16)); two launches (the rounding, then the
+// kernel).
 int pylda_dense_sstats_range(const void* counts, int counts_bf16,
                              const void* et, const void* eeb, void* sstats,
                              void* score_part, void* score_out, void* partial,
@@ -1596,6 +1605,16 @@ int pylda_dense_sstats_range(const void* counts, int counts_bf16,
       (long long)splits * rows_per_split < D)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#if PYLDA_BF16
+  if (counts_bf16)
+    return (int)dispatch_mma<__nv_bfloat16>(K, counts, et, eeb, sstats,
+                                            score_part, score_out, partial,
+                                            counters, D, Vc, V, k0, k1, eps,
+                                            splits, rows_per_split, s);
+  return (int)dispatch_mma<float>(K, counts, et, eeb, sstats, score_part,
+                                  score_out, partial, counters, D, Vc, V, k0,
+                                  k1, eps, splits, rows_per_split, s);
+#else
   if (counts_bf16)
     return (int)dispatch<__nv_bfloat16>(K, counts, et, eeb, sstats,
                                         score_part, score_out, partial,
@@ -1604,6 +1623,7 @@ int pylda_dense_sstats_range(const void* counts, int counts_bf16,
   return (int)dispatch<float>(K, counts, et, eeb, sstats, score_part,
                               score_out, partial, counters, D, Vc, V, k0, k1,
                               eps, splits, rows_per_split, s);
+#endif
 }
 
 // Above K = 256, the cluster kernel (one launch).  counts: [D, Vc] bf16

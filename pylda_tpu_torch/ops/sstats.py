@@ -38,7 +38,13 @@ memory); nothing caps K but the card's memory.
 ``compute_dtype="bfloat16"`` launches its bf16 build
 (``ops/_build.py``: expEtheta, expElogbeta in phinorm and the ratio
 rounded to bf16, the outer multiply by expElogbeta in float32), never the
-float32 build.
+float32 build.  At K <= ``ONE_PASS_MAX_TOPICS`` that build runs a
+tensor-core kernel (``csrc/dense_sstats_mma.cuh``) instead of the walk:
+both products on ``mma.sync`` over the dense tile, planned by
+``mma_plan`` (64-column tiles, 64-row chunks, expEtheta rounded to
+bf16 once a call into the scratch), counted in ``BF16_MMA_LAUNCHES`` (and
+``BF16_RANGE_MMA_LAUNCHES``) too; its topic range is bitwise the full
+call's rows as well.
 
 ``topic_range=(k0, k1)`` (lambda split over topics,
 ``parallel/lam_shard.py``) returns rows k0..k1-1 only, as a [k1 - k0, V]
@@ -77,6 +83,10 @@ WIDE_LAUNCHES = 0
 BF16_WIDE_LAUNCHES = 0
 RANGE_WIDE_LAUNCHES = 0
 BF16_RANGE_WIDE_LAUNCHES = 0
+# Of the bf16 launches, those of the tensor-core kernel (every bf16 call at
+# K <= ONE_PASS_MAX_TOPICS), and of those the topic-range ones.
+BF16_MMA_LAUNCHES = 0
+BF16_RANGE_MMA_LAUNCHES = 0
 # Largest topic count of the one-pass kernel (its largest build); above it
 # the cluster kernel.
 ONE_PASS_MAX_TOPICS = 256
@@ -123,6 +133,19 @@ BUILDS = ((1, 4), (2, 4), (4, 4), (7, 4), (8, 4), (16, 4))
 # too few CTAs to hide each chunk's latency.)
 MIN_CTAS_PER_SM = 2
 CHUNKS_PER_SPLIT = 26
+# The bf16 build's tensor-core kernel at K <= ONE_PASS_MAX_TOPICS
+# (``csrc/dense_sstats_mma.cuh``'s constants): MMA_TILE_V columns a tile
+# (kMmaTileV), chunks of MMA_ROWS rows (kMmaRows) in MMA_BUFS buffers
+# (kMmaBufs), bf16 tile rows of MMA_LD_V elements (kMmaLdV).  Its row
+# splits minimise rounds x (chunks a split + MMA_SPLIT_COST): a round is
+# as many CTAs an SM as run at once (``mma_plan``), and MMA_SPLIT_COST
+# chunks' time is a split's own cost (staging the expElogbeta tile,
+# storing and meeting its partials).
+MMA_TILE_V = 64
+MMA_ROWS = 64
+MMA_BUFS = 3
+MMA_LD_V = MMA_TILE_V + 8
+MMA_SPLIT_COST = 2
 
 _BOUND = set()
 
@@ -155,6 +178,8 @@ class Plan:
     batch: int = 0
     direct: bool = False
     smem_bytes: int = 0
+    mma: bool = False
+    D: int = 0
 
     @property
     def wide(self) -> bool:
@@ -168,8 +193,23 @@ class Plan:
         return self.tiles * self.splits
 
     @property
+    def mma_tiles(self) -> int:
+        """The tensor-core kernel's topic tiles a warp (MT2 of
+        ``mma_tiles_a_warp``): ceil(kp / 32) rounded up to a power of
+        two."""
+        mt = self.kp // 16
+        return 1 if mt <= 2 else 2 if mt <= 4 else 4 if mt <= 8 else 8
+
+    @property
     def partial_floats(self) -> int:
-        """f32 scratch of the splits' partial sums (none for one split)."""
+        """f32 scratch of the splits' partial sums (none for one split);
+        the tensor-core kernel's also holds expEtheta rounded to bf16 ahead
+        of them, [D, kp] bf16, and its partials are 8 * mma_tiles floats a
+        thread of a split."""
+        if self.mma:
+            parts = (0 if self.splits == 1
+                     else self.blocks * 8 * THREADS * self.mma_tiles)
+            return self.D * self.kp // 2 + parts
         if self.splits == 1:
             return 0
         return self.blocks * self.cols * 4 * self.qr
@@ -236,6 +276,49 @@ def wide_plan(K: int, count_bytes: int = 2
     return cluster, slice_, cols, batch, direct
 
 
+def mma_smem_bytes(K: int, count_bytes: int = 2) -> int:
+    """The tensor-core kernel's dynamic shared memory a CTA: ``MmaLayout``
+    of ``csrc/dense_sstats_mma.cuh`` (bf16 counts take their ratios in
+    place, f32 counts a tile of its own)."""
+    kp = -(-K // 16) * 16
+    cnt_ld = MMA_TILE_V + 16 // count_bytes
+    return (kp * MMA_LD_V * 2 + MMA_BUFS * MMA_ROWS * (kp + 8) * 2
+            + MMA_BUFS * MMA_ROWS * cnt_ld * count_bytes
+            + (0 if count_bytes == 2 else MMA_ROWS * MMA_LD_V * 2))
+
+
+@functools.lru_cache(maxsize=256)
+def mma_plan(D: int, Vc: int, K: int, sms: int, count_bytes: int = 2
+             ) -> Plan:
+    """The bf16 build's grid at K <= ONE_PASS_MAX_TOPICS (the tensor-core
+    kernel): MMA_TILE_V-column tiles, kp = K rounded up to 16, and the
+    row splits (whole MMA_ROWS-row chunks, none empty) that minimise
+    rounds x (chunks a split + MMA_SPLIT_COST), a round being as many CTAs
+    an SM as run at once (two at the flagships' K = 100, one past
+    kp = 128), the fewest splits on a tie.  The same for any topic
+    range.  Cached: an engine's calls repeat a few shapes, and the search
+    is host time on every call."""
+    kp = -(-K // 16) * 16
+    tiles = max(1, -(-Vc // MMA_TILE_V))
+    chunks = max(1, -(-D // MMA_ROWS))
+    smem = mma_smem_bytes(K, count_bytes)
+    # Past kp = 128 a thread's registers (ptxas: ~165) leave room for one
+    # CTA an SM; below, the shared memory says.
+    at_once = 1 if kp > 128 else max(1, min(2, SMEM_LIMIT // (smem + 1024)))
+    best = None
+    for splits in range(1, chunks + 1):
+        per = -(-chunks // splits)
+        if (splits - 1) * per >= chunks:
+            continue  # an empty split
+        per_sm = -(-tiles * splits // sms)
+        cost = -(-per_sm // at_once) * (per + MMA_SPLIT_COST)
+        if best is None or cost < best[0]:
+            best = (cost, splits, per)
+    _, splits, per = best
+    return Plan(tiles=tiles, splits=splits, rows_per_split=per * MMA_ROWS,
+                kp=kp, cols=MMA_TILE_V, smem_bytes=smem, mma=True, D=D)
+
+
 def build_for(K: int) -> Tuple[int, int]:
     """(n4, lanes) of the one-pass kernel build that runs at K topics."""
     if not 1 <= K <= ONE_PASS_MAX_TOPICS:
@@ -246,7 +329,7 @@ def build_for(K: int) -> Tuple[int, int]:
 
 def plan(D: int, Vc: int, K: int, sms: int,
          topic_range: Optional[Tuple[int, int]] = None,
-         count_bytes: int = 2) -> Plan:
+         count_bytes: int = 2, compute_dtype: str = "float32") -> Plan:
     """The grid for counts [D, Vc] at K topics on a card of ``sms`` SMs:
     the build's tile width, then the fewest row splits that give
     ``MIN_CTAS_PER_SM`` CTAs an SM and at most ``CHUNKS_PER_SPLIT`` 32-row
@@ -256,10 +339,13 @@ def plan(D: int, Vc: int, K: int, sms: int,
     Without one a column's partials take kp floats, the length every
     build of the kernel's source has used.  Above ONE_PASS_MAX_TOPICS the
     cluster kernel's plan (``wide_plan``; its batch depends on the counts'
-    ``count_bytes``, 2 for bf16, 4 for f32), the same for any range."""
+    ``count_bytes``, 2 for bf16, 4 for f32), the same for any range; at
+    or below it in bf16 the tensor-core kernel's (``mma_plan``)."""
     if K < 1:
         raise ValueError(f"K must be at least 1, got {K}")
     k0, k1 = check_topic_range(topic_range, K)
+    if check_compute_dtype(compute_dtype) and K <= ONE_PASS_MAX_TOPICS:
+        return mma_plan(D, Vc, K, sms, count_bytes)
     if K > ONE_PASS_MAX_TOPICS:
         cluster, slice_, cols, batch, direct = wide_plan(K, count_bytes)
         return Plan(tiles=max(1, -(-Vc // cols)), splits=1,
@@ -363,7 +449,8 @@ def dense_sstats(
     token score 0-d) — see ``estep_dense_sstats``."""
     global LAUNCHES, BF16_LAUNCHES, RANGE_LAUNCHES, BF16_RANGE_LAUNCHES
     global WIDE_LAUNCHES, BF16_WIDE_LAUNCHES, RANGE_WIDE_LAUNCHES
-    global BF16_RANGE_WIDE_LAUNCHES
+    global BF16_RANGE_WIDE_LAUNCHES, BF16_MMA_LAUNCHES
+    global BF16_RANGE_MMA_LAUNCHES
     check_compute_dtype(compute_dtype)
     if not counts.is_cuda:
         return estep_dense_sstats(counts, exp_etheta, exp_elog_beta, eps,
@@ -384,7 +471,8 @@ def dense_sstats(
     dev = counts.device
     if exp_etheta.device != dev or exp_elog_beta.device != dev:
         raise ValueError("all inputs must be on one device")
-    pl = plan(D, Vc, K, _sms(dev.index), topic_range, counts.element_size())
+    pl = plan(D, Vc, K, _sms(dev.index), topic_range, counts.element_size(),
+              compute_dtype)
     out = launch(_lib(compute_dtype), counts.contiguous(), exp_etheta.contiguous(),
                  exp_elog_beta.contiguous(), eps, topic_range, pl)
     narrow = (k0, k1) != (0, K)
@@ -394,6 +482,8 @@ def dense_sstats(
         BF16_RANGE_LAUNCHES += narrow
         BF16_WIDE_LAUNCHES += wide
         BF16_RANGE_WIDE_LAUNCHES += narrow and wide
+        BF16_MMA_LAUNCHES += pl.mma
+        BF16_RANGE_MMA_LAUNCHES += narrow and pl.mma
     else:
         LAUNCHES += 1
         RANGE_LAUNCHES += narrow
@@ -412,9 +502,10 @@ def launch(lib: ctypes.CDLL, counts: torch.Tensor, exp_etheta: torch.Tensor,
     (sstats, score); raises if the launch fails.  Without a
     ``topic_range`` it calls the full-range entry, which a library built
     from an older source also has.  A wide plan (``plan_``, default
-    ``plan``'s): the cluster kernel (a direct plan at another K's cluster
-    and slice is the check of its bits), with its geometry (clusters,
-    shared memory a CTA, grid) in ``geometry_out``."""
+    ``plan``'s in float32; a bf16 library at K <= ONE_PASS_MAX_TOPICS takes
+    the bf16 plan): the cluster kernel (a direct plan at another K's
+    cluster and slice is the check of its bits), with its geometry
+    (clusters, shared memory a CTA, grid) in ``geometry_out``."""
     D, Vc = counts.shape
     K, V = exp_elog_beta.shape
     k0, k1 = check_topic_range(topic_range, K)

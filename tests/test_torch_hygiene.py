@@ -171,6 +171,9 @@ _CONSTANT_MIRRORS = [
     ("sstats", "WIDE_PUSH_CAP", "dense_sstats.cu", "kWidePushCap"),
     ("sstats", "WIDE_MAX_CLUSTER", "dense_sstats.cu", "kWideMaxCluster"),
     ("sstats", "WIDE_MAX_BATCH", "dense_sstats.cu", "kWideMaxBatch"),
+    ("sstats", "MMA_TILE_V", "dense_sstats_mma.cuh", "kMmaTileV"),
+    ("sstats", "MMA_ROWS", "dense_sstats_mma.cuh", "kMmaRows"),
+    ("sstats", "MMA_BUFS", "dense_sstats_mma.cuh", "kMmaBufs"),
 ]
 
 

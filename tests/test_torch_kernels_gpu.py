@@ -42,7 +42,10 @@ to its share at the float64 plain version's gamma, to rel 1e-5.  The
 bf16 warp-group kernel (K <= 256, ``csrc/row_fixed_point_groups.cuh``)
 is held at K in ``GROUP_K`` on rows up to a group's capacity and one
 past it, its exit records against the plain loop's rule on its own
-trajectory.  The
+trajectory.  The bf16 build's tensor-core sstats kernel (K <= 256,
+``csrc/dense_sstats_mma.cuh``) is held at K in ``MMA_K`` and densities 0
+to 100% by the bf16 hold, two calls bitwise and its launch counters, with
+topic ranges off its 16-topic tiles bitwise the full launch's rows.  The
 sampling engines (plain PyTorch, no kernel) are held here too: each
 sampler's sweep on the card against the CPU from the same noise (z equal
 but on at most 0.1% of the documents), count tables bitwise, and both
@@ -1599,6 +1602,76 @@ def test_dense_sstats_bf16_build_matches_plain(cuda, K, bf16):
     assert float(off.float().mean()) > 0.1
 
 
+# -- the bf16 build's tensor-core kernel (K <= 256) ---------------------------
+#
+# ``csrc/dense_sstats_mma.cuh``: both products on mma.sync over the dense
+# tile, every bf16 launch at K <= 256.  K on and off multiples of 16 (zero
+# topics up to the next), rows off the 64-row chunk and the splits, columns
+# off the 64-column tile, bf16 counts at even K and f32 counts at odd K.
+
+MMA_K = [1, 7, 16, 17, 100, 128, 200, 255, 256]
+MMA_COUNTERS = ("LAUNCHES", "BF16_LAUNCHES", "BF16_MMA_LAUNCHES",
+                "BF16_WIDE_LAUNCHES")
+
+
+@pytest.mark.parametrize("density", [0.0, 0.012, 0.03, 1.0])
+@pytest.mark.parametrize("K", MMA_K)
+def test_dense_sstats_mma_kernel_matches_plain(cuda, K, density):
+    """Against the plain version's bf16 mode (``_hold_bf16_sstats``, the
+    score to rel 1e-5), two calls bitwise equal, and each call one launch
+    of the tensor-core kernel (padded rows and columns; all-zero counts
+    give exactly zero)."""
+    ct, et, eeb = _sparse_sstats_inputs(333, 500, K, 28, 7, density,
+                                        K % 2 == 0, cuda, hot=density > 0)
+    pl = sstats_mod.plan(*ct.shape, K, sstats_mod._sms(0),
+                         count_bytes=ct.element_size(), compute_dtype=BF16)
+    assert pl.mma and pl.kp == -(-K // 16) * 16
+    before = [getattr(sstats_mod, c) for c in MMA_COUNTERS]
+    ss, tok = sstats_mod.dense_sstats(ct, et, eeb, compute_dtype=BF16)
+    ss2, tok2 = sstats_mod.dense_sstats(ct, et, eeb, compute_dtype=BF16)
+    assert [getattr(sstats_mod, c) for c in MMA_COUNTERS] == [
+        before[0], before[1] + 2, before[2] + 2, before[3]]
+    ss_p, tok_p = estep_dense_sstats(ct, et, eeb, compute_dtype=BF16)
+    torch.cuda.synchronize()
+    assert ss.shape == (K, 500)
+    assert torch.equal(ss, ss2) and torch.equal(tok, tok2)
+    if density == 0.0:
+        assert bool((ss == 0).all()) and float(tok) == 0.0
+        return
+    _hold_bf16_sstats(ss, ss_p)
+    assert float(tok) == pytest.approx(float(tok_p), rel=1e-5)
+
+
+@pytest.mark.parametrize("bf16", [True, False], ids=["bf16", "f32"])
+def test_dense_sstats_mma_kernel_topic_range(cuda, bf16):
+    """K = 200, ranges off the 16-topic tiles ((3, 37), (100, 200)) and the
+    full range: the range's rows and score bitwise the full launch's, each
+    launch counted as a range launch of the tensor-core kernel; many row
+    splits a tile."""
+    K = 200
+    ct, et, eeb = _sparse_sstats_inputs(2000, 300, K, 20, 3, 0.03, bf16,
+                                        cuda, hot=True, full_row=True)
+    mode = dict(compute_dtype=BF16)
+    assert sstats_mod.plan(*ct.shape, K, sstats_mod._sms(0),
+                           count_bytes=ct.element_size(), **mode).splits > 1
+    ss, tok = sstats_mod.dense_sstats(ct, et, eeb, **mode)
+    for k0, k1 in ((3, 37), (100, 200), (0, K)):
+        before = (sstats_mod.BF16_RANGE_MMA_LAUNCHES,
+                  sstats_mod.BF16_MMA_LAUNCHES)
+        ss_r, tok_r = sstats_mod.dense_sstats(ct, et, eeb,
+                                              topic_range=(k0, k1), **mode)
+        narrow = (k0, k1) != (0, K)
+        assert (sstats_mod.BF16_RANGE_MMA_LAUNCHES,
+                sstats_mod.BF16_MMA_LAUNCHES) == (before[0] + narrow,
+                                                  before[1] + 1)
+        ss_p, _ = estep_dense_sstats(ct, et, eeb, topic_range=(k0, k1),
+                                     **mode)
+        torch.cuda.synchronize()
+        assert ss_r.shape == (k1 - k0, 300)
+        assert torch.equal(ss_r, ss[k0:k1]) and torch.equal(tok_r, tok)
+        _hold_bf16_sstats(ss_r, ss_p)
+
+
 def _bf16_ragged_inputs(K, T, dev, seed=11):
     """40 rows of 1 to T live slots (some rows of the register tile, of
     the slot buffer and past it, by K and T) at a sharp lambda."""
@@ -1945,6 +2018,36 @@ def test_group_kernel_matches_plain(cuda, layout, K, past):
         r0 += n
     ids, cnts = _entries(layout, rows)
     _hold_bf16_shares(ids, cnts, g, g_p, g_64, eeb, alpha)
+
+
+def test_rows_kernel_map_along_its_trajectory(cuda):
+    """ROADMAP Queue 3's input (``_group_inputs(128, True, .., "dense")``,
+    whose ``dense-128-past`` case misses the share hold) on its worst row
+    alone: row 28, 16 live entries, the largest share gap
+    (``scripts/torch_gamma_bf16_rows_diagnose.py``), on the bf16
+    row-resident kernel (``max_nnz`` the batch's 193: the "rows" route).
+    At every pinned sweep n = 1..50 the kernel's gamma after n sweeps is
+    one plain bf16 sweep from the kernel's own gamma after n - 1
+    (``_hold_bf16_gamma``; at most 4.4e-6 rel on the card): the kernel
+    computes the bf16 map at every state it visits, so its trajectory and
+    the plain version's part by the growth of float32 rounding
+    differences along a row still moving at the sweep cap, not by a
+    rounding point of the kernel."""
+    rows, g0, eeb, alpha, live = _group_inputs(128, True, cuda, "dense")
+    ct, g_prev = rows[0][28:29], g0[28:29]
+    assert int((ct != 0).sum()) == 16
+    pin = dict(convergence_threshold=0.0, compute_dtype=BF16)
+    geo, nmax = {}, int(live.max())
+    for n in range(1, 51):
+        g_n = dense_mod.dense_estep(ct, g0[28:29], eeb, alpha,
+                                    inner_iterations=n, max_nnz=nmax,
+                                    geometry_out=geo, **pin)[0]
+        step = estep_dense(ct, g_prev, eeb, alpha, inner_iterations=1,
+                           **pin)[0]
+        torch.cuda.synchronize()
+        assert geo["route"] == "rows"
+        _hold_bf16_gamma(g_n, step, ct != 0)
+        g_prev = g_n
 
 
 def test_group_kernel_stalled_rows_keep_their_bound(cuda):

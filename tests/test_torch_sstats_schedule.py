@@ -14,12 +14,19 @@ version's result: to 1e-12 in float64, and, in float32, JAX's
 order (``torch_sstats_model.cluster_sstats``) is held the same way at
 K in {257, 300, 512, 513, 1000, 1025, 2048, 2049, 4096}, at the plan's
 cluster (1, 2, 4 or 8 CTAs), with a topic range bitwise the full call's
-rows.  The plan's own tests:
+rows.  The bf16 build's tensor-core kernel at K <= 256
+(``torch_sstats_model.mma_sstats``: 16 x 8 output tiles, k16 steps,
+64-row chunks, splits met in order) is held against the plain version in
+float64 (both operand modes, rtol 1e-12) and, in float32 with bf16
+operands, against JAX's ``estep_dense_sstats`` and the Pallas kernel in
+interpret mode at K in {1, 7, 100, 200, 256}, with a topic range bitwise
+the full model's rows.  The plan's own tests:
 >= 2 CTAs an SM at both flagship shapes on 132 SMs, splits that cover
 every row, scratch that covers every split, the builds read from the
 source, and which K each kernel takes.
 """
 
+import dataclasses
 import itertools
 import re
 
@@ -29,11 +36,12 @@ import pytest
 import torch
 
 from pylda_tpu.ops.estep import estep_dense_sstats as jax_dense_sstats
+from pylda_tpu.ops.pallas_sstats import pallas_dense_sstats
 from pylda_tpu_torch.ops import _build
 from pylda_tpu_torch.ops import sstats as sstats_mod
 from pylda_tpu_torch.ops.dirichlet import exp_dirichlet_expectation
 from pylda_tpu_torch.ops.estep import estep_dense_sstats
-from torch_sstats_model import cluster_sstats
+from torch_sstats_model import cluster_sstats, mma_sstats
 
 H100_SMS = 132
 
@@ -306,3 +314,122 @@ def test_plan_refuses_what_the_kernel_does_not_take():
         sstats_mod.build_for(257)
     with pytest.raises(ValueError):
         sstats_mod.plan(10, 10, 0, H100_SMS)
+
+
+# The tensor-core kernel's range (bf16, K <= 256), (D, V, K, v_pad,
+# pad_rows, density): K off and on multiples of 16, rows off the 64-row
+# chunk, columns off the 64-column tile.
+_MMA_CASES = [
+    (150, 200, 1, 12, 3, 0.05),
+    (130, 90, 7, 6, 5, 0.08),
+    (200, 150, 100, 24, 0, 0.03),
+    (70, 130, 200, 0, 9, 0.05),
+    (100, 64, 256, 5, 2, 0.1),
+]
+
+
+def _mma_plan(D, Vc, K, splits):
+    """The tensor-core kernel's plan with ``splits`` row splits of whole
+    64-row chunks (so that the splits' meeting order is exercised)."""
+    pl = sstats_mod.plan(D, Vc, K, H100_SMS, compute_dtype="bfloat16")
+    chunks = -(-D // sstats_mod.MMA_ROWS)
+    per = -(-chunks // splits)
+    return dataclasses.replace(pl, splits=-(-chunks // per),
+                               rows_per_split=per * sstats_mod.MMA_ROWS)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D,V,K,v_pad,pad_rows,density", _MMA_CASES,
+                         ids=[f"K{c[2]}" for c in _MMA_CASES])
+def test_mma_order_matches_plain_f64(D, V, K, v_pad, pad_rows, density,
+                                     compute_dtype):
+    """The tensor-core kernel's order in float64 against the plain version
+    in float64 with the same operand mode: sstats to 1e-12, the score
+    rel 1e-12."""
+    counts, et, eeb = _case(D, V, K, v_pad, pad_rows, density, seed=D + V,
+                            dtype=torch.float64)
+    pl = _mma_plan(D + pad_rows, V + v_pad, K, 3)
+    assert pl.mma and pl.kp == -(-K // 16) * 16 and pl.splits > 1
+    ss, tok = mma_sstats(counts, et, eeb, 1e-30, 0, K, compute_dtype, pl)
+    ss_p, tok_p = estep_dense_sstats(counts, et, eeb, 1e-30,
+                                     compute_dtype=compute_dtype)
+    torch.testing.assert_close(ss, ss_p, rtol=1e-12, atol=1e-300)
+    assert float(tok) == pytest.approx(float(tok_p), rel=1e-12)
+
+
+@pytest.mark.parametrize("D,V,K,v_pad,pad_rows,density", _MMA_CASES,
+                         ids=[f"K{c[2]}" for c in _MMA_CASES])
+def test_mma_order_f32_matches_jax_bf16(D, V, K, v_pad, pad_rows, density):
+    """The tensor-core kernel's order in float32 with bf16 operands
+    against JAX's ``estep_dense_sstats(compute_dtype="bfloat16")`` and the
+    Pallas kernel in its bf16 mode (interpret mode): each a bf16 function
+    whose float32 sums run in another order, so a ratio may round one
+    bf16 ulp apart (the card's hold, ``_hold_bf16_sstats``): at most 1e-3
+    of the entries past 1e-4 rel + 1e-6 max|ref|, every entry within 2^-7
+    rel of it; the score rel 1e-5.  A topic range off the 16-topic tiles
+    is bitwise the full model's rows."""
+    counts, et, eeb = _case(D, V, K, v_pad, pad_rows, density, seed=D + K,
+                            dtype=torch.float32)
+    pl = _mma_plan(D + pad_rows, V + v_pad, K, 2)
+    ss, tok = mma_sstats(counts, et, eeb, 1e-30, 0, K, "bfloat16", pl)
+    args = [jnp.asarray(x.numpy()) for x in (counts, et, eeb)]
+    for ss_r, tok_r in (
+            jax_dense_sstats(*args, compute_dtype="bfloat16"),
+            pallas_dense_sstats(*args, compute_dtype="bfloat16",
+                                interpret=True)):
+        ref = torch.tensor(np.asarray(ss_r))[:, :V]
+        diff, atol = (ss - ref).abs(), 1e-6 * float(ref.abs().max())
+        off = diff > 1e-4 * ref.abs() + atol
+        assert float(off.float().mean()) <= 1e-3, int(off.sum())
+        assert bool((diff <= 2.0 ** -7 * ref.abs() + atol).all())
+        assert float(tok) == pytest.approx(float(tok_r), rel=1e-5)
+    k0, k1 = (3, K - 5) if K >= 10 else (0, 1)
+    part, tok_part = mma_sstats(counts, et, eeb, 1e-30, k0, k1, "bfloat16",
+                                pl)
+    assert torch.equal(part, ss[k0:k1]) and torch.equal(tok_part, tok)
+
+
+@pytest.mark.parametrize(
+    "D,Vc,K,tiles,cols,splits",
+    [(4096, 10240, 100, 160, 64, 3), (4096, 4096, 100, 64, 64, 4),
+     (1024, 50176, 200, 784, 64, 1), (4096, 10240, 256, 160, 64, 4)])
+def test_mma_plan_at_the_flagships(D, Vc, K, tiles, cols, splits):
+    """The tensor-core kernel's grid on 132 SMs: the ragged flagship's
+    chunk and the dense flagship's batch (two CTAs an SM), the config-4
+    block at K = 200 and the chunk at K = 256 (one CTA an SM): 64-column
+    tiles, splits of whole 64-row chunks covering every row, and scratch
+    for the rounded expEtheta and the splits' partials."""
+    pl = sstats_mod.plan(D, Vc, K, H100_SMS, compute_dtype="bfloat16")
+    assert pl.mma and not pl.wide
+    assert (pl.tiles, pl.splits, pl.cols) == (tiles, splits, cols)
+    assert pl.rows_per_split % sstats_mod.MMA_ROWS == 0
+    assert pl.splits * pl.rows_per_split >= D
+    assert (pl.splits - 1) * pl.rows_per_split < D
+    assert pl.smem_bytes == sstats_mod.mma_smem_bytes(K)
+    assert pl.smem_bytes <= sstats_mod.SMEM_LIMIT
+    parts = 0 if splits == 1 else (pl.blocks * 8 * sstats_mod.THREADS
+                                   * pl.mma_tiles)
+    assert pl.partial_floats == D * pl.kp // 2 + parts
+    assert pl.scratch_bytes == (8 * pl.blocks + 4 * pl.partial_floats
+                                + 4 * (pl.tiles + 1))
+
+
+def test_mma_plan_takes_the_bf16_build_at_k_256_and_below():
+    """Every bf16 plan at K <= 256 is the tensor-core kernel's, for both
+    count types and any topic range; the float32 plans and every plan
+    above 256 are the others' and unchanged by the mode."""
+    for K in (1, 7, 16, 17, 100, 128, 200, 255, 256):
+        for count_bytes in (2, 4):
+            pl = sstats_mod.plan(300, 500, K, H100_SMS, (0, 1), count_bytes,
+                                 "bfloat16")
+            assert pl.mma and pl.kp == -(-K // 16) * 16, K
+            assert pl.cols == sstats_mod.MMA_TILE_V
+            assert pl.smem_bytes <= sstats_mod.SMEM_LIMIT
+            assert pl.mma_tiles == min(8, 1 << max(
+                0, (-(-pl.kp // 32) - 1).bit_length()))
+            f32 = sstats_mod.plan(300, 500, K, H100_SMS, None, count_bytes)
+            assert not f32.mma and f32.cols == sstats_mod.TILE_V
+    for K in (257, 1000, 8192):
+        assert (sstats_mod.plan(300, 500, K, H100_SMS,
+                                compute_dtype="bfloat16")
+                == sstats_mod.plan(300, 500, K, H100_SMS))

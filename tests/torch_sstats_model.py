@@ -1,7 +1,9 @@
-"""The dense sufficient-statistics cluster kernel's summation order
-(``csrc/dense_sstats.cu``'s cluster kernel, every plan of
-``ops/sstats.py::plan`` above K = 256) in PyTorch, on the CPU: the model
-the CPU tests hold against the plain version and JAX's function."""
+"""The dense sufficient-statistics kernels' summation orders in PyTorch,
+on the CPU: the models the CPU tests hold against the plain version and
+JAX's functions.  ``cluster_sstats``: the cluster kernel
+(``csrc/dense_sstats.cu``, every plan of ``ops/sstats.py::plan`` above
+K = 256).  ``mma_sstats``: the bf16 build's tensor-core kernel at
+K <= 256 (``csrc/dense_sstats_mma.cuh``, ``ops/sstats.py::mma_plan``)."""
 
 import torch
 
@@ -94,3 +96,68 @@ def cluster_sstats(counts, et, eeb, eps, k0, k1, compute_dtype, pl,
     for w in range(WARPS):
         score = score + t[w, 0]
     return eeb[k0:k1] * raw, score
+
+
+MMA_K, MMA_M, MMA_N = 16, 16, 8  # an mma.sync m16n8k16 tile
+
+
+def mma_sstats(counts, et, eeb, eps, k0, k1, compute_dtype, pl):
+    """The tensor-core kernel's order at plan ``pl`` (``pl.mma``): column
+    tiles of ``pl.cols``; in each, the row splits' chunks of
+    ``sstats_mod.MMA_ROWS`` rows in order.  Step A: phinorm of the chunk
+    [rows x cols] as 16 x 8 output tiles accumulated over the k16 steps
+    of topics in order (an mma's 16 products summed as one block, then
+    added), + eps; where a count is nonzero the ratio (bf16: rounded) and
+    the score term C log(phinorm) in float64; zero chunks skipped.  Step
+    B: raw [kp x cols] of the split as 16 x 8 output tiles accumulated
+    over the chunk's k16 steps of rows in order, only the topic tiles
+    that meet [k0, k1); the splits' raw met in split order, times
+    expElogbeta.  The score parts summed in a fixed order (the kernel's
+    per-thread order is another fixed order, not modelled)."""
+    from pylda_tpu_torch.ops import sstats as sstats_mod
+
+    rnd = bf16_round if compute_dtype == "bfloat16" else (lambda x: x)
+    D, Vc = counts.shape
+    K, V = eeb.shape
+    dt = et.dtype
+    kp, cols, R = pl.kp, pl.cols, sstats_mod.MMA_ROWS
+    width = pl.tiles * cols
+    c = torch.nn.functional.pad(counts.to(dt), (0, width - Vc))
+    et_b = torch.nn.functional.pad(rnd(et), (0, kp - K))
+    eeb_b = torch.nn.functional.pad(rnd(eeb), (0, width - V, 0, kp - K))
+    mt_lo, mt_hi = k0 // MMA_M, min(kp // MMA_M, -(-k1 // MMA_M))
+    raw_all = torch.zeros(kp, width, dtype=dt)
+    score = torch.zeros((), dtype=torch.float64)
+    for tile in range(pl.tiles):
+        cs = slice(tile * cols, (tile + 1) * cols)
+        total = None
+        for split in range(pl.splits):
+            raw = torch.zeros(kp, cols, dtype=dt)
+            lo = split * pl.rows_per_split
+            hi = min(D, lo + pl.rows_per_split)
+            for d0 in range(lo, hi, R):
+                rows = torch.arange(d0, d0 + R)
+                live = rows < hi
+                cc = torch.zeros(R, cols, dtype=dt)
+                e = torch.zeros(R, kp, dtype=dt)
+                cc[live] = c[rows[live], cs]
+                e[live] = et_b[rows[live]]
+                if not bool((cc != 0).any()):
+                    continue
+                ph = torch.zeros(R, cols, dtype=dt)
+                for ks in range(0, kp, MMA_K):
+                    ph = ph + e[:, ks:ks + MMA_K] @ eeb_b[ks:ks + MMA_K, cs]
+                pn = ph + eps
+                on = cc != 0
+                ratio = torch.zeros(R, cols, dtype=dt)
+                ratio[on] = rnd(cc[on] / pn[on])
+                for term in (cc[on] * torch.log(pn[on])).to(torch.float64):
+                    score = score + term
+                for ks in range(0, R, MMA_K):
+                    for mt in range(mt_lo, mt_hi):
+                        m = slice(mt * MMA_M, (mt + 1) * MMA_M)
+                        raw[m] = raw[m] + (e[ks:ks + MMA_K, m].T
+                                           @ ratio[ks:ks + MMA_K])
+            total = raw if total is None else total + raw
+        raw_all[:, cs] = total
+    return eeb[k0:k1] * raw_all[k0:k1, :V], score
