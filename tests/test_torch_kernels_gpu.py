@@ -1565,20 +1565,37 @@ def _hold_bf16_sstats_f64(ss, ss_p, ct, et, eeb):
                  <= 2.0 ** -7 * ref.abs() + atol).all())
 
 
-def _shares_err(ids, cnts, g, g_ref, eeb, alpha):
+def _share_gaps(ids, cnts, g, g_ref, eeb, alpha):
+    """Each live row's relative gap of its share of the bound at ``g`` from
+    that at ``g_ref``."""
     live = (cnts != 0).any(dim=1)
     e64, a64 = eeb.double(), alpha.double()
     args = (ids[live], cnts[live].double())
     got = ragged_doc_bound(*args, g[live].double(), e64, a64)
     want = ragged_doc_bound(*args, g_ref[live].double(), e64, a64)
-    return float(((got - want).abs() / want.abs()).max())
+    return (got - want).abs() / want.abs()
 
 
-def _hold_bf16_shares(ids, cnts, g, g_plain, g_64, eeb, alpha):
+def _shares_err(ids, cnts, g, g_ref, eeb, alpha):
+    return float(_share_gaps(ids, cnts, g, g_ref, eeb, alpha).max())
+
+
+def _hold_bf16_shares(ids, cnts, g, g_plain, g_64, eeb, alpha,
+                      g_jax=None, moving=None):
     """The kernel's shares of the bound against the float64 plain
-    version's: within 2e-4, or twice the float32 plain version's gap."""
+    version's: within 2e-4, or twice the float32 plain version's gap; on
+    a row still moving at the sweep cap (``moving``, given ``g_jax``, the
+    JAX package's bf16 result, another float32 reference) also within
+    twice the JAX package's gap on that row."""
     bar = max(2e-4, 2.0 * _shares_err(ids, cnts, g_plain, g_64, eeb, alpha))
-    assert _shares_err(ids, cnts, g, g_64, eeb, alpha) <= bar
+    gaps = _share_gaps(ids, cnts, g, g_64, eeb, alpha)
+    allow = torch.full_like(gaps, bar)
+    if g_jax is not None:
+        live = (cnts != 0).any(dim=1)
+        jax_gaps = _share_gaps(ids, cnts, g_jax, g_64, eeb, alpha)
+        allow = torch.where(moving[live], torch.clamp(2.0 * jax_gaps,
+                                                      min=bar), allow)
+    assert bool((gaps <= allow).all()), (float(gaps.max()), bar)
 
 
 @pytest.mark.parametrize("bf16", [True, False])
@@ -1930,6 +1947,24 @@ def _plain_call(layout, rows, g0, eeb, alpha, kw, segments=None):
     return g, s
 
 
+def _jax_call(layout, rows, g0, eeb, alpha, kw, segments=None):
+    """The JAX package's bf16 gamma on the CPU (``torch_jax_gamma``: dense
+    rows through ``estep_dense``, each ragged segment's rows alone through
+    ``estep_ragged_gamma``), on the card."""
+    from torch_jax_gamma import jax_gamma
+
+    def host(t):
+        return t.detach().float().cpu().numpy()
+
+    if layout == "ragged":
+        rows_kw = dict(ids=rows[0].cpu().numpy(), cnts=host(rows[1]),
+                       segments=segments)
+    else:
+        rows_kw = dict(counts=host(rows[0]))
+    g = jax_gamma(host(g0), host(eeb), host(alpha), kw, **rows_kw)
+    return torch.as_tensor(g, device=g0.device)
+
+
 def _entries(layout, rows):
     """(ids, counts) of each row's live entries, for the bound's shares."""
     if layout == "ragged":
@@ -2004,11 +2039,13 @@ def test_group_kernel_matches_plain(cuda, layout, K, past):
     g_p, s_p = _plain_call(layout, rows, g0, eeb, alpha, kw, seg)
     torch.cuda.synchronize()
     r0 = 0
+    moving = torch.zeros((D,), dtype=torch.bool, device=cuda)
     for i, n in enumerate(seg or (D,)):
         part = slice(r0, r0 + n)
-        g_t, s_t, _, _ = _exit_record([t[part] for t in traj_p], kw)
+        g_t, s_t, sweeps_t, _ = _exit_record([t[part] for t in traj_p], kw)
         assert torch.equal(g_t, g_p[part])
         assert int(s_p.reshape(-1)[i]) == s_t
+        moving[part] = sweeps_t == kw["inner_iterations"]
         g_t, s_t, sweeps_t, first_t = _exit_record([t[part] for t in traj],
                                                    kw)
         assert torch.equal(g[part], g_t)
@@ -2016,8 +2053,13 @@ def test_group_kernel_matches_plain(cuda, layout, K, past):
         assert torch.equal(row_sweeps[part], sweeps_t)
         assert torch.equal(row_exit[part], first_t)
         r0 += n
+    # On the rows the plain version's loop still sweeps at the cap, the JAX
+    # package's bf16 result is one more float32 reference for the shares'
+    # bar (there which float32 order drifts less from float64 is chance).
+    g_j = _jax_call(layout, rows, g0, eeb, alpha, kw, seg)
     ids, cnts = _entries(layout, rows)
-    _hold_bf16_shares(ids, cnts, g, g_p, g_64, eeb, alpha)
+    _hold_bf16_shares(ids, cnts, g, g_p, g_64, eeb, alpha, g_jax=g_j,
+                      moving=moving)
 
 
 def test_rows_kernel_map_along_its_trajectory(cuda):
